@@ -6,22 +6,42 @@
 Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
 
 1. device   — CUDA must be available; the card's name and power limit;
-2. build    — the CUDA kernels, built from ``kernels/csrc`` with ``nvcc``;
+2. build    — the CUDA kernels, built from ``kernels/csrc`` with ``nvcc``
+              (one process per source, all started together);
 3. kernels  — the kernels this script launches and the TPU kernels they replace;
-4. compare  — each kernel against its plain PyTorch version on the card, on
-              the same candidate windows (hits included): exact equality,
-              since the result is an integer hit index;
+4. compare  — the fused kernel against its plain PyTorch version on the
+              card, on the same candidate windows (hits included): exact
+              equality, since the result is an integer hit index.  On the
+              fixtures' SCCs, the wide decode, multi-edge circuits and a
+              390-unit circuit;
+   timing   — ms per 2^20-candidate window of the fused kernel beside the
+              plain version's ms and the bound;
 5. main     — the verdict path through the entry points a user calls:
               ``solve`` on all seven vendored fixtures (launch counts reset
               before, read after; every ``false`` witness re-checked as two
               disjoint quorums) and ``python -m quorum_intersection_tpu_torch``
               on each fixture (verdict and exit code against MANIFEST.json);
 6. full     — ``benchmark_fbas(256, core=34)``, correct and broken twins:
-              2^33 candidates through SCC restriction and the wide decode.
+              2^33 candidates through SCC restriction and the wide decode;
+7. batch    — the batch path: ``check_many`` on 16 snapshot-shaped sources in
+              one call, once with the default engine and once with
+              ``engine="bitset"`` (launch counts reset before each run, read
+              after).  Verdicts against MANIFEST.json or the generator's
+              ``broken`` flag, every ``false`` witness re-checked, and every
+              hit index equal to the unpacked ``solve`` of the same source;
+8. compare_packed — the two packed kernels against their plain version,
+              exact, on every pack the default batch run swept (the
+              backend's ``pack_plans``: a depth-1 pack and windows with hits
+              among them);
+   timing_packed  — ms per 2^20-row program of each packed kernel at the
+              widest packed shape (the pack ``check_many`` forms for
+              ``benchmark_fbas(256, core=31)`` alone: 4 window groups) beside
+              the plain version's ms and the bound, and at the shape of the
+              batch's first pack.
 
 The line before the last is the kernels' JSON record (launches on the main
-path, error against the plain version, times, bound); the last line is
-``{"ok": true, "device": {...}}``.
+path of each, error against the plain version, times, bound); the last line
+is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -105,6 +125,123 @@ def multi_edge_circuit(seed: int = 5):
                    child=child, unit_depth=unit_depth)
 
 
+def batch_sources(fixture_names):
+    """The batch phase's 16 sources, ``(label, source, expected verdict)``:
+    the vendored fixtures, snapshot-shaped stellar networks (a 21-node and a
+    27-node org core with inner sets), the widest packable majority core
+    (31 nodes, 2^30 candidates) and a nested 1024-node network — the shape
+    of a queue of snapshot checks from validator operators or an explorer
+    replaying history."""
+    from quorum_intersection_tpu_torch.fbas import synth
+
+    manifest = json.loads((FIXTURES / "MANIFEST.json").read_text())
+    out = [(name, fixture_text(name), manifest[name]["verdict"]) for name in fixture_names]
+    for seed in (0, 1):
+        for broken in (False, True):
+            out.append((f"stellar_like_fbas(7,3,seed={seed},broken={broken})",
+                        synth.stellar_like_fbas(7, 3, seed=seed, broken=broken), not broken))
+    for broken in (False, True):
+        out.append((f"stellar_like_fbas(9,3,n_watchers=300,seed=2,broken={broken})",
+                    synth.stellar_like_fbas(9, 3, n_watchers=300, seed=2, broken=broken), not broken))
+    for broken in (False, True):
+        out.append((f"benchmark_fbas(256,core=31,broken={broken})",
+                    synth.benchmark_fbas(256, 31, broken=broken), not broken))
+    out.append(("benchmark_fbas(1024,core=24,nested_watchers=True)",
+                synth.benchmark_fbas(1024, 24, nested_watchers=True), True))
+    return out
+
+
+def macs_per_pass(circuit) -> int:
+    """Dense MACs of one fixpoint pass: the members over every unit, then
+    the children of every unit over the inner units at each depth."""
+    import numpy as np
+
+    kids = np.nonzero(circuit.child.any(axis=0))[0]
+    inner = circuit.n_units - (int(kids[0]) if kids.size else circuit.n_units)
+    depth = circuit.depth if circuit.n_units > circuit.n else 0
+    return circuit.n * circuit.n_units + depth * circuit.n_units * inner
+
+
+def fixpoint_work(circuit, circuit_d, lo_nodes, scc_mask, frozen, start, rows, hi_row, device):
+    """The fixpoint passes one sweep over candidates ``start + [0, rows)``
+    needs (Q for every row, the D probe for rows with Q != 0), counted by
+    the plain version."""
+    import torch
+
+    from quorum_intersection_tpu_torch.kernels import sweep_ref as ref
+
+    tq = ref.CircuitTables(circuit, device)
+    td = tq if circuit_d is None else ref.CircuitTables(circuit_d, device)
+    pos = torch.from_numpy(ref.bit_positions(lo_nodes, circuit.n)).to(device)
+    passes = 0
+    chunk = min(1 << 17, rows)
+    frozen_row = None if frozen is None else tq.cast(frozen)
+    scc = tq.cast(scc_mask).to(torch.int32)
+    for lo in range(start, start + rows, chunk):
+        avail = ref.decode_masks(lo, chunk, pos, tq.dtype)
+        if hi_row is not None:
+            avail = torch.maximum(avail, tq.cast(hi_row))
+        q, q_passes = ref.fixpoint_passes(tq, avail)
+        has_q = q.sum(dim=1) > 0
+        comp = torch.clamp(scc - q[has_q].to(torch.int32), 0, 1)
+        passes += int(q_passes.sum()) + int(ref.fixpoint_passes(td, comp, frozen_row)[1].sum())
+    return passes
+
+
+def bound(macs: int, nbytes: int):
+    """``(ms, bound_by)``: the int8 MACs at the tensor-core peak against
+    the bytes at the memory rate, whichever takes longer."""
+    ops_ms = 2 * macs / INT8_TOPS * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def table_bytes(circuit) -> int:
+    """A circuit's tables as the kernels read them: int8 members and
+    children, Q and D thresholds in int32."""
+    return circuit.members.size + circuit.child.size + 8 * circuit.n_units
+
+
+def packed_bound_ms(plan, starts, rows, device):
+    """Least time the card could take for one packed program of ``rows``
+    rows from the per-group ``starts``.  The packed circuit is
+    block-diagonal, so the function needs each lane group's own fixpoints
+    on its own circuit, not the fused one: per group, its rows' passes
+    (Q, and the D probe where that group's Q is not empty) times that
+    group's MACs per pass, summed over the groups; against each group's
+    tables read once and the (K,) int32 out.  A group's passes are counted
+    on the fused circuit with every other group's lanes at 0, which the
+    block-diagonal layout keeps at 0: the same count as on its own circuit,
+    at a shape the plain version's int8 matmul takes on the card."""
+    import numpy as np
+    import torch
+
+    from quorum_intersection_tpu_torch.kernels import packed_ref, sweep_ref as ref
+
+    p = plan.packed
+    pos, _, lane_group, group_ind = plan.tables
+    tq = ref.CircuitTables(p.circuit, device)
+    td = tq if p.circuit_d is None else ref.CircuitTables(p.circuit_d, device)
+    pos_t = torch.from_numpy(pos).to(device)
+    lanes = torch.from_numpy(np.asarray(lane_group, dtype=np.int64)).to(device)
+    starts_t = torch.from_numpy(np.asarray(starts, dtype=np.int32)).to(device)
+    chunk = min(1 << 17, rows)
+    macs = nbytes = passes = 0
+    for g, (circuit, _) in enumerate(plan.group_circuits):
+        own = tq.cast(np.asarray(group_ind)[:, g] != 0)  # group g's real lanes
+        g_passes = 0
+        for lo in range(0, rows, chunk):
+            avail = packed_ref.decode_masks_packed((starts_t + lo)[lanes], chunk, pos_t, tq.dtype) * own
+            q, q_passes = ref.fixpoint_passes(tq, avail)
+            probe = (own - q)[q.any(dim=1)]  # the group's lanes outside Q, where Q is not empty
+            g_passes += int(q_passes.sum()) + int(ref.fixpoint_passes(td, probe)[1].sum())
+        passes += g_passes
+        macs += g_passes * macs_per_pass(circuit)
+        nbytes += table_bytes(circuit)
+    ms, by = bound(macs, nbytes + 4 * len(plan.group_circuits))
+    return ms, by, passes
+
+
 def time_ms(fn, reps: int) -> float:
     import torch
 
@@ -120,37 +257,13 @@ def time_ms(fn, reps: int) -> float:
 
 
 def window_bound_ms(circuit, circuit_d, lo_nodes, scc_mask, frozen, start, hi_row, device):
-    """Least time the card could take for one window: the dense int8 MACs
-    of the fixpoint passes this window's rows need (Q for every row, the D
-    probe for rows with Q != 0) at the int8 tensor-core peak, against the
-    bytes (tables in, one int32 out) at the memory rate."""
-    import numpy as np
-    import torch
-
-    from quorum_intersection_tpu_torch.kernels import sweep_ref as ref
-
-    tq = ref.CircuitTables(circuit, device)
-    td = tq if circuit_d is None else ref.CircuitTables(circuit_d, device)
-    pos = torch.from_numpy(ref.bit_positions(lo_nodes, circuit.n)).to(device)
-    passes = 0
-    chunk = min(1 << 17, WINDOW)
-    frozen_row = None if frozen is None else tq.cast(frozen)
-    scc = tq.cast(scc_mask).to(torch.int32)
-    for lo in range(start, start + WINDOW, chunk):
-        avail = ref.decode_masks(lo, chunk, pos, tq.dtype)
-        if hi_row is not None:
-            avail = torch.maximum(avail, tq.cast(hi_row))
-        q, q_passes = ref.fixpoint_passes(tq, avail)
-        has_q = q.sum(dim=1) > 0
-        comp = torch.clamp(scc - q[has_q].to(torch.int32), 0, 1)
-        passes += int(q_passes.sum()) + int(ref.fixpoint_passes(td, comp, frozen_row)[1].sum())
-    inner = circuit.n_units - tq.child_from
-    depth = circuit.depth if circuit.n_units > circuit.n else 0
-    macs = passes * (circuit.n * circuit.n_units + depth * circuit.n_units * inner)
-    ops_ms = 2 * macs / INT8_TOPS * 1e3
-    table_bytes = circuit.members.size + circuit.child.size + 8 * circuit.n_units + 4 * len(lo_nodes) + 4
-    bytes_ms = table_bytes / HBM_BYTES_PER_S * 1e3
-    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes"), passes
+    """Least time the card could take for one window of the fused sweep:
+    the MACs of the fixpoint passes its rows need, against the bytes
+    (tables and decode table in, one int32 out)."""
+    passes = fixpoint_work(circuit, circuit_d, lo_nodes, scc_mask, frozen, start, WINDOW, hi_row,
+                           device)
+    ms, by = bound(passes * macs_per_pass(circuit), table_bytes(circuit) + 4 * len(lo_nodes) + 4)
+    return ms, by, passes
 
 
 def main() -> int:
@@ -196,12 +309,27 @@ def main() -> int:
             "replaces": "quorum_intersection_tpu/backends/tpu/pallas_sweep.py:119",
             "counterparts": "K1 pallas_sweep_program_factory (pallas_sweep.py:119, kernel :158); "
                             "K5 kernels.sweep_program_factory (kernels.py:305)",
-        }
+        },
+        "packed_sweep_dense_cuda": {
+            "route": "cuda",
+            "source": f"{PORT}/kernels/csrc/packed_sweep.cu",
+            "replaces": "quorum_intersection_tpu/backends/tpu/pallas_sweep.py:343",
+            "counterparts": "K3 pallas_packed_program_factory (pallas_sweep.py:343, kernel :404); "
+                            "K7 kernels.packed_sweep_program_factory (kernels.py:445)",
+        },
+        "packed_sweep_bitset_cuda": {
+            "route": "cuda",
+            "source": f"{PORT}/kernels/csrc/packed_sweep.cu",
+            "replaces": "quorum_intersection_tpu/backends/tpu/pallas_sweep.py:556",
+            "counterparts": "K4 pallas_bitset_program_factory (pallas_sweep.py:556, kernel :622)",
+        },
     }
     phase_line("kernels", kernels={k: v["counterparts"] for k, v in kernels_meta.items()})
 
     # -- 4. compare: kernel vs plain version on the card ------------------
     from quorum_intersection_tpu_torch.fbas import synth
+    from quorum_intersection_tpu_torch.fbas.graph import build_graph
+    from quorum_intersection_tpu_torch.fbas.schema import parse_fbas
     from quorum_intersection_tpu_torch.kernels import sweep_ref as ref
     from quorum_intersection_tpu_torch.kernels.sweep_cuda import FusedSweep, mask_bits, sweep_fused
 
@@ -252,6 +380,14 @@ def main() -> int:
     me_scc10[:10] = 1
     results.append(compare("multi-edge frozen (Q6)", me, None, list(range(10)), me_scc10,
                            1 - me_scc10, 9, [0], [0], 1 << 9, 1))
+    from quorum_intersection_tpu_torch.encode.circuit import encode_circuit
+
+    for broken in (False, True):
+        # 30 nodes, 390 units: a child satisfaction mask of 8 words.
+        ring = encode_circuit(build_graph(parse_fbas(synth.inner_set_ring_fbas(30, 12, broken=broken))))
+        results.append(compare(f"inner_set_ring_fbas(30,12,broken={broken}) U={ring.n_units}",
+                               ring, None, list(range(ring.n)), np.ones(ring.n, dtype=np.int32), None,
+                               ring.n - 1, [0], [0, 3 << 20, (1 << 29) - (1 << 15)], 1 << 14, 2))
     max_abs_err = max(r["max_abs_err"] for r in results)
     phase_line("compare", tolerance="exact (integer hit indices)", circuits=results)
 
@@ -274,17 +410,15 @@ def main() -> int:
         hi_bits = mask_bits(hi_row)
         ms = time_ms(lambda: fused.program(start, 8, hi_bits), 50)
         plain_ms = time_ms(lambda: plain.program(start, 8, hi_row if hi_bits else None), 3)
-        bound, bound_by, passes = window_bound_ms(circuit, circuit_d, lo_nodes, scc_mask, frozen,
-                                                  start, hi_row if hi_bits else None, device)
+        bound_ms, bound_by, passes = window_bound_ms(circuit, circuit_d, lo_nodes, scc_mask, frozen,
+                                                     start, hi_row if hi_bits else None, device)
         timing[label] = {"n": circuit.n, "units": circuit.n_units, "window": WINDOW, "ms": ms,
-                         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                          "fixpoint_passes": passes, "candidates_per_s": WINDOW / ms * 1e3}
     phase_line("timing", card=card, per_window=timing)
     compare_launches = sweep_fused.launches - launches_before_compare
 
     # -- 5. main path ----------------------------------------------------
-    from quorum_intersection_tpu_torch.fbas.graph import build_graph
-    from quorum_intersection_tpu_torch.fbas.schema import parse_fbas
     from quorum_intersection_tpu_torch.fbas.semantics import is_quorum
     from quorum_intersection_tpu_torch.pipeline import solve
 
@@ -364,6 +498,148 @@ def main() -> int:
     if launches < 1:
         fail("main", "the main path never launched sweep_fused_cuda")
 
+    # -- 7. batch path ---------------------------------------------------
+    from quorum_intersection_tpu_torch.backends.sweep import GpuSweepBackend
+    from quorum_intersection_tpu_torch.encode.circuit import bitset_supported
+    from quorum_intersection_tpu_torch.kernels.packed_cuda import (
+        PackedSweep,
+        packed_sweep_bitset,
+        packed_sweep_dense,
+    )
+    from quorum_intersection_tpu_torch.kernels.packed_ref import PackedRef
+    from quorum_intersection_tpu_torch.pipeline import check_many
+
+    sources = batch_sources(list(manifest))
+    batch_runs, batch_results, batch_launches = {}, {}, {}
+    for engine, kernel_name in ((None, "packed_sweep_dense_cuda"), ("bitset", "packed_sweep_bitset_cuda")):
+        label = engine or "default"
+        backend = GpuSweepBackend(engine=engine)
+        sweep_fused.launches = packed_sweep_dense.launches = packed_sweep_bitset.launches = 0
+        t = time.perf_counter()
+        res = check_many([src for _, src, _ in sources], backend=backend)
+        seconds = time.perf_counter() - t
+        counts = {"sweep_fused_cuda": sweep_fused.launches,
+                  "packed_sweep_dense_cuda": packed_sweep_dense.launches,
+                  "packed_sweep_bitset_cuda": packed_sweep_bitset.launches}
+        if counts[kernel_name] < 1:
+            fail("batch", f"check_many (engine={label}) never launched {kernel_name}")
+        batch_launches[kernel_name] = counts[kernel_name]
+        for (name, src, want), r in zip(sources, res):
+            if r.intersects is not want:
+                fail("batch", f"{name} (engine={label}): intersects={r.intersects}, expected {want}")
+            if not want:
+                graph = build_graph(parse_fbas(src))
+                q1, q2 = r.q1 or [], r.q2 or []
+                if not (is_quorum(graph, q1) and is_quorum(graph, q2) and not set(q1) & set(q2)):
+                    fail("batch", f"{name} (engine={label}): witness pair is not two disjoint quorums")
+        candidates = sum(r.stats.get("candidates_checked", 0) for r in res)
+        batch_results[label] = res
+        if label == "default":
+            plans = backend.pack_plans  # the packs this run swept, compared below
+        # Each pack as the drive's own stats report it, in the order it ran.
+        packs = {r.stats["pack_index"]: r.stats for r in res if r.stats.get("packed")}
+        batch_runs[label] = {
+            "seconds": seconds, "sources": len(sources), "packs": len(packs),
+            "per_pack": [{key: s[key] for key in ("pack_jobs", "pack_groups", "pack_slot", "pack_shape",
+                                                 "pack_fill_pct", "pack_engine", "pack_rows_dispatched",
+                                                 "pack_seconds")}
+                         for _, s in sorted(packs.items())],
+            "candidates": candidates, "candidates_per_s": candidates / seconds, "launches": counts,
+        }
+    # One more default-engine run under the profiler: the card's busy time
+    # (the sum of its kernels' times) against the run's wall time.
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        check_many([src for _, src, _ in sources], backend=GpuSweepBackend())
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    busy_ms = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+                  for e in prof.key_averages()) / 1e3
+    batch_runs["profiled_default"] = {
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else "not measured (no device events)",
+    }
+    # Every hit index equals the unpacked drive's (the fused kernel's path).
+    for i, (name, src, _) in enumerate(sources):
+        solo = solve(src)
+        for label, res in batch_results.items():
+            got, want = res[i].stats.get("hit_index"), solo.stats.get("hit_index")
+            if (res[i].intersects, got) != (solo.intersects, want):
+                fail("batch", f"{name} (engine={label}): hit index {got} != unpacked solve's {want}")
+    phase_line("batch", card=card, runs=batch_runs,
+               hit_index_vs_unpacked_solve=f"{len(sources)}/{len(sources)} equal on both engines")
+
+    # -- 8. the packed kernels against their plain versions ---------------
+    # On every pack the default batch run swept (a depth-1 pack and windows
+    # with hits among them), with both kernels where the circuit allows.
+    cmp_batch = 1 << 12
+    packed_err = {"dense": 0, "bitset": 0}
+    packed_results = []
+    for pi, plan in enumerate(plans):
+        pk = plan.packed
+        los = np.asarray([g.lo for g in plan.groups], dtype=np.int64)
+        his = np.asarray([g.hi for g in plan.groups], dtype=np.int64)
+        windows = (los, los + (1 << 16), np.maximum(his - 2 * cmp_batch, 0))
+        for engine in ("dense", "bitset"):
+            if engine == "bitset" and not bitset_supported(pk.circuit):
+                continue
+            kernel = PackedSweep(pk.circuit, pk.circuit_d, *plan.tables, cmp_batch, engine=engine,
+                                 device=device)
+            plain = PackedRef(pk.circuit, pk.circuit_d, *plan.tables, cmp_batch, engine, device)
+            hits = 0
+            for starts in windows:
+                got = kernel.program(starts, 2).cpu().numpy()
+                want = plain.program(starts, 2).cpu().numpy()
+                torch.cuda.synchronize()
+                hits += int((want != ref.INT32_MAX).sum())
+                err = int(np.abs(got.astype(np.int64) - want.astype(np.int64)).max())
+                packed_err[engine] = max(packed_err[engine], err)
+                if err:
+                    fail("compare", f"pack {pi} {engine} starts={starts.tolist()}: kernel {got.tolist()} "
+                                    f"!= plain {want.tolist()}")
+            packed_results.append({"pack": pi, "engine": engine, "groups": pk.groups, "slot": pk.slot,
+                                   "lanes": pk.circuit.n, "units": pk.circuit.n_units,
+                                   "depth": pk.circuit.depth, "windows": len(windows) * pk.groups,
+                                   "group_windows_with_hits": hits})
+    if not any(r["depth"] == 1 for r in packed_results) or not any(r["group_windows_with_hits"]
+                                                                  for r in packed_results):
+        fail("compare", "the packed comparison lacks a depth-1 pack or a window with hits")
+    phase_line("compare_packed", tolerance="exact (integer hit indices, per group)",
+               rows_per_program=2 * cmp_batch, packs=packed_results)
+
+    # The packed kernels at the widest packed shape: one 31-node job split
+    # over 4 window groups (n = 128 lanes, slot 32), each group decoding 2^20
+    # candidates of its own window per program; the pack is the one
+    # check_many itself forms for that job.  Also at the shape of the batch's
+    # first pack (the lockstep one of §5), kernels only.
+    wide_backend = GpuSweepBackend()
+    wide_res = check_many([synth.benchmark_fbas(256, 31)], backend=wide_backend)
+    if wide_res[0].intersects is not True:
+        fail("timing", "benchmark_fbas(256, core=31) alone did not intersect")
+    shapes = {"widest": wide_backend.pack_plans[0], "batch_pack_0": plans[0]}
+    wp = shapes["widest"].packed
+    if (wp.groups, wp.slot, wp.circuit.n) != (4, 32, 128):
+        fail("timing", f"widest pack is {wp.groups} groups of slot {wp.slot} over {wp.circuit.n} lanes")
+    packed_timing = {}
+    for shape, plan in shapes.items():
+        pk = plan.packed
+        starts = np.asarray([g.lo + WINDOW for g in plan.groups], dtype=np.int64)
+        bound_ms, bound_by, passes = packed_bound_ms(plan, starts, WINDOW, device)
+        for engine in ("dense", "bitset"):
+            kernel = PackedSweep(pk.circuit, pk.circuit_d, *plan.tables, 1 << 17, engine=engine,
+                                 device=device)
+            ms = time_ms(lambda: kernel.program(starts, 8), 20)
+            row = {"groups": pk.groups, "lanes": pk.circuit.n, "units": pk.circuit.n_units,
+                   "depth": pk.circuit.depth, "child_words": kernel.words, "rows": WINDOW, "ms": ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by, "fixpoint_passes": passes,
+                   "candidates_per_s": pk.groups * WINDOW / ms * 1e3}
+            if shape == "widest":
+                plain = PackedRef(pk.circuit, pk.circuit_d, *plan.tables, 1 << 17, engine, device)
+                row["plain_ms"] = time_ms(lambda: plain.program(starts, 8), 2)
+            packed_timing[f"{shape}/{engine}"] = row
+    phase_line("timing_packed", card=card, per_program=packed_timing)
+
     snap = timing["bench256_34"]
     record = {"kernels": [{
         "name": "sweep_fused_cuda",
@@ -379,6 +655,21 @@ def main() -> int:
         "library_ms": None,
         "compare_launches": compare_launches,
     }]}
+    for engine, name in (("dense", "packed_sweep_dense_cuda"), ("bitset", "packed_sweep_bitset_cuda")):
+        pt = packed_timing[f"widest/{engine}"]
+        record["kernels"].append({
+            "name": name,
+            "route": kernels_meta[name]["route"],
+            "source": kernels_meta[name]["source"],
+            "replaces": kernels_meta[name]["replaces"],
+            "launches": batch_launches[name],
+            "max_abs_err": packed_err[engine],
+            "ms": pt["ms"],
+            "plain_ms": pt["plain_ms"],
+            "bound_ms": pt["bound_ms"],
+            "bound_by": pt["bound_by"],
+            "library_ms": None,
+        })
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

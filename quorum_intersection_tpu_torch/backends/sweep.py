@@ -1,18 +1,25 @@
 """Exhaustive batched candidate sweep over the quorum-bearing SCC, on the card.
 
-A lean port of the JAX package's ``TpuSweepBackend.check_scc``
-(``backends/tpu/sweep.py:705-1453``).  **Verdict equivalence**: two disjoint
-quorums exist inside the SCC iff some subset ``S ⊆ scc ∖ {scc[0]}`` has
-``Q := maxQuorum(S) ≠ ∅`` and ``maxQuorum(scc ∖ Q) ≠ ∅`` (proof in the JAX
-module's docstring), so the sweep enumerates the 2^(|scc|-1) subsets.
+A lean port of the JAX package's ``TpuSweepBackend``: the unpacked drive
+``check_scc`` (``backends/tpu/sweep.py:705-1453``) through the fused kernel,
+and the lane-packed batch drive ``check_sccs``/``_run_pack``
+(``sweep.py:1492-2154``) through the packed kernels.
 
-What it keeps: SCC restriction with the Q6 fold for the D probe, the narrow
-decode and the two-level wide decode (low ``lo_bits`` index bits decode in
-the kernel, the rest ride a per-program hi row), the ``STEPS_RAMP`` program
-sizes, a FIFO of up to ``MAX_INFLIGHT`` asynchronous programs drained
-oldest-first, the cancel check, and the host witness recheck.  The witness
-is the globally smallest hit index, exactly as in the JAX package: programs
-drain in index order and each reports its own minimum.
+**Verdict equivalence**: two disjoint quorums exist inside the SCC iff some
+subset ``S ⊆ scc ∖ {scc[0]}`` has ``Q := maxQuorum(S) ≠ ∅`` and
+``maxQuorum(scc ∖ Q) ≠ ∅`` (proof in the JAX module's docstring), so the
+sweep enumerates the 2^(|scc|-1) subsets.
+
+What the unpacked drive keeps: SCC restriction with the Q6 fold for the D
+probe, the narrow decode and the two-level wide decode (low ``lo_bits``
+index bits decode in the kernel, the rest ride a per-program hi row), the
+``STEPS_RAMP`` program sizes, a FIFO of up to ``MAX_INFLIGHT`` asynchronous
+programs drained oldest-first, the cancel check, and the host witness
+recheck.  The witness is the globally smallest hit index, exactly as in the
+JAX package: programs drain in index order and each reports its own minimum.
+The packed drive keeps the JAX drive's packing, window splitting, program
+ramp, queue depth and first-hit order, so both packages cut the same
+programs and report the same hit per job.
 """
 
 from __future__ import annotations
@@ -20,7 +27,8 @@ from __future__ import annotations
 import logging
 import time
 from collections import deque
-from typing import Callable, List, Optional, Tuple
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,10 +40,21 @@ from quorum_intersection_tpu_torch.backends.base import (
     SearchCancelled,
 )
 from quorum_intersection_tpu_torch.device import DeviceLike, resolve_device
-from quorum_intersection_tpu_torch.encode.circuit import Circuit, restrict_circuit_pair
+from quorum_intersection_tpu_torch.encode.circuit import (
+    LANE_TILE,
+    Circuit,
+    PackedCircuit,
+    bitset_supported,
+    ladder_up,
+    pack_circuits,
+    plan_packs,
+    restrict_circuit_pair,
+)
 from quorum_intersection_tpu_torch.fbas.graph import TrustGraph
 from quorum_intersection_tpu_torch.fbas.semantics import max_quorum
+from quorum_intersection_tpu_torch.kernels.packed_cuda import PackedSweep
 from quorum_intersection_tpu_torch.kernels.sweep_cuda import FusedSweep
+from quorum_intersection_tpu_torch.kernels.sweep_ref import _round_up
 
 log = logging.getLogger("quorum_intersection_tpu_torch.backends.sweep")
 
@@ -53,8 +72,54 @@ RAMP_DISPATCHES = 1
 JUMP_PIPE_FILL = 8
 
 
+# Packed drive: program sizes, in blocks.
+PACK_RAMP = (1, 8, 64)
+# The JAX drive's Pallas grid block: its bitset and pallas engines round the
+# packed batch to whole blocks (plan_batch), so the port does too, engine
+# for engine, and both packages cut the same programs.
+PALLAS_BLOCK = 1024
+# The JAX package's engine names → (packed kernel, whether the drive rounds
+# the batch with plan_batch).  The card has two kernels; the names survive
+# only so that programs and stats match the JAX drive's engine for engine.
+ENGINES = {"xla": ("dense", False), "pallas": ("dense", True), "bitset": ("bitset", True)}
+
+
 class SccTooLargeError(ValueError):
     """Raised when the SCC exceeds the sweep's enumeration width."""
+
+
+def plan_batch(batch: int) -> int:
+    """The batch the JAX ``pallas_sweep.plan_batch`` makes of ``batch``: a
+    whole number of grid blocks of :data:`PALLAS_BLOCK` rows, or of one
+    block rounded up to 32 rows below that."""
+    block = PALLAS_BLOCK if batch >= PALLAS_BLOCK else _round_up(max(batch, 1), 32)
+    return _round_up(batch, block)
+
+
+@dataclass(frozen=True)
+class EngineResolution:
+    """Which engine a packed sweep runs, and why, by the JAX package's
+    names (:data:`ENGINES` maps them to the kernel)."""
+
+    requested: str
+    resolved: str
+    reason: str
+
+    @property
+    def kernel(self) -> str:
+        return ENGINES[self.resolved][0]
+
+
+def resolve_engine(requested: str, circuit: Circuit) -> EngineResolution:
+    """``xla`` and ``pallas`` always run as requested (the dense kernel
+    takes any vote multiplicity); ``bitset`` runs where the votes are 0/1,
+    else ``xla`` with the JAX ``resolve_engine``'s reason."""
+    if requested == "bitset" and not bitset_supported(circuit):
+        return EngineResolution(
+            requested, "xla",
+            "qset multiplicities exceed 1: the bitset encoding holds one bit per member",
+        )
+    return EngineResolution(requested, requested, "as requested")
 
 
 def _jump_target_ix(ramp, ix: int, base_block: int, remaining: int) -> int:
@@ -105,21 +170,68 @@ class _Pending:
         self._event, self._host, self._thunk = event, host, thunk
 
     @classmethod
-    def launch(cls, sweep: FusedSweep, start: int, steps: int, hi_mask: int) -> "_Pending":
-        if sweep.device.type == "cpu":
-            return cls(thunk=lambda: sweep.program(start, steps, hi_mask))
-        out = sweep.program(start, steps, hi_mask)
-        host = torch.empty((), dtype=torch.int32, pin_memory=True)
+    def launch(cls, device: torch.device, program: Callable[[], torch.Tensor]) -> "_Pending":
+        if device.type == "cpu":
+            return cls(thunk=program)
+        out = program()
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         host.copy_(out, non_blocking=True)
         event = torch.cuda.Event()
         event.record()
         return cls(event=event, host=host)
 
-    def result(self) -> int:
+    def result(self) -> torch.Tensor:
         if self._thunk is not None:
-            return int(self._thunk())
+            return self._thunk()
         self._event.synchronize()
-        return int(self._host)
+        return self._host
+
+
+@dataclass
+class _SweepJob:
+    """One sweep problem prepared for lane packing: SCC-restricted circuit
+    pair plus the graph-space decode data for the witness recheck."""
+
+    graph: TrustGraph
+    nodes: List[int]  # graph-space scc ids (enumeration order)
+    scope_to_scc: bool
+    circuit: Circuit  # scoped (Q-side) restriction
+    circuit_d: Optional[Circuit]  # Q6 fold for the D probe (None: scoped)
+    bits: int
+    total: int
+    candidates: int = 0
+    first_hit: Optional[int] = None
+    result: Optional[SccCheckResult] = None
+    # A per-job cancel retired the job's lane groups mid-pack.
+    cancelled: bool = False
+
+
+@dataclass
+class _PackGroup:
+    """One lane group: a contiguous candidate window ``[lo, hi)`` of one
+    job.  Extra groups (spare pack lanes) split a job into ascending
+    windows, and the job's first hit is the first hit of the LOWEST window
+    whose every predecessor swept clean — the unpacked FIFO order."""
+
+    job: int
+    lo: int
+    hi: int
+    hit: Optional[int] = None
+    done: bool = False
+
+
+@dataclass
+class PackPlan:
+    """One pack as the drive runs it: its lane groups with each group's own
+    ``(scoped, Q6)`` circuit pair, the fused circuit, the decode tables, the
+    base batch and the engine."""
+
+    groups: List[_PackGroup]
+    group_circuits: List[Tuple[Circuit, Optional[Circuit]]]
+    packed: PackedCircuit
+    tables: Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
+    batch: int
+    resolution: EngineResolution
 
 
 class GpuSweepBackend:
@@ -129,19 +241,33 @@ class GpuSweepBackend:
     name = "gpu-sweep"
     needs_circuit = True
 
+    # The JAX package's capability flag: check_sccs takes per-job cancel
+    # tokens, and a pack retires one job's lane groups on its own token while
+    # the co-packed jobs keep sweeping.
+    supports_job_cancels = True
+
     def __init__(
         self,
         batch: Optional[int] = None,
         lo_bits: int = LO_BITS,
         cancel: Optional[CancelToken] = None,
         device: DeviceLike = None,
+        engine: Optional[str] = None,
     ) -> None:
         if lo_bits > LO_BITS:
             raise ValueError(f"lo_bits={lo_bits} exceeds the index ceiling {LO_BITS}")
+        # The packed drive's engine, by the JAX package's names (ENGINES;
+        # None is "xla").  The unpacked drive always runs the fused kernel.
+        if engine is not None and engine not in ENGINES:
+            raise ValueError(f"unknown sweep engine {engine!r}")
         self.batch = batch  # None ⇒ _auto_batch(circuit.n) at check time
         self.lo_bits = lo_bits
         self.cancel = cancel
         self.device = resolve_device(device)
+        self.engine = engine or "xla"
+        # The packs the last check_sccs call ran, in order (stats carry
+        # each job's ``pack_index`` into this list).
+        self.pack_plans: List[PackPlan] = []
 
     @staticmethod
     def _witness(
@@ -238,7 +364,7 @@ class GpuSweepBackend:
             """Wait for the oldest program; True iff it hit."""
             nonlocal steps, candidates, first_hit, found
             start, coverage, hi_base, pending = inflight.popleft()
-            hit = pending.result()
+            hit = int(pending.result())
             steps += 1
             candidates += min(coverage, total - start)
             if hit < INT32_MAX:
@@ -267,7 +393,8 @@ class GpuSweepBackend:
                 # advance only to the boundary (overshoot rows are aliases).
                 spc = next(r for r in STEPS_RAMP if r * base_block >= boundary)
                 coverage = boundary
-            inflight.append((start, coverage, hi, _Pending.launch(sweep, lo, spc, hi_row(hi))))
+            program = lambda lo=lo, spc=spc, row=hi_row(hi): sweep.program(lo, spc, row)  # noqa: E731
+            inflight.append((start, coverage, hi, _Pending.launch(self.device, program)))
             since_ramp += 1
             start += coverage
             if len(inflight) >= MAX_INFLIGHT and drain_one():
@@ -304,3 +431,317 @@ class GpuSweepBackend:
         # Reference witness convention (cpp:372-373): q1 = the probe result,
         # q2 = the enumerated quorum.
         return SccCheckResult(intersects=False, q1=disjoint, q2=q, stats=stats)
+
+    # ---- lane-packed multi-problem sweep ---------------------------------
+
+    def _prepare_job(
+        self,
+        graph: TrustGraph,
+        circuit: Optional[Circuit],
+        scc: List[int],
+        scope_to_scc: bool,
+    ) -> _SweepJob:
+        """Restrict one problem onto its SCC for packing.  Restriction runs
+        unconditionally (even at circuit.n == |scc|): it guarantees the
+        root-unit layout and scc-order lanes pack_circuits requires, and
+        folds all outside availability into thresholds."""
+        if circuit is None:
+            raise ValueError("sweep backend requires the encoded circuit")
+        scc = list(scc)
+        bits = len(scc) - 1
+        if bits > MAX_BITS:
+            raise SccTooLargeError(f"|scc|={len(scc)} exceeds sweep width {MAX_BITS}+1")
+        scoped_c, q6_c = restrict_circuit_pair(circuit, scc)
+        return _SweepJob(
+            graph=graph,
+            nodes=scc,
+            scope_to_scc=scope_to_scc,
+            circuit=scoped_c,
+            circuit_d=None if scope_to_scc else q6_c,
+            bits=bits,
+            total=1 << bits if bits > 0 else 1,
+        )
+
+    def check_sccs(
+        self,
+        jobs: Sequence[Tuple[TrustGraph, Optional[Circuit], List[int]]],
+        *,
+        scope_to_scc: bool = False,
+        cancels: Optional[Sequence[Optional[CancelToken]]] = None,
+    ) -> List[SccCheckResult]:
+        """Batched multi-problem sweep with LANE PACKING: up to 16
+        independent problems fuse into one block-diagonal circuit of at most
+        128 lanes (encode.pack_circuits), so one program resolves them all.
+        Spare lanes take extra ascending windows of the packed jobs' own
+        enumerations.  Verdict, witness and first-hit index are those of
+        :meth:`check_scc` per job.
+
+        Wide (> 2^lo_bits) enumerations stay on the unpacked sweep.
+        ``cancels`` is job-aligned: a tripped token retires that job alone
+        (a ``cancelled`` result, no verdict); a job already cancelled never
+        takes lanes.
+        """
+        jobs = list(jobs)
+        results: List[Optional[SccCheckResult]] = [None] * len(jobs)
+        if self.cancel is not None and self.cancel.cancelled:
+            raise SearchCancelled(f"packed sweep cancelled before setup ({len(jobs)} jobs)")
+
+        def token(i: int) -> Optional[CancelToken]:
+            return cancels[i] if cancels is not None else None
+
+        self.pack_plans = []
+        prepared: Dict[int, _SweepJob] = {}
+        for i, (graph, circuit, scc) in enumerate(jobs):
+            if len(scc) - 1 > min(self.lo_bits, LO_BITS):
+                continue  # wide two-level enumerations stay unpacked
+            tok = token(i)
+            if tok is not None and tok.cancelled:
+                continue  # already dead: never let it occupy lanes
+            prepared[i] = self._prepare_job(graph, circuit, scc, scope_to_scc)
+        packable = list(prepared)
+        for pack_ixs in plan_packs([prepared[i].circuit.n for i in packable]):
+            members = [packable[ix] for ix in pack_ixs]
+            self._run_pack([prepared[i] for i in members], [token(i) for i in members])
+            for i in members:
+                results[i] = prepared[i].result
+        for i, (graph, circuit, scc) in enumerate(jobs):
+            if results[i] is not None:
+                continue
+            tok = token(i)
+            if tok is not None and tok.cancelled:
+                results[i] = self._cancelled_result(scc)
+            else:
+                results[i] = self.check_scc(graph, circuit, scc, scope_to_scc=scope_to_scc)
+        return [res for res in results if res is not None]
+
+    def _cancelled_result(self, scc: Sequence[int]) -> SccCheckResult:
+        """A per-job-cancelled job's result: no verdict claim."""
+        return SccCheckResult(intersects=False, stats={
+            "backend": self.name,
+            "cancelled": True,
+            "candidates_checked": 0,
+            "enumeration_total": 1 << max(len(scc) - 1, 0),
+        })
+
+    def plan_pack(self, jobs: List[_SweepJob]) -> PackPlan:
+        """Lay one pack out: spare lanes become extra windows of the jobs
+        with the largest per-window enumerations (never split below about
+        two blocks per window), then the fused circuit, the base batch and
+        the engine — the JAX ``_run_pack`` set-up (``sweep.py:1661-1758``)."""
+        n_jobs = len(jobs)
+        slot = ladder_up(max(j.circuit.n for j in jobs))
+        capacity = max(1, LANE_TILE // slot)
+        est_batch = self.batch if self.batch is not None else _auto_batch(capacity * slot)
+        windows = [1] * n_jobs
+        spare = capacity - n_jobs
+        while spare > 0:
+            j = max(range(n_jobs), key=lambda x: jobs[x].total / windows[x])
+            if jobs[j].total / windows[j] < 2 * est_batch:
+                break
+            windows[j] += 1
+            spare -= 1
+
+        groups: List[_PackGroup] = []
+        members: List[Tuple[Circuit, Optional[Circuit]]] = []
+        for j, job in enumerate(jobs):
+            w = windows[j]
+            bounds = [job.total * t // w for t in range(w + 1)]
+            for t in range(w):
+                groups.append(_PackGroup(job=j, lo=bounds[t], hi=bounds[t + 1]))
+                members.append((job.circuit, job.circuit_d))
+        packed = pack_circuits(members)
+
+        batch = self.batch if self.batch is not None else _auto_batch(packed.circuit.n)
+        # Never dispatch blocks beyond the largest window's work.
+        batch = max(1, min(batch, max(g.hi - g.lo for g in groups)))
+        batch = clamp_batch_to_index_ceiling(batch, max(j.total for j in jobs))
+        resolution = resolve_engine(self.engine, packed.circuit)
+        if resolution.resolved != resolution.requested:
+            log.info(
+                "sweep engine %r resolved to %r: %s",
+                resolution.requested, resolution.resolved, resolution.reason,
+            )
+        if ENGINES[resolution.resolved][1]:
+            batch = plan_batch(batch)
+        return PackPlan(groups, members, packed, packed.decode_tables(), batch, resolution)
+
+    def _run_pack(
+        self,
+        jobs: List[_SweepJob],
+        cancels: Sequence[Optional[CancelToken]],
+    ) -> None:
+        """Sweep one pack of jobs to verdicts (stored on each job).
+
+        All groups advance in lockstep by each program's coverage; a group
+        that is done keeps its stale start in the snapshot and the drain
+        ignores it.  Hits at or above a group's ``hi`` are overshoot aliases
+        (the next ascending window sweeps those candidates itself) and are
+        masked here on the host."""
+        t0 = time.perf_counter()
+        n_jobs = len(jobs)
+        plan = self.plan_pack(jobs)
+        self.pack_plans.append(plan)
+        groups, packed, batch = plan.groups, plan.packed, plan.batch
+        sweep = PackedSweep(
+            packed.circuit, packed.circuit_d, *plan.tables, batch,
+            engine=plan.resolution.kernel, device=self.device,
+        )
+        log.debug(
+            "packed sweep: %d jobs in %d lane groups (slot %d, %d lanes, %.1f%% fill, engine %s)",
+            n_jobs, packed.groups, packed.slot, packed.circuit.n, packed.fill_pct,
+            plan.resolution.resolved,
+        )
+
+        unresolved = set(range(n_jobs))
+        nxt = [g.lo for g in groups]
+        inflight: deque = deque()
+        pack_rows = 0
+        spc_ix = 0
+        used_spc: set = set()
+        depth_cap = max(1, min(MAX_INFLIGHT, 8))
+
+        def check_cancel() -> None:
+            if self.cancel is not None and self.cancel.cancelled:
+                raise SearchCancelled(
+                    f"packed sweep cancelled ({len(unresolved)} of {n_jobs} jobs unresolved)"
+                )
+
+        def retire_job(j: int) -> None:
+            """THIS job's request died: freeze its lane groups (in-flight
+            programs still carry them, the drain ignores them); co-packed
+            jobs keep sweeping."""
+            for g in groups:
+                if g.job == j:
+                    g.done = True
+            jobs[j].cancelled = True
+            unresolved.discard(j)
+
+        def check_job_cancels() -> None:
+            for j in list(unresolved):
+                tok = cancels[j]
+                if tok is not None and tok.cancelled:
+                    retire_job(j)
+
+        def all_dispatched() -> bool:
+            return all(g.done or nxt[i] >= g.hi for i, g in enumerate(groups))
+
+        def resolve_jobs() -> None:
+            """A job's first hit is the hit of its lowest window whose every
+            predecessor swept clean — the unpacked FIFO order, group-wise."""
+            for j in list(unresolved):
+                wins = [g for g in groups if g.job == j]
+                decided = True  # every window swept clean: intersects
+                for g in wins:
+                    if g.hit is not None:
+                        jobs[j].first_hit = g.hit
+                        break
+                    if not g.done:
+                        decided = False
+                        break
+                if not decided:
+                    continue
+                unresolved.discard(j)
+                for g in wins:
+                    g.done = True
+
+        def drain_one() -> None:
+            starts_snap, coverage, pending = inflight.popleft()
+            hits = pending.result().numpy()
+            for gix, g in enumerate(groups):
+                if g.done:
+                    continue
+                s0 = int(starts_snap[gix])
+                if s0 >= g.hi:
+                    continue  # frozen lane: nothing new covered
+                top = min(s0 + coverage, g.hi)
+                jobs[g.job].candidates += top - s0
+                h = int(hits[gix])
+                if h < g.hi:
+                    g.hit = h
+                    g.done = True
+                    # Later windows of the same job can only yield larger
+                    # indices: stop burning lanes on them.
+                    for g2 in groups:
+                        if g2.job == g.job and g2.lo > g.lo:
+                            g2.done = True
+                elif top >= g.hi:
+                    g.done = True
+            resolve_jobs()
+
+        while unresolved:
+            check_cancel()
+            check_job_cancels()
+            if not unresolved:
+                break
+            if not all_dispatched():
+                rem = max((g.hi - nxt[i] for i, g in enumerate(groups) if not g.done), default=0)
+                while spc_ix + 1 < len(PACK_RAMP) and rem >= PACK_RAMP[spc_ix + 1] * batch * 2:
+                    spc_ix += 1
+                spc = PACK_RAMP[spc_ix]
+                if rem < spc * batch:
+                    # Tail: the smallest program covering the remainder,
+                    # preferring a size already dispatched (the JAX drive's
+                    # compiled-shape rule, kept so both cut the same programs).
+                    fits = [r for r in PACK_RAMP if r * batch >= rem]
+                    seen = [r for r in fits if r in used_spc]
+                    spc = min(seen) if seen else min(fits)
+                used_spc.add(spc)
+                coverage = spc * batch
+                snap = np.asarray(nxt, dtype=np.int32)
+                program = lambda snap=snap, spc=spc: sweep.program(snap, spc)  # noqa: E731
+                inflight.append((snap, coverage, _Pending.launch(self.device, program)))
+                pack_rows += coverage
+                for i, g in enumerate(groups):
+                    if not g.done and nxt[i] < g.hi:
+                        nxt[i] += coverage
+                if len(inflight) >= depth_cap:
+                    drain_one()
+            elif inflight:
+                drain_one()
+            else:
+                # Every group drained yet a job is unresolved would mean the
+                # accounting above lied: fail loudly, never spin.
+                raise RuntimeError(
+                    f"packed sweep drained all lane groups with {len(unresolved)} job(s) unresolved"
+                )
+
+        seconds = time.perf_counter() - t0
+        pack_stats = {
+            "packed": True,
+            "pack_index": len(self.pack_plans) - 1,
+            "pack_jobs": n_jobs,
+            "pack_groups": packed.groups,
+            "pack_slot": packed.slot,
+            "pack_shape": [packed.circuit.n, packed.circuit.n_units],
+            "pack_fill_pct": round(packed.fill_pct, 2),
+            "pack_rows_dispatched": pack_rows,
+            "pack_engine": plan.resolution.resolved,
+            "pack_seconds": round(seconds, 4),
+        }
+        for job in jobs:
+            stats = {
+                "backend": self.name,
+                "device": str(self.device),
+                "candidates_checked": job.candidates,
+                "enumeration_total": job.total,
+                "seconds": seconds,
+                **pack_stats,
+            }
+            if job.cancelled:
+                stats["cancelled"] = True
+                job.result = SccCheckResult(intersects=False, stats=stats)
+                continue
+            if job.first_hit is None:
+                job.result = SccCheckResult(intersects=True, stats=stats)
+                continue
+            subset = [job.nodes[1 + b] for b in range(job.bits) if (job.first_hit >> b) & 1]
+            q, disjoint = self._witness(job.graph, job.nodes, subset, job.scope_to_scc)
+            if not q or not disjoint:
+                # The host recheck uses the exact reference semantics: an
+                # empty member means the packed decode lied — fail loudly.
+                raise RuntimeError(
+                    f"packed sweep decode error: hit index {job.first_hit} failed the "
+                    f"host witness recheck (|q|={len(q)}, |disjoint|={len(disjoint)})"
+                )
+            stats["hit_index"] = job.first_hit
+            job.result = SccCheckResult(intersects=False, q1=disjoint, q2=q, stats=stats)

@@ -44,7 +44,7 @@ Dangling-reference policy (Q1) is resolved earlier, in
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -180,6 +180,76 @@ def encode_circuit(graph: TrustGraph) -> Circuit:
         n=n,
         n_units=n_units,
         depth=int(unit_depth.max(initial=0)),
+        thresholds=thresholds,
+        members=members,
+        child=child,
+        unit_depth=unit_depth,
+    )
+
+
+# Canonical pad ladder: node and unit counts round UP to the nearest rung so a
+# packed block's shape is one of a handful of buckets.  Beyond the ladder the
+# exact size is kept.
+PAD_LADDER = (8, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512, 768, 1024)
+
+
+def ladder_up(x: int) -> int:
+    """Smallest :data:`PAD_LADDER` rung holding ``x`` (identity beyond the
+    ladder) — the rounding primitive of :func:`pad_targets` and of the
+    lane-packing slot planner."""
+    for rung in PAD_LADDER:
+        if x <= rung:
+            return rung
+    return x
+
+
+def pad_targets(n: int, n_units: int) -> tuple:
+    """Canonical padded ``(n, n_units)`` for one circuit: each dimension
+    rounds up to the smallest :data:`PAD_LADDER` rung that holds it (identity
+    beyond the ladder).  Two invariants the kernels read off the shapes are
+    kept: ``n_units >= n`` (they slice ``sat[..., :n]``, so every padded node
+    index needs a unit row) and the STRICT ``n_units > n`` of a circuit with
+    inner units (collapsing it to equality would skip the child passes)."""
+    n_pad = ladder_up(n)
+    if n_units <= n:
+        return n_pad, n_pad
+    return n_pad, ladder_up(max(n_units, n_pad + 1))
+
+
+def pad_circuit(circuit: Circuit, n_to: int, units_to: int) -> Circuit:
+    """Grow a circuit to ``(n_to, units_to)`` with inert padding — equal
+    satisfaction semantics for every availability row supported on the
+    original ``n`` nodes.
+
+    Padded node COLUMNS carry zero votes in every unit, and padded unit ROWS
+    get the Q2 never-satisfiable encoding (threshold 1 over zero members).
+    Callers keep padded nodes out of every availability input (the packed
+    decode does so structurally: its ``pos`` table maps only real nodes).
+    """
+    if n_to == circuit.n and units_to == circuit.n_units:
+        return circuit
+    if n_to < circuit.n or units_to < max(circuit.n_units, n_to):
+        raise ValueError(
+            f"pad target ({n_to}, {units_to}) below circuit shape "
+            f"({circuit.n}, {circuit.n_units})"
+        )
+    if circuit.n_units > circuit.n and units_to <= n_to:
+        raise ValueError(
+            "padding would collapse n_units > n — the inner-unit marker "
+            "the kernels key child propagation on"
+        )
+    thresholds = np.ones(units_to, dtype=np.int32)  # Q2: unsatisfiable filler
+    thresholds[: circuit.n_units] = circuit.thresholds
+    members = np.zeros((units_to, n_to), dtype=np.uint8)
+    members[: circuit.n_units, : circuit.n] = circuit.members
+    child = np.zeros((units_to, units_to), dtype=np.uint8)
+    child[: circuit.n_units, : circuit.n_units] = circuit.child
+    unit_depth = np.zeros(units_to, dtype=np.int32)
+    unit_depth[: circuit.n_units] = circuit.unit_depth
+    return Circuit(
+        n=n_to,
+        n_units=units_to,
+        depth=circuit.depth,
         thresholds=thresholds,
         members=members,
         child=child,
@@ -333,3 +403,276 @@ def max_quorum_np(circuit: Circuit, avail: np.ndarray) -> np.ndarray:
             return cur
         cur = nxt
 
+
+
+# ---------------------------------------------------------------------------
+# Lane packing: a PackedCircuit tiles K independent SCC-restricted circuits
+# side by side along the lane axis into ONE circuit with block-diagonal
+# structure, so one batched sweep resolves K verdicts at once.
+#
+# Invariants (pinned against the JAX package by tests/test_torch_packing.py):
+#
+# - **block-diagonal inertness**: group g's units carry votes ONLY from group
+#   g's lane columns, and the child matrix links only units of the same
+#   group, so each group's fixpoint is computed exactly as it would be alone;
+# - **root-unit layout**: lane ``g*slot + j`` (j < n_g) is group g's node j
+#   AND unit ``g*slot + j`` is its root unit; padded lane slots get the Q2
+#   never-satisfiable filler;
+# - **decode-map contract**: :meth:`PackedCircuit.decode_tables` is the ONE
+#   source of the per-group decode — group-local bit j toggles local node
+#   j+1, node 0 fixed out exactly as in the unpacked sweep.
+#
+# Members must be SCC-restricted (restrict_circuit_pair): restriction keeps
+# the root-unit layout and folds all outside availability into thresholds,
+# so the packed block needs no frozen row.
+
+# The lane budget one pack tries to fill (K*slot <= LANE_TILE).
+LANE_TILE = 128
+
+
+@dataclass
+class PackedCircuit:
+    """K independent circuits fused into one block-diagonal :class:`Circuit`.
+
+    ``circuit`` is the scoped (Q-side) fusion; ``circuit_d`` the Q6-fold
+    (D-probe) twin sharing every array except thresholds (None when every
+    member was scope-to-scc).  ``slot`` is the uniform lane width per group;
+    group g's real nodes live at lanes ``[g*slot, g*slot + sizes[g])``.
+    """
+
+    circuit: Circuit
+    circuit_d: Optional[Circuit]
+    groups: int
+    slot: int
+    sizes: Tuple[int, ...]
+
+    @property
+    def fill_pct(self) -> float:
+        """Pack occupancy: verdict-bearing lanes / padded lane width."""
+        return 100.0 * float(sum(self.sizes)) / float(max(self.circuit.n, 1))
+
+    def decode_tables(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """Per-lane-group decode map: ``(pos, scc_mask, lane_group, group_ind)``.
+
+        - ``pos``        (n,) int32 — enumeration bit per lane (31 = not
+          enumerated): group g's local node j >= 1 decodes bit j-1 of that
+          group's candidate index; local node 0 is fixed out;
+        - ``scc_mask``   (n,) float32 — 1 on every real lane;
+        - ``lane_group`` (n,) int32 — owning group per lane (padded lanes map
+          to group 0; their ``pos`` of 31 decodes them to 0 regardless);
+        - ``group_ind``  (n, K) float32 — lane-to-group indicator for the
+          per-group survivor counts.
+        """
+        n = self.circuit.n
+        pos = np.full((n,), 31, dtype=np.int32)
+        scc_mask = np.zeros((n,), dtype=np.float32)
+        lane_group = np.zeros((n,), dtype=np.int32)
+        group_ind = np.zeros((n, self.groups), dtype=np.float32)
+        for g, size in enumerate(self.sizes):
+            base = g * self.slot
+            scc_mask[base : base + size] = 1.0
+            lane_group[base : base + size] = g
+            group_ind[base : base + size, g] = 1.0
+            for j in range(1, size):
+                pos[base + j] = j - 1
+        return pos, scc_mask, lane_group, group_ind
+
+
+def plan_packs(sizes: Sequence[int], lane_tile: int = LANE_TILE) -> List[List[int]]:
+    """Greedy pack plan: indices into ``sizes`` grouped so each pack's
+    ``K * slot`` fits one lane tile, where ``slot`` is the ladder rung of the
+    pack's LARGEST member (descending-size order keeps slots tight).  Jobs
+    wider than a tile get a singleton pack."""
+    order = sorted(range(len(sizes)), key=lambda i: (-sizes[i], i))
+    packs: List[List[int]] = []
+    cur: List[int] = []
+    capacity = 0
+    for i in order:
+        if cur and len(cur) < capacity:
+            cur.append(i)
+            continue
+        slot = ladder_up(max(int(sizes[i]), 1))
+        capacity = max(1, lane_tile // slot)
+        cur = [i]
+        packs.append(cur)
+    return packs
+
+
+def pack_circuits(
+    members: Sequence[Tuple[Circuit, Optional[Circuit]]],
+    lane_tile: int = LANE_TILE,
+) -> PackedCircuit:
+    """Fuse K ``(scoped, q6_or_None)`` circuit pairs into one
+    :class:`PackedCircuit` (invariants in the section comment above).
+
+    Every member must have root-unit layout (unit j = node j's quorum set for
+    j < n) and a Q6 twin, when present, sharing the scoped member's shapes.
+    The fused block rounds up to the canonical :data:`PAD_LADDER` shape.
+    """
+    if not members:
+        raise ValueError("pack_circuits needs at least one circuit")
+    sizes = tuple(c.n for c, _ in members)
+    for c, d in members:
+        if d is not None and (d.n != c.n or d.n_units != c.n_units):
+            raise ValueError(
+                f"q6 twin shape {(d.n, d.n_units)} does not match scoped "
+                f"member {(c.n, c.n_units)}"
+            )
+    k = len(members)
+    slot = ladder_up(max(max(sizes), 1))
+    if k > 1 and k * slot > lane_tile:
+        raise ValueError(
+            f"{k} groups of slot {slot} exceed the {lane_tile}-lane tile; "
+            f"plan packs with plan_packs()"
+        )
+    n_raw = k * slot
+    inner_total = sum(c.n_units - c.n for c, _ in members)
+    u_raw = n_raw + inner_total
+
+    thresholds = np.ones(u_raw, dtype=np.int32)  # Q2 filler in padded slots
+    thresholds_d = np.ones(u_raw, dtype=np.int32)
+    members_m = np.zeros((u_raw, n_raw), dtype=np.uint8)
+    child = np.zeros((u_raw, u_raw), dtype=np.uint8)
+    unit_depth = np.zeros(u_raw, dtype=np.int32)
+    any_d = any(d is not None for _, d in members)
+
+    inner_base = n_raw
+    for g, (c, d) in enumerate(members):
+        base = g * slot
+        n_g = c.n
+        umap = np.concatenate([
+            np.arange(base, base + n_g, dtype=np.int64),
+            np.arange(inner_base, inner_base + (c.n_units - n_g), dtype=np.int64),
+        ])
+        thresholds[umap] = c.thresholds
+        thresholds_d[umap] = c.thresholds if d is None else d.thresholds
+        members_m[np.ix_(umap, np.arange(base, base + n_g))] = c.members
+        child[np.ix_(umap, umap)] = c.child
+        unit_depth[umap] = c.unit_depth
+        inner_base += c.n_units - n_g
+
+    depth = max(c.depth for c, _ in members)
+    fused = Circuit(
+        n=n_raw, n_units=u_raw, depth=depth, thresholds=thresholds,
+        members=members_m, child=child, unit_depth=unit_depth,
+    )
+    fused_d: Optional[Circuit] = None
+    if any_d:
+        # The Q6 twin shares every array except thresholds.
+        fused_d = Circuit(
+            n=n_raw, n_units=u_raw, depth=depth, thresholds=thresholds_d,
+            members=members_m, child=child, unit_depth=unit_depth,
+        )
+
+    n_to, units_to = pad_targets(n_raw, u_raw)
+    fused = pad_circuit(fused, n_to, units_to)
+    if fused_d is not None:
+        fused_d = pad_circuit(fused_d, n_to, units_to)
+    return PackedCircuit(circuit=fused, circuit_d=fused_d, groups=k, slot=slot, sizes=sizes)
+
+
+# ---------------------------------------------------------------------------
+# Bitset encoding: the same threshold circuit as packed uint32 membership
+# words, for the intersect-and-popcount sweep kernel.  Word counts derive
+# from the circuit as given (``words = ceil(n/32)``, ``unit_words =
+# ceil(n_units/32)``); thresholds, unit_depth and the inner-set DAG are the
+# dense arrays verbatim; a membership bit holds a vote count of 0 or 1 only,
+# so circuits with repeated validators or inner sets are not encodable
+# (callers gate on :func:`bitset_supported`).
+
+BITSET_WORD_BITS = 32
+
+
+def pack_mask_words(mask: np.ndarray, words: int) -> np.ndarray:
+    """Pack 0/1 rows ``(..., m)`` into uint32 words ``(..., words)``: bit
+    ``j % 32`` of word ``j // 32`` is column *j* (LSB-first).  Any nonzero
+    value sets its bit."""
+    mask = np.asarray(mask)
+    m = mask.shape[-1]
+    if m > words * BITSET_WORD_BITS:
+        raise ValueError(f"{m} columns do not fit {words} uint32 words")
+    padded = np.zeros(mask.shape[:-1] + (words * BITSET_WORD_BITS,), dtype=np.uint64)
+    padded[..., :m] = mask != 0
+    shifts = np.uint64(1) << np.arange(BITSET_WORD_BITS, dtype=np.uint64)
+    packed = (padded.reshape(mask.shape[:-1] + (words, BITSET_WORD_BITS)) * shifts).sum(
+        axis=-1
+    )
+    return packed.astype(np.uint32)
+
+
+def unpack_mask_words(packed: np.ndarray, m: int) -> np.ndarray:
+    """Inverse of :func:`pack_mask_words`: ``(..., words)`` uint32 →
+    ``(..., m)`` uint8 0/1."""
+    packed = np.asarray(packed, dtype=np.uint32)
+    j = np.arange(m)
+    return (
+        (packed[..., j // BITSET_WORD_BITS] >> (j % BITSET_WORD_BITS).astype(np.uint32))
+        & np.uint32(1)
+    ).astype(np.uint8)
+
+
+def bitset_supported(circuit: Circuit) -> bool:
+    """True iff every member and child vote count is 0/1."""
+    return (
+        int(circuit.members.max(initial=0)) <= 1
+        and int(circuit.child.max(initial=0)) <= 1
+    )
+
+
+@dataclass(frozen=True)
+class BitsetCircuit:
+    """Bitset twin of :class:`Circuit`: identical thresholds/DAG, packed
+    uint32 vote rows.
+
+    - ``member_words`` (U, words)      — bit *v* of unit *u*'s row set iff
+      node *v* votes in unit *u*;
+    - ``child_words``  (U, unit_words) — bit *c* set iff unit *c* is a child
+      of unit *u*; ``None`` when the circuit has no inner units;
+    - ``thresholds`` / ``unit_depth`` / ``depth`` — the dense arrays verbatim.
+    """
+
+    n: int
+    n_units: int
+    depth: int
+    words: int
+    unit_words: int
+    thresholds: np.ndarray
+    member_words: np.ndarray
+    child_words: Optional[np.ndarray]
+    unit_depth: np.ndarray
+
+    def decode_members(self) -> np.ndarray:
+        """(U, n) uint8 dense member matrix (round-trip of ``members``)."""
+        return unpack_mask_words(self.member_words, self.n)
+
+    def decode_child(self) -> Optional[np.ndarray]:
+        """(U, U) uint8 dense child matrix (None without inner units)."""
+        if self.child_words is None:
+            return None
+        return unpack_mask_words(self.child_words, self.n_units)
+
+
+def bitset_encode(circuit: Circuit) -> BitsetCircuit:
+    """Encode a (0/1-vote) circuit into its :class:`BitsetCircuit` twin;
+    ``ValueError`` for circuits with vote multiplicities > 1."""
+    if not bitset_supported(circuit):
+        raise ValueError(
+            "circuit has vote multiplicities > 1; the bitset encoding is "
+            "0/1-vote only — use the dense engine"
+        )
+    words = (circuit.n + BITSET_WORD_BITS - 1) // BITSET_WORD_BITS
+    unit_words = (circuit.n_units + BITSET_WORD_BITS - 1) // BITSET_WORD_BITS
+    has_inner = circuit.n_units > circuit.n
+    return BitsetCircuit(
+        n=circuit.n,
+        n_units=circuit.n_units,
+        depth=circuit.depth,
+        words=max(words, 1),
+        unit_words=max(unit_words, 1),
+        thresholds=circuit.thresholds.astype(np.int32),
+        member_words=pack_mask_words(circuit.members, max(words, 1)),
+        child_words=(
+            pack_mask_words(circuit.child, max(unit_words, 1)) if has_inner else None
+        ),
+        unit_depth=circuit.unit_depth,
+    )

@@ -1,7 +1,9 @@
 """Synthetic FBAS generators — the seed corpus for differential testing and
 benchmarking (SURVEY.md §4.3, BASELINE.json configs).  The port keeps the
-two generators its chip smoke run and its tests need; the JAX package holds
-the full set.
+generators its chip smoke run and its tests need; the JAX package holds the
+full set.  :func:`inner_set_ring_fbas` is the port's own (no counterpart
+there): a circuit with hundreds of distinct inner sets inside one SCC, for
+the fused kernel's wide satisfaction masks.
 
 All generators emit stellarbeat-style raw dicts (the same shape
 :func:`quorum_intersection_tpu_torch.fbas.schema.parse_fbas` accepts), so every
@@ -48,6 +50,77 @@ def majority_fbas(n: int, *, broken: bool = False, prefix: str = "NODE") -> List
     for i, key in enumerate(ks):
         t = 1 if (broken and i == 0) else k
         nodes.append(_node(key, f"n{i}", _qset(t, list(ks))))
+    return nodes
+
+
+def hierarchical_fbas(
+    n_orgs: int, per_org: int, *, broken: bool = False, org_threshold: Optional[int] = None
+) -> List[Dict]:
+    """Stellar-like tiered FBAS: each node requires a majority of organizations,
+    where an organization counts if a majority of its validators are available —
+    expressed with one inner quorum set per organization (nesting depth 1,
+    matching the bundled fixtures' observed max depth, SURVEY.md §7.3).
+
+    ``broken=True`` gives the first node a degenerate self-only slice
+    (threshold 1 over itself), making {node0} a quorum disjoint from the
+    surviving org-majority quorum of everyone else.
+    """
+    org_keys = [keys(per_org, f"ORG{o}N") for o in range(n_orgs)]
+    all_nodes: List[Dict] = []
+    t_orgs = org_threshold if org_threshold is not None else n_orgs // 2 + 1
+    inner = [_qset(per_org // 2 + 1, list(ok)) for ok in org_keys]
+    for o in range(n_orgs):
+        for i, key in enumerate(org_keys[o]):
+            if broken and o == 0 and i == 0:
+                all_nodes.append(_node(key, f"org{o}-v{i}", _qset(1, [key])))
+            else:
+                all_nodes.append(_node(key, f"org{o}-v{i}", _qset(t_orgs, [], list(inner))))
+    return all_nodes
+
+
+def stellar_like_fbas(
+    n_core_orgs: int = 7,
+    per_org: int = 3,
+    n_watchers: int = 100,
+    n_null: int = 28,
+    n_dangling: int = 7,
+    *,
+    broken: bool = False,
+    seed: int = 0,
+) -> List[Dict]:
+    """Stellarbeat-snapshot-shaped network (~150 validators with defaults).
+
+    Mirrors the structural statistics of the bundled `correct.json` snapshot
+    scaled up (SURVEY.md §4.1): a small strongly-connected core of
+    organizations (the quorum-bearing sink SCC), a long tail of watcher
+    nodes that trust the core but are not trusted back (many singleton
+    SCCs), a block of null-quorumSet nodes, and a sprinkle of dangling
+    validator references.  ``broken=True`` turns one knob in the core —
+    org 0's validators drop their org-majority threshold to 1-of-{orgs}
+    (trust edges unchanged, so the core SCC stays intact), making the org-0
+    trio a quorum disjoint from the quorum of the remaining orgs: the
+    search inside the SCC, not the SCC guard, must find it.
+    """
+    rng = random.Random(seed)
+    org_keys = [keys(per_org, f"CORE{o}N") for o in range(n_core_orgs)]
+    core_flat = [k for ok in org_keys for k in ok]
+    inner = [_qset(per_org // 2 + 1, list(ok)) for ok in org_keys]
+    t_orgs = n_core_orgs // 2 + 1
+    nodes: List[Dict] = []
+    for o in range(n_core_orgs):
+        for i, key in enumerate(org_keys[o]):
+            t = 1 if (broken and o == 0) else t_orgs
+            nodes.append(_node(key, f"core{o}-v{i}", _qset(t, [], list(inner))))
+    for w in range(n_watchers):
+        trusted = rng.sample(core_flat, min(len(core_flat), rng.randint(3, 7)))
+        extra = []
+        if w < n_dangling:  # dangling refs concentrated in early watchers
+            extra = [f"GONE{w:04d}"]
+        t = len(trusted) * 2 // 3 + 1
+        nodes.append(_node(f"WATCH{w:04d}", f"w{w}", _qset(t, trusted + extra)))
+    for z in range(n_null):
+        nodes.append(_node(f"NULLQ{z:04d}", f"z{z}", None))
+    rng.shuffle(nodes)  # snapshot order is arbitrary; vertex 0 ≠ core
     return nodes
 
 
@@ -103,4 +176,26 @@ def benchmark_fbas(
     for z in range(n_null):
         nodes.append(_node(f"NULLQ{z:04d}", f"z{z}", None))
     rng.shuffle(nodes)  # snapshot order is arbitrary; vertex 0 ≠ core
+    return nodes
+
+
+def inner_set_ring_fbas(n: int, per_node: int, *, broken: bool = False) -> List[Dict]:
+    """``n`` nodes on a ring, node i trusting ``per_node`` inner sets
+    ``2-of-{i, i+1+j, i+2+2j}`` (mod n) and needing a majority of them: one
+    SCC whose circuit carries about ``n * per_node`` distinct inner units
+    (depth 1), for the fused kernel's wide satisfaction masks.
+
+    ``broken=True`` lowers node 0 to 1-of-its-sets with its first set 1-of-3,
+    so {node0} alone is a quorum.
+    """
+    ks = keys(n, "RING")
+    nodes = []
+    for i, key in enumerate(ks):
+        inner = [
+            _qset(1 if (broken and i == 0 and j == 0) else 2,
+                  [ks[i], ks[(i + 1 + j) % n], ks[(i + 2 + 2 * j) % n]])
+            for j in range(per_node)
+        ]
+        t = 1 if (broken and i == 0) else per_node // 2 + 1
+        nodes.append(_node(key, f"r{i}", _qset(t, [], inner)))
     return nodes

@@ -12,9 +12,11 @@ version (:mod:`.sweep_ref`) — only because the tables lie on the CPU.
 
 Kernel limits, checked before any launch (:class:`KernelLimitError`):
 ``n <= 64`` nodes (one ``uint64_t`` availability row; the sweep's 2^44
-enumeration ceiling keeps a restricted SCC at 45), ``U <= 256`` units (a
-4-word satisfaction mask), vote counts below 2^8 (8 bit-planes; the encoder
-rejects larger counts), and candidate indices below 2^31.
+enumeration ceiling keeps a restricted SCC at 45), ``U <= 1024`` units (the
+top ``PAD_LADDER`` rung; a child satisfaction mask of up to 16 words), vote
+counts below 2^8 (8 bit-planes; the encoder rejects larger counts), tables
+that fit the shared memory one block may take, and candidate indices below
+2^31.
 """
 
 from __future__ import annotations
@@ -33,9 +35,14 @@ from quorum_intersection_tpu_torch.kernels import build
 from quorum_intersection_tpu_torch.kernels.sweep_ref import SweepRef
 
 MAX_NODES = 64
-MAX_UNITS = 256
+MAX_UNITS = 1024
 MAX_PLANES = 8
 INDEX_CEILING = 1 << 31
+# Shared memory one block may opt into on Hopper (227 KB).
+SMEM_LIMIT = 232448
+# Child satisfaction-mask widths, in 64-bit words, the kernel is built for.
+CHILD_WORDS = (1, 2, 4, 8, 16)
+DECODE_BYTES = 8 * 4 * 256  # the four byte-indexed decode tables
 
 
 class KernelLimitError(ValueError):
@@ -59,40 +66,78 @@ def _bit_planes(counts: np.ndarray, words: int) -> np.ndarray:
     return out
 
 
+def child_layout(circuit: Circuit, word_bits: int, widths) -> tuple:
+    """``(c0, words)`` of the child satisfaction mask: it covers units
+    ``[c0, U)``, ``c0`` the first unit that is anyone's child rounded down to
+    a word, in the smallest of ``widths`` words that holds them."""
+    kids = np.nonzero(circuit.child.any(axis=0))[0]
+    first = int(kids[0]) if kids.size else circuit.n_units
+    c0 = first - first % word_bits
+    need = max(1, -(-(circuit.n_units - c0) // word_bits))
+    words = next((w for w in widths if w >= need), None)
+    if words is None:
+        raise KernelLimitError(
+            f"child mask needs {need} words of {word_bits} bits; the kernel takes at most {widths[-1]}"
+        )
+    return c0, words
+
+
+def check_units(circuit: Circuit, kernel: str) -> None:
+    if circuit.n_units > MAX_UNITS:
+        raise KernelLimitError(
+            f"circuit has {circuit.n_units} units; the {kernel} kernel takes at most {MAX_UNITS}"
+        )
+
+
+def check_smem(nbytes: int, kernel: str) -> None:
+    if nbytes > SMEM_LIMIT:
+        raise KernelLimitError(
+            f"the {kernel} kernel's tables need {nbytes} bytes of shared memory; "
+            f"one block may take at most {SMEM_LIMIT}"
+        )
+
+
 @dataclass
 class PlaneTables:
     """The circuit as the kernel reads it: member bit-planes (pm, U) and
-    child bit-planes (pc, U, W) as int64 bit patterns, signed thresholds
-    (U,), and the number of child passes."""
+    child bit-planes (pc, U, words) over units ``[child_from, U)`` as int64
+    bit patterns, signed thresholds (U,), and the number of child passes."""
 
     n: int
     n_units: int
     depth: int
     words: int
+    child_from: int
     member_planes: torch.Tensor
     child_planes: torch.Tensor
     thresholds: torch.Tensor
 
 
+def upload_words(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Unsigned word array → a tensor of the same bit patterns (int64 or
+    int32, PyTorch having no wide unsigned arithmetic) on ``device``."""
+    signed = {8: np.int64, 4: np.int32}[a.dtype.itemsize]
+    return torch.from_numpy(np.ascontiguousarray(a).view(signed)).to(device)
+
+
 def plane_tables(circuit: Circuit, device: torch.device) -> PlaneTables:
     if circuit.n > MAX_NODES:
         raise KernelLimitError(f"circuit has {circuit.n} nodes; the fused kernel takes at most {MAX_NODES}")
-    if circuit.n_units > MAX_UNITS:
-        raise KernelLimitError(
-            f"circuit has {circuit.n_units} units; the fused kernel takes at most {MAX_UNITS}"
-        )
-    words = max(1, (circuit.n_units + 63) // 64)
-
-    def upload(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.int64)).to(device)
-
+    check_units(circuit, "fused")
+    c0, words = child_layout(circuit, 64, CHILD_WORDS)
+    member_planes = _bit_planes(circuit.members, 1)[:, :, 0]
+    child_planes = _bit_planes(circuit.child[:, c0:], words)
+    check_smem(
+        DECODE_BYTES + 8 * (member_planes.size + child_planes.size) + 8 * circuit.n_units, "fused"
+    )
     return PlaneTables(
         n=circuit.n,
         n_units=circuit.n_units,
         depth=circuit.depth if circuit.n_units > circuit.n else 0,
         words=words,
-        member_planes=upload(_bit_planes(circuit.members, 1)[:, :, 0]),
-        child_planes=upload(_bit_planes(circuit.child, words)),
+        child_from=c0,
+        member_planes=upload_words(member_planes, device),
+        child_planes=upload_words(child_planes, device),
         thresholds=torch.from_numpy(np.asarray(circuit.thresholds, dtype=np.int32)).to(device),
     )
 
@@ -177,7 +222,7 @@ def sweep_fused(sweep: FusedSweep, start: int, rows: int, hi_mask: int = 0) -> t
         t.member_planes.data_ptr(), t.child_planes.data_ptr(),
         t.thresholds.data_ptr(), sweep.thr_d.data_ptr(), sweep.lo_nodes.data_ptr(),
         sweep.lo_bits, hi_mask, sweep.scc_bits, sweep.frozen_bits,
-        t.n, t.n_units, t.words, t.member_planes.shape[0], t.child_planes.shape[0],
+        t.n, t.n_units, t.words, t.child_from, t.member_planes.shape[0], t.child_planes.shape[0],
         t.depth, start, rows, out.data_ptr(), stream,
     )
     if err != 0:
@@ -196,7 +241,7 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_qi_typed", False):
         p, i, u64, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64, ctypes.c_longlong
         lib.qi_sweep_fused.argtypes = [
-            p, p, p, p, p, i, u64, u64, u64, i, i, i, i, i, i, i64, i64, p, p,
+            p, p, p, p, p, i, u64, u64, u64, i, i, i, i, i, i, i, i64, i64, p, p,
         ]
         lib.qi_sweep_fused.restype = i
         lib.qi_cuda_error_string.argtypes = [i]

@@ -1,19 +1,26 @@
 """Orchestration: parse → graph → SCC reduction → guard → backend search.
 
-The port of the JAX package's ``pipeline.py:48-305`` and ``:547-576``: the
+The port of the JAX package's ``pipeline.py:48-544`` and ``:547-576``: the
 exponential search runs in **the** quorum-bearing SCC (the Q5 fix;
 ``scc_select="front"`` reproduces the reference's ``sccs.front()``), and the
-verbose narration mirrors the reference's ``-v`` messages.  The per-SCC
-quorum scan is the Python loop at every graph size.
+verbose narration mirrors the reference's ``-v`` messages.  :func:`solve`
+decides one snapshot, :func:`check_many` a batch of them in one lane-packed
+backend call.  The per-SCC quorum scan is the Python loop at every graph
+size.
 """
 
 from __future__ import annotations
 
 import sys
+import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, TextIO, Tuple, Union
+from typing import Dict, List, Optional, Sequence, TextIO, Tuple, Union
 
-from quorum_intersection_tpu_torch.backends.base import SearchBackend, get_backend
+from quorum_intersection_tpu_torch.backends.base import (
+    CancelToken,
+    SearchBackend,
+    get_backend,
+)
 from quorum_intersection_tpu_torch.device import DeviceLike
 from quorum_intersection_tpu_torch.encode.circuit import Circuit, encode_circuit
 from quorum_intersection_tpu_torch.fbas.graph import (
@@ -216,3 +223,91 @@ def solve(
         scope_to_scc=scope_to_scc,
         timers=timers,
     )
+
+
+def check_many(
+    sources: Sequence[object],
+    *,
+    backend: Union[str, SearchBackend] = "gpu-sweep",
+    device: DeviceLike = None,
+    dangling: str = "strict",
+    scc_select: str = "quorum-bearing",
+    scope_to_scc: bool = False,
+    pack: bool = True,
+    cancels: Optional[Sequence[Optional[CancelToken]]] = None,
+) -> List[SolveResult]:
+    """Decide quorum intersection for MANY FBAS sources in one call — the
+    shape a queue of snapshot checks arrives in.
+
+    Each source runs the same parse → graph → SCC scan → guard pipeline as
+    :func:`solve` (minus narration); guard-decided sources (zero or >= 2
+    quorum-bearing SCCs) resolve from the scan, and the rest become ONE
+    ``check_sccs`` call that fuses them into lane packs.  ``pack=False``
+    calls the backend per problem instead.  Results come back in source
+    order; every searched source's timers carry the batch's shared
+    ``search`` wall.  A backend named by string is built on ``device``
+    (None: CUDA).
+
+    ``cancels`` is source-aligned: a tripped token retires that source alone
+    and it comes back with ``stats["cancelled"]`` and no verdict claim.
+    """
+    if isinstance(backend, str):
+        backend = get_backend(backend, device=device)
+    results: List[Optional[SolveResult]] = [None] * len(sources)
+    jobs: List[Tuple[int, TrustGraph, Optional[Circuit], List[int]]] = []
+    metas: Dict[int, Tuple[int, List[int], List[int], Dict[str, float]]] = {}
+    for ix, source in enumerate(sources):
+        timers = PhaseTimers()
+        with timers.phase("parse"):
+            fbas = source if isinstance(source, Fbas) else parse_fbas(source)
+        with timers.phase("graph"):
+            graph = build_graph(fbas, dangling=dangling)
+        count, sccs, quorum_scc_ids, scc_quorums, main_scc = _classify_sccs(
+            graph, scc_select=scc_select, timers=timers
+        )
+        if len(quorum_scc_ids) != 1:
+            # Guard-decided, exactly as solve_graph.
+            q1 = q2 = None
+            if len(quorum_scc_ids) >= 2:
+                q1 = scc_quorums[quorum_scc_ids[0]]
+                q2 = scc_quorums[quorum_scc_ids[1]]
+            results[ix] = SolveResult(
+                intersects=False, n_sccs=count, quorum_scc_ids=quorum_scc_ids,
+                main_scc=main_scc, q1=q1, q2=q2, stats={"reason": "scc_guard"},
+                timers=timers.summary(),
+            )
+            continue
+        circuit: Optional[Circuit] = None
+        if getattr(backend, "needs_circuit", True):
+            with timers.phase("encode"):
+                circuit = encode_circuit(graph)
+        target_scc = sccs[0] if scc_select == "front" else sccs[quorum_scc_ids[0]]
+        jobs.append((ix, graph, circuit, target_scc))
+        metas[ix] = (count, quorum_scc_ids, main_scc, timers.summary())
+
+    if jobs:
+        job_cancels = [cancels[ix] for ix, _, _, _ in jobs] if cancels is not None else None
+        t_search = time.perf_counter()
+        if pack:
+            scc_results = backend.check_sccs(
+                [(g, c, s) for _, g, c, s in jobs], scope_to_scc=scope_to_scc, cancels=job_cancels
+            )
+        else:
+            scc_results = []
+            for jx, (_, g, c, s) in enumerate(jobs):
+                tok = job_cancels[jx] if job_cancels is not None else None
+                if tok is not None and tok.cancelled:
+                    scc_results.append(backend._cancelled_result(s))
+                else:
+                    scc_results.append(backend.check_scc(g, c, s, scope_to_scc=scope_to_scc))
+        search_s = time.perf_counter() - t_search
+        for (ix, _, _, _), res in zip(jobs, scc_results):
+            count, quorum_scc_ids, main_scc, timer_summary = metas[ix]
+            timer_summary = dict(timer_summary, search=search_s)
+            cancelled = bool(res.stats.get("cancelled"))
+            results[ix] = SolveResult(
+                intersects=res.intersects, n_sccs=count, quorum_scc_ids=quorum_scc_ids,
+                main_scc=main_scc, q1=None if cancelled else res.q1,
+                q2=None if cancelled else res.q2, stats=dict(res.stats), timers=timer_summary,
+            )
+    return [r for r in results if r is not None]

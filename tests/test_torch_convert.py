@@ -103,3 +103,28 @@ def test_benchmark_fbas_same_json(kwargs):
 @pytest.mark.parametrize("n,broken", [(3, False), (9, True)])
 def test_majority_fbas_same_json(n, broken):
     assert synth.majority_fbas(n, broken=broken) == jax_synth.majority_fbas(n, broken=broken)
+
+
+@pytest.mark.parametrize(
+    "args,kwargs",
+    [((3, 3), {}), ((3, 4), {"org_threshold": 1}), ((4, 3), {"broken": True})],
+)
+def test_hierarchical_fbas_same_json(args, kwargs):
+    assert json.dumps(synth.hierarchical_fbas(*args, **kwargs)) == json.dumps(
+        jax_synth.hierarchical_fbas(*args, **kwargs)
+    )
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [
+        {},
+        {"n_core_orgs": 7, "per_org": 3, "seed": 1, "broken": True},
+        {"n_core_orgs": 9, "per_org": 3, "n_watchers": 300, "seed": 2},
+        {"n_core_orgs": 5, "per_org": 3, "n_watchers": 20, "seed": 2, "broken": True},
+    ],
+)
+def test_stellar_like_fbas_same_json(kwargs):
+    assert json.dumps(synth.stellar_like_fbas(**kwargs)) == json.dumps(
+        jax_synth.stellar_like_fbas(**kwargs)
+    )

@@ -1,5 +1,6 @@
-"""The fused CUDA sweep on the card, against its plain PyTorch version and
-against the CPU path.  Card-only: every test takes the ``cuda_device``
+"""The CUDA sweeps on the card — the fused unpacked kernel and the two
+lane-packed kernels — against their plain PyTorch versions and against the
+CPU path.  Card-only: every test takes the ``cuda_device``
 fixture, which skips on a host without one.  This file imports nothing of
 JAX or the JAX package, so on the card's machine it runs as
 
@@ -28,7 +29,15 @@ from quorum_intersection_tpu_torch.kernels.sweep_cuda import (
     mask_bits,
     sweep_fused,
 )
-from quorum_intersection_tpu_torch.pipeline import solve
+from quorum_intersection_tpu_torch.backends.sweep import GpuSweepBackend
+from quorum_intersection_tpu_torch.encode.circuit import pack_circuits
+from quorum_intersection_tpu_torch.kernels.packed_cuda import (
+    PackedSweep,
+    packed_sweep_bitset,
+    packed_sweep_dense,
+)
+from quorum_intersection_tpu_torch.kernels.packed_ref import PackedRef
+from quorum_intersection_tpu_torch.pipeline import check_many, solve
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -107,3 +116,91 @@ def test_index_ceiling_raises_before_launch(cuda_device):
     with pytest.raises(KernelLimitError, match="2\\^31"):
         sweep_fused(fused, (1 << 31) - 8, 16)
     assert sweep_fused.launches == launches
+
+
+@pytest.mark.parametrize("broken", [False, True])
+def test_fused_kernel_over_256_units_matches_plain(broken, cuda_device):
+    """A circuit with 390 units (a child mask of 8 words) on the fused kernel."""
+    graph = build_graph(parse_fbas(synth.inner_set_ring_fbas(30, 12, broken=broken)))
+    circuit = encode_circuit(graph)
+    assert 256 < circuit.n_units <= 1024
+    mask = np.ones(circuit.n, dtype=np.int32)
+    lo_nodes = np.arange(1, circuit.n, dtype=np.int32)
+    fused = FusedSweep(circuit, lo_nodes, mask, None, 1 << 12, device=cuda_device)
+    plain = ref.SweepRef(circuit, lo_nodes, mask, None, 1 << 12, None, cuda_device)
+    for start in (0, 1 << 20, (1 << 29) - (1 << 13)):
+        assert int(fused.program(start, 2)) == int(plain.program(start, 2)), start
+
+
+def _kofn(n, k, prefix):
+    ks = [f"{prefix}{i}" for i in range(n)]
+    return [{"publicKey": x, "name": x, "quorumSet": {"threshold": k, "validators": ks}} for x in ks]
+
+
+def _packs():
+    """Packs as the batch drive forms them: a mixed pack with hits, a
+    depth-1 pack, and one job split over window groups."""
+    backend = GpuSweepBackend(batch=256, device="cpu")
+
+    def plan(datas):
+        jobs = []
+        for data in datas:
+            graph = build_graph(parse_fbas(data))
+            jobs.append(backend._prepare_job(graph, encode_circuit(graph), _problems_scc(graph), False))
+        return backend.plan_pack(jobs)
+
+    return {
+        "mixed": plan([_kofn(8, 5, "A"), _kofn(8, 4, "B"), synth.hierarchical_fbas(3, 4, org_threshold=1),
+                       synth.stellar_like_fbas(5, 3, n_watchers=20, seed=1, broken=True)]),
+        "depth1": plan([synth.stellar_like_fbas(7, 3, seed=0), synth.stellar_like_fbas(5, 3, seed=1, broken=True)]),
+        "split": plan([_kofn(20, 10, "S")]),
+    }
+
+
+def _problems_scc(graph):
+    count, comp = tarjan_scc(graph.n, graph.succ)
+    return next(m for m in group_sccs(graph.n, comp, count)
+                if max_quorum(graph, m, [v in set(m) for v in range(graph.n)]))
+
+
+@pytest.mark.parametrize("engine", ["dense", "bitset"])
+def test_packed_kernels_match_plain_on_card(engine, cuda_device):
+    launch = packed_sweep_dense if engine == "dense" else packed_sweep_bitset
+    hits = 0
+    for name, plan in _packs().items():
+        p = plan.packed
+        sweep = PackedSweep(p.circuit, p.circuit_d, *plan.tables, 1 << 10, engine=engine, device=cuda_device)
+        plain = PackedRef(p.circuit, p.circuit_d, *plan.tables, 1 << 10, engine, cuda_device)
+        los = np.asarray([g.lo for g in plan.groups], dtype=np.int64)
+        before = launch.launches
+        for starts in (los, los + 4096):
+            got = sweep.program(starts, 3).cpu().numpy()
+            want = plain.program(starts, 3).cpu().numpy()
+            np.testing.assert_array_equal(got, want, err_msg=name)
+            hits += int((want < ref.INT32_MAX).sum())
+        assert launch.launches == before + 2
+    assert hits > 0
+
+
+@pytest.mark.parametrize("engine", [None, "bitset"])
+def test_card_check_many_matches_cpu(engine, cuda_device):
+    sources = [_kofn(8, 5, "A"), _kofn(8, 4, "B"), synth.hierarchical_fbas(3, 3, broken=True),
+               synth.stellar_like_fbas(5, 3, n_watchers=20, seed=0),
+               synth.stellar_like_fbas(5, 3, n_watchers=20, seed=1, broken=True),
+               json.loads((FIXTURES / "nested_correct.json").read_text())]
+    on_card = check_many(sources, backend=GpuSweepBackend(device=cuda_device, engine=engine))
+    on_cpu = check_many(sources, backend=GpuSweepBackend(device="cpu", engine=engine))
+    for a, b in zip(on_card, on_cpu):
+        assert (a.intersects, a.q1, a.q2) == (b.intersects, b.q1, b.q2)
+        assert a.stats.get("hit_index") == b.stats.get("hit_index")
+        assert a.stats.get("pack_engine") == b.stats.get("pack_engine")
+
+
+def test_packed_index_ceiling_raises_before_launch(cuda_device):
+    plan = _packs()["split"]
+    p = plan.packed
+    sweep = PackedSweep(p.circuit, p.circuit_d, *plan.tables, 1 << 8, device=cuda_device)
+    before = packed_sweep_dense.launches
+    with pytest.raises(KernelLimitError, match="2\\^31"):
+        packed_sweep_dense(sweep, [(1 << 31) - 8] * p.groups, 16)
+    assert packed_sweep_dense.launches == before

@@ -72,7 +72,8 @@ _FORBIDDEN = [
 
 
 def _sources():
-    files = sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")) + [ROOT / "chip_smoke.py"]
+    files = (sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")) + sorted(PORT.rglob("*.cuh"))
+             + [ROOT / "chip_smoke.py"])
     assert len(files) > 10 and (ROOT / "chip_smoke.py").exists()
     return files
 
