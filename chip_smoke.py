@@ -37,7 +37,26 @@ Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
               widest packed shape (the pack ``check_many`` forms for
               ``benchmark_fbas(256, core=31)`` alone: 4 window groups) beside
               the plain version's ms and the bound, and at the shape of the
-              batch's first pack.
+              batch's first pack;
+9. prune    — block-guard pruning on the unpacked path: ``solve`` with
+              ``GpuSweepBackend(prune=True)`` on the seven fixtures and on
+              ``near_disjoint_cores(12, 1)`` and ``(15, 1)``, correct and
+              broken (2^24 and 2^30 candidates; the widest enumeration the
+              planner takes).  Verdicts, witnesses, every hit index equal to
+              the unpruned ``solve``'s, and on ``true`` checked + pruned ==
+              the enumeration; guard launches counted (reset before, read
+              after);
+10. batch_pruned — ``check_many`` with pruning, default and bitset engines,
+              on the batch's 16 sources plus ``near_disjoint_cores(6, 1)`` at
+              three seeds and ``(10, 1)`` correct and broken: the batch's
+              checks, and each guard instance launched;
+11. compare_guard — both guard instances against their plain version,
+              exact, on the masks of every plan the two runs above built, a
+              multi-edge circuit and a 390-unit circuit (dense);
+    timing_guard  — ms per 16384-row guard call at ``near_disjoint_cores(15,
+              1)``'s and the snapshot's shape, both instances, beside the
+              plain version's ms, the bound and the guard's share of the
+              pruned ``solve``.
 
 The line before the last is the kernels' JSON record (launches on the main
 path of each, error against the plain version, times, bound); the last line
@@ -59,6 +78,9 @@ PORT = "quorum_intersection_tpu_torch"
 INT8_TOPS = 1979e12  # H100 SXM dense int8 tensor-core peak, operations/s
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 WINDOW = 1 << 20  # candidates per timed window
+# The per-pack stats the batch phases print.
+PACK_KEYS = ("pack_jobs", "pack_groups", "pack_slot", "pack_shape", "pack_fill_pct", "pack_engine",
+             "pack_rows_dispatched", "pack_seconds")
 
 
 def fail(phase: str, msg: str) -> None:
@@ -242,6 +264,17 @@ def packed_bound_ms(plan, starts, rows, device):
     return ms, by, passes
 
 
+def guard_rows_of(circuit, bit_nodes, guard_rows: int):
+    """The maximal candidates a pruned run's planner gave the guard,
+    rebuilt from its row count (one row per block, 2^prefix_bits blocks):
+    ``(masks, block_bits)``."""
+    from quorum_intersection_tpu_torch.backends.sweep import guard_masks
+
+    prefix_bits = guard_rows.bit_length() - 1
+    block_bits = len(bit_nodes) - prefix_bits
+    return guard_masks(circuit.n, bit_nodes, block_bits, prefix_bits), block_bits
+
+
 def time_ms(fn, reps: int) -> float:
     import torch
 
@@ -322,6 +355,20 @@ def main() -> int:
             "source": f"{PORT}/kernels/csrc/packed_sweep.cu",
             "replaces": "quorum_intersection_tpu/backends/tpu/pallas_sweep.py:556",
             "counterparts": "K4 pallas_bitset_program_factory (pallas_sweep.py:556, kernel :622)",
+        },
+        "guard_dense_cuda": {
+            "route": "cuda",
+            "source": f"{PORT}/kernels/csrc/guard.cu",
+            "replaces": "quorum_intersection_tpu/backends/tpu/pallas_sweep.py:257",
+            "counterparts": "K2 pallas_guard_factory (pallas_sweep.py:257, kernel :285); "
+                            "K6 kernels.guard_program_factory (kernels.py:359)",
+        },
+        "guard_bitset_cuda": {
+            "route": "cuda",
+            "source": f"{PORT}/kernels/csrc/guard.cu",
+            "replaces": "quorum_intersection_tpu/backends/tpu/pallas_sweep.py:257",
+            "counterparts": "K2 pallas_guard_factory (pallas_sweep.py:257); the guard half of K8, "
+                            "kernels.bitset_guard_program_factory (kernels.py:722)",
         },
     }
     phase_line("kernels", kernels={k: v["counterparts"] for k, v in kernels_meta.items()})
@@ -540,10 +587,7 @@ def main() -> int:
         packs = {r.stats["pack_index"]: r.stats for r in res if r.stats.get("packed")}
         batch_runs[label] = {
             "seconds": seconds, "sources": len(sources), "packs": len(packs),
-            "per_pack": [{key: s[key] for key in ("pack_jobs", "pack_groups", "pack_slot", "pack_shape",
-                                                 "pack_fill_pct", "pack_engine", "pack_rows_dispatched",
-                                                 "pack_seconds")}
-                         for _, s in sorted(packs.items())],
+            "per_pack": [{key: s[key] for key in PACK_KEYS} for _, s in sorted(packs.items())],
             "candidates": candidates, "candidates_per_s": candidates / seconds, "launches": counts,
         }
     # One more default-engine run under the profiler: the card's busy time
@@ -561,8 +605,9 @@ def main() -> int:
         "device_idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else "not measured (no device events)",
     }
     # Every hit index equals the unpacked drive's (the fused kernel's path).
+    solo_results = {}
     for i, (name, src, _) in enumerate(sources):
-        solo = solve(src)
+        solo = solo_results[name] = solve(src)
         for label, res in batch_results.items():
             got, want = res[i].stats.get("hit_index"), solo.stats.get("hit_index")
             if (res[i].intersects, got) != (solo.intersects, want):
@@ -640,6 +685,201 @@ def main() -> int:
             packed_timing[f"{shape}/{engine}"] = row
     phase_line("timing_packed", card=card, per_program=packed_timing)
 
+    # -- 9. prune: block-guard pruning on the unpacked path ----------------
+    from quorum_intersection_tpu_torch.backends.sweep import _PrunePlan, guard_masks
+    from quorum_intersection_tpu_torch.kernels.guard_cuda import BlockGuard, guard_bitset, guard_dense
+    from quorum_intersection_tpu_torch.kernels.guard_ref import guard_counts
+
+    def witness_ok(src, res) -> bool:
+        graph = build_graph(parse_fbas(src))
+        q1, q2 = res.q1 or [], res.q2 or []
+        return is_quorum(graph, q1) and is_quorum(graph, q2) and not set(q1) & set(q2)
+
+    def ledger_ok(stats) -> bool:
+        """On a swept ``true``: every window checked, pruned or skipped."""
+        if "enumeration_total" not in stats:
+            return True  # decided by the SCC guard, no sweep
+        return (stats["candidates_checked"] + stats.get("windows_pruned_guard", 0)
+                + stats.get("windows_skipped_pack_fill", 0)) == stats["enumeration_total"]
+
+    def guard_counts_now():
+        return {"guard_dense_cuda": guard_dense.launches, "guard_bitset_cuda": guard_bitset.launches,
+                "sweep_fused_cuda": sweep_fused.launches,
+                "packed_sweep_dense_cuda": packed_sweep_dense.launches,
+                "packed_sweep_bitset_cuda": packed_sweep_bitset.launches}
+
+    def reset_counts():
+        guard_dense.launches = guard_bitset.launches = sweep_fused.launches = 0
+        packed_sweep_dense.launches = packed_sweep_bitset.launches = 0
+
+    prune_sources = [(name, texts[name], manifest[name]["verdict"]) for name in manifest]
+    for core in (12, 15):
+        for broken in (False, True):
+            prune_sources.append((f"near_disjoint_cores({core},1,broken={broken})",
+                                  synth.near_disjoint_cores(core, 1, broken=broken), not broken))
+    unpruned = {}
+    for label, src, _ in prune_sources:
+        t = time.perf_counter()
+        unpruned[label] = (solve(src, backend=GpuSweepBackend(prune=False)), time.perf_counter() - t)
+    # (label, circuit, masks, pruned prefixes) of every plan the two pruned
+    # runs build; compare_guard holds the rebuilt masks to the run's prefixes.
+    guard_plans = []
+    prune_rows, prune_seconds, prune_guard = [], {}, {}
+    reset_counts()
+    for label, src, want in prune_sources:
+        backend = GpuSweepBackend(prune=True)
+        t = time.perf_counter()
+        res = solve(src, backend=backend)
+        seconds = prune_seconds[label] = time.perf_counter() - t
+        base, base_seconds = unpruned[label]
+        if res.intersects is not want:
+            fail("prune", f"{label}: pruned solve says {res.intersects}, expected {want}")
+        if not want and not witness_ok(src, res):
+            fail("prune", f"{label}: witness pair is not two disjoint quorums")
+        if (res.intersects, res.stats.get("hit_index"), res.q1, res.q2) != (
+                base.intersects, base.stats.get("hit_index"), base.q1, base.q2):
+            fail("prune", f"{label}: pruned hit index {res.stats.get('hit_index')} != unpruned "
+                          f"{base.stats.get('hit_index')}")
+        if res.intersects and not ledger_ok(res.stats):
+            fail("prune", f"{label}: checked + pruned != enumeration ({res.stats})")
+        ranges = None
+        if "guard_rows" in res.stats:
+            circuit, _, local, _, _ = sweep_problem(src)
+            masks, k = guard_rows_of(circuit, local[1:], res.stats["guard_rows"])
+            prefixes = res.stats.get("pruned_blocks", {}).get("prefixes", [])
+            guard_plans.append((label, circuit, masks, prefixes))
+            prune_guard[label] = (circuit, masks, res.stats["guard_seconds"])
+            ranges = len(_PrunePlan.build(k, prefixes, res.stats["enumeration_total"], 0, len(masks)).ranges)
+        prune_rows.append({
+            "source": label, "verdict": res.intersects, "hit_index": res.stats.get("hit_index"),
+            "seconds_pruned": seconds, "seconds_unpruned": base_seconds,
+            "enumeration_total": res.stats.get("enumeration_total"),
+            "windows_pruned": res.stats.get("windows_pruned_guard"),
+            "guard_rows": res.stats.get("guard_rows"), "guard_seconds": res.stats.get("guard_seconds"),
+            "surviving_ranges": ranges,
+            "programs_pruned": res.stats.get("device_steps"),
+            "programs_unpruned": base.stats.get("device_steps"),
+        })
+    prune_launches = guard_counts_now()
+    if prune_launches["guard_dense_cuda"] < 1:
+        fail("prune", "the pruned solves never launched guard_dense_cuda")
+    phase_line("prune", card=card, launches=prune_launches, sources=prune_rows,
+               hit_index_vs_unpruned_solve=f"{len(prune_rows)}/{len(prune_rows)} equal")
+
+    # -- 10. batch_pruned: block-guard pruning on the packed path ----------
+    pruned_batch = list(sources)
+    pruned_batch += [(f"near_disjoint_cores(6,1,seed={seed})", synth.near_disjoint_cores(6, 1, seed=seed),
+                      True) for seed in range(3)]
+    pruned_batch += [(f"near_disjoint_cores(10,1,broken={broken})",
+                      synth.near_disjoint_cores(10, 1, broken=broken), not broken) for broken in (False, True)]
+    for name, src, _ in pruned_batch:
+        if name not in solo_results:
+            solo_results[name] = solve(src)
+    batch_pruned_runs, batch_pruned_launches = {}, {}
+    for engine, guard_name in ((None, "guard_dense_cuda"), ("bitset", "guard_bitset_cuda")):
+        label = engine or "default"
+        backend = GpuSweepBackend(prune=True, engine=engine)
+        reset_counts()
+        t = time.perf_counter()
+        res = check_many([src for _, src, _ in pruned_batch], backend=backend)
+        seconds = time.perf_counter() - t
+        counts = guard_counts_now()
+        if counts[guard_name] < 1:
+            fail("batch_pruned", f"check_many (engine={label}) never launched {guard_name}")
+        batch_pruned_launches[guard_name] = counts[guard_name]
+        for (name, src, want), r in zip(pruned_batch, res):
+            solo = solo_results[name]
+            if r.intersects is not want:
+                fail("batch_pruned", f"{name} (engine={label}): intersects={r.intersects}, expected {want}")
+            if not want and not witness_ok(src, r):
+                fail("batch_pruned", f"{name} (engine={label}): witness pair is not two disjoint quorums")
+            if (r.intersects, r.stats.get("hit_index")) != (solo.intersects, solo.stats.get("hit_index")):
+                fail("batch_pruned", f"{name} (engine={label}): hit index {r.stats.get('hit_index')} != "
+                                     f"unpruned solve's {solo.stats.get('hit_index')}")
+            if r.intersects and not ledger_ok(r.stats):
+                fail("batch_pruned", f"{name} (engine={label}): checked + pruned + skipped != enumeration")
+        for pi, plan in enumerate(backend.pack_plans):
+            for jix, p in enumerate(plan.prune_plans):
+                if p is not None:
+                    gix = next(i for i, g in enumerate(plan.groups) if g.job == jix)
+                    c = plan.group_circuits[gix][0]
+                    masks, _ = guard_rows_of(c, np.arange(1, c.n), p.guard_rows)
+                    guard_plans.append((f"batch {label} pack {pi} job {jix}", c, masks, p.prefixes))
+        packs = {r.stats["pack_index"]: r.stats for r in res if r.stats.get("packed")}
+        batch_pruned_runs[label] = {
+            "seconds": seconds, "sources": len(pruned_batch), "packs": len(packs),
+            "per_pack": [{key: s.get(key) for key in PACK_KEYS} for _, s in sorted(packs.items())],
+            "windows_pruned": sum(r.stats.get("windows_pruned_guard", 0) for r in res),
+            "candidates": sum(r.stats.get("candidates_checked", 0) for r in res), "launches": counts,
+        }
+    phase_line("batch_pruned", card=card, runs=batch_pruned_runs,
+               unpruned_batch_seconds={k: batch_runs[k]["seconds"] for k in ("default", "bitset")},
+               hit_index_vs_unpruned_solve=f"{len(pruned_batch)}/{len(pruned_batch)} equal on both engines")
+
+    # -- 11. the guard instances against their plain version ---------------
+    cases = {}  # one case per distinct (circuit, masks), with every plan that used it
+    for label, c, masks, prefixes in guard_plans:
+        key = (c.n, c.n_units, c.thresholds.tobytes(), c.members.tobytes(), c.child.tobytes(),
+               masks.tobytes())
+        encodings = ("dense", "bitset") if bitset_supported(c) else ("dense",)
+        cases.setdefault(key, (label, c, masks, encodings, []))[4].append((label, prefixes))
+    for label, c in (("multi-edge", multi_edge_circuit()),
+                     ("inner_set_ring_fbas(30,12)",
+                      encode_circuit(build_graph(parse_fbas(synth.inner_set_ring_fbas(30, 12)))))):
+        bits = c.n - 1
+        prefix = min(14, bits - 2)
+        cases[label] = (label, c, guard_masks(c.n, np.arange(1, c.n), bits - prefix, prefix), ("dense",), [])
+    guard_err = {"dense": 0, "bitset": 0}
+    zero_rows = positive_rows = 0
+    guard_results = []
+    for label, c, masks, encodings, runs in cases.values():
+        for enc in encodings:
+            got = BlockGuard(c, enc, device).counts(masks)
+            want = guard_counts(c, masks, enc, device).cpu().numpy()
+            err = int(np.abs(got.astype(np.int64) - want.astype(np.int64)).max(initial=0))
+            guard_err[enc] = max(guard_err[enc], err)
+            if err or got.shape != want.shape:
+                fail("compare_guard", f"{label} {enc}: kernel differs from plain (max err {err})")
+        for run, prefixes in runs:
+            if np.nonzero(want == 0)[0].tolist() != list(prefixes):
+                fail("compare_guard", f"{run}: the rebuilt guard rows do not give the run's pruned blocks")
+        zero_rows += int((want == 0).sum())
+        positive_rows += int((want > 0).sum())
+        guard_results.append({"case": label, "n": c.n, "units": c.n_units, "depth": c.depth,
+                              "rows": len(masks), "encodings": list(encodings),
+                              "rows_pruned": int((want == 0).sum())})
+    if not zero_rows or not positive_rows:
+        fail("compare_guard", f"compared rows lack a zero ({zero_rows}) or a positive ({positive_rows}) count")
+    phase_line("compare_guard", tolerance="exact (integer survivor counts)", cases=guard_results,
+               rows_zero=zero_rows, rows_positive=positive_rows)
+
+    # 16384-row guard calls at the widest pruned shape and the snapshot's.
+    guard_timing = {}
+    for shape, label in (("near_disjoint_cores(15,1)", "near_disjoint_cores(15,1,broken=False)"),
+                         ("snapshot", "snapshot_correct.json")):
+        c, masks, plan_seconds = prune_guard[label]
+        tables = ref.CircuitTables(c, device)
+        passes = int(ref.fixpoint_passes(tables, tables.cast(masks))[1].sum())
+        # Tables once (int8 votes, Q thresholds in int32); per row, the
+        # candidate's n-1 enumerated node bits in (scc[0] is in no mask)
+        # and one int32 count out.
+        nbytes = c.members.size + c.child.size + 4 * c.n_units + (-(-(c.n - 1) // 8) + 4) * len(masks)
+        bound_ms, bound_by = bound(passes * macs_per_pass(c), nbytes)
+        for enc in ("dense", "bitset") if bitset_supported(c) else ("dense",):
+            guard = BlockGuard(c, enc, device)
+            words = guard.upload(masks)
+            launch = guard_dense if enc == "dense" else guard_bitset
+            guard_timing[f"{shape}/{enc}"] = {
+                "n": c.n, "units": c.n_units, "depth": c.depth, "rows": len(masks),
+                "ms": time_ms(lambda: launch(guard, words), 50),
+                "call_ms": time_ms(lambda: guard.counts(masks), 20),
+                "plain_ms": time_ms(lambda: guard_counts(c, masks, enc, device), 3),
+                "bound_ms": bound_ms, "bound_by": bound_by, "fixpoint_passes": passes,
+                "plan_seconds": plan_seconds, "pruned_solve_seconds": prune_seconds[label],
+                "guard_share_of_pruned_solve": plan_seconds / prune_seconds[label],
+            }
+    phase_line("timing_guard", card=card, per_call=guard_timing)
+
     snap = timing["bench256_34"]
     record = {"kernels": [{
         "name": "sweep_fused_cuda",
@@ -668,6 +908,21 @@ def main() -> int:
             "plain_ms": pt["plain_ms"],
             "bound_ms": pt["bound_ms"],
             "bound_by": pt["bound_by"],
+            "library_ms": None,
+        })
+    for enc, name in (("dense", "guard_dense_cuda"), ("bitset", "guard_bitset_cuda")):
+        gt = guard_timing[f"near_disjoint_cores(15,1)/{enc}"]
+        record["kernels"].append({
+            "name": name,
+            "route": kernels_meta[name]["route"],
+            "source": kernels_meta[name]["source"],
+            "replaces": kernels_meta[name]["replaces"],
+            "launches": prune_launches[name] if enc == "dense" else batch_pruned_launches[name],
+            "max_abs_err": guard_err[enc],
+            "ms": gt["ms"],
+            "plain_ms": gt["plain_ms"],
+            "bound_ms": gt["bound_ms"],
+            "bound_by": gt["bound_by"],
             "library_ms": None,
         })
     print(json.dumps(record), flush=True)

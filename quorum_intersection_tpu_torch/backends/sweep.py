@@ -20,14 +20,27 @@ JAX package: programs drain in index order and each reports its own minimum.
 The packed drive keeps the JAX drive's packing, window splitting, program
 ramp, queue depth and first-hit order, so both packages cut the same
 programs and report the same hit per job.
+
+Both drives take the JAX drive's block-guard pruning (``prune=True`` or
+``QI_SWEEP_PRUNE``; ``sweep.py:118-220``, ``:549-613``): the enumeration
+splits into blocks of 2^k windows sharing a high-bit prefix, one Q-side
+greatest fixpoint per block on its maximal candidate (the guard,
+:mod:`..kernels.guard_cuda`) proves the empty ones hit-free, and the drives
+sweep only the surviving ranges.  Pruned blocks hold no hit, so the verdict,
+witness and hit index are those of the unpruned sweep.  Unlike the JAX
+drives, a guard that fails to build, launch or plan fails the solve: there
+is no in-place degrade to the unpruned sweep (``sweep.py:615-647``,
+``:1647-1656``).
 """
 
 from __future__ import annotations
 
+import bisect
 import logging
+import os
 import time
 from collections import deque
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -52,6 +65,7 @@ from quorum_intersection_tpu_torch.encode.circuit import (
 )
 from quorum_intersection_tpu_torch.fbas.graph import TrustGraph
 from quorum_intersection_tpu_torch.fbas.semantics import max_quorum
+from quorum_intersection_tpu_torch.kernels.guard_cuda import BlockGuard
 from quorum_intersection_tpu_torch.kernels.packed_cuda import PackedSweep
 from quorum_intersection_tpu_torch.kernels.sweep_cuda import FusedSweep
 from quorum_intersection_tpu_torch.kernels.sweep_ref import _round_up
@@ -84,8 +98,114 @@ PALLAS_BLOCK = 1024
 ENGINES = {"xla": ("dense", False), "pallas": ("dense", True), "bitset": ("bitset", True)}
 
 
+# Block-guard pruning (the JAX drive's constants, sweep.py:133-145).
+# The single guard rule; a certificate checker rejects unknown ids.
+PRUNE_RULE_ID = "empty-max-quorum"
+# Below this enumeration width guard set-up costs more than sweeping.
+PRUNE_MIN_BITS = 6
+# At most 2^14 guard rows per enumeration, one per block.
+PRUNE_MAX_PREFIX_BITS = 14
+# Never shrink blocks below 2^2 windows.
+PRUNE_MIN_BLOCK_BITS = 2
+
+
 class SccTooLargeError(ValueError):
     """Raised when the SCC exceeds the sweep's enumeration width."""
+
+
+@dataclass
+class _PrunePlan:
+    """One enumeration's block-guard prune plan (the JAX ``_PrunePlan``):
+    the pruned blocks as prefixes and as merged window runs, and the
+    surviving ranges the drive sweeps.  The port also keeps the guard's
+    encoding and the planning wall time; the guard's rows are
+    ``guard_masks(n, bit_nodes, block_bits, log2(guard_rows))``."""
+
+    block_bits: int                 # k: windows per block = 2^k
+    prefixes: List[int]             # pruned block ids (>= the resume cut)
+    windows: int                    # pruned window count = len(prefixes) << k
+    ranges: List[Tuple[int, int]]   # surviving [lo, hi) over [start0, total)
+    runs: List[Tuple[int, int]]     # merged pruned [lo, hi) window runs
+    cum: List[int]                  # pruned windows before runs[i]
+    run_los: List[int] = field(default_factory=list)
+    guard_rows: int = 0
+    encoding: str = "dense"
+    seconds: float = 0.0
+
+    @classmethod
+    def build(
+        cls,
+        block_bits: int,
+        prefixes: List[int],
+        total: int,
+        start0: int,
+        guard_rows: int,
+    ) -> "_PrunePlan":
+        runs: List[Tuple[int, int]] = []
+        for p in prefixes:  # ascending
+            lo, hi = p << block_bits, (p + 1) << block_bits
+            if runs and runs[-1][1] == lo:
+                runs[-1] = (runs[-1][0], hi)
+            else:
+                runs.append((lo, hi))
+        cum = [0]
+        for lo, hi in runs:
+            cum.append(cum[-1] + (hi - lo))
+        ranges: List[Tuple[int, int]] = []
+        pos = start0
+        for lo, hi in runs:
+            if lo > pos:
+                ranges.append((pos, lo))
+            pos = max(pos, hi)
+        if pos < total:
+            ranges.append((pos, total))
+        return cls(
+            block_bits=block_bits,
+            prefixes=list(prefixes),
+            windows=len(prefixes) << block_bits,
+            ranges=ranges,
+            runs=runs,
+            cum=cum,
+            run_los=[lo for lo, _ in runs],
+            guard_rows=guard_rows,
+        )
+
+    def pruned_before(self, x: int) -> int:
+        """Pruned windows with index < ``x``."""
+        ix = bisect.bisect_right(self.run_los, x) - 1
+        if ix < 0:
+            return 0
+        lo, hi = self.runs[ix]
+        return self.cum[ix] + min(max(x - lo, 0), hi - lo)
+
+    def overlap(self, lo: int, hi: int) -> int:
+        """Pruned windows inside ``[lo, hi)``."""
+        if hi <= lo:
+            return 0
+        return self.pruned_before(hi) - self.pruned_before(lo)
+
+    def skip(self, pos: int) -> int:
+        """Smallest surviving window index >= ``pos``."""
+        ix = bisect.bisect_right(self.run_los, pos) - 1
+        if ix >= 0 and pos < self.runs[ix][1]:
+            return self.runs[ix][1]
+        return pos
+
+
+def guard_masks(n: int, bit_nodes: Sequence[int], block_bits: int, prefix_bits: int) -> np.ndarray:
+    """``(2^prefix_bits, n)`` int8 maximal candidates, one per block: every
+    free low-bit node (``bit_nodes[:block_bits]``) plus the prefix's
+    fixed-one nodes (bit j of block b toggles ``bit_nodes[block_bits + j]``).
+    The fixed node ``scc[0]`` is in no ``bit_nodes`` and so in no mask."""
+    cols = np.asarray(bit_nodes, dtype=np.int64)
+    n_blocks = 1 << prefix_bits
+    masks = np.zeros((n_blocks, n), dtype=np.int8)
+    masks[:, cols[:block_bits]] = 1
+    pref = np.arange(n_blocks, dtype=np.int64)
+    masks[:, cols[block_bits:]] = (
+        (pref[:, None] >> np.arange(prefix_bits, dtype=np.int64)[None, :]) & 1
+    ).astype(np.int8)
+    return masks
 
 
 def plan_batch(batch: int) -> int:
@@ -200,6 +320,8 @@ class _SweepJob:
     bits: int
     total: int
     candidates: int = 0
+    # Windows of later windows a lower window's hit retired (pack fill).
+    skipped: int = 0
     first_hit: Optional[int] = None
     result: Optional[SccCheckResult] = None
     # A per-job cancel retired the job's lane groups mid-pack.
@@ -224,7 +346,7 @@ class _PackGroup:
 class PackPlan:
     """One pack as the drive runs it: its lane groups with each group's own
     ``(scoped, Q6)`` circuit pair, the fused circuit, the decode tables, the
-    base batch and the engine."""
+    base batch, the engine and each job's prune plan (None: unpruned)."""
 
     groups: List[_PackGroup]
     group_circuits: List[Tuple[Circuit, Optional[Circuit]]]
@@ -232,11 +354,25 @@ class PackPlan:
     tables: Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]
     batch: int
     resolution: EngineResolution
+    prune_plans: List[Optional[_PrunePlan]]
 
 
 class GpuSweepBackend:
     """Exhaustive subset sweep over the quorum-bearing SCC, through the
-    fused CUDA kernel (or its plain version on ``device="cpu"``)."""
+    fused CUDA kernel (or its plain version on ``device="cpu"``).
+
+    ``prune`` switches block-guard pruning on both drives; None reads
+    ``QI_SWEEP_PRUNE`` as the JAX backend does (empty or ``"0"``: off,
+    anything else: on).  Where a prune plan ran, the result's stats carry
+    the JAX ledger term ``windows_pruned_guard``, and where it pruned
+    something also ``pruned_blocks`` (``{"k", "rule", "prefixes"}``), at the
+    top level: the JAX backend keeps both under ``stats["cert"]``, a ledger
+    the port has not yet.  ``guard_rows`` and ``guard_seconds`` (planning
+    wall time) ride beside them.  Every packed job's stats carry
+    ``windows_skipped_pack_fill``.  On a ``true`` verdict
+    ``candidates_checked + windows_pruned_guard (+ windows_skipped_pack_fill)
+    == enumeration_total``.
+    """
 
     name = "gpu-sweep"
     needs_circuit = True
@@ -253,6 +389,7 @@ class GpuSweepBackend:
         cancel: Optional[CancelToken] = None,
         device: DeviceLike = None,
         engine: Optional[str] = None,
+        prune: Optional[bool] = None,
     ) -> None:
         if lo_bits > LO_BITS:
             raise ValueError(f"lo_bits={lo_bits} exceeds the index ceiling {LO_BITS}")
@@ -265,9 +402,64 @@ class GpuSweepBackend:
         self.cancel = cancel
         self.device = resolve_device(device)
         self.engine = engine or "xla"
+        self.prune = prune
         # The packs the last check_sccs call ran, in order (stats carry
         # each job's ``pack_index`` into this list).
         self.pack_plans: List[PackPlan] = []
+
+    def _prune_enabled(self) -> bool:
+        if self.prune is not None:
+            return self.prune
+        return os.environ.get("QI_SWEEP_PRUNE", "").strip() not in ("", "0")
+
+    def _plan_pruning(
+        self,
+        circuit: Circuit,
+        bit_nodes: np.ndarray,
+        bits: int,
+        total: int,
+        start0: int,
+        engine: str,
+    ) -> Optional[_PrunePlan]:
+        """Run the block guards of one enumeration (the JAX
+        ``_plan_pruning``); None below the pruning width.
+
+        ``bit_nodes[j]`` is the circuit node enumeration bit j toggles;
+        ``engine`` names the guard by the JAX engine names (``bitset``: the
+        bitset guard, else the dense one).  ``start0`` is a resume cut:
+        blocks not wholly at or above it stay unpruned.  Any failure of the
+        guard propagates: the solve fails, it does not sweep unpruned."""
+        if bits < PRUNE_MIN_BITS:
+            return None
+        prefix_bits = min(PRUNE_MAX_PREFIX_BITS, bits - PRUNE_MIN_BLOCK_BITS)
+        if prefix_bits <= 0:
+            return None
+        t0 = time.perf_counter()
+        k = bits - prefix_bits
+        masks = guard_masks(circuit.n, bit_nodes, k, prefix_bits)
+        encoding = ENGINES[engine][0]
+        prunable = BlockGuard(circuit, encoding, self.device).counts(masks) == 0
+        prunable[: (start0 + (1 << k) - 1) >> k] = False
+        plan = _PrunePlan.build(k, np.nonzero(prunable)[0].tolist(), total, start0, len(masks))
+        plan.encoding = encoding
+        plan.seconds = time.perf_counter() - t0
+        return plan
+
+    @staticmethod
+    def _prune_stats(plan: Optional[_PrunePlan]) -> Dict[str, object]:
+        """The plan's stats terms (none without a plan)."""
+        if plan is None:
+            return {}
+        stats: Dict[str, object] = {
+            "windows_pruned_guard": plan.windows,
+            "guard_rows": plan.guard_rows,
+            "guard_seconds": plan.seconds,
+        }
+        if plan.windows:
+            stats["pruned_blocks"] = {
+                "k": plan.block_bits, "rule": PRUNE_RULE_ID, "prefixes": list(plan.prefixes),
+            }
+        return stats
 
     @staticmethod
     def _witness(
@@ -341,8 +533,27 @@ class GpuSweepBackend:
         lo_nodes = np.asarray(scc[1:1 + lo_bits], dtype=np.int32)
         total = 1 << bits if bits > 0 else 1
 
+        # Block-guard pruning: narrow enumerations only (the wide decode's
+        # hi row speaks no non-contiguous work), on the scoped circuit.
+        # Planned before the batch: when blocks pruned, the base program
+        # shrinks toward the block size so a surviving fragment never burns
+        # a full-size program.
+        plan = None
+        if self._prune_enabled() and not hi_nodes:
+            plan = self._plan_pruning(circuit, np.asarray(scc[1:]), bits, total, 0, "xla")
+        ranges = plan.ranges if plan is not None else [(0, total)]
+        # Surviving work at and after each range: every ramp decision reads
+        # the remaining surviving work, not the raw index distance.
+        range_suffix = [0] * (len(ranges) + 1)
+        for rix in range(len(ranges) - 1, -1, -1):
+            range_suffix[rix] = range_suffix[rix + 1] + ranges[rix][1] - ranges[rix][0]
+
         batch = self.batch if self.batch is not None else _auto_batch(n)
         batch = clamp_batch_to_index_ceiling(batch, lo_total)
+        if plan is not None and plan.windows:
+            # The JAX drive's alignment with the prune granularity (floor
+            # 512 rows): a fragment costs at most one base-size program.
+            batch = min(batch, max(1 << plan.block_bits, 512))
         if hi_nodes:
             # Power-of-two blocks make chunk tails exact.
             batch = 1 << (min(batch, lo_total).bit_length() - 1)
@@ -375,22 +586,37 @@ class GpuSweepBackend:
                 return True
             return False
 
-        start = 0
+        seg_ix = 0
+        start = ranges[0][0] if ranges else total
         ramp_ix = 0
         since_ramp = 0
-        while start < total:
+
+        def remaining_work() -> int:
+            """Surviving windows not yet dispatched."""
+            return range_suffix[seg_ix] - (start - ranges[seg_ix][0])
+
+        while seg_ix < len(ranges):
+            cur_hi = ranges[seg_ix][1]
+            if start >= cur_hi:
+                # Range exhausted: hop over the pruned gap to the next one.
+                seg_ix += 1
+                if seg_ix < len(ranges):
+                    start = ranges[seg_ix][0]
+                continue
             self._check_cancel(f"at candidate {start}/{total}")
             if since_ramp >= RAMP_DISPATCHES:
-                target = _jump_target_ix(STEPS_RAMP, ramp_ix, base_block, total - start)
+                target = _jump_target_ix(STEPS_RAMP, ramp_ix, base_block, remaining_work())
                 if target != ramp_ix:
                     ramp_ix, since_ramp = target, 0
             hi, lo = start >> lo_bits, start & (lo_total - 1)
             spc = STEPS_RAMP[ramp_ix]
             coverage = spc * base_block
-            boundary = min(lo_total - lo, total - start)
+            boundary = min(lo_total - lo, cur_hi - start)
             if coverage > boundary:
-                # Chunk tail: the smallest program that covers the remainder;
-                # advance only to the boundary (overshoot rows are aliases).
+                # Segment tail (the decode chunk or the surviving range): the
+                # smallest program that covers the remainder, advancing only
+                # to the boundary.  Overshoot rows are chunk aliases or lie in
+                # a guard-pruned gap, which holds no hit.
                 spc = next(r for r in STEPS_RAMP if r * base_block >= boundary)
                 coverage = boundary
             program = lambda lo=lo, spc=spc, row=hi_row(hi): sweep.program(lo, spc, row)  # noqa: E731
@@ -413,6 +639,7 @@ class GpuSweepBackend:
             "enumeration_total": total,
             "seconds": seconds,
             "candidates_per_sec": candidates / seconds if seconds > 0 else 0.0,
+            **self._prune_stats(plan),
         }
         if not found:
             return SccCheckResult(intersects=True, stats=stats)
@@ -524,11 +751,23 @@ class GpuSweepBackend:
         })
 
     def plan_pack(self, jobs: List[_SweepJob]) -> PackPlan:
-        """Lay one pack out: spare lanes become extra windows of the jobs
-        with the largest per-window enumerations (never split below about
-        two blocks per window), then the fused circuit, the base batch and
-        the engine — the JAX ``_run_pack`` set-up (``sweep.py:1661-1758``)."""
+        """Lay one pack out: each job's prune plan on its own restricted
+        circuit, then spare lanes become extra windows of the jobs with the
+        largest per-window enumerations (never split below about two blocks
+        per window), then the fused circuit, the base batch and the engine
+        — the JAX ``_run_pack`` set-up (``sweep.py:1622-1758``)."""
         n_jobs = len(jobs)
+        prune_plans: List[Optional[_PrunePlan]] = [None] * n_jobs
+        if self._prune_enabled():
+            for jix, job in enumerate(jobs):
+                # The guard speaks the pack's encoding, resolved per member
+                # circuit (a multi-edge member takes the dense guard).
+                guard_engine = "xla"
+                if self.engine == "bitset":
+                    guard_engine = resolve_engine("bitset", job.circuit).resolved
+                prune_plans[jix] = self._plan_pruning(
+                    job.circuit, np.arange(1, job.circuit.n), job.bits, job.total, 0, guard_engine
+                )
         slot = ladder_up(max(j.circuit.n for j in jobs))
         capacity = max(1, LANE_TILE // slot)
         est_batch = self.batch if self.batch is not None else _auto_batch(capacity * slot)
@@ -555,6 +794,10 @@ class GpuSweepBackend:
         # Never dispatch blocks beyond the largest window's work.
         batch = max(1, min(batch, max(g.hi - g.lo for g in groups)))
         batch = clamp_batch_to_index_ceiling(batch, max(j.total for j in jobs))
+        live = [p for p in prune_plans if p is not None and p.windows]
+        if live:
+            # The unpacked drive's alignment, at the smallest live block.
+            batch = min(batch, max(1 << min(p.block_bits for p in live), 512))
         resolution = resolve_engine(self.engine, packed.circuit)
         if resolution.resolved != resolution.requested:
             log.info(
@@ -563,7 +806,7 @@ class GpuSweepBackend:
             )
         if ENGINES[resolution.resolved][1]:
             batch = plan_batch(batch)
-        return PackPlan(groups, members, packed, packed.decode_tables(), batch, resolution)
+        return PackPlan(groups, members, packed, packed.decode_tables(), batch, resolution, prune_plans)
 
     def _run_pack(
         self,
@@ -576,7 +819,9 @@ class GpuSweepBackend:
         that is done keeps its stale start in the snapshot and the drain
         ignores it.  Hits at or above a group's ``hi`` are overshoot aliases
         (the next ascending window sweeps those candidates itself) and are
-        masked here on the host."""
+        masked here on the host.  Under pruning a group's next start hops
+        over pruned runs; pruned windows inside a lockstep program are still
+        evaluated (they cannot hit) but never counted as checked."""
         t0 = time.perf_counter()
         n_jobs = len(jobs)
         plan = self.plan_pack(jobs)
@@ -592,8 +837,22 @@ class GpuSweepBackend:
             plan.resolution.resolved,
         )
 
+        prune_plans = plan.prune_plans
         unresolved = set(range(n_jobs))
         nxt = [g.lo for g in groups]
+        # Per-group drained high-water mark, for the pack-fill skip count.
+        drained_to = [g.lo for g in groups]
+
+        def pruned_in(job_ix: int, lo: int, hi: int) -> int:
+            p = prune_plans[job_ix]
+            return p.overlap(lo, hi) if p is not None else 0
+
+        for gix, g in enumerate(groups):
+            p = prune_plans[g.job]
+            if p is not None:
+                nxt[gix] = p.skip(nxt[gix])
+                if nxt[gix] >= g.hi:
+                    g.done = True  # the whole window is guard-pruned
         inflight: deque = deque()
         pack_rows = 0
         spc_ix = 0
@@ -654,19 +913,30 @@ class GpuSweepBackend:
                 if s0 >= g.hi:
                     continue  # frozen lane: nothing new covered
                 top = min(s0 + coverage, g.hi)
-                jobs[g.job].candidates += top - s0
+                jobs[g.job].candidates += (top - s0) - pruned_in(g.job, s0, top)
+                drained_to[gix] = max(drained_to[gix], top)
                 h = int(hits[gix])
                 if h < g.hi:
                     g.hit = h
                     g.done = True
                     # Later windows of the same job can only yield larger
-                    # indices: stop burning lanes on them.
-                    for g2 in groups:
-                        if g2.job == g.job and g2.lo > g.lo:
+                    # indices: stop burning lanes on them, and count their
+                    # unswept surviving windows as skipped.
+                    for g2ix, g2 in enumerate(groups):
+                        if g2.job == g.job and g2.lo > g.lo and not g2.done:
+                            left = max(g2.hi - drained_to[g2ix], 0)
+                            jobs[g.job].skipped += max(
+                                left - pruned_in(g.job, drained_to[g2ix], g2.hi), 0
+                            )
                             g2.done = True
-                elif top >= g.hi:
+                elif top >= g.hi or pruned_in(g.job, top, g.hi) == g.hi - top:
+                    # Fully drained, or only guard-pruned tail is left.
                     g.done = True
             resolve_jobs()
+
+        # A job whose every window was guard-pruned resolves before any
+        # dispatch: pruned blocks hold no hit.
+        resolve_jobs()
 
         while unresolved:
             check_cancel()
@@ -694,6 +964,9 @@ class GpuSweepBackend:
                 for i, g in enumerate(groups):
                     if not g.done and nxt[i] < g.hi:
                         nxt[i] += coverage
+                        p = prune_plans[g.job]
+                        if p is not None and nxt[i] < g.hi:
+                            nxt[i] = p.skip(nxt[i])  # hop over a pruned run
                 if len(inflight) >= depth_cap:
                     drain_one()
             elif inflight:
@@ -718,14 +991,16 @@ class GpuSweepBackend:
             "pack_engine": plan.resolution.resolved,
             "pack_seconds": round(seconds, 4),
         }
-        for job in jobs:
+        for jix, job in enumerate(jobs):
             stats = {
                 "backend": self.name,
                 "device": str(self.device),
                 "candidates_checked": job.candidates,
                 "enumeration_total": job.total,
                 "seconds": seconds,
+                "windows_skipped_pack_fill": job.skipped,
                 **pack_stats,
+                **self._prune_stats(prune_plans[jix]),
             }
             if job.cancelled:
                 stats["cancelled"] = True

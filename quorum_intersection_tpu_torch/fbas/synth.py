@@ -1,7 +1,7 @@
 """Synthetic FBAS generators — the seed corpus for differential testing and
 benchmarking (SURVEY.md §4.3, BASELINE.json configs).  The port keeps the
 generators its chip smoke run and its tests need; the JAX package holds the
-full set.  :func:`inner_set_ring_fbas` is the port's own (no counterpart
+full set.  :func:`near_disjoint_cores` is the block-guard pruning preset.  :func:`inner_set_ring_fbas` is the port's own (no counterpart
 there): a circuit with hundreds of distinct inner sets inside one SCC, for
 the fused kernel's wide satisfaction masks.
 
@@ -198,4 +198,54 @@ def inner_set_ring_fbas(n: int, per_node: int, *, broken: bool = False) -> List[
         ]
         t = 1 if (broken and i == 0) else per_node // 2 + 1
         nodes.append(_node(key, f"r{i}", _qset(t, [], inner)))
+    return nodes
+
+
+def near_disjoint_cores(
+    core: int = 10,
+    bridge: int = 1,
+    *,
+    broken: bool = False,
+    seed: int = 0,
+    prefix: str = "NDC",
+) -> List[Dict]:
+    """Two dense cores A and B joined by a thin bridge: one SCC of ``2*core
+    + bridge`` nodes whose first hit lies deep in the enumeration, where
+    block-guard pruning pays.
+
+    - ``a ∈ A``: 2-of-[majority-of-A, all-of-bridge];
+    - ``b ∈ B``: the same with B (correct twin);
+    - ``m ∈ bridge``: 2-of-[majority-of-A, majority-of-B], so every quorum
+      of the correct twin holds the bridge and any two quorums meet there.
+
+    ``broken=True`` turns one knob on the B side: B's slice relaxes to
+    1-of-[sub-majority-of-B, all-of-bridge], so two disjoint halves of B are
+    both quorums, while the trust edges (and the single SCC) stay.  Any
+    block whose maximal candidate misses the bridge or a core's majority
+    holds no quorum, which is what the guard prunes.  Same ``(core, bridge,
+    seed)``: byte-identical snapshot.
+    """
+    if core < 3 or bridge < 1:
+        raise ValueError(f"need core >= 3 and bridge >= 1, got core={core}, bridge={bridge}")
+    rng = random.Random(seed)
+    a_keys = keys(core, f"{prefix}A")
+    b_keys = keys(core, f"{prefix}B")
+    m_keys = keys(bridge, f"{prefix}M")
+    maj = core // 2 + 1
+    inner_a = _qset(maj, list(a_keys))
+    inner_b = _qset(maj, list(b_keys))
+    inner_m = _qset(bridge, list(m_keys))
+    nodes: List[Dict] = []
+    for key in a_keys:
+        nodes.append(_node(key, f"a-{key}", _qset(2, [], [dict(inner_a), dict(inner_m)])))
+    for key in b_keys:
+        if broken:
+            nodes.append(_node(key, f"b-{key}", _qset(
+                1, [], [_qset(max(core // 2, 1), list(b_keys)), dict(inner_m)]
+            )))
+        else:
+            nodes.append(_node(key, f"b-{key}", _qset(2, [], [dict(inner_b), dict(inner_m)])))
+    for key in m_keys:
+        nodes.append(_node(key, f"m-{key}", _qset(2, [], [dict(inner_a), dict(inner_b)])))
+    rng.shuffle(nodes)  # snapshot order is arbitrary; the witness bits spread
     return nodes

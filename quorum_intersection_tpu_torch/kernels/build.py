@@ -23,7 +23,7 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = {"sweep": "sweep.cu", "packed_sweep": "packed_sweep.cu"}
+SOURCES = {"sweep": "sweep.cu", "packed_sweep": "packed_sweep.cu", "guard": "guard.cu"}
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

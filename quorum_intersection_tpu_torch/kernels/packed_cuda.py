@@ -124,26 +124,15 @@ class PackedSweep:
         self.thr_d = torch.from_numpy(np.asarray(thr_d, dtype=np.int32)).to(self.device)
         lanes = np.asarray(group_ind).T != 0  # (K, n)
         if engine == "dense":
-            self.c0, self.words = child_layout(circuit, 64, CHILD_WORDS)
-            member = _bit_planes(circuit.members, 2)
-            child = _bit_planes(circuit.child[:, self.c0 :], self.words)
+            self.c0, self.words, member, child = dense_tables(circuit, 2)
             self.pm, self.pc = member.shape[0], child.shape[0]
-            self.masks = _u64_words(lanes, 2)
-            self.scc = _u64_words(np.asarray(scc_mask)[None, :] != 0, 2)[0]
-            nbytes = 8 * (member.size + child.size)
+            self.masks = u64_words(lanes, 2)
+            self.scc = u64_words(np.asarray(scc_mask)[None, :] != 0, 2)[0]
         else:
-            words = bitset_encode(circuit)  # ValueError on vote counts above 1
-            self.c0, self.words = child_layout(circuit, 32, BITSET_CHILD_WORDS)
-            member = np.zeros((circuit.n_units, 4), dtype=np.uint32)
-            member[:, : words.words] = words.member_words
-            child = np.zeros((circuit.n_units, self.words), dtype=np.uint32)
-            if words.child_words is not None:
-                cols = words.child_words[:, self.c0 // 32 :]
-                child[:, : cols.shape[1]] = cols
+            self.c0, self.words, member, child = bitset_tables(circuit, 4)
             self.masks = pack_mask_words(lanes, 4)
             self.scc = pack_mask_words(np.asarray(scc_mask) != 0, 4)
-            nbytes = 4 * (member.size + child.size)
-        check_smem(nbytes + 8 * circuit.n_units, f"packed {engine}")
+        check_smem(member.nbytes + child.nbytes + 8 * circuit.n_units, f"packed {engine}")
         self.member = upload_words(member, self.device)
         self.child = upload_words(child, self.device)
 
@@ -156,7 +145,31 @@ class PackedSweep:
         return launch(self, starts, steps * self.batch)
 
 
-def _u64_words(mask: np.ndarray, words: int) -> np.ndarray:
+def dense_tables(circuit: Circuit, nw: int) -> Tuple[int, int, np.ndarray, np.ndarray]:
+    """The bit-plane kernels' tables ``(c0, words, member, child)``: member
+    planes ``(pm, U, nw)`` uint64 over the nodes, child planes ``(pc, U,
+    words)`` uint64 over units ``[c0, U)`` (:func:`.sweep_cuda.child_layout`)."""
+    c0, words = child_layout(circuit, 64, CHILD_WORDS)
+    return c0, words, _bit_planes(circuit.members, nw), _bit_planes(circuit.child[:, c0:], words)
+
+
+def bitset_tables(circuit: Circuit, nw: int) -> Tuple[int, int, np.ndarray, np.ndarray]:
+    """The bitset kernels' tables ``(c0, words, member, child)`` as
+    ``bitset_encode``'s uint32 words: member ``(U, nw)`` over the nodes
+    (``n <= 32 * nw``), child ``(U, words)`` over units ``[c0, U)``.
+    ValueError on vote counts above 1."""
+    bits = bitset_encode(circuit)
+    c0, words = child_layout(circuit, 32, BITSET_CHILD_WORDS)
+    member = np.zeros((circuit.n_units, nw), dtype=np.uint32)
+    member[:, : bits.words] = bits.member_words
+    child = np.zeros((circuit.n_units, words), dtype=np.uint32)
+    if bits.child_words is not None:
+        cols = bits.child_words[:, c0 // 32 :]
+        child[:, : cols.shape[1]] = cols
+    return c0, words, member, child
+
+
+def u64_words(mask: np.ndarray, words: int) -> np.ndarray:
     """0/1 rows ``(r, m)`` → ``(r, words)`` uint64, bit j of word j // 64."""
     w32 = pack_mask_words(mask, 2 * words).astype(np.uint64)
     return w32[:, 0::2] | (w32[:, 1::2] << np.uint64(32))

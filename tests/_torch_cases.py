@@ -13,6 +13,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+import quorum_intersection_tpu.encode.circuit as jc
 from quorum_intersection_tpu.encode.circuit import encode_circuit as jax_encode
 from quorum_intersection_tpu.encode.circuit import restrict_circuit_pair as jax_restrict
 from quorum_intersection_tpu.fbas.graph import build_graph as jax_build_graph
@@ -119,3 +120,52 @@ def sweep_case(case: str) -> SweepCase:
 
 def rng_rows(seed: int, rows: int, n: int, density: float = 0.6) -> np.ndarray:
     return (np.random.default_rng(seed).random((rows, n)) < density).astype(np.int32)
+
+
+def kofn(n, k, prefix="N"):
+    """Symmetric k-of-n FBAS: one SCC, broken iff k <= n // 2 (the sweep,
+    not the SCC guard, finds the split) — tests/test_lane_packing.py's."""
+    ks = [f"{prefix}{i}" for i in range(n)]
+    return [{"publicKey": x, "name": x, "quorumSet": {"threshold": k, "validators": ks}} for x in ks]
+
+
+def multi_edge(n=8, k=5, prefix="M"):
+    """kofn with the first validator listed twice in every quorum set."""
+    data = kofn(n, k, prefix)
+    for node in data:
+        node["quorumSet"]["validators"] = [data[0]["publicKey"]] + node["quorumSet"]["validators"]
+    return data
+
+
+def bearing_scc(graph):
+    count, comp = tarjan_scc(graph.n, graph.succ)
+    bearing = [m for m in group_sccs(graph.n, comp, count)
+               if max_quorum(graph, m, [v in set(m) for v in range(graph.n)])]
+    assert len(bearing) == 1, "test input must have exactly one quorum-bearing SCC"
+    return bearing[0]
+
+
+def jobs_of(datas):
+    """``(jax_jobs, port_jobs)``: (graph, circuit, scc) per source in each
+    package's own types, over the same quorum-bearing SCC."""
+    jax_jobs, port_jobs = [], []
+    for data in datas:
+        graph = build_graph(parse_fbas(data))
+        scc = bearing_scc(graph)
+        port_jobs.append((graph, encode_circuit(graph), scc))
+        jgraph = jax_build_graph(jax_parse(data))
+        jax_jobs.append((jgraph, jc.encode_circuit(jgraph), scc))
+    return jax_jobs, port_jobs
+
+
+PACK_KEYS = ("hit_index", "candidates_checked", "enumeration_total", "cancelled", "packed",
+             "pack_jobs", "pack_groups", "pack_slot", "pack_shape", "pack_fill_pct",
+             "pack_rows_dispatched", "pack_engine")
+
+
+def assert_jobs_equal(got, want, engine):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert (g.intersects, g.q1, g.q2) == (w.intersects, w.q1, w.q2)
+        for key in PACK_KEYS:
+            assert g.stats.get(key) == w.stats.get(key), (key, engine)

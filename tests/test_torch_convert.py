@@ -128,3 +128,14 @@ def test_stellar_like_fbas_same_json(kwargs):
     assert json.dumps(synth.stellar_like_fbas(**kwargs)) == json.dumps(
         jax_synth.stellar_like_fbas(**kwargs)
     )
+
+
+@pytest.mark.parametrize(
+    "args,kwargs",
+    [((6, 1), {}), ((6, 1), {"broken": True}), ((12, 2), {"seed": 3}),
+     ((15, 1), {"broken": True, "prefix": "X"})],
+)
+def test_near_disjoint_cores_same_json(args, kwargs):
+    assert json.dumps(synth.near_disjoint_cores(*args, **kwargs)) == json.dumps(
+        jax_synth.near_disjoint_cores(*args, **kwargs)
+    )

@@ -1,6 +1,6 @@
-"""The CUDA sweeps on the card — the fused unpacked kernel and the two
-lane-packed kernels — against their plain PyTorch versions and against the
-CPU path.  Card-only: every test takes the ``cuda_device``
+"""The CUDA kernels on the card — the fused unpacked sweep, the two
+lane-packed sweeps and the two block-guard instances — against their plain
+PyTorch versions and against the CPU path.  Card-only: every test takes the ``cuda_device``
 fixture, which skips on a host without one.  This file imports nothing of
 JAX or the JAX package, so on the card's machine it runs as
 
@@ -30,12 +30,14 @@ from quorum_intersection_tpu_torch.kernels.sweep_cuda import (
     sweep_fused,
 )
 from quorum_intersection_tpu_torch.backends.sweep import GpuSweepBackend
-from quorum_intersection_tpu_torch.encode.circuit import pack_circuits
+from quorum_intersection_tpu_torch.encode.circuit import bitset_supported
 from quorum_intersection_tpu_torch.kernels.packed_cuda import (
     PackedSweep,
     packed_sweep_bitset,
     packed_sweep_dense,
 )
+from quorum_intersection_tpu_torch.kernels.guard_cuda import BlockGuard, guard_bitset, guard_dense
+from quorum_intersection_tpu_torch.kernels.guard_ref import guard_counts
 from quorum_intersection_tpu_torch.kernels.packed_ref import PackedRef
 from quorum_intersection_tpu_torch.pipeline import check_many, solve
 
@@ -204,3 +206,73 @@ def test_packed_index_ceiling_raises_before_launch(cuda_device):
     with pytest.raises(KernelLimitError, match="2\\^31"):
         packed_sweep_dense(sweep, [(1 << 31) - 8] * p.groups, 16)
     assert packed_sweep_dense.launches == before
+
+
+def _guard_circuits():
+    """``(label, circuit)``: the scoped circuits the planner guards, and
+    a 390-unit one."""
+    out = []
+    for label, data in (("ndc6", synth.near_disjoint_cores(6, 1)),
+                        ("ndc6-broken", synth.near_disjoint_cores(6, 1, broken=True)),
+                        ("ndc12", synth.near_disjoint_cores(12, 1)),
+                        ("snapshot", json.loads((FIXTURES / "snapshot_correct.json").read_text())),
+                        ("ring", synth.inner_set_ring_fbas(30, 12))):
+        graph = build_graph(parse_fbas(data))
+        scc = _problems_scc(graph)
+        whole = encode_circuit(graph)
+        circuit = restrict_circuit_pair(whole, scc)[0] if whole.n > len(scc) else whole
+        out.append((label, circuit))
+    return out
+
+
+@pytest.mark.parametrize("encoding", ["dense", "bitset"])
+def test_guard_kernels_match_plain_on_card(encoding, cuda_device):
+    launch = guard_dense if encoding == "dense" else guard_bitset
+    rng = np.random.default_rng(11)
+    zeros = nonzeros = 0
+    for label, circuit in _guard_circuits():
+        if encoding == "bitset" and not bitset_supported(circuit):
+            continue
+        masks = (rng.random((3000, circuit.n)) < rng.random((3000, 1))).astype(np.int8)
+        masks[:, 0] = 0
+        guard = BlockGuard(circuit, encoding, cuda_device)
+        before = launch.launches
+        got = guard.counts(masks)
+        want = guard_counts(circuit, masks, encoding, cuda_device).cpu().numpy()
+        np.testing.assert_array_equal(got, want, err_msg=label)
+        assert launch.launches == before + 1 and got.shape == (3000,)
+        zeros += int((want == 0).sum())
+        nonzeros += int((want > 0).sum())
+    assert zeros > 0 and nonzeros > 0
+
+
+def test_pruned_paths_on_card_match_cpu(cuda_device):
+    data = synth.near_disjoint_cores(6, 1)
+    for src in (data, synth.near_disjoint_cores(6, 1, broken=True)):
+        on_card = solve(src, backend=GpuSweepBackend(prune=True, device=cuda_device))
+        on_cpu = solve(src, backend=GpuSweepBackend(prune=True, device="cpu"))
+        assert (on_card.intersects, on_card.q1, on_card.q2) == (on_cpu.intersects, on_cpu.q1, on_cpu.q2)
+        for key in ("hit_index", "pruned_blocks", "windows_pruned_guard", "candidates_checked"):
+            assert on_card.stats.get(key) == on_cpu.stats.get(key), key
+    sources = [data, synth.near_disjoint_cores(6, 1, seed=1), synth.near_disjoint_cores(6, 1, broken=True)]
+    before = guard_bitset.launches
+    on_card = check_many(sources, backend=GpuSweepBackend(prune=True, engine="bitset", device=cuda_device))
+    on_cpu = check_many(sources, backend=GpuSweepBackend(prune=True, engine="bitset", device="cpu"))
+    assert guard_bitset.launches == before + 3
+    for a, b in zip(on_card, on_cpu):
+        assert (a.intersects, a.q1, a.q2) == (b.intersects, b.q1, b.q2)
+        for key in ("hit_index", "pruned_blocks", "pack_rows_dispatched", "candidates_checked"):
+            assert a.stats.get(key) == b.stats.get(key), key
+
+
+def test_guard_limits_raise_before_launch(cuda_device):
+    wide = encode_circuit(build_graph(parse_fbas(synth.majority_fbas(70))))
+    before = guard_dense.launches, guard_bitset.launches
+    for encoding in ("dense", "bitset"):
+        with pytest.raises(KernelLimitError, match="at most 64"):
+            BlockGuard(wide, encoding, cuda_device)
+    many = encode_circuit(build_graph(parse_fbas(synth.inner_set_ring_fbas(40, 30))))
+    assert many.n_units > 1024
+    with pytest.raises(KernelLimitError, match="at most 1024"):
+        BlockGuard(many, "dense", cuda_device)
+    assert (guard_dense.launches, guard_bitset.launches) == before

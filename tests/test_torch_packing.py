@@ -25,17 +25,14 @@ from quorum_intersection_tpu.backends.tpu import pallas_sweep
 from quorum_intersection_tpu.backends.tpu.sweep import TpuSweepBackend
 from quorum_intersection_tpu.backends.tpu.sweep import resolve_engine as jax_resolve_engine
 from quorum_intersection_tpu.fbas import synth as jax_synth
-from quorum_intersection_tpu.fbas.graph import build_graph as jax_build_graph
-from quorum_intersection_tpu.fbas.schema import parse_fbas as jax_parse
 from quorum_intersection_tpu.pipeline import check_many as jax_check_many
 import quorum_intersection_tpu_torch.encode.circuit as pc
 from quorum_intersection_tpu_torch.backends.base import CancelToken, SearchCancelled
 from quorum_intersection_tpu_torch.backends.sweep import GpuSweepBackend, resolve_engine
 from quorum_intersection_tpu_torch.encode.circuit import encode_circuit, restrict_circuit_pair
 from quorum_intersection_tpu_torch.fbas import synth
-from quorum_intersection_tpu_torch.fbas.graph import build_graph, group_sccs, tarjan_scc
+from quorum_intersection_tpu_torch.fbas.graph import build_graph
 from quorum_intersection_tpu_torch.fbas.schema import parse_fbas
-from quorum_intersection_tpu_torch.fbas.semantics import max_quorum
 from quorum_intersection_tpu_torch.kernels.packed_cuda import (
     PackedSweep,
     group_decode,
@@ -46,25 +43,10 @@ from quorum_intersection_tpu_torch.kernels.packed_ref import PackedRef
 from quorum_intersection_tpu_torch.kernels.sweep_cuda import KernelLimitError, plane_tables
 from quorum_intersection_tpu_torch.pipeline import check_many
 
-from _torch_cases import fixture_data
+from _torch_cases import assert_jobs_equal, fixture_data, jobs_of, kofn, multi_edge
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
-
-
-def kofn(n, k, prefix="N"):
-    """Symmetric k-of-n FBAS: one SCC, broken iff k <= n // 2 (the sweep,
-    not the SCC guard, finds the split) — tests/test_lane_packing.py's."""
-    ks = [f"{prefix}{i}" for i in range(n)]
-    return [{"publicKey": x, "name": x, "quorumSet": {"threshold": k, "validators": ks}} for x in ks]
-
-
-def multi_edge(n=8, k=5, prefix="M"):
-    """kofn with the first validator listed twice in every quorum set."""
-    data = kofn(n, k, prefix)
-    for node in data:
-        node["quorumSet"]["validators"] = [data[0]["publicKey"]] + node["quorumSet"]["validators"]
-    return data
 
 
 PAIRS = [
@@ -73,27 +55,6 @@ PAIRS = [
     (synth.hierarchical_fbas(3, 3), synth.hierarchical_fbas(3, 4, org_threshold=1)),
 ]
 PAIR_DATAS = [d for pair in PAIRS for d in pair]
-
-
-def _bearing_scc(graph):
-    count, comp = tarjan_scc(graph.n, graph.succ)
-    bearing = [m for m in group_sccs(graph.n, comp, count)
-               if max_quorum(graph, m, [v in set(m) for v in range(graph.n)])]
-    assert len(bearing) == 1, "test input must have exactly one quorum-bearing SCC"
-    return bearing[0]
-
-
-def jobs_of(datas):
-    """``(jax_jobs, port_jobs)``: (graph, circuit, scc) per source in each
-    package's own types, over the same quorum-bearing SCC."""
-    jax_jobs, port_jobs = [], []
-    for data in datas:
-        graph = build_graph(parse_fbas(data))
-        scc = _bearing_scc(graph)
-        port_jobs.append((graph, encode_circuit(graph), scc))
-        jgraph = jax_build_graph(jax_parse(data))
-        jax_jobs.append((jgraph, jc.encode_circuit(jgraph), scc))
-    return jax_jobs, port_jobs
 
 
 def _same_circuit(a, b):
@@ -219,16 +180,6 @@ def test_packed_program_matches_jax_k7_k3_k4(case):
     assert hits > 0
 
 
-def _assert_jobs_equal(got, want, engine):
-    assert len(got) == len(want)
-    for g, w in zip(got, want):
-        assert (g.intersects, g.q1, g.q2) == (w.intersects, w.q1, w.q2)
-        for key in ("hit_index", "candidates_checked", "enumeration_total", "cancelled",
-                    "packed", "pack_jobs", "pack_groups", "pack_slot", "pack_shape",
-                    "pack_fill_pct", "pack_rows_dispatched", "pack_engine"):
-            assert g.stats.get(key) == w.stats.get(key), (key, engine)
-
-
 CHECK_CASES = {
     "mixed": PAIR_DATAS,
     "k1": [kofn(5, 3)],
@@ -244,7 +195,7 @@ def test_check_sccs_matches_jax(case, engine):
     jax_jobs, port_jobs = jobs_of(CHECK_CASES[case])
     want = TpuSweepBackend(batch=256, engine=engine).check_sccs(jax_jobs)
     got = GpuSweepBackend(batch=256, device="cpu", engine=engine).check_sccs(port_jobs)
-    _assert_jobs_equal(got, want, engine)
+    assert_jobs_equal(got, want, engine)
     assert all(r.stats["packed"] and r.stats["pack_engine"] == engine for r in got)
     if case.startswith("split"):
         assert got[0].stats["pack_groups"] > 1
@@ -261,7 +212,7 @@ def test_per_job_cancel_matches_jax(engine):
     port_tokens[1].cancel()
     want = TpuSweepBackend(batch=256, engine=engine).check_sccs(jax_jobs, cancels=jax_tokens)
     got = GpuSweepBackend(batch=256, device="cpu", engine=engine).check_sccs(port_jobs, cancels=port_tokens)
-    _assert_jobs_equal(got, want, engine)
+    assert_jobs_equal(got, want, engine)
     assert got[1].stats["cancelled"] is True and got[0].stats.get("cancelled") is None
 
 
@@ -292,7 +243,7 @@ def test_multi_edge_bitset_resolves_dense_like_jax():
         assert (pr.resolved, pr.reason) == (jr.resolved, jr.reason)
     want = TpuSweepBackend(batch=256, engine="bitset").check_sccs(jax_jobs)
     got = GpuSweepBackend(batch=256, device="cpu", engine="bitset").check_sccs(port_jobs)
-    _assert_jobs_equal(got, want, "bitset")
+    assert_jobs_equal(got, want, "bitset")
     assert got[0].stats["pack_engine"] == "xla"
 
 
@@ -302,7 +253,7 @@ def test_wide_job_stays_unpacked_like_jax():
     jax_jobs, port_jobs = jobs_of(datas)
     want = TpuSweepBackend(batch=4, lo_bits=3).check_sccs(jax_jobs)
     got = GpuSweepBackend(batch=4, lo_bits=3, device="cpu").check_sccs(port_jobs)
-    _assert_jobs_equal(got, want, "xla")
+    assert_jobs_equal(got, want, "xla")
     assert "packed" not in got[0].stats and got[1].stats["packed"]
 
 
