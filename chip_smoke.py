@@ -2,6 +2,7 @@
 """Chip smoke run of the PyTorch/CUDA port (``quorum_intersection_tpu_torch``).
 
     python3 chip_smoke.py            # from the root of a checkout, one NVIDIA card
+    python3 chip_smoke.py --stress 400   # build, then only compare_packed's repeats
 
 Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
 
@@ -23,21 +24,32 @@ Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
               on each fixture (verdict and exit code against MANIFEST.json);
 6. full     — ``benchmark_fbas(256, core=34)``, correct and broken twins:
               2^33 candidates through SCC restriction and the wide decode;
+              the correct twin once more under the profiler;
 7. batch    — the batch path: ``check_many`` on 16 snapshot-shaped sources in
               one call, once with the default engine and once with
               ``engine="bitset"`` (launch counts reset before each run, read
               after).  Verdicts against MANIFEST.json or the generator's
               ``broken`` flag, every ``false`` witness re-checked, and every
-              hit index equal to the unpacked ``solve`` of the same source;
+              hit index equal to the unpacked ``solve`` of the same source.
+              Each engine once more under the profiler: device busy and idle
+              share, device ms per kernel;
 8. compare_packed — the two packed kernels against their plain version,
-              exact, on every pack the default batch run swept (the
-              backend's ``pack_plans``: a depth-1 pack and windows with hits
-              among them);
+              exact, on every
+              pack the default batch run swept (the backend's ``pack_plans``:
+              a depth-1 pack and windows with hits among them), a pack with
+              vote counts up to 3, and two 1024-unit nested packs (the dense
+              kernel's streamed instance on the densely nested one); 3000
+              rows a program (a ragged last tile); then the dense kernel
+              32 times on each of six cases (the odd packs, the streamed
+              ones among them), each launch against the plain version;
    timing_packed  — ms per 2^20-row program of each packed kernel at the
-              widest packed shape (the pack ``check_many`` forms for
-              ``benchmark_fbas(256, core=31)`` alone: 4 window groups) beside
-              the plain version's ms and the bound, and at the shape of the
-              batch's first pack;
+              widest packed shape (the pack
+              ``check_many`` forms for ``benchmark_fbas(256, core=31)`` alone:
+              4 window groups) and at the shape of the batch's first pack,
+              beside the plain version's ms and the bound (the dense
+              kernel's time on these 0/1 packs is the u8 evaluator's time
+              on the bitset kernel's function); ptxas's registers and spills
+              per kernel instance;
 9. prune    — block-guard pruning on the unpacked path: ``solve`` with
               ``GpuSweepBackend(prune=True)`` on the seven fixtures and on
               ``near_disjoint_cores(12, 1)`` and ``(15, 1)``, correct and
@@ -49,7 +61,8 @@ Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
 10. batch_pruned — ``check_many`` with pruning, default and bitset engines,
               on the batch's 16 sources plus ``near_disjoint_cores(6, 1)`` at
               three seeds and ``(10, 1)`` correct and broken: the batch's
-              checks, and each guard instance launched;
+              checks, and each guard instance launched; then each engine once
+              more under the profiler (the guards' device ms);
 11. compare_guard — both guard instances against their plain version,
               exact, on the masks of every plan the two runs above built, a
               multi-edge circuit and a 390-unit circuit (dense);
@@ -59,7 +72,8 @@ Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
               pruned ``solve``.
 
 The line before the last is the kernels' JSON record (launches on the main
-path of each, error against the plain version, times, bound); the last line
+path of each, error against the plain version, times, bound, device ms on
+the main path under the profiler); the last line
 is ``{"ok": true, "device": {...}}``.
 """
 
@@ -78,6 +92,7 @@ PORT = "quorum_intersection_tpu_torch"
 INT8_TOPS = 1979e12  # H100 SXM dense int8 tensor-core peak, operations/s
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
 WINDOW = 1 << 20  # candidates per timed window
+STRESS_REPEATS = 32  # launches per case of compare_packed's repeats
 # The per-pack stats the batch phases print.
 PACK_KEYS = ("pack_jobs", "pack_groups", "pack_slot", "pack_shape", "pack_fill_pct", "pack_engine",
              "pack_rows_dispatched", "pack_seconds")
@@ -145,6 +160,105 @@ def multi_edge_circuit(seed: int = 5):
     unit_depth = np.where(child.any(axis=1), 1, 0).astype(np.int32)
     return Circuit(n=n, n_units=u, depth=1, thresholds=thresholds, members=members,
                    child=child, unit_depth=unit_depth)
+
+
+def dense_child_circuit(n: int = 31, units: int = 993, seed: int = 7, quorum=(3, 5)):
+    """A 31-node circuit whose units nest densely (a 1024-unit pack): every
+    root and every unit of the upper inner level counts children spread over
+    all inner units below it (depth 2), so the dense kernel's byte tables
+    exceed one block and stream.  Each unit's threshold is the fraction
+    ``quorum`` of its votes.  The card tests build the same circuit
+    (``tests/_torch_circuits.py``; a CPU test holds the two equal)."""
+    import numpy as np
+
+    from quorum_intersection_tpu_torch.encode.circuit import Circuit
+
+    rng = np.random.default_rng(seed)
+    upper = n + (units - n) // 3
+    members = (rng.random((units, n)) < 0.2).astype(np.uint8)
+    members[np.arange(n), np.arange(n)] = 1
+    child = np.zeros((units, units), dtype=np.uint8)
+    child[:n, n:] = rng.random((n, units - n)) < 0.01
+    child[n:upper, upper:] = rng.random((upper - n, units - upper)) < 0.01
+    votes = members.sum(axis=1).astype(np.int64) + child.sum(axis=1)
+    unit_depth = np.zeros(units, dtype=np.int32)
+    unit_depth[n:upper] = child[n:upper].any(axis=1)
+    unit_depth[:n] = np.where(child[:n].any(axis=1), 1 + unit_depth[n:upper].max(), 0)
+    return Circuit(n=n, n_units=units, depth=2,
+                   thresholds=(votes * quorum[0] // quorum[1]).astype(np.int32),
+                   members=members, child=child, unit_depth=unit_depth)
+
+
+def stress_packed(device, repeats: int):
+    """The dense kernel launched ``repeats`` times on each case, the plain
+    version recomputed beside every launch: a pack with vote counts up to 3,
+    the resident 1024-unit ring pack and the two densely nested 1024-unit
+    packs (thresholds 3/5 and 1/2 of the votes; the streamed instance) at
+    the card tests' program shape (2 x 1000 rows from two start vectors in
+    turn), and the densely nested packs also at 2 x 8192 rows (256 tiles)
+    over four windows.  Per case: launches whose result differed from the
+    plain one, from the kernel's own first result for that window, plain
+    results that differed from the first plain one, group windows with a
+    hit, and the kernel's mean ms a launch (CUDA events around it)."""
+    import numpy as np
+    import torch
+
+    from quorum_intersection_tpu_torch.encode.circuit import (
+        encode_circuit,
+        pack_circuits,
+        restrict_circuit_pair,
+    )
+    from quorum_intersection_tpu_torch.fbas import synth
+    from quorum_intersection_tpu_torch.fbas.graph import build_graph
+    from quorum_intersection_tpu_torch.fbas.schema import parse_fbas
+    from quorum_intersection_tpu_torch.kernels.packed_cuda import PackedSweep
+    from quorum_intersection_tpu_torch.kernels.packed_ref import PackedRef
+    from quorum_intersection_tpu_torch.kernels.sweep_ref import INT32_MAX
+
+    ring = encode_circuit(build_graph(parse_fbas(synth.inner_set_ring_fbas(30, 12))))
+    packs = {
+        "multi-plane (votes up to 3)": pack_circuits([(multi_edge_circuit(), None)] * 3),
+        "inner_set_ring_fbas(30,12) x2": pack_circuits([restrict_circuit_pair(ring, list(range(ring.n)))] * 2),
+        "densely nested 3/5": pack_circuits([(dense_child_circuit(), None)]),
+        "densely nested 1/2": pack_circuits([(dense_child_circuit(quorum=(1, 2)), None)]),
+    }
+    cases = []
+    for name, pk in packs.items():
+        cases.append((f"{name}, 2000 rows", pk, 1000,
+                      [np.zeros(pk.groups, dtype=np.int64), np.asarray([(1 << (s - 1)) // 3 for s in pk.sizes])]))
+        if name.startswith("densely"):
+            cases.append((f"{name}, 16384 rows", pk, 8192,
+                          [np.asarray([s]) for s in (0, 1 << 28, (1 << 29) + 12345, (1 << 30) // 3)]))
+    out = {}
+    for label, pk, batch, windows in cases:
+        tables = pk.decode_tables()
+        kernel = PackedSweep(pk.circuit, pk.circuit_d, *tables, batch, engine="dense", device=device)
+        plain = PackedRef(pk.circuit, pk.circuit_d, *tables, batch, "dense", device)
+        first_kernel, first_plain = {}, {}
+        vs_plain = vs_first = plain_moved = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        kernel_ms = 0.0
+        for i in range(repeats):
+            w = i % len(windows)
+            start.record()
+            launched = kernel.program(windows[w], 2)
+            end.record()
+            got = launched.cpu().numpy()
+            kernel_ms += start.elapsed_time(end)
+            want = plain.program(windows[w], 2).cpu().numpy()
+            vs_plain += int(not np.array_equal(got, want))
+            vs_first += int(not np.array_equal(got, first_kernel.setdefault(w, got)))
+            plain_moved += int(not np.array_equal(want, first_plain.setdefault(w, want)))
+        out[label] = {"streamed": kernel.tables.stream, "launches": repeats, "kernel_vs_plain": vs_plain,
+                      "kernel_vs_its_first": vs_first, "plain_vs_its_first": plain_moved,
+                      "group_windows_with_hits": sum(int((v != INT32_MAX).sum()) for v in first_plain.values()),
+                      "kernel_ms_mean": kernel_ms / repeats}
+    return out
+
+
+def stress_failed(cases) -> bool:
+    return any(r["kernel_vs_plain"] or r["kernel_vs_its_first"] or r["plain_vs_its_first"]
+               for r in cases.values())
 
 
 def batch_sources(fixture_names):
@@ -275,6 +389,50 @@ def guard_rows_of(circuit, bit_nodes, guard_rows: int):
     return guard_masks(circuit.n, bit_nodes, block_bits, prefix_bits), block_bits
 
 
+def ptxas_instances(log: str):
+    """``nvcc -Xptxas -v`` output → one record per kernel instance: its
+    (demangled) name, registers, and spill stores and loads in bytes."""
+    import re
+    import shutil
+
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$]+)", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    names = list(out)
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    try:
+        shown = subprocess.run([filt, *names], capture_output=True, text=True, timeout=60).stdout.splitlines()
+    except OSError:
+        shown = []
+    if len(shown) != len(names):
+        shown = names
+    return [{"kernel": label, **out[name]} for name, label in zip(names, shown)
+            if "kernel" in label and out[name]]
+
+
+def device_ms_by_kernel(prof):
+    """Device milliseconds per kernel name under a ``torch.profiler`` run."""
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+        if t > 0:
+            out[e.key] = out.get(e.key, 0.0) + t / 1e3
+    return out
+
+
+def ms_of(by_kernel, *needles) -> float:
+    return sum(ms for name, ms in by_kernel.items() if all(n in name for n in needles))
+
+
 def time_ms(fn, reps: int) -> float:
     import torch
 
@@ -299,7 +457,14 @@ def window_bound_ms(circuit, circuit_d, lo_nodes, scc_mask, frozen, start, hi_ro
     return ms, by, passes
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Chip smoke run of the PyTorch/CUDA port.")
+    ap.add_argument("--stress", type=int, metavar="N", default=0,
+                    help="only build, then launch the dense packed kernel N times on each of "
+                         "compare_packed's repeated cases (no ok line)")
+    args = ap.parse_args(argv)
     if not (ROOT / PORT / "kernels" / "csrc" / "sweep.cu").is_file():
         print(f"FAIL setup: {PORT}/ not found beside chip_smoke.py (run from a checkout)")
         return 2
@@ -329,10 +494,14 @@ def main() -> int:
         built = build.build_all()
     except build.KernelBuildError as exc:
         fail("build", str(exc))
-    ptxas = [ln.strip() for b in built.values() for ln in b.log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = {name: ptxas_instances(b.log) for name, b in built.items()}
     phase_line("build", seconds=round(time.perf_counter() - t0, 3),
                libraries=[str(b.path.relative_to(ROOT)) for b in built.values()], ptxas=ptxas)
+    if args.stress:
+        t0 = time.perf_counter()
+        cases = stress_packed(device, args.stress)
+        phase_line("stress", card=card, seconds=round(time.perf_counter() - t0, 3), cases=cases)
+        return 1 if stress_failed(cases) else 0
 
     # -- 3. kernels ------------------------------------------------------
     kernels_meta = {
@@ -539,6 +708,12 @@ def main() -> int:
                      "candidates_per_s": res.stats["candidates_checked"] / seconds,
                      "hit_index": res.stats.get("hit_index")})
     launches = sweep_fused.launches
+    # The correct twin once more under the profiler: the fused kernel's
+    # device time on the main path.
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        solve(synth.benchmark_fbas(256, 34))
+        torch.cuda.synchronize()
+    full_device_ms = device_ms_by_kernel(prof)
     phase_line("main", fixtures=main_rows, cli="python -m " + PORT + ": 7/7 verdicts and exit codes",
                cli_snapshot_correct_seconds=cli_seconds)
     phase_line("full", card=card, runs=full)
@@ -590,20 +765,25 @@ def main() -> int:
             "per_pack": [{key: s[key] for key in PACK_KEYS} for _, s in sorted(packs.items())],
             "candidates": candidates, "candidates_per_s": candidates / seconds, "launches": counts,
         }
-    # One more default-engine run under the profiler: the card's busy time
-    # (the sum of its kernels' times) against the run's wall time.
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        check_many([src for _, src, _ in sources], backend=GpuSweepBackend())
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    busy_ms = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-                  for e in prof.key_averages()) / 1e3
-    batch_runs["profiled_default"] = {
-        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-        "device_idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else "not measured (no device events)",
-    }
+    # One more run of each engine under the profiler: the card's busy time
+    # (the sum of its kernels' times) against the run's wall time, and each
+    # kernel's device time on the batch path.
+    batch_device_ms = {}
+    for engine in (None, "bitset"):
+        label = engine or "default"
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            check_many([src for _, src, _ in sources], backend=GpuSweepBackend(engine=engine))
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        by_kernel = batch_device_ms[label] = device_ms_by_kernel(prof)
+        busy_ms = sum(by_kernel.values())
+        batch_runs[f"profiled_{label}"] = {
+            "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms if busy_ms > 0 else "not measured (no device events)",
+            "device_ms_by_kernel": {k: v for k, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]},
+        }
     # Every hit index equals the unpacked drive's (the fused kernel's path).
     solo_results = {}
     for i, (name, src, _) in enumerate(sources):
@@ -617,21 +797,37 @@ def main() -> int:
 
     # -- 8. the packed kernels against their plain versions ---------------
     # On every pack the default batch run swept (a depth-1 pack and windows
-    # with hits among them), with both kernels where the circuit allows.
-    cmp_batch = 1 << 12
-    packed_err = {"dense": 0, "bitset": 0}
-    packed_results = []
+    # with hits among them), a pack with vote counts up to 3 (dense only)
+    # and two 1024-unit nested packs (the dense kernel's tables resident in
+    # one, streamed in the densely nested other), with both kernels where
+    # the circuit allows.  3000 rows per program: a ragged last tile.
+    from quorum_intersection_tpu_torch.encode.circuit import pack_circuits, restrict_circuit_pair
+
+    cmp_batch = 1500
+    cmp_cases = []
     for pi, plan in enumerate(plans):
-        pk = plan.packed
         los = np.asarray([g.lo for g in plan.groups], dtype=np.int64)
         his = np.asarray([g.hi for g in plan.groups], dtype=np.int64)
-        windows = (los, los + (1 << 16), np.maximum(his - 2 * cmp_batch, 0))
-        for engine in ("dense", "bitset"):
-            if engine == "bitset" and not bitset_supported(pk.circuit):
-                continue
-            kernel = PackedSweep(pk.circuit, pk.circuit_d, *plan.tables, cmp_batch, engine=engine,
+        cmp_cases.append((f"batch pack {pi}", plan.packed, plan.tables,
+                          (los, los + (1 << 16), np.maximum(his - 2 * cmp_batch, 0))))
+    me = multi_edge_circuit()
+    multi = pack_circuits([(me, None)] * 3)
+    cmp_cases.append(("multi-plane (votes up to 3)", multi, multi.decode_tables(),
+                      (np.zeros(3, dtype=np.int64), np.asarray([100, 900, 2000]))))
+    ring = encode_circuit(build_graph(parse_fbas(synth.inner_set_ring_fbas(30, 12))))
+    big = pack_circuits([restrict_circuit_pair(ring, list(range(ring.n)))] * 2)
+    cmp_cases.append(("inner_set_ring_fbas(30,12) x2, 1024 units", big, big.decode_tables(),
+                      (np.asarray([0, 3 << 20]), np.asarray([1 << 28, (1 << 29) - 5000]))))
+    dense = pack_circuits([(dense_child_circuit(), None)])
+    cmp_cases.append(("densely nested, 1024 units", dense, dense.decode_tables(),
+                      (np.asarray([0]), np.asarray([(1 << 29) + 12345]))))
+    packed_err = {"dense": 0, "bitset": 0}
+    packed_results = []
+    for label, pk, tables, windows in cmp_cases:
+        for engine in ("dense", "bitset") if bitset_supported(pk.circuit) else ("dense",):
+            kernel = PackedSweep(pk.circuit, pk.circuit_d, *tables, cmp_batch, engine=engine,
                                  device=device)
-            plain = PackedRef(pk.circuit, pk.circuit_d, *plan.tables, cmp_batch, engine, device)
+            plain = PackedRef(pk.circuit, pk.circuit_d, *tables, cmp_batch, engine, device)
             hits = 0
             for starts in windows:
                 got = kernel.program(starts, 2).cpu().numpy()
@@ -641,17 +837,26 @@ def main() -> int:
                 err = int(np.abs(got.astype(np.int64) - want.astype(np.int64)).max())
                 packed_err[engine] = max(packed_err[engine], err)
                 if err:
-                    fail("compare", f"pack {pi} {engine} starts={starts.tolist()}: kernel {got.tolist()} "
-                                    f"!= plain {want.tolist()}")
-            packed_results.append({"pack": pi, "engine": engine, "groups": pk.groups, "slot": pk.slot,
-                                   "lanes": pk.circuit.n, "units": pk.circuit.n_units,
-                                   "depth": pk.circuit.depth, "windows": len(windows) * pk.groups,
-                                   "group_windows_with_hits": hits})
-    if not any(r["depth"] == 1 for r in packed_results) or not any(r["group_windows_with_hits"]
-                                                                  for r in packed_results):
-        fail("compare", "the packed comparison lacks a depth-1 pack or a window with hits")
+                    fail("compare", f"{label} {engine} starts={list(starts)}: "
+                                    f"kernel {got.tolist()} != plain {want.tolist()}")
+            packed_results.append({"pack": label, "engine": engine, "route": kernel.tables.route,
+                                   "streamed": kernel.tables.stream, "groups": pk.groups,
+                                   "slot": pk.slot, "lanes": pk.circuit.n, "units": pk.circuit.n_units,
+                                   "depth": pk.circuit.depth, "max_vote": int(pk.circuit.members.max()),
+                                   "windows": len(windows) * pk.groups, "group_windows_with_hits": hits})
+    if (not any(r["depth"] == 1 for r in packed_results)
+            or not any(r["group_windows_with_hits"] for r in packed_results)
+            or not any(r["streamed"] for r in packed_results)
+            or not any(r["max_vote"] > 1 for r in packed_results)):
+        fail("compare", "the packed comparison lacks a depth-1, a streamed or a multi-plane pack, "
+                        "or a window with hits")
+    # The dense kernel again and again on the odd packs: a fault in the
+    # sharing of shared memory between a block's warps is intermittent.
+    repeated = stress_packed(device, STRESS_REPEATS)
+    if stress_failed(repeated):
+        fail("compare", f"a repeated packed launch differed: {repeated}")
     phase_line("compare_packed", tolerance="exact (integer hit indices, per group)",
-               rows_per_program=2 * cmp_batch, packs=packed_results)
+               rows_per_program=2 * cmp_batch, packs=packed_results, repeated=repeated)
 
     # The packed kernels at the widest packed shape: one 31-node job split
     # over 4 window groups (n = 128 lanes, slot 32), each group decoding 2^20
@@ -671,19 +876,20 @@ def main() -> int:
         pk = plan.packed
         starts = np.asarray([g.lo + WINDOW for g in plan.groups], dtype=np.int64)
         bound_ms, bound_by, passes = packed_bound_ms(plan, starts, WINDOW, device)
+        plain_ms = {}
         for engine in ("dense", "bitset"):
             kernel = PackedSweep(pk.circuit, pk.circuit_d, *plan.tables, 1 << 17, engine=engine,
                                  device=device)
             ms = time_ms(lambda: kernel.program(starts, 8), 20)
-            row = {"groups": pk.groups, "lanes": pk.circuit.n, "units": pk.circuit.n_units,
-                   "depth": pk.circuit.depth, "child_words": kernel.words, "rows": WINDOW, "ms": ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by, "fixpoint_passes": passes,
-                   "candidates_per_s": pk.groups * WINDOW / ms * 1e3}
-            if shape == "widest":
-                plain = PackedRef(pk.circuit, pk.circuit_d, *plan.tables, 1 << 17, engine, device)
-                row["plain_ms"] = time_ms(lambda: plain.program(starts, 8), 2)
-            packed_timing[f"{shape}/{engine}"] = row
-    phase_line("timing_packed", card=card, per_program=packed_timing)
+            plain = PackedRef(pk.circuit, pk.circuit_d, *plan.tables, 1 << 17, engine, device)
+            plain_ms[engine] = time_ms(lambda: plain.program(starts, 8), 2)
+            t = kernel.tables
+            packed_timing[f"{shape}/{engine}"] = {
+                "groups": pk.groups, "lanes": pk.circuit.n, "units": pk.circuit.n_units,
+                "depth": pk.circuit.depth, "route": t.route, "streamed": t.stream, "rows": WINDOW,
+                "ms": ms, "plain_ms": plain_ms[engine], "bound_ms": bound_ms, "bound_by": bound_by,
+                "fixpoint_passes": passes, "candidates_per_s": pk.groups * WINDOW / ms * 1e3}
+    phase_line("timing_packed", card=card, per_program=packed_timing, ptxas=ptxas.get("packed_sweep"))
 
     # -- 9. prune: block-guard pruning on the unpacked path ----------------
     from quorum_intersection_tpu_torch.backends.sweep import _PrunePlan, guard_masks
@@ -775,7 +981,7 @@ def main() -> int:
     for name, src, _ in pruned_batch:
         if name not in solo_results:
             solo_results[name] = solve(src)
-    batch_pruned_runs, batch_pruned_launches = {}, {}
+    batch_pruned_runs, batch_pruned_launches, pruned_device_ms = {}, {}, {}
     for engine, guard_name in ((None, "guard_dense_cuda"), ("bitset", "guard_bitset_cuda")):
         label = engine or "default"
         backend = GpuSweepBackend(prune=True, engine=engine)
@@ -812,7 +1018,15 @@ def main() -> int:
             "windows_pruned": sum(r.stats.get("windows_pruned_guard", 0) for r in res),
             "candidates": sum(r.stats.get("candidates_checked", 0) for r in res), "launches": counts,
         }
+    # Each engine once more under the profiler: the guards' device time.
+    for engine in (None, "bitset"):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            check_many([src for _, src, _ in pruned_batch], backend=GpuSweepBackend(prune=True, engine=engine))
+            torch.cuda.synchronize()
+        pruned_device_ms[engine or "default"] = device_ms_by_kernel(prof)
     phase_line("batch_pruned", card=card, runs=batch_pruned_runs,
+               device_ms_by_kernel={k: {n: ms for n, ms in v.items() if "_kernel" in n}
+                                    for k, v in pruned_device_ms.items()},
                unpruned_batch_seconds={k: batch_runs[k]["seconds"] for k in ("default", "bitset")},
                hit_index_vs_unpruned_solve=f"{len(pruned_batch)}/{len(pruned_batch)} equal on both engines")
 
@@ -880,6 +1094,22 @@ def main() -> int:
             }
     phase_line("timing_guard", card=card, per_call=guard_timing)
 
+    # Each kernel's device time on the main path (profiler): K1 in the
+    # full-width solve, K3 in the default-engine batch, K4 in the bitset
+    # batch, the guards in the pruned batches of their engine.
+    main_device_ms = {
+        "sweep_fused_cuda": ms_of(full_device_ms, "sweep_kernel"),
+        "packed_sweep_dense_cuda": ms_of(batch_device_ms["default"], "packed_kernel"),
+        "packed_sweep_bitset_cuda": ms_of(batch_device_ms["bitset"], "packed_kernel"),
+        "guard_dense_cuda": ms_of(pruned_device_ms["default"], "guard_kernel<unsigned long"),
+        "guard_bitset_cuda": ms_of(pruned_device_ms["bitset"], "guard_kernel<unsigned int"),
+    }
+    main_device_ms_of = {
+        "sweep_fused_cuda": "full, benchmark_fbas(256, core=34)",
+        "packed_sweep_dense_cuda": "batch, default engine",
+        "packed_sweep_bitset_cuda": "batch, bitset engine",
+        "guard_dense_cuda": "batch_pruned, default engine", "guard_bitset_cuda": "batch_pruned, bitset engine",
+    }
     snap = timing["bench256_34"]
     record = {"kernels": [{
         "name": "sweep_fused_cuda",
@@ -893,6 +1123,8 @@ def main() -> int:
         "bound_ms": snap["bound_ms"],
         "bound_by": snap["bound_by"],
         "library_ms": None,
+        "main_path_device_ms": main_device_ms["sweep_fused_cuda"],
+        "main_path_device_ms_of": main_device_ms_of["sweep_fused_cuda"],
         "compare_launches": compare_launches,
     }]}
     for engine, name in (("dense", "packed_sweep_dense_cuda"), ("bitset", "packed_sweep_bitset_cuda")):
@@ -909,6 +1141,8 @@ def main() -> int:
             "bound_ms": pt["bound_ms"],
             "bound_by": pt["bound_by"],
             "library_ms": None,
+            "main_path_device_ms": main_device_ms[name],
+            "main_path_device_ms_of": main_device_ms_of[name],
         })
     for enc, name in (("dense", "guard_dense_cuda"), ("bitset", "guard_bitset_cuda")):
         gt = guard_timing[f"near_disjoint_cores(15,1)/{enc}"]
@@ -924,6 +1158,8 @@ def main() -> int:
             "bound_ms": gt["bound_ms"],
             "bound_by": gt["bound_by"],
             "library_ms": None,
+            "main_path_device_ms": main_device_ms[name],
+            "main_path_device_ms_of": main_device_ms_of[name],
         })
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,5 +1,5 @@
-// Threshold-circuit evaluation shared by the sweep kernels (sweep.cu,
-// packed_sweep.cu): one candidate row per thread, every set held as a few
+// Threshold-circuit evaluation shared by the fused sweep and the block
+// guard (sweep.cu, guard.cu): one candidate row per thread, every set held as a few
 // machine words in registers.
 //
 // A row's availability is NW words of `Word` (uint64_t for the bit-plane

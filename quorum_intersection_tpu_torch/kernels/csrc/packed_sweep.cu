@@ -1,14 +1,17 @@
-// Lane-packed quorum-intersection sweeps for Hopper (sm_90a), with a plain C
-// interface loaded through ctypes (kernels/packed_cuda.py).  Two kernels:
+// Lane-packed quorum-intersection sweeps for Hopper (sm_90a) on the tensor
+// cores, with a plain C interface loaded through ctypes
+// (kernels/packed_cuda.py).  One kernel, three instances:
 //
 // - packed_sweep_dense replaces the JAX package's Pallas kernel
 //   `pallas_packed_program_factory` (backends/tpu/pallas_sweep.py:343, kernel
 //   at :404) and its XLA twin `kernels.packed_sweep_program_factory`
-//   (backends/tpu/kernels.py:445): vote counts as bit-planes over a 128-lane
-//   row of two uint64_t words;
+//   (backends/tpu/kernels.py:445): votes as `wgmma` u8 products over byte
+//   tiles (circuit_mma.cuh, engine U8), with the tables resident in shared
+//   memory or, when they do not fit, streamed through it;
 // - packed_sweep_bitset replaces `pallas_bitset_program_factory`
-//   (pallas_sweep.py:556, kernel at :622): 0/1 votes as `bitset_encode`'s
-//   uint32 words (LSB-first), one native popcount per word.
+//   (pallas_sweep.py:556, kernel at :622): 0/1 votes as `mma.sync` b1
+//   and-popc products over `bitset_encode`'s uint32 words (engine B1).  On
+//   the same 0/1 packs the U8 instance ran slower (PERF.md §6).
 //
 // The circuit is K <= 16 SCC-restricted circuits fused block-diagonally
 // (encode.pack_circuits): group g owns lanes [g*slot, g*slot + size_g), its
@@ -17,146 +20,162 @@
 //   S     = for each g, bits [0, size_g - 1) of starts[g] + r on lanes
 //           [base_g, base_g + size_g - 1), base_g = g*slot + 1
 //   Q     = greatest fixpoint of S under the Q thresholds
-//   D     = greatest fixpoint of scc & ~Q under the D thresholds (Q6 fold)
+//   D     = greatest fixpoint of scc & ~Q under the D thresholds (Q6 fold),
+//           over the lanes of the groups whose Q is not empty
 //   hit_g = (Q & group_g) != 0 && (D & group_g) != 0
 // and out[g] is the smallest starts[g] + r with hit_g (atomicMin into a (K,)
-// int32 vector the wrapper initialised to INT32_MAX).  Block-diagonality
-// makes every group's fixpoint its own, so the D probe leaves out the lanes
-// of groups whose Q is empty: they cannot hit, and no other group reads them.
+// int32 vector the wrapper initialised to INT32_MAX).
 //
-// Design: one thread per row, as the fused unpacked sweep (sweep.cu), with
-// the shared evaluator of circuit_eval.cuh; the per-group survivor test
-// `popc(q & group_mask[g]) > 0` stands in for the TPU's (B, Np) x (Np, Kp)
-// indicator matmul.  A warp reduces its hits per group, then one lane does
-// one atomicMin per group.  Group starts, decode bases and masks ride in the
-// kernel's parameter block; the tables live in shared memory.
-//
-// What bounds it: operations.  The tables are at most a few hundred KB and
-// the output K int32, while each row runs two fixpoints of (depth + 1) passes
-// over U units; the popcount pipe is the roof.
+// What bounds it on this card: operations.  The tables are at most about a
+// megabyte and the output K int32, while every row runs two fixpoints of
+// (depth + 1) vote products over the units.  The earlier design (one thread
+// per row, a popcount per unit and word) ran on the integer pipe at about 1%
+// of the int8 tensor-core bound.  This one puts the products on the tensor
+// cores: a block (one warpgroup) takes 64 rows at a time, as the Pallas
+// kernel takes a block of rows, and iterates the tile until no row changes,
+// the block-level early exit of the Pallas `while_loop`.  Only the k-slabs
+// the host names per 32-unit chunk are multiplied, so the block-diagonal
+// zeros of other groups are skipped, and the D probe is skipped for a tile
+// with no candidate Q.  Blocks are persistent and grid-stride over tiles;
+// the tables load into shared memory once per block.
 
-#include "circuit_eval.cuh"
+#include <map>
+#include <mutex>
+#include <utility>
+
+#include "circuit_mma.cuh"
 
 namespace {
 
-using qi::kMissIndex;
-using qi::kThreads;
-constexpr int kMaxGroups = 16;
+using namespace qi_mma;
 
-template <typename Word, int NW>
-struct Packs {
-  int k;
-  int start[kMaxGroups];
-  int base[kMaxGroups];  // lane of the group's local node 1
-  int bits[kMaxGroups];  // enumerated nodes: size_g - 1 (<= 30)
-  Word mask[kMaxGroups][NW];
-  Word scc[NW];
-};
-
-// Lanes [base, base + bits) of word x take bits of v (v < 2^30).
-template <typename Word>
-__device__ __forceinline__ Word place(uint64_t v, int base, int x) {
-  constexpr int B = 8 * sizeof(Word);
-  const int s = base - B * x;
-  if (s >= 0) return s < B ? (Word)(v << s) : 0;
-  return -s < 64 ? (Word)(v >> -s) : 0;
-}
-
-template <typename Word, int NW>
-__device__ __forceinline__ bool meets(const Word (&a)[NW], const Word (&m)[NW]) {
-  Word acc = 0;
-#pragma unroll
-  for (int x = 0; x < NW; ++x) acc |= a[x] & m[x];
-  return acc != 0;
-}
-
-template <typename Word, int NW, int W>
+template <class E>
 __global__ void __launch_bounds__(kThreads)
-packed_kernel(const Word* __restrict__ member_planes, const Word* __restrict__ child_planes,
-              const int* __restrict__ thr_q, const int* __restrict__ thr_d, int n, int units,
-              int pm, int pc, int depth, int c0, const Packs<Word, NW> p, long long rows,
-              int* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  qi::Tables<Word> tq, td;
-  qi::load_tables<Word, NW, W>(reinterpret_cast<Word*>(smem_raw), member_planes, child_planes,
-                               thr_q, thr_d, n, units, pm, pc, depth, c0, tq, td);
+packed_kernel(const void* __restrict__ mtab, const void* __restrict__ ctab,
+              const int* __restrict__ thr_q, const int* __restrict__ thr_d,
+              const __grid_constant__ Params p, long long rows, int* __restrict__ out) {
+  using T = typename E::T;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  __shared__ uint32_t qrows[2][kRows], drows[2][kRows];
+  __shared__ int best[kMaxGroups];
+  const Layout lay = make_layout(E::kB1, E::kStream, p);
+  const int tid = threadIdx.x;
+
+  // Tables (resident instances) and thresholds into shared memory, tiles zeroed.
+  E eng;
+  if (E::kStream) {
+    eng.init(mtab, ctab, smem + lay.stage);
+  } else {
+    for (unsigned i = tid; i < p.mbytes / 16; i += kThreads)
+      reinterpret_cast<uint4*>(smem + lay.mtab)[i] = static_cast<const uint4*>(mtab)[i];
+    for (unsigned i = tid; i < p.cbytes / 16; i += kThreads)
+      reinterpret_cast<uint4*>(smem + lay.ctab)[i] = static_cast<const uint4*>(ctab)[i];
+    eng.init(smem + lay.mtab, smem + lay.ctab, nullptr);
+  }
+  for (unsigned i = tid; i < (lay.thr_q - lay.a0) / 16; i += kThreads)
+    reinterpret_cast<uint4*>(smem + lay.a0)[i] = make_uint4(0, 0, 0, 0);
+  int* sq = reinterpret_cast<int*>(smem + lay.thr_q);
+  int* sd = reinterpret_cast<int*>(smem + lay.thr_d);
+  for (int u = tid; u < p.units; u += kThreads) {
+    sq[u] = thr_q[u];
+    sd[u] = thr_d[u];
+  }
+  if (tid < kMaxGroups) best[tid] = kMiss;
+  fence_async_smem();
   __syncthreads();
 
-  const Word none[NW] = {};
-  int best[kMaxGroups];
-#pragma unroll
-  for (int g = 0; g < kMaxGroups; ++g) best[g] = kMissIndex;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < rows; r += stride) {
-    Word q[NW] = {};
-#pragma unroll
-    for (int g = 0; g < kMaxGroups; ++g) {
-      if (g >= p.k) break;
-      // The wrapper keeps starts[g] + rows <= 2^31; bits at or above
-      // size_g - 1 decode to nothing (overshoot aliases, masked on the host).
-      const uint64_t v = (uint64_t)(p.start[g] + r) & ((1ull << p.bits[g]) - 1);
-#pragma unroll
-      for (int x = 0; x < NW; ++x) q[x] |= place<Word>(v, p.base[g], x);
-    }
-    qi::fixpoint<Word, NW, W>(q, none, tq);
-    Word d[NW] = {};
-#pragma unroll
-    for (int g = 0; g < kMaxGroups; ++g) {
-      if (g >= p.k) break;
-      if (meets<Word, NW>(q, p.mask[g])) {
-#pragma unroll
-        for (int x = 0; x < NW; ++x) d[x] |= p.mask[g][x];
+  Tile<E> tile{eng,
+               {reinterpret_cast<T*>(smem + lay.a0), reinterpret_cast<T*>(smem + lay.a1)},
+               reinterpret_cast<T*>(smem + lay.s), p.kcols / 32, &p};
+  const long long tiles = (rows + kRows - 1) / kRows;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long row0 = t * kRows;
+    // The wrapper keeps starts[g] + rows <= 2^31; bits at or above
+    // size_g - 1 decode to nothing (overshoot aliases, masked on the host).
+    // Rows at or past `rows` decode to the empty set and cannot hit.
+    if (!tile.fill(tile.a[0], [&](int r, int seg) {
+          uint32_t w = 0;
+          if (row0 + r < rows)
+            for (int g = 0; g < p.k; ++g)
+              w |= place((uint64_t)(p.start[g] + row0 + r) & ((1ull << p.bits[g]) - 1), p.base[g],
+                         seg);
+          return w;
+        }))
+      continue;
+    int cur = tile.fixpoint(0, sq);
+    if (!tile.group_rows(tile.a[cur], qrows)) continue;  // no Q in the tile: no D probe
+    const T* q = tile.a[cur];
+    // D starts from scc & ~Q on the lanes of the groups whose Q is not empty.
+    if (!tile.fill(tile.a[cur ^ 1], [&](int r, int seg) {
+          const uint32_t live = qrows[0][r] | qrows[1][r];
+          uint32_t lanes = 0;
+          for (int g = 0; g < p.k; ++g)
+            if (live >> g & 1) lanes |= p.gmask[g][seg];
+          return p.scc[seg] & ~E::load_word(q, kLaneWords, r, seg) & lanes;
+        }))
+      continue;
+    cur = tile.fixpoint(cur ^ 1, sd);
+    tile.group_rows(tile.a[cur], drows);
+    if (tid < kRows) {
+      uint32_t hit = (qrows[0][tid] | qrows[1][tid]) & (drows[0][tid] | drows[1][tid]);
+      while (hit) {
+        const int g = __ffs(hit) - 1;
+        hit &= hit - 1;
+        atomicMin(best + g, (int)(p.start[g] + row0 + tid));
       }
     }
-    if (!qi::any_bit<Word, NW>(d)) continue;
-#pragma unroll
-    for (int x = 0; x < NW; ++x) d[x] &= p.scc[x] & ~q[x];
-    qi::fixpoint<Word, NW, W>(d, none, td);
-#pragma unroll
-    for (int g = 0; g < kMaxGroups; ++g) {
-      if (g >= p.k) break;
-      const int idx = (int)(p.start[g] + r);
-      if (meets<Word, NW>(q, p.mask[g]) && meets<Word, NW>(d, p.mask[g]) && idx < best[g])
-        best[g] = idx;
-    }
   }
-#pragma unroll
-  for (int g = 0; g < kMaxGroups; ++g) {
-    if (g >= p.k) break;
-    const int m = __reduce_min_sync(0xffffffffu, best[g]);
-    if ((threadIdx.x & 31) == 0 && m != kMissIndex) atomicMin(out + g, m);
-  }
+  __syncthreads();
+  if (tid < p.k && best[tid] != kMiss) atomicMin(out + tid, best[tid]);
 }
 
-template <typename Word, int NW, int W>
-cudaError_t launch(const Word* member_planes, const Word* child_planes, const int* thr_q,
-                   const int* thr_d, int n, int units, int pm, int pc, int depth, int c0,
-                   const Packs<Word, NW>& p, long long rows, int* out, cudaStream_t stream) {
-  const size_t smem = qi::table_bytes<Word, NW, W>(units, pm, pc);
-  int grid = 0;
-  cudaError_t err = qi::plan_grid(packed_kernel<Word, NW, W>, smem, rows, &grid);
-  if (err != cudaSuccess || grid < 1) return err;
-  packed_kernel<Word, NW, W><<<grid, kThreads, smem, stream>>>(
-      member_planes, child_planes, thr_q, thr_d, n, units, pm, pc, depth, c0, p, rows, out);
+// Blocks of instance E the card holds at once at `smem` bytes.  The packed
+// drive launches thousands of programs of a few shapes, so the answer is
+// kept per (device, smem); the instance's shared-memory limit only grows,
+// which keeps every cached size launchable from any host thread.
+template <class E>
+cudaError_t resident_blocks(size_t smem, long long* cap) {
+  static std::mutex mu;
+  static std::map<std::pair<int, size_t>, long long> known;
+  static std::map<int, size_t> limit;  // per device; the default is 48 KB
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto hit = known.find({dev, smem});
+  if (hit != known.end()) {
+    *cap = hit->second;
+    return cudaSuccess;
+  }
+  size_t& lim = limit.emplace(dev, 48 * 1024).first->second;
+  if (smem > lim) {
+    err = cudaFuncSetAttribute(packed_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    lim = smem;
+  }
+  int sms = 0, per_sm = 0;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, packed_kernel<E>, kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;  // the tables do not fit one block
+  *cap = known[{dev, smem}] = (long long)sms * per_sm;
+  return cudaSuccess;
+}
+
+template <class E>
+cudaError_t launch(const void* mtab, const void* ctab, const int* thr_q, const int* thr_d,
+                   const Params& p, long long rows, int* out, cudaStream_t stream) {
+  const size_t smem = make_layout(E::kB1, E::kStream, p).end;
+  long long cap = 0;
+  const cudaError_t err = resident_blocks<E>(smem, &cap);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (rows + kRows - 1) / kRows;
+  const int grid = (int)(tiles < cap ? tiles : cap);
+  if (grid < 1) return cudaSuccess;
+  packed_kernel<E><<<grid, kThreads, smem, stream>>>(mtab, ctab, thr_q, thr_d, p, rows, out);
   return cudaGetLastError();
-}
-
-// Host arrays → the kernel's parameter block.
-template <typename Word, int NW>
-bool fill_packs(Packs<Word, NW>& p, int k, const int* starts, const int* base, const int* bits,
-                const Word* masks, const Word* scc) {
-  if (k < 1 || k > kMaxGroups) return false;
-  p.k = k;
-  for (int g = 0; g < kMaxGroups; ++g) {
-    const bool live = g < k;
-    p.start[g] = live ? starts[g] : 0;
-    p.base[g] = live ? base[g] : 0;
-    p.bits[g] = live ? bits[g] : 0;
-    if (live && (p.bits[g] < 0 || p.bits[g] > 30)) return false;
-    for (int x = 0; x < NW; ++x) p.mask[g][x] = live ? masks[g * NW + x] : 0;
-  }
-  for (int x = 0; x < NW; ++x) p.scc[x] = scc[x];
-  return true;
 }
 
 }  // namespace
@@ -165,60 +184,55 @@ extern "C" const char* qi_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Dense (bit-plane) packed sweep.  Tables: member planes [pm][units][2],
-// child planes [pc][units][words] from unit c0, thresholds [units] each.
-// Host arrays: starts/base/bits [k], masks [k][2], scc [2].  Returns a
-// cudaError_t (0 on success).
-extern "C" int qi_packed_dense(const uint64_t* member_planes, const uint64_t* child_planes,
-                               const int* thr_q, const int* thr_d, int n, int units, int pm,
-                               int pc, int depth, int c0, int words, int k, const int* starts,
-                               const int* base, const int* bits, const uint64_t* masks,
-                               const uint64_t* scc, long long rows, int* out, void* stream) {
-  Packs<uint64_t, 2> p;
-  if (!fill_packs<uint64_t, 2>(p, k, starts, base, bits, masks, scc))
+// One packed program.  engine: 0 = U8 (wgmma, tables resident), 1 = U8
+// streamed, 2 = B1 (mma.sync and-popc).  Tables (packed_cuda.py) of mbytes
+// and cbytes: U8 member and child byte blocks, the named ones only, or B1
+// member words [units][4] and child words [units][kcols / 32]; thresholds
+// [units] each.  Host arrays: starts, base, bits [k]; gmask [k][4] and scc
+// [4] lane words; ranges [units / 32][4]; first [units / 32][2] (U8: each
+// chunk's first member and child block).
+// Returns a cudaError_t (0 on success).
+extern "C" int qi_packed_sweep(int engine, const void* mtab, const void* ctab, const int* thr_q,
+                               const int* thr_d, int k, const int* starts, const int* base,
+                               const int* bits, const uint32_t* gmask, const uint32_t* scc,
+                               int lanes, int units, int c0, int kcols, int depth, int mbytes,
+                               int cbytes, const uint8_t* ranges, const uint16_t* first,
+                               long long rows, int* out,
+                               void* stream) {
+  if (k < 1 || k > kMaxGroups || lanes < 32 || lanes > kMaxLanes || lanes % 32 ||
+      units < lanes || units > kMaxChunks * kChunk || units % kChunk || c0 % kChunk ||
+      kcols < 0 || kcols % 32)
     return (int)cudaErrorInvalidValue;
+  Params p{};
+  p.k = k;
+  for (int g = 0; g < k; ++g) {
+    if (bits[g] < 0 || bits[g] > 30) return (int)cudaErrorInvalidValue;
+    p.start[g] = starts[g];
+    p.base[g] = base[g];
+    p.bits[g] = bits[g];
+    for (int x = 0; x < kLaneWords; ++x) p.gmask[g][x] = gmask[g * kLaneWords + x];
+  }
+  for (int x = 0; x < kLaneWords; ++x) p.scc[x] = scc[x];
+  p.lanes = lanes;
+  p.units = units;
+  p.c0 = c0;
+  p.kcols = kcols;
+  p.depth = depth;
+  p.mbytes = mbytes;
+  p.cbytes = cbytes;
+  for (int c = 0; c < units / kChunk; ++c) {
+    for (int x = 0; x < 4; ++x) p.range[c][x] = ranges[4 * c + x];
+    for (int x = 0; x < 2; ++x) p.first[c][x] = first[2 * c + x];
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define QI_DENSE_CASE(W)                                                                      \
-  case W:                                                                                     \
-    return launch<uint64_t, 2, W>(member_planes, child_planes, thr_q, thr_d, n, units, pm, pc, \
-                                  depth, c0, p, rows, out, s);
-  switch (words) {
-    QI_DENSE_CASE(1)
-    QI_DENSE_CASE(2)
-    QI_DENSE_CASE(4)
-    QI_DENSE_CASE(8)
-    QI_DENSE_CASE(16)
+  switch (engine) {
+    case 0:
+      return (int)launch<U8<false>>(mtab, ctab, thr_q, thr_d, p, rows, out, s);
+    case 1:
+      return (int)launch<U8<true>>(mtab, ctab, thr_q, thr_d, p, rows, out, s);
+    case 2:
+      return (int)launch<B1>(mtab, ctab, thr_q, thr_d, p, rows, out, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
-#undef QI_DENSE_CASE
-}
-
-// Bitset packed sweep.  Tables: member words [units][4], child words
-// [units][words] from unit c0, thresholds [units] each.  Host arrays:
-// starts/base/bits [k], masks [k][4], scc [4].
-extern "C" int qi_packed_bitset(const uint32_t* member_words, const uint32_t* child_words,
-                                const int* thr_q, const int* thr_d, int n, int units, int depth,
-                                int c0, int words, int k, const int* starts, const int* base,
-                                const int* bits, const uint32_t* masks, const uint32_t* scc,
-                                long long rows, int* out, void* stream) {
-  Packs<uint32_t, 4> p;
-  if (!fill_packs<uint32_t, 4>(p, k, starts, base, bits, masks, scc))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define QI_BITSET_CASE(W)                                                                    \
-  case W:                                                                                    \
-    return launch<uint32_t, 4, W>(member_words, child_words, thr_q, thr_d, n, units, 1, 1,   \
-                                  depth, c0, p, rows, out, s);
-  switch (words) {
-    QI_BITSET_CASE(1)
-    QI_BITSET_CASE(2)
-    QI_BITSET_CASE(4)
-    QI_BITSET_CASE(8)
-    QI_BITSET_CASE(16)
-    QI_BITSET_CASE(32)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef QI_BITSET_CASE
 }

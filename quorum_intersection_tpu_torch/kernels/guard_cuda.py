@@ -29,18 +29,50 @@ import numpy as np
 import torch
 
 from quorum_intersection_tpu_torch.device import DeviceLike, resolve_device
-from quorum_intersection_tpu_torch.encode.circuit import Circuit, pack_mask_words
+from quorum_intersection_tpu_torch.encode.circuit import Circuit, bitset_encode, pack_mask_words
 from quorum_intersection_tpu_torch.kernels import build
 from quorum_intersection_tpu_torch.kernels.guard_ref import ENCODINGS, guard_counts
-from quorum_intersection_tpu_torch.kernels.packed_cuda import bitset_tables, dense_tables, u64_words
 from quorum_intersection_tpu_torch.kernels.sweep_cuda import (
+    CHILD_WORDS,
     KernelLimitError,
+    _bit_planes,
     check_smem,
     check_units,
+    child_layout,
     upload_words,
 )
 
 MAX_NODES = 64
+BITSET_CHILD_WORDS = (1, 2, 4, 8, 16, 32)
+
+
+def dense_tables(circuit: Circuit, nw: int):
+    """The bit-plane tables ``(c0, words, member, child)``: member planes
+    ``(pm, U, nw)`` uint64 over the nodes, child planes ``(pc, U, words)``
+    uint64 over units ``[c0, U)`` (:func:`.sweep_cuda.child_layout`)."""
+    c0, words = child_layout(circuit, 64, CHILD_WORDS)
+    return c0, words, _bit_planes(circuit.members, nw), _bit_planes(circuit.child[:, c0:], words)
+
+
+def bitset_tables(circuit: Circuit, nw: int):
+    """The bitset tables ``(c0, words, member, child)`` as ``bitset_encode``'s
+    uint32 words: member ``(U, nw)`` over the nodes (``n <= 32 * nw``), child
+    ``(U, words)`` over units ``[c0, U)``.  ValueError on vote counts above 1."""
+    bits = bitset_encode(circuit)
+    c0, words = child_layout(circuit, 32, BITSET_CHILD_WORDS)
+    member = np.zeros((circuit.n_units, nw), dtype=np.uint32)
+    member[:, : bits.words] = bits.member_words
+    child = np.zeros((circuit.n_units, words), dtype=np.uint32)
+    if bits.child_words is not None:
+        cols = bits.child_words[:, c0 // 32 :]
+        child[:, : cols.shape[1]] = cols
+    return c0, words, member, child
+
+
+def u64_words(mask: np.ndarray, words: int) -> np.ndarray:
+    """0/1 rows ``(r, m)`` → ``(r, words)`` uint64, bit j of word j // 64."""
+    w32 = pack_mask_words(mask, 2 * words).astype(np.uint64)
+    return w32[:, 0::2] | (w32[:, 1::2] << np.uint64(32))
 
 
 class BlockGuard:

@@ -17,7 +17,11 @@ import numpy as np
 import pytest
 import torch
 
-from quorum_intersection_tpu_torch.encode.circuit import encode_circuit, restrict_circuit_pair
+from quorum_intersection_tpu_torch.encode.circuit import (
+    encode_circuit,
+    pack_circuits,
+    restrict_circuit_pair,
+)
 from quorum_intersection_tpu_torch.fbas import synth
 from quorum_intersection_tpu_torch.fbas.graph import build_graph, group_sccs, tarjan_scc
 from quorum_intersection_tpu_torch.fbas.schema import parse_fbas
@@ -40,6 +44,8 @@ from quorum_intersection_tpu_torch.kernels.guard_cuda import BlockGuard, guard_b
 from quorum_intersection_tpu_torch.kernels.guard_ref import guard_counts
 from quorum_intersection_tpu_torch.kernels.packed_ref import PackedRef
 from quorum_intersection_tpu_torch.pipeline import check_many, solve
+
+from _torch_circuits import dense_child_circuit
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -182,6 +188,71 @@ def test_packed_kernels_match_plain_on_card(engine, cuda_device):
             hits += int((want < ref.INT32_MAX).sum())
         assert launch.launches == before + 2
     assert hits > 0
+
+
+def _odd_packs():
+    """A pack with vote counts up to 3 (a validator listed three times in
+    every quorum set), a 1024-unit nested pack, and a densely nested
+    1024-unit pack whose byte tables the dense kernel streams."""
+    multi = _kofn(10, 6, "M")
+    for node in multi:
+        node["quorumSet"]["validators"] = [multi[0]["publicKey"]] * 2 + node["quorumSet"]["validators"]
+    out = {}
+    for name, datas, windows in (("multi-plane", [multi, _kofn(8, 4, "B")], 1),
+                                 ("1024-units", [synth.inner_set_ring_fbas(30, 12)], 2)):
+        members = []
+        for data in datas:
+            graph = build_graph(parse_fbas(data))
+            members.append(restrict_circuit_pair(encode_circuit(graph), _problems_scc(graph)))
+        out[name] = pack_circuits(members * windows)
+    out["dense-1024"] = pack_circuits([(dense_child_circuit(), None)])
+    return out
+
+
+@pytest.mark.parametrize("engine", ["dense", "bitset"])
+def test_packed_kernels_match_plain_on_multi_plane_streamed_and_ragged(engine, cuda_device):
+    launch = packed_sweep_dense if engine == "dense" else packed_sweep_bitset
+    packs = _odd_packs()
+    assert packs["multi-plane"].circuit.members.max() > 1
+    assert packs["1024-units"].circuit.n_units == packs["dense-1024"].circuit.n_units == 1024
+    compared = 0
+    for name, p in packs.items():
+        if engine == "bitset" and not bitset_supported(p.circuit):
+            continue
+        tables = p.decode_tables()
+        # 1000 rows a block: the last tile of each program is ragged.
+        sweep = PackedSweep(p.circuit, p.circuit_d, *tables, 1000, engine=engine, device=cuda_device)
+        assert sweep.tables.stream == (name == "dense-1024" and engine == "dense")
+        plain = PackedRef(p.circuit, p.circuit_d, *tables, 1000, engine, cuda_device)
+        before = launch.launches
+        for starts in ([0] * p.groups, [(1 << (s - 1)) // 3 for s in p.sizes]):
+            got = sweep.program(np.asarray(starts), 2).cpu().numpy()
+            want = plain.program(np.asarray(starts), 2).cpu().numpy()
+            np.testing.assert_array_equal(got, want, err_msg=name)
+        assert launch.launches == before + 2
+        compared += 1
+    assert compared >= 1
+
+
+@pytest.mark.parametrize("name", ["multi-plane", "1024-units", "dense-1024", "dense-1024, thresholds 1/2"])
+def test_dense_kernel_is_stable_over_repeated_launches(name, cuda_device):
+    """A fault in how a block's warps share shared memory (the streamed
+    instance's ring of table blocks above all) is intermittent: 16 launches
+    of 2 x 1000 rows over the two start vectors above, the plain version
+    recomputed beside each."""
+    if name.endswith("1/2"):
+        p = pack_circuits([(dense_child_circuit(quorum=(1, 2)), None)])
+    else:
+        p = _odd_packs()[name]
+    tables = p.decode_tables()
+    sweep = PackedSweep(p.circuit, p.circuit_d, *tables, 1000, engine="dense", device=cuda_device)
+    assert sweep.tables.stream == name.startswith("dense-1024")
+    plain = PackedRef(p.circuit, p.circuit_d, *tables, 1000, "dense", cuda_device)
+    windows = ([0] * p.groups, [(1 << (s - 1)) // 3 for s in p.sizes])
+    for i in range(16):
+        starts = np.asarray(windows[i % 2])
+        got = sweep.program(starts, 2).cpu().numpy()
+        np.testing.assert_array_equal(got, plain.program(starts, 2).cpu().numpy(), err_msg=f"launch {i}")
 
 
 @pytest.mark.parametrize("engine", [None, "bitset"])
