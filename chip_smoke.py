@@ -2,7 +2,7 @@
 """Chip smoke run of the PyTorch/CUDA port (``quorum_intersection_tpu_torch``).
 
     python3 chip_smoke.py            # from the root of a checkout, one NVIDIA card
-    python3 chip_smoke.py --stress 400   # build, then only compare_packed's repeats
+    python3 chip_smoke.py --stress 400   # build, then only compare_packed's and compare_warp's repeats
 
 Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
 
@@ -10,13 +10,19 @@ Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
 2. build    — the CUDA kernels, built from ``kernels/csrc`` with ``nvcc``
               (one process per source, all started together);
 3. kernels  — the kernels this script launches and the TPU kernels they replace;
-4. compare  — the fused kernel against its plain PyTorch version on the
-              card, on the same candidate windows (hits included): exact
-              equality, since the result is an integer hit index.  On the
-              fixtures' SCCs, the wide decode, multi-edge circuits and a
-              390-unit circuit;
-   timing   — ms per 2^20-candidate window of the fused kernel beside the
-              plain version's ms and the bound;
+4. compare  — the fused kernel, both instances (tables resident in shared
+              memory and streamed through it), against its plain PyTorch
+              version on the card, on the same candidate windows (hits
+              included): exact equality, since the result is an integer hit
+              index.  On the fixtures' SCCs, the wide decode, multi-edge
+              circuits, a 390-unit and a 1240-unit circuit (hits among its
+              windows) and a 3000-unit one whose tables only stream;
+   compare_warp — the fused kernel 32 times on each of four cases and the
+              guard on each of two, both instances, each launch against the
+              plain result (the warp cases of ``--stress N``);
+   timing   — ms per 2^20-candidate window of the fused kernel at the
+              snapshot's, the full-width and the 1240-unit shape, both
+              instances, beside the plain version's ms and the bound;
 5. main     — the verdict path through the entry points a user calls:
               ``solve`` on all seven vendored fixtures (launch counts reset
               before, read after; every ``false`` witness re-checked as two
@@ -33,6 +39,10 @@ Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
               hit index equal to the unpacked ``solve`` of the same source.
               Each engine once more under the profiler: device busy and idle
               share, device ms per kernel;
+   batch_units — ``check_many`` on ``inner_set_ring_fbas(30|24, 12)``, both
+              variants, both engines: jobs whose lane-only window split would
+              pass the packed kernels' 1024 units; packs within it, the
+              unpacked ``solve``'s verdicts and hit indices;
 8. compare_packed — the two packed kernels against their plain version,
               exact, on every
               pack the default batch run swept (the backend's ``pack_plans``:
@@ -63,9 +73,10 @@ Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
               three seeds and ``(10, 1)`` correct and broken: the batch's
               checks, and each guard instance launched; then each engine once
               more under the profiler (the guards' device ms);
-11. compare_guard — both guard instances against their plain version,
-              exact, on the masks of every plan the two runs above built, a
-              multi-edge circuit and a 390-unit circuit (dense);
+11. compare_guard — both guard encodings, each on both instances, against
+              their plain version, exact, on the masks of every plan the two
+              runs above built, a multi-edge circuit, a 390-unit and a
+              1240-unit circuit (dense);
     timing_guard  — ms per 16384-row guard call at ``near_disjoint_cores(15,
               1)``'s and the snapshot's shape, both instances, beside the
               plain version's ms, the bound and the guard's share of the
@@ -73,7 +84,8 @@ Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
 
 The line before the last is the kernels' JSON record (launches on the main
 path of each, error against the plain version, times, bound, device ms on
-the main path under the profiler); the last line
+the main path under the profiler, ptxas registers and spills per instance);
+the last line
 is ``{"ok": true, "device": {...}}``.
 """
 
@@ -256,6 +268,73 @@ def stress_packed(device, repeats: int):
     return out
 
 
+def stress_warp(device, repeats: int):
+    """The warp kernels launched ``repeats`` times on each case, each launch
+    against the plain result of its window: the fused sweep on both
+    instances at the full-width shape (a window with a hit) and on the
+    1240-unit ring (resident and streamed), and the dense guard on that
+    ring's 3000 rows, both instances.  Per case as ``stress_packed``."""
+    import numpy as np
+    import torch
+
+    from quorum_intersection_tpu_torch.encode.circuit import encode_circuit
+    from quorum_intersection_tpu_torch.fbas import synth
+    from quorum_intersection_tpu_torch.fbas.graph import build_graph
+    from quorum_intersection_tpu_torch.fbas.schema import parse_fbas
+    from quorum_intersection_tpu_torch.kernels import sweep_ref as ref
+    from quorum_intersection_tpu_torch.kernels.guard_cuda import BlockGuard
+    from quorum_intersection_tpu_torch.kernels.guard_ref import guard_counts
+    from quorum_intersection_tpu_torch.kernels.sweep_cuda import FusedSweep, mask_bits
+
+    full = sweep_problem(json.dumps(synth.benchmark_fbas(256, 34, broken=True)))
+    ring = encode_circuit(build_graph(parse_fbas(synth.inner_set_ring_fbas(40, 30, broken=True))))
+    ring_problem = (ring, None, list(range(40)), np.ones(40, dtype=np.int32), None)
+    cases = []  # (label, stream, launch(window) -> numpy, plain(window) -> numpy, windows)
+    for name, (circuit, circuit_d, local, scc_mask, frozen), lo_bits, hi, starts in (
+            ("full width broken", full, 30, 0, [0, (1 << 29) + 12345]),
+            ("ring(40,30) broken, 1240 units", ring_problem, 20, 0x55555, [0, 400])):
+        lo_nodes = np.asarray(local[1:1 + lo_bits], dtype=np.int32)
+        hi_row = np.zeros(circuit.n, dtype=np.int32)
+        for j, v in enumerate(local[1 + lo_bits:]):
+            hi_row[v] = (hi >> j) & 1
+        plain = ref.SweepRef(circuit, lo_nodes, scc_mask, frozen, 3000, circuit_d, device)
+        for stream in (False, True):
+            fused = FusedSweep(circuit, lo_nodes, scc_mask, frozen, 3000, circuit_d, device, stream=stream)
+            cases.append((f"sweep {name}, {'streamed' if stream else 'resident'}", stream,
+                          lambda st, f=fused, h=mask_bits(hi_row): f.program(st, 2, h).cpu().numpy(),
+                          lambda st, pl=plain, h=hi_row: pl.program(st, 2, h if h.any() else None).cpu().numpy(),
+                          starts))
+    rng = np.random.default_rng(3)
+    masks = [(rng.random((3000, ring.n)) < rng.random((3000, 1))).astype(np.int8) for _ in range(2)]
+    for stream in (False, True):
+        guard = BlockGuard(ring, "dense", device, stream=stream)
+        cases.append((f"guard ring(40,30), {'streamed' if stream else 'resident'}", stream,
+                      lambda w, gd=guard: gd.counts(masks[w]),
+                      lambda w: guard_counts(ring, masks[w], "dense", device).cpu().numpy(), [0, 1]))
+    out = {}
+    for label, stream, launch, plain_of, windows in cases:
+        want = {w: plain_of(w) for w in windows}
+        first = {}
+        vs_plain = vs_first = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ms = 0.0
+        for i in range(repeats):
+            w = windows[i % len(windows)]
+            start.record()
+            got = launch(w)
+            end.record()
+            end.synchronize()
+            ms += start.elapsed_time(end)
+            vs_plain += int(not np.array_equal(got, want[w]))
+            vs_first += int(not np.array_equal(got, first.setdefault(w, got)))
+        out[label] = {"streamed": stream, "launches": repeats, "kernel_vs_plain": vs_plain,
+                      "kernel_vs_its_first": vs_first, "plain_vs_its_first": 0,
+                      "windows_with_hits": sum(int(np.any(v != ref.INT32_MAX)) for v in want.values())
+                      if label.startswith("sweep") else None,
+                      "ms_mean": ms / repeats}
+    return out
+
+
 def stress_failed(cases) -> bool:
     return any(r["kernel_vs_plain"] or r["kernel_vs_its_first"] or r["plain_vs_its_first"]
                for r in cases.values())
@@ -288,14 +367,13 @@ def batch_sources(fixture_names):
 
 
 def macs_per_pass(circuit) -> int:
-    """Dense MACs of one fixpoint pass: the members over every unit, then
-    the children of every unit over the inner units at each depth."""
+    """MACs one fixpoint pass needs: one per nonzero member vote, then one
+    per nonzero child vote at each child pass (a zero vote adds nothing, and
+    the kernels skip the all-zero k-slabs)."""
     import numpy as np
 
-    kids = np.nonzero(circuit.child.any(axis=0))[0]
-    inner = circuit.n_units - (int(kids[0]) if kids.size else circuit.n_units)
     depth = circuit.depth if circuit.n_units > circuit.n else 0
-    return circuit.n * circuit.n_units + depth * circuit.n_units * inner
+    return int(np.count_nonzero(circuit.members)) + depth * int(np.count_nonzero(circuit.child))
 
 
 def fixpoint_work(circuit, circuit_d, lo_nodes, scc_mask, frozen, start, rows, hi_row, device):
@@ -463,7 +541,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Chip smoke run of the PyTorch/CUDA port.")
     ap.add_argument("--stress", type=int, metavar="N", default=0,
                     help="only build, then launch the dense packed kernel N times on each of "
-                         "compare_packed's repeated cases (no ok line)")
+                         "compare_packed's repeated cases and the warp kernels N times on each of "
+                         "compare_warp's (no ok line)")
     args = ap.parse_args(argv)
     if not (ROOT / PORT / "kernels" / "csrc" / "sweep.cu").is_file():
         print(f"FAIL setup: {PORT}/ not found beside chip_smoke.py (run from a checkout)")
@@ -499,7 +578,7 @@ def main(argv=None) -> int:
                libraries=[str(b.path.relative_to(ROOT)) for b in built.values()], ptxas=ptxas)
     if args.stress:
         t0 = time.perf_counter()
-        cases = stress_packed(device, args.stress)
+        cases = {**stress_packed(device, args.stress), **stress_warp(device, args.stress)}
         phase_line("stress", card=card, seconds=round(time.perf_counter() - t0, 3), cases=cases)
         return 1 if stress_failed(cases) else 0
 
@@ -547,13 +626,28 @@ def main(argv=None) -> int:
     from quorum_intersection_tpu_torch.fbas.graph import build_graph
     from quorum_intersection_tpu_torch.fbas.schema import parse_fbas
     from quorum_intersection_tpu_torch.kernels import sweep_ref as ref
-    from quorum_intersection_tpu_torch.kernels.sweep_cuda import FusedSweep, mask_bits, sweep_fused
+    from quorum_intersection_tpu_torch.kernels.sweep_cuda import (
+        FusedSweep,
+        KernelLimitError,
+        mask_bits,
+        sweep_fused,
+    )
 
     def compare(label, circuit, circuit_d, local, scc_mask, frozen, lo_bits, his, starts,
                 batch, steps):
+        """Both instances of the fused kernel (tables resident and streamed;
+        the resident one only where the tables fit) against the plain
+        version on every hi row and start."""
         lo_nodes = np.asarray(local[1:1 + lo_bits], dtype=np.int32)
         hi_nodes = local[1 + lo_bits:]
-        fused = FusedSweep(circuit, lo_nodes, scc_mask, frozen, batch, circuit_d, device)
+        kernels = {}
+        for stream in (False, True):
+            try:
+                kernels[stream] = FusedSweep(circuit, lo_nodes, scc_mask, frozen, batch, circuit_d,
+                                             device, stream=stream)
+            except KernelLimitError:
+                if stream:
+                    raise
         plain = ref.SweepRef(circuit, lo_nodes, scc_mask, frozen, batch, circuit_d, device)
         hits = windows = 0
         max_err = 0
@@ -562,17 +656,23 @@ def main(argv=None) -> int:
             for j, v in enumerate(hi_nodes):
                 hi_row[v] = (hi >> j) & 1
             for start in starts:
-                got = int(fused.program(start, steps, mask_bits(hi_row)))
                 want = int(plain.program(start, steps, hi_row if hi_nodes else None))
-                torch.cuda.synchronize()
                 windows += 1
                 hits += want != ref.INT32_MAX
-                max_err = max(max_err, abs(got - want))
-                if got != want:
-                    fail("compare", f"{label} hi={hi} start={start}: kernel {got} != plain {want}")
+                for stream, fused in kernels.items():
+                    got = int(fused.program(start, steps, mask_bits(hi_row)))
+                    torch.cuda.synchronize()
+                    max_err = max(max_err, abs(got - want))
+                    if got != want:
+                        fail("compare", f"{label} (streamed={stream}) hi={hi} start={start}: "
+                                        f"kernel {got} != plain {want}")
+        natural = FusedSweep(circuit, lo_nodes, scc_mask, frozen, 1, circuit_d, device).tables
         return {"label": label, "n": circuit.n, "units": circuit.n_units, "depth": circuit.depth,
+                "max_vote": int(max(circuit.members.max(), circuit.child.max(initial=0))),
                 "restricted": circuit_d is not None, "lo_bits": lo_bits, "windows": windows,
-                "windows_with_hits": hits, "max_abs_err": max_err}
+                "windows_with_hits": hits, "max_abs_err": max_err,
+                "instances": ["streamed" if s else "resident" for s in kernels],
+                "chosen": "streamed" if natural.stream else "resident", "table_blocks": natural.nblocks}
 
     results = []
     launches_before_compare = sweep_fused.launches
@@ -604,34 +704,62 @@ def main(argv=None) -> int:
         results.append(compare(f"inner_set_ring_fbas(30,12,broken={broken}) U={ring.n_units}",
                                ring, None, list(range(ring.n)), np.ones(ring.n, dtype=np.int32), None,
                                ring.n - 1, [0], [0, 3 << 20, (1 << 29) - (1 << 15)], 1 << 14, 2))
+    for broken in (False, True):
+        # 40 nodes, 1240 units: past the 1024 units the first fused kernel
+        # took.  20 low bits and an alternating hi row, as the CPU model test.
+        ring = encode_circuit(build_graph(parse_fbas(synth.inner_set_ring_fbas(40, 30, broken=broken))))
+        results.append(compare(f"inner_set_ring_fbas(40,30,broken={broken}) U={ring.n_units}",
+                               ring, None, list(range(ring.n)), np.ones(ring.n, dtype=np.int32), None,
+                               20, [0, sum(1 << j for j in range(0, 19, 2))],
+                               [0, 400, (1 << 19) - 67, (1 << 20) - 3000], 3000, 2))
+    # A circuit whose tables pass one block's shared memory: streamed only.
+    huge = dense_child_circuit(n=40, units=3000)
+    results.append(compare(f"densely nested n=40 U={huge.n_units}", huge, None, list(range(huge.n)),
+                           np.ones(huge.n, dtype=np.int32), None, 30, [0, 123],
+                           [0, 1 << 20, (1 << 30) - 6000], 3000, 2))
     max_abs_err = max(r["max_abs_err"] for r in results)
+    wide = [r for r in results if r["units"] > 1024]
+    if not any(r["windows_with_hits"] for r in wide) or not any(r["chosen"] == "streamed" for r in wide):
+        fail("compare", "the circuits above 1024 units lack a window with a hit or a streamed choice")
     phase_line("compare", tolerance="exact (integer hit indices)", circuits=results)
+    # The warp kernels again and again, each launch against the plain result.
+    repeated_warp = stress_warp(device, STRESS_REPEATS)
+    if stress_failed(repeated_warp):
+        fail("compare", f"a repeated warp-kernel launch differed: {repeated_warp}")
+    phase_line("compare_warp", repeated=repeated_warp)
 
     # Times on two main-path shapes: the snapshot's restricted SCC and the
-    # full-width config's restricted, wide one.  One window = 2^20 candidates.
+    # full-width config's restricted, wide one, then the 1240-unit ring.
+    # One window = 2^20 candidates; each shape on both instances.
+    ring40 = encode_circuit(build_graph(parse_fbas(synth.inner_set_ring_fbas(40, 30))))
+    shapes = {
+        "snapshot": sweep_problem(fixture_text("snapshot_broken.json")) + (None, 0),
+        "bench256_34": sweep_problem(json.dumps(synth.benchmark_fbas(256, 34))) + (30, 5),
+        "ring40_30": (ring40, None, list(range(40)), np.ones(40, dtype=np.int32), None, 30, 0),
+    }
     timing = {}
-    for label, text, lo_bits, hi in (
-        ("snapshot", fixture_text("snapshot_broken.json"), None, 0),
-        ("bench256_34", json.dumps(synth.benchmark_fbas(256, 34)), 30, 5),
-    ):
-        circuit, circuit_d, local, scc_mask, frozen = sweep_problem(text)
+    for label, (circuit, circuit_d, local, scc_mask, frozen, lo_bits, hi) in shapes.items():
         lo_bits = len(local) - 1 if lo_bits is None else lo_bits
         lo_nodes = np.asarray(local[1:1 + lo_bits], dtype=np.int32)
         hi_row = np.zeros(circuit.n, dtype=np.int32)
         for j, v in enumerate(local[1 + lo_bits:]):
             hi_row[v] = (hi >> j) & 1
         start = 0 if label == "snapshot" else 1 << 20  # a window with no early hit
-        fused = FusedSweep(circuit, lo_nodes, scc_mask, frozen, 1 << 17, circuit_d, device)
         plain = ref.SweepRef(circuit, lo_nodes, scc_mask, frozen, 1 << 17, circuit_d, device)
         hi_bits = mask_bits(hi_row)
-        ms = time_ms(lambda: fused.program(start, 8, hi_bits), 50)
         plain_ms = time_ms(lambda: plain.program(start, 8, hi_row if hi_bits else None), 3)
         bound_ms, bound_by, passes = window_bound_ms(circuit, circuit_d, lo_nodes, scc_mask, frozen,
                                                      start, hi_row if hi_bits else None, device)
-        timing[label] = {"n": circuit.n, "units": circuit.n_units, "window": WINDOW, "ms": ms,
-                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                         "fixpoint_passes": passes, "candidates_per_s": WINDOW / ms * 1e3}
-    phase_line("timing", card=card, per_window=timing)
+        for stream in (False, True):
+            fused = FusedSweep(circuit, lo_nodes, scc_mask, frozen, 1 << 17, circuit_d, device,
+                               stream=stream)
+            ms = time_ms(lambda: fused.program(start, 8, hi_bits), 20 if label == "ring40_30" else 50)
+            timing[f"{label}/streamed" if stream else label] = {"n": circuit.n, "units": circuit.n_units, "depth": circuit.depth,
+                           "window": WINDOW, "instance": "streamed" if stream else "resident",
+                           "table_blocks": fused.tables.nblocks, "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by, "fixpoint_passes": passes,
+                           "candidates_per_s": WINDOW / ms * 1e3}
+    phase_line("timing", card=card, per_window=timing, ptxas=ptxas.get("sweep"))
     compare_launches = sweep_fused.launches - launches_before_compare
 
     # -- 5. main path ----------------------------------------------------
@@ -721,6 +849,11 @@ def main(argv=None) -> int:
         fail("main", "the main path never launched sweep_fused_cuda")
 
     # -- 7. batch path ---------------------------------------------------
+    def witness_ok(src, res) -> bool:
+        graph = build_graph(parse_fbas(src))
+        q1, q2 = res.q1 or [], res.q2 or []
+        return is_quorum(graph, q1) and is_quorum(graph, q2) and not set(q1) & set(q2)
+
     from quorum_intersection_tpu_torch.backends.sweep import GpuSweepBackend
     from quorum_intersection_tpu_torch.encode.circuit import bitset_supported
     from quorum_intersection_tpu_torch.kernels.packed_cuda import (
@@ -794,6 +927,34 @@ def main(argv=None) -> int:
                 fail("batch", f"{name} (engine={label}): hit index {got} != unpacked solve's {want}")
     phase_line("batch", card=card, runs=batch_runs,
                hit_index_vs_unpacked_solve=f"{len(sources)}/{len(sources)} equal on both engines")
+
+    # Jobs whose window split would pass the packed kernels' 1024 units
+    # (the JAX drive plans 4 and 5 windows, 1568 and 1560 fused units):
+    # check_many plans packs within it, with the unpacked solve's answers.
+    ring_sources = [(f"inner_set_ring_fbas({n},12,broken={b})", synth.inner_set_ring_fbas(n, 12, broken=b))
+                    for n in (30, 24) for b in (False, True)]
+    unit_runs = {}
+    for engine in (None, "bitset"):
+        label = engine or "default"
+        backend = GpuSweepBackend(engine=engine)
+        t = time.perf_counter()
+        res = check_many([src for _, src in ring_sources], backend=backend)
+        seconds = time.perf_counter() - t
+        for (name, src), r in zip(ring_sources, res):
+            solo = solo_results.setdefault(name, solve(src))
+            if not r.intersects and not witness_ok(src, r):
+                fail("batch_units", f"{name} (engine={label}): witness pair is not two disjoint quorums")
+            if (r.intersects, r.stats.get("hit_index")) != (solo.intersects, solo.stats.get("hit_index")):
+                fail("batch_units", f"{name} (engine={label}): hit index {r.stats.get('hit_index')} != "
+                                    f"unpacked solve's {solo.stats.get('hit_index')}")
+        unit_runs[label] = {
+            "seconds": seconds,
+            "packs": [{"groups": pl.packed.groups, "shape": [pl.packed.circuit.n, pl.packed.circuit.n_units]}
+                      for pl in backend.pack_plans],
+            "verdicts": {name: r.intersects for (name, _), r in zip(ring_sources, res)},
+            "hit_index": {name: r.stats.get("hit_index") for (name, _), r in zip(ring_sources, res)}}
+    phase_line("batch_units", card=card, runs=unit_runs,
+               hit_index_vs_unpacked_solve=f"{len(ring_sources)}/{len(ring_sources)} equal on both engines")
 
     # -- 8. the packed kernels against their plain versions ---------------
     # On every pack the default batch run swept (a depth-1 pack and windows
@@ -895,11 +1056,6 @@ def main(argv=None) -> int:
     from quorum_intersection_tpu_torch.backends.sweep import _PrunePlan, guard_masks
     from quorum_intersection_tpu_torch.kernels.guard_cuda import BlockGuard, guard_bitset, guard_dense
     from quorum_intersection_tpu_torch.kernels.guard_ref import guard_counts
-
-    def witness_ok(src, res) -> bool:
-        graph = build_graph(parse_fbas(src))
-        q1, q2 = res.q1 or [], res.q2 or []
-        return is_quorum(graph, q1) and is_quorum(graph, q2) and not set(q1) & set(q2)
 
     def ledger_ok(stats) -> bool:
         """On a swept ``true``: every window checked, pruned or skipped."""
@@ -1039,7 +1195,9 @@ def main(argv=None) -> int:
         cases.setdefault(key, (label, c, masks, encodings, []))[4].append((label, prefixes))
     for label, c in (("multi-edge", multi_edge_circuit()),
                      ("inner_set_ring_fbas(30,12)",
-                      encode_circuit(build_graph(parse_fbas(synth.inner_set_ring_fbas(30, 12)))))):
+                      encode_circuit(build_graph(parse_fbas(synth.inner_set_ring_fbas(30, 12))))),
+                     ("inner_set_ring_fbas(40,30), 1240 units",
+                      encode_circuit(build_graph(parse_fbas(synth.inner_set_ring_fbas(40, 30)))))):
         bits = c.n - 1
         prefix = min(14, bits - 2)
         cases[label] = (label, c, guard_masks(c.n, np.arange(1, c.n), bits - prefix, prefix), ("dense",), [])
@@ -1048,12 +1206,14 @@ def main(argv=None) -> int:
     guard_results = []
     for label, c, masks, encodings, runs in cases.values():
         for enc in encodings:
-            got = BlockGuard(c, enc, device).counts(masks)
             want = guard_counts(c, masks, enc, device).cpu().numpy()
-            err = int(np.abs(got.astype(np.int64) - want.astype(np.int64)).max(initial=0))
-            guard_err[enc] = max(guard_err[enc], err)
-            if err or got.shape != want.shape:
-                fail("compare_guard", f"{label} {enc}: kernel differs from plain (max err {err})")
+            for stream in (False, True):  # both instances: tables resident and streamed
+                got = BlockGuard(c, enc, device, stream=stream).counts(masks)
+                err = int(np.abs(got.astype(np.int64) - want.astype(np.int64)).max(initial=0))
+                guard_err[enc] = max(guard_err[enc], err)
+                if err or got.shape != want.shape:
+                    fail("compare_guard", f"{label} {enc} (streamed={stream}): kernel differs from plain "
+                                          f"(max err {err})")
         for run, prefixes in runs:
             if np.nonzero(want == 0)[0].tolist() != list(prefixes):
                 fail("compare_guard", f"{run}: the rebuilt guard rows do not give the run's pruned blocks")
@@ -1061,6 +1221,7 @@ def main(argv=None) -> int:
         positive_rows += int((want > 0).sum())
         guard_results.append({"case": label, "n": c.n, "units": c.n_units, "depth": c.depth,
                               "rows": len(masks), "encodings": list(encodings),
+                              "instances": ["resident", "streamed"],
                               "rows_pruned": int((want == 0).sum())})
     if not zero_rows or not positive_rows:
         fail("compare_guard", f"compared rows lack a zero ({zero_rows}) or a positive ({positive_rows}) count")
@@ -1101,14 +1262,15 @@ def main(argv=None) -> int:
         "sweep_fused_cuda": ms_of(full_device_ms, "sweep_kernel"),
         "packed_sweep_dense_cuda": ms_of(batch_device_ms["default"], "packed_kernel"),
         "packed_sweep_bitset_cuda": ms_of(batch_device_ms["bitset"], "packed_kernel"),
-        "guard_dense_cuda": ms_of(pruned_device_ms["default"], "guard_kernel<unsigned long"),
-        "guard_bitset_cuda": ms_of(pruned_device_ms["bitset"], "guard_kernel<unsigned int"),
+        "guard_dense_cuda": ms_of(pruned_device_ms["default"], "guard_kernel"),
+        "guard_bitset_cuda": ms_of(pruned_device_ms["bitset"], "guard_kernel"),
     }
     main_device_ms_of = {
         "sweep_fused_cuda": "full, benchmark_fbas(256, core=34)",
         "packed_sweep_dense_cuda": "batch, default engine",
         "packed_sweep_bitset_cuda": "batch, bitset engine",
-        "guard_dense_cuda": "batch_pruned, default engine", "guard_bitset_cuda": "batch_pruned, bitset engine",
+        "guard_dense_cuda": "batch_pruned, default engine",
+        "guard_bitset_cuda": "batch_pruned, bitset engine (both encodings' guards run one kernel)",
     }
     snap = timing["bench256_34"]
     record = {"kernels": [{
@@ -1161,6 +1323,12 @@ def main(argv=None) -> int:
             "main_path_device_ms": main_device_ms[name],
             "main_path_device_ms_of": main_device_ms_of[name],
         })
+    # Each kernel's instances as ptxas built them: registers and spills.
+    library_of = {"sweep_fused_cuda": "sweep", "packed_sweep_dense_cuda": "packed_sweep",
+                  "packed_sweep_bitset_cuda": "packed_sweep", "guard_dense_cuda": "guard",
+                  "guard_bitset_cuda": "guard"}
+    for entry in record["kernels"]:
+        entry["instances"] = ptxas.get(library_of[entry["name"]])
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

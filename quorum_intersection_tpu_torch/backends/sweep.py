@@ -60,13 +60,14 @@ from quorum_intersection_tpu_torch.encode.circuit import (
     bitset_supported,
     ladder_up,
     pack_circuits,
+    pad_targets,
     plan_packs,
     restrict_circuit_pair,
 )
 from quorum_intersection_tpu_torch.fbas.graph import TrustGraph
 from quorum_intersection_tpu_torch.fbas.semantics import max_quorum
 from quorum_intersection_tpu_torch.kernels.guard_cuda import BlockGuard
-from quorum_intersection_tpu_torch.kernels.packed_cuda import PackedSweep
+from quorum_intersection_tpu_torch.kernels.packed_cuda import MAX_UNITS, PackedSweep
 from quorum_intersection_tpu_torch.kernels.sweep_cuda import FusedSweep
 from quorum_intersection_tpu_torch.kernels.sweep_ref import _round_up
 
@@ -107,6 +108,33 @@ PRUNE_MIN_BITS = 6
 PRUNE_MAX_PREFIX_BITS = 14
 # Never shrink blocks below 2^2 windows.
 PRUNE_MIN_BLOCK_BITS = 2
+
+
+def fused_units(slot: int, groups: int, inner: int) -> int:
+    """Units of the fused circuit ``pack_circuits`` builds from ``groups``
+    lane groups of ``slot`` lanes holding ``inner`` inner units in all."""
+    lanes = groups * slot
+    return pad_targets(lanes, lanes + inner)[1]
+
+
+def fit_units(jobs: Sequence[int], circuit_of: Callable[[int], Circuit]) -> List[List[int]]:
+    """Split one planned pack, in its order, into packs whose fused circuit
+    (one window per job) stays within the packed kernels' ``MAX_UNITS``.  A
+    job whose circuit alone passes it is left out: it takes the unpacked
+    sweep, whose kernel has no unit limit."""
+
+    def fits(ixs: List[int]) -> bool:
+        circuits = [circuit_of(x) for x in ixs]
+        slot = ladder_up(max(max(c.n for c in circuits), 1))
+        return fused_units(slot, len(ixs), sum(c.n_units - c.n for c in circuits)) <= MAX_UNITS
+
+    packs: List[List[int]] = []
+    for i in jobs:
+        if packs and fits(packs[-1] + [i]):
+            packs[-1].append(i)
+        elif fits([i]):
+            packs.append([i])
+    return packs
 
 
 class SccTooLargeError(ValueError):
@@ -703,7 +731,12 @@ class GpuSweepBackend:
         enumerations.  Verdict, witness and first-hit index are those of
         :meth:`check_scc` per job.
 
-        Wide (> 2^lo_bits) enumerations stay on the unpacked sweep.
+        Wide (> 2^lo_bits) enumerations stay on the unpacked sweep, and so
+        does a job whose restricted circuit alone passes the packed kernels'
+        ``MAX_UNITS``; a pack whose jobs' units add up past it splits in
+        order (:func:`fit_units`).  Unlike the JAX drive, which counts lanes
+        only, the port's packs and window splits keep the fused circuit
+        within ``MAX_UNITS``, so its pack statistics may differ there.
         ``cancels`` is job-aligned: a tripped token retires that job alone
         (a ``cancelled`` result, no verdict); a job already cancelled never
         takes lanes.
@@ -725,9 +758,7 @@ class GpuSweepBackend:
             if tok is not None and tok.cancelled:
                 continue  # already dead: never let it occupy lanes
             prepared[i] = self._prepare_job(graph, circuit, scc, scope_to_scc)
-        packable = list(prepared)
-        for pack_ixs in plan_packs([prepared[i].circuit.n for i in packable]):
-            members = [packable[ix] for ix in pack_ixs]
+        for members in self.pack_members(prepared):
             self._run_pack([prepared[i] for i in members], [token(i) for i in members])
             for i in members:
                 results[i] = prepared[i].result
@@ -740,6 +771,14 @@ class GpuSweepBackend:
             else:
                 results[i] = self.check_scc(graph, circuit, scc, scope_to_scc=scope_to_scc)
         return [res for res in results if res is not None]
+
+    @staticmethod
+    def pack_members(prepared: Dict[int, _SweepJob]) -> List[List[int]]:
+        """The packs :meth:`check_sccs` runs, as job indices: the JAX lane
+        plan (``plan_packs``), each pack split by :func:`fit_units`."""
+        packable = list(prepared)
+        return [members for pack_ixs in plan_packs([prepared[i].circuit.n for i in packable])
+                for members in fit_units([packable[ix] for ix in pack_ixs], lambda i: prepared[i].circuit)]
 
     def _cancelled_result(self, scc: Sequence[int]) -> SccCheckResult:
         """A per-job-cancelled job's result: no verdict claim."""
@@ -773,9 +812,15 @@ class GpuSweepBackend:
         est_batch = self.batch if self.batch is not None else _auto_batch(capacity * slot)
         windows = [1] * n_jobs
         spare = capacity - n_jobs
+        inner = [j.circuit.n_units - j.circuit.n for j in jobs]
         while spare > 0:
             j = max(range(n_jobs), key=lambda x: jobs[x].total / windows[x])
             if jobs[j].total / windows[j] < 2 * est_batch:
+                break
+            # Every window copies the job's circuit: stop before the fused
+            # circuit passes the packed kernels' unit limit.
+            grown = sum(w * i for w, i in zip(windows, inner)) + inner[j]
+            if fused_units(slot, sum(windows) + 1, grown) > MAX_UNITS:
                 break
             windows[j] += 1
             spare -= 1

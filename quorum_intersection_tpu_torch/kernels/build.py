@@ -48,7 +48,7 @@ class Built:
     name: str
     path: Path
     seconds: float  # 0.0 when the library was already built
-    log: str  # nvcc's output (``-Xptxas -v``: registers, shared memory, spills)
+    log: str  # nvcc's output (``-Xptxas -v``: registers, shared memory, spills), kept beside it
 
 
 def nvcc_path() -> str:
@@ -79,7 +79,8 @@ def build_all(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Built]:
     for name in names:
         target = _target(name)
         if target.exists():
-            done[name] = Built(name, target, 0.0, "")
+            log = target.with_suffix(".log")
+            done[name] = Built(name, target, 0.0, log.read_text() if log.exists() else "")
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
@@ -92,6 +93,7 @@ def build_all(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Built]:
         if proc.returncode != 0:
             failures.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
             continue
+        target.with_suffix(".log").write_text(log)
         os.replace(tmp, target)
         done[name] = Built(name, target, time.perf_counter() - t0, log)
     if failures:

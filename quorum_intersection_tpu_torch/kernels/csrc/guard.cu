@@ -1,75 +1,70 @@
 // Block guard of the sweep's prune plan for Hopper (sm_90a), with a plain C
-// interface loaded through ctypes (kernels/guard_cuda.py).  Two instances:
+// interface loaded through ctypes (kernels/guard_cuda.py).
 //
-// - guard_dense replaces the JAX package's Pallas kernel
-//   `pallas_guard_factory` (backends/tpu/pallas_sweep.py:257, kernel at :285)
-//   and its XLA twin `kernels.guard_program_factory` (backends/tpu/
-//   kernels.py:359): vote counts as bit-planes over one uint64_t row, so any
-//   multiplicity is exact (the Pallas kernel takes int8 votes only);
-// - guard_bitset replaces the guard half of the JAX bitset engine,
-//   `kernels.bitset_guard_program_factory` (kernels.py:722): 0/1 votes as
-//   `bitset_encode`'s uint32 words (LSB-first), two words per row.
+// Replaces the JAX package's Pallas kernel `pallas_guard_factory`
+// (backends/tpu/pallas_sweep.py:257, kernel at :285), its XLA twin
+// `kernels.guard_program_factory` (backends/tpu/kernels.py:359) and the guard
+// half of the bitset engine, `kernels.bitset_guard_program_factory`
+// (kernels.py:722).  The dense and the bitset encodings are one evaluator: the
+// bitset encoding's 0/1 votes are the one-plane case of the bit-plane tables.
 //
-// For each row r of the (B, n) maximal-candidate masks (n <= 64):
+// For each row r of the (B, n) maximal-candidate masks (n <= 64, two uint32
+// words a row, bit v of the row is node v):
 //   Q      = greatest fixpoint of masks[r] under the Q thresholds (scoped)
 //   out[r] = |Q|
 // A zero count proves that the block's maximal candidate holds no quorum:
 // the fixpoint is monotone in its candidate set, so no window of the block
 // can hit, and the drive skips the block.
 //
-// Design: one thread per row in a grid-stride loop, the circuit evaluated by
-// circuit_eval.cuh from tables in shared memory, as in the sweep kernels;
-// no decode, no D probe, no frozen row (the Q thresholds fill both table
-// slots).  The JAX guards pad rows to a fixed chunk or grid block; here the
-// wrapper passes exactly B rows and the loop bound is the ragged edge.
-//
 // What bounds it: each row runs up to n + 1 fixpoint passes of depth + 1
-// sweeps over U units, against its n - 1 candidate bits in (the kernel
-// takes them as one 8-byte word) and a 4-byte count out.  At the drive's at
-// most 2^14 rows that is microseconds of work: the launch and the host's
-// mask upload around it dominate.
+// sweeps over U units, against its candidate bits in (8 bytes) and a 4-byte
+// count out.  At the drive's at most 2^14 rows that is microseconds of work.
+// The design is the fused sweep's warp evaluator (warp_mma.cuh: b1 and-popc
+// votes on the tensor cores, 16 rows a warp, no barrier in the fixpoint)
+// with rows loaded from device memory instead of decoded, the Q fixpoint
+// only, and exactly B counts written (the ragged edge masked).
 
-#include "circuit_eval.cuh"
+#include "warp_mma.cuh"
 
 namespace {
 
-using qi::kThreads;
+using namespace qi_warp;
 
-template <typename Word, int NW, int W>
+template <class Src, bool kS1>
 __global__ void __launch_bounds__(kThreads)
-guard_kernel(const Word* __restrict__ member_planes, const Word* __restrict__ child_planes,
-             const int* __restrict__ thr, int n, int units, int pm, int pc, int depth, int c0,
-             const Word* __restrict__ masks, long long rows, int* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  qi::Tables<Word> tq, same;
-  qi::load_tables<Word, NW, W>(reinterpret_cast<Word*>(smem_raw), member_planes, child_planes,
-                               thr, thr, n, units, pm, pc, depth, c0, tq, same);
+guard_kernel(Params p, const uint32_t* __restrict__ masks, long long rows, int* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout l = make_layout(false, Src::kStream, p);
+  Warp<Src, kS1> w;
+  w.init(smem, l, p, false);
   __syncthreads();
 
-  const Word none[NW] = {};
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < rows; r += stride) {
-    Word a[NW];
-#pragma unroll
-    for (int x = 0; x < NW; ++x) a[x] = masks[r * NW + x];
-    qi::fixpoint<Word, NW, W>(a, none, tq);
-    int count = 0;
-#pragma unroll
-    for (int x = 0; x < NW; ++x) count += qi::popc(a[x]);
-    out[r] = count;
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+  const long long tiles = (rows + kRows - 1) / kRows;
+  for (long long t = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5); t < tiles;
+       t += (long long)gridDim.x * kWarps) {
+    const long long r0 = t * kRows + g, r1 = r0 + 8;
+    uint32_t a0 = q < 2 && r0 < rows ? masks[2 * r0 + q] : 0u;
+    uint32_t a1 = q < 2 && r1 < rows ? masks[2 * r1 + q] : 0u;
+    w.fixpoint(a0, a1, 0u, w.src.thr_q);
+    int c0 = __popc(a0), c1 = __popc(a1);
+    c0 += __shfl_xor_sync(kFull, c0, 1);
+    c0 += __shfl_xor_sync(kFull, c0, 2);
+    c1 += __shfl_xor_sync(kFull, c1, 1);
+    c1 += __shfl_xor_sync(kFull, c1, 2);
+    if (q == 0 && r0 < rows) out[r0] = c0;
+    if (q == 1 && r1 < rows) out[r1] = c1;
   }
 }
 
-template <typename Word, int NW, int W>
-cudaError_t launch(const Word* member_planes, const Word* child_planes, const int* thr, int n,
-                   int units, int pm, int pc, int depth, int c0, const Word* masks,
-                   long long rows, int* out, cudaStream_t stream) {
-  const size_t smem = qi::table_bytes<Word, NW, W>(units, pm, pc);
+template <class Src, bool kS1>
+cudaError_t launch(const Params& p, const uint32_t* masks, long long rows, int* out,
+                   cudaStream_t stream) {
+  const size_t smem = make_layout(false, Src::kStream, p).end;
   int grid = 0;
-  cudaError_t err = qi::plan_grid(guard_kernel<Word, NW, W>, smem, rows, &grid);
+  cudaError_t err = plan_grid<guard_kernel<Src, kS1>>(smem, (rows + kRows - 1) / kRows, &grid);
   if (err != cudaSuccess || grid < 1) return err;
-  guard_kernel<Word, NW, W><<<grid, kThreads, smem, stream>>>(
-      member_planes, child_planes, thr, n, units, pm, pc, depth, c0, masks, rows, out);
+  guard_kernel<Src, kS1><<<grid, kThreads, smem, stream>>>(p, masks, rows, out);
   return cudaGetLastError();
 }
 
@@ -79,49 +74,16 @@ extern "C" const char* qi_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Dense (bit-plane) guard.  Tables: member planes [pm][units], child planes
-// [pc][units][words] from unit c0, thresholds [units]; masks [rows] (bit v
-// is node v).  Returns a cudaError_t (0 on success).
-extern "C" int qi_guard_dense(const uint64_t* member_planes, const uint64_t* child_planes,
-                              const int* thr, int n, int units, int pm, int pc, int depth, int c0,
-                              int words, const uint64_t* masks, long long rows, int* out,
-                              void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define QI_DENSE_CASE(W)                                                                      \
-  case W:                                                                                     \
-    return launch<uint64_t, 1, W>(member_planes, child_planes, thr, n, units, pm, pc, depth, \
-                                  c0, masks, rows, out, s);
-  switch (words) {
-    QI_DENSE_CASE(1)
-    QI_DENSE_CASE(2)
-    QI_DENSE_CASE(4)
-    QI_DENSE_CASE(8)
-    QI_DENSE_CASE(16)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef QI_DENSE_CASE
-}
-
-// Bitset guard.  Tables: member words [units][2], child words [units][words]
-// from unit c0, thresholds [units]; masks [rows][2].
-extern "C" int qi_guard_bitset(const uint32_t* member_words, const uint32_t* child_words,
-                               const int* thr, int n, int units, int depth, int c0, int words,
-                               const uint32_t* masks, long long rows, int* out, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define QI_BITSET_CASE(W)                                                                    \
-  case W:                                                                                    \
-    return launch<uint32_t, 2, W>(member_words, child_words, thr, n, units, 1, 1, depth, c0, \
-                                  masks, rows, out, s);
-  switch (words) {
-    QI_BITSET_CASE(1)
-    QI_BITSET_CASE(2)
-    QI_BITSET_CASE(4)
-    QI_BITSET_CASE(8)
-    QI_BITSET_CASE(16)
-    QI_BITSET_CASE(32)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef QI_BITSET_CASE
+// Tables as kernels/sweep_cuda.py `plane_tables` builds them, thr negated;
+// masks [rows][2] uint32 words.  Returns a cudaError_t (0 on success).
+extern "C" int qi_guard(const void* blocks, const void* chunks, const int* thr, int n, int n_units,
+                        int units, int depth, int c0, int slabs, int pc, int nblocks, int stream,
+                        const uint32_t* masks, long long rows, int* out, void* cuda_stream) {
+  const Params p{static_cast<const uint4*>(blocks), static_cast<const int4*>(chunks), thr, thr,
+                 n, n_units, units, depth, c0, slabs, pc, nblocks};
+  cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
+  const bool s1 = slabs <= 1;
+  if (stream)
+    return s1 ? launch<Streamed, true>(p, masks, rows, out, s) : launch<Streamed, false>(p, masks, rows, out, s);
+  return s1 ? launch<Resident, true>(p, masks, rows, out, s) : launch<Resident, false>(p, masks, rows, out, s);
 }

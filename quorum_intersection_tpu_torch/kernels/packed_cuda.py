@@ -50,7 +50,6 @@ from quorum_intersection_tpu_torch.kernels import build
 from quorum_intersection_tpu_torch.kernels.packed_ref import ENGINES, PackedRef
 from quorum_intersection_tpu_torch.kernels.sweep_cuda import (
     INDEX_CEILING,
-    MAX_UNITS,
     SMEM_LIMIT,
     KernelLimitError,
     upload_words,
@@ -58,6 +57,8 @@ from quorum_intersection_tpu_torch.kernels.sweep_cuda import (
 
 MAX_GROUPS = 16
 MAX_LANES = 128
+# Units of a pack: 32 chunks of 32 (the drive plans packs within it).
+MAX_UNITS = 1024
 MAX_GROUP_BITS = 30
 CHUNK = 32  # units per N-chunk
 ROWS = 64  # rows per tile

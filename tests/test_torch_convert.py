@@ -37,8 +37,9 @@ def _assert_same_circuit(a, b):
 
 
 def _assert_same_planes(a, b):
-    assert (a.n, a.n_units, a.depth, a.words) == (b.n, b.n_units, b.depth, b.words)
-    for f in ("member_planes", "child_planes", "thresholds"):
+    shape = ("n", "n_units", "units", "depth", "c0", "slabs", "pm", "pc", "stream")
+    assert tuple(getattr(a, f) for f in shape) == tuple(getattr(b, f) for f in shape)
+    for f in ("chunks", "blocks", "neg_thresholds"):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
 
 

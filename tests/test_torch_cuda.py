@@ -337,13 +337,114 @@ def test_pruned_paths_on_card_match_cpu(cuda_device):
 
 
 def test_guard_limits_raise_before_launch(cuda_device):
+    """What the guard still refuses (more than 64 nodes, in both encodings)
+    raises before any launch; a 1240-unit circuit, which the guard refused
+    while it took at most 1024 units, is taken and matches the plain
+    version, on both instances."""
     wide = encode_circuit(build_graph(parse_fbas(synth.majority_fbas(70))))
     before = guard_dense.launches, guard_bitset.launches
     for encoding in ("dense", "bitset"):
         with pytest.raises(KernelLimitError, match="at most 64"):
             BlockGuard(wide, encoding, cuda_device)
+    assert (guard_dense.launches, guard_bitset.launches) == before
     many = encode_circuit(build_graph(parse_fbas(synth.inner_set_ring_fbas(40, 30))))
     assert many.n_units > 1024
-    with pytest.raises(KernelLimitError, match="at most 1024"):
-        BlockGuard(many, "dense", cuda_device)
-    assert (guard_dense.launches, guard_bitset.launches) == before
+    rng = np.random.default_rng(3)
+    masks = (rng.random((3000, many.n)) < rng.random((3000, 1))).astype(np.int8)
+    want = guard_counts(many, masks, "dense", cuda_device).cpu().numpy()
+    for stream in (False, True):
+        got = BlockGuard(many, "dense", cuda_device, stream=stream).counts(masks)
+        bad = np.nonzero(got != want)[0]
+        assert not bad.size, f"stream={stream}: rows {bad[:8].tolist()} got {got[bad[:8]].tolist()} " \
+                             f"want {want[bad[:8]].tolist()}"
+    assert guard_dense.launches == before[0] + 2
+    assert (want == 0).any() and (want > 0).any()
+
+
+def _warp_cases():
+    """The new fused kernel's shapes: (label, Q, D, local, scc mask, frozen,
+    lo_bits, hi rows, starts)."""
+    out = []
+    for broken in (False, True):
+        q, d, local, mask, frozen = _sweep_problem(synth.benchmark_fbas(256, 34, broken=broken))
+        out.append((f"full width broken={broken}", q, d, local, mask, frozen, 30, [0, 5],
+                    [0, (1 << 29) + 12345]))
+    q, d, local, mask, frozen = _sweep_problem((FIXTURES / "snapshot_broken.json").read_text())
+    out.append(("snapshot_broken", q, d, local, mask, frozen, len(local) - 1, [0], [0, 300, (1 << 20) - 4096]))
+    me = encode_circuit(build_graph(parse_fbas(_multi_edge_data())))
+    out.append(("multi-edge", me, None, list(range(me.n)), np.ones(me.n, dtype=np.int32), None,
+                me.n - 1, [0], [0]))
+    for broken in (False, True):
+        big = encode_circuit(build_graph(parse_fbas(synth.inner_set_ring_fbas(40, 30, broken=broken))))
+        out.append((f"ring(40,30) broken={broken}, {big.n_units} units", big, None, list(range(big.n)),
+                    np.ones(big.n, dtype=np.int32), None, 30, [0, 77], [0, (1 << 29) - 3000]))
+    return out
+
+
+def _sweep_problem(text):
+    graph = build_graph(parse_fbas(text))
+    scc = _problems_scc(graph)
+    whole = encode_circuit(graph)
+    if whole.n > len(scc):
+        q, d = restrict_circuit_pair(whole, scc)
+        return q, d, list(range(len(scc))), np.ones(len(scc), dtype=np.int32), None
+    mask = np.zeros(whole.n, dtype=np.int32)
+    mask[scc] = 1
+    return whole, None, list(scc), mask, None
+
+
+def _multi_edge_data():
+    data = _kofn(8, 4, "M")
+    for node in data:
+        node["quorumSet"]["validators"] = [data[0]["publicKey"]] + node["quorumSet"]["validators"]
+    return data
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_warp_fused_kernel_matches_plain_on_both_instances(stream, cuda_device):
+    """Both instances of the fused kernel (resident, streamed) against the
+    plain version at the main path's shapes, multi-edge votes and above
+    1024 units; 6000-row programs (a ragged last warp).  A failure names
+    the case, the hi row, the start and both results."""
+    hits = 0
+    for label, q, d, local, mask, frozen, lo_bits, his, starts in _warp_cases():
+        lo_nodes = np.asarray(local[1:1 + lo_bits], dtype=np.int32)
+        fused = FusedSweep(q, lo_nodes, mask, frozen, 3000, d, cuda_device, stream=stream)
+        plain = ref.SweepRef(q, lo_nodes, mask, frozen, 3000, d, cuda_device)
+        assert fused.tables.stream is stream
+        for hi in his:
+            hi_row = np.zeros(q.n, dtype=np.int32)
+            for j, v in enumerate(local[1 + lo_bits:]):
+                hi_row[v] = (hi >> j) & 1
+            for start in starts:
+                got = int(fused.program(start, 2, mask_bits(hi_row)))
+                want = int(plain.program(start, 2, hi_row if hi_row.any() else None))
+                assert got == want, f"{label} stream={stream} hi={hi} start={start}: kernel {got} plain {want}"
+                hits += want != ref.INT32_MAX
+    assert hits > 0
+
+
+def _early_ring(n, per):
+    """``inner_set_ring_fbas(n, per, broken=True)`` with node 1 also a
+    quorum on its own: a hit at index 1."""
+    data = synth.inner_set_ring_fbas(n, per, broken=True)
+    data[1]["quorumSet"]["threshold"] = 1
+    data[1]["quorumSet"]["innerQuorumSets"][0]["threshold"] = 1
+    return data
+
+
+def test_check_many_decides_jobs_past_the_packed_unit_limit(cuda_device):
+    """Jobs whose JAX window split passes the packed kernels' 1024 units:
+    ``check_many`` on the card plans packs the kernels take and gives the
+    verdicts and hit indices of the port's own ``solve`` on the card."""
+    sources = [synth.inner_set_ring_fbas(24, 12), synth.inner_set_ring_fbas(24, 12, broken=True),
+               _early_ring(30, 12)]
+    for engine in (None, "bitset"):
+        backend = GpuSweepBackend(engine=engine, device=cuda_device)
+        got = check_many(sources, backend=backend)
+        assert backend.pack_plans and all(p.packed.circuit.n_units <= 1024 for p in backend.pack_plans)
+        for src, r in zip(sources, got):
+            solo = solve(src, device=cuda_device)
+            assert (r.intersects, r.q1, r.q2, r.stats.get("hit_index")) == (
+                solo.intersects, solo.q1, solo.q2, solo.stats.get("hit_index")), engine
+        assert not got[2].intersects and got[2].stats["hit_index"] == 1

@@ -175,19 +175,23 @@ def _multi_edge_circuit() -> Circuit:
 def test_plane_tables_rebuild_counts():
     circuit = _multi_edge_circuit()
     t = plane_tables(circuit, CPU)
-    mp = t.member_planes.numpy().view(np.uint64)
-    cp = t.child_planes.numpy().view(np.uint64)
-    members = sum(
-        ((mp[b][:, None] >> np.arange(circuit.n, dtype=np.uint64)) & 1).astype(np.int64) << b
-        for b in range(mp.shape[0])
-    )
-    child = sum(
-        ((cp[b][:, :1] >> np.arange(circuit.n_units, dtype=np.uint64)) & 1).astype(np.int64) << b
-        for b in range(cp.shape[0])
-    )
-    np.testing.assert_array_equal(members, circuit.members)
-    np.testing.assert_array_equal(child, circuit.child)
-    assert (t.words, t.depth) == (1, 1)
+    blocks = t.blocks.numpy().view(np.uint32)
+    first, m, k0, k1 = t.chunks.numpy()[0]
+
+    def counts(block_ixs):
+        """Horner over the blocks' planes (highest first); lane 4 g + q's
+        word j holds columns 32 q + [0, 32) of unit 8 j + g."""
+        total = 0
+        for k in block_ixs:
+            words = blocks[k].reshape(8, 4, 4).transpose(2, 0, 1).reshape(32, 4)
+            total = 2 * total + ((words[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1).reshape(32, 128)
+        return total.astype(np.int64)
+
+    members = counts(range(first, first + m))
+    child = counts(range(first + m, first + m + t.pc * (k1 - k0)))
+    np.testing.assert_array_equal(members[: circuit.n_units, : circuit.n], circuit.members)
+    np.testing.assert_array_equal(child[: circuit.n_units, : circuit.n_units - t.c0], circuit.child[:, t.c0:])
+    assert (t.pm, t.pc, t.slabs, t.depth) == (2, 2, 1, 1)
 
 
 def test_multi_edge_plain_matches_jax():

@@ -27,24 +27,15 @@ from quorum_intersection_tpu.fbas import synth as jax_synth
 import quorum_intersection_tpu_torch.encode.circuit as pc
 from quorum_intersection_tpu_torch.encode.circuit import Circuit, bitset_encode, unpack_mask_words
 from quorum_intersection_tpu_torch.fbas import synth
-from quorum_intersection_tpu_torch.kernels.guard_cuda import BITSET_CHILD_WORDS
 from quorum_intersection_tpu_torch.kernels.packed_cuda import (
     CHUNK,
     ROWS,
     SLAB,
-    KernelLimitError,
     group_decode,
     mma_tables,
     u8_blocks,
 )
 from quorum_intersection_tpu_torch.kernels.packed_ref import PackedRef
-from quorum_intersection_tpu_torch.kernels.sweep_cuda import (
-    CHILD_WORDS,
-    _bit_planes,
-    check_smem,
-    check_units,
-    child_layout,
-)
 
 from _torch_cases import fixture_data, jobs_of, kofn, multi_edge
 from _torch_circuits import dense_child_circuit
@@ -212,20 +203,30 @@ def test_padding_is_inert(name):
 
 
 def _old_accepts(circuit, engine):
-    """The earlier packed kernels' limits: units, child-mask width, bit
-    planes and tables in one block's shared memory."""
-    try:
-        check_units(circuit, "packed")
-        if engine == "dense":
-            c0, words = child_layout(circuit, 64, CHILD_WORDS)
-            nbytes = _bit_planes(circuit.members, 2).nbytes + _bit_planes(circuit.child[:, c0:], words).nbytes
-        else:
-            c0, words = child_layout(circuit, 32, BITSET_CHILD_WORDS)
-            nbytes = 4 * circuit.n_units * (4 + words)
-        check_smem(nbytes + 8 * circuit.n_units, "packed")
-    except KernelLimitError:
+    """The earlier packed kernels' limits, as they stood: at most 1024
+    units, a child mask of at most 16 uint64 (dense) or 32 uint32 (bitset)
+    words over units [c0, U), at most 8 bit-planes, and the tables in one
+    block's 227 KB of shared memory."""
+    u = circuit.n_units
+    if u > 1024:
         return False
-    return True
+    kids = np.nonzero(circuit.child.any(axis=0))[0]
+    first = int(kids[0]) if kids.size else u
+    bits, widths = (64, (1, 2, 4, 8, 16)) if engine == "dense" else (32, (1, 2, 4, 8, 16, 32))
+    c0 = first - first % bits
+    need = max(1, -(-(u - c0) // bits))
+    words = next((w for w in widths if w >= need), None)
+    if words is None:
+        return False
+    if engine == "dense":
+        pm = max(1, int(circuit.members.max(initial=0)).bit_length())
+        pc = max(1, int(circuit.child[:, c0:].max(initial=0)).bit_length())
+        if max(pm, pc) > 8:
+            return False
+        nbytes = 8 * u * (2 * pm + words * pc)
+    else:
+        nbytes = 4 * u * (4 + words)
+    return nbytes + 8 * u <= 232448
 
 
 @st.composite

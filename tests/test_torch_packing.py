@@ -34,8 +34,10 @@ from quorum_intersection_tpu_torch.fbas import synth
 from quorum_intersection_tpu_torch.fbas.graph import build_graph
 from quorum_intersection_tpu_torch.fbas.schema import parse_fbas
 from quorum_intersection_tpu_torch.kernels.packed_cuda import (
+    MAX_UNITS,
     PackedSweep,
     group_decode,
+    mma_tables,
     packed_sweep_bitset,
     packed_sweep_dense,
 )
@@ -307,24 +309,30 @@ def test_check_many_passes_cancels_through():
 
 
 def test_fused_kernel_takes_up_to_1024_units():
+    """The fused kernel's tables: a 390-unit circuit's child votes come back
+    from its blocks; past 1024 units, and past one block's shared memory,
+    the tables are still built (the streamed instance takes the latter)."""
     graph = build_graph(parse_fbas(synth.inner_set_ring_fbas(30, 12)))
     circuit = encode_circuit(graph)
     assert 256 < circuit.n_units <= 1024 and circuit.n <= 64
     t = plane_tables(circuit, CPU)
-    assert (t.words, t.child_from, t.depth) == (8, 0, 1)
-    cp = t.child_planes.numpy().view(np.uint64)  # (pc, U, words)
-    child = ((cp[0][:, :, None] >> np.arange(64, dtype=np.uint64)) & 1).reshape(circuit.n_units, -1)
-    np.testing.assert_array_equal(child[:, : circuit.n_units], circuit.child)
+    assert (t.c0, t.slabs, t.depth, t.pc) == (0, 4, 1, 1)
+    flat = t.blocks.numpy().view(np.uint32).reshape(-1, 32, 4)
+    child = np.zeros((t.units, 128 * t.slabs), dtype=np.uint8)
+    for c, (first, m, k0, k1) in enumerate(t.chunks.numpy()):
+        for x in range(k0, k1):  # lane 4 g + q, word j: unit 32 c + 8 j + g, columns 32 q + [0, 32)
+            words = flat[first + m + x - k0].reshape(8, 4, 4).transpose(2, 0, 1).reshape(32, 4)
+            bits = (words[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1
+            child[32 * c:32 * c + 32, 128 * x:128 * x + 128] = bits.reshape(32, 128)
+    np.testing.assert_array_equal(child[: circuit.n_units, : circuit.n_units], circuit.child)
     wide = encode_circuit(build_graph(parse_fbas(synth.inner_set_ring_fbas(40, 30))))
     assert wide.n_units > 1024
-    with pytest.raises(KernelLimitError, match="at most 1024"):
-        plane_tables(wide, CPU)
-    # Two child bit-planes over ~1000 units exceed one block's shared memory.
+    assert not plane_tables(wide, CPU).stream
+    # Two child bit-planes over ~1000 units: resident, well inside one block.
     big = encode_circuit(build_graph(parse_fbas(synth.inner_set_ring_fbas(32, 30))))
     assert big.n_units <= 1024
     big.child = np.where(big.child > 0, 3, 0).astype(np.uint8)
-    with pytest.raises(KernelLimitError, match="shared memory"):
-        plane_tables(big, CPU)
+    assert plane_tables(big, CPU).pc == 2
 
 
 def test_packed_wrappers_refuse_cpu_tables_and_bad_layouts():
@@ -351,3 +359,54 @@ def test_packed_wrappers_refuse_cpu_tables_and_bad_layouts():
         jm, pm = _members(*jobs_of([multi_edge()]))
         multi = pc.pack_circuits(pm)
         PackedRef(multi.circuit, multi.circuit_d, *multi.decode_tables(), 64, "bitset", CPU)
+
+
+def _early_ring(n, per):
+    """``inner_set_ring_fbas(n, per, broken=True)`` with node 1 also a
+    quorum on its own: the first hit at index 1, so a CPU sweep ends early."""
+    data = synth.inner_set_ring_fbas(n, per, broken=True)
+    data[1]["quorumSet"]["threshold"] = 1
+    data[1]["quorumSet"]["innerQuorumSets"][0]["threshold"] = 1
+    return data
+
+
+@pytest.mark.parametrize("case", ["ring(30,12)", "ring(24,12)", "four rings in one lane plan"])
+def test_packs_fit_the_packed_unit_limit(case):
+    """The JAX window split counts lanes only: ``inner_set_ring_fbas(30, 12)``
+    plans 4 windows (1568 fused units), ``(24, 12)`` 5 (1560), and four
+    rings share one lane plan of 1208 units.  The port's drive plans packs
+    the packed kernels take, on both routes where the votes allow."""
+    datas = {"ring(30,12)": [synth.inner_set_ring_fbas(30, 12)],
+             "ring(24,12)": [synth.inner_set_ring_fbas(24, 12)],
+             "four rings in one lane plan": [synth.inner_set_ring_fbas(n, 12) for n in (30, 24, 20, 16)]}[case]
+    _, port_jobs = jobs_of(datas)
+    backend = GpuSweepBackend(device="cpu")
+    prepared = {i: backend._prepare_job(*job, False) for i, job in enumerate(port_jobs)}
+    lane_plan = pc.plan_packs([j.circuit.n for j in prepared.values()])
+    packs = backend.pack_members(prepared)
+    assert sorted(i for p in packs for i in p) == list(range(len(datas)))
+    if case.startswith("four"):
+        assert len(lane_plan) == 1 and len(packs) == 2
+    for members in packs:
+        plan = backend.plan_pack([prepared[i] for i in members])
+        c = plan.packed.circuit
+        assert c.n_units <= MAX_UNITS
+        for route in ("u8", "b1") if pc.bitset_supported(c) else ("u8",):
+            mma_tables(c, plan.packed.circuit_d, route)  # raises on refusal
+    if not case.startswith("four"):
+        assert plan.packed.groups > 1  # still split into windows, fewer
+
+
+def test_check_many_past_the_unit_limit_matches_jax():
+    """Four broken rings whose JAX pack (one lane plan, 1208 fused units)
+    the port splits in two: every verdict, witness and hit index is the JAX
+    ``check_many``'s."""
+    sources = [_early_ring(n, 12) for n in (30, 24, 20, 16)]
+    want = jax_check_many(sources, backend=TpuSweepBackend(batch=16))
+    got = check_many(sources, backend=GpuSweepBackend(batch=16, device="cpu"))
+    assert max(w.stats["pack_shape"][1] for w in want) > MAX_UNITS
+    assert max(g.stats["pack_shape"][1] for g in got) <= MAX_UNITS
+    for g, w in zip(got, want):
+        assert (g.intersects, g.q1, g.q2) == (w.intersects, w.q1, w.q2)
+        assert g.stats["hit_index"] == w.stats["hit_index"]
+        assert g.stats["candidates_checked"] >= 1
