@@ -98,10 +98,50 @@ Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
               ``AutoBackend`` in process, race on and off (launch counts
               reset before, read after: the correct full-width twin must be
               decided by K1 in the race), and ``check_many`` through it;
-14. cert    — every certificate the runs above produced (CLI ``--cert-out``
+14. compare_pagerank — the PageRank power-loop kernel (K12, one cooperative
+              launch) against its plain version (sparse form) and against
+              ``pagerank_np`` on the fixtures, the C15 quirk graphs (parallel
+              edges, a self-loop, a dangling vertex; ``max_iterations`` 0, 1
+              and 7), the dump-scale shape ``stellar_like_fbas(n_watchers=2800,
+              n_null=150, n_dangling=40, seed=7)`` and ``stellar_like_fbas(
+              n_watchers=200000, seed=7)`` (about 200k nodes and a million
+              edges), then 60 forced iterations at that width: every rank
+              within rtol 1e-3 + atol 1e-3*m/n and the JAX tolerance, max abs error and both
+              iteration counts; on the two stellar graphs the check must
+              refuse two planted faults (the unreached vertices zeroed, the
+              base term dropped);
+15. timing_pagerank — per ``stellar_like_fbas(seed=7)`` graph from 30 to
+              200k watchers: the warm call (CSR built and uploaded, one
+              launch, one readback), the kernel alone, ms per iteration (201
+              against 1 forced iterations), the iterations, the bound (the
+              call's bytes and float32 operations), the plain version's and
+              NumPy's ms; a fresh process's first-call overhead (and its
+              profiler's view of a warm call); the ``pagerank_min_edges``
+              these give beside the committed one;
+16. pagerank_cli — the main path: ``power_iteration`` (the library's
+              entry point under ``pagerank``) on the dump and the 200k graph
+              on the card, launch count reset before and read after, each
+              call timed by CUDA events around it, ``pagerank_auto`` on both
+              routed by the committed floor; the 200k call once more under
+              the profiler beside a control reduction; then ``python -m
+              quorum_intersection_tpu_torch -p`` on the dump and on the 200k
+              graph (the floor's route; on NumPy's the lines byte-equal to
+              ``format_pagerank(pagerank_np)``);
+17. analysis — ``--top-tier``, ``--blocking-set``, ``--splitting-set`` and
+              the sanitizer (default, ``--compat``, ``--report-dangling``) as
+              processes, against the lines ``tests/_torch_analysis_lines.json``
+              pins to the JAX CLI;
+18. rank    — ``order="rank"``: ``solve`` on the fixtures, the full-width
+              twins (2^33 through K1) and the batch's sources, then the
+              16-source ``check_many`` on both engines (every hit index equal
+              to the unpacked rank-ordered ``solve``'s; K1, K3 and K4
+              launches counted), and the CLI under ``QI_SWEEP_ORDER=rank``
+              (gpu-sweep and auto) with ``provenance.order`` checked;
+19. cert    — every certificate the runs above produced (CLI ``--cert-out``
               under auto and gpu-sweep, ``solve`` and ``check_many`` on both
-              engines, pruned runs with every block) checked by the unmodified
-              ``tools/check_cert.py`` in a subprocess, from raw JSON.
+              engines, pruned and rank-ordered runs with every block) checked
+              by the unmodified ``tools/check_cert.py`` in a subprocess, from
+              raw JSON.
 
 The line before the last is the kernels' JSON record (launches on the main
 path of each, error against the plain version, times, bound, device ms on
@@ -124,6 +164,7 @@ FIXTURES = ROOT / "fixtures"
 PORT = "quorum_intersection_tpu_torch"
 INT8_TOPS = 1979e12  # H100 SXM dense int8 tensor-core peak, operations/s
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM memory rate
+FP32_FLOPS = 67e12  # H100 SXM float32 peak outside the tensor cores
 WINDOW = 1 << 20  # candidates per timed window
 STRESS_REPEATS = 32  # launches per case of compare_packed's repeats
 # The per-pack stats the batch phases print.
@@ -528,6 +569,18 @@ def device_ms_by_kernel(prof):
     return out
 
 
+def profiler_records(device) -> int:
+    """Device events one ``torch.profiler`` session records around a
+    PyTorch reduction: 0 where the profiler sees no device activity at this
+    point of the process."""
+    import torch
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.ones(1 << 20, device=device).sum()
+        torch.cuda.synchronize()
+    return len(device_ms_by_kernel(prof))
+
+
 def ms_of(by_kernel, *needles) -> float:
     return sum(ms for name, ms in by_kernel.items() if all(n in name for n in needles))
 
@@ -580,6 +633,480 @@ finally:
 print(json.dumps({"first_s": t2 - t1, "second_s": t3 - t2, "overhead_s": (t2 - t1) - (t3 - t2),
                   "verdict": first.intersects}))
 """
+
+
+# A fresh process's first PageRank kernel call against its second: the CUDA
+# context and library load a `-p` process pays before the kernel route can
+# win; then a third call under the profiler, K12's device ms as a fresh
+# process's profiler sees it.  argv: the watcher count of the
+# stellar_like_fbas graph.
+PAGERANK_FIRST_CALL_PROBE = r"""
+import json, sys, time
+import torch
+from quorum_intersection_tpu_torch.analytics.pagerank import power_iteration
+from quorum_intersection_tpu_torch.fbas import synth
+from quorum_intersection_tpu_torch.fbas.graph import build_graph
+from quorum_intersection_tpu_torch.fbas.schema import parse_fbas
+graph = build_graph(parse_fbas(synth.stellar_like_fbas(n_watchers=int(sys.argv[1]), seed=7)))
+t1 = time.perf_counter()
+power_iteration(graph)
+t2 = time.perf_counter()
+power_iteration(graph)
+t3 = time.perf_counter()
+with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    power_iteration(graph)
+    torch.cuda.synchronize()
+traced = {e.key: getattr(e, "self_device_time_total", 0) / 1e3 for e in prof.key_averages()}
+print(json.dumps({"first_s": t2 - t1, "second_s": t3 - t2, "overhead_s": (t2 - t1) - (t3 - t2),
+                  "profiled_kernel_ms": sum(ms for k, ms in traced.items() if "pagerank_kernel" in k),
+                  "profiled_events": len(traced)}))
+"""
+
+# The C15 quirk graphs of the PageRank comparison (the JAX package's
+# tests/test_pagerank.py cases).  All but self-loop never converge (their
+# mass swings) and run to a cap of 1000 iterations; cycle5 also at the caps
+# 0, 1 and 7.
+PAGERANK_QUIRKS = {
+    "parallel-edges": [
+        {"publicKey": "A", "quorumSet": {"threshold": 1, "validators": ["B", "B", "C"]}},
+        {"publicKey": "B", "quorumSet": {"threshold": 1, "validators": ["A"]}},
+        {"publicKey": "C", "quorumSet": {"threshold": 1, "validators": ["A"]}},
+    ],
+    "self-loop": [
+        {"publicKey": "A", "quorumSet": {"threshold": 1, "validators": ["A", "B"]}},
+        {"publicKey": "B", "quorumSet": {"threshold": 2, "validators": ["A", "B", "B"]}},
+        {"publicKey": "C", "quorumSet": {"threshold": 1, "validators": ["C", "A"]}},
+    ],
+    "dangling": [
+        {"publicKey": "A", "quorumSet": {"threshold": 1, "validators": ["B"]}},
+        {"publicKey": "B", "quorumSet": None},
+    ],
+    "cycle5": [{"publicKey": f"C{i}", "quorumSet": {"threshold": 1, "validators": [f"C{(i + 1) % 5}"]}}
+               for i in range(5)],
+}
+# Watcher counts of the stellar_like_fbas(seed=7) graphs PageRank is timed
+# on: from the fixtures' size through the dump's (2971 nodes with n_null=150,
+# n_dangling=40) to 200k nodes and about a million edges.
+PAGERANK_SIZES = (30, 100, 300, 1000, 2800, 6000, 20_000, 50_000, 100_000, 200_000)
+
+
+# Per entry: rtol 1e-3 and atol 1e-3 * m / n.  No rank is below m / n (a
+# vertex nobody trusts gets the base m / n over a total of at most 1), so
+# every entry, a watcher's included, is held to a thousandth of itself.  The
+# JAX package's own tolerances (atol 2e-5; rtol 2e-3 + atol 2e-6 from 5k
+# nodes) hold too: alone they exceed a watcher's rank and would pass a
+# kernel that got every such entry wrong.
+PAGERANK_RTOL = 1e-3
+PAGERANK_TOLERANCE = ("each entry within rtol 1e-3 + atol 1e-3*m/n, and within atol 2e-5 "
+                      "(rtol 2e-3 + atol 2e-6 from 5k nodes)")
+
+
+def jax_tolerance(want):
+    import numpy as np
+
+    return 2e-6 + 2e-3 * np.abs(want) if len(want) >= 5000 else np.full(len(want), 2e-5)
+
+
+def pagerank_close(got, want, m) -> float:
+    """Max abs error, or inf past the tolerance."""
+    import numpy as np
+
+    diff = np.abs(np.asarray(got, dtype=np.float64) - want)
+    tol = np.minimum(PAGERANK_RTOL * np.abs(want) + PAGERANK_RTOL * m / max(len(want), 1), jax_tolerance(want))
+    return float(diff.max(initial=0.0)) if bool(np.all(diff <= tol)) else float("inf")
+
+
+def pagerank_faults(ranks, row_ptr):
+    """Wrong variants of a correct rank vector the check must refuse: the
+    vertices with no in-edges zeroed, and the base term m / n dropped
+    (every entry less such a vertex's rank, base / total)."""
+    import numpy as np
+
+    unreached = np.flatnonzero(np.diff(row_ptr) == 0)
+    zeroed = ranks.copy()
+    zeroed[unreached] = 0.0
+    return {"unreached zeroed": zeroed, "base dropped": ranks - ranks[unreached[0]]}
+
+
+def pagerank_bound(n: int, n_edges: int, iterations: int):
+    """``(ms, by)``: the least time for one call of the loop, the larger of
+    its bytes (row_ptr, src and outdeg read once, the ranks and the two
+    scalars written once) at 3.35 TB/s and its float32 operations (per
+    iteration an add a CSR entry and about 9 a vertex: send, the base, the
+    two sums, |tmp - rank|, the division) at 67 TFLOP/s."""
+    nbytes = 4 * (n + 1) + 4 * n_edges + 4 * n + 4 * n + 8
+    ops = iterations * (n_edges + 9 * n)
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def pagerank_iteration_bytes(n: int, n_edges: int) -> int:
+    """Bytes one iteration moves when each of its vectors comes from memory
+    once: src (4 E), row_ptr, outdeg, the ranks read and written, one read
+    of send (about 20 n)."""
+    return 4 * n_edges + 20 * n
+
+
+def pagerank_phases(device, card, texts, work):
+    """Phases compare_pagerank, timing_pagerank and pagerank_cli, and K12's
+    main-path run; returns the kernel's record entry."""
+    import numpy as np
+    import torch
+
+    from quorum_intersection_tpu_torch.analytics import pagerank as pr
+    from quorum_intersection_tpu_torch.backends import calibration as cal_mod
+    from quorum_intersection_tpu_torch.fbas import synth
+    from quorum_intersection_tpu_torch.fbas.graph import build_graph
+    from quorum_intersection_tpu_torch.fbas.schema import parse_fbas
+    from quorum_intersection_tpu_torch.kernels.pagerank_cuda import pagerank_power
+    from quorum_intersection_tpu_torch.kernels.pagerank_ref import power_loop
+
+    def stellar(n_watchers, **kw):
+        return synth.stellar_like_fbas(n_watchers=n_watchers, seed=7, **kw)
+
+    graphs = {}
+
+    def graph_of(label, data=None):
+        if label not in graphs:
+            graphs[label] = build_graph(parse_fbas(data))
+        return graphs[label]
+
+    def run_both(graph, m=0.0001, conv=0.0001, cap=100000):
+        """K12 and its plain version on one CSR; where their iteration counts
+        are one apart at the stop test's edge, the plain version once more,
+        forced to the kernel's count, for the ranks' comparison."""
+        csr = [torch.from_numpy(a).to(device) for a in pr.in_edge_csr(graph)]
+        got = pagerank_power(*csr, m, conv, cap)
+        got = (got[0].cpu().numpy(), int(got[1]), float(got[2]))
+        want = power_loop(*csr, m, conv, cap)
+        want = (want[0].cpu().numpy(), int(want[1]), float(want[2]))
+        same_count = want
+        if got[1] != want[1]:
+            forced = power_loop(*csr, m, -1.0, got[1])
+            same_count = (forced[0].cpu().numpy(), int(forced[1]), float(forced[2]))
+        return got, want, same_count
+
+    # -- compare_pagerank ---------------------------------------------------
+    cases = [(name, graph_of(name, text), 0.0001, 100000) for name, text in texts.items()]
+    cases += [(name, graph_of(name, data), 0.0001, 100000 if name == "self-loop" else 1000)
+              for name, data in PAGERANK_QUIRKS.items()]
+    cases += [(f"cycle5 m=0.15 max_iterations={cap}", graph_of("cycle5"), 0.15, cap) for cap in (0, 1, 7)]
+    dump_label = "stellar_like_fbas(n_watchers=2800,n_null=150,n_dangling=40,seed=7)"
+    dump_shape = graph_of(dump_label, stellar(2800, n_null=150, n_dangling=40))
+    cases.append((dump_label, dump_shape, 0.0001, 100000))
+    full_label = "stellar_like_fbas(n_watchers=200000,seed=7)"
+    full = graph_of(full_label, stellar(200_000))
+    cases.append((full_label, full, 0.0001, 100000))
+    rows, max_err, faults = [], 0.0, []
+    for label, graph, m, cap in cases:
+        (got, it_got, diff_got), (_, it_want, diff_want), (want, _, _) = run_both(graph, m, 0.0001, cap)
+        # NumPy's model run for the kernel's iteration count (its own stop
+        # test sums in another order).
+        ref_np = pr.pagerank_np(graph, m=m, convergence=-1.0, max_iterations=it_got)
+        err_plain = pagerank_close(got, want, m)
+        err_np = pagerank_close(got, ref_np, m)
+        iterations_ok = it_got == it_want or (abs(it_got - it_want) == 1
+                                              and abs(min(diff_got, diff_want) - 1e-4) <= 1e-7)
+        if err_plain == float("inf") or err_np == float("inf") or not iterations_ok:
+            fail("compare_pagerank", f"{label}: kernel against plain {np.abs(got - want).max()} "
+                                     f"and NumPy {np.abs(got - ref_np).max()}, iterations {it_got} / {it_want}")
+        if cap == 0 and not (it_got == 0 and got[0] == 1.0 and not got[1:].any()):
+            fail("compare_pagerank", f"{label}: max_iterations 0 did not return e0")
+        if graph is dump_shape or graph is full:
+            # The check must refuse a kernel that got the watchers' ranks
+            # wrong; the JAX package's tolerance, for the record, would not.
+            for fault, wrong in pagerank_faults(got, pr.in_edge_csr(graph)[0]).items():
+                if pagerank_close(wrong, want, m) != float("inf"):
+                    fail("compare_pagerank", f"{label}: the check passed the planted fault {fault!r}")
+                faults.append({"graph": label, "fault": fault, "refused": True,
+                               "jax_tolerance_refuses": not bool(np.all(np.abs(wrong - want)
+                                                                        <= jax_tolerance(want)))})
+        max_err = max(max_err, err_plain)
+        rows.append({"graph": label, "n": graph.n, "edges": graph.n_edges, "m": m, "max_iterations": cap,
+                     "iterations": [it_got, it_want], "last_diff": [diff_got, diff_want],
+                     "max_abs_err_plain": err_plain, "max_abs_err_numpy": err_np})
+    # At full width with the cap binding: 60 iterations of three grid
+    # barriers each, against the plain version.
+    (got, it_got, _), (want, it_want, _), _ = run_both(full, 0.15, -1.0, 60)
+    err = pagerank_close(got, want, 0.15)
+    if err == float("inf") or not it_got == it_want == 60:
+        fail("compare_pagerank", f"200k nodes, 60 forced iterations: {it_got} / {it_want}, "
+                                 f"err {np.abs(got - want).max()}")
+    max_err = max(max_err, err)
+    rows.append({"graph": f"{full_label} m=0.15 forced", "n": full.n,
+                 "edges": full.n_edges, "iterations": [it_got, it_want], "max_abs_err_plain": err})
+    phase_line("compare_pagerank", tolerance=f"{PAGERANK_TOLERANCE}; iterations equal or one apart at the "
+                                             "stop test's edge (then the ranks after the same count)",
+               graphs=rows, planted_faults=faults)
+
+    # -- timing_pagerank ----------------------------------------------------
+    def host_ms(fn, reps):
+        fn()
+        out = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t) * 1e3)
+        return sorted(out)[len(out) // 2]
+
+    so, se, rc, _ = run_all([[sys.executable, "-c", PAGERANK_FIRST_CALL_PROBE, "20000"]])[0]
+    if rc != 0:
+        fail("timing_pagerank", f"first-call probe exit {rc}: {se[-600:]!r}")
+    first_call = json.loads(so.strip().splitlines()[-1])
+    timing = []
+    for n_watchers in PAGERANK_SIZES:
+        graph = graph_of(f"stellar_like_fbas(n_watchers={n_watchers},seed=7)", stellar(n_watchers))
+        csr = [torch.from_numpy(a).to(device) for a in pr.in_edge_csr(graph)]
+        _, iterations, _ = pr.power_iteration(graph)
+        reps = 5 if graph.n < 100_000 else 3
+        kernel_ms = time_ms(lambda: pagerank_power(*csr, 0.0001, 0.0001, 100000), 20)
+        forced = {cap: time_ms(lambda cap=cap: pagerank_power(*csr, 0.15, -1.0, cap), 5) for cap in (1, 201)}
+        bound_ms, bound_by = pagerank_bound(graph.n, graph.n_edges, iterations)
+        timing.append({
+            "n": graph.n, "edges": graph.n_edges, "iterations": iterations,
+            "call_ms": host_ms(lambda: pr.power_iteration(graph), reps),
+            "kernel_ms": kernel_ms, "per_iteration_ms": (forced[201] - forced[1]) / 200,
+            "per_iteration_bound_ms": pagerank_iteration_bytes(graph.n, graph.n_edges) / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "plain_ms": time_ms(lambda: power_loop(*csr, 0.0001, 0.0001, 100000), 3),
+            "numpy_ms": host_ms(lambda: pr.pagerank_np(graph), reps),
+            "library_ms": None,
+        })
+    # The floor `-p` routes by: the fewest edges from which the kernel route,
+    # a fresh process's first-call overhead included, beat NumPy at every
+    # larger measured size (None: at no size).  The route in a process that
+    # holds its CUDA context already is printed beside it.
+    overhead_ms = first_call["overhead_s"] * 1e3
+    wins_warm = [r["call_ms"] < r["numpy_ms"] for r in timing]
+    wins_fresh = [r["call_ms"] + overhead_ms < r["numpy_ms"] for r in timing]
+    floor = next((timing[i]["edges"] for i in range(len(timing)) if all(wins_fresh[i:])), None)
+    phase_line("timing_pagerank", card=card, first_call=first_call, per_graph=timing,
+               kernel_wins_in_a_fresh_process=wins_fresh, kernel_wins_with_the_context_made=wins_warm,
+               measured={"pagerank_min_edges": floor},
+               committed={"pagerank_min_edges": cal_mod.H100.pagerank_min_edges},
+               committed_for=cal_mod.H100.kind)
+
+    # -- the main path: the library's entry point `pagerank` on the card (the
+    # committed floor keeps `-p` on NumPy), then `pagerank_auto` ------------
+    dump = graph_of("dump_scale_correct.json.gz")
+    floor = cal_mod.H100.pagerank_min_edges
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    pagerank_power.launches = 0
+    main_rows = []
+    for label, graph in (("dump_scale_correct.json.gz", dump), (full_label, full)):
+        start.record()
+        ranks, iterations, _ = pr.power_iteration(graph)
+        end.record()
+        torch.cuda.synchronize()
+        call_ms = start.elapsed_time(end)
+        launched = pagerank_power.launches
+        route_ranks, engine = pr.pagerank_auto(graph)
+        want_engine = "cuda" if floor is not None and graph.n_edges >= floor else "numpy"
+        if engine != want_engine or pagerank_power.launches != launched + (engine == "cuda"):
+            fail("pagerank_cli", f"pagerank_auto on {label} took {engine}, the floor {floor} says {want_engine}")
+        err = pagerank_close(ranks, pr.pagerank_np(graph, convergence=-1.0, max_iterations=iterations), 0.0001)
+        if err == float("inf") or pagerank_close(route_ranks, pr.pagerank_np(graph), 0.0001) == float("inf"):
+            fail("pagerank_cli", f"{label}: pagerank or pagerank_auto ({engine}) disagrees with pagerank_np")
+        main_rows.append({"graph": label, "edges": graph.n_edges, "call_ms_by_events": call_ms,
+                          "pagerank_auto_engine": engine, "max_abs_err_numpy": err})
+    launches = pagerank_power.launches
+    if launches < 2:
+        fail("pagerank_cli", f"the PageRank main path launched pagerank_cuda {launches} times, not 2")
+    # The main-path call once more under the profiler, with a PyTorch
+    # reduction beside it as a control of what the profiler records here.
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.ones(1 << 20, device=device).sum()
+        pr.pagerank(full)
+        torch.cuda.synchronize()
+    profiled = device_ms_by_kernel(prof)
+    main_device_ms = ms_of(profiled, "pagerank_kernel") or None
+    profiler_saw = {"events": len(profiled), "kernel": main_device_ms is not None,
+                    "control": any("reduce" in k for k in profiled)}
+
+    # -- pagerank_cli: the CLI as a user runs it ------------------------------
+    full_file = work / "stellar_200k.json"
+    full_file.write_text(json.dumps(stellar(200_000)))
+    dump_text = texts["dump_scale_correct.json.gz"]
+    cmds = [[sys.executable, "-m", PORT, "-p"], [sys.executable, "-m", PORT, "-p", "-t"]]
+    runs = run_all(cmds, inputs=[dump_text, full_file.read_text()], parallel=2)
+    cli_rows = []
+    for cmd, (so, se, rc, secs) in zip(cmds, runs):
+        cli_rows.append({"argv": cmd[3:], "exit": rc, "process_s": secs})
+        if rc != 0:
+            fail("pagerank_cli", f"{cmd[3:]}: exit {rc} {se[-400:]!r}")
+    # A CLI process routes by the committed floor: NumPy below it (the
+    # lines byte for byte those of format_pagerank(pagerank_np)), the kernel
+    # from it up (the printed ranks within tolerance).
+    routes = {}
+    for (so, se, _, _), (label, graph) in zip(runs, (("dump_scale_correct.json.gz", dump), (full_label, full))):
+        route = routes[label] = "cuda" if floor is not None and graph.n_edges >= floor else "numpy"
+        lines = so.splitlines()
+        if route == "numpy" and so != pr.format_pagerank(graph, pr.pagerank_np(graph)):
+            fail("pagerank_cli", f"-p on {label}: lines differ from format_pagerank(pagerank_np)")
+        printed = dict(line.rsplit(": ", 1) for line in lines[1:])
+        values = np.asarray([float(printed[graph.label(v)]) for v in range(graph.n)], dtype=np.float64)
+        if (lines[:1] != ["PageRank:"] or len(lines) != graph.n + 1
+                or pagerank_close(values, pr.pagerank_np(graph), 0.0001) == float("inf")):
+            fail("pagerank_cli", f"-p on {label}: the printed ranks disagree with pagerank_np")
+    if f"pagerank engine: {routes[full_label]}" not in runs[1][1]:
+        fail("pagerank_cli", f"-p -t on 200k nodes took another route than the floor's: {runs[1][1][-300:]!r}")
+    phase_line("pagerank_cli", card=card, main_path=main_rows, launches={"pagerank_cuda": launches},
+               profiler=profiler_saw, profiled_ms=profiled, cli=cli_rows, cli_routes=routes, floor=floor,
+               cli_lines="byte-equal to format_pagerank(pagerank_np) on the numpy route")
+    t200 = timing[-1]
+    return {
+        "name": "pagerank_cuda",
+        "route": "cuda",
+        "source": f"{PORT}/kernels/csrc/pagerank.cu",
+        "replaces": "quorum_intersection_tpu/analytics/pagerank.py:116",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": t200["kernel_ms"],
+        "plain_ms": t200["plain_ms"],
+        "bound_ms": t200["bound_ms"],
+        "bound_by": t200["bound_by"],
+        "library_ms": None,
+        "main_path_ms": main_rows[-1]["call_ms_by_events"],
+        "main_path_ms_of": f"power_iteration on {full_label}, CUDA events around the call "
+                          "(CSR build, upload, launch, readback)",
+        "main_path_device_ms": main_device_ms,
+        "main_path_device_ms_of": f"pagerank on {full_label} under torch.profiler",
+        "numpy_ms": t200["numpy_ms"],
+        "iterations": t200["iterations"],
+    }
+
+
+# The analysis inputs pinned to the JAX CLI by tests/test_torch_analytics.py.
+ANALYSIS_SYNTH = {
+    "majority_fbas(5)": lambda synth: synth.majority_fbas(5),
+    "stellar_like_fbas(5,3,seed=0)": lambda synth: synth.stellar_like_fbas(5, 3, seed=0),
+}
+
+
+def analysis_phase(card, texts):
+    """Phase analysis: --top-tier, --blocking-set, --splitting-set and the
+    sanitizer as a user runs them, against the pinned lines."""
+    import hashlib
+
+    from quorum_intersection_tpu_torch.fbas import synth
+
+    pinned = json.loads((ROOT / "tests" / "_torch_analysis_lines.json").read_text())
+    cmds, inputs, keys = [], [], []
+    for key in pinned["analysis"]:
+        source, mode = key.rsplit(" ", 1)
+        text = texts[source] if source in texts else json.dumps(ANALYSIS_SYNTH[source](synth))
+        cmds.append([sys.executable, "-m", PORT, mode])
+        inputs.append(text)
+        keys.append(("analysis", key))
+    for key in pinned["sanitize"]:
+        source, *flags = key.split(" ")
+        cmds.append([sys.executable, "-m", f"{PORT}.fbas.sanitize", *flags])
+        inputs.append(texts[source])
+        keys.append(("sanitize", key))
+    t = time.perf_counter()
+    runs = run_all(cmds, inputs=inputs)
+    seconds = time.perf_counter() - t
+    for (kind, key), (so, se, rc, _) in zip(keys, runs):
+        want = pinned[kind][key]
+        got = (so if kind == "analysis" else
+               {"stdout_sha256": hashlib.sha256(so.encode()).hexdigest(), "stderr": se, "exit": rc})
+        if got != want or (kind == "analysis" and rc != 0):
+            fail("analysis", f"{kind} {key}: printed {str(got)[:300]!r} exit {rc}, pinned {str(want)[:300]!r}")
+    phase_line("analysis", card=card, seconds=seconds,
+               analysis=f"{len(pinned['analysis'])}/{len(pinned['analysis'])} lines equal to the pinned JAX CLI's",
+               sanitize=f"{len(pinned['sanitize'])}/{len(pinned['sanitize'])} outputs equal to the pinned ones")
+
+
+def rank_phase(card, texts, manifest, sources, cert_jobs, witness_ok, work):
+    """Phase rank: the sweeps under the rank order (QI_SWEEP_ORDER=rank):
+    the fixtures and the full-width twins through K1, the 16-source batch
+    through K3 and K4, and the CLI under the variable."""
+    import os
+
+    from quorum_intersection_tpu_torch.backends.sweep import GpuSweepBackend
+    from quorum_intersection_tpu_torch.fbas import synth
+    from quorum_intersection_tpu_torch.kernels.packed_cuda import packed_sweep_bitset, packed_sweep_dense
+    from quorum_intersection_tpu_torch.kernels.sweep_cuda import sweep_fused
+    from quorum_intersection_tpu_torch.pipeline import check_many, solve
+
+    twins = [(f"benchmark_fbas(256,core=34,broken={b})", synth.benchmark_fbas(256, 34, broken=b), not b)
+             for b in (False, True)]
+    solo_sources = [(name, texts[name], manifest[name]["verdict"]) for name in manifest] + twins
+    sweep_fused.launches = packed_sweep_dense.launches = packed_sweep_bitset.launches = 0
+    solo_rows, solo = [], {}
+    for name, src, want in solo_sources + [s for s in sources if s[0] not in manifest]:
+        t = time.perf_counter()
+        res = solo[name] = solve(src, backend=GpuSweepBackend(order="rank"))
+        seconds = time.perf_counter() - t
+        if res.intersects is not want:
+            fail("rank", f"{name}: intersects={res.intersects}, expected {want}")
+        if not want and not witness_ok(src, res):
+            fail("rank", f"{name}: witness pair is not two disjoint quorums")
+        order = res.stats.get("order")
+        if res.stats.get("backend") == "gpu-sweep" and (not order or res.cert["provenance"].get("order") != order):
+            fail("rank", f"{name}: no rank-order provenance on a swept verdict")
+        cert_jobs.append((f"rank/solve/{name}", src, res.cert))
+        solo_rows.append({"source": name, "verdict": res.intersects, "seconds": seconds,
+                          "hit_index": res.stats.get("hit_index"),
+                          "candidates": res.stats.get("candidates_checked"),
+                          "order_source": (order or {}).get("source")})
+    k1_launches = sweep_fused.launches
+    batch_rows = {}
+    for engine in (None, "bitset"):
+        label = engine or "default"
+        t = time.perf_counter()
+        res = check_many([src for _, src, _ in sources], backend=GpuSweepBackend(engine=engine, order="rank"))
+        seconds = time.perf_counter() - t
+        for (name, src, want), r in zip(sources, res):
+            if r.intersects is not want:
+                fail("rank", f"batch {name} (engine={label}): intersects={r.intersects}, expected {want}")
+            if not want and not witness_ok(src, r):
+                fail("rank", f"batch {name} (engine={label}): witness pair is not two disjoint quorums")
+            got, expect = r.stats.get("hit_index"), solo[name].stats.get("hit_index")
+            if got != expect or r.stats.get("order") != solo[name].stats.get("order"):
+                fail("rank", f"batch {name} (engine={label}): hit index {got} != the unpacked rank-ordered "
+                             f"solve's {expect}")
+            cert_jobs.append((f"rank/batch/{label}/{name}", src, r.cert))
+        batch_rows[label] = {"seconds": seconds, "packed": sum(1 for r in res if r.stats.get("packed"))}
+    launches = {"sweep_fused_cuda": k1_launches, "packed_sweep_dense_cuda": packed_sweep_dense.launches,
+                "packed_sweep_bitset_cuda": packed_sweep_bitset.launches}
+    if min(launches.values()) < 1:
+        fail("rank", f"a sweep kernel never launched under the rank order: {launches}")
+    # The CLI under the variable, the default router's sweep rung included.
+    env = dict(os.environ, QI_SWEEP_ORDER="rank")
+    cli_cases = [(name, backend) for name in ("snapshot_broken.json", "snapshot_correct.json",
+                                              "nested_broken.json") if name in manifest
+                 for backend in ("gpu-sweep", "auto")]
+    procs, outs = [], []
+    for i, (name, backend) in enumerate(cli_cases):
+        cert = work / f"rank_cli{i}.cert.json"
+        procs.append((name, backend, cert, subprocess.Popen(
+            [sys.executable, "-m", PORT, "--backend", backend, "--cert-out", str(cert)], cwd=ROOT, env=env,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    try:
+        for name, backend, cert, proc in procs:
+            so, se = proc.communicate(texts[name], timeout=300)
+            outs.append((name, backend, cert, so, se, proc.returncode))
+    finally:
+        for *_, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    cli_rows = []
+    for name, backend, cert, so, se, rc in outs:
+        want = manifest[name]["verdict"]
+        if so.strip().splitlines()[-1:] != ["true" if want else "false"] or rc != (0 if want else 1):
+            fail("rank", f"CLI {name} ({backend}): printed {so[-40:]!r} exit {rc}; {se[-400:]!r}")
+        doc = json.loads(cert.read_text())
+        provenance = doc["provenance"]
+        if provenance["backend"] == "gpu-sweep" and (provenance.get("order") or {}).get("mode") != "rank":
+            fail("rank", f"CLI {name} ({backend}): swept without the rank order")
+        cert_jobs.append((f"rank/cli/{backend}/{name}", texts[name], doc))
+        cli_rows.append({"source": name, "backend": backend, "engine": provenance["backend"],
+                         "order": (provenance.get("order") or {}).get("source")})
+    phase_line("rank", card=card, solve=solo_rows, batch=batch_rows, launches=launches, cli=cli_rows,
+               hit_index_vs_unpacked_rank_solve=f"{len(sources)}/{len(sources)} equal on both engines")
 
 
 def run_all(cmds, inputs=None, parallel: int = 8, timeout: int = 600):
@@ -693,6 +1220,12 @@ def main(argv=None) -> int:
             "replaces": "quorum_intersection_tpu/backends/tpu/pallas_sweep.py:257",
             "counterparts": "K2 pallas_guard_factory (pallas_sweep.py:257); the guard half of K8, "
                             "kernels.bitset_guard_program_factory (kernels.py:722)",
+        },
+        "pagerank_cuda": {
+            "route": "cuda",
+            "source": f"{PORT}/kernels/csrc/pagerank.cu",
+            "replaces": "quorum_intersection_tpu/analytics/pagerank.py:116",
+            "counterparts": "K12 analytics/pagerank.py:116-174 _jitted_power_loops (dense :160, sparse :165)",
         },
     }
     phase_line("kernels", kernels={k: v["counterparts"] for k, v in kernels_meta.items()})
@@ -1340,6 +1873,10 @@ def main(argv=None) -> int:
     phase_line("timing_guard", card=card, per_call=guard_timing)
 
 
+    # Whether the profiler still records device work, after each of the
+    # phases below (phase pagerank_cli's profiled run found it did not).
+    profiler_seen = {"timing_guard": profiler_records(device)}
+
     # -- 12. route: the auto router's constants on this card --------------
     import tempfile
 
@@ -1410,6 +1947,8 @@ def main(argv=None) -> int:
                           "oracle_seconds_per_call": committed.oracle_seconds_per_call,
                           "pack_win_max_scc": committed.pack_win_max_scc})
 
+    profiler_seen["route"] = profiler_records(device)
+
     # -- 13. auto: the default backend, the CLI and in process ------------
     twins = {f"benchmark_fbas(256,core=34,broken={b})": (synth.benchmark_fbas(256, 34, broken=b), not b)
              for b in (False, True)}
@@ -1448,6 +1987,7 @@ def main(argv=None) -> int:
                                            for var in ("auto", "auto_no_race")}
         for var in variants:
             row[var].pop("witness")
+    profiler_seen["auto CLI processes"] = profiler_records(device)
     # The cold process a CLI user starts, alone, on a real snapshot: auto
     # against gpu-sweep, in turns.
     cold_cli = {"gpu_sweep": [], "auto": []}
@@ -1492,6 +2032,7 @@ def main(argv=None) -> int:
                               "winner": race_stats.get("winner"), "loser_joined": race_stats.get("loser_joined"),
                               "oracle_outcome": race_stats.get("oracle_outcome")})
             cert_jobs.append((f"auto/{'race' if race else 'no_race'}/{name}", src, res.cert))
+            profiler_seen[f"auto in process: {name} race={race}"] = profiler_records(device)
     auto_launches = guard_counts_now()
     if auto_launches["sweep_fused_cuda"] < 1:
         fail("auto", "the auto path never launched sweep_fused_cuda")
@@ -1505,6 +2046,8 @@ def main(argv=None) -> int:
         fail("auto", "check_many through the router: wrong verdicts")
     cert_jobs += [(f"auto_batch/{name}", src, r.cert) for (name, src, _), r in zip(sources, auto_batch)]
     pipeline_mod.build_certificate = real_build_certificate
+    profiler_seen["auto check_many"] = profiler_records(device)
+    phase_line("profiler", device_events_recorded_after=profiler_seen)
     phase_line("auto", card=card, cli=cli_rows, cold_cli_snapshot_correct_seconds=cold_cli,
                in_process=auto_rows, launches=auto_launches,
                batch={"seconds": auto_batch_s,
@@ -1512,7 +2055,16 @@ def main(argv=None) -> int:
                       "packed": sum(1 for r in auto_batch if r.stats.get("packed"))},
                verdicts=f"{len(auto_sources)}/{len(auto_sources)} equal to gpu-sweep's (verdict and exit code)")
 
-    # -- 14. cert: every certificate through the unmodified checker --------
+    # -- 14-16. PageRank: K12 against its plain version, timed, -p ---------
+    pagerank_record = pagerank_phases(device, card, texts, work)
+
+    # -- 17. analysis: the analysis modes and the sanitizer ----------------
+    analysis_phase(card, texts)
+
+    # -- 18. rank: the sweeps under the rank order --------------------------
+    rank_phase(card, texts, manifest, sources, cert_jobs, witness_ok, work)
+
+    # -- 19. cert: every certificate through the unmodified checker --------
     cmds = []
     for i, (label, src, doc) in enumerate(cert_jobs):
         if doc is None or doc.get("partial"):
@@ -1612,6 +2164,8 @@ def main(argv=None) -> int:
     library_of = {"sweep_fused_cuda": "sweep", "packed_sweep_dense_cuda": "packed_sweep",
                   "packed_sweep_bitset_cuda": "packed_sweep", "guard_dense_cuda": "guard",
                   "guard_bitset_cuda": "guard"}
+    record["kernels"].append(pagerank_record)
+    library_of["pagerank_cuda"] = "pagerank"
     for entry in record["kernels"]:
         entry["instances"] = ptxas.get(library_of[entry["name"]])
     print(json.dumps(record), flush=True)

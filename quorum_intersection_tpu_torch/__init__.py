@@ -2,7 +2,9 @@
 ``quorum_intersection_tpu``: the CLI verdict path and the batch path, with
 the candidate sweeps and the block guard as hand-written CUDA kernels for
 Hopper (``kernels/csrc``), the host oracles raced against them, and a
-checkable certificate on every verdict.
+checkable certificate on every verdict; PageRank (its power loop a CUDA
+kernel too), the top-tier, blocking-set and splitting-set analyses and the
+configuration sanitizer.
 
 Layout mirrors the JAX package so each module's counterpart is easy to find:
 
@@ -10,6 +12,7 @@ Layout mirrors the JAX package so each module's counterpart is easy to find:
 - ``encode``    — nested quorum sets flattened into threshold-circuit arrays
 - ``kernels``   — the CUDA kernels, their build, their plain versions
 - ``backends``  — ``auto`` (the router), ``gpu-sweep``, ``cpp`` and ``python``
+- ``analytics`` — PageRank, top tier, blocking and splitting sets, Graphviz
 - ``cert``      — qi-cert/1 certificates, checked by ``tools/check_cert.py``
 - ``pipeline``  — parse → graph → SCC guard → search → certificate; ``cli`` on top
 

@@ -304,6 +304,8 @@ class AutoBackend:
         race: bool = True,
         pack: Optional[bool] = None,
         cancel: Optional[CancelToken] = None,
+        seed: Optional[int] = None,
+        randomized: bool = False,
     ) -> None:
         # The device is resolved now: CUDA without a card raises here, as
         # resolve_device does, before any routing.
@@ -319,6 +321,10 @@ class AutoBackend:
         # The batch entry's lane packing: None packs only behind a measured
         # win on the live card kind, True forces it, False never packs.
         self.pack = pack
+        # The host oracles' branching tie-break (the CLI's --seed/--randomized).
+        self._oracle_options: Dict[str, object] = (
+            {"seed": seed, "randomized": randomized} if (randomized or seed is not None) else {}
+        )
         self._ladder = DegradationLadder()
         self._cal: Optional[Calibration] = None
 
@@ -375,7 +381,7 @@ class AutoBackend:
         def python_oracle() -> SearchBackend:
             from quorum_intersection_tpu_torch.backends.python_oracle import PythonOracleBackend
 
-            options: Dict[str, object] = {}
+            options = dict(self._oracle_options)
             if budget_s is not None:
                 options["budget_calls"] = max(int(budget_s / spc["python"]), MIN_ORACLE_BUDGET)
             if cancel is not None:
@@ -387,7 +393,7 @@ class AutoBackend:
         def native_oracle() -> SearchBackend:
             from quorum_intersection_tpu_torch.backends.cpp import CppOracleBackend
 
-            options: Dict[str, object] = {}
+            options = dict(self._oracle_options)
             if budget_s is not None:
                 options["budget_calls"] = max(int(budget_s / spc["cpp"]), MIN_ORACLE_BUDGET)
             # Under a watchdog the native search polls the watchdog's own

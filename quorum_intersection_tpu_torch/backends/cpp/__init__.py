@@ -16,6 +16,9 @@ Marshalling: the :class:`TrustGraph` is flattened per call into int32 arrays
 "units" (threshold, a span of direct members, a span of inner units); a null
 qset (Q2) is root ``-1``.
 
+:func:`native_top_tier` binds the same library's minimal-quorum
+enumeration (``qi_top_tier``) for the top-tier analysis and the rank order.
+
 The backend gives the Python oracle's verdicts, witnesses and search
 statistics (:mod:`.python_oracle`) in deterministic mode.
 """
@@ -55,6 +58,7 @@ BUILD_TIMEOUT_S = 600
 
 _i32p = ctypes.POINTER(ctypes.c_int32)
 _i64p = ctypes.POINTER(ctypes.c_int64)
+_u8p = ctypes.POINTER(ctypes.c_uint8)
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -109,6 +113,16 @@ def _load() -> ctypes.CDLL:
         ctypes.c_int64,  # budget_calls (0 = unlimited; -2 return on overrun)
         _i32p,  # cancel_flag (NULL = uncancellable; -3 return on cancel)
         _i32p, _i32p, _i32p, _i32p,  # q1_out, q1_len, q2_out, q2_len
+        _i64p,  # stats_out[3]
+    ]
+    lib.qi_top_tier.restype = ctypes.c_int64
+    lib.qi_top_tier.argtypes = [
+        ctypes.c_int32,  # n
+        _i32p, _i32p,  # succ_off, succ_tgt
+        _i32p, _i32p, _i32p, _i32p,  # roots, units, mem, inner
+        _i32p, ctypes.c_int32,  # scc, scc_len
+        ctypes.c_int64,  # budget_calls (0 = unlimited; -2 return on overrun)
+        _u8p,  # union_out (n bytes)
         _i64p,  # stats_out[3]
     ]
     _lib = lib
@@ -286,3 +300,34 @@ class CppOracleBackend:
                 },
             },
         )
+
+
+def native_top_tier(
+    graph: TrustGraph, scc: List[int], budget_calls: int = 0
+) -> Tuple[Optional[List[int]], int]:
+    """Union of all minimal quorums' members in the SCC via the native
+    enumeration (the JAX package's ``native_top_tier``).  Returns
+    ``(members, minimal_quorum_count)``; members is None when the call
+    budget was exceeded (the count is then the partial tally)."""
+    lib = _load()
+    flat = FlatGraph(graph)
+    scc_arr = np.asarray(scc, dtype=np.int32)
+    union = np.zeros(graph.n, dtype=np.uint8)
+    stats = np.zeros(3, dtype=np.int64)
+    count = lib.qi_top_tier(
+        flat.n,
+        flat.ptr(flat.succ_off),
+        flat.ptr(flat.succ_tgt),
+        flat.ptr(flat.roots),
+        flat.ptr(flat.units),
+        flat.ptr(flat.mem),
+        flat.ptr(flat.inner),
+        scc_arr.ctypes.data_as(_i32p),
+        len(scc),
+        int(budget_calls),
+        union.ctypes.data_as(_u8p),
+        stats.ctypes.data_as(_i64p),
+    )
+    if count == -2:
+        return None, int(stats[1])
+    return np.nonzero(union)[0].tolist(), int(count)

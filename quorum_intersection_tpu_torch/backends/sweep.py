@@ -31,6 +31,13 @@ witness and hit index are those of the unpruned sweep.  Unlike the JAX
 drives, a guard that fails to build, launch or plan fails the solve: there
 is no in-place degrade to the unpruned sweep (``sweep.py:615-647``,
 ``:1647-1656``).
+
+Both drives also take the JAX drive's rank order (``order="rank"`` or
+``QI_SWEEP_ORDER=rank``; ``sweep.py:512-539``, applied at ``:722-723`` and
+``:1470-1473``): the SCC is permuted by ``encode.circuit.rank_order_nodes``
+before restriction, so the restricted lanes, the bit → node map and the
+witness decode all inherit it, and ``stats["order"]`` carries the
+permutation into the certificate's provenance.
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ from quorum_intersection_tpu_torch.encode.circuit import (
     pack_circuits,
     pad_targets,
     plan_packs,
+    rank_order_nodes,
     restrict_circuit_pair,
 )
 from quorum_intersection_tpu_torch.fbas.graph import TrustGraph
@@ -359,6 +367,9 @@ class _SweepJob:
     # many unswept surviving windows.
     cancelled: bool = False
     cancelled_windows: int = 0
+    # Rank-order provenance, stamped into the job's stats where the
+    # enumeration order was permuted.
+    order_meta: Optional[Dict[str, object]] = None
 
 
 @dataclass
@@ -396,7 +407,10 @@ class GpuSweepBackend:
 
     ``prune`` switches block-guard pruning on both drives; None reads
     ``QI_SWEEP_PRUNE`` as the JAX backend does (empty or ``"0"``: off,
-    anything else: on).
+    anything else: on).  ``order`` picks the enumeration order on both
+    drives: ``"natural"`` (the SCC's order), ``"rank"`` (the rank order of
+    ``rank_order_nodes``); None reads ``QI_SWEEP_ORDER`` (``rank``: rank
+    order, anything else: natural).
 
     Every result's stats carry the coverage ledger under ``stats["cert"]``,
     key for key as the JAX drives name it: ``window_space``,
@@ -431,6 +445,7 @@ class GpuSweepBackend:
         device: DeviceLike = None,
         engine: Optional[str] = None,
         prune: Optional[bool] = None,
+        order: Optional[str] = None,
     ) -> None:
         if lo_bits > LO_BITS:
             raise ValueError(f"lo_bits={lo_bits} exceeds the index ceiling {LO_BITS}")
@@ -444,6 +459,9 @@ class GpuSweepBackend:
         self.device = resolve_device(device)
         self.engine = engine or "xla"
         self.prune = prune
+        if order not in (None, "natural", "rank"):
+            raise ValueError(f"unknown sweep order {order!r}")
+        self.order = order
         # The packs the last check_sccs call ran, in order (stats carry
         # each job's ``pack_index`` into this list).
         self.pack_plans: List[PackPlan] = []
@@ -452,6 +470,21 @@ class GpuSweepBackend:
         if self.prune is not None:
             return self.prune
         return os.environ.get("QI_SWEEP_PRUNE", "").strip() not in ("", "0")
+
+    def _order_mode(self) -> str:
+        if self.order is not None:
+            return self.order
+        return "rank" if os.environ.get("QI_SWEEP_ORDER", "").strip().lower() == "rank" else "natural"
+
+    def _ordered(
+        self, graph: TrustGraph, scc: List[int]
+    ) -> Tuple[List[int], Optional[Dict[str, object]]]:
+        """The SCC in enumeration order and its provenance stamp (None in
+        natural order).  Applied before restriction, so every structure
+        built from the SCC inherits it."""
+        if self._order_mode() == "rank" and len(scc) > 2:
+            return rank_order_nodes(graph, scc)
+        return scc, None
 
     def _plan_pruning(
         self,
@@ -570,7 +603,7 @@ class GpuSweepBackend:
     ) -> SccCheckResult:
         if circuit is None:
             raise ValueError("sweep backend requires the encoded circuit")
-        scc = list(scc)
+        scc, order_meta = self._ordered(graph, list(scc))
         s = len(scc)
         bits = s - 1
         if bits > MAX_BITS:
@@ -721,6 +754,8 @@ class GpuSweepBackend:
                 "windows_resumed_prefix": 0,
             },
         }
+        if order_meta is not None:
+            stats["order"] = dict(order_meta)
         if not found:
             return SccCheckResult(intersects=True, stats=stats)
 
@@ -754,7 +789,7 @@ class GpuSweepBackend:
         folds all outside availability into thresholds."""
         if circuit is None:
             raise ValueError("sweep backend requires the encoded circuit")
-        scc = list(scc)
+        scc, order_meta = self._ordered(graph, list(scc))
         bits = len(scc) - 1
         if bits > MAX_BITS:
             raise SccTooLargeError(f"|scc|={len(scc)} exceeds sweep width {MAX_BITS}+1")
@@ -767,6 +802,7 @@ class GpuSweepBackend:
             circuit_d=None if scope_to_scc else q6_c,
             bits=bits,
             total=1 << bits if bits > 0 else 1,
+            order_meta=order_meta,
         )
 
     def check_sccs(
@@ -1099,6 +1135,8 @@ class GpuSweepBackend:
                 **pack_stats,
                 **self._guard_stats(prune_plans[jix]),
             }
+            if job.order_meta is not None:
+                stats["order"] = dict(job.order_meta)
             if job.cancelled:
                 stats["cancelled"] = True
                 job.result = SccCheckResult(intersects=False, stats=stats)

@@ -211,6 +211,13 @@ def build_certificate(
             "events_truncated": rec.events_truncated(),
         },
     }
+    order = stats.get("order")
+    if isinstance(order, dict):
+        # Rank-ordered windows: which enumeration permutation the sweep ran
+        # under (mode/score source/fixed-out node) — provenance only; the
+        # witness and every ledger claim are already in graph-space node ids
+        # (a pruned ledger carries its own explicit `enumeration` block).
+        cert["provenance"]["order"] = dict(order)  # type: ignore[index]
     summary: Dict[str, object] = {
         "verdict": bool(intersects),
         "backend": stats.get("backend", reason),

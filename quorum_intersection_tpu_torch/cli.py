@@ -1,8 +1,13 @@
-"""Command-line interface — the verdict mode of the JAX package's CLI
-(``cli.py:63-161``, ``:221-473``), on the card.
+"""Command-line interface — the JAX package's CLI (``cli.py:63-161``,
+``:221-473``) without its subcommands and telemetry sinks, on the card.
 
 - input is always **stdin**, output always stdout;
-- prints ``true``/``false`` and exits 0 iff intersecting, else 1;
+- the default mode prints ``true``/``false`` and exits 0 iff intersecting,
+  else 1;
+- ``-p/--pagerank`` switches to PageRank mode (``-i/--max_iterations``,
+  ``-m/--dangling_factor``, ``-c/--convergence``), always exit 0;
+- ``--top-tier``, ``--blocking-set`` and ``--splitting-set``
+  (``--splitting-max-k``) print an analysis instead of the verdict, exit 0;
 - ``-g/--graph`` dumps the SCC-colored Graphviz digraph before the verdict;
 - ``-v/--verbose`` narrates SCC/quorum findings; ``-t/--trace`` enables
   debug logging;
@@ -13,17 +18,23 @@
 raced against the sweep on the card), ``gpu-sweep``, ``cpp`` or ``python``;
 ``--no-race`` runs the auto router's sequential chain instead of the race;
 ``--cert-out PATH`` writes the verdict's qi-cert/1 certificate, which
-``tools/check_cert.py`` re-validates against the input.  ``--device
-{cuda,cpu}`` (default ``cuda``) picks where the sweep runs; it plays the part
-the ``JAX_PLATFORMS`` variable plays for the JAX package.
+``tools/check_cert.py`` re-validates against the input.  ``--seed`` and
+``--randomized`` switch the host oracles to the reference's randomized
+branching tie-break.  ``--compat`` is shorthand for ``--dangling-policy
+alias0 --scc-select front``.  ``--device {cuda,cpu}`` (default ``cuda``)
+picks where the sweep and the PageRank kernel run; it plays the part the
+``JAX_PLATFORMS`` variable plays for the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import sys
 from typing import List, Optional
+
+from quorum_intersection_tpu_torch.utils.pipes import run_with_pipe_hygiene
 
 
 class _RefCompatParser(argparse.ArgumentParser):
@@ -49,6 +60,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--verbose", "-v", action="store_true", help="print info about the analyzed configuration")
     p.add_argument("--graph", "-g", action="store_true", help="print graphviz representation of the configuration")
     p.add_argument("--trace", "-t", action="store_true", help="print debug information")
+    p.add_argument("--pagerank", "-p", action="store_true", help="compute PageRank of the trust graph instead")
+    p.add_argument("--max_iterations", "-i", type=int, default=100000, metavar="N",
+                   help="maximal number of PageRank iterations (default 100000)")
+    p.add_argument("--dangling_factor", "-m", type=float, default=0.0001, metavar="F",
+                   help="PageRank dangling factor (default 0.0001)")
+    p.add_argument("--convergence", "-c", type=float, default=0.0001, metavar="F",
+                   help="PageRank convergence threshold (default 0.0001)")
     p.add_argument("--backend", default="auto", choices=["auto", "gpu-sweep", "cpp", "python"],
                    help="disjoint-quorum search backend (default auto)")
     p.add_argument("--no-race", action="store_true",
@@ -58,16 +76,39 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write the qi-cert/1 verdict certificate to PATH (check it with "
                         "python tools/check_cert.py PATH INPUT.json)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="where the sweep runs (default cuda; cpu runs the plain version)")
-    p.add_argument("--dangling-policy", default="strict", choices=["strict", "alias0"],
+                   help="where the sweep and the PageRank kernel run (default cuda; cpu runs "
+                        "the plain versions)")
+    p.add_argument("--dangling-policy", default=None, choices=["strict", "alias0"],
                    help="unknown validator refs: strict=never available (default), "
                         "alias0=reference-compatible aliasing to vertex 0 (Q1)")
-    p.add_argument("--scc-select", default="quorum-bearing", choices=["quorum-bearing", "front"],
+    p.add_argument("--scc-select", default=None, choices=["quorum-bearing", "front"],
                    help="which SCC to search: the quorum-bearing one (default, Q5 fix) "
                         "or Tarjan component 0 like the reference")
     p.add_argument("--scope-scc", action="store_true",
                    help="scope availability to the searched SCC (principled; default "
                         "reproduces the reference's whole-graph availability, Q6)")
+    p.add_argument("--seed", type=int, default=None,
+                   help="seed for the randomized branching tie-break (implies --randomized)")
+    p.add_argument("--randomized", action="store_true",
+                   help="use the reference's randomized branching tie-break instead of "
+                        "the deterministic lowest-index rule")
+    p.add_argument("--compat", action="store_true",
+                   help="reference-bug-compatible mode: --dangling-policy alias0 --scc-select front")
+    p.add_argument("--blocking-set", action="store_true",
+                   help="liveness-resilience mode: print a minimal blocking set of "
+                        "the quorum-bearing SCC (node failures that halt consensus) "
+                        "instead of the intersection verdict")
+    p.add_argument("--splitting-set", action="store_true",
+                   help="safety-margin mode: print a minimum splitting set (node "
+                        "deletions that leave two disjoint quorums) up to "
+                        "--splitting-max-k members, instead of the verdict")
+    p.add_argument("--splitting-max-k", type=int, default=2, metavar="K",
+                   help="splitting-set search depth (subsets up to size K; each "
+                        "candidate is a full NP-hard solve — default 2)")
+    p.add_argument("--top-tier", action="store_true",
+                   help="analysis mode: print the top tier (union of all minimal "
+                        "quorums' members — the validators that shape consensus) "
+                        "instead of the verdict")
     return p
 
 
@@ -80,22 +121,48 @@ def main(argv: Optional[List[str]] = None) -> int:
             handler.setFormatter(logging.Formatter("[%(levelname)s] %(name)s: %(message)s"))
             logger.addHandler(handler)
         logger.setLevel(logging.DEBUG)
+    dangling = args.dangling_policy or ("alias0" if args.compat else "strict")
+    scc_select = args.scc_select or ("front" if args.compat else "quorum-bearing")
+    if args.cert_out and (args.pagerank or args.top_tier or args.splitting_set or args.blocking_set):
+        # The analysis modes return before the solve that builds a
+        # certificate: reject rather than exit 0 with no file written.
+        sys.stderr.write(
+            "--cert-out applies to verdict mode only (certificates are not "
+            "produced by --rank/--top-tier/--splitting-set/--blocking-set)\n"
+        )
+        return 1
 
     from quorum_intersection_tpu_torch.fbas.graph import build_graph
     from quorum_intersection_tpu_torch.fbas.schema import parse_fbas
-    from quorum_intersection_tpu_torch.pipeline import named_backend, solve_graph
 
     try:
-        fbas = parse_fbas(sys.stdin.read())
+        # Buffered: the splitting-set mode re-reads the raw node list.
+        stdin_text = sys.stdin.read()
+        fbas = parse_fbas(stdin_text)
     except ValueError as exc:
         # FbasSchemaError and json.JSONDecodeError both derive from ValueError.
         sys.stderr.write(f"invalid FBAS configuration: {exc}\n")
         return 1
+    graph = build_graph(fbas, dangling=dangling)
+    if args.pagerank:
+        return _pagerank_mode(args, graph)
+    if args.top_tier:
+        return _top_tier_mode(graph)
+    if args.splitting_set:
+        return _splitting_mode(args, graph, stdin_text, dangling)
+    if args.blocking_set:
+        return _blocking_mode(graph)
+
+    from quorum_intersection_tpu_torch.pipeline import named_backend, solve_graph
+
     if args.no_race and args.backend != "auto":
         sys.stderr.write("--no-race only applies to the auto router (--backend auto)\n")
         return 1
-    graph = build_graph(fbas, dangling=args.dangling_policy)
-    options = {"race": False} if args.no_race else {}
+    options: dict = {}
+    if args.backend in ("python", "cpp", "auto") and (args.seed is not None or args.randomized):
+        options = {"seed": args.seed, "randomized": True}
+    if args.no_race:
+        options["race"] = False
     try:
         backend = named_backend(args.backend, args.device, **options)
     except (RuntimeError, ValueError) as exc:
@@ -107,7 +174,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         verbose=args.verbose,
         out=sys.stdout,
         graphviz=args.graph,
-        scc_select=args.scc_select,
+        scc_select=scc_select,
         scope_to_scc=args.scope_scc,
     )
     if args.cert_out and result.cert is not None:
@@ -119,17 +186,108 @@ def main(argv: Optional[List[str]] = None) -> int:
     return 0 if result.intersects else 1
 
 
-def run() -> int:
-    """``main`` with pipe hygiene: a closed stdout (``… | head``) exits 1
-    quietly instead of dumping a BrokenPipeError traceback."""
-    import os
+def _pagerank_mode(args, graph) -> int:
+    from quorum_intersection_tpu_torch.analytics.pagerank import format_pagerank, pagerank_auto
 
-    try:
-        return main()
-    except BrokenPipeError:
-        devnull = os.open(os.devnull, os.O_WRONLY)
-        os.dup2(devnull, sys.stdout.fileno())
-        return 1
+    ranks, engine = pagerank_auto(
+        graph,
+        m=args.dangling_factor,
+        convergence=args.convergence,
+        max_iterations=args.max_iterations,
+        device=args.device,
+    )
+    logging.getLogger("quorum_intersection_tpu_torch.cli").debug("pagerank engine: %s", engine)
+    sys.stdout.write(format_pagerank(graph, ranks))
+    return 0  # PageRank mode always exits 0 (cpp:787)
+
+
+def _top_tier_mode(graph) -> int:
+    from quorum_intersection_tpu_torch.analytics.top_tier import top_tier
+    from quorum_intersection_tpu_torch.pipeline import quorum_bearing_sccs
+
+    members: list = []
+    quorum_count = 0
+    exceeded = False
+    bearing = quorum_bearing_sccs(graph)
+    for _sid, scc in bearing:
+        part, n_min = top_tier(graph, scc)
+        if part is None:
+            exceeded = True
+            break
+        members.extend(part)
+        quorum_count += n_min
+    if not bearing:
+        sys.stdout.write("top tier: empty (no quorum exists)\n")
+    elif exceeded:
+        sys.stdout.write(
+            "top tier: not computed (minimal-quorum enumeration exceeded its call budget)\n"
+        )
+    else:
+        labels = " ".join(graph.label(v) for v in sorted(members))
+        sys.stdout.write(f"top tier ({len(members)} nodes, {quorum_count} minimal quorums): {labels}\n")
+    return 0
+
+
+def _splitting_mode(args, graph, stdin_text: str, dangling: str) -> int:
+    from quorum_intersection_tpu_torch.analytics.splitting import POOL_LIMIT, minimum_splitting_set
+    from quorum_intersection_tpu_torch.pipeline import quorum_bearing_sccs
+
+    raw = json.loads(stdin_text)
+    # Candidate pool from the graph already built under the user's dangling
+    # policy — no second front-end pass.
+    pool: list = []
+    for _sid, scc in quorum_bearing_sccs(graph):
+        pool.extend(graph.node_ids[v] for v in scc)
+    if len(pool) > POOL_LIMIT:
+        sys.stdout.write(f"splitting set: not computed (candidate pool {len(pool)} > {POOL_LIMIT})\n")
+        return 0
+    split = minimum_splitting_set(raw, max_k=args.splitting_max_k, dangling=dangling, pool=pool)
+    if split is None:
+        sys.stdout.write(
+            f"no splitting set with <= {args.splitting_max_k} nodes "
+            "(network stays intersecting under any such deletion)\n"
+        )
+    elif not split:
+        sys.stdout.write("minimum splitting set (0 nodes): already split\n")
+    else:
+        sys.stdout.write(f"minimum splitting set ({len(split)} nodes): {' '.join(split)}\n")
+    return 0
+
+
+def _blocking_mode(graph) -> int:
+    from quorum_intersection_tpu_torch.analytics.resilience import (
+        EXACT_LIMIT,
+        minimal_blocking_set,
+        minimum_blocking_size,
+    )
+    from quorum_intersection_tpu_torch.pipeline import quorum_bearing_sccs
+
+    bearing = quorum_bearing_sccs(graph)
+    if not bearing:
+        sys.stdout.write("blocking set: none needed (no quorum exists)\n")
+        return 0
+    # Halting the whole network means blocking every quorum-bearing SCC: the
+    # minimal set is the union of per-SCC minimal sets, the minimum size the
+    # sum of per-SCC minimums.
+    blocking: list = []
+    minimum_total: Optional[int] = 0
+    for _sid, scc in bearing:
+        part = minimal_blocking_set(graph, scc)
+        blocking.extend(part)
+        minimum = minimum_blocking_size(graph, scc, upper=len(part))
+        minimum_total = None if (minimum is None or minimum_total is None) else minimum_total + minimum
+    labels = " ".join(graph.label(v) for v in blocking)
+    sys.stdout.write(f"minimal blocking set ({len(blocking)} nodes): {labels}\n")
+    if minimum_total is not None:
+        sys.stdout.write(f"minimum blocking size: {minimum_total}\n")
+    else:
+        sys.stdout.write(f"minimum blocking size: not computed (|scc| > {EXACT_LIMIT})\n")
+    return 0
+
+
+def run() -> int:
+    """``main`` with pipe hygiene."""
+    return run_with_pipe_hygiene(main)
 
 
 if __name__ == "__main__":

@@ -44,7 +44,7 @@ Dangling-reference policy (Q1) is resolved earlier, in
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -185,6 +185,69 @@ def encode_circuit(graph: TrustGraph) -> Circuit:
         child=child,
         unit_depth=unit_depth,
     )
+
+
+# Rank-ordered windows (the JAX package's encode/circuit.py:201-266): the
+# sweep's verdict-equivalence proof holds for ANY ordering of the SCC — any
+# single node may be fixed out of the enumeration and any assignment of the
+# rest to index bits is exhaustive.  The ordering is therefore a free perf
+# knob: candidates composed of low-bit nodes occupy low window indices, so
+# putting the nodes most likely to form a (minimal) quorum at the LOW bits
+# shrinks the expected first-hit window of a `false` verdict, while low-rank
+# nodes ride the high bits.  Scores: top-tier membership (union of minimal
+# quorums, budget-bounded) first, PageRank second, and a deterministic
+# node-index tie-break so two runs in one process order identically.
+# Witness decode is order-transparent — the sweep keeps the permuted
+# graph-space id list and maps hit bits back through it before the host
+# recheck — and the permutation is stamped into cert provenance.  PageRank
+# runs as the NumPy model on the host (never the kernel), so the order is
+# bit-identical to the JAX package's.
+
+# B&B call budget for the top-tier score component: bounded so ordering
+# setup stays a fraction of any sweep it precedes; exceeding it (or any
+# analytics failure) drops the component, leaving PageRank.
+RANK_ORDER_TOP_TIER_BUDGET = 200_000
+
+
+def rank_order_nodes(
+    graph: TrustGraph,
+    scc: Sequence[int],
+    *,
+    top_tier_budget: int = RANK_ORDER_TOP_TIER_BUDGET,
+) -> Tuple[List[int], Dict[str, object]]:
+    """Rank-order an SCC for sweep enumeration: ``(ordered, meta)``.
+
+    ``ordered[0]`` is the node fixed OUT of the enumeration (the
+    lowest-ranked member — it occupies "bit infinity"); ``ordered[1 + j]``
+    is enumeration bit *j*, descending rank, so the highest-ranked nodes
+    occupy the lowest window bits.  ``meta`` is the provenance stamp
+    (mode/source/fixed node id/bit → node map) certificates carry.
+    """
+    from quorum_intersection_tpu_torch.analytics.pagerank import pagerank_np
+
+    ranks = pagerank_np(graph)
+    tier: frozenset = frozenset()
+    source = "pagerank"
+    try:
+        from quorum_intersection_tpu_torch.analytics.top_tier import top_tier
+
+        members, _ = top_tier(graph, list(scc), budget_calls=top_tier_budget)
+        if members:
+            tier = frozenset(members)
+            source = "pagerank+top-tier"
+    except Exception:  # noqa: BLE001 — ordering is a heuristic, never fatal
+        pass
+    best_first = sorted(scc, key=lambda v: (0 if v in tier else 1, -float(ranks[v]), v))
+    ordered = [best_first[-1]] + best_first[:-1]
+    meta: Dict[str, object] = {
+        "mode": "rank",
+        "source": source,
+        "fixed": graph.node_ids[ordered[0]],
+        # The full permutation in graph-space ids (bit j = bit_nodes[j]), so
+        # any ordered certificate lets a consumer reconstruct the enumeration.
+        "bit_nodes": [graph.node_ids[v] for v in ordered[1:]],
+    }
+    return ordered, meta
 
 
 # Canonical pad ladder: node and unit counts round UP to the nearest rung so a

@@ -1,2 +1,2 @@
-"""The fused sweep: CUDA kernel (``csrc/sweep.cu``), its build, its plain
-PyTorch version."""
+"""The port's CUDA kernels (``csrc/``), their build, their plain PyTorch
+versions."""

@@ -59,6 +59,15 @@ def scan_scc_quorums(graph: TrustGraph, sccs: List[List[int]]) -> List[List[int]
     return quorums
 
 
+def quorum_bearing_sccs(graph: TrustGraph) -> List[Tuple[int, List[int]]]:
+    """``[(scc_id, members), ...]`` for every SCC that contains a quorum
+    when restricted to itself — the shared scaffolding of the CLI analysis
+    modes (top tier, blocking/splitting sets)."""
+    count, comp = tarjan_scc(graph.n, graph.succ)
+    sccs = group_sccs(graph.n, comp, count)
+    return [(sid, sccs[sid]) for sid, quorum in enumerate(scan_scc_quorums(graph, sccs)) if quorum]
+
+
 def _classify_sccs(
     graph: TrustGraph, *, scc_select: str, timers: PhaseTimers
 ) -> Tuple[int, List[List[int]], List[int], Dict[int, List[int]], List[int]]:

@@ -486,3 +486,124 @@ def test_auto_on_card_matches_gpu_sweep_and_certifies(race, cuda_device):
             assert is_quorum(graph, got.q1) and is_quorum(graph, got.q2) and not set(got.q1) & set(got.q2)
         for res in (got, want):
             assert check.check_certificate(res.cert, src)
+
+
+# ---- K12: the PageRank power loop -------------------------------------------
+
+
+def _pagerank_both(graph, device, m=0.0001, conv=0.0001, max_iterations=100000):
+    """``(kernel, plain)`` results of the same CSR on the card, each as
+    ``(rank, iterations, last_diff)``."""
+    from quorum_intersection_tpu_torch.analytics.pagerank import in_edge_csr
+    from quorum_intersection_tpu_torch.kernels.pagerank_cuda import pagerank_power
+    from quorum_intersection_tpu_torch.kernels.pagerank_ref import power_loop
+
+    csr = [torch.from_numpy(a).to(device) for a in in_edge_csr(graph)]
+    got = pagerank_power(*csr, m, conv, max_iterations)
+    torch.cuda.synchronize()
+    want = power_loop(*csr, m, conv, max_iterations)
+    if int(got[1]) != int(want[1]) and _iterations_agree(got, want, conv):
+        # One apart at the stop test's edge: the plain version forced to the
+        # kernel's count, so the ranks compare after the same iterations.
+        want = power_loop(*csr, m, -1.0, int(got[1]))
+    return ([got[0].cpu().numpy(), int(got[1]), float(got[2])],
+            [want[0].cpu().numpy(), int(want[1]), float(want[2])])
+
+
+def _iterations_agree(got, want, conv) -> bool:
+    """Equal, or one apart where the stop test sat on the edge."""
+    if int(got[1]) == int(want[1]):
+        return True
+    return abs(int(got[1]) - int(want[1])) == 1 and abs(min(float(got[2]), float(want[2])) - conv) <= 1e-3 * conv
+
+
+@pytest.mark.parametrize("case", ["parallel-edges", "self-loop", "dangling", "cycle5", "caps", "20k"])
+def test_pagerank_kernel_matches_plain_on_card(case, cuda_device):
+    """Each rank within rtol 1e-3 and atol 1e-3 * m / n of the plain
+    version's, and within the JAX tolerance
+    (``_torch_pagerank_graphs.assert_ranks_close``): a rule that refuses the
+    planted faults on the 20k graph."""
+    from _torch_pagerank_graphs import ITERATION_CAPS, QUIRK_GRAPHS, assert_ranks_close, planted_faults
+
+    from quorum_intersection_tpu_torch.analytics.pagerank import in_edge_csr, pagerank_np
+    from quorum_intersection_tpu_torch.kernels.pagerank_cuda import pagerank_power
+
+    runs = []
+    if case == "caps":
+        runs = [(QUIRK_GRAPHS[name], m, cap) for name, m, cap in ITERATION_CAPS]
+    elif case == "20k":
+        runs = [(synth.stellar_like_fbas(n_watchers=20_000, seed=3), 0.0001, 100000)]
+    else:
+        # Periodic graphs: they run to the cap (1000 iterations).
+        runs = [(QUIRK_GRAPHS[case], 0.0001, 1000)]
+    before = pagerank_power.launches
+    for data, m, cap in runs:
+        graph = build_graph(parse_fbas(data))
+        got, want = _pagerank_both(graph, cuda_device, m=m, max_iterations=cap)
+        assert got[1] == want[1], (got[1:], want[1:])
+        assert_ranks_close(got[0], want[0], m)
+        if cap == 0:
+            assert got[1] == 0 and got[0][0] == 1.0 and not got[0][1:].any()
+        if case == "20k":
+            assert_ranks_close(got[0], pagerank_np(graph, m=m), m)
+            for fault in planted_faults(got[0], in_edge_csr(graph)[0]).values():
+                with pytest.raises(AssertionError):
+                    assert_ranks_close(fault, want[0], m)
+    assert pagerank_power.launches - before == len(runs)
+
+
+def test_pagerank_kernel_forced_iterations_match_plain(cuda_device):
+    """A convergence threshold no diff can pass: both run exactly the cap,
+    with the kernel's three barriers an iteration exercised 60 times."""
+    from _torch_pagerank_graphs import assert_ranks_close
+
+    graph = build_graph(parse_fbas(synth.stellar_like_fbas(n_watchers=3000, seed=5)))
+    got, want = _pagerank_both(graph, cuda_device, m=0.15, conv=-1.0, max_iterations=60)
+    assert got[1] == want[1] == 60
+    assert_ranks_close(got[0], want[0], 0.15)
+
+
+def test_pagerank_limits_raise_before_launch(cuda_device):
+    from quorum_intersection_tpu_torch.kernels.pagerank_cuda import check_limits, pagerank_power
+
+    before = pagerank_power.launches
+    with pytest.raises(KernelLimitError, match="CSR entries"):
+        check_limits(10, (1 << 31) - 5)
+    with pytest.raises(KernelLimitError, match="vertices"):
+        check_limits((1 << 31) - 1, 0)
+    row_ptr = torch.zeros(3, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="int32"):
+        pagerank_power(row_ptr.long(), row_ptr[:0], torch.zeros(2, device=cuda_device), 0.0001, 0.0001, 5)
+    assert pagerank_power.launches == before
+
+
+def test_pagerank_auto_routes_on_card(cuda_device, monkeypatch):
+    """The committed floor (None on the H100: a fresh process's kernel route
+    lost at every measured size) sends both graphs to NumPy with no launch;
+    a floor at the larger graph's edges sends it to the kernel on the card
+    the floor was measured on."""
+    import dataclasses
+
+    from _torch_pagerank_graphs import assert_ranks_close
+
+    from quorum_intersection_tpu_torch.analytics.pagerank import pagerank_auto, pagerank_np
+    from quorum_intersection_tpu_torch.backends import calibration
+    from quorum_intersection_tpu_torch.kernels.pagerank_cuda import pagerank_power
+
+    small = build_graph(parse_fbas(json.loads((FIXTURES / "snapshot_correct.json").read_text())))
+    big = build_graph(parse_fbas(synth.stellar_like_fbas(n_watchers=2800, n_null=150, n_dangling=40, seed=7)))
+    floor = calibration.H100.pagerank_min_edges
+    before = pagerank_power.launches
+    for graph in (small, big):
+        if floor is None or graph.n_edges < floor:
+            ranks, engine = pagerank_auto(graph)
+            assert engine == "numpy" and pagerank_power.launches == before
+            np.testing.assert_array_equal(ranks, pagerank_np(graph))
+    monkeypatch.setattr(calibration, "H100", dataclasses.replace(calibration.H100, pagerank_min_edges=big.n_edges))
+    assert pagerank_auto(small)[1] == "numpy" and pagerank_power.launches == before
+    ranks, engine = pagerank_auto(big)
+    if torch.cuda.get_device_name(cuda_device) == calibration.H100_KIND:
+        assert engine == "cuda" and pagerank_power.launches == before + 1
+        assert_ranks_close(ranks, pagerank_np(big))
+    else:
+        assert engine == "numpy" and pagerank_power.launches == before
