@@ -143,11 +143,16 @@ Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
               the seed state: arena rows [0, top), counters and flags exact,
               and the flag filter (K10) against its plain version on every
               chunk's flags; ``majority_fbas(14)`` and its broken twin,
-              ``hierarchical_fbas(5, 3)`` on both evaluator instances, four
-              ``random_fbas(14)``, the spill configuration ``hierarchical_fbas(4,
-              3)`` at arena 64 / pop 16, the restricted ``benchmark_fbas(64, 14,
-              seed=1)`` and three chunks of ``hierarchical_fbas(6, 4)`` at the
-              default constants;
+              ``hierarchical_fbas(5, 3)`` on both evaluator instances (also at 3
+              iterations a chunk), four ``random_fbas(14)``, the spill
+              configuration ``hierarchical_fbas(4, 3)`` at arena 64 / pop 16 on
+              both instances, the restricted ``benchmark_fbas(64, 14, seed=1)``
+              and three default chunks of the wide networks (s 24 to 64).  Each
+              chunk's exit (empty stack, chunk_iters, flag_exit, the overflow
+              guard): every one on each instance, or the phase fails.  K10 also
+              on a block of sets over 16 members, off a multiple of 16
+              (``tests/_torch_frontier_blocks.wide_flag_block``), on every
+              network past 16 lanes;
 20. frontier — ``python -m quorum_intersection_tpu_torch --backend
               gpu-frontier --cert-out`` on the seven fixtures, ``majority_fbas(18)``
               and its broken twin, ``hierarchical_fbas(6, 4)`` and ``(8, 4)``
@@ -165,10 +170,14 @@ Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
               the one committed in ``backends/calibration.py``;
 22. timing_frontier — at ``hierarchical_fbas(8, 4)``'s shape (s 32, K 2048):
               K9 by CUDA events per 1-, 33- and 512-iteration chunk from a
-              mid-search state, K10 per 10 240-flag block of its own flags,
-              the plain versions' ms and each bound (the fixpoint passes the
-              rows take times the nonzero votes at the int8 peak, against the
-              state rows in and out);
+              mid-search state; the clock64() breakdown of an iteration by K9's
+              timed instance; K10 per 10 240-flag block of its own flags (on
+              the device alone and back to back) and its event ms inside the
+              hier-8x4 solve; with ``--k10-parent DIR``, K10's body against
+              the one in DIR's tree, in turns on a side stream; the plain
+              versions' ms and each bound (the fixpoint passes the rows take
+              times the nonzero votes at the int8 peak, against the chunk's
+              source rows read once and its rows and flags written once);
 23. cert    — every certificate the runs above produced (CLI ``--cert-out``
               under auto, gpu-sweep and gpu-frontier, ``solve`` and
               ``check_many`` on both engines, pruned, rank-ordered and
@@ -629,6 +638,25 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, spin_cycles: int = 2_000_000) -> float:
+    """ms a call on the device alone: each call queued behind a spin of the
+    stream (``torch.cuda._sleep``), so that the host's launch cost stays off
+    the clock, with CUDA events around it; the mean over ``reps``."""
+    import torch
+
+    fn()
+    total = 0.0
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
 
 
 def window_bound_ms(circuit, circuit_d, lo_nodes, scc_mask, frozen, start, hi_row, device):
@@ -1189,7 +1217,8 @@ def frontier_setup(src, device, arena, pop, stream=None, chunk_iters=512):
     shape = ChunkShape(half=prob.half, K=pop, C=arena, chunk_iters=chunk_iters,
                        flag_cap=FLAG_EXIT * FLAG_EXIT_GROWTH + pop)
     args = (prob.circuit, prob.scc_dev, prob.a_scc, shape, prob.probe_circuit, prob.frozen)
-    return prob, shape, FrontierKernels(*args, device=device, stream=stream), FrontierRef(*args, device=device)
+    return (prob, shape, FrontierKernels(*args, device=device, stream=stream),
+            FrontierRef(*args, device=device))
 
 
 def instance_of(kern) -> str:
@@ -1212,13 +1241,14 @@ def frontier_lockstep(prob, shape, kern, plain, chunks, flag_exit=512):
     """K9 and its plain version chunk for chunk from the seed state (the
     host's spill applied alike), each chunk's arena rows [0, top), counters
     and flags held equal, and K10 against its plain version on each chunk's
-    flags.  Returns ``(chunks, iterations, flags, mismatches)``."""
+    flags.  Returns ``(chunks, iterations, flags, mismatches, exit reasons)``."""
     import torch
 
+    from _torch_frontier_blocks import exit_reason
     from quorum_intersection_tpu_torch.kernels.frontier_cuda import frontier_chunk, frontier_filter
 
     sets = [[frontier_seed(kern, prob), kern.arena()], [frontier_seed(kern, prob), kern.arena()]]
-    src, done, iters, flags, bad = 0, 0, 0, 0, []
+    src, done, iters, flags, bad, reasons = 0, 0, 0, 0, [], []
     for c in range(chunks):
         frontier_chunk(kern, sets[0][src], sets[0][1 - src], flag_exit)
         plain.chunk(sets[1][src], sets[1][1 - src], flag_exit)
@@ -1232,6 +1262,7 @@ def frontier_lockstep(prob, shape, kern, plain, chunks, flag_exit=512):
         if g_ctr != w_ctr:
             bad.append(f"chunk {c}: counters {g_ctr} != {w_ctr}")
             break
+        reasons.append(exit_reason(g_ctr, shape, flag_exit))
         if not (torch.equal(got.T[:top], want.T[:top]) and torch.equal(got.D[:top], want.D[:top])):
             bad.append(f"chunk {c}: arena rows differ")
         if not torch.equal(got.flags[:fcount], want.flags[:fcount]):
@@ -1250,7 +1281,7 @@ def frontier_lockstep(prob, shape, kern, plain, chunks, flag_exit=512):
                 st.D[:keep] = st.D[shape.C // 2: top].clone()
                 st.ctr[0] = keep
         src = 1 - src
-    return done, iters, flags, bad
+    return done, iters, flags, bad, reasons
 
 
 class LaunchTimer:
@@ -1291,11 +1322,21 @@ class LaunchTimer:
         for fn, orig in self.orig.items():
             setattr(self.mod, fn, orig)
 
-    def ms(self):
+    def mark(self):
+        """A point in the record, for :meth:`ms` of what follows it."""
+        return {name: len(evs) for name, evs in self.events.items()}
+
+    def ms(self, since=None, until=None):
+        """Summed event ms by kernel, of all launches or of those between
+        two marks."""
         import torch
 
         torch.cuda.synchronize()
-        return {name: sum(s.elapsed_time(e) for s, e in evs) for name, evs in self.events.items()}
+        return {name: sum(s.elapsed_time(e) for s, e in evs[(since or {}).get(name, 0):(until or {}).get(name)])
+                for name, evs in self.events.items()}
+
+    def launches(self, since, until):
+        return {name: until[name] - since[name] for name in self.events}
 
 
 def frontier_region(rows):
@@ -1338,9 +1379,105 @@ def native_capped(src, cap_s):
         timer.cancel()
 
 
-def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work):
+def k9_breakdown(kern, state, dst, far, want, ms_per_iteration, reps=10):
+    """K9's timed instance on ``reps`` 33-iteration chunks from ``state``
+    (each held equal to the untimed chunk ``want``): the cycles warp 0 of
+    block 0 spends in each part of an iteration, their shares, and each
+    share of the measured ``ms_per_iteration``."""
+    import torch
+
+    from quorum_intersection_tpu_torch.kernels import frontier_cuda
+
+    kern.shape.chunk_iters = 33
+    total = torch.zeros(len(frontier_cuda.TIMED_PHASES) + 1, dtype=torch.int64, device=dst.T.device)
+    for _ in range(reps):
+        total += frontier_cuda.frontier_chunk_timed(kern, state, dst, far)
+    kern.shape.chunk_iters = 512
+    top, fcount = want.ctr.tolist()[:2]
+    if dst.ctr.tolist() != want.ctr.tolist() or not (
+        torch.equal(dst.T[:top], want.T[:top]) and torch.equal(dst.D[:top], want.D[:top])
+        and torch.equal(dst.flags[:fcount], want.flags[:fcount])
+    ):
+        fail("timing_frontier", "K9's timed instance differs from its untimed chunk")
+    cycles = total.tolist()
+    iters = cycles[-1]
+    per_iter = {name: c / iters for name, c in zip(frontier_cuda.TIMED_PHASES, cycles)}
+    whole = sum(per_iter.values())
+    return {"iterations": iters, "cycles_per_iteration": per_iter, "cycles_per_iteration_total": whole,
+            "share": {name: c / whole for name, c in per_iter.items()},
+            "ms_per_iteration_by_share": {name: ms_per_iteration * c / whole for name, c in per_iter.items()},
+            "clock_mhz_implied": whole / (ms_per_iteration * 1e3),
+            "of": "clock64() of warp 0 of block 0 over 33-iteration chunks from the timed state"}
+
+
+def k10_bodies(kern, block, count, want, parent_tree, work):
+    """K10's body against the one in another tree's ``frontier.cu`` (the
+    checkout at ``parent_tree``), both through the same C call on one side
+    stream, in turns (the other tree's, this one's, this one's through its
+    wrapper, and back in the reverse order): ms a block on the device alone
+    (20 calls behind a stream spin) and back to back (50 calls), each turn's
+    result held against the plain version's ``want``."""
+    import ctypes
+
+    import torch
+
+    from quorum_intersection_tpu_torch.kernels import build, frontier_cuda
+
+    src = pathlib.Path(parent_tree) / PORT / "kernels" / "csrc" / "frontier.cu"
+    lib_path = work / "parent_frontier.so"
+    proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib_path), str(src)],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail("timing_frontier", f"nvcc refused {src}: {(proc.stdout + proc.stderr)[-2000:]}")
+    libs = {"parent": ctypes.CDLL(str(lib_path)), "this": frontier_cuda._library()}
+    p, i = ctypes.c_void_p, ctypes.c_int
+    libs["parent"].qi_frontier_filter.argtypes = [p, p, p, p] + [i] * 10 + [p, i, p, p]
+    libs["parent"].qi_frontier_filter.restype = i
+    t = kern.tables
+    init = torch.tensor([0, block.shape[0]], dtype=torch.int32, device=block.device)
+    out = torch.empty_like(init)
+    side = torch.cuda.Stream(block.device)
+    side.wait_stream(torch.cuda.current_stream(block.device))
+
+    def call(lib):
+        out.copy_(init)
+        err = lib.qi_frontier_filter(
+            t.blocks.data_ptr(), t.chunks.data_ptr(), t.neg_thresholds.data_ptr(), kern.neg_thr_d.data_ptr(),
+            t.n, t.n_units, t.units, t.depth, t.c0, t.slabs, t.pc, t.nblocks, int(t.stream), kern.s,
+            block.data_ptr(), count, out.data_ptr(), side.cuda_stream)
+        if err != 0:
+            fail("timing_frontier", f"K10 body launch failed: {lib.qi_cuda_error_string(err).decode()}")
+
+    def wrapped():
+        out.copy_(frontier_cuda.frontier_filter(kern, block, count))
+
+    arms = {"parent": lambda: call(libs["parent"]), "this": lambda: call(libs["this"]), "this_wrapper": wrapped}
+    res = {who: {"ms_device_alone": [], "ms_back_to_back": []} for who in arms}
+    with torch.cuda.stream(side):
+        for who in ("parent", "this", "this_wrapper", "this_wrapper", "this", "parent"):
+            alone = device_ms(arms[who], 20)
+            b2b = time_ms(arms[who], 50)
+            if out.tolist() != want:
+                fail("timing_frontier", f"K10's {who} body: {out.tolist()} != plain {want}")
+            res[who]["ms_device_alone"].append(alone)
+            res[who]["ms_back_to_back"].append(b2b)
+        # Device ms by kernel of 10 calls of each of this tree's arms under
+        # the profiler: the body's own time through the wrapper and without.
+        for who in ("this", "this_wrapper"):
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    arms[who]()
+                torch.cuda.synchronize()
+            res[who]["profiler_device_ms_10_calls"] = device_ms_by_kernel(prof)
+    res["of"] = f"{count} flags of hierarchical_fbas(8,4); the other tree's body from {src}"
+    return res
+
+
+def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, k10_parent=None):
     """Phases compare_frontier, frontier, frontier_route and
-    timing_frontier; returns the K9 and K10 records of the kernels line."""
+    timing_frontier; returns the K9 and K10 records of the kernels line.
+    ``k10_parent``: a checkout whose K10 body timing_frontier times in turns
+    with this one's."""
     import numpy as np
     import torch
 
@@ -1353,14 +1490,19 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work):
     from quorum_intersection_tpu_torch.pipeline import solve
 
     # -- compare_frontier ------------------------------------------------
+    # (label, source, arena, pop, chunks, streamed, chunk_iters); between
+    # them every exit of the chunk loop on both instances.
     compare_cases = [
         ("majority_fbas(14)", synth.majority_fbas(14), 8192, 256, 8, None),
         ("majority_fbas(14,broken)", synth.majority_fbas(14, broken=True), 8192, 256, 8, None),
         ("hierarchical_fbas(5,3)", synth.hierarchical_fbas(5, 3), 8192, 256, 8, None),
         ("hierarchical_fbas(5,3) streamed", synth.hierarchical_fbas(5, 3), 8192, 256, 8, True),
+        ("hierarchical_fbas(5,3) chunk_iters 3", synth.hierarchical_fbas(5, 3), 8192, 256, 4, None, 3),
+        ("hierarchical_fbas(5,3) chunk_iters 3 streamed", synth.hierarchical_fbas(5, 3), 8192, 256, 4, True, 3),
         *[(f"random_fbas(14,seed={sd},nested_prob=0.3,null_prob=0.1)",
            synth.random_fbas(14, seed=sd, nested_prob=0.3, null_prob=0.1), 8192, 256, 8, None) for sd in range(4)],
         ("hierarchical_fbas(4,3) spill", synth.hierarchical_fbas(4, 3), 64, 16, 8, None),
+        ("hierarchical_fbas(4,3) spill streamed", synth.hierarchical_fbas(4, 3), 64, 16, 8, True),
         ("benchmark_fbas(64,14,seed=1) restricted", synth.benchmark_fbas(64, 14, seed=1), 4096, 128, 8, None),
         ("hierarchical_fbas(6,4) defaults, 3 chunks", synth.hierarchical_fbas(6, 4), 1 << 18, 2048, 3, None),
         ("hierarchical_fbas(8,4) defaults, 3 chunks", synth.hierarchical_fbas(8, 4), 1 << 18, 2048, 3, None),
@@ -1376,19 +1518,42 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work):
          1 << 18, 2048, 3, None),
         ("random_fbas(64,seed=0) defaults, 3 chunks", synth.random_fbas(64, seed=0), 1 << 18, 2048, 3, None),
     ]
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_frontier_blocks import EXIT_REASONS, wide_flag_block
+
     t0 = time.perf_counter()
     compare_rows, mismatches = {}, []
-    for label, src, arena, pop, chunks, stream in compare_cases:
-        prob, shape, kern, plain = frontier_setup(src, device, arena, pop, stream=stream)
-        done, iters, flags, bad = frontier_lockstep(prob, shape, kern, plain, chunks)
-        compare_rows[label] = {"s": prob.s, "s_dev": prob.s_dev, "arena": arena, "pop": shape.K,
-                               "instance": instance_of(kern), "chunks": done, "iterations": iters, "flags": flags, "equal": not bad}
+    exits = {"resident": set(), "streamed": set()}
+    for label, src, arena, pop, chunks, stream, *iters_cap in compare_cases:
+        prob, shape, kern, plain = frontier_setup(src, device, arena, pop, stream=stream,
+                                                  chunk_iters=iters_cap[0] if iters_cap else 512)
+        done, iters, flags, bad, reasons = frontier_lockstep(prob, shape, kern, plain, chunks)
+        exits[instance_of(kern)].update(reasons)
+        row = {"s": prob.s, "s_dev": prob.s_dev, "arena": arena, "pop": shape.K, "chunk_iters": shape.chunk_iters,
+               "instance": instance_of(kern), "chunks": done, "iterations": iters, "flags": flags,
+               "exits": reasons, "equal": not bad}
+        if prob.s > 16:
+            # K10 on sets of more than 16 members, off a multiple of 16 (a
+            # set's leave-one-out rows span tiles).
+            block = wide_flag_block(prob, plain)
+            got = frontier_cuda.frontier_filter(kern, block, len(block)).tolist()
+            want = plain.filter(block, len(block)).tolist()
+            sizes = block.sum(-1)
+            row["k10_wide_block"] = {"sets": len(block), "sizes": [int(sizes.min()), int(sizes.max())],
+                                     "minimal": want[0], "witness": want[1], "equal": got == want}
+            if got != want:
+                bad.append(f"K10 on {len(block)} sets of {int(sizes.min())}-{int(sizes.max())} members: "
+                           f"{got} != {want}")
+        compare_rows[label] = row
         mismatches += [f"{label}: {b}" for b in bad]
+    for instance, seen in exits.items():
+        if set(EXIT_REASONS) - seen:
+            mismatches.append(f"{instance}: no case left the chunk loop by {sorted(set(EXIT_REASONS) - seen)}")
     if mismatches:
         fail("compare_frontier", "; ".join(mismatches[:6]))
     phase_line("compare_frontier", card=card, seconds=round(time.perf_counter() - t0, 3),
                tolerance="exact (integer arena rows, counters, flags, minimal count and witness index)",
-               cases=compare_rows)
+               exits={k: sorted(v) for k, v in exits.items()}, cases=compare_rows)
 
     # -- frontier: the CLI and GpuFrontierBackend in process ----------------
     nets = [(name, texts[name], manifest[name]["verdict"]) for name in manifest] + frontier_networks(synth)
@@ -1417,12 +1582,14 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work):
 
     for name in frontier_cuda.LAUNCHES:
         frontier_cuda.LAUNCHES[name] = 0
-    runs = {}
+    runs, spans = {}, {}
     with LaunchTimer() as timer:
         for label, src, want in nets:
+            since = timer.mark()
             t = time.perf_counter()
             res = solve(src, backend=GpuFrontierBackend())
             seconds = time.perf_counter() - t
+            spans[label] = (since, timer.mark())
             if res.intersects is not want:
                 fail("frontier", f"{label}: gpu-frontier says {res.intersects}, expected {want}")
             if not want and not witness_ok(src, res):
@@ -1442,6 +1609,9 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work):
             cert_jobs.append((f"frontier/solve/{label}", src, res.cert))
             runs[label] = row
     main_ms = timer.ms()
+    for label, (since, until) in spans.items():
+        runs[label]["device_ms_by_kernel"] = timer.ms(since, until)
+        runs[label]["launches_by_kernel"] = timer.launches(since, until)
     launches = {LaunchTimer.NAMES[fn]: n for fn, n in frontier_cuda.LAUNCHES.items()}
     for name, n in launches.items():
         if n < 1:
@@ -1520,6 +1690,7 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work):
 
     timing = {}
     t1, t33 = time_ms(lambda: k9(1), 20), time_ms(lambda: k9(33), 10)
+    d1, d33 = device_ms(lambda: k9(1), 10), device_ms(lambda: k9(33), 10)
     k9(33)
     k33 = kern.arena()
     for name in ("T", "D", "flags", "ctr"):
@@ -1541,9 +1712,13 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work):
     torch.cuda.synchronize()
     plain_33_ms = (time.perf_counter() - t_plain) * 1e3
     kern.shape.chunk_iters = 512
+    # The fixpoint passes of the 33 iterations' rows, by a replay of the
+    # plain version's iterations; the replay also gives PR 9's traffic model
+    # (every popped row read and every child row written through the arena,
+    # an iteration at a time), kept beside the chunk's own bound.
     T, D = state.T.clone(), state.D.clone()
     flags = torch.zeros_like(state.flags)
-    ptop, fc, passes, nbytes = top, 0, 0, 0
+    ptop, fc, passes, model_bytes = top, 0, 0, 0
     for _ in range(33):
         if ptop == 0 or ptop > shape.C - 2 * shape.K:
             break
@@ -1553,7 +1728,7 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work):
         stacked = rows_in_circuit(plain.tables, plain.scc_idx, torch.cat([blk_D, torch.maximum(blk_T, blk_D)]))
         passes += int(fixpoint_passes(plain.tables, stacked)[1].sum())
         new_top, fc2, _ = expand(plain.tables, plain.scc_idx, plain.a_mat, shape, T, D, ptop, flags, fc)
-        nbytes += 2 * k * prob.s_dev + 2 * max(new_top - base, 0) * prob.s_dev + (fc2 - fc) * prob.s_dev
+        model_bytes += 2 * k * prob.s_dev + 2 * max(new_top - base, 0) * prob.s_dev + (fc2 - fc) * prob.s_dev
         ptop, fc = new_top, fc2
     p_top, p_fc = pdst.ctr.tolist()[:2]
     if k33.ctr.tolist() != pdst.ctr.tolist() or not (
@@ -1566,21 +1741,37 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work):
         fail("timing_frontier", f"the bound's replay ended at top {ptop}, {fc} flags; the plain chunk at "
                                 f"{pdst.ctr.tolist()}")
     macs = macs_per_pass(prob.circuit)
+    # The chunk's own least traffic: its inputs read once (the source rows
+    # [0, top), the tables, the in-degree planes, the counters) and its
+    # outputs written once (the rows [0, top'), the flags, the counters).
+    nbytes = (2 * top * prob.s_dev + table_bytes(prob.circuit) + kern.planes.numel() * 8 + 16
+              + 2 * p_top * prob.s_dev + p_fc * prob.s_dev + 16)
     b_ms, b_by = bound(passes * macs, nbytes)
+    model_ms, _ = bound(passes * macs, model_bytes)
+    timing["K9_breakdown"] = k9_breakdown(kern, state, dst, far, k33, (t33 - t1) / 32)
     timing["K9"] = {"shape": f"hierarchical_fbas(8,4): s={prob.s} (s_dev {prob.s_dev}), K={shape.K}, "
                              f"C={shape.C}, top {top} at the timed state",
                     "instance": instance_of(kern), "grid_blocks": getattr(kern, "grid", None),
                     "ms_1_iteration_chunk": t1, "ms_33_iteration_chunk": t33,
                     "ms_per_iteration": (t33 - t1) / 32, "iterations_33": per_chunk_iters,
+                    "device_alone_ms_1_and_33": [d1, d33], "ms_per_iteration_device_alone": (d33 - d1) / 32,
                     "ms_default_chunk": t_default, "default_chunk_counters": default_ctr,
                     "plain_ms_33_iterations": plain_33_ms, "bound_ms_33_iterations": b_ms, "bound_by": b_by,
-                    "fixpoint_passes_33": passes, "macs_per_pass": macs, "bytes_33": nbytes}
+                    "bytes_33": nbytes, "x_bound_33": t33 / b_ms,
+                    "fixpoint_passes_33": passes, "macs_per_pass": macs,
+                    "pr9_traffic_model": {"bytes_33": model_bytes, "bound_ms_33": model_ms,
+                                          "bound_ms_per_iteration": model_ms / 33,
+                                          "of": "every popped row read and every child row written, "
+                                                "an iteration at a time"}}
     # K10 on a full block of hier-8x4's own flagged sets.
     rows = torch.cat(flag_rows)[: shape.flag_cap].contiguous()
     count = rows.shape[0]
     block = torch.zeros((shape.flag_cap, prob.s_dev), dtype=torch.int8, device=device)
     block[:count] = rows
-    k10_ms = time_ms(lambda: frontier_cuda.frontier_filter(kern, block, count), 20)
+    # Back to back (the card stays busy, as beside the chunk
+    # in the drive), and each call alone behind a stream spin.
+    k10_ms = time_ms(lambda: frontier_cuda.frontier_filter(kern, block, count), 50)
+    k10_alone = device_ms(lambda: frontier_cuda.frontier_filter(kern, block, count), 20)
     got = frontier_cuda.frontier_filter(kern, block, count).tolist()
     t_plain = time.perf_counter()
     want = plain.filter(block, count).tolist()
@@ -1597,11 +1788,19 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work):
     probe_passes = int(fixpoint_passes(plain.probe_tables, rows_in_circuit(plain.probe_tables, plain.scc_idx,
                                                                             probe))[1].sum())
     k10_bound, k10_by = bound((loo_passes + probe_passes) * macs, count * prob.s_dev + 8)
-    timing["K10"] = {"flags": count, "block": shape.flag_cap, "ms": k10_ms, "plain_ms": k10_plain,
+    if k10_parent is not None:
+        timing["K10_bodies"] = k10_bodies(kern, block, count, want, k10_parent, work)
+    hier = runs["hierarchical_fbas(8,4)"]
+    timing["K10"] = {"flags": count, "block": shape.flag_cap, "ms": k10_ms,
+                     "ms_of": "50 launches back to back (CUDA events)", "ms_device_alone": k10_alone,
+                     "plain_ms": k10_plain,
                      "bound_ms": k10_bound, "bound_by": k10_by, "minimal": got[0],
-                     "loo_rows": int(loo.shape[0]), "fixpoint_passes": loo_passes + probe_passes}
+                     "loo_rows": int(loo.shape[0]), "fixpoint_passes": loo_passes + probe_passes,
+                     "in_hier_8x4_solve_ms": hier["device_ms_by_kernel"]["frontier_filter_cuda"],
+                     "in_hier_8x4_solve_launches": hier["launches_by_kernel"]["frontier_filter_cuda"]}
     phase_line("timing_frontier", card=card, timing=timing,
-               bound="fixpoint passes x nonzero votes at the int8 peak against the state rows in and out at 3.35 TB/s")
+               bound="fixpoint passes x nonzero votes at the int8 peak against, at 3.35 TB/s, K9's source rows "
+                     "read once and its rows and flags written once, K10's flag rows read once")
 
     records = [
         {"name": "frontier_chunk_cuda", "route": "cuda", "source": f"{PORT}/kernels/csrc/frontier.cu",
@@ -1609,7 +1808,8 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work):
          "launches": launches["frontier_chunk_cuda"], "max_abs_err": 0,
          "ms": t33, "plain_ms": plain_33_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
          "ms_of": "one 33-iteration chunk at hierarchical_fbas(8,4)'s shape (K=2048)",
-         "ms_per_iteration": (t33 - t1) / 32,
+         "ms_per_iteration": (t33 - t1) / 32, "x_bound": t33 / b_ms,
+         "pr9_traffic_model_bound_ms": model_ms,
          "main_path_device_ms": main_ms["frontier_chunk_cuda"],
          "main_path_device_ms_of": "phase frontier, GpuFrontierBackend in process (CUDA events)"},
         {"name": "frontier_filter_cuda", "route": "cuda", "source": f"{PORT}/kernels/csrc/frontier.cu",
@@ -1680,6 +1880,9 @@ def main(argv=None) -> int:
     ap.add_argument("--frontier", action="store_true",
                     help="only build, then run the frontier's phases (compare_frontier, frontier, "
                          "frontier_route, timing_frontier) and check their certificates (no ok line)")
+    ap.add_argument("--k10-parent", metavar="DIR", default=None,
+                    help="a checkout (git archive) whose flag filter body timing_frontier times in turns "
+                         "with this tree's, on a side stream")
     args = ap.parse_args(argv)
     if not (ROOT / PORT / "kernels" / "csrc" / "sweep.cu").is_file():
         print(f"FAIL setup: {PORT}/ not found beside chip_smoke.py (run from a checkout)")
@@ -1735,7 +1938,7 @@ def main(argv=None) -> int:
         texts = {name: fixture_text(name) for name in manifest}
         work = pathlib.Path(tempfile.mkdtemp(prefix="qi-chip-smoke-"))
         cert_jobs = []
-        records = frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work)
+        records = frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, args.k10_parent)
         refused, _ = check_certificates(cert_jobs, work)
         phase_line("cert", card=card, checked=len(cert_jobs), refused=refused)
         print(json.dumps({"kernels": records}), flush=True)
@@ -2634,7 +2837,7 @@ def main(argv=None) -> int:
 
     # -- 19-22. the frontier: K9 and K10 against their plain versions, driven,
     # routed and timed ----------------------------------------------------
-    frontier_records = frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work)
+    frontier_records = frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, args.k10_parent)
 
     # -- 23. cert: every certificate through the unmodified checker --------
     t = time.perf_counter()

@@ -18,7 +18,8 @@ disjointness checks, by one of two engines (``flag_check``):
 
 - ``"device"`` (``"auto"`` on CUDA): the leave-one-out rows and the Q6
   availability probe as one launch a flag block (K10,
-  :func:`..kernels.frontier_cuda.frontier_filter`);
+  :func:`..kernels.frontier_cuda.frontier_filter`), on the card on a stream
+  of its own, so that it need not queue behind the chunk in flight;
 - ``"host"`` (``"auto"`` on the CPU): the exact serial check per set, through
   the native ``qi_max_quorum`` where the library builds, else the Python
   semantics (a host engine choice, logged, as in the JAX package).
@@ -432,6 +433,35 @@ class GpuFrontierBackend:
         use_device_filter = self.flag_check == "device" or (self.flag_check == "auto" and on_card)
         flag_block = flag_cap
         pending_flags: Optional[np.ndarray] = None
+        side = None
+        if on_card and use_device_filter:
+            # K10's own stream, so that it need not queue behind the
+            # speculative chunk on the main one (K9 holds a few dozen SMs),
+            # its flag block uploaded from pinned memory and its result read
+            # back behind an event.
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))  # the tables are set up
+            stage = torch.empty((flag_block, s_dev), dtype=torch.int8).pin_memory()
+            result_h = torch.empty(2, dtype=torch.int32).pin_memory()
+            with torch.cuda.stream(side):
+                blk_dev = torch.empty((flag_block, s_dev), dtype=torch.int8, device=self.device)
+
+        def device_filter(blk: np.ndarray) -> Tuple[int, int]:
+            """K10 over one flag block: ``(minimal count, first witness
+            index or flag_block)``."""
+            cnt = len(blk)
+            if side is None:
+                padded = np.zeros((flag_block, s_dev), dtype=np.int8)
+                padded[:cnt] = blk
+                return tuple(frontier_filter(kern, torch.from_numpy(padded).to(self.device), cnt).tolist())
+            stage[:cnt] = torch.from_numpy(blk)
+            with torch.cuda.stream(side):
+                blk_dev[:cnt].copy_(stage[:cnt], non_blocking=True)
+                result_h.copy_(frontier_filter(kern, blk_dev, cnt), non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(side)
+            done.synchronize()
+            return tuple(result_h.tolist())
 
         def serial_check(rows: np.ndarray) -> bool:
             """Exact host check per row; True iff a witness was found."""
@@ -461,9 +491,7 @@ class GpuFrontierBackend:
             for start in range(0, len(rows), flag_block):
                 blk = rows[start:start + flag_block]
                 cnt = len(blk)
-                padded = np.zeros((flag_block, s_dev), dtype=np.int8)
-                padded[:cnt] = blk
-                mins, widx = frontier_filter(kern, torch.from_numpy(padded).to(self.device), cnt).tolist()
+                mins, widx = device_filter(blk)
                 stats["device_flag_checks"] += cnt
                 if widx >= flag_block:
                     stats["minimal_quorums"] += mins

@@ -8,40 +8,64 @@
 // evaluator (warp_mma.cuh: b1 and-popc mma.sync, 16 rows a warp), in lane
 // space: the wrapper relabels the circuit so that node i is the SCC's lane i,
 // so a (toRemove, dontRemove) state row of s <= 64 int8 lanes packs into one
-// 64-bit word with two ballots and feeds the evaluator as it is.
+// 64-bit word and feeds the evaluator as it is.  A quad of a warp moves a
+// row: thread q holds lanes [16 q, 16 q + 16) as two 8-byte words of int8
+// 0/1 (s a multiple of 8), packed to and from bits with one multiply a word.
 //
-// K9, one cooperative launch a chunk (grid.sync(), no -rdc):
-//   copy the source arena's rows [0, top) into the destination     | grid sync
-//   while top > 0, iters < chunk_iters, fcount < flag_exit, top <= C - 2K:
-//     (a) a warp pops 8 states of the block [top - k, top), k = min(top, K):
-//         rows g = D, g + 8 = T | D; one Q fixpoint; live, d_has_q,
-//         contained, eligible; the branch variable (in-degree over a_scc
-//         from shared memory, a warp argmax preferring the lowest lane); the
-//         children's and the flag's bits and rows into a stash     | grid sync
-//     (b) every block scans the k stash codes in row order (the same
-//         deterministic sums in every block, so no broadcast is needed)
-//     (c) the grid's warps scatter the children (include below exclude, from
-//         base = top - k) and the flags (from fcount), and every block
-//         advances top, fcount, iters and popped itself             | grid sync
-// Every popped row is read in (a) before any child is written in (c).  The
+// K9, one cooperative launch a chunk (grid.sync(), no -rdc), one grid barrier
+// an iteration:
+//   copy the source arena's rows [0, top) into the destination        | grid sync
+//   iteration i:
+//     (a) every block scans stash i-1's codes in row order (the same
+//         deterministic sums in every block, so no broadcast is needed):
+//         top_i = base_{i-1} + its children, fcount_i, the exit test, and in
+//         shared memory the map from each child position of [base_{i-1},
+//         top_i) to its stash entry (include or exclude) and from each flag
+//         to its entry
+//     (b) k_i = min(top_i, K), base_i = top_i - k_i; the grid's warps write
+//         stash i-1's children at [base_{i-1}, base_i) to the arena and its
+//         flags from fcount_{i-1} (past the arena or the flag buffer they are
+//         dropped: the JAX scatter's mode="drop")
+//     (c) a warp pops 8 states of [base_i, top_i): at or above base_{i-1}
+//         straight from stash i-1 (those children never reach the arena),
+//         below it from the arena; rows g = D, g + 8 = T | D, one Q fixpoint;
+//         live, d_has_q, contained, eligible, the branch variable; the
+//         children's and the flag's bits into stash i                  | grid sync
+//   when the exit test fails at the top of an iteration, (b) writes all of
+//   the last stash's children [base_{i-1}, top_i) and its flags, and block 0
+//   writes the counters [top, fcount, iters, popped].
+// Why one barrier is enough: in iteration i the arena is read only at
+// [base_i, base_{i-1}) and written only at [base_{i-1}, base_i), and at most
+// one of the two ranges is non-empty; iteration i reads stash i-1 and writes
+// stash i (two halves that alternate), and the barrier ends iteration i.
+// Rows and codes written within the launch are read through L2 (ld.cg).  The
 // exit test reads only values every block holds alike, so all blocks leave
-// the loop together; block 0 writes the counters [top, fcount, iters,
-// popped] at the end.
+// the loop together.
 //
-// K10, one launch a flag block: a warp takes 16 flagged sets D; one fixpoint
-// of the 16 probe rows (scc minus D) under the probe thresholds, then per set
-// its leave-one-out rows D minus {j}, j in D, 16 at a time under the scoped
-// thresholds, stopping at the first that holds a quorum.  A set is minimal
-// iff none does, a witness candidate iff also its probe holds one; the warp
-// adds its minimal count and lowers the first witness index with atomics
-// (an integer sum and a minimum: the same result in any order).
+// The branch variable by popcount: the wrapper passes a_scc's column
+// bit-planes (plane b of lane w: the members u with bit b of a_scc[u][w] set),
+// so the in-degree of lane w from a quorum f2 is sum_b popc(f2 & plane_b[w])
+// << b.  Quad thread q takes lanes q, q + 4, ... of its row and the quad keeps
+// the largest packed key ((m + 1) << 8) | (255 - lane) by two shuffles: the
+// lowest lane on ties, as JAX's argmax over the masked row.
+//
+// K10, one launch a flag block: a warp takes 8 flagged sets D, the tasks
+// interleaved over a grid of at least a block an SM.  The leave-one-out rows
+// D minus {j} of its sets, in full 16-row tiles in member-major order (member
+// 0 of each set, then member 1, ...), under the scoped thresholds: a set one
+// of whose rows holds a quorum is not minimal, and its remaining rows are
+// skipped.  Then, if a set is minimal, one fixpoint of the minimal sets'
+// probe rows (scc minus D) under the probe thresholds: a witness candidate is
+// minimal and its probe holds a quorum.  The warp adds its minimal count and
+// lowers the first witness index with atomics (an integer sum and a minimum:
+// the same result in any order).
 //
 // What bounds them: an iteration of K9 moves 2k state rows in and at most 4k
 // child rows and k flag rows out (s bytes each; about 0.8 MB at k = 2048,
 // s = 64) and runs 2k fixpoint rows; the tensor-core work of those rows is
-// microseconds, so the two grid barriers and the fixpoint's serial passes
-// set the pace.  K10 reads each flagged row once; its work is the |D|
-// leave-one-out rows and one probe a set.
+// microseconds, so the grid barrier and the fixpoint's serial passes set the
+// pace.  K10 reads each flagged row once; its work is the leave-one-out rows
+// it evaluates and the minimal sets' probes, a chain of fixpoints a warp.
 
 #include <cooperative_groups.h>
 
@@ -53,11 +77,15 @@ namespace {
 
 using namespace qi_warp;
 
+constexpr int kPhases = 7;  // the timed instance's parts of an iteration (frontier_cuda.TIMED_PHASES)
+constexpr int kSets = 8;    // K10: flagged sets a warp (probe rows g; 16 and 4 were no faster)
+
 struct ChunkArgs {
   Params p;  // lane-space tables; thr_q the scoped thresholds
-  int s;     // lanes a state row (<= 64)
-  int half, K, C, chunk_iters, flag_cap, flag_exit;
-  const int* a_scc;  // [s][s] edge counts u -> w within the SCC
+  int s;     // lanes a state row (<= 64, a multiple of 8)
+  int half, K, Kp, C, chunk_iters, flag_cap, flag_exit;
+  int P;                             // in-degree bit-planes
+  const unsigned long long* planes;  // [P][s] members u with bit b of a_scc[u][w]
   const int8_t* src_T;
   const int8_t* src_D;
   const int* src_ctr;  // [0]: top of the source arena
@@ -65,9 +93,10 @@ struct ChunkArgs {
   int8_t* D;
   int8_t* flags;  // [flag_cap][s]
   int* ctr;       // [4]: top, fcount, iters, popped
-  unsigned long long* st_T;  // [K] stash: the children's toRemove
-  unsigned long long* st_D;  // [K] the popped dontRemove
-  int* st_code;              // [K] bit 0 include, 1 exclude, 2 flag; the branch lane from bit 8
+  unsigned long long* st_T;  // [2][Kp] stash halves: the children's toRemove
+  unsigned long long* st_D;  // [2][Kp] the popped dontRemove
+  uint16_t* st_code;         // [2][Kp] bit 0 include, 1 exclude, 2 flag; the branch lane from bit 8
+  long long* timing;         // the timed instance: [kPhases] clock64 cycles of warp 0 of block 0, then iterations
 };
 
 struct FilterArgs {
@@ -78,21 +107,42 @@ struct FilterArgs {
   int* out;  // [0] minimal count, [1] first witness index (preset to the block size)
 };
 
-// A state row of s int8 lanes as bits, in every lane of the warp.
-__device__ __forceinline__ uint64_t load_row(const int8_t* row, int s, int lane) {
-  const unsigned lo = __ballot_sync(kFull, lane < s && row[lane] != 0);
-  const unsigned hi = __ballot_sync(kFull, lane + 32 < s && row[lane + 32] != 0);
-  return (uint64_t)lo | ((uint64_t)hi << 32);
+// Four int8 0/1 lanes as four bits, and back.
+__device__ __forceinline__ uint32_t pack4(uint32_t w) { return ((w & 0x01010101u) * 0x01020408u) >> 24; }
+__device__ __forceinline__ uint32_t unpack4(uint32_t x) { return (x * 0x00204081u) & 0x01010101u; }
+
+// Quad thread q's lanes [16 q, 16 q + 16) of a row of s int8 lanes, as bits.
+__device__ __forceinline__ uint64_t load_part(const int8_t* row, int s, int q) {
+  uint64_t bits = 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int off = 16 * q + 8 * h;
+    if (off < s) {
+      const uint2 v = __ldcg(reinterpret_cast<const uint2*>(row + off));
+      bits |= (uint64_t)(pack4(v.x) | (pack4(v.y) << 4)) << off;
+    }
+  }
+  return bits;
 }
 
-// The warp writes bits as a row of s int8 0/1 lanes.
-__device__ __forceinline__ void store_row(int8_t* row, uint64_t bits, int s, int lane) {
-  if (lane < s) row[lane] = (int8_t)((bits >> lane) & 1);
-  if (lane + 32 < s) row[lane + 32] = (int8_t)((bits >> (lane + 32)) & 1);
+// Quad thread q writes lanes [16 q, 16 q + 16) of bits as int8 0/1.
+__device__ __forceinline__ void store_part(int8_t* row, uint64_t bits, int s, int q) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int off = 16 * q + 8 * h;
+    if (off < s) {
+      const uint32_t b = (uint32_t)(bits >> off);
+      *reinterpret_cast<uint2*>(row + off) = make_uint2(unpack4(b & 15u), unpack4((b >> 4) & 15u));
+    }
+  }
 }
 
-// This thread's word of a row for the evaluator (words 0, 1 in quad lanes 0, 1).
-__device__ __forceinline__ uint32_t eval_word(uint64_t row, int q) { return word_of(row, q); }
+// The quad's parts of a row, whole in each of its threads.
+__device__ __forceinline__ uint64_t quad_or(uint64_t x) {
+  x |= __shfl_xor_sync(kFull, x, 1);
+  x |= __shfl_xor_sync(kFull, x, 2);
+  return x;
+}
 
 // Rows g and g + 8 back as 64-bit words from the quad's lanes 0 and 1.
 __device__ __forceinline__ uint64_t quad_row(uint32_t w, int lane) {
@@ -100,28 +150,108 @@ __device__ __forceinline__ uint64_t quad_row(uint32_t w, int lane) {
   return (uint64_t)__shfl_sync(kFull, w, qb) | ((uint64_t)__shfl_sync(kFull, w, qb + 1) << 32);
 }
 
-// The n-th (0-based) set bit of x, as a one-bit mask (0 if x has fewer).
+// The n-th (0-based) set bit of x, which has more than n, as a one-bit mask.
 __device__ __forceinline__ uint64_t nth_bit(uint64_t x, int n) {
-  for (int i = 0; i < n && x; ++i) x &= x - 1;
-  return x & (~x + 1);
+  int pos = 0;
+#pragma unroll
+  for (int width = 32; width; width >>= 1) {
+    const int c = __popcll(x & ((1ull << width) - 1));
+    if (n >= c) {
+      n -= c;
+      x >>= width;
+      pos += width;
+    }
+  }
+  return 1ull << pos;
 }
 
-__host__ __device__ inline unsigned chunk_extra_bytes(int s, int K) {
-  return round16(4u * s * s) + round16(4u * K) + round16(4u * (kWarps + 1));
+// Children, and flags << 16, that one stash code adds.
+__device__ __forceinline__ int code_count(unsigned c) { return (c & 1) + ((c >> 1) & 1) + (((c >> 2) & 1) << 16); }
+
+// Entry x of the child map (2 e: include, 2 e + 1: exclude) of the stash
+// half at `half`, as a state (T, D).
+__device__ __forceinline__ void stash_child(const ChunkArgs& a, int half, unsigned x, uint64_t& T, uint64_t& D) {
+  const int e = half + (int)(x >> 1);
+  T = __ldcg(a.st_T + e);
+  D = __ldcg(a.st_D + e);
+  if (!(x & 1)) D |= 1ull << (__ldcg(a.st_code + e) >> 8);
 }
 
-template <class Src, bool kS1>
+// Every block alike: the exclusive scan of the n codes of a stash half in row
+// order, a thread 8 codes (one 16-byte load) at a time; fills the child map
+// cmap (position - base -> 2 e + exclude) and the flag map fmap (flag -> e).
+// Returns children | flags << 16 (children <= 2K, flags <= K, K <= 8192).
+__device__ int scan_stash(const uint16_t* code, int n, uint16_t* cmap, uint16_t* fmap, int* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per = 8 * ((n + 8 * kThreads - 1) / (8 * kThreads));
+  const int e0 = threadIdx.x * per, e1 = min(n, e0 + per);
+  int v = 0;
+  for (int e = e0; e < e1; e += 8) {
+    const uint4 w = __ldcg(reinterpret_cast<const uint4*>(code + e));
+    const unsigned h[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+      if (e + m < e1) v += code_count((h[m >> 1] >> (16 * (m & 1))) & 0xffffu);
+  }
+  int x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) red[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int y = lane < kWarps ? red[lane] : 0;
+    for (int o = 1; o < kWarps; o <<= 1) {
+      const int z = __shfl_up_sync(kFull, y, o);
+      if (lane >= o) y += z;
+    }
+    if (lane < kWarps) red[lane] = y;
+  }
+  __syncthreads();
+  const int total = red[kWarps - 1];
+  int run = (warp ? red[warp - 1] : 0) + x - v;
+  for (int e = e0; e < e1; e += 8) {
+    const uint4 w = __ldcg(reinterpret_cast<const uint4*>(code + e));
+    const unsigned h[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      if (e + m < e1) {
+        const unsigned c = (h[m >> 1] >> (16 * (m & 1))) & 0xffffu;
+        const int co = run & 0xffff;
+        if (c & 1) cmap[co] = (uint16_t)(2 * (e + m));
+        if (c & 2) cmap[co + (c & 1)] = (uint16_t)(2 * (e + m) + 1);
+        if (c & 4) fmap[run >> 16] = (uint16_t)(e + m);
+        run += code_count(c);
+      }
+    }
+  }
+  __syncthreads();
+  return total;
+}
+
+__host__ __device__ inline unsigned chunk_extra_bytes(int s, int Kp, int P) {
+  return round16(8u * P * s) + round16(6u * Kp) + round16(4u * (kWarps + 1));
+}
+
+constexpr unsigned kFilterWarpBytes = 8 * kSets + 2 * 64 + 2 * 16 + 16;  // sets, more, slots, cursor
+
+__host__ __device__ inline unsigned filter_extra_bytes() { return kWarps * kFilterWarpBytes; }
+
+template <class Src, bool kS1, bool kTimed>
 __global__ void __launch_bounds__(kThreads) chunk_kernel(ChunkArgs a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout l = make_layout(false, Src::kStream, a.p);
   Warp<Src, kS1> w;
   w.init(smem, l, a.p, false);
-  const int s = a.s;
-  int* a_sh = reinterpret_cast<int*>(smem + l.end);
-  unsigned* offs = reinterpret_cast<unsigned*>(smem + l.end + round16(4u * s * s));
-  int* red = reinterpret_cast<int*>(smem + l.end + round16(4u * s * s) + round16(4u * a.K));
-  for (int i = threadIdx.x; i < s * s; i += blockDim.x) a_sh[i] = a.a_scc[i];
+  const int s = a.s, Kp = a.Kp;
+  const unsigned plane_bytes = round16(8u * a.P * s);
+  unsigned long long* planes = reinterpret_cast<unsigned long long*>(smem + l.end);
+  uint16_t* cmap = reinterpret_cast<uint16_t*>(smem + l.end + plane_bytes);  // [2 Kp]
+  uint16_t* fmap = cmap + 2 * Kp;                                               // [Kp]
+  int* red = reinterpret_cast<int*>(smem + l.end + plane_bytes + round16(6u * Kp));
+  for (int i = threadIdx.x; i < a.P * s; i += blockDim.x) planes[i] = a.planes[i];
 
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3, warp = threadIdx.x >> 5;
   const int gwarp = blockIdx.x * kWarps + warp, nwarps = gridDim.x * kWarps;
@@ -146,29 +276,76 @@ __global__ void __launch_bounds__(kThreads) chunk_kernel(ChunkArgs a) {
   __syncthreads();
   grid.sync();
 
-  int fcount = 0, iters = 0, popped = 0;
-  while (top > 0 && iters < a.chunk_iters && fcount < a.flag_exit && top <= a.C - 2 * a.K) {
-    const int k = min(top, a.K), base = top - k;
+  // The timed instance: warp 0 of block 0 adds the cycles since the last
+  // mark to part ph.
+  long long t_acc[kPhases] = {};
+  long long t_last = clock64();
+  const bool timer = kTimed && blockIdx.x == 0 && warp == 0;
+  auto mark = [&](int ph) {
+    if constexpr (kTimed) {
+      const long long now = clock64();
+      if (timer) t_acc[ph] += now - t_last;
+      t_last = now;
+    }
+  };
 
-    // (a) pop, fixpoint, prune, branch, stash.
-    const int tasks = (k + 7) / 8;
-    for (int t = gwarp; t < tasks; t += nwarps) {
-      uint64_t myT = 0, myD = 0;
-      for (int r = 0; r < 8; ++r) {
-        const int i = 8 * t + r;
-        if (i >= k) break;
-        const uint64_t tv = load_row(a.T + (long long)(base + i) * s, s, lane);
-        const uint64_t dv = load_row(a.D + (long long)(base + i) * s, s, lane);
-        if (r == g) {
-          myT = tv;
-          myD = dv;
+  int fcount = 0, iters = 0, popped = 0;
+  int pbase = 0, pk = 0;  // the previous iteration's base and pops (pk 0: none in this launch)
+  for (;;) {
+    const int prev = ((iters + 1) & 1) * Kp, cur = (iters & 1) * Kp;  // stash halves i-1 and i
+    const int fprev = fcount;
+    int nflags = 0;
+    if (pk) {
+      const int total = scan_stash(a.st_code + prev, pk, cmap, fmap, red);
+      top = pbase + (total & 0xffff);
+      nflags = total >> 16;
+      fcount = min(fcount + nflags, a.flag_cap);
+    }
+    mark(0);
+    const bool go = top > 0 && iters < a.chunk_iters && fcount < a.flag_exit && top <= a.C - 2 * a.K;
+    const int k = go ? min(top, a.K) : 0, base = top - k;
+
+    // (b) stash i-1's children that stay on the stack, and its flags.
+    if (pk) {
+      const int nw = max(0, base - pbase), nf = max(0, min(nflags, a.flag_cap - fprev));
+      for (int t = gwarp; 8 * t < nw; t += nwarps) {
+        const int j = 8 * t + g;
+        const long long pos = (long long)pbase + j;
+        if (j < nw && pos < a.C) {
+          uint64_t cT, cD;
+          stash_child(a, prev, cmap[j], cT, cD);
+          store_part(a.T + pos * s, cT, s, q);
+          store_part(a.D + pos * s, cD, s, q);
         }
       }
+      for (int t = gwarp; 8 * t < nf; t += nwarps) {
+        const int j = 8 * t + g;
+        if (j < nf) store_part(a.flags + (long long)(fprev + j) * s, __ldcg(a.st_D + prev + fmap[j]), s, q);
+      }
+    }
+    mark(1);
+    if (!go) break;
+
+    // (c) pop, fixpoint, prune, branch, stash.
+    const int tasks = (k + 7) / 8;
+    for (int t = gwarp; t < tasks; t += nwarps) {
       const int i = 8 * t + g;
       const bool valid = i < k;
+      const int pos = base + i;
+      uint64_t myT = 0, myD = 0;
+      if (valid && pk && pos >= pbase) {
+        stash_child(a, prev, cmap[pos - pbase], myT, myD);  // whole in each thread of the quad
+      } else if (valid) {
+        myT = load_part(a.T + (long long)pos * s, s, q);
+        myD = load_part(a.D + (long long)pos * s, s, q);
+      }
+      myT = quad_or(myT);
+      myD = quad_or(myD);
+      mark(2);
       const uint64_t uni = myT | myD;
-      uint32_t a0 = eval_word(myD, q), a1 = eval_word(uni, q);
+      uint32_t a0 = word_of(myD, q), a1 = word_of(uni, q);
       w.fixpoint(a0, a1, 0u, w.src.thr_q);
+      mark(3);
       const uint64_t f1 = quad_row(a0, lane), f2 = quad_row(a1, lane);
       const int dsize = __popcll(myD);
       const bool live = valid && dsize <= a.half && uni != 0;
@@ -176,111 +353,90 @@ __global__ void __launch_bounds__(kThreads) chunk_kernel(ChunkArgs a) {
       const uint64_t elig = f2 & ~myD;
       const bool br = live && !dq && f2 != 0 && (myD & ~f2) == 0 && elig != 0;
 
-      // Branch variable of each branchable state: the whole warp sums the
-      // in-degrees of lanes `lane` and `lane + 32` from the quorum's members
-      // and takes the largest, the lowest lane on ties; lanes outside
-      // quorum minus dontRemove count -1 (JAX argmax over the masked row).
-      int best = 0;
-      const unsigned brmask = __ballot_sync(kFull, br && q == 0);
-      for (int r = 0; r < 8; ++r) {
-        if (!((brmask >> (4 * r)) & 1u)) continue;
-        const uint64_t f2r = __shfl_sync(kFull, f2, 4 * r);
-        const uint64_t er = __shfl_sync(kFull, elig, 4 * r);
-        int c0 = 0, c1 = 0;
-        for (uint64_t x = f2r; x; x &= x - 1) {
-          const int u = __ffsll((long long)x) - 1;
-          if (lane < s) c0 += a_sh[u * s + lane];
-          if (lane + 32 < s) c1 += a_sh[u * s + lane + 32];
+      // Branch variable: the largest in-degree within quorum minus
+      // dontRemove, the lowest lane on ties.
+      unsigned key = 0;
+      if (br) {
+        for (int x = q; x < s; x += 4) {
+          if (!((elig >> x) & 1)) continue;
+          int m = 0;
+          for (int b = 0; b < a.P; ++b) m += __popcll(f2 & planes[b * s + x]) << b;
+          key = max(key, ((unsigned)(m + 1) << 8) | (unsigned)(255 - x));
         }
-        const int m0 = ((er >> lane) & 1) ? c0 : -1;
-        const int m1 = ((er >> (lane + 32)) & 1) ? c1 : -1;
-        const unsigned long long k0 = ((unsigned long long)(unsigned)(m0 + 1) << 8) | (unsigned)(255 - lane);
-        const unsigned long long k1 =
-            ((unsigned long long)(unsigned)(m1 + 1) << 8) | (unsigned)(255 - lane - 32);
-        unsigned long long key = k0 > k1 ? k0 : k1;
-        for (int o = 16; o; o >>= 1) {
-          const unsigned long long other = __shfl_xor_sync(kFull, key, o);
-          key = other > key ? other : key;
-        }
-        if (r == g) best = 255 - (int)(key & 255u);
       }
+      key = max(key, __shfl_xor_sync(kFull, key, 1));
+      key = max(key, __shfl_xor_sync(kFull, key, 2));
+      const int best = key ? 255 - (int)(key & 255u) : 0;
+      mark(4);
       if (q == 0 && valid) {
         const uint64_t child = elig & ~(1ull << best);
         const bool incl = br && dsize + 1 <= a.half;
         const bool excl = br && (__popcll(child) + dsize) > 0;
-        a.st_T[i] = child;
-        a.st_D[i] = myD;
-        a.st_code[i] = (int)incl | ((int)excl << 1) | ((int)dq << 2) | (best << 8);
+        a.st_T[cur + i] = child;
+        a.st_D[cur + i] = myD;
+        a.st_code[cur + i] = (uint16_t)((int)incl | ((int)excl << 1) | ((int)dq << 2) | (best << 8));
       }
+      mark(5);
     }
     grid.sync();
-
-    // (b) exclusive scan of (children, flags) over the k codes in row order,
-    // packed as children | flags << 16 (children <= 2K, flags <= K, K <= 8192).
-    const int per = (k + kThreads - 1) / kThreads;
-    const int e0 = min(k, (int)threadIdx.x * per), e1 = min(k, e0 + per);
-    int v = 0;
-    for (int e = e0; e < e1; ++e) {
-      const int c = a.st_code[e];
-      v += (c & 1) + ((c >> 1) & 1) + (((c >> 2) & 1) << 16);
-    }
-    int x = v;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(kFull, x, o);
-      if (lane >= o) x += y;
-    }
-    if (lane == 31) red[warp] = x;
-    __syncthreads();
-    if (warp == 0) {
-      int y = lane < kWarps ? red[lane] : 0;
-      for (int o = 1; o < kWarps; o <<= 1) {
-        const int z = __shfl_up_sync(kFull, y, o);
-        if (lane >= o) y += z;
-      }
-      if (lane < kWarps) red[lane] = y;
-    }
-    __syncthreads();
-    const int total = red[kWarps - 1];
-    int run = (warp ? red[warp - 1] : 0) + x - v;
-    for (int e = e0; e < e1; ++e) {
-      offs[e] = (unsigned)run;
-      const int c = a.st_code[e];
-      run += (c & 1) + ((c >> 1) & 1) + (((c >> 2) & 1) << 16);
-    }
-    __syncthreads();
-
-    // (c) scatter: include child at base + off, exclude child after it, the
-    // flag at fcount + its offset; writes past the arena or the flag buffer
-    // are dropped (the JAX scatter's mode="drop").
-    for (int e = gwarp; e < k; e += nwarps) {
-      const int c = a.st_code[e];
-      const unsigned o = offs[e];
-      const long long pos = (long long)base + (o & 0xffffu);
-      const uint64_t child = a.st_T[e], dv = a.st_D[e];
-      if ((c & 1) && pos < a.C) {
-        store_row(a.T + pos * s, child, s, lane);
-        store_row(a.D + pos * s, dv | (1ull << (c >> 8)), s, lane);
-      }
-      const long long xpos = pos + (c & 1);
-      if ((c & 2) && xpos < a.C) {
-        store_row(a.T + xpos * s, child, s, lane);
-        store_row(a.D + xpos * s, dv, s, lane);
-      }
-      const long long fpos = (long long)fcount + (o >> 16);
-      if ((c & 4) && fpos < a.flag_cap) store_row(a.flags + fpos * s, dv, s, lane);
-    }
-    top = base + (total & 0xffff);
-    fcount = min(fcount + (total >> 16), a.flag_cap);
+    mark(6);
+    pbase = base;
+    pk = k;
     ++iters;
     popped += k;
-    grid.sync();
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     a.ctr[0] = top;
     a.ctr[1] = fcount;
     a.ctr[2] = iters;
     a.ctr[3] = popped;
+    if constexpr (kTimed) {
+      for (int ph = 0; ph < kPhases; ++ph) a.timing[ph] = t_acc[ph];
+      a.timing[kPhases] = iters;
+    }
   }
+}
+
+// K10's leave-one-out rows of a warp's sets in member-major order: position
+// p = j kSets + r is set r minus its j-th member, live while set r has more than j
+// members (more[j] bit r) and is not yet known not to be minimal.  Fills the
+// warp's 16 tile slots with the first live positions from p, 32 positions a
+// ballot (each lane tests one, its rank among the live ones a popcount), and
+// returns how many it filled; *next is the position after the last.
+__device__ __forceinline__ int fill_tile(const uint16_t* more, unsigned done, int p, uint16_t* slots, int* next) {
+  const int lane = threadIdx.x & 31;
+  int filled = 0;
+  for (; filled < 16 && p < 64 * kSets; p += 32) {
+    const int pos = p + lane, j = pos / kSets, r = pos % kSets;
+    const bool live = pos < 64 * kSets && ((more[j] & ~done) >> r) & 1;
+    const unsigned m = __ballot_sync(kFull, live);
+    const int rank = filled + __popc(m & ((1u << lane) - 1));
+    if (live && rank < 16) {
+      slots[rank] = (uint16_t)pos;
+      if (rank == 15) *next = pos + 1;
+    }
+    filled += __popc(m);
+  }
+  __syncwarp();
+  if (filled < 16) *next = p;
+  return filled < 16 ? filled : 16;
+}
+
+// The row of tile slot x (set r minus its j-th member), 0 past the filled ones.
+__device__ __forceinline__ uint64_t slot_row(const uint64_t* sets, const uint16_t* slots, int filled, int x, int* r) {
+  *r = -1;
+  if (x >= filled) return 0;
+  const int pos = slots[x];
+  *r = pos % kSets;
+  const uint64_t d = sets[*r];
+  return d & ~nth_bit(d, pos / kSets);
+}
+
+// Bit g of the result: row g of the tile (a ballot's quad lane 4 g).
+__device__ __forceinline__ unsigned row_mask(unsigned b) {
+  unsigned m = 0;
+  for (int g = 0; g < 8; ++g) m |= ((b >> (4 * g)) & 1u) << g;
+  return m;
 }
 
 template <class Src, bool kS1>
@@ -289,86 +445,117 @@ __global__ void __launch_bounds__(kThreads) filter_kernel(FilterArgs a) {
   const Layout l = make_layout(true, Src::kStream, a.p);
   Warp<Src, kS1> w;
   w.init(smem, l, a.p, true);
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3, warp = threadIdx.x >> 5;
+  // A warp's part of the shared memory: its sets, per member index the sets
+  // with more members, the tile's slots and the cursor.
+  unsigned char* mine = smem + l.end + warp * kFilterWarpBytes;
+  uint64_t* sets = reinterpret_cast<uint64_t*>(mine);
+  uint16_t* more = reinterpret_cast<uint16_t*>(mine + 8 * kSets);
+  uint16_t* slots = more + 64;
+  int* cursor = reinterpret_cast<int*>(slots + 16);
   __syncthreads();
 
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
   const int s = a.s;
   const uint64_t all = s >= 64 ? ~0ull : ((1ull << s) - 1);
-  const int tasks = (a.count + 15) / 16;
-  for (int t = blockIdx.x * kWarps + (threadIdx.x >> 5); t < tasks; t += gridDim.x * kWarps) {
-    uint64_t d0 = 0, d1 = 0;  // sets 16 t + g and 16 t + g + 8
-    for (int r = 0; r < 16; ++r) {
-      const int i = 16 * t + r;
-      if (i >= a.count) break;
-      const uint64_t dv = load_row(a.flags + (long long)i * s, s, lane);
-      if (r == g) d0 = dv;
-      if (r == g + 8) d1 = dv;
-    }
-    const bool v0 = 16 * t + g < a.count, v1 = 16 * t + g + 8 < a.count;
+  const int tasks = (a.count + kSets - 1) / kSets;
+  // Tasks interleaved over the blocks, so that neighbouring sets (alike in
+  // their cost) spread over the SMs.
+  for (int t = warp * gridDim.x + blockIdx.x; t < tasks; t += gridDim.x * kWarps) {
+    const int n = min(kSets, a.count - kSets * t);  // set kSets t + g in quad g
+    const uint64_t d = quad_or(g < n ? load_part(a.flags + (long long)(kSets * t + g) * s, s, q) : 0);
 
-    // The probes: scc minus D under the probe thresholds.
-    uint32_t a0 = eval_word(v0 ? all & ~d0 : 0, q), a1 = eval_word(v1 ? all & ~d1 : 0, q);
-    w.fixpoint(a0, a1, 0u, w.src.thr_d);
-    const unsigned b0 = __ballot_sync(kFull, quad_any(a0 != 0) && q == 0);
-    const unsigned b1 = __ballot_sync(kFull, quad_any(a1 != 0) && q == 0);
-    unsigned probe = 0;
-    for (int r = 0; r < 8; ++r) probe |= ((b0 >> (4 * r)) & 1u) << r | ((b1 >> (4 * r)) & 1u) << (r + 8);
-
-    // Minimality: no leave-one-out row of a member holds a quorum.
-    unsigned minimal = 0;
-    for (int r = 0; r < 16; ++r) {
-      if (16 * t + r >= a.count) break;
-      const uint64_t dr = __shfl_sync(kFull, r < 8 ? d0 : d1, 4 * (r & 7));
-      const int m = __popcll(dr);
-      bool any_q = false;
-      for (int j0 = 0; j0 < m && !any_q; j0 += 16) {
-        const uint64_t r0 = j0 + g < m ? dr & ~nth_bit(dr, j0 + g) : 0;
-        const uint64_t r1 = j0 + g + 8 < m ? dr & ~nth_bit(dr, j0 + g + 8) : 0;
-        uint32_t x0 = eval_word(r0, q), x1 = eval_word(r1, q);
-        w.fixpoint(x0, x1, 0u, w.src.thr_q);
-        any_q = __any_sync(kFull, (x0 | x1) != 0);
-      }
-      if (!any_q) minimal |= 1u << r;
+    // The sets, and per member index j the sets with more than j members.
+    __syncwarp();
+    if (q == 0) sets[g] = d;
+    int size[kSets];
+#pragma unroll
+    for (int r = 0; r < kSets; ++r) size[r] = r < n ? __popcll(__shfl_sync(kFull, d, 4 * r)) : 0;
+    for (int j = lane; j < 64; j += 32) {
+      unsigned m = 0;
+#pragma unroll
+      for (int r = 0; r < kSets; ++r) m |= (unsigned)(size[r] > j) << r;
+      more[j] = (uint16_t)m;
     }
-    const unsigned wit = minimal & probe;
+    __syncwarp();
+
+    // Minimality: the leave-one-out rows in full 16-row tiles under the
+    // scoped thresholds; a set with a row that holds a quorum is done.
+    unsigned done = 0;
+    for (int p = 0; p < 64 * kSets;) {
+      const int filled = fill_tile(more, done, p, slots, cursor);
+      if (!filled) break;
+      int ra, rb;
+      uint32_t x0 = word_of(slot_row(sets, slots, filled, g, &ra), q);
+      uint32_t x1 = word_of(slot_row(sets, slots, filled, g + 8, &rb), q);
+      p = *cursor;
+      __syncwarp();
+      w.fixpoint(x0, x1, 0u, w.src.thr_q);
+      const bool h0 = quad_any(x0 != 0), h1 = quad_any(x1 != 0);
+      done |= __reduce_or_sync(kFull, (h0 && ra >= 0 ? 1u << ra : 0u) | (h1 && rb >= 0 ? 1u << rb : 0u));
+    }
+    const unsigned minimal = ((1u << n) - 1) & ~done;
+
+    // The probes of the minimal sets: scc minus D under the probe thresholds.
+    unsigned wit = 0;
+    if (minimal) {
+      uint32_t a0 = word_of((minimal >> g) & 1 ? all & ~d : 0, q), a1 = 0;
+      w.fixpoint(a0, a1, 0u, w.src.thr_d);
+      wit = minimal & row_mask(__ballot_sync(kFull, quad_any(a0 != 0) && q == 0));
+    }
     if (lane == 0) {
       atomicAdd(a.out, __popc(minimal));
-      if (wit) atomicMin(a.out + 1, 16 * t + __ffs(wit) - 1);
+      if (wit) atomicMin(a.out + 1, kSets * t + __ffs(wit) - 1);
     }
   }
 }
 
+template <class Src, bool kS1, bool kTimed = false>
+cudaError_t chunk_plan(const ChunkArgs& a, size_t* smem, long long* cap) {
+  *smem = make_layout(false, Src::kStream, a.p).end + chunk_extra_bytes(a.s, a.Kp, a.P);
+  return resident_blocks<chunk_kernel<Src, kS1, kTimed>>(*smem, cap);
+}
+
 template <class Src, bool kS1>
-cudaError_t chunk_grid(const Params& p, int s, int K, int* grid) {
-  const size_t smem = make_layout(false, Src::kStream, p).end + chunk_extra_bytes(s, K);
+cudaError_t chunk_grid(const ChunkArgs& a, int* grid) {
+  size_t smem = 0;
   long long cap = 0;
-  const cudaError_t err = resident_blocks<chunk_kernel<Src, kS1>>(smem, &cap);
+  const cudaError_t err = chunk_plan<Src, kS1>(a, &smem, &cap);
   if (err != cudaSuccess) return err;
-  const long long want = (K + 8 * kWarps - 1) / (8 * kWarps);  // a warp pops 8 states
+  const long long want = (a.K + 8 * kWarps - 1) / (8 * kWarps);  // a warp pops 8 states
   *grid = (int)(want < cap ? want : cap);
   return cudaSuccess;
 }
 
-template <class Src, bool kS1>
+template <class Src, bool kS1, bool kTimed = false>
 cudaError_t chunk_launch(ChunkArgs& a, int grid, cudaStream_t stream) {
-  const size_t smem = make_layout(false, Src::kStream, a.p).end + chunk_extra_bytes(a.s, a.K);
+  size_t smem = 0;
   long long cap = 0;
-  cudaError_t err = resident_blocks<chunk_kernel<Src, kS1>>(smem, &cap);
+  cudaError_t err = chunk_plan<Src, kS1, kTimed>(a, &smem, &cap);
   if (err != cudaSuccess) return err;
   if (grid < 1 || grid > cap) return cudaErrorCooperativeLaunchTooLarge;
   void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel((const void*)chunk_kernel<Src, kS1>, dim3(grid), dim3(kThreads),
+  err = cudaLaunchCooperativeKernel((const void*)chunk_kernel<Src, kS1, kTimed>, dim3(grid), dim3(kThreads),
                                     params, smem, stream);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <class Src, bool kS1>
 cudaError_t filter_launch(const FilterArgs& a, cudaStream_t stream) {
-  const size_t smem = make_layout(true, Src::kStream, a.p).end;
-  int grid = 0;
-  cudaError_t err = plan_grid<filter_kernel<Src, kS1>>(smem, (a.count + 15) / 16, &grid);
-  if (err != cudaSuccess || grid < 1) return err;
-  filter_kernel<Src, kS1><<<grid, kThreads, smem, stream>>>(a);
+  const size_t smem = make_layout(true, Src::kStream, a.p).end + filter_extra_bytes();
+  long long cap = 0;
+  int dev = 0, sms = 0;
+  cudaError_t err = resident_blocks<filter_kernel<Src, kS1>>(smem, &cap);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  // A block an SM at least (the tasks interleave over them), no more blocks
+  // than tasks, and no more than the card holds.
+  const long long tasks = (a.count + kSets - 1) / kSets;
+  long long grid = (tasks + kWarps - 1) / kWarps;
+  if (grid < sms) grid = tasks < sms ? tasks : sms;
+  if (grid > cap) grid = cap;
+  if (grid < 1) return cudaSuccess;
+  filter_kernel<Src, kS1><<<(int)grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -378,42 +565,78 @@ Params make_params(const void* blocks, const void* chunks, const int* thr_q, con
                 n_units, units, depth, c0, slabs, pc, nblocks};
 }
 
+ChunkArgs chunk_args(const void* blocks, const void* chunks, const int* thr, int n, int n_units, int units,
+                     int depth, int c0, int slabs, int pc, int nblocks, int s, int half, int K, int C,
+                     int chunk_iters, int flag_cap, int flag_exit, int P, const unsigned long long* planes) {
+  ChunkArgs a{};
+  a.p = make_params(blocks, chunks, thr, thr, n, n_units, units, depth, c0, slabs, pc, nblocks);
+  a.s = s;
+  a.half = half;
+  a.K = K;
+  a.Kp = (K + 7) / 8 * 8;
+  a.C = C;
+  a.chunk_iters = chunk_iters;
+  a.flag_cap = flag_cap;
+  a.flag_exit = flag_exit;
+  a.P = P;
+  a.planes = planes;
+  return a;
+}
+
 }  // namespace
 
 extern "C" const char* qi_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The cooperative grid of K9 for these tables, s lanes and K pops: at most
-// the co-resident blocks, a block per 64 popped states.  *cooperative is 0
-// where the device cannot launch cooperatively.  Returns a cudaError_t.
+// The cooperative grid of K9 for these tables, s lanes, K pops and P planes:
+// at most the co-resident blocks, a block per 64 popped states.  *cooperative is 0 where the device cannot
+// launch cooperatively.  Returns a cudaError_t.
 extern "C" int qi_frontier_grid(const void* blocks, const void* chunks, const int* thr, int n,
                                 int n_units, int units, int depth, int c0, int slabs, int pc,
-                                int nblocks, int stream, int s, int K, int* grid, int* cooperative) {
+                                int nblocks, int stream, int s, int K, int P, int* grid,
+                                int* cooperative) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(cooperative, cudaDevAttrCooperativeLaunch, dev);
   if (err != cudaSuccess) return err;
-  const Params p = make_params(blocks, chunks, thr, thr, n, n_units, units, depth, c0, slabs, pc, nblocks);
+  const ChunkArgs a = chunk_args(blocks, chunks, thr, n, n_units, units, depth, c0, slabs, pc, nblocks, s, 0, K,
+                                 0, 0, 0, 0, P, nullptr);
   const bool s1 = slabs <= 1;
-  if (stream) return s1 ? chunk_grid<Streamed, true>(p, s, K, grid) : chunk_grid<Streamed, false>(p, s, K, grid);
-  return s1 ? chunk_grid<Resident, true>(p, s, K, grid) : chunk_grid<Resident, false>(p, s, K, grid);
+  if (stream) return s1 ? chunk_grid<Streamed, true>(a, grid) : chunk_grid<Streamed, false>(a, grid);
+  return s1 ? chunk_grid<Resident, true>(a, grid) : chunk_grid<Resident, false>(a, grid);
 }
 
-// One chunk of K9 on `cuda_stream`.  Returns a cudaError_t (0 on success).
+// One chunk of K9 on `cuda_stream`; with `timing`, the timed instance
+// (resident tables, one child slab).  Returns a cudaError_t
+// (0 on success).
 extern "C" int qi_frontier_chunk(const void* blocks, const void* chunks, const int* thr, int n,
                                  int n_units, int units, int depth, int c0, int slabs, int pc,
                                  int nblocks, int stream, int s, int half, int K, int C,
-                                 int chunk_iters, int flag_cap, int flag_exit, const int* a_scc,
-                                 const int8_t* src_T, const int8_t* src_D, const int* src_ctr,
-                                 int8_t* T, int8_t* D, int8_t* flags, int* ctr,
-                                 unsigned long long* st_T, unsigned long long* st_D, int* st_code,
-                                 int grid, void* cuda_stream) {
-  ChunkArgs a{make_params(blocks, chunks, thr, thr, n, n_units, units, depth, c0, slabs, pc, nblocks),
-              s, half, K, C, chunk_iters, flag_cap, flag_exit, a_scc, src_T, src_D, src_ctr, T, D,
-              flags, ctr, st_T, st_D, st_code};
+                                 int chunk_iters, int flag_cap, int flag_exit, int P,
+                                 const unsigned long long* planes, const int8_t* src_T, const int8_t* src_D,
+                                 const int* src_ctr, int8_t* T, int8_t* D, int8_t* flags, int* ctr,
+                                 unsigned long long* st_T, unsigned long long* st_D, uint16_t* st_code,
+                                 long long* timing, int grid, void* cuda_stream) {
+  ChunkArgs a = chunk_args(blocks, chunks, thr, n, n_units, units, depth, c0, slabs, pc, nblocks, s, half, K, C,
+                           chunk_iters, flag_cap, flag_exit, P, planes);
+  a.src_T = src_T;
+  a.src_D = src_D;
+  a.src_ctr = src_ctr;
+  a.T = T;
+  a.D = D;
+  a.flags = flags;
+  a.ctr = ctr;
+  a.st_T = st_T;
+  a.st_D = st_D;
+  a.st_code = st_code;
+  a.timing = timing;
   cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
   const bool s1 = slabs <= 1;
+  if (timing) {
+    if (stream || !s1) return cudaErrorNotSupported;
+    return chunk_launch<Resident, true, true>(a, grid, st);
+  }
   if (stream) return s1 ? chunk_launch<Streamed, true>(a, grid, st) : chunk_launch<Streamed, false>(a, grid, st);
   return s1 ? chunk_launch<Resident, true>(a, grid, st) : chunk_launch<Resident, false>(a, grid, st);
 }

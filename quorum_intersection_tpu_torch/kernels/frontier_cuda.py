@@ -18,11 +18,14 @@ On a CPU tensor it runs the plain version (:mod:`.frontier_ref`) — only
 because the tensors lie on the CPU.
 
 Kernel limits, checked before any launch (:class:`KernelLimitError`): at
-most 64 SCC lanes (a state is one 64-bit word; the JAX program takes any
-width, and so does the plain version), vote counts below 2^8 (the
-evaluator's 8 bit-planes), at most :data:`MAX_POP` states popped an
-iteration (the scan packs its counts in 16 bits), the evaluator's shared
-memory, and a grid the card holds at once (the cooperative launch).
+most 64 SCC lanes, a multiple of 8 (a state is one 64-bit word, moved 8
+lanes at a time; the drive's pad ladder gives 8, 16, 24, 32, 48 or 64; the
+JAX program takes any width, and so does the plain version), vote counts
+below 2^8 (the evaluator's 8 bit-planes), in-degree counts below 2^16 (the
+branch variable's bit-planes, :func:`indegree_planes`), at most
+:data:`MAX_POP` states popped an iteration (the scan packs its counts in 16
+bits), the evaluator's shared memory, and a grid the card holds at once
+(the cooperative launch).
 """
 
 from __future__ import annotations
@@ -50,20 +53,58 @@ from quorum_intersection_tpu_torch.kernels.sweep_ref import CircuitTables
 
 MAX_LANES = 64
 MAX_POP = 8192
+MAX_PLANES = 16
 WARPS = 8  # csrc/warp_mma.cuh kWarps
+SETS = 8  # csrc/frontier.cu kSets: K10's flagged sets a warp
 
 # Kernel launches since import (or since a caller reset them), by wrapper.
 LAUNCHES = {"frontier_chunk": 0, "frontier_filter": 0}
+# The parts of a K9 iteration that the timed instance (:func:`frontier_chunk_timed`)
+# clocks, in ``csrc/frontier.cu``'s order.
+TIMED_PHASES = ("scan and maps", "children and flags written", "pop loads", "fixpoint", "branch variable",
+                "stash", "grid barrier")
 
 
 def _round16(x: int) -> int:
     return -(-x // 16) * 16
 
 
-def chunk_extra_bytes(s: int, K: int) -> int:
+def stash_rows(K: int) -> int:
+    """Rows of one stash half: the pop rounded up to 8 (16-byte code loads)."""
+    return -(-K // 8) * 8
+
+
+def chunk_extra_bytes(s: int, K: int, planes: int) -> int:
     """K9's shared memory beyond the evaluator's (``csrc/frontier.cu``
-    ``chunk_extra_bytes``): ``a_scc``, the scan offsets, the warp sums."""
-    return _round16(4 * s * s) + _round16(4 * K) + _round16(4 * (WARPS + 1))
+    ``chunk_extra_bytes``): the in-degree planes, the child and flag maps,
+    the warp sums."""
+    return _round16(8 * planes * s) + _round16(6 * stash_rows(K)) + _round16(4 * (WARPS + 1))
+
+
+def filter_extra_bytes() -> int:
+    """K10's shared memory beyond the evaluator's: a warp's sets, per member
+    index the sets with more members, its tile's slots and cursor
+    (``csrc/frontier.cu`` ``filter_extra_bytes``)."""
+    return WARPS * (8 * SETS + 2 * MAX_LANES + 2 * 16 + 16)
+
+
+def indegree_planes(a_scc: np.ndarray) -> np.ndarray:
+    """``a_scc``'s column bit-planes, ``(P, s)`` uint64: bit ``u`` of
+    ``planes[b, w]`` is bit ``b`` of ``a_scc[u, w]``, ``P`` the bit length
+    of its largest count; so ``f2 @ a_scc`` at lane ``w`` is
+    ``sum_b popcount(f2 & planes[b, w]) << b`` for a 0/1 row ``f2`` packed
+    as a word (K9's branch variable)."""
+    a = np.asarray(a_scc, dtype=np.int64)
+    s = a.shape[0]
+    if a.shape != (s, s) or s > MAX_LANES or (a < 0).any():
+        raise ValueError(f"a_scc must be a square non-negative matrix of at most {MAX_LANES} lanes, "
+                         f"got shape {a.shape}")
+    P = int(a.max()).bit_length() if a.size else 0
+    weights = np.left_shift(np.uint64(1), np.arange(s, dtype=np.uint64))[:, None]
+    planes = np.zeros((P, s), dtype=np.uint64)
+    for b in range(P):
+        planes[b] = (((a >> b) & 1).astype(np.uint64) * weights).sum(axis=0, dtype=np.uint64)
+    return planes
 
 
 def permute_nodes(circuit: Circuit, order: Sequence[int]) -> Circuit:
@@ -162,8 +203,12 @@ class FrontierKernels:
             )
             return
         self.ref = None
-        if self.s > MAX_LANES:
-            raise KernelLimitError(f"frontier kernels: |scc| lanes {self.s} > {MAX_LANES}")
+        if self.s > MAX_LANES or self.s % 8:
+            raise KernelLimitError(f"frontier kernels: |scc| lanes {self.s}: at most {MAX_LANES}, a multiple of 8")
+        planes = indegree_planes(a_scc)
+        if len(planes) > MAX_PLANES:
+            raise KernelLimitError(f"frontier kernels: in-degree counts up to {int(np.max(a_scc))} need "
+                                   f"{len(planes)} bit-planes > {MAX_PLANES}")
         if shape.K > MAX_POP:
             raise KernelLimitError(f"frontier kernels: pop {shape.K} > {MAX_POP}")
         if sorted(int(v) for v in scc_idx) != list(range(circuit.n)):
@@ -176,8 +221,9 @@ class FrontierKernels:
         t = plane_tables(lane_c, self.device, sweep=True, stream=True)
 
         def need(streamed: bool) -> int:
-            return max(smem_bytes(False, streamed, t.nblocks, t.units, t.slabs) + chunk_extra_bytes(self.s, shape.K),
-                       smem_bytes(True, streamed, t.nblocks, t.units, t.slabs))
+            return max(smem_bytes(False, streamed, t.nblocks, t.units, t.slabs)
+                       + chunk_extra_bytes(self.s, shape.K, len(planes)),
+                       smem_bytes(True, streamed, t.nblocks, t.units, t.slabs) + filter_extra_bytes())
 
         if stream is None:
             stream = need(False) > SMEM_LIMIT
@@ -190,14 +236,17 @@ class FrontierKernels:
         thr_d = circuit.thresholds if probe_circuit is None else probe_circuit.thresholds
         perm = np.concatenate([np.asarray(scc_idx, dtype=np.int64), np.arange(circuit.n, circuit.n_units)])
         self.neg_thr_d = torch.from_numpy(-padded_thresholds(np.asarray(thr_d)[perm], t.units)).to(self.device)
-        self.a_scc = torch.from_numpy(np.ascontiguousarray(a_scc, dtype=np.int32)).to(self.device)
-        self.st_T = torch.empty(shape.K, dtype=torch.int64, device=self.device)
-        self.st_D = torch.empty(shape.K, dtype=torch.int64, device=self.device)
-        self.st_code = torch.empty(shape.K, dtype=torch.int32, device=self.device)
+        self.planes = torch.from_numpy(planes.view(np.int64)).to(self.device)
+        # The stash: two halves, iteration i writing one while it reads i-1's.
+        rows = 2 * stash_rows(shape.K)
+        self.st_T = torch.empty(rows, dtype=torch.int64, device=self.device)
+        self.st_D = torch.empty(rows, dtype=torch.int64, device=self.device)
+        self.st_code = torch.empty(rows, dtype=torch.int16, device=self.device)
         lib = _library()
         grid, coop = ctypes.c_int(0), ctypes.c_int(0)
         with torch.cuda.device(self.device):
-            err = lib.qi_frontier_grid(*self._table_args(), self.s, shape.K, ctypes.byref(grid), ctypes.byref(coop))
+            err = lib.qi_frontier_grid(*self._table_args(), self.s, shape.K, len(self.planes),
+                                       ctypes.byref(grid), ctypes.byref(coop))
         if err != 0:
             raise RuntimeError(f"frontier grid query failed: {lib.qi_cuda_error_string(err).decode()}")
         if not coop.value:
@@ -228,6 +277,24 @@ def _check_set(kern: FrontierKernels, st: ArenaSet) -> None:
 def frontier_chunk(kern: FrontierKernels, src: ArenaSet, dst: ArenaSet, flag_exit: int) -> None:
     """One chunk from ``src`` into ``dst`` (the same set runs in place):
     ``dst``'s rows ``[0, top)``, flags and counters are its result."""
+    _chunk(kern, src, dst, flag_exit, None)
+
+
+def frontier_chunk_timed(kern: FrontierKernels, src: ArenaSet, dst: ArenaSet, flag_exit: int) -> torch.Tensor:
+    """The same chunk through K9's timed instance, a measurement (resident
+    tables with one child slab only; never launched by the drive and not
+    counted in :data:`LAUNCHES`): ``(len(TIMED_PHASES) + 1,)`` int64, the
+    ``clock64()`` cycles warp 0 of block 0 spent in each part of the
+    iterations, then the iterations, without synchronising."""
+    if dst.T.device.type != "cuda":
+        raise ValueError(f"K9's timed instance runs on CUDA only, got {dst.T.device}")
+    timing = torch.zeros(len(TIMED_PHASES) + 1, dtype=torch.int64, device=dst.T.device)
+    _chunk(kern, src, dst, flag_exit, timing)
+    return timing
+
+
+def _chunk(kern: FrontierKernels, src: ArenaSet, dst: ArenaSet, flag_exit: int,
+           timing: Optional[torch.Tensor]) -> None:
     devices = {src.T.device, dst.T.device, src.ctr.device, dst.ctr.device}
     if len(devices) != 1:
         raise ValueError(f"arena sets lie on different devices: {devices}")
@@ -244,20 +311,24 @@ def frontier_chunk(kern: FrontierKernels, src: ArenaSet, dst: ArenaSet, flag_exi
     lib = _library()
     err = lib.qi_frontier_chunk(
         *kern._table_args(), kern.s, sh.half, sh.K, sh.C, sh.chunk_iters, sh.flag_cap, int(flag_exit),
-        kern.a_scc.data_ptr(), src.T.data_ptr(), src.D.data_ptr(), src.ctr.data_ptr(),
+        len(kern.planes), kern.planes.data_ptr(), src.T.data_ptr(), src.D.data_ptr(), src.ctr.data_ptr(),
         dst.T.data_ptr(), dst.D.data_ptr(), dst.flags.data_ptr(), dst.ctr.data_ptr(),
-        kern.st_T.data_ptr(), kern.st_D.data_ptr(), kern.st_code.data_ptr(), kern.grid,
+        kern.st_T.data_ptr(), kern.st_D.data_ptr(), kern.st_code.data_ptr(),
+        None if timing is None else timing.data_ptr(), kern.grid,
         torch.cuda.current_stream(kern.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"frontier_chunk launch failed: {lib.qi_cuda_error_string(err).decode()}")
-    LAUNCHES["frontier_chunk"] += 1
+    if timing is None:
+        LAUNCHES["frontier_chunk"] += 1
 
 
 def frontier_filter(kern: FrontierKernels, flags_blk: torch.Tensor, count: int) -> torch.Tensor:
     """The flag filter over the first ``count`` rows of ``flags_blk`` (B, s)
     int8: ``(2,)`` int32 ``[minimal count, first witness index or B]``,
-    without synchronising."""
+    without synchronising.  On the card it runs on the current stream, as a
+    PyTorch operation does: a caller on another stream than the one that
+    wrote ``flags_blk`` orders the two itself."""
     if flags_blk.dtype != torch.int8 or flags_blk.ndim != 2 or flags_blk.shape[1] != kern.s:
         raise ValueError(f"flag block must be int8 of shape (B, {kern.s}), got {flags_blk.dtype} "
                          f"{tuple(flags_blk.shape)}")
@@ -269,7 +340,11 @@ def frontier_filter(kern: FrontierKernels, flags_blk: torch.Tensor, count: int) 
     if flags_blk.device.type != "cuda" or kern.ref is not None:
         raise ValueError(f"frontier_filter launches on CUDA only, got {flags_blk.device}")
     flags_blk = flags_blk.contiguous()
-    out = torch.tensor([0, flags_blk.shape[0]], dtype=torch.int32, device=flags_blk.device)
+    # Filled on the device: a tensor made from host data (or an item
+    # assigned from a Python number) is a pageable copy, which holds the host
+    # until the stream reaches it.
+    out = torch.full((2,), flags_blk.shape[0], dtype=torch.int32, device=flags_blk.device)
+    out[0].zero_()
     if count:
         t = kern.tables
         lib = _library()
@@ -289,9 +364,9 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_qi_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         tables = [p, p, p, i, i, i, i, i, i, i, i, i]
-        lib.qi_frontier_grid.argtypes = tables + [i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+        lib.qi_frontier_grid.argtypes = tables + [i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
         lib.qi_frontier_grid.restype = i
-        lib.qi_frontier_chunk.argtypes = tables + [i] * 7 + [p] * 11 + [i, p]
+        lib.qi_frontier_chunk.argtypes = tables + [i] * 8 + [p] * 12 + [i, p]
         lib.qi_frontier_chunk.restype = i
         lib.qi_frontier_filter.argtypes = [p, p, p, p] + [i] * 10 + [p, i, p, p]
         lib.qi_frontier_filter.restype = i

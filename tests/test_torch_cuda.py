@@ -46,6 +46,7 @@ from quorum_intersection_tpu_torch.kernels.packed_ref import PackedRef
 from quorum_intersection_tpu_torch.pipeline import check_many, solve
 
 from _torch_circuits import dense_child_circuit
+from _torch_frontier_blocks import EXIT_REASONS, exit_reason, wide_flag_block
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -629,7 +630,7 @@ FRONTIER_CASES = {
 }
 
 
-def _frontier_setup(data, device, arena, pop, stream=None):
+def _frontier_setup(data, device, arena, pop, stream=None, chunk_iters=512):
     from quorum_intersection_tpu_torch.backends.frontier import FLAG_EXIT, FLAG_EXIT_GROWTH, frontier_problem
     from quorum_intersection_tpu_torch.kernels.frontier_cuda import FrontierKernels, FrontierRef
     from quorum_intersection_tpu_torch.kernels.frontier_ref import ChunkShape
@@ -640,15 +641,17 @@ def _frontier_setup(data, device, arena, pop, stream=None):
     scc = bearing[0]
     prob = frontier_problem(graph, encode_circuit(graph), scc)
     pop = min(pop, arena // 4)
-    shape = ChunkShape(half=prob.half, K=pop, C=arena, chunk_iters=512, flag_cap=FLAG_EXIT * FLAG_EXIT_GROWTH + pop)
+    shape = ChunkShape(half=prob.half, K=pop, C=arena, chunk_iters=chunk_iters,
+                       flag_cap=FLAG_EXIT * FLAG_EXIT_GROWTH + pop)
     args = (prob.circuit, prob.scc_dev, prob.a_scc, shape, prob.probe_circuit, prob.frozen)
     return prob, shape, FrontierKernels(*args, device=device, stream=stream), FrontierRef(*args, device=device)
 
 
-def _frontier_lockstep(prob, shape, kern, plain, chunks, flag_exit=512):
+def _frontier_lockstep(prob, shape, kern, plain, chunks, flag_exit=512, reasons=None):
     """Both versions chunk for chunk from the seed state, each chunk's
     arena rows [0, top), counters, flags and flag filter held equal; the
-    host's spill applied alike.  Returns the chunks compared."""
+    host's spill applied alike; each chunk's exit reason appended to
+    ``reasons``.  Returns the chunks compared."""
     from quorum_intersection_tpu_torch.kernels.frontier_cuda import frontier_chunk, frontier_filter
 
     sets = [[kern.arena(), kern.arena()], [kern.arena(), kern.arena()]]
@@ -662,6 +665,8 @@ def _frontier_lockstep(prob, shape, kern, plain, chunks, flag_exit=512):
         got, want = sets[0][1 - src], sets[1][1 - src]
         torch.cuda.synchronize()
         assert got.ctr.tolist() == want.ctr.tolist(), (c, got.ctr.tolist(), want.ctr.tolist())
+        if reasons is not None:
+            reasons.append(exit_reason(got.ctr.tolist(), shape, flag_exit))
         top, fcount = want.ctr.tolist()[:2]
         assert torch.equal(got.T[:top], want.T[:top]) and torch.equal(got.D[:top], want.D[:top]), c
         assert torch.equal(got.flags[:fcount], want.flags[:fcount]), c
@@ -694,6 +699,43 @@ def test_frontier_kernels_streamed_instance_matches_plain(cuda_device):
     prob, shape, kern, plain = _frontier_setup(synth.hierarchical_fbas(5, 3), cuda_device, 8192, 256, stream=True)
     assert kern.tables.stream
     _frontier_lockstep(prob, shape, kern, plain, chunks=3)
+
+
+# (source, arena, pop, chunks, chunk_iters): between them every exit of the
+# chunk loop (empty stack, chunk_iters, flag_exit, the overflow guard).
+FRONTIER_EXIT_CASES = (
+    (lambda: synth.hierarchical_fbas(5, 3), 8192, 256, 8, 512),
+    (lambda: synth.hierarchical_fbas(5, 3), 8192, 256, 4, 3),
+    (lambda: synth.hierarchical_fbas(4, 3), 64, 16, 8, 512),
+)
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_frontier_chunk_leaves_by_every_exit_on_both_instances(stream, cuda_device):
+    """K9 equals its plain version on chunks that end by each of the loop's
+    four exits, on the resident and the streamed instance."""
+    reasons = []
+    for make, arena, pop, chunks, chunk_iters in FRONTIER_EXIT_CASES:
+        prob, shape, kern, plain = _frontier_setup(make(), cuda_device, arena, pop, stream=stream,
+                                                   chunk_iters=chunk_iters)
+        assert kern.tables.stream is stream
+        _frontier_lockstep(prob, shape, kern, plain, chunks=chunks, reasons=reasons)
+    assert set(reasons) == set(EXIT_REASONS), reasons
+
+
+@pytest.mark.parametrize("case", ["stellar-16x3-broken", "stellar-21x3-broken", "hier-8x4", "random-48-slice-12",
+                                  "random-64"])
+def test_frontier_filter_on_sets_over_16_members(case, cuda_device):
+    """K10 against its plain version on sets of more than 16 members, no
+    multiple of 16, so that a set's leave-one-out rows span tiles."""
+    from quorum_intersection_tpu_torch.kernels.frontier_cuda import frontier_filter
+
+    make, arena, pop = FRONTIER_CASES[case]
+    prob, shape, kern, plain = _frontier_setup(make(), cuda_device, arena, pop)
+    block = wide_flag_block(prob, plain)
+    sizes = block.sum(-1)
+    assert (sizes > 16).all() and (sizes % 16 != 0).all()
+    assert frontier_filter(kern, block, len(block)).tolist() == plain.filter(block, len(block)).tolist()
 
 
 @pytest.mark.parametrize("case,kw", [
