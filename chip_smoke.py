@@ -4,6 +4,8 @@
     python3 chip_smoke.py            # from the root of a checkout, one NVIDIA card
     python3 chip_smoke.py --stress 400   # build, then only compare_packed's and compare_warp's repeats
     python3 chip_smoke.py --frontier     # build, then only the frontier's phases (19-22) and their certificates
+    python3 chip_smoke.py --pagerank     # build, then only the PageRank phases (14-16)
+    python3 chip_smoke.py --pagerank --k12-parent DIR   # ... and DIR's K12 and this one's launch shapes in turns
 
 Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
 
@@ -110,21 +112,34 @@ Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
               within rtol 1e-3 + atol 1e-3*m/n and the JAX tolerance, max abs error and both
               iteration counts; on the two stellar graphs the check must
               refuse two planted faults (the unreached vertices zeroed, the
-              base term dropped);
+              base term dropped); also ``heavy_row_fbas(100000)`` (a hub row
+              of 100 003 entries beside rows of 0-3; its count held to
+              NumPy's, whose rows sum in float64), every case bit for bit
+              the CPU model of the schedule
+              (``tests/_torch_pagerank_schedule.py``), and 21 launches on the
+              heavy-row and 200k graphs giving the same bits;
 15. timing_pagerank — per ``stellar_like_fbas(seed=7)`` graph from 30 to
               200k watchers: the warm call (CSR built and uploaded, one
               launch, one readback), the kernel alone, ms per iteration (201
               against 1 forced iterations), the iterations, the bound (the
               call's bytes and float32 operations), the plain version's and
-              NumPy's ms; a fresh process's first-call overhead (and its
-              profiler's view of a warm call); the ``pagerank_min_edges``
-              these give beside the committed one;
+              NumPy's ms, the call on the device alone; a fresh process's
+              first-call overhead (and its profiler's view of a warm call);
+              the ``pagerank_min_edges`` these give beside the committed one;
+              at 200k and the dump's shape the timed instance's clock64()
+              split of an iteration and the grid barriers it counted and,
+              with ``--k12-parent DIR``, three launch shapes in turns and
+              DIR's K12 (the C interface of the three-barrier kernel, a
+              segment pointer built by the caller) in turns with this one,
+              per call (launch alone, and through this tree's wrapper and a
+              copy of what DIR's wrapper did a call) and per iteration;
 16. pagerank_cli — the main path: ``power_iteration`` (the library's
               entry point under ``pagerank``) on the dump and the 200k graph
               on the card, launch count reset before and read after, each
               call timed by CUDA events around it, ``pagerank_auto`` on both
               routed by the committed floor; the 200k call once more under
-              the profiler beside a control reduction; then ``python -m
+              the profiler beside a control reduction, and one wrapper call
+              (K12 alone, no host-to-device copy); then ``python -m
               quorum_intersection_tpu_torch -p`` on the dump and on the 200k
               graph (the floor's route; on NumPy's the lines byte-equal to
               ``format_pagerank(pagerank_np)``);
@@ -807,9 +822,222 @@ def pagerank_iteration_bytes(n: int, n_edges: int) -> int:
     return 4 * n_edges + 20 * n
 
 
-def pagerank_phases(device, card, texts, work):
+PARENT_SEGMENT_ENTRIES = 1024  # the three-barrier kernel's segment length (its pagerank_cuda.SEGMENT_ENTRIES)
+
+
+class ParentK12:
+    """K12 of another tree (its ``csrc/pagerank.cu`` with the C interface of
+    the three-barrier kernel: a segment pointer built by the caller, the
+    grid asked per call), built with ``nvcc`` beside this tree's: ``call`` does what that
+    tree's wrapper did on every call (the grid query, the segment pointer
+    by four PyTorch kernels, nine tensors, the launch), ``prepare`` and
+    ``launch`` the launch alone."""
+
+    def __init__(self, tree, work):
+        import ctypes
+
+        from quorum_intersection_tpu_torch.kernels import build
+
+        self.src = pathlib.Path(tree) / PORT / "kernels" / "csrc" / "pagerank.cu"
+        lib_path = work / "parent_pagerank.so"
+        proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib_path), str(self.src)],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail("timing_pagerank", f"nvcc refused {self.src}: {(proc.stdout + proc.stderr)[-2000:]}")
+        self.ptxas = ptxas_instances(proc.stdout + proc.stderr)
+        lib = self.lib = ctypes.CDLL(str(lib_path))
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.qi_pagerank_grid.argtypes = [ctypes.c_longlong, ctypes.POINTER(i), ctypes.POINTER(i)]
+        lib.qi_pagerank_grid.restype = i
+        lib.qi_pagerank.argtypes = [i, p, p, p, p, i, f, f, i, p, p, p, p, p, p, i, p, p, p]
+        lib.qi_pagerank.restype = i
+
+    def prepare(self, csr):
+        import ctypes
+
+        import torch
+
+        row_ptr, src, outdeg = csr
+        n, seg = outdeg.numel(), PARENT_SEGMENT_ENTRIES
+        bound = n + -(-src.numel() // seg)
+        grid, coop = ctypes.c_int(0), ctypes.c_int(0)
+        if self.lib.qi_pagerank_grid(max(n, 32 * bound), ctypes.byref(grid), ctypes.byref(coop)) != 0:
+            fail("timing_pagerank", "the parent's grid query failed")
+        seg_ptr = torch.zeros(n + 1, dtype=torch.int32, device=outdeg.device)
+        degree = row_ptr[1:] - row_ptr[:-1]
+        seg_ptr[1:] = torch.cumsum((degree + seg - 1) // seg, dim=0, dtype=torch.int32)
+        f32 = dict(dtype=torch.float32, device=outdeg.device)
+        i32 = dict(dtype=torch.int32, device=outdeg.device)
+        bufs = [torch.empty(n, **f32), torch.empty(n, **f32), torch.empty(n, **f32), torch.empty(bound, **f32),
+                torch.empty(bound, **i32), torch.empty(3 * grid.value, **f32), torch.empty(1, **i32),
+                torch.empty(1, **f32)]
+        return grid.value, seg_ptr, bufs
+
+    def launch(self, csr, prepared, m, conv, cap):
+        import torch
+
+        grid, seg_ptr, bufs = prepared
+        row_ptr, src, outdeg = csr
+        err = self.lib.qi_pagerank(
+            outdeg.numel(), row_ptr.data_ptr(), src.data_ptr(), outdeg.data_ptr(), seg_ptr.data_ptr(),
+            PARENT_SEGMENT_ENTRIES, float(m), float(conv), int(cap), *[b.data_ptr() for b in bufs[:6]], grid,
+            bufs[6].data_ptr(), bufs[7].data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            fail("timing_pagerank", f"the parent's K12 launch failed: error {err}")
+        return bufs[0], bufs[6][0], bufs[7][0]
+
+    def call(self, csr, m, conv, cap):
+        return self.launch(csr, self.prepare(csr), m, conv, cap)
+
+
+def k12_body(csr, shape):
+    """This tree's K12 launch alone (the C call on a workspace made once, at
+    ``shape``): ``launch(m, conv, cap) -> (rank, iterations, diff)``."""
+    import torch
+
+    from quorum_intersection_tpu_torch.kernels import pagerank_cuda
+
+    lib = pagerank_cuda._library()
+    row_ptr, src, outdeg = csr
+    n, n_edges = outdeg.numel(), src.numel()
+    ws = torch.empty(-(-lib.qi_pagerank_bytes(n, n_edges, shape.seg, shape.grid) // 4), dtype=torch.float32,
+                     device=outdeg.device)
+    k = -(-n // 4) * 4
+
+    def launch(m, conv, cap):
+        err = lib.qi_pagerank(n, n_edges, row_ptr.data_ptr(), src.data_ptr(), outdeg.data_ptr(), float(m),
+                              float(conv), int(cap), shape.seg, pagerank_cuda.THREADS, shape.grid, ws.data_ptr(),
+                              None, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            fail("timing_pagerank", f"K12 launch failed: error {err}")
+        return ws[:n], ws[k:k + 1].view(torch.int32)[0], ws[k + 1]
+
+    return launch
+
+
+def per_iteration_ms(fn) -> float:
+    """ms an iteration: ``fn(cap)`` at 201 against 1 forced iterations,
+    back to back, over 200."""
+    return (time_ms(lambda: fn(201), 5) - time_ms(lambda: fn(1), 5)) / 200
+
+
+def k12_split(csr, ms_per_iteration, want):
+    """K12's timed instance over 201 forced iterations (its result held to
+    the untimed kernel's ``want`` bit for bit): the cycles warp 0 of block 0
+    spends in each part of an iteration, their shares, each share of the
+    measured ``ms_per_iteration``, and the grid barriers it passed an
+    iteration and in the prologue, as it counted them."""
+    import torch
+
+    from quorum_intersection_tpu_torch.kernels.pagerank_cuda import TIMED_PHASES, pagerank_timed
+
+    total, calls = None, 5
+    for _ in range(calls):
+        rank, iterations, diff, timing = pagerank_timed(*csr, 0.15, -1.0, 201)
+        if not (torch.equal(rank, want[0]) and int(iterations) == int(want[1])):
+            fail("timing_pagerank", "K12's timed instance differs from the untimed kernel")
+        total = timing.clone() if total is None else total + timing
+    counts = total.tolist()
+    k = len(TIMED_PHASES)
+    iterations, loop_barriers, prologue_barriers = counts[k:k + 3]
+    per_iter = {name: c / iterations for name, c in zip(TIMED_PHASES, counts)}
+    whole = sum(per_iter.values())
+    return {"iterations": iterations, "cycles_per_iteration": per_iter, "cycles_per_iteration_total": whole,
+            "share": {name: c / whole for name, c in per_iter.items()},
+            "ms_per_iteration_by_share": {name: ms_per_iteration * c / whole for name, c in per_iter.items()},
+            "clock_mhz_implied": whole / (ms_per_iteration * 1e3),
+            "barriers_per_iteration": loop_barriers / iterations,
+            "prologue_barriers_per_call": prologue_barriers / calls,
+            "of": f"clock64() and the grid barriers counted by warp 0 of block 0 over {calls} calls "
+                  "of 201 forced iterations (m=0.15)"}
+
+
+def shape_label(s) -> str:
+    return f"{s.grid} blocks, segments of {s.seg}"
+
+
+def shape_record(s) -> dict:
+    from quorum_intersection_tpu_torch.kernels.pagerank_cuda import THREADS
+
+    return {"threads": THREADS, "blocks": s.grid, "segment_entries": s.seg}
+
+
+def k12_shapes(csr, shapes, want_forced):
+    """This tree's K12 launch alone (:func:`k12_body`) at each launch shape
+    in turns (A B C ... C B A): ms an iteration and ms a call on the device
+    alone, each result held to the plain version's ranks after 60 forced
+    iterations."""
+    res = {shape_label(s): {"per_iteration_ms": [], "call_ms_device_alone": []} for s in shapes}
+    bodies = {shape: k12_body(csr, shape) for shape in shapes}
+    for shape in list(shapes) + list(reversed(shapes)):
+        row, body = res[shape_label(shape)], bodies[shape]
+        got = body(0.15, -1.0, 60)
+        if int(got[1]) != 60 or pagerank_close(got[0].cpu().numpy(), want_forced, 0.15) == float("inf"):
+            fail("timing_pagerank", f"K12 at {shape} disagrees with the plain version")
+        row["per_iteration_ms"].append(per_iteration_ms(lambda cap: body(0.15, -1.0, cap)))
+        row["call_ms_device_alone"].append(device_ms(lambda: body(0.0001, 0.0001, 100000), 10))
+    return res
+
+
+def k12_parent_turns(parent, csr, want, m=0.0001):
+    """K12's bodies in turns with the other tree's (parent, this, this,
+    parent): per call through a wrapper (this tree's ``pagerank_power``;
+    for the other tree :meth:`ParentK12.call`, this script's copy of what
+    the three-barrier kernel's wrapper did a call) and by the launch alone, back to back (20 calls) and on the device alone (10 calls behind
+    a stream spin), and per iteration by the launch alone; each result held
+    to the plain version's ``want`` (ranks, iterations)."""
+    from quorum_intersection_tpu_torch.kernels.pagerank_cuda import device_limits, launch_shape, pagerank_power
+
+    row_ptr, src, outdeg = csr
+    shape = launch_shape(outdeg.numel(), src.numel(), *device_limits(outdeg.device))
+    this_body = k12_body(csr, shape)
+    prepared = parent.prepare(csr)
+    arms = {
+        "parent": (lambda m, conv, cap: parent.launch(csr, prepared, m, conv, cap),
+                   lambda m, conv, cap: parent.call(csr, m, conv, cap)),
+        "this": (this_body, lambda m, conv, cap: pagerank_power(*csr, m, conv, cap)),
+    }
+    keys = ("body_call_ms_back_to_back", "body_call_ms_device_alone", "wrapper_call_ms_back_to_back",
+            "wrapper_call_ms_device_alone", "body_per_iteration_ms")
+    res = {who: {k: [] for k in keys} for who in arms}
+    for who in ("parent", "this", "this", "parent"):
+        body, wrapper = arms[who]
+        for fn in (body, wrapper):
+            got = fn(m, 0.0001, 100000)
+            if int(got[1]) != want[1] or pagerank_close(got[0].cpu().numpy(), want[0], m) == float("inf"):
+                fail("timing_pagerank", f"the {who} tree's K12 disagrees with the plain version")
+        row = res[who]
+        row["body_call_ms_back_to_back"].append(time_ms(lambda: body(m, 0.0001, 100000), 20))
+        row["body_call_ms_device_alone"].append(device_ms(lambda: body(m, 0.0001, 100000), 10))
+        row["wrapper_call_ms_back_to_back"].append(time_ms(lambda: wrapper(m, 0.0001, 100000), 20))
+        row["wrapper_call_ms_device_alone"].append(device_ms(lambda: wrapper(m, 0.0001, 100000), 10))
+        row["body_per_iteration_ms"].append(per_iteration_ms(lambda cap: body(0.15, -1.0, cap)))
+    res["this_shape"] = shape_record(shape)
+    res["of"] = f"the other tree's body from {parent.src}; its ptxas {parent.ptxas}"
+    return res
+
+
+def call_profile(device, fn):
+    """One call of ``fn`` under ``torch.profiler`` (device activity only),
+    after a control reduction profiled on its own: whether the profiler
+    records here, the call's device events by name, its kernels and any
+    host-to-device copy."""
+    import torch
+
+    control = profiler_records(device) > 0
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = device_ms_by_kernel(prof)
+    kernels = {k: v for k, v in events.items() if not k.startswith(("aten::", "Memcpy", "Memset", "Activity "))}
+    h2d = [k for k in events if "HtoD" in k]
+    return {"control_recorded": control, "kernels": kernels, "host_to_device": h2d, "events": events}
+
+
+def pagerank_phases(device, card, texts, work, k12_parent=None):
     """Phases compare_pagerank, timing_pagerank and pagerank_cli, and K12's
-    main-path run; returns the kernel's record entry."""
+    main-path run; returns the kernel's record entry.  ``k12_parent``: a
+    checkout whose K12 body timing_pagerank times in turns with this one."""
     import numpy as np
     import torch
 
@@ -818,8 +1046,19 @@ def pagerank_phases(device, card, texts, work):
     from quorum_intersection_tpu_torch.fbas import synth
     from quorum_intersection_tpu_torch.fbas.graph import build_graph
     from quorum_intersection_tpu_torch.fbas.schema import parse_fbas
-    from quorum_intersection_tpu_torch.kernels.pagerank_cuda import pagerank_power
+    from quorum_intersection_tpu_torch.kernels.pagerank_cuda import (
+        LaunchShape,
+        device_limits,
+        launch_shape,
+        pagerank_power,
+    )
     from quorum_intersection_tpu_torch.kernels.pagerank_ref import power_loop
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_pagerank_graphs import heavy_row_fbas
+    from _torch_pagerank_schedule import schedule
+
+    limits = device_limits(device)
 
     def stellar(n_watchers, **kw):
         return synth.stellar_like_fbas(n_watchers=n_watchers, seed=7, **kw)
@@ -846,6 +1085,20 @@ def pagerank_phases(device, card, texts, work):
             same_count = (forced[0].cpu().numpy(), int(forced[1]), float(forced[2]))
         return got, want, same_count
 
+    def model_bits(graph, got, m, conv, cap) -> bool:
+        """Whether K12's result is ``tests/_torch_pagerank_schedule``'s, bit
+        for bit, at the wrapper's launch shape."""
+        shape = launch_shape(graph.n, graph.n_edges, *limits)
+        rank, it, diff = schedule(*pr.in_edge_csr(graph), m, conv, cap, shape.grid, shape.seg)
+        return rank.tobytes() == got[0].tobytes() and it == got[1] and np.float32(diff) == np.float32(got[2])
+
+    def numpy_stops_after(graph, m, cap, k) -> bool:
+        """Whether NumPy's model runs exactly k iterations: k gives its
+        ranks bit for bit and k - 1 does not."""
+        want = pr.pagerank_np(graph, m=m, max_iterations=cap)
+        return np.array_equal(pr.pagerank_np(graph, m=m, max_iterations=k), want) and (
+            k == 0 or not np.array_equal(pr.pagerank_np(graph, m=m, max_iterations=k - 1), want))
+
     # -- compare_pagerank ---------------------------------------------------
     cases = [(name, graph_of(name, text), 0.0001, 100000) for name, text in texts.items()]
     cases += [(name, graph_of(name, data), 0.0001, 100000 if name == "self-loop" else 1000)
@@ -854,6 +1107,9 @@ def pagerank_phases(device, card, texts, work):
     dump_label = "stellar_like_fbas(n_watchers=2800,n_null=150,n_dangling=40,seed=7)"
     dump_shape = graph_of(dump_label, stellar(2800, n_null=150, n_dangling=40))
     cases.append((dump_label, dump_shape, 0.0001, 100000))
+    heavy_label = "heavy_row_fbas(100000)"
+    heavy = graph_of(heavy_label, heavy_row_fbas(100_000))
+    cases.append((heavy_label, heavy, 0.0001, 100000))
     full_label = "stellar_like_fbas(n_watchers=200000,seed=7)"
     full = graph_of(full_label, stellar(200_000))
     cases.append((full_label, full, 0.0001, 100000))
@@ -865,13 +1121,20 @@ def pagerank_phases(device, card, texts, work):
         ref_np = pr.pagerank_np(graph, m=m, convergence=-1.0, max_iterations=it_got)
         err_plain = pagerank_close(got, want, m)
         err_np = pagerank_close(got, ref_np, m)
-        iterations_ok = it_got == it_want or (abs(it_got - it_want) == 1
-                                              and abs(min(diff_got, diff_want) - 1e-4) <= 1e-7)
+        # The plain version's count, or one apart at the stop test's edge.
+        # The heavy-row graph alone: its row of 100 003 entries puts the
+        # plain version's float32 diff near conv, so there NumPy's count
+        # (its rows summed in float64) holds the kernel's instead.
+        by_plain = it_got == it_want or (abs(it_got - it_want) == 1
+                                         and abs(min(diff_got, diff_want) - 1e-4) <= 1e-7)
+        iterations_ok = numpy_stops_after(graph, m, cap, it_got) if graph is heavy else by_plain
         if err_plain == float("inf") or err_np == float("inf") or not iterations_ok:
             fail("compare_pagerank", f"{label}: kernel against plain {np.abs(got - want).max()} "
                                      f"and NumPy {np.abs(got - ref_np).max()}, iterations {it_got} / {it_want}")
         if cap == 0 and not (it_got == 0 and got[0] == 1.0 and not got[1:].any()):
             fail("compare_pagerank", f"{label}: max_iterations 0 did not return e0")
+        if not model_bits(graph, (got, it_got, diff_got), m, 0.0001, cap):
+            fail("compare_pagerank", f"{label}: K12 differs from the CPU model of its schedule")
         if graph is dump_shape or graph is full:
             # The check must refuse a kernel that got the watchers' ranks
             # wrong; the JAX package's tolerance, for the record, would not.
@@ -884,20 +1147,39 @@ def pagerank_phases(device, card, texts, work):
         max_err = max(max_err, err_plain)
         rows.append({"graph": label, "n": graph.n, "edges": graph.n_edges, "m": m, "max_iterations": cap,
                      "iterations": [it_got, it_want], "last_diff": [diff_got, diff_want],
-                     "max_abs_err_plain": err_plain, "max_abs_err_numpy": err_np})
-    # At full width with the cap binding: 60 iterations of three grid
-    # barriers each, against the plain version.
-    (got, it_got, _), (want, it_want, _), _ = run_both(full, 0.15, -1.0, 60)
+                     "iterations_held_to": "numpy" if graph is heavy else "plain",
+                     "max_abs_err_plain": err_plain, "max_abs_err_numpy": err_np, "model_bits_equal": True})
+    # At full width with the cap binding: 60 iterations, against the plain
+    # version and the model.
+    (got, it_got, diff_got), (want, it_want, _), _ = run_both(full, 0.15, -1.0, 60)
     err = pagerank_close(got, want, 0.15)
     if err == float("inf") or not it_got == it_want == 60:
         fail("compare_pagerank", f"200k nodes, 60 forced iterations: {it_got} / {it_want}, "
                                  f"err {np.abs(got - want).max()}")
+    if not model_bits(full, (got, it_got, diff_got), 0.15, -1.0, 60):
+        fail("compare_pagerank", "200k nodes, 60 forced iterations: K12 differs from the CPU model")
     max_err = max(max_err, err)
     rows.append({"graph": f"{full_label} m=0.15 forced", "n": full.n,
-                 "edges": full.n_edges, "iterations": [it_got, it_want], "max_abs_err_plain": err})
+                 "edges": full.n_edges, "iterations": [it_got, it_want], "max_abs_err_plain": err,
+                 "model_bits_equal": True})
+    # Determinism: the same bits from launch to launch (the heavy rows'
+    # tickets are drawn in another order each time).
+    repeats = {}
+    for label, graph in ((heavy_label, heavy), (full_label, full)):
+        csr = [torch.from_numpy(a).to(device) for a in pr.in_edge_csr(graph)]
+        first = pagerank_power(*csr, 0.0001, 0.0001, 100000)
+        first = (first[0].clone(), int(first[1]), float(first[2]))
+        same = 0
+        for _ in range(20):
+            again = pagerank_power(*csr, 0.0001, 0.0001, 100000)
+            same += torch.equal(again[0], first[0]) and int(again[1]) == first[1] and float(again[2]) == first[2]
+        if same != 20:
+            fail("compare_pagerank", f"{label}: {20 - same} of 20 launches differ from the first in their bits")
+        repeats[label] = {"launches": 21, "bit_identical": same + 1}
     phase_line("compare_pagerank", tolerance=f"{PAGERANK_TOLERANCE}; iterations equal or one apart at the "
-                                             "stop test's edge (then the ranks after the same count)",
-               graphs=rows, planted_faults=faults)
+                                             "stop test's edge (then the ranks after the same count); "
+                                             "and bit for bit the CPU model of the schedule",
+               graphs=rows, planted_faults=faults, determinism=repeats)
 
     # -- timing_pagerank ----------------------------------------------------
     def host_ms(fn, reps):
@@ -921,18 +1203,51 @@ def pagerank_phases(device, card, texts, work):
         _, iterations, _ = pr.power_iteration(graph)
         reps = 5 if graph.n < 100_000 else 3
         kernel_ms = time_ms(lambda: pagerank_power(*csr, 0.0001, 0.0001, 100000), 20)
-        forced = {cap: time_ms(lambda cap=cap: pagerank_power(*csr, 0.15, -1.0, cap), 5) for cap in (1, 201)}
         bound_ms, bound_by = pagerank_bound(graph.n, graph.n_edges, iterations)
+        shape = launch_shape(graph.n, graph.n_edges, *limits)
         timing.append({
             "n": graph.n, "edges": graph.n_edges, "iterations": iterations,
+            "grid": shape_record(shape),
             "call_ms": host_ms(lambda: pr.power_iteration(graph), reps),
-            "kernel_ms": kernel_ms, "per_iteration_ms": (forced[201] - forced[1]) / 200,
+            "kernel_ms": kernel_ms,
+            "kernel_ms_device_alone": device_ms(lambda: pagerank_power(*csr, 0.0001, 0.0001, 100000), 10),
+            # The launch, the prologue and the rank written, no iteration.
+            "kernel_ms_device_alone_no_iteration": device_ms(lambda: pagerank_power(*csr, 0.0001, 0.0001, 0), 10),
+            "per_iteration_ms": per_iteration_ms(lambda cap: pagerank_power(*csr, 0.15, -1.0, cap)),
             "per_iteration_bound_ms": pagerank_iteration_bytes(graph.n, graph.n_edges) / HBM_BYTES_PER_S * 1e3,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "plain_ms": time_ms(lambda: power_loop(*csr, 0.0001, 0.0001, 100000), 3),
             "numpy_ms": host_ms(lambda: pr.pagerank_np(graph), reps),
             "library_ms": None,
         })
+    # The timed instance's split of an iteration at the 200k graph and the
+    # dump's shape.  With another tree, at both its body in turns with this
+    # one, and this one's launch shapes in turns there and at 20k (the work
+    # rule's grid against a block per 1024 vertices).
+    split, shapes, parent_turns = {}, {}, {}
+    parent = ParentK12(k12_parent, work) if k12_parent is not None else None
+    mid_label = "stellar_like_fbas(n_watchers=20000,seed=7)"
+    for label, graph in ((full_label, full), (dump_label, dump_shape), (mid_label, graph_of(mid_label))):
+        csr = [torch.from_numpy(a).to(device) for a in pr.in_edge_csr(graph)]
+        shape = launch_shape(graph.n, graph.n_edges, *limits)
+        if label != mid_label:
+            untimed = pagerank_power(*csr, 0.15, -1.0, 201)
+            split[label] = k12_split(csr, per_iteration_ms(lambda cap: pagerank_power(*csr, 0.15, -1.0, cap)),
+                                     untimed)
+            split[label]["grid"] = shape_record(shape)
+        if parent is not None:
+            if graph is full:
+                candidates = [shape, LaunchShape(limits[0], 512), LaunchShape(2 * limits[0], 512)]
+            elif graph is dump_shape:
+                candidates = [shape, LaunchShape(3, 1024), LaunchShape(33, 128)]
+            else:
+                candidates = [shape, LaunchShape(20, 1024)]
+            candidates = [s for s in dict.fromkeys(candidates) if s.grid <= limits[0] * limits[1]]
+            want_forced = power_loop(*csr, 0.15, -1.0, 60)[0].cpu().numpy()
+            shapes[label] = k12_shapes(csr, candidates, want_forced)
+            if label != mid_label:
+                want = power_loop(*csr, 0.0001, 0.0001, 100000)
+                parent_turns[label] = k12_parent_turns(parent, csr, (want[0].cpu().numpy(), int(want[1])))
     # The floor `-p` routes by: the fewest edges from which the kernel route,
     # a fresh process's first-call overhead included, beat NumPy at every
     # larger measured size (None: at no size).  The route in a process that
@@ -942,6 +1257,7 @@ def pagerank_phases(device, card, texts, work):
     wins_fresh = [r["call_ms"] + overhead_ms < r["numpy_ms"] for r in timing]
     floor = next((timing[i]["edges"] for i in range(len(timing)) if all(wins_fresh[i:])), None)
     phase_line("timing_pagerank", card=card, first_call=first_call, per_graph=timing,
+               timed_split=split, grid_shapes_in_turns=shapes or None, parent_in_turns=parent_turns or None,
                kernel_wins_in_a_fresh_process=wins_fresh, kernel_wins_with_the_context_made=wins_warm,
                measured={"pagerank_min_edges": floor},
                committed={"pagerank_min_edges": cal_mod.H100.pagerank_min_edges},
@@ -974,7 +1290,9 @@ def pagerank_phases(device, card, texts, work):
     if launches < 2:
         fail("pagerank_cli", f"the PageRank main path launched pagerank_cuda {launches} times, not 2")
     # The main-path call once more under the profiler, with a PyTorch
-    # reduction beside it as a control of what the profiler records here.
+    # reduction beside it as a control of what the profiler records here;
+    # then one wrapper call on the uploaded CSR: K12 alone, no other kernel
+    # and no host-to-device copy.
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         torch.ones(1 << 20, device=device).sum()
         pr.pagerank(full)
@@ -983,6 +1301,11 @@ def pagerank_phases(device, card, texts, work):
     main_device_ms = ms_of(profiled, "pagerank_kernel") or None
     profiler_saw = {"events": len(profiled), "kernel": main_device_ms is not None,
                     "control": any("reduce" in k for k in profiled)}
+    full_csr = [torch.from_numpy(a).to(device) for a in pr.in_edge_csr(full)]
+    one_call = call_profile(device, lambda: pagerank_power(*full_csr, 0.0001, 0.0001, 100000))
+    if one_call["control_recorded"] and (one_call["host_to_device"] or len(one_call["kernels"]) != 1
+                                         or not ms_of(one_call["kernels"], "pagerank_kernel")):
+        fail("pagerank_cli", f"a pagerank_power call is not K12 alone under the profiler: {one_call}")
 
     # -- pagerank_cli: the CLI as a user runs it ------------------------------
     full_file = work / "stellar_200k.json"
@@ -1012,7 +1335,8 @@ def pagerank_phases(device, card, texts, work):
     if f"pagerank engine: {routes[full_label]}" not in runs[1][1]:
         fail("pagerank_cli", f"-p -t on 200k nodes took another route than the floor's: {runs[1][1][-300:]!r}")
     phase_line("pagerank_cli", card=card, main_path=main_rows, launches={"pagerank_cuda": launches},
-               profiler=profiler_saw, profiled_ms=profiled, cli=cli_rows, cli_routes=routes, floor=floor,
+               profiler=profiler_saw, profiled_ms=profiled, one_wrapper_call=one_call, cli=cli_rows,
+               cli_routes=routes, floor=floor,
                cli_lines="byte-equal to format_pagerank(pagerank_np) on the numpy route")
     t200 = timing[-1]
     return {
@@ -1027,6 +1351,10 @@ def pagerank_phases(device, card, texts, work):
         "bound_ms": t200["bound_ms"],
         "bound_by": t200["bound_by"],
         "library_ms": None,
+        "barriers_per_iteration": split[full_label]["barriers_per_iteration"],
+        "grid": t200["grid"],
+        "per_iteration_ms": t200["per_iteration_ms"],
+        "per_iteration_bound_ms": t200["per_iteration_bound_ms"],
         "main_path_ms": main_rows[-1]["call_ms_by_events"],
         "main_path_ms_of": f"power_iteration on {full_label}, CUDA events around the call "
                           "(CSR build, upload, launch, readback)",
@@ -1883,6 +2211,12 @@ def main(argv=None) -> int:
     ap.add_argument("--k10-parent", metavar="DIR", default=None,
                     help="a checkout (git archive) whose flag filter body timing_frontier times in turns "
                          "with this tree's, on a side stream")
+    ap.add_argument("--pagerank", action="store_true",
+                    help="only build, then run the PageRank phases (compare_pagerank, timing_pagerank, "
+                         "pagerank_cli; no ok line)")
+    ap.add_argument("--k12-parent", metavar="DIR", default=None,
+                    help="a checkout (git archive) whose PageRank kernel timing_pagerank times in turns "
+                         "with this tree's, per call and per iteration, beside this tree's launch shapes")
     args = ap.parse_args(argv)
     if not (ROOT / PORT / "kernels" / "csrc" / "sweep.cu").is_file():
         print(f"FAIL setup: {PORT}/ not found beside chip_smoke.py (run from a checkout)")
@@ -1921,6 +2255,17 @@ def main(argv=None) -> int:
         cases = {**stress_packed(device, args.stress), **stress_warp(device, args.stress)}
         phase_line("stress", card=card, seconds=round(time.perf_counter() - t0, 3), cases=cases)
         return 1 if stress_failed(cases) else 0
+
+    if args.pagerank:
+        import tempfile
+
+        manifest = json.loads((FIXTURES / "MANIFEST.json").read_text())
+        texts = {name: fixture_text(name) for name in manifest}
+        work = pathlib.Path(tempfile.mkdtemp(prefix="qi-chip-smoke-"))
+        record = pagerank_phases(device, card, texts, work, args.k12_parent)
+        record["instances"] = ptxas.get("pagerank")
+        print(json.dumps({"kernels": [record]}), flush=True)
+        return 0
 
     if args.frontier:
         import tempfile
@@ -2827,7 +3172,7 @@ def main(argv=None) -> int:
                verdicts=f"{len(auto_sources)}/{len(auto_sources)} equal to gpu-sweep's (verdict and exit code)")
 
     # -- 14-16. PageRank: K12 against its plain version, timed, -p ---------
-    pagerank_record = pagerank_phases(device, card, texts, work)
+    pagerank_record = pagerank_phases(device, card, texts, work, args.k12_parent)
 
     # -- 17. analysis: the analysis modes and the sanitizer ----------------
     analysis_phase(card, texts)

@@ -23,7 +23,7 @@ from typing import Dict, Optional
 H100_KIND = "NVIDIA H100 80GB HBM3"
 _H100_RUN = "chip_smoke.py phase route, NVIDIA H100 80GB HBM3, 700.00 W power limit, run of 2026-10-17"
 _H100_PAGERANK = ("chip_smoke.py phase timing_pagerank, NVIDIA H100 80GB HBM3, 700.00 W power limit, "
-                  "five runs of 2026-10-17")
+                  "five runs of 2026-10-17, twelve more after K12's redesign")
 
 _H100_FRONTIER = ("chip_smoke.py phase frontier_route, NVIDIA H100 80GB HBM3, 700.00 W power limit, "
                   "ten runs of 2026-10-17 after K9's redesign")
@@ -92,6 +92,9 @@ H100 = Calibration(
     # In a fresh process the kernel route (first call's context and library
     # load, 0.37-0.87 s, included) lost to NumPy at every measured size, up
     # to 999 634 edges: `-p` takes NumPy until a run shows a crossover.
+    # Measured again after K12's redesign (twelve runs): the kernel's call
+    # fell to about 0.05 ms at 200k nodes, but a fresh process's first-call
+    # overhead (0.32-1.10 s) still lost to NumPy at every size.
     pagerank_min_edges=None,
     # gpu-frontier against the native oracle (warm, same host), measured
     # again after K9's redesign (ten runs): 53-169x at |scc| 24, 152-350x

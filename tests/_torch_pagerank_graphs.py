@@ -35,6 +35,23 @@ QUIRK_GRAPHS: Dict[str, List[dict]] = {
     "cycle5": CYCLE5,
 }
 
+
+def heavy_row_fbas(n_watchers: int, seed: int = 0) -> List[dict]:
+    """One row far past a segment beside rows of 0-3 entries: every watcher
+    trusts the hub (whose row then holds n_watchers + 3 in-edges) and, each
+    with probability 1/2, the next three watchers (whose rows hold 0-3);
+    the hub trusts the three keepers, each keeper the hub and the next
+    keeper (cycles of 2 and 3: the chain is aperiodic and converges)."""
+    rng = np.random.default_rng(seed)
+    keepers = [{"publicKey": f"K{i}", "quorumSet": {"threshold": 2, "validators": ["HUB", f"K{(i + 1) % 3}"]}}
+               for i in range(3)]
+    hub = {"publicKey": "HUB", "quorumSet": {"threshold": 2, "validators": ["K0", "K1", "K2"]}}
+    pick = rng.random((n_watchers, 3)) < 0.5
+    watchers = [{"publicKey": f"W{i}", "quorumSet": {"threshold": 1, "validators": ["HUB"] + [
+        f"W{(i + d) % n_watchers}" for d in (1, 2, 3) if pick[i, d - 1]]}} for i in range(n_watchers)]
+    return [hub] + keepers + watchers
+
+
 # (graph, m, max_iterations): the iteration caps of the quirk cases.
 ITERATION_CAPS = [("cycle5", 0.15, 0), ("cycle5", 0.15, 1), ("cycle5", 0.15, 7),
                   ("dangling", 0.0001, 50), ("parallel-edges", 0.0001, 7)]

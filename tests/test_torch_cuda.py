@@ -555,13 +555,120 @@ def test_pagerank_kernel_matches_plain_on_card(case, cuda_device):
 
 def test_pagerank_kernel_forced_iterations_match_plain(cuda_device):
     """A convergence threshold no diff can pass: both run exactly the cap,
-    with the kernel's three barriers an iteration exercised 60 times."""
+    with the kernel's one barrier an iteration exercised 60 times."""
     from _torch_pagerank_graphs import assert_ranks_close
 
     graph = build_graph(parse_fbas(synth.stellar_like_fbas(n_watchers=3000, seed=5)))
     got, want = _pagerank_both(graph, cuda_device, m=0.15, conv=-1.0, max_iterations=60)
     assert got[1] == want[1] == 60
     assert_ranks_close(got[0], want[0], 0.15)
+
+
+def _pagerank_model_bits(graph, got, m, conv, max_iterations, device) -> bool:
+    """Whether the kernel's ``got`` is the CPU model's result bit for bit
+    (``tests/_torch_pagerank_schedule.py``, at the wrapper's launch shape)."""
+    from _torch_pagerank_schedule import schedule
+
+    from quorum_intersection_tpu_torch.analytics.pagerank import in_edge_csr
+    from quorum_intersection_tpu_torch.kernels.pagerank_cuda import device_limits, launch_shape
+
+    shape = launch_shape(graph.n, graph.n_edges, *device_limits(device))
+    rank, iterations, diff = schedule(*in_edge_csr(graph), m, conv, max_iterations, shape.grid, shape.seg)
+    return (rank.tobytes() == np.asarray(got[0]).tobytes() and iterations == got[1]
+            and np.float32(diff) == np.float32(got[2]))
+
+
+def test_pagerank_kernel_heavy_row_on_card(cuda_device):
+    """A hub row of 50 003 in-edges (segments finished by the last one's
+    warp) beside rows of 0-3: NumPy's iteration count exactly, ranks within
+    the tolerance of the plain version's after as many iterations and of
+    NumPy's, and the CPU model's bits.
+
+    The count is NumPy's, not the plain version's: the plain version adds the
+    hub row's 50 003 terms one by one in float32 (in CSR order on the CPU, by
+    atomics on the card), which puts its diff at 1.000e-4 give or take 4e-9
+    at iterations 15-17, on the stop test's edge, where a float64 sum gives
+    1.219e-4, 6.10e-5 and 3.05e-5.  NumPy's model (``pagerank_np``, the JAX
+    package's line for line) sums each row in float64 and stops after 16,
+    as the kernel does."""
+    from _torch_pagerank_graphs import assert_ranks_close, heavy_row_fbas
+
+    from quorum_intersection_tpu_torch.analytics.pagerank import in_edge_csr, pagerank_np
+    from quorum_intersection_tpu_torch.kernels.pagerank_cuda import pagerank_power
+    from quorum_intersection_tpu_torch.kernels.pagerank_ref import power_loop
+
+    graph = build_graph(parse_fbas(heavy_row_fbas(50_000)))
+    csr = [torch.from_numpy(a).to(cuda_device) for a in in_edge_csr(graph)]
+    rank, iterations, diff = pagerank_power(*csr, 0.0001, 0.0001, 100000)
+    got = (rank.cpu().numpy(), int(iterations), float(diff))
+    want = pagerank_np(graph)
+    assert np.array_equal(pagerank_np(graph, max_iterations=got[1]), want)
+    assert not np.array_equal(pagerank_np(graph, max_iterations=got[1] - 1), want)
+    assert_ranks_close(got[0], power_loop(*csr, 0.0001, -1.0, got[1])[0].cpu().numpy())
+    assert_ranks_close(got[0], want)
+    assert _pagerank_model_bits(graph, got, 0.0001, 0.0001, 100000, cuda_device)
+
+
+@pytest.mark.parametrize("case", ["quirks", "caps", "20k", "forced"])
+def test_pagerank_kernel_matches_schedule_model_on_card(case, cuda_device):
+    """The kernel's result is the CPU model of its schedule, bit for bit:
+    rank, iteration count and last diff."""
+    from _torch_pagerank_graphs import ITERATION_CAPS, QUIRK_GRAPHS
+
+    from quorum_intersection_tpu_torch.analytics.pagerank import in_edge_csr
+    from quorum_intersection_tpu_torch.kernels.pagerank_cuda import pagerank_power
+
+    if case == "quirks":
+        runs = [(QUIRK_GRAPHS[name], 0.0001, 0.0001, 1000) for name in QUIRK_GRAPHS]
+    elif case == "caps":
+        runs = [(QUIRK_GRAPHS[name], m, 0.0001, cap) for name, m, cap in ITERATION_CAPS]
+    elif case == "20k":
+        runs = [(synth.stellar_like_fbas(n_watchers=20_000, seed=3), 0.0001, 0.0001, 100000)]
+    else:
+        runs = [(synth.stellar_like_fbas(n_watchers=3000, seed=5), 0.15, -1.0, 60)]
+    for data, m, conv, cap in runs:
+        graph = build_graph(parse_fbas(data))
+        csr = [torch.from_numpy(a).to(cuda_device) for a in in_edge_csr(graph)]
+        rank, iterations, diff = pagerank_power(*csr, m, conv, cap)
+        got = (rank.cpu().numpy(), int(iterations), float(diff))
+        assert _pagerank_model_bits(graph, got, m, conv, cap, cuda_device), (data[:1], m, cap)
+
+
+def test_pagerank_kernel_is_deterministic_on_card(cuda_device):
+    """Two launches give the same bits: the heavy rows' tickets decide who
+    adds a row's segment sums, never the order."""
+    from _torch_pagerank_graphs import heavy_row_fbas
+
+    from quorum_intersection_tpu_torch.analytics.pagerank import in_edge_csr
+    from quorum_intersection_tpu_torch.kernels.pagerank_cuda import pagerank_power
+
+    for data in (heavy_row_fbas(50_000), synth.stellar_like_fbas(n_watchers=20_000, seed=3)):
+        graph = build_graph(parse_fbas(data))
+        csr = [torch.from_numpy(a).to(cuda_device) for a in in_edge_csr(graph)]
+        first = [t.clone() for t in pagerank_power(*csr, 0.0001, 0.0001, 100000)]
+        second = pagerank_power(*csr, 0.0001, 0.0001, 100000)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+
+
+def test_pagerank_call_is_one_kernel_under_the_profiler(cuda_device):
+    """A wrapper call on an uploaded CSR is the K12 launch alone: no other
+    kernel and no host-to-device copy under ``torch.profiler``."""
+    from quorum_intersection_tpu_torch.analytics.pagerank import in_edge_csr
+    from quorum_intersection_tpu_torch.kernels.pagerank_cuda import pagerank_power
+
+    graph = build_graph(parse_fbas(synth.stellar_like_fbas(n_watchers=20_000, seed=3)))
+    csr = [torch.from_numpy(a).to(cuda_device) for a in in_edge_csr(graph)]
+    pagerank_power(*csr, 0.0001, 0.0001, 100000)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        pagerank_power(*csr, 0.0001, 0.0001, 100000)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) > 0]
+    assert names and all("pagerank_kernel" in k for k in names), names
+    assert not any("HtoD" in e.key for e in prof.key_averages())
 
 
 def test_pagerank_limits_raise_before_launch(cuda_device):
