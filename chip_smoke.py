@@ -7,6 +7,7 @@
     python3 chip_smoke.py --pagerank     # build, then only the PageRank phases (14-16)
     python3 chip_smoke.py --bitset       # build, then only the bitset engine's phases (23-26) and their certificates
     python3 chip_smoke.py --pagerank --k12-parent DIR   # ... and DIR's K12 and this one's launch shapes in turns
+    python3 chip_smoke.py --bitset --k8-parent DIR      # ... and DIR's K8 in turns with this one on every shape
 
 Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
 
@@ -195,23 +196,33 @@ Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
               times the nonzero votes at the int8 peak, against the chunk's
               source rows read once and its rows and flags written once);
 23. compare_bitset — the unpacked bitset sweep (K8) against its plain
-              version, exact, on both instances (resident only where the
-              tables fit one block): the fixtures' SCCs, ``sparse_giant(400)``
+              version, exact, on every instance that takes the case (the
+              lane instance up to 128 units, the warp instance resident
+              where its tables fit one block, streamed always): the
+              fixtures' SCCs, ``sparse_giant(400)``
               restricted (a hi row, chunk tails whose rows alias),
               ``near_disjoint_cores(6, 1)`` restricted and whole, a whole
               graph with a frozen row, full width (30 low bits, hi rows past
               bit 32), the 390-unit ring and the densely nested 993- and
               3001-unit circuits (the latter streamed), correct and broken
-              twins (``tests/_torch_bitset_cases.card_problems``);
+              twins (``tests/_torch_bitset_cases.card_problems``); the host's
+              choice of instance held to the shape rule;
 24. timing_bitset — K8 and K1 a 2^20-candidate window in turns (K8, K1,
               K1, K8; events over 30 launches and on the device alone) at the
-              full-width, snapshot and ``sparse_giant`` shapes, beside the
-              plain version's ms and K1's bound (``window_bound_ms``), the
-              launches on each path;
+              full-width, snapshot and ``sparse_giant`` shapes and (fewer
+              launches) the 390-unit ring and the 993- and 3001-unit
+              circuits, beside the plain version's ms (narrow shapes) and the
+              bound (``window_bound_ms``), the launches on each path, the
+              instance and ptxas's registers and spills per instance; with
+              ``--k8-parent DIR``, DIR's K8 (``ParentK8``, on this tree's
+              warp tables) in turns with them (parent, K8, K1, K1, K8,
+              parent);
 25. bitset_route — warm ``solve`` under ``QI_SWEEP_ENGINE=bitset`` against
               the default engine in turns, on ``sparse_giant()`` (10 000
               nodes, once), ``sparse_giant(400)``, ``benchmark_fbas(256,
-              core=34)`` and ``majority_fbas(18)``, correct and broken:
+              core=34)``, ``majority_fbas(18)`` and
+              ``inner_set_ring_fbas(30, 12)``, correct and broken (neither
+              ring intersects; its verdict is the default engine's):
               verdicts, hit indices and witnesses equal, K8's launches on
               this main path (reset before, read after), the rows (scc,
               density, speedup, verdict_ok) and the win region
@@ -523,10 +534,11 @@ def macs_per_pass(circuit) -> int:
     return int(np.count_nonzero(circuit.members)) + depth * int(np.count_nonzero(circuit.child))
 
 
-def fixpoint_work(circuit, circuit_d, lo_nodes, scc_mask, frozen, start, rows, hi_row, device):
+def fixpoint_work(circuit, circuit_d, lo_nodes, scc_mask, frozen, start, rows, hi_row, device,
+                  chunk: int = 1 << 17):
     """The fixpoint passes one sweep over candidates ``start + [0, rows)``
     needs (Q for every row, the D probe for rows with Q != 0), counted by
-    the plain version."""
+    the plain version ``chunk`` rows at a time."""
     import torch
 
     from quorum_intersection_tpu_torch.kernels import sweep_ref as ref
@@ -535,7 +547,7 @@ def fixpoint_work(circuit, circuit_d, lo_nodes, scc_mask, frozen, start, rows, h
     td = tq if circuit_d is None else ref.CircuitTables(circuit_d, device)
     pos = torch.from_numpy(ref.bit_positions(lo_nodes, circuit.n)).to(device)
     passes = 0
-    chunk = min(1 << 17, rows)
+    chunk = min(chunk, rows)
     frozen_row = None if frozen is None else tq.cast(frozen)
     scc = tq.cast(scc_mask).to(torch.int32)
     for lo in range(start, start + rows, chunk):
@@ -703,12 +715,13 @@ def device_ms(fn, reps: int, spin_cycles: int = 2_000_000) -> float:
     return total / reps
 
 
-def window_bound_ms(circuit, circuit_d, lo_nodes, scc_mask, frozen, start, hi_row, device):
+def window_bound_ms(circuit, circuit_d, lo_nodes, scc_mask, frozen, start, hi_row, device,
+                    chunk: int = 1 << 17):
     """Least time the card could take for one window of the fused sweep:
     the MACs of the fixpoint passes its rows need, against the bytes
     (tables and decode table in, one int32 out)."""
     passes = fixpoint_work(circuit, circuit_d, lo_nodes, scc_mask, frozen, start, WINDOW, hi_row,
-                           device)
+                           device, chunk)
     ms, by = bound(passes * macs_per_pass(circuit), table_bytes(circuit) + 4 * len(lo_nodes) + 4)
     return ms, by, passes
 
@@ -2180,6 +2193,45 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, 
     return records
 
 
+class ParentK8:
+    """K8 of another tree (its ``csrc/bitset_sweep.cu``, the one-warp-a-row
+    kernel with its ``qi_bitset_sweep`` C interface), built with ``nvcc``
+    beside this tree's.  :meth:`program` does what that tree's wrapper did
+    a call (the int32 result filled on the stream, the launch) on the warp
+    instance's tables of this tree, which are that tree's tables."""
+
+    def __init__(self, tree, work):
+        import ctypes
+
+        from quorum_intersection_tpu_torch.kernels import build
+
+        self.src = pathlib.Path(tree) / PORT / "kernels" / "csrc" / "bitset_sweep.cu"
+        lib_path = work / "parent_bitset_sweep.so"
+        proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib_path), str(self.src)],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail("timing_bitset", f"nvcc refused {self.src}: {(proc.stdout + proc.stderr)[-2000:]}")
+        self.ptxas = ptxas_instances(proc.stdout + proc.stderr)
+        lib = self.lib = ctypes.CDLL(str(lib_path))
+        p, i, u64, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64, ctypes.c_longlong
+        lib.qi_bitset_sweep.argtypes = [p, p, p, i, i, i, i, i, i, p, i, u64, u64, u64, i64, i64, p, p]
+        lib.qi_bitset_sweep.restype = i
+
+    def program(self, sweep, start, steps, hi_mask):
+        import torch
+
+        t = sweep.tables
+        out = torch.empty((), dtype=torch.int32, device=sweep.device)
+        out.fill_(2**31 - 1)
+        err = self.lib.qi_bitset_sweep(
+            t.units.data_ptr(), t.ranges.data_ptr(), t.words.data_ptr(), t.n_words, t.units_pad, t.nw, t.rounds,
+            int(t.resident), t.warps, sweep.lo_nodes.data_ptr(), sweep.lo_bits, hi_mask, sweep.scc_bits,
+            sweep.frozen_bits, start, steps * sweep.batch, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            fail("timing_bitset", f"the parent's K8 launch failed: error {err}")
+        return out
+
+
 class TrippingCancel:
     """A cancel token that reads as cancelled after ``after`` polls: a sweep
     stopped after a few programs, as a preempted run is."""
@@ -2217,30 +2269,40 @@ class engine_env:
             os.environ["QI_SWEEP_ENGINE"] = self.saved
 
 
-def bitset_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, ptxas):
+def bitset_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, ptxas, k8_parent=None):
     """Phases compare_bitset, timing_bitset, bitset_route and checkpoint;
     returns K8's record entry.  K8's main path is bitset_route's solves under
-    ``QI_SWEEP_ENGINE=bitset`` (launch count reset before, read after)."""
+    ``QI_SWEEP_ENGINE=bitset`` (launch count reset before, read after).
+    ``k8_parent``: a tree whose K8 timing_bitset times in turns with this
+    one's on every shape."""
     import numpy as np
     import torch
 
     from quorum_intersection_tpu_torch.backends import calibration as cal_mod
     from quorum_intersection_tpu_torch.backends.sweep import GpuSweepBackend
+    from quorum_intersection_tpu_torch.encode.circuit import encode_circuit
     from quorum_intersection_tpu_torch.fbas import synth
     from quorum_intersection_tpu_torch.fbas.graph import build_graph
     from quorum_intersection_tpu_torch.fbas.schema import parse_fbas
-    from quorum_intersection_tpu_torch.kernels.bitset_sweep_cuda import BitsetSweep, KernelLimitError, bitset_sweep
+    from quorum_intersection_tpu_torch.kernels.bitset_sweep_cuda import (
+        INSTANCES,
+        SMEM_LIMIT,
+        BitsetSweep,
+        KernelLimitError,
+        bitset_sweep,
+        smem_bytes,
+    )
     from quorum_intersection_tpu_torch.kernels.bitset_sweep_ref import BitsetSweepRef
     from quorum_intersection_tpu_torch.kernels.sweep_cuda import FusedSweep, mask_bits, sweep_fused
     from quorum_intersection_tpu_torch.pipeline import quorum_bearing_sccs, solve
     from quorum_intersection_tpu_torch.utils.checkpoint import SweepCheckpoint
 
     sys.path.insert(0, str(ROOT / "tests"))
-    from _torch_bitset_cases import BitsetProblem, card_problems
+    from _torch_bitset_cases import BitsetProblem, card_problems, circuit_problem
 
     int32_max = 2**31 - 1
 
-    # -- compare_bitset: K8 against its plain version, both instances -------
+    # -- compare_bitset: K8 against its plain version, every instance -------
     def fixture_problem(name):
         circuit, circuit_d, local, scc_mask, frozen = sweep_problem(fixture_text(name))
         return BitsetProblem(f"{name} SCC", circuit, circuit_d, local, scc_mask, frozen)
@@ -2257,12 +2319,12 @@ def bitset_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, pt
     for prob, lo_bits, his, starts, batch, steps in cases:
         lo_nodes, _ = prob.decode(lo_bits)
         kernels = {}
-        for stream in (False, True):
+        for instance in INSTANCES:
             try:
-                kernels[stream] = BitsetSweep(prob.circuit, lo_nodes, prob.scc_mask, prob.frozen, batch,
-                                              prob.circuit_d, device, stream=stream)
+                kernels[instance] = BitsetSweep(prob.circuit, lo_nodes, prob.scc_mask, prob.frozen, batch,
+                                                prob.circuit_d, device, instance=instance)
             except KernelLimitError:
-                if stream:
+                if instance == "streamed":
                     raise
         plain = BitsetSweepRef(prob.circuit, lo_nodes, prob.scc_mask, prob.frozen, batch, prob.circuit_d, device)
         windows = case_hits = 0
@@ -2272,67 +2334,107 @@ def bitset_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, pt
                 want = int(plain.program(start, steps, hi_row if hi_row.any() else None))
                 windows += 1
                 case_hits += want != int32_max
-                for stream, kern in kernels.items():
+                for instance, kern in kernels.items():
                     try:
                         got = int(kern.program(start, steps, mask_bits(hi_row)))
                         torch.cuda.synchronize()
                     except RuntimeError as exc:
-                        fail("compare_bitset", f"{prob.label} (streamed={stream}) hi={hi} start={start}: {exc}")
+                        fail("compare_bitset", f"{prob.label} ({instance}) hi={hi} start={start}: {exc}")
                     max_err = max(max_err, abs(got - want))
                     if got != want:
-                        fail("compare_bitset", f"{prob.label} (streamed={stream}) hi={hi} start={start}: "
+                        fail("compare_bitset", f"{prob.label} ({instance}) hi={hi} start={start}: "
                                                f"kernel {got} != plain {want}")
         hits += case_hits
         chosen = BitsetSweep(prob.circuit, lo_nodes, prob.scc_mask, prob.frozen, 1, prob.circuit_d, device).tables
         rows.append({"label": prob.label, "n": prob.circuit.n, "units": prob.circuit.n_units,
                      "depth": prob.circuit.depth, "restricted": prob.circuit_d is not None, "lo_bits": lo_bits,
                      "rows_a_program": batch * steps, "windows": windows, "windows_with_hits": case_hits,
-                     "instances": ["streamed" if s else "resident" for s in kernels],
-                     "chosen": "resident" if chosen.resident else "streamed", "table_bytes": chosen.nbytes})
-    wide = [r for r in rows if r["units"] > 3000]
-    if not hits or not wide or wide[0]["chosen"] != "streamed":
-        fail("compare_bitset", "no window with a hit, or the 3001-unit circuit did not stream")
+                     "instances": list(kernels), "chosen": chosen.instance, "table_bytes": chosen.nbytes})
+    chosen_ok = all(r["chosen"] == ("lanes" if r["units"] <= 128 else "streamed" if r["units"] > 3000
+                                    else "resident") for r in rows)
+    if not hits or not chosen_ok or not any("lanes" in r["instances"] for r in rows):
+        fail("compare_bitset", "no window with a hit, or an instance chosen against the shape rule "
+                               "(lanes up to 128 units, the 3001-unit circuit streamed, resident between)")
     phase_line("compare_bitset", tolerance="exact (integer hit indices)", seconds=time.perf_counter() - t0,
                windows_with_hits=hits, max_abs_err=max_err, cases=rows)
 
     # -- timing_bitset: K8 and K1 a 2^20-candidate window, in turns ---------
+    parent = ParentK8(k8_parent, work) if k8_parent is not None else None
+
+    def ring_problem(broken):
+        data = synth.inner_set_ring_fbas(30, 12, broken=broken)
+        return circuit_problem(f"inner_set_ring_fbas(30,12,broken={broken})", encode_circuit(build_graph(parse_fbas(data))))
+
+    # label: (problem, lo_bits (None: all), hi, start, wide)
     shapes = {
-        "bench256_34": (sweep_problem(json.dumps(synth.benchmark_fbas(256, 34))), 30, 5, 1 << 20),
-        "snapshot": (sweep_problem(fixture_text("snapshot_broken.json")), None, 0, 0),
-        "sparse_giant": (sweep_problem(json.dumps(synth.sparse_giant(400))), None, 0, 1 << 20),
+        "bench256_34": (BitsetProblem("bench256_34", *sweep_problem(json.dumps(synth.benchmark_fbas(256, 34)))),
+                        30, 5, 1 << 20, False),
+        "snapshot": (BitsetProblem("snapshot", *sweep_problem(fixture_text("snapshot_broken.json"))), None, 0, 0,
+                     False),
+        "sparse_giant": (BitsetProblem("sparse_giant", *sweep_problem(json.dumps(synth.sparse_giant(400)))),
+                         None, 0, 1 << 20, False),
+        "ring390": (ring_problem(False), 29, 0, 1 << 20, True),
+        "dense993": (circuit_problem("dense_child_circuit()", dense_child_circuit()), 30, 0, 1 << 20, True),
+        "dense3001": (circuit_problem("dense_child_circuit(units=3001)", dense_child_circuit(units=3001)), 30, 0,
+                      1 << 20, True),
     }
     timing = {}
-    for label, ((circuit, circuit_d, local, scc_mask, frozen), lo_bits, hi, start) in shapes.items():
-        lo_bits = len(local) - 1 if lo_bits is None else lo_bits
-        prob = BitsetProblem(label, circuit, circuit_d, local, scc_mask, frozen)
+    for label, (prob, lo_bits, hi, start, wide) in shapes.items():
+        circuit, circuit_d, scc_mask, frozen = prob.circuit, prob.circuit_d, prob.scc_mask, prob.frozen
+        lo_bits = len(prob.local) - 1 if lo_bits is None else lo_bits
         lo_nodes, hi_row = prob.decode(lo_bits, hi)
         hi_bits = mask_bits(hi_row)
         k8 = BitsetSweep(circuit, lo_nodes, scc_mask, frozen, 1 << 17, circuit_d, device)
         k1 = FusedSweep(circuit, lo_nodes, scc_mask, frozen, 1 << 17, circuit_d, device)
-        if int(k8.program(start, 8, hi_bits)) != int(k1.program(start, 8, hi_bits)):
-            fail("timing_bitset", f"{label}: K8 and K1 disagree on the timed window")
+        arms = {"k8": lambda: k8.program(start, 8, hi_bits), "k1": lambda: k1.program(start, 8, hi_bits)}
+        if parent is not None:
+            fits = smem_bytes(k8.tables.units_pad, k8.tables.n_words, True, k8.tables.warps) <= SMEM_LIMIT
+            k8_parent_sweep = BitsetSweep(circuit, lo_nodes, scc_mask, frozen, 1 << 17, circuit_d, device,
+                                          instance="resident" if fits else "streamed")
+            arms["parent"] = lambda: parent.program(k8_parent_sweep, start, 8, hi_bits)
+        answers = {who: int(fn()) for who, fn in arms.items()}
+        if len(set(answers.values())) != 1:
+            fail("timing_bitset", f"{label}: the arms disagree on the timed window: {answers}")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        arms["k8"]()
+        torch.cuda.synchronize()
+        once_ms = (time.perf_counter() - t) * 1e3
+        reps = 30 if not wide else max(2, min(30, int(300 / max(once_ms, 1e-3))))
         k8_before, k1_before = bitset_sweep.launches, sweep_fused.launches
-        turns = {"k8": [], "k1": [], "k8_device": [], "k1_device": []}
-        for which in ("k8", "k1", "k1", "k8"):
-            fn = (lambda: k8.program(start, 8, hi_bits)) if which == "k8" else (lambda: k1.program(start, 8, hi_bits))
-            turns[which].append(time_ms(fn, 30))
-            turns[f"{which}_device"].append(device_ms(fn, 10))
-        plain = BitsetSweepRef(circuit, lo_nodes, scc_mask, frozen, 1 << 17, circuit_d, device)
-        plain_ms = time_ms(lambda: plain.program(start, 8, hi_row if hi_bits else None), 2)
+        order = ("k8", "k1", "k1", "k8") if parent is None else ("parent", "k8", "k1", "k1", "k8", "parent")
+        turns = {f"{who}{suffix}": [] for who in arms for suffix in ("", "_device")}
+        for who in order:
+            turns[who].append(time_ms(arms[who], reps))
+            turns[f"{who}_device"].append(device_ms(arms[who], max(2, reps // 3)))
+        if wide:
+            plain_ms = None  # the plain version's (B, U) vote tensors at 3001 units: not timed
+        else:
+            plain = BitsetSweepRef(circuit, lo_nodes, scc_mask, frozen, 1 << 17, circuit_d, device)
+            plain_ms = time_ms(lambda: plain.program(start, 8, hi_row if hi_bits else None), 2)
         bound_ms, bound_by, passes = window_bound_ms(circuit, circuit_d, lo_nodes, scc_mask, frozen, start,
-                                                     hi_row if hi_bits else None, device)
+                                                     hi_row if hi_bits else None, device,
+                                                     chunk=1 << 13 if wide else 1 << 17)
         k8_ms = sum(turns["k8"]) / 2
         k1_ms = sum(turns["k1"]) / 2
-        timing[label] = {
+        row = {
             "n": circuit.n, "units": circuit.n_units, "depth": circuit.depth, "words": k8.tables.nw,
-            "unit_words": k8.tables.units_pad // 32, "instance": "resident" if k8.tables.resident else "streamed",
-            "window": WINDOW, "start": start, "ms": k8_ms, "k1_ms": k1_ms, "k8_over_k1": k8_ms / k1_ms,
-            "turns_ms": turns, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "fixpoint_passes": passes, "candidates_per_s": WINDOW / k8_ms * 1e3,
+            "unit_words": k8.tables.units_pad // 32, "instance": k8.tables.instance,
+            "lane_words": None if k8.tables.lanes is None else [k8.tables.lanes.cw, k8.tables.lanes.nw],
+            "window": WINDOW, "start": start, "hit": answers["k8"], "reps": reps, "ms": k8_ms, "k1_ms": k1_ms,
+            "k8_over_k1": k8_ms / k1_ms, "turns_ms": turns, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "over_bound": k8_ms / bound_ms, "fixpoint_passes": passes,
+            "candidates_per_s": WINDOW / k8_ms * 1e3,
             "launches": {"bitset_sweep_cuda": bitset_sweep.launches - k8_before,
                          "sweep_fused_cuda": sweep_fused.launches - k1_before},
         }
-    phase_line("timing_bitset", card=card, per_window=timing, ptxas=ptxas.get("bitset_sweep"))
+        if parent is not None:
+            row["parent_ms"] = sum(turns["parent"]) / 2
+            row["parent_instance"] = "resident" if fits else "streamed"
+            row["slower_turn_this_over_faster_turn_parent"] = max(turns["k8"]) / min(turns["parent"])
+        timing[label] = row
+    phase_line("timing_bitset", card=card, per_window=timing, ptxas=ptxas.get("bitset_sweep"),
+               parent=None if parent is None else {"source": str(parent.src), "ptxas": parent.ptxas})
 
     # -- bitset_route: QI_SWEEP_ENGINE=bitset against the default, warm ------
     route_sources = [("sparse_giant()", synth.sparse_giant(), True, 1)]
@@ -2340,7 +2442,11 @@ def bitset_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, pt
         route_sources += [(f"sparse_giant(400,broken={broken})", synth.sparse_giant(400, broken=broken), not broken, 2),
                           (f"benchmark_fbas(256,core=34,broken={broken})",
                            synth.benchmark_fbas(256, 34, broken=broken), not broken, 2),
-                          (f"majority_fbas(18,broken={broken})", synth.majority_fbas(18, broken=broken), not broken, 2)]
+                          (f"majority_fbas(18,broken={broken})", synth.majority_fbas(18, broken=broken), not broken, 2),
+                          # The 390-unit ring, on the warp instance's trimmed child rows.  Neither
+                          # twin intersects: the default engine's verdict is the one to match.
+                          (f"inner_set_ring_fbas(30,12,broken={broken})",
+                           synth.inner_set_ring_fbas(30, 12, broken=broken), None, 2)]
     route_rows = []
     bitset_sweep.launches = 0  # K8's main path: the bitset solves below
     for name, data, want, rounds in route_sources:
@@ -2356,10 +2462,10 @@ def bitset_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, pt
                 res = solve(text, backend="gpu-sweep")
                 runs[engine].append((time.perf_counter() - t, res))
         dense, bits = runs[None][-1][1], runs["bitset"][-1][1]
-        ok = (dense.intersects is want and bits.intersects is want
-              and (dense.q1, dense.q2, dense.stats.get("hit_index")) == (bits.q1, bits.q2, bits.stats.get("hit_index"))
+        ok = (want is None or dense.intersects is want) and bits.intersects is dense.intersects
+        ok = (ok and (dense.q1, dense.q2, dense.stats.get("hit_index")) == (bits.q1, bits.q2, bits.stats.get("hit_index"))
               and bits.stats.get("encoding") == "bitset" and "encoding" not in dense.stats
-              and (want or witness_ok(text, bits)))
+              and (bits.intersects or witness_ok(text, bits)))
         if not ok:
             fail("bitset_route", f"{name}: the bitset solve disagrees with the default one")
         for engine, label in ((None, "default"), ("bitset", "bitset")):
@@ -2367,7 +2473,7 @@ def bitset_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, pt
                 cert_jobs.append((f"bitset_route/{label}/{i}/{name}", text, res.cert))
         default_s = min(s for s, _ in runs[None])
         bitset_s = min(s for s, _ in runs["bitset"])
-        route_rows.append({"source": name, "scc": len(scc), "density": density, "verdict": want,
+        route_rows.append({"source": name, "scc": len(scc), "density": density, "verdict": dense.intersects,
                            "default_seconds": [s for s, _ in runs[None]],
                            "bitset_seconds": [s for s, _ in runs["bitset"]],
                            "default_sweep_seconds": dense.stats["seconds"], "bitset_sweep_seconds": bits.stats["seconds"],
@@ -2380,7 +2486,8 @@ def bitset_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, pt
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             solve(synth.benchmark_fbas(256, 34), backend="gpu-sweep")
             torch.cuda.synchronize()
-    main_device_ms = ms_of(device_ms_by_kernel(prof), "bitset_sweep_kernel")
+    by_kernel = device_ms_by_kernel(prof)
+    main_device_ms = ms_of(by_kernel, "bitset_lane_kernel") + ms_of(by_kernel, "bitset_sweep_kernel")
     region = cal_mod.bitset_region([(r["scc"], r["density"], r["speedup"], r["verdict_ok"]) for r in route_rows])
     committed = cal_mod.H100
     phase_line("bitset_route", card=card, rows=route_rows, launches={"bitset_sweep_cuda": main_launches},
@@ -2442,6 +2549,8 @@ def bitset_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, pt
         "bound_by": t["bound_by"],
         "library_ms": None,
         "k1_ms_same_window": t["k1_ms"],
+        "parent_ms_same_window": t.get("parent_ms"),
+        "instance_by_shape": {label: row["instance"] for label, row in timing.items()},
         "main_path_device_ms": main_device_ms,
         "main_path_device_ms_of": "bitset_route, benchmark_fbas(256, core=34) under QI_SWEEP_ENGINE=bitset",
     }
@@ -2513,6 +2622,9 @@ def main(argv=None) -> int:
     ap.add_argument("--bitset", action="store_true",
                     help="only build, then run the bitset engine's phases (compare_bitset, timing_bitset, "
                          "bitset_route, checkpoint) and check their certificates (no ok line)")
+    ap.add_argument("--k8-parent", metavar="DIR", default=None,
+                    help="a checkout (git archive) whose bitset sweep kernel timing_bitset times in turns "
+                         "with this tree's on every shape")
     ap.add_argument("--k12-parent", metavar="DIR", default=None,
                     help="a checkout (git archive) whose PageRank kernel timing_pagerank times in turns "
                          "with this tree's, per call and per iteration, beside this tree's launch shapes")
@@ -2582,7 +2694,7 @@ def main(argv=None) -> int:
         texts = {name: fixture_text(name) for name in manifest}
         work = pathlib.Path(tempfile.mkdtemp(prefix="qi-chip-smoke-"))
         cert_jobs = []
-        record = bitset_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, ptxas)
+        record = bitset_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, ptxas, args.k8_parent)
         record["instances"] = ptxas.get("bitset_sweep")
         refused, _ = check_certificates(cert_jobs, work)
         phase_line("cert", card=card, checked=len(cert_jobs), refused=refused)
@@ -3514,7 +3626,7 @@ def main(argv=None) -> int:
 
     # -- 23-26. the bitset engine: K8 against its plain version, timed beside
     # K1, routed, and the sweep's checkpoints -------------------------------
-    bitset_record = bitset_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, ptxas)
+    bitset_record = bitset_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, ptxas, args.k8_parent)
 
     # -- 27. cert: every certificate through the unmodified checker --------
     t = time.perf_counter()

@@ -27,7 +27,7 @@ _H100_PAGERANK = ("chip_smoke.py phase timing_pagerank, NVIDIA H100 80GB HBM3, 7
                   "five runs of 2026-10-17, twelve more after K12's redesign")
 
 _H100_BITSET = ("chip_smoke.py phase bitset_route, NVIDIA H100 80GB HBM3, 700.00 W power limit, "
-                "run of 2026-10-17")
+                "runs of 2026-10-17, the last after K8's redesign")
 
 _H100_FRONTIER = ("chip_smoke.py phase frontier_route, NVIDIA H100 80GB HBM3, 700.00 W power limit, "
                   "ten runs of 2026-10-17 after K9's redesign")
@@ -140,12 +140,15 @@ H100 = Calibration(
     # closed (as before the redesign: 0.29-0.70x at 63).
     frontier_win_min_scc=None,
     # Warm solves under QI_SWEEP_ENGINE=bitset (K8 and the packed bitset
-    # kernel) against the default engine, in turns: 1.115x on
-    # majority_fbas(18) (scc 18, density 1.0) but 0.862x on its broken twin,
-    # 0.283x on benchmark_fbas(256, core=34) (scc 34, density 1.0) and
-    # 0.961x on sparse_giant(400) (scc 24, density 0.148); the losses lie
-    # inside the one win's region, so by the JAX rule (bitset_region) there
-    # is none and the hint stays off.
+    # kernel) against the default engine, in turns.  Measured again after
+    # K8's redesign (its lane instance): 1.143x on benchmark_fbas(256,
+    # core=34) (scc 34, density 1.0; 0.283x before) but 0.947x on its broken
+    # twin, 1.441x on the broken sparse_giant(400) (scc 24, density 0.148)
+    # but 0.977x on its correct twin, 1.276x / 0.975x on the
+    # inner_set_ring_fbas(30, 12) twins (scc 30, density 0.123), 0.977x /
+    # 1.04x on majority_fbas(18): every win has a loss inside its region,
+    # so by the JAX rule (bitset_region) there is none and the hint stays
+    # off.
     bitset_win_min_scc=None,
     bitset_win_max_density=None,
     provenance={
@@ -158,8 +161,9 @@ H100 = Calibration(
                               "at every size from 587 to 999 634 edges",
         "frontier": f"{_H100_FRONTIER}: gpu-frontier >= 53x native at scc 24, 28, 32, 0.28-0.69x at 48, "
                     "0.32-0.61x at 63; no region (the largest measured row loses)",
-        "bitset": f"{_H100_BITSET}: bitset against the default engine 1.115x at scc 18 (density 1.0), "
-                  "0.283-0.961x at scc 18, 24 and 34; no region (losses inside the only win's region)",
+        "bitset": f"{_H100_BITSET}: bitset against the default engine 1.143-1.441x at "
+                  "scc 24, 30 and 34, 0.947-0.977x at scc 18, 24, 30 and 34; no region (a loss inside each "
+                  "win's region)",
     },
 )
 

@@ -5,6 +5,7 @@ tests can use it on a machine without them."""
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import List, Optional
 
 import numpy as np
@@ -60,6 +61,34 @@ def graph_problem(label: str, data, restrict: bool) -> BitsetProblem:
 def circuit_problem(label: str, circuit: Circuit) -> BitsetProblem:
     """A hand-made circuit whose every node is in the SCC, scoped."""
     return BitsetProblem(label, circuit, None, list(range(circuit.n)), np.ones(circuit.n, dtype=np.int32), None)
+
+
+# (source, restrict) of the CPU tests' problems: sparse_giant(400)
+# restricts to the 10 000-node default's 24-node SCC (U=32, depth 1);
+# near_disjoint_cores(6, 1) is one 13-node SCC, restricted into a Q/D pair
+# as the packed drive does; the benchmark network runs unrestricted, with
+# the Q6 frozen row.
+SOURCES = {
+    "sparse_giant": (lambda b: synth.sparse_giant(400, broken=b), True),
+    "ndc6": (lambda b: synth.near_disjoint_cores(6, 1, broken=b), True),
+    "bench40": (lambda b: synth.benchmark_fbas(40, 8, broken=b, seed=0), False),
+}
+
+# (source, broken, lo_bits, hi, starts) the schedule models run on: hits,
+# misses, a hi row and a chunk tail (sparse_giant at 10 low bits).
+MODEL_CASES = [
+    ("sparse_giant", True, 23, 0, [0, (1 << 22) + 5]),
+    ("sparse_giant", True, 10, 0x1A5, [(1 << 10) - 40]),
+    ("ndc6", True, 12, 0, [0, 1500]),
+    ("bench40", True, 7, 0, [0]),
+    ("bench40", False, 7, 0, [0]),
+]
+
+
+@lru_cache(maxsize=None)
+def source_problem(name: str, broken: bool) -> BitsetProblem:
+    make, restrict = SOURCES[name]
+    return graph_problem(name, make(broken), restrict)
 
 
 def card_problems():

@@ -48,7 +48,7 @@ from quorum_intersection_tpu_torch.pipeline import quorum_bearing_sccs, solve
 from quorum_intersection_tpu_torch.utils import telemetry
 from tools.check_cert import check_certificate
 
-from _torch_bitset_cases import BitsetProblem, circuit_problem, graph_problem
+from _torch_bitset_cases import MODEL_CASES, SOURCES, BitsetProblem, circuit_problem, graph_problem
 from _torch_cases import jax_build_graph, jax_encode, jax_parse, jax_restrict, multi_edge
 from _torch_circuits import dense_child_circuit
 
@@ -61,21 +61,10 @@ CORRECT = synth.near_disjoint_cores(6, 1)
 BROKEN = synth.near_disjoint_cores(6, 1, broken=True)
 FIXTURES = {"correct": (CORRECT, True), "broken": (BROKEN, False)}
 
-# (source, restrict): sparse_giant(400) restricts to the 10 000-node
-# default's 24-node SCC (U=32, depth 1); near_disjoint_cores(6, 1) is one
-# 13-node SCC, restricted into a Q/D pair as the packed drive does; the
-# benchmark network runs unrestricted, with the Q6 frozen row.
-PROBLEMS = {
-    "sparse_giant": (lambda b: synth.sparse_giant(400, broken=b), True),
-    "ndc6": (lambda b: synth.near_disjoint_cores(6, 1, broken=b), True),
-    "bench40": (lambda b: synth.benchmark_fbas(40, 8, broken=b, seed=0), False),
-}
-
-
 @lru_cache(maxsize=None)
 def _problem(name: str, broken: bool):
     """``(port problem, jax Q circuit, jax D circuit)`` of one source."""
-    make, restrict = PROBLEMS[name]
+    make, restrict = SOURCES[name]
     data = make(broken)
     prob = graph_problem(name, data, restrict)
     jax_whole = jax_encode(jax_build_graph(jax_parse(data)))
@@ -105,7 +94,7 @@ def _jax_program(name: str, broken: bool, lo_bits: int, steps: int):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 @pytest.mark.parametrize("broken", [False, True])
-@pytest.mark.parametrize("name", sorted(PROBLEMS))
+@pytest.mark.parametrize("name", sorted(SOURCES))
 def test_plain_k8_matches_jax_program(name, broken, case):
     prob, _, _ = _problem(name, broken)
     bits = len(prob.local) - 1
@@ -206,15 +195,6 @@ def kernel_model(t: bk.BitsetTables, lo_nodes, hi_bits: int, scc_bits: int, froz
     return INT32_MAX
 
 
-MODEL_CASES = [
-    ("sparse_giant", True, 23, 0, [0, (1 << 22) + 5]),
-    ("sparse_giant", True, 10, 0x1A5, [(1 << 10) - 40]),
-    ("ndc6", True, 12, 0, [0, 1500]),
-    ("bench40", True, 7, 0, [0]),
-    ("bench40", False, 7, 0, [0]),
-]
-
-
 @pytest.mark.parametrize("name,broken,lo_bits,hi,starts", MODEL_CASES)
 def test_kernel_model_on_its_tables_matches_plain(name, broken, lo_bits, hi, starts):
     prob, _, _ = _problem(name, broken)
@@ -235,8 +215,8 @@ def test_kernel_model_on_wide_circuits_matches_plain(which):
 
 def _check_model(prob: BitsetProblem, lo_bits, hi, starts, rows):
     lo_nodes, hi_row = prob.decode(lo_bits, hi)
-    for stream in (None, True):
-        t = bk.bitset_tables(prob.circuit, prob.circuit_d, CPU, stream)
+    for instance in (None, "streamed"):  # the warp tables of both placements
+        t = bk.bitset_tables(prob.circuit, prob.circuit_d, CPU, instance)
         plain = BitsetSweepRef(prob.circuit, lo_nodes, prob.scc_mask, prob.frozen, rows, prob.circuit_d, CPU)
         for start in starts:
             want = int(plain.program(start, 1, hi_row if hi_row.any() else None))
@@ -254,7 +234,7 @@ def test_tables_pick_the_instance_from_their_size():
     assert small.resident and not wide.resident and wide.units_pad == 3008
     assert bk.smem_bytes(wide.units_pad, wide.n_words, True, wide.warps) > bk.SMEM_LIMIT
     with pytest.raises(bk.KernelLimitError, match="resident instance"):
-        bk.bitset_tables(dense_child_circuit(units=3001), None, CPU, stream=False)
+        bk.bitset_tables(dense_child_circuit(units=3001), None, CPU, instance="resident")
     with pytest.raises(bk.KernelLimitError, match="one bit per member"):
         bk.bitset_tables(encode_circuit(build_graph(parse_fbas(multi_edge(9, 5, "E")))), None, CPU)
 

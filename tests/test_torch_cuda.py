@@ -916,21 +916,25 @@ def _bitset_cases():
     return card_problems()
 
 
-@pytest.mark.parametrize("stream", [False, True])
-def test_bitset_kernel_matches_plain_on_both_instances(stream, cuda_device):
+@pytest.mark.parametrize("instance", ["lanes", "resident", "streamed"])
+def test_bitset_kernel_matches_plain_on_both_instances(instance, cuda_device):
     """K8 against its plain version on every card problem, the instance
-    forced (resident only where the tables fit one block)."""
+    forced: the lane instance where it takes the circuit (at most 128
+    units), the warp instance resident where its tables fit one block,
+    streamed everywhere."""
     from quorum_intersection_tpu_torch.kernels.bitset_sweep_cuda import BitsetSweep, bitset_sweep
     from quorum_intersection_tpu_torch.kernels.bitset_sweep_ref import BitsetSweepRef
 
-    hits = 0
+    hits = ran = 0
     for prob, lo_bits, his, starts, batch, steps in _bitset_cases():
         try:
             kern = BitsetSweep(prob.circuit, prob.decode(lo_bits)[0], prob.scc_mask, prob.frozen, batch,
-                               prob.circuit_d, cuda_device, stream=stream)
+                               prob.circuit_d, cuda_device, instance=instance)
         except KernelLimitError:
-            assert not stream  # the resident instance only where the tables fit
+            assert instance != "streamed"  # the streamed warp instance takes every circuit
+            assert instance != "lanes" or prob.circuit.n_units > 128
             continue
+        ran += 1
         plain = BitsetSweepRef(prob.circuit, prob.decode(lo_bits)[0], prob.scc_mask, prob.frozen, batch,
                                prob.circuit_d, cuda_device)
         for hi in his:
@@ -940,9 +944,9 @@ def test_bitset_kernel_matches_plain_on_both_instances(stream, cuda_device):
                 got = int(kern.program(start, steps, mask_bits(hi_row)))
                 assert bitset_sweep.launches == launches + 1
                 want = int(plain.program(start, steps, hi_row if hi_row.any() else None))
-                assert got == want, (prob.label, stream, hi, start)
+                assert got == want, (prob.label, instance, hi, start)
                 hits += want != ref.INT32_MAX
-    assert hits > 0
+    assert hits > 0 and ran >= 10
 
 
 def test_bitset_kernel_limits_raise_before_launch(cuda_device):
@@ -970,15 +974,20 @@ def test_bitset_kernel_limits_raise_before_launch(cuda_device):
     for resident in (True, False):
         assert lib.qi_bitset_sweep_smem(t.units_pad, t.n_words, int(resident), t.warps) == \
             bk.smem_bytes(t.units_pad, t.n_words, resident, t.warps)
+    assert t.instance == "lanes"
+    for n_units, cw in ((t.lanes.n_units, t.lanes.cw), (100, 4), (34, 0)):
+        assert lib.qi_bitset_lanes_smem(n_units, cw) == bk.lane_smem_bytes(n_units, cw)
 
 
-def test_bitset_kernel_is_bit_identical_over_repeated_launches(cuda_device):
-    """21 launches of the same windows (a hit among them) give one answer."""
+@pytest.mark.parametrize("instance", ["lanes", "resident"])
+def test_bitset_kernel_is_bit_identical_over_repeated_launches(instance, cuda_device):
+    """21 launches of the same windows (a hit among them) give one answer,
+    on the lane instance and the warp instance."""
     from quorum_intersection_tpu_torch.kernels.bitset_sweep_cuda import BitsetSweep
 
     prob = next(c[0] for c in _bitset_cases() if c[0].label.startswith("sparse_giant(400,broken=True)"))
     kern = BitsetSweep(prob.circuit, prob.decode(23)[0], prob.scc_mask, prob.frozen, 1 << 14,
-                       prob.circuit_d, cuda_device)
+                       prob.circuit_d, cuda_device, instance=instance)
     for start in (0, 1 << 20):
         first = [int(kern.program(start, 4)) for _ in range(21)]
         assert len(set(first)) == 1, (start, first)
