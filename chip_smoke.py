@@ -8,6 +8,7 @@
     python3 chip_smoke.py --bitset       # build, then only the bitset engine's phases (23-26) and their certificates
     python3 chip_smoke.py --pagerank --k12-parent DIR   # ... and DIR's K12 and this one's launch shapes in turns
     python3 chip_smoke.py --bitset --k8-parent DIR      # ... and DIR's K8 in turns with this one on every shape
+    python3 chip_smoke.py --observe      # build, then only observe, faults and query (27-29) and their certificates
 
 Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
 
@@ -233,7 +234,40 @@ Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
               (``resumed_from`` > 0, checked + resumed == the enumeration,
               the checker's "checkpoint-resumed" note), written and resumed
               by the default engine, and across engines both ways;
-27. cert    — every certificate the runs above produced (CLI ``--cert-out``
+27. observe — ``python -m quorum_intersection_tpu_torch`` on the snapshot
+              fixtures under ``gpu-sweep`` and ``auto`` with ``--timing
+              --metrics-json --metrics-prom --trace-out --cert-out`` at once:
+              verdicts and exit codes, the ``--timing`` lines before the
+              ``[telemetry]`` ones, the JSONL opening with its meta line and
+              rendered by ``tools/metrics_report.py``, the ``sweep.window``
+              events' candidates summing to ``cert.windows_enumerated`` and
+              the certificate's ledger where the sweep answered, the Chrome
+              trace loading with its spans, every counter in the Prometheus
+              file; then the full-width twin warm in one process without and
+              with a ``JsonlSink``, in turns, three times each (both medians;
+              K1's launches counted);
+28. faults  — ``QI_FAULTS`` through the CLI: one fire each of
+              ``sweep.dispatch``, ``sweep.compile``, ``sweep.bitset`` (under
+              ``QI_SWEEP_ENGINE=bitset``), ``sweep.prune`` (under
+              ``QI_SWEEP_PRUNE=1``) and ``frontier.chunk`` exits with the
+              point's name on stderr and no verdict line; ``checkpoint.write``
+              and ``cert.write`` keep the verdict and exit code and raise
+              their counters; a ``FaultPreempted`` at the 33rd window of a
+              ``--checkpoint`` 2^30 sweep (``benchmark_fbas(256, core=31)``,
+              and ``late_hit_fbas(29)`` whose first hit lies at 2^28 + 15),
+              then a rerun: resumed past zero, the uninterrupted run's
+              verdict and hit index;
+29. query   — ``python -m quorum_intersection_tpu_torch query`` on the card
+              against ``--device cpu``: ``relaxed`` on both
+              ``two_family_preset`` twins, ``whatif`` (``max_k`` 2) on
+              ``snapshot_correct.json`` under ``gpu-sweep`` (the default 16
+              candidates, 137 variants) and ``auto`` (8 candidates, 37
+              variants; the CPU runs under ``cpp``), ``analytics`` for
+              all four metrics on ``nested_correct.json``: equal lines and
+              exit codes, each call's wall time;
+              then the ``gpu-sweep`` what-if in process with K3's and K4's
+              launches counted (K3 must launch);
+30. cert    — every certificate the runs above produced (CLI ``--cert-out``
               under auto, gpu-sweep and gpu-frontier, ``solve`` and
               ``check_many`` on both engines, pruned, rank-ordered and
               frontier runs with every block) checked by the unmodified
@@ -2556,6 +2590,291 @@ def bitset_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, pt
     }
 
 
+def load_trace(path):
+    """A trace-event file as Perfetto loads it (the array is left open)."""
+    text = pathlib.Path(path).read_text().strip()
+    if text.endswith(","):
+        text = text[:-1]
+    if not text.endswith("]"):
+        text += "]"
+    return {"traceEvents": json.loads(text)}
+
+
+def stderr_stats(err: str) -> dict:
+    """The ``[stats] key: value`` lines ``--timing`` prints, as text."""
+    return dict(line[len("[stats] "):].split(": ", 1) for line in err.splitlines() if line.startswith("[stats] "))
+
+
+def observe_phase(device, card, texts, manifest, cert_jobs, work):
+    """Phase observe: the CLI's observability flags on the card, then the
+    JSONL sink's cost on the full-width solve, in turns."""
+    from statistics import median
+
+    from quorum_intersection_tpu_torch.backends.sweep import GpuSweepBackend
+    from quorum_intersection_tpu_torch.fbas import synth
+    from quorum_intersection_tpu_torch.kernels.sweep_cuda import sweep_fused
+    from quorum_intersection_tpu_torch.pipeline import solve
+    from quorum_intersection_tpu_torch.utils import telemetry
+
+    t0 = time.perf_counter()
+    keys, cmds, inputs = [], [], []
+    for name in ("snapshot_correct.json", "snapshot_broken.json"):
+        for backend in ("gpu-sweep", "auto"):
+            stem = work / f"observe-{backend}-{name[:-5]}"
+            files = {k: pathlib.Path(f"{stem}.{k}") for k in ("jsonl", "prom", "trace.json", "cert.json")}
+            cmds.append([sys.executable, "-m", PORT, "--backend", backend, "--timing",
+                         "--metrics-json", str(files["jsonl"]), "--metrics-prom", str(files["prom"]),
+                         "--trace-out", str(files["trace.json"]), "--cert-out", str(files["cert.json"])])
+            keys.append((name, backend, files))
+            inputs.append(texts[name])
+    runs = run_all(cmds, inputs=inputs)
+    reports = run_all([[sys.executable, str(ROOT / "tools" / "metrics_report.py"), str(files["jsonl"]),
+                        "--windows", "4"] for _, _, files in keys])
+    rows = []
+    for (name, backend, files), (so, se, rc, secs), (rso, rse, rrc, _) in zip(keys, runs, reports):
+        label = f"{backend} {name}"
+        want = manifest[name]["verdict"]
+        if so.strip() != ("true" if want else "false") or rc != (0 if want else 1):
+            fail("observe", f"{label}: printed {so[-40:]!r} exit {rc}; stderr {se[-600:]!r}")
+        err = se.splitlines()
+        legacy = [i for i, ln in enumerate(err) if ln.startswith(("[timing]", "[stats]"))]
+        telem = [i for i, ln in enumerate(err) if ln.startswith("[telemetry]")]
+        if not legacy or not telem or max(legacy) > min(telem):
+            fail("observe", f"{label}: --timing lines out of order")
+        lines = [json.loads(ln) for ln in files["jsonl"].read_text().splitlines()]
+        if lines[0].get("schema") != "qi-telemetry/1":
+            fail("observe", f"{label}: the JSONL does not open with its meta line")
+        if rrc != 0 or "per-phase spans" not in rso:
+            fail("observe", f"{label}: tools/metrics_report.py exit {rrc} {rse[-300:]!r}")
+        counters = {ln["name"]: ln["value"] for ln in lines if ln["kind"] == "counter"}
+        windows = [ln["attrs"]["candidates"] for ln in lines if ln["kind"] == "event" and ln["name"] == "sweep.window"]
+        cert = json.loads(files["cert.json"].read_text())
+        cert_jobs.append((f"observe/{label}", texts[name], cert))
+        answered_by = cert["provenance"]["backend"]
+        ledger = (cert.get("coverage") or {"sccs": [{}]})["sccs"][0].get("windows_enumerated")
+        if answered_by == "gpu-sweep":
+            if sum(windows) != counters.get("cert.windows_enumerated") or not windows:
+                fail("observe", f"{label}: sweep.window candidates {sum(windows)} != cert.windows_enumerated "
+                                f"{counters.get('cert.windows_enumerated')}")
+            if ledger is not None and ledger != sum(windows):
+                fail("observe", f"{label}: the certificate's ledger {ledger} != the windows' {sum(windows)}")
+        trace = load_trace(files["trace.json"])
+        spans = {e["name"] for e in trace["traceEvents"] if e.get("ph") == "X"}
+        if not {"phase.parse", "phase.scc"} <= spans:
+            fail("observe", f"{label}: the Chrome trace lacks the phase spans ({sorted(spans)[:8]})")
+        prom = files["prom"].read_text()
+        missing = [c for c in counters if f"qi_{''.join(ch if ch.isalnum() else '_' for ch in c)} " not in prom]
+        if missing:
+            fail("observe", f"{label}: counters missing from the Prometheus file: {missing}")
+        rows.append({"run": label, "exit": rc, "process_s": secs, "answered_by": answered_by,
+                     "sweep_windows": len(windows), "windows_enumerated": counters.get("cert.windows_enumerated"),
+                     "ledger": ledger, "trace_events": len(trace["traceEvents"]),
+                     "trace_tids": len({e.get("tid") for e in trace["traceEvents"] if e.get("ph") == "X"}),
+                     "jsonl_lines": len(lines), "prom_lines": len(prom.splitlines())})
+
+    # The JSONL sink's cost on the hot path: the full-width twin, warm, in
+    # one process, without and with a sink in turns.
+    full = json.dumps(synth.benchmark_fbas(256, 34))
+    solve(full, backend=GpuSweepBackend())
+    turns = {"without": [], "with": []}
+    events = []
+    sweep_fused.launches = 0
+    for arm in ("without", "with", "with", "without", "without", "with"):
+        rec = telemetry.reset_run_record()
+        if arm == "with":
+            rec.add_sink(telemetry.JsonlSink(str(work / f"overhead-{len(turns['with'])}.jsonl")))
+        t = time.perf_counter()
+        res = solve(full, backend=GpuSweepBackend())
+        turns[arm].append(time.perf_counter() - t)
+        if not res.intersects:
+            fail("observe", "the full-width correct twin did not intersect")
+        events.append(sum(1 for ev in rec.events if ev["name"] == "sweep.window"))
+        rec.finish()
+    launches = sweep_fused.launches
+    telemetry.reset_run_record()
+    if launches < 1:
+        fail("observe", "the full-width solves never launched sweep_fused_cuda")
+    phase_line("observe", card=card, seconds=round(time.perf_counter() - t0, 3), cli=rows,
+               overhead={"config": "benchmark_fbas(256, core=34), 2^33 candidates, warm, one process",
+                         "without_s": turns["without"], "with_s": turns["with"],
+                         "median_without_s": median(turns["without"]), "median_with_s": median(turns["with"]),
+                         "sweep_window_events_per_solve": sorted(set(events))},
+               launches={"sweep_fused_cuda": launches})
+
+
+def faults_phase(device, card, texts, cert_jobs, work):
+    """Phase faults: fired faults through the CLI on the card."""
+    import os
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_faults_cases import late_hit_fbas
+
+    from quorum_intersection_tpu_torch.fbas import synth
+
+    t0 = time.perf_counter()
+    base_env = dict(os.environ)
+    for var in ("QI_FAULTS", "QI_SWEEP_ENGINE", "QI_SWEEP_PRUNE"):
+        base_env.pop(var, None)
+
+    def cli(args, text, **env):
+        return args, text, dict(base_env, **env)
+
+    snapshot = texts["snapshot_correct.json"]
+    jobs = {
+        "sweep.dispatch": cli(["--backend", "gpu-sweep"], snapshot, QI_FAULTS="sweep.dispatch=error"),
+        "sweep.compile": cli(["--backend", "gpu-sweep"], snapshot, QI_FAULTS="sweep.compile=error"),
+        "sweep.bitset": cli(["--backend", "gpu-sweep"], snapshot, QI_FAULTS="sweep.bitset=error",
+                            QI_SWEEP_ENGINE="bitset"),
+        "sweep.prune": cli(["--backend", "gpu-sweep"], snapshot, QI_FAULTS="sweep.prune=error", QI_SWEEP_PRUNE="1"),
+        "frontier.chunk": cli(["--backend", "gpu-frontier"], snapshot, QI_FAULTS="frontier.chunk=error"),
+    }
+    # Host-only points: the verdict and exit code stand, the counter rises.
+    for point in ("checkpoint.write", "cert.write"):
+        stem = work / f"fault-{point}"
+        jobs[point] = cli(["--backend", "gpu-sweep", "--checkpoint", f"{stem}.ckpt", "--cert-out", f"{stem}.cert",
+                           "--metrics-json", f"{stem}.jsonl"], snapshot, QI_FAULTS=f"{point}=oserror")
+    # Preempted at the 33rd program of a 2^30 sweep (1 of 33 drained), with
+    # a checkpoint; the same sweeps uninterrupted beside them.
+    twins = {"benchmark_fbas(256,core=31)": json.dumps(synth.benchmark_fbas(256, 31)),
+             "late_hit_fbas(29)": json.dumps(late_hit_fbas(29))}
+    for label, text in twins.items():
+        jobs[f"preempt {label}"] = cli(["--backend", "gpu-sweep", "--timing", "--checkpoint",
+                                        str(work / f"preempt-{label}.ckpt")], text,
+                                       QI_FAULTS="sweep.window=preempt@33")
+        jobs[f"plain {label}"] = cli(["--backend", "gpu-sweep", "--timing"], text)
+    names = list(jobs)
+    # One wave: the 11 processes wait on the card's kernels, not the CPU.
+    runs = run_all([[sys.executable, "-m", PORT, *jobs[n][0]] for n in names],
+                   inputs=[jobs[n][1] for n in names], envs=[jobs[n][2] for n in names], parallel=len(names))
+    out = dict(zip(names, runs))
+    rows = {}
+    for point in ("sweep.dispatch", "sweep.compile", "sweep.bitset", "sweep.prune", "frontier.chunk"):
+        so, se, rc, secs = out[point]
+        if rc == 0 or so.strip() or point not in se or "FaultInjected" not in se:
+            fail("faults", f"{point}: exit {rc}, stdout {so[-40:]!r} (a quiet degrade prints a verdict); "
+                           f"stderr {se[-400:]!r}")
+        rows[point] = {"exit": rc, "stdout": so, "process_s": secs}
+    for point, counter in (("checkpoint.write", "checkpoint.save_errors"), ("cert.write", "cert.write_errors")):
+        so, se, rc, secs = out[point]
+        stem = work / f"fault-{point}"
+        lines = [json.loads(ln) for ln in pathlib.Path(f"{stem}.jsonl").read_text().splitlines()]
+        counters = {ln["name"]: ln["value"] for ln in lines if ln["kind"] == "counter"}
+        if rc != 0 or so.strip() != "true" or counters.get(counter, 0) < 1 or counters.get("faults.injected", 0) < 1:
+            fail("faults", f"{point}: exit {rc}, stdout {so!r}, {counter} {counters.get(counter)}; {se[-300:]!r}")
+        rows[point] = {"exit": rc, "stdout": so.strip(), counter: counters[counter], "process_s": secs}
+    for label, text in twins.items():
+        so, se, rc, _ = out[f"preempt {label}"]
+        if rc == 0 or so.strip() or "FaultPreempted" not in se or not (work / f"preempt-{label}.ckpt").exists():
+            fail("faults", f"preempt {label}: exit {rc} stdout {so!r} {se[-400:]!r}")
+    recorded = {label: json.loads((work / f"preempt-{label}.ckpt").read_text())["position"] for label in twins}
+    reruns = run_all([[sys.executable, "-m", PORT, "--backend", "gpu-sweep", "--timing", "--checkpoint",
+                       str(work / f"preempt-{label}.ckpt"), "--cert-out", str(work / f"preempt-{label}.cert.json")]
+                      for label in twins], inputs=list(twins.values()), envs=[base_env] * len(twins))
+    resumes = []
+    for (label, text), (so2, se2, rc2, secs2) in zip(twins.items(), reruns):
+        pso, pse, prc, psecs = out[f"plain {label}"]
+        resumed, plain = stderr_stats(se2), stderr_stats(pse)
+        if not (recorded[label] > 0 and resumed.get("resumed_from") == str(recorded[label])
+                and (so2, rc2) == (pso, prc) and resumed.get("hit_index") == plain.get("hit_index")
+                and not (work / f"preempt-{label}.ckpt").exists()):
+            fail("faults", f"resume {label}: recorded {recorded[label]}, resumed {resumed.get('resumed_from')}, "
+                           f"{so2.strip()}/{rc2} against {pso.strip()}/{prc}, hit {resumed.get('hit_index')} "
+                           f"against {plain.get('hit_index')}; {se2[-300:]!r}")
+        cert_jobs.append((f"faults/resumed {label}", text,
+                          json.loads((work / f"preempt-{label}.cert.json").read_text())))
+        resumes.append({"network": label, "recorded_position": recorded[label], "verdict": so2.strip(),
+                        "hit_index": resumed.get("hit_index"), "uninterrupted_hit_index": plain.get("hit_index"),
+                        "resumed_s": secs2, "uninterrupted_s": psecs})
+    phase_line("faults", card=card, seconds=round(time.perf_counter() - t0, 3), fired=rows, preempt=resumes)
+
+
+def query_phase(device, card, texts, cert_jobs, work):
+    """Phase query: the query subcommand on the card against --device cpu."""
+    from quorum_intersection_tpu_torch.fbas import synth
+    from quorum_intersection_tpu_torch.fbas.graph import build_graph
+    from quorum_intersection_tpu_torch.fbas.schema import parse_fbas
+    from quorum_intersection_tpu_torch.kernels.packed_cuda import packed_sweep_bitset, packed_sweep_dense
+    from quorum_intersection_tpu_torch.pipeline import quorum_bearing_sccs
+    from quorum_intersection_tpu_torch.query import Query, QueryEngine, mask_nodes
+
+    t0 = time.perf_counter()
+    snapshot = texts["snapshot_correct.json"]
+    # (label, the card's flags, the CPU run's flags, stdin).  The CPU run of a
+    # what-if takes the native oracle (the plain sweep of 137 snapshot
+    # variants would take the CPU most of an hour); the analytics run on
+    # nested_correct (a splitting-set search of the snapshot's 21-node SCC is
+    # 232 host solves, minutes a run).
+    nested = texts["nested_correct.json"]
+    jobs = []
+    for broken in (False, True):
+        fa, fb = synth.two_family_preset(broken=broken)
+        fb_file = work / f"family_b-{broken}.json"
+        fb_file.write_text(json.dumps(fb))
+        args = ["--kind", "relaxed", "--family-b", str(fb_file)]
+        jobs.append((f"relaxed two_family_preset(broken={broken})", args, args, json.dumps(fa)))
+    # The gpu-sweep what-if takes the default candidates (the SCC's first 16:
+    # 137 variants, lane-packed); the auto one, which races each variant
+    # alone, the first 8 of them (37 variants).
+    whatif = ["--kind", "whatif", "--max-k", "2"]
+    graph = build_graph(parse_fbas(snapshot))
+    first8 = [graph.node_ids[v] for _, scc in quorum_bearing_sccs(graph) for v in sorted(scc)][:8]
+    auto_whatif = whatif + [flag for key in first8 for flag in ("--remove", key)]
+    jobs.append(("whatif max_k 2 gpu-sweep snapshot_correct", whatif + ["--backend", "gpu-sweep"],
+                 whatif + ["--backend", "cpp"], snapshot))
+    jobs.append(("whatif max_k 2 auto snapshot_correct, 8 candidates", auto_whatif, auto_whatif + ["--backend", "cpp"],
+                 snapshot))
+    for metric in ("top_tier", "blocking_set", "splitting_set", "pagerank"):
+        args = ["--kind", "analytics", "--metric", metric]
+        jobs.append((f"analytics {metric} nested_correct", args, args, nested))
+    cmds, inputs, cpu_of = [], [], {}
+    for i, (label, args, cpu_args, text) in enumerate(jobs):
+        cmds.append([sys.executable, "-m", PORT, "query", *args, "--device", "cuda",
+                     "--cert-out", str(work / f"query{i}-cuda.json")])
+        inputs.append(text)
+        key = (tuple(cpu_args), text)
+        if key not in cpu_of:
+            cpu_of[key] = len(cmds)
+            cmds.append([sys.executable, "-m", PORT, "query", *cpu_args, "--device", "cpu"])
+            inputs.append(text)
+    starts = [i for i, c in enumerate(cmds) if "cuda" in c]
+    runs = run_all(cmds, inputs=inputs)
+    rows = []
+    for i, (label, _, cpu_args, text) in enumerate(jobs):
+        (so, se, rc, secs), (cso, cse, crc, csecs) = runs[starts[i]], runs[cpu_of[(tuple(cpu_args), text)]]
+        try:
+            line, cpu_line = json.loads(so), json.loads(cso)
+        except json.JSONDecodeError:
+            fail("query", f"{label}: no result line (exit {rc}/{crc}); {se[-400:]!r} {cse[-200:]!r}")
+        failing = line["result"].pop("failing_cert", None)
+        cpu_line["result"].pop("failing_cert", None)
+        if (line, rc) != (cpu_line, crc) or "error" in line:
+            fail("query", f"{label}: the card's {so[:300]!r} (exit {rc}) != the CPU's {cso[:300]!r} (exit {crc})")
+        cert = json.loads((work / f"query{i}-cuda.json").read_text())
+        cert_jobs.append((f"query/{label}", text, cert))
+        if failing is not None:
+            masked = mask_nodes(json.loads(text), line["result"]["minimal_failing"])
+            cert_jobs.append((f"query/{label} failing variant", json.dumps(masked), failing))
+        rows.append({"query": label, "verdict": line["verdict"], "exit": rc, "card_s": secs, "cpu_s": csecs,
+                     **({"variants": line["result"]["variants"], "minimal_failing": line["result"]["minimal_failing"]}
+                        if line["kind"] == "whatif" else {})})
+    # The what-if query in process with the launch counts reset before and
+    # read after: under gpu-sweep its variants lane-pack through K3.
+    packed_sweep_dense.launches = packed_sweep_bitset.launches = 0
+    t = time.perf_counter()
+    out = QueryEngine(backend="gpu-sweep").resolve(json.loads(snapshot), Query.parse({"kind": "whatif", "max_k": 2}))
+    in_process_s = time.perf_counter() - t
+    launches = {"packed_sweep_dense_cuda": packed_sweep_dense.launches,
+                "packed_sweep_bitset_cuda": packed_sweep_bitset.launches}
+    if launches["packed_sweep_dense_cuda"] < 1:
+        fail("query", "the what-if query under gpu-sweep never launched packed_sweep_dense_cuda")
+    whatif_cli = next(r for r in rows if r["query"] == "whatif max_k 2 gpu-sweep snapshot_correct")
+    if out.result["minimal_failing"] != whatif_cli["minimal_failing"]:
+        fail("query", "the in-process what-if disagrees with the CLI's")
+    phase_line("query", card=card, seconds=round(time.perf_counter() - t0, 3), runs=rows,
+               whatif_in_process={"seconds": in_process_s, "variants": out.result["variants"],
+                                  "launches": launches})
+
+
 def check_certificates(cert_jobs, work):
     """Every ``(label, source, certificate)`` through the unmodified
     ``tools/check_cert.py`` in a subprocess, from raw JSON: ``(refused,
@@ -2573,25 +2892,41 @@ def check_certificates(cert_jobs, work):
     return bad, checked
 
 
-def run_all(cmds, inputs=None, parallel: int = 8, timeout: int = 600):
-    """Run every command, at most ``parallel`` at once; returns
-    ``[(stdout, stderr, returncode, seconds)]`` in order.  Every process
-    started is waited for."""
+def run_all(cmds, inputs=None, parallel: int = 8, timeout: int = 600, envs=None):
+    """Run every command (``envs``: each one's environment, None for this
+    process's), at most ``parallel`` at once, each on a thread of its own;
+    returns ``[(stdout, stderr, returncode, seconds)]`` in order, each
+    process timed from its start to its exit.  A process past ``timeout`` is
+    killed (its return code then negative).  Every process started is waited
+    for."""
+    import threading
+
     out = [None] * len(cmds)
-    running = []
-    pending = list(range(len(cmds)))
-    try:
-        while pending or running:
-            while pending and len(running) < parallel:
-                i = pending.pop(0)
-                proc = subprocess.Popen(cmds[i], cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-                                        stderr=subprocess.PIPE, text=True)
-                running.append((i, proc, time.perf_counter()))
-            i, proc, t = running.pop(0)
-            so, se = proc.communicate(None if inputs is None else inputs[i], timeout=timeout)
+    slots = threading.Semaphore(parallel)
+    started = []
+
+    def run(i):
+        with slots:
+            t = time.perf_counter()
+            proc = subprocess.Popen(cmds[i], cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True, env=None if envs is None else envs[i])
+            started.append(proc)
+            try:
+                so, se = proc.communicate(None if inputs is None else inputs[i], timeout=timeout)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                so, se = proc.communicate()
+                se += f"\n[killed after {timeout} s]"
             out[i] = (so, se, proc.returncode, time.perf_counter() - t)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(cmds))]
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
     finally:
-        for _, proc, _ in running:
+        for proc in started:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
@@ -2625,6 +2960,9 @@ def main(argv=None) -> int:
     ap.add_argument("--k8-parent", metavar="DIR", default=None,
                     help="a checkout (git archive) whose bitset sweep kernel timing_bitset times in turns "
                          "with this tree's on every shape")
+    ap.add_argument("--observe", action="store_true",
+                    help="only build, then run the observability, fault and query phases (observe, faults, "
+                         "query) and check their certificates (no ok line)")
     ap.add_argument("--k12-parent", metavar="DIR", default=None,
                     help="a checkout (git archive) whose PageRank kernel timing_pagerank times in turns "
                          "with this tree's, per call and per iteration, beside this tree's launch shapes")
@@ -2677,6 +3015,20 @@ def main(argv=None) -> int:
         record["instances"] = ptxas.get("pagerank")
         print(json.dumps({"kernels": [record]}), flush=True)
         return 0
+
+    if args.observe:
+        import tempfile
+
+        manifest = json.loads((FIXTURES / "MANIFEST.json").read_text())
+        texts = {name: fixture_text(name) for name in manifest}
+        work = pathlib.Path(tempfile.mkdtemp(prefix="qi-chip-smoke-"))
+        cert_jobs = []
+        observe_phase(device, card, texts, manifest, cert_jobs, work)
+        faults_phase(device, card, texts, cert_jobs, work)
+        query_phase(device, card, texts, cert_jobs, work)
+        refused, _ = check_certificates(cert_jobs, work)
+        phase_line("cert", card=card, checked=len(cert_jobs), refused=refused)
+        return 1 if refused else 0
 
     if args.bitset:
         import tempfile
@@ -3628,7 +3980,12 @@ def main(argv=None) -> int:
     # K1, routed, and the sweep's checkpoints -------------------------------
     bitset_record = bitset_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, ptxas, args.k8_parent)
 
-    # -- 27. cert: every certificate through the unmodified checker --------
+    # -- 27-29. the observability and fault layer and the query subcommand --
+    observe_phase(device, card, texts, manifest, cert_jobs, work)
+    faults_phase(device, card, texts, cert_jobs, work)
+    query_phase(device, card, texts, cert_jobs, work)
+
+    # -- 30. cert: every certificate through the unmodified checker --------
     t = time.perf_counter()
     bad, checked = check_certificates(cert_jobs, work)
     cert_wall = time.perf_counter() - t

@@ -44,7 +44,6 @@ platform probe.
 from __future__ import annotations
 
 import logging
-import os
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple, TypeVar
@@ -66,7 +65,8 @@ from quorum_intersection_tpu_torch.encode.circuit import Circuit
 from quorum_intersection_tpu_torch.fbas.graph import TrustGraph
 from quorum_intersection_tpu_torch.fbas.synth import scc_qset_density
 from quorum_intersection_tpu_torch.utils.checkpoint import SweepCheckpoint
-from quorum_intersection_tpu_torch.utils.telemetry import Span, get_run_record
+from quorum_intersection_tpu_torch.utils.env import qi_env, qi_env_float
+from quorum_intersection_tpu_torch.utils.telemetry import Span, dump_flight_recorder, get_run_record
 
 _T = TypeVar("_T")
 
@@ -120,10 +120,7 @@ def _race_sync(point: str) -> None:
 def _watchdog_seconds() -> float:
     """``QI_NATIVE_WATCHDOG_S`` as the JAX package reads it: seconds, 0 (the
     default, also for a malformed value) meaning no watchdog."""
-    try:
-        return float(os.environ.get("QI_NATIVE_WATCHDOG_S", "0"))
-    except ValueError:
-        return 0.0
+    return qi_env_float("QI_NATIVE_WATCHDOG_S", 0.0)
 
 
 class RungFailed(RuntimeError):
@@ -163,6 +160,7 @@ class DegradationLadder:
         rec.add("ladder.quarantines")
         rec.event("ladder.quarantined", rung=rung, cause=str(cause))
         rec.gauge("ladder.quarantined_rungs", sorted(self._quarantined))
+        dump_flight_recorder(f"quarantine:{rung}")
         log.warning("ladder: rung %r quarantined for this run (%s)", rung, cause)
 
     def record_degrade(self, rung: str, to: str, cause: object) -> None:
@@ -172,6 +170,7 @@ class DegradationLadder:
         rec = get_run_record()
         rec.add("ladder.degrades")
         rec.event("degrade", rung=rung, to=to, cause=str(cause), attempts=1, transient=False)
+        dump_flight_recorder(f"degrade:{rung}->{to}")
         log.info("ladder: %s -> %s (%s)", rung, to, cause)
 
     def attempt(self, rung: str, fn: Callable[[], _T], fall_to: str) -> _T:
@@ -265,6 +264,7 @@ class _WatchedNativeOracle:
             now = time.monotonic()
             if grace_deadline is None and now >= deadline:
                 get_run_record().event("native.watchdog_cancel", deadline_s=self._watchdog_s, scc=len(scc))
+                dump_flight_recorder("watchdog:native")
                 log.warning("native call exceeded %.2fs watchdog deadline; tripping its cancel token",
                             self._watchdog_s)
                 if self._native_cancel is not None:
@@ -408,7 +408,7 @@ class AutoBackend:
         (the ctor argument this feeds would override the variable).  The
         region extends up the |scc| axis only, never past the densest
         measured win."""
-        if os.environ.get("QI_SWEEP_ENGINE", "").strip():
+        if qi_env("QI_SWEEP_ENGINE").strip():
             return None
         cal = self.calibration()
         win, dmax = cal.bitset_win_min_scc, cal.bitset_win_max_density

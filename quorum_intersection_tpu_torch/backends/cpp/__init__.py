@@ -46,6 +46,7 @@ from quorum_intersection_tpu_torch.backends.base import (
 from quorum_intersection_tpu_torch.encode.circuit import Circuit
 from quorum_intersection_tpu_torch.fbas.graph import IndexedQSet, TrustGraph
 from quorum_intersection_tpu_torch.fbas.schema import MAX_QSET_DEPTH
+from quorum_intersection_tpu_torch.utils.faults import fault_point
 from quorum_intersection_tpu_torch.utils.telemetry import Span, get_run_record
 
 log = logging.getLogger("quorum_intersection_tpu_torch.backends.cpp")
@@ -92,6 +93,8 @@ def build_library(force: bool = False) -> Path:
     tmp = out.with_name(out.name + f".tmp{os.getpid()}")
     cmd = ["g++", *GXX_FLAGS, "-o", str(tmp), str(SRC)]
     log.info("building the native oracle: %s", " ".join(cmd))
+    # A broken toolchain: the auto router degrades to the Python oracle.
+    fault_point("native.build")
     proc = _run_gxx(cmd)
     if proc.returncode != 0:
         raise RuntimeError(f"native oracle build failed (exit {proc.returncode}):\n{proc.stderr}")
@@ -239,6 +242,9 @@ class CppOracleBackend:
         self, call_span: Span, graph: TrustGraph, scc: List[int], scope_to_scc: bool
     ) -> SccCheckResult:
         call_id = call_span.span_id
+        # A crashed (error) or wedged (hang) native call: the auto router's
+        # ladder degrades or, past the watchdog, quarantines the rung.
+        fault_point("native.call")
         lib = _load()
         flat = FlatGraph(graph)
         scc_arr = np.asarray(scc, dtype=np.int32)

@@ -49,7 +49,6 @@ CPU or to the plain versions.
 from __future__ import annotations
 
 import logging
-import os
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -63,6 +62,8 @@ from quorum_intersection_tpu_torch.encode.circuit import Circuit
 from quorum_intersection_tpu_torch.fbas.graph import TrustGraph
 from quorum_intersection_tpu_torch.fbas.semantics import max_quorum
 from quorum_intersection_tpu_torch.kernels.frontier_ref import ChunkShape, frozen_row
+from quorum_intersection_tpu_torch.utils.env import qi_env_float
+from quorum_intersection_tpu_torch.utils.faults import fault_point
 from quorum_intersection_tpu_torch.utils.telemetry import get_run_record
 
 log = logging.getLogger("quorum_intersection_tpu_torch.backends.frontier")
@@ -222,10 +223,7 @@ class GpuFrontierBackend:
         if checkpoint_interval_s is None:
             # QI_FRONTIER_CKPT_INTERVAL_S as the JAX package reads it: seconds
             # between checkpoint writes, 5 when unset or malformed.
-            try:
-                checkpoint_interval_s = float(os.environ.get("QI_FRONTIER_CKPT_INTERVAL_S", "5.0"))
-            except ValueError:
-                checkpoint_interval_s = 5.0
+            checkpoint_interval_s = qi_env_float("QI_FRONTIER_CKPT_INTERVAL_S", 5.0)
         self.checkpoint_interval_s = checkpoint_interval_s
         self.interrupt_after_chunks = interrupt_after_chunks
 
@@ -534,6 +532,9 @@ class GpuFrontierBackend:
         t_chunk = time.perf_counter()
         inflight = dispatch(0, flag_exit_cur)  # from the seeded set 0 into set 1
         while witness is None:
+            # A device failure mid-search (the JAX drive's frontier.py:854):
+            # a fired fault fails the solve.
+            fault_point("frontier.chunk")
             spec = dispatch(inflight.index, flag_exit_cur)
             process_pending()  # the previous chunk's flags, overlapping the device
             if witness is not None:

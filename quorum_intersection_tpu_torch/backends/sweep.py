@@ -57,13 +57,23 @@ Both drives also take the JAX drive's rank order (``order="rank"`` or
 before restriction, so the restricted lanes, the bit → node map and the
 witness decode all inherit it, and ``stats["order"]`` carries the
 permutation into the certificate's provenance.
+
+Both drives report to the run record as the JAX drives do
+(``sweep.py:650-675``, ``:1040-1058``, ``:1947-2016``), on the host between
+launches, once per drained program: a ``sweep.window`` event and the
+``sweep.candidates_checked`` / ``cert.windows_enumerated`` counters per drain
+of the unpacked drive, ``cert.windows_enumerated`` per pack drain inside the
+``sweep.pack`` span, and one ``sweep.pruned`` event with the pruned counters
+per pruned drive or pack.  They pass the JAX drives' fault points
+(``sweep.prune``, ``sweep.bitset``, ``sweep.dispatch``, ``sweep.compile``,
+``sweep.window``, ``sweep.pack``; :mod:`..utils.faults`); a fired one fails
+the solve.
 """
 
 from __future__ import annotations
 
 import bisect
 import logging
-import os
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -101,6 +111,8 @@ from quorum_intersection_tpu_torch.kernels.packed_cuda import MAX_UNITS, PackedS
 from quorum_intersection_tpu_torch.kernels.sweep_cuda import FusedSweep
 from quorum_intersection_tpu_torch.kernels.sweep_ref import _round_up
 from quorum_intersection_tpu_torch.utils.checkpoint import SweepCheckpoint, sweep_fingerprint
+from quorum_intersection_tpu_torch.utils.env import qi_env
+from quorum_intersection_tpu_torch.utils.faults import fault_point
 from quorum_intersection_tpu_torch.utils.telemetry import get_run_record
 
 log = logging.getLogger("quorum_intersection_tpu_torch.backends.sweep")
@@ -538,6 +550,8 @@ class GpuSweepBackend:
         # The packs the last check_sccs call ran, in order (stats carry
         # each job's ``pack_index`` into this list).
         self.pack_plans: List[PackPlan] = []
+        # The kernel libraries this backend has brought up (_bring_up).
+        self._brought_up: set = set()
 
     def _engine_mode(self) -> str:
         """The engine request: the ctor's wins; else ``QI_SWEEP_ENGINE``
@@ -545,18 +559,18 @@ class GpuSweepBackend:
         check time as the JAX ``_engine_mode`` does (``sweep.py:522-531``)."""
         if self.engine is not None:
             return self.engine
-        env = os.environ.get("QI_SWEEP_ENGINE", "").strip().lower()
+        env = qi_env("QI_SWEEP_ENGINE").strip().lower()
         return env if env in ("pallas", "bitset") else "xla"
 
     def _prune_enabled(self) -> bool:
         if self.prune is not None:
             return self.prune
-        return os.environ.get("QI_SWEEP_PRUNE", "").strip() not in ("", "0")
+        return qi_env("QI_SWEEP_PRUNE").strip() not in ("", "0")
 
     def _order_mode(self) -> str:
         if self.order is not None:
             return self.order
-        return "rank" if os.environ.get("QI_SWEEP_ORDER", "").strip().lower() == "rank" else "natural"
+        return "rank" if qi_env("QI_SWEEP_ORDER").strip().lower() == "rank" else "natural"
 
     def _ordered(
         self, graph: TrustGraph, scc: List[int]
@@ -584,7 +598,9 @@ class GpuSweepBackend:
         ``engine`` names the guard by the JAX engine names (``bitset``: the
         bitset guard, else the dense one).  ``start0`` is a resume cut:
         blocks not wholly at or above it stay unpruned.  Any failure of the
-        guard propagates: the solve fails, it does not sweep unpruned."""
+        guard, the ``sweep.prune`` fault point's included, propagates: the
+        solve fails, it does not sweep unpruned."""
+        fault_point("sweep.prune")
         if bits < PRUNE_MIN_BITS:
             return None
         prefix_bits = min(PRUNE_MAX_PREFIX_BITS, bits - PRUNE_MIN_BLOCK_BITS)
@@ -600,6 +616,27 @@ class GpuSweepBackend:
         plan.encoding = encoding
         plan.seconds = time.perf_counter() - t0
         return plan
+
+    @staticmethod
+    def _emit_prune_telemetry(
+        plans: Sequence[Optional[_PrunePlan]], totals: Sequence[int], packed: bool = False
+    ) -> None:
+        """One ``sweep.pruned`` event, the pruned counters and the
+        ``sweep.prune_ratio`` gauge per drive or pack (the JAX
+        ``_emit_prune_telemetry``, ``sweep.py:650-675``)."""
+        live = [p for p in plans if p is not None]
+        if not live:
+            return
+        rec = get_run_record()
+        blocks = sum(len(p.prefixes) for p in live)
+        windows = sum(p.windows for p in live)
+        space = sum(totals)
+        rec.add("sweep.blocks_pruned", blocks)
+        rec.add("cert.windows_pruned_guard", windows)
+        rec.gauge("sweep.prune_ratio", round(windows / space, 6) if space else 0.0)
+        rec.event("sweep.pruned", blocks=blocks, windows=windows, total=space,
+                  block_bits=live[0].block_bits, guard_rows=sum(p.guard_rows for p in live),
+                  packed=packed)
 
     def _resume_position(
         self,
@@ -671,7 +708,14 @@ class GpuSweepBackend:
         """The card's first touch, in the order a losing race arm must stop
         at: the cancel token before the kernels' build (a cold ``nvcc``
         takes seconds), again before the CUDA context, which is made current
-        on the calling thread.  Nothing on the CPU."""
+        on the calling thread.  A kernel this backend has not brought up
+        before passes the ``sweep.compile`` fault point first (on the CPU
+        too, where its plain version stands in for the library); nothing
+        else happens on the CPU."""
+        for name in kernels:
+            if name not in self._brought_up:
+                fault_point("sweep.compile")
+                self._brought_up.add(name)
         if self.device.type != "cuda":
             return
         self._check_cancel("before the kernel build")
@@ -772,6 +816,7 @@ class GpuSweepBackend:
         plan = None
         if prune:
             plan = self._plan_pruning(circuit, bit_nodes, bits, total, start0, engine)
+        self._emit_prune_telemetry((plan,), (total,))
         if plan is not None:
             ranges = plan.ranges
         else:
@@ -797,6 +842,8 @@ class GpuSweepBackend:
             base_block = plan_batch(min(batch, max(total, 1)))
         else:
             base_block = min(batch, max(lo_total, 1))
+        if engine == "bitset":
+            fault_point("sweep.bitset")
         sweep_class = BitsetSweep if engine == "bitset" else FusedSweep
         sweep = sweep_class(
             circuit, lo_nodes, scc_mask, frozen, base_block,
@@ -810,14 +857,34 @@ class GpuSweepBackend:
         found = False
         first_hit = 0
         inflight: deque = deque()
+        rec = get_run_record()
+        # Each drain's rate is over the time since the previous drain (the
+        # first: since the first launch), as the JAX drive's Throughput.
+        t_first_launch: Optional[float] = None
+        t_last_drain: Optional[float] = None
 
         def drain_one() -> bool:
-            """Wait for the oldest program; True iff it hit."""
-            nonlocal steps, candidates, first_hit, found
-            start, coverage, hi_base, pending = inflight.popleft()
+            """Wait for the oldest program; True iff it hit.  Each drain
+            emits one ``sweep.window`` event and counts the candidates it
+            covered, on the host between launches."""
+            nonlocal steps, candidates, first_hit, found, t_last_drain
+            start, coverage, hi_base, spc, pending = inflight.popleft()
             hit = int(pending.result())
             steps += 1
-            candidates += min(coverage, total - start)
+            checked = min(coverage, total - start)
+            candidates += checked
+            now = time.monotonic()
+            prev = t_last_drain if t_last_drain is not None else (
+                t_first_launch if t_first_launch is not None else now)
+            interval = max(now - prev, 0.0)
+            t_last_drain = now
+            rec.add("sweep.candidates_checked", checked)
+            rec.add("cert.windows_enumerated", checked)
+            rec.event(
+                "sweep.window", start=start, candidates=checked, steps_per_call=spc,
+                done=candidates, total=total, seconds=round(interval, 6),
+                rate=round(checked / interval, 1) if interval > 0 else None,
+            )
             if hit < INT32_MAX:
                 found = True
                 # A chunk-tail program may report an aliased index; decode is
@@ -841,8 +908,8 @@ class GpuSweepBackend:
             return range_suffix[seg_ix] - (start - ranges[seg_ix][0])
 
         pruned_windows = plan.windows if plan is not None else 0
-        with get_run_record().span("sweep.drive", scc=s, total=total, resumed_from=start0,
-                                   pruned=pruned_windows, engine=engine) as drive_span:
+        with rec.span("sweep.drive", scc=s, total=total, resumed_from=start0,
+                      pruned=pruned_windows, engine=engine) as drive_span:
             while seg_ix < len(ranges):
                 cur_hi = ranges[seg_ix][1]
                 if start >= cur_hi:
@@ -852,6 +919,8 @@ class GpuSweepBackend:
                         start = ranges[seg_ix][0]
                     continue
                 self._check_cancel(f"at candidate {start}/{total}")
+                # A preempt here leaves any recorded checkpoint on disk.
+                fault_point("sweep.window")
                 if since_ramp >= RAMP_DISPATCHES:
                     target = _jump_target_ix(STEPS_RAMP, ramp_ix, base_block, remaining_work())
                     if target != ramp_ix:
@@ -868,7 +937,10 @@ class GpuSweepBackend:
                     spc = next(r for r in STEPS_RAMP if r * base_block >= boundary)
                     coverage = boundary
                 program = lambda lo=lo, spc=spc, row=hi_row(hi): sweep.program(lo, spc, row)  # noqa: E731
-                inflight.append((start, coverage, hi, _Pending.launch(self.device, program)))
+                fault_point("sweep.dispatch")
+                if t_first_launch is None:
+                    t_first_launch = time.monotonic()
+                inflight.append((start, coverage, hi, spc, _Pending.launch(self.device, program)))
                 since_ramp += 1
                 start += coverage
                 if len(inflight) >= MAX_INFLIGHT and drain_one():
@@ -998,6 +1070,8 @@ class GpuSweepBackend:
             if tok is not None and tok.cancelled:
                 continue  # already dead: never let it occupy lanes
             prepared[i] = self._prepare_job(graph, circuit, scc, scope_to_scc)
+        if prepared:
+            fault_point("sweep.pack")
         for members in self.pack_members(prepared):
             self._run_pack([prepared[i] for i in members], [token(i) for i in members])
             for i in members:
@@ -1097,9 +1171,13 @@ class GpuSweepBackend:
         n_jobs = len(jobs)
         self._bring_up(("packed_sweep", "guard") if self._prune_enabled() else ("packed_sweep",))
         plan = self.plan_pack(jobs)
+        rec = get_run_record()
+        self._emit_prune_telemetry(plan.prune_plans, [j.total for j in jobs], packed=True)
         emit_engine_resolution(plan.resolution, packed=True)
         self.pack_plans.append(plan)
         groups, packed, batch = plan.groups, plan.packed, plan.batch
+        if plan.resolution.resolved == "bitset":
+            fault_point("sweep.bitset")
         sweep = PackedSweep(
             packed.circuit, packed.circuit_d, *plan.tables, batch,
             engine=plan.resolution.kernel, device=self.device,
@@ -1151,7 +1229,6 @@ class GpuSweepBackend:
             jobs[j].cancelled = True
             jobs[j].cancelled_windows = dropped
             unresolved.discard(j)
-            rec = get_run_record()
             rec.add("cert.windows_cancelled", dropped)
             rec.event("sweep.cancelled", packed=True, windows_dropped=dropped, jobs_unresolved=len(unresolved))
 
@@ -1186,6 +1263,7 @@ class GpuSweepBackend:
         def drain_one() -> None:
             starts_snap, coverage, pending = inflight.popleft()
             hits = pending.result().numpy()
+            drained = 0
             for gix, g in enumerate(groups):
                 if g.done:
                     continue
@@ -1193,7 +1271,9 @@ class GpuSweepBackend:
                 if s0 >= g.hi:
                     continue  # frozen lane: nothing new covered
                 top = min(s0 + coverage, g.hi)
-                jobs[g.job].candidates += (top - s0) - pruned_in(g.job, s0, top)
+                swept = (top - s0) - pruned_in(g.job, s0, top)
+                jobs[g.job].candidates += swept
+                drained += swept
                 drained_to[gix] = max(drained_to[gix], top)
                 h = int(hits[gix])
                 if h < g.hi:
@@ -1205,58 +1285,70 @@ class GpuSweepBackend:
                     for g2ix, g2 in enumerate(groups):
                         if g2.job == g.job and g2.lo > g.lo and not g2.done:
                             left = max(g2.hi - drained_to[g2ix], 0)
-                            jobs[g.job].skipped += max(
-                                left - pruned_in(g.job, drained_to[g2ix], g2.hi), 0
-                            )
+                            skip = max(left - pruned_in(g.job, drained_to[g2ix], g2.hi), 0)
+                            jobs[g.job].skipped += skip
                             g2.done = True
                 elif top >= g.hi or pruned_in(g.job, top, g.hi) == g.hi - top:
                     # Fully drained, or only guard-pruned tail is left.
                     g.done = True
+            rec.add("cert.windows_enumerated", drained)
             resolve_jobs()
 
         # A job whose every window was guard-pruned resolves before any
         # dispatch: pruned blocks hold no hit.
         resolve_jobs()
 
-        while unresolved:
-            check_cancel()
-            check_job_cancels()
-            if not unresolved:
-                break
-            if not all_dispatched():
-                rem = max((g.hi - nxt[i] for i, g in enumerate(groups) if not g.done), default=0)
-                while spc_ix + 1 < len(PACK_RAMP) and rem >= PACK_RAMP[spc_ix + 1] * batch * 2:
-                    spc_ix += 1
-                spc = PACK_RAMP[spc_ix]
-                if rem < spc * batch:
-                    # Tail: the smallest program covering the remainder,
-                    # preferring a size already dispatched (the JAX drive's
-                    # compiled-shape rule, kept so both cut the same programs).
-                    fits = [r for r in PACK_RAMP if r * batch >= rem]
-                    seen = [r for r in fits if r in used_spc]
-                    spc = min(seen) if seen else min(fits)
-                used_spc.add(spc)
-                coverage = spc * batch
-                snap = np.asarray(nxt, dtype=np.int32)
-                program = lambda snap=snap, spc=spc: sweep.program(snap, spc)  # noqa: E731
-                inflight.append((snap, coverage, _Pending.launch(self.device, program)))
-                pack_rows += coverage
-                for i, g in enumerate(groups):
-                    if not g.done and nxt[i] < g.hi:
-                        nxt[i] += coverage
-                        p = prune_plans[g.job]
-                        if p is not None and nxt[i] < g.hi:
-                            nxt[i] = p.skip(nxt[i])  # hop over a pruned run
-                if len(inflight) >= depth_cap:
-                    drain_one()
-            elif inflight:
-                drain_one()
-            else:
-                # Every group drained yet a job is unresolved would mean the
-                # accounting above lied: fail loudly, never spin.
-                raise RuntimeError(
-                    f"packed sweep drained all lane groups with {len(unresolved)} job(s) unresolved"
-                )
+        # The pack drive is one span, and the packs_in_flight gauge brackets
+        # it (the JAX drive's, sweep.py:1955-2016).
+        rec.gauge("sweep.packs_in_flight", 1)
+        try:
+            with rec.span("sweep.pack", jobs=n_jobs, groups=packed.groups, slot=packed.slot,
+                          lanes=packed.circuit.n, fill_pct=round(packed.fill_pct, 2)) as pack_span:
+                while unresolved:
+                    check_cancel()
+                    check_job_cancels()
+                    if not unresolved:
+                        break
+                    # The same window boundary as the unpacked drive.
+                    fault_point("sweep.window")
+                    if not all_dispatched():
+                        rem = max((g.hi - nxt[i] for i, g in enumerate(groups) if not g.done), default=0)
+                        while spc_ix + 1 < len(PACK_RAMP) and rem >= PACK_RAMP[spc_ix + 1] * batch * 2:
+                            spc_ix += 1
+                        spc = PACK_RAMP[spc_ix]
+                        if rem < spc * batch:
+                            # Tail: the smallest program covering the remainder,
+                            # preferring a size already dispatched (the JAX drive's
+                            # compiled-shape rule, kept so both cut the same programs).
+                            fits = [r for r in PACK_RAMP if r * batch >= rem]
+                            seen = [r for r in fits if r in used_spc]
+                            spc = min(seen) if seen else min(fits)
+                        used_spc.add(spc)
+                        coverage = spc * batch
+                        snap = np.asarray(nxt, dtype=np.int32)
+                        program = lambda snap=snap, spc=spc: sweep.program(snap, spc)  # noqa: E731
+                        fault_point("sweep.dispatch")
+                        inflight.append((snap, coverage, _Pending.launch(self.device, program)))
+                        pack_rows += coverage
+                        for i, g in enumerate(groups):
+                            if not g.done and nxt[i] < g.hi:
+                                nxt[i] += coverage
+                                p = prune_plans[g.job]
+                                if p is not None and nxt[i] < g.hi:
+                                    nxt[i] = p.skip(nxt[i])  # hop over a pruned run
+                        if len(inflight) >= depth_cap:
+                            drain_one()
+                    elif inflight:
+                        drain_one()
+                    else:
+                        # Every group drained yet a job is unresolved would mean the
+                        # accounting above lied: fail loudly, never spin.
+                        raise RuntimeError(
+                            f"packed sweep drained all lane groups with {len(unresolved)} job(s) unresolved"
+                        )
+                pack_span.set(rows_dispatched=pack_rows)
+        finally:
+            rec.gauge("sweep.packs_in_flight", 0)
 
         seconds = time.perf_counter() - t0
         pack_stats = {

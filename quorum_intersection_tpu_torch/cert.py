@@ -27,6 +27,7 @@ import os
 from typing import Dict, List, Optional
 
 from quorum_intersection_tpu_torch.fbas.graph import IndexedQSet, TrustGraph
+from quorum_intersection_tpu_torch.utils.faults import fault_point
 from quorum_intersection_tpu_torch.utils.telemetry import get_run_record
 
 log = logging.getLogger("quorum_intersection_tpu_torch.cert")
@@ -268,12 +269,14 @@ def build_certificate(
 def write_certificate(cert: Dict[str, object], path: str) -> Optional[str]:
     """Write one certificate to ``path`` (atomic tmp+rename).
 
-    An ``OSError`` downgrades to the ``cert.write_errors`` counter plus a
+    The write passes the ``cert.write`` fault point.  An ``OSError``
+    (injected or real) downgrades to the ``cert.write_errors`` counter plus a
     ``cert.write_error`` event, a logged warning, and None.  A certificate is
     evidence about a verdict; failing to record it must never flip or
     cost the verdict itself."""
     rec = get_run_record()
     try:
+        fault_point("cert.write")
         tmp = f"{path}.tmp{os.getpid()}"
         with open(tmp, "w", encoding="utf-8") as fh:
             json.dump(cert, fh, indent=1, default=str)

@@ -1,5 +1,6 @@
 """Command-line interface — the JAX package's CLI (``cli.py:63-161``,
-``:221-473``) without its subcommands and telemetry sinks, on the card.
+``:184-218``, ``:221-473``) without its serve and fleet subcommands, on the
+card.
 
 - input is always **stdin**, output always stdout;
 - the default mode prints ``true``/``false`` and exits 0 iff intersecting,
@@ -28,17 +29,32 @@ branching tie-break.  ``--compat`` is shorthand for ``--dangling-policy
 alias0 --scc-select front``.  ``--device {cuda,cpu}`` (default ``cuda``)
 picks where the sweep and the PageRank kernel run; it plays the part the
 ``JAX_PLATFORMS`` variable plays for the JAX package.
+
+Observability (the JAX CLI's, ``cli.py:104-119``, ``:199-218``,
+``:458-468``): ``--metrics-json PATH`` streams the run record as
+``qi-telemetry/1`` JSONL (``tools/metrics_report.py`` renders it),
+``--metrics-prom PATH`` writes its counters and gauges as a Prometheus
+textfile, ``--trace-out PATH`` appends its spans and events as
+Chrome/Perfetto trace events, and ``--timing`` prints the ``[timing]``
+phase lines and ``[stats]`` lines to stderr, then the ``[telemetry]``
+summary.  The record is finished on every exit path.
+
+Subcommand: ``query`` — one typed query over the snapshot on stdin
+(:mod:`.query`: relaxed two-family intersection, what-if removals,
+analytics), with its own flags and exit codes.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import logging
 import sys
 from typing import List, Optional
 
+from quorum_intersection_tpu_torch.utils.logging import get_logger, set_trace
 from quorum_intersection_tpu_torch.utils.pipes import run_with_pipe_hygiene
+
+log = get_logger("cli")
 
 
 class _RefCompatParser(argparse.ArgumentParser):
@@ -83,6 +99,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cert-out", metavar="PATH", default=None,
                    help="write the qi-cert/1 verdict certificate to PATH (check it with "
                         "python tools/check_cert.py PATH INPUT.json)")
+    p.add_argument("--timing", action="store_true",
+                   help="print phase timers (and the telemetry summary) to stderr")
+    p.add_argument("--metrics-json", metavar="PATH", default=None,
+                   help="stream run-record telemetry (spans, counters, events) to PATH as JSONL; "
+                        "render with tools/metrics_report.py")
+    p.add_argument("--metrics-prom", metavar="PATH", default=None,
+                   help="write final counters/gauges to PATH as a Prometheus-style textfile "
+                        "(node_exporter textfile collector format)")
+    p.add_argument("--trace-out", metavar="PATH", default=None,
+                   help="append the run's spans/events to PATH as Chrome/Perfetto trace-event JSON "
+                        "(one timeline incl. both race arms; open in ui.perfetto.dev); env twin: "
+                        "QI_TRACE_OUT")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the sweep and the PageRank kernel run (default cuda; cpu runs "
                         "the plain versions)")
@@ -121,14 +149,34 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    args = build_parser().parse_args(sys.argv[1:] if argv is None else list(argv))
+    arglist = sys.argv[1:] if argv is None else list(argv)
+    if arglist and arglist[0] == "query":
+        # One-shot typed query: query.py owns its flags and exit codes.
+        from quorum_intersection_tpu_torch.query import query_main
+
+        return query_main(arglist[1:])
+    args = build_parser().parse_args(arglist)
     if args.trace:
-        logger = logging.getLogger("quorum_intersection_tpu_torch")
-        if not logger.handlers:
-            handler = logging.StreamHandler(sys.stderr)
-            handler.setFormatter(logging.Formatter("[%(levelname)s] %(name)s: %(message)s"))
-            logger.addHandler(handler)
-        logger.setLevel(logging.DEBUG)
+        set_trace(True)
+
+    from quorum_intersection_tpu_torch.utils import telemetry
+
+    record = telemetry.get_run_record()
+    if args.metrics_json:
+        record.add_sink(telemetry.JsonlSink(args.metrics_json))
+    if args.metrics_prom:
+        record.add_sink(telemetry.PromFileSink(args.metrics_prom))
+    if args.trace_out:
+        record.add_sink(telemetry.ChromeTraceSink(args.trace_out))
+    try:
+        return _main(args, record)
+    finally:
+        # One flush for every exit path: the final counter and gauge lines
+        # reach the JSONL stream and the textfile is written.
+        record.finish()
+
+
+def _main(args, record) -> int:
     dangling = args.dangling_policy or ("alias0" if args.compat else "strict")
     scc_select = args.scc_select or ("front" if args.compat else "quorum-bearing")
     if args.cert_out and (args.pagerank or args.top_tier or args.splitting_set or args.blocking_set):
@@ -145,13 +193,15 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     try:
         # Buffered: the splitting-set mode re-reads the raw node list.
-        stdin_text = sys.stdin.read()
-        fbas = parse_fbas(stdin_text)
+        with record.span("phase.parse"):
+            stdin_text = sys.stdin.read()
+            fbas = parse_fbas(stdin_text)
     except ValueError as exc:
         # FbasSchemaError and json.JSONDecodeError both derive from ValueError.
         sys.stderr.write(f"invalid FBAS configuration: {exc}\n")
         return 1
-    graph = build_graph(fbas, dangling=dangling)
+    with record.span("phase.graph"):
+        graph = build_graph(fbas, dangling=dangling)
     if args.pagerank:
         return _pagerank_mode(args, graph)
     if args.top_tier:
@@ -201,6 +251,15 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         # A failed write is logged and counted; the verdict is never at stake.
         write_certificate(result.cert, args.cert_out)
+    if args.timing:
+        # The legacy lines first, then the run record's summary.
+        for name, seconds in result.timers.items():
+            sys.stderr.write(f"[timing] {name}: {seconds * 1000:.2f} ms\n")
+        for key, value in result.stats.items():
+            sys.stderr.write(f"[stats] {key}: {value}\n")
+        from quorum_intersection_tpu_torch.utils.telemetry import StderrSummarySink
+
+        StderrSummarySink().finish(record)
     sys.stdout.write("true\n" if result.intersects else "false\n")
     return 0 if result.intersects else 1
 
@@ -215,7 +274,9 @@ def _pagerank_mode(args, graph) -> int:
         max_iterations=args.max_iterations,
         device=args.device,
     )
-    logging.getLogger("quorum_intersection_tpu_torch.cli").debug("pagerank engine: %s", engine)
+    log.debug("pagerank engine: %s", engine)
+    if args.timing:
+        sys.stderr.write(f"[stats] pagerank_engine: {engine}\n")
     sys.stdout.write(format_pagerank(graph, ranks))
     return 0  # PageRank mode always exits 0 (cpp:787)
 

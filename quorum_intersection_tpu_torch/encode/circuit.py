@@ -439,6 +439,25 @@ def restrict_circuit_pair(circuit: Circuit, scc: List[int]) -> tuple:
     return build(False), build(True)
 
 
+def restrict_two_family(circuit_a: Circuit, circuit_b: Circuit, scc: List[int]) -> tuple:
+    """Two-circuit restriction for the relaxed two-family query: both
+    families' circuits projected onto the same SCC columns in the same
+    member order, ``(a_scoped, b_scoped, b_q6)`` (the JAX package's
+    ``restrict_two_family``).  ``a_scoped`` is family A's candidate-scoped
+    restriction (the enumeration side, one :func:`max_quorum_np` fixpoint per
+    window batch); ``b_scoped`` family B's scoped twin, the fast overlap guard
+    (a B-quorum inside ``scc ∖ qa`` under scoped availability is a real
+    B-quorum); ``b_q6`` B's whole-graph-availability fold.  Both circuits must
+    be encoded over one node set."""
+    if circuit_a.n != circuit_b.n:
+        raise ValueError(
+            f"two-family circuits must share one node set; got {circuit_a.n} != {circuit_b.n} nodes"
+        )
+    a_scoped, _a_q6 = restrict_circuit_pair(circuit_a, scc)
+    b_scoped, b_q6 = restrict_circuit_pair(circuit_b, scc)
+    return a_scoped, b_scoped, b_q6
+
+
 def node_sat_np(circuit: Circuit, avail: np.ndarray) -> np.ndarray:
     """NumPy reference evaluator: which nodes have a satisfied slice?
 

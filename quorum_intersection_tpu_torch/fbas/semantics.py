@@ -23,7 +23,7 @@ differentially tested against these functions.
 
 from __future__ import annotations
 
-from typing import Iterable, List, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 from quorum_intersection_tpu_torch.fbas.graph import IndexedQSet, TrustGraph
 
@@ -109,6 +109,57 @@ def max_quorum(
     for v in removed:
         avail[v] = True
     return nodes
+
+
+def cross_family_disjoint_quorum(graph_b: TrustGraph, exclude: Sequence[int]) -> List[int]:
+    """Greatest family-B quorum avoiding ``exclude``: the cross-family
+    overlap guard of the relaxed two-family query (Fast Flexible Paxos,
+    arXiv:2008.02671).  Nonempty means ``(exclude, result)`` is a disjoint
+    cross-family witness.  Both graphs index one node set in one order."""
+    banned = set(exclude)
+    candidates = [v for v in range(graph_b.n) if v not in banned]
+    avail = [v not in banned for v in range(graph_b.n)]
+    return max_quorum(graph_b, candidates, avail)
+
+
+def relaxed_disjoint_witness(
+    graph_a: TrustGraph,
+    graph_b: TrustGraph,
+    members: Sequence[int],
+) -> Tuple[Optional[List[int]], Optional[List[int]], int]:
+    """Cross-family disjointness search (the host oracle): an A-quorum and
+    a B-quorum that do not intersect, or a proof that none exists among the
+    A-quorums inside ``members`` (family A's quorum-bearing SCC).
+
+    Enumerates every nonempty subset of ``members``; per window the greatest
+    A-quorum within it is one fixpoint, and each distinct nonempty A-quorum
+    runs :func:`cross_family_disjoint_quorum` once.  There is no complement
+    symmetry, so all ``2^m - 1`` windows are enumerated.  Returns ``(qa, qb,
+    windows_enumerated)``, ``qa``/``qb`` None when every A-quorum meets every
+    B-quorum."""
+    nodes = list(members)
+    m = len(nodes)
+    avail = [False] * graph_a.n
+    enumerated = 0
+    seen: Dict[frozenset, bool] = {}
+    for window in range(1, 1 << m):
+        enumerated += 1
+        chosen = [nodes[i] for i in range(m) if window >> i & 1]
+        for v in chosen:
+            avail[v] = True
+        qa = max_quorum(graph_a, chosen, avail)
+        for v in chosen:
+            avail[v] = False
+        if not qa:
+            continue
+        key = frozenset(qa)
+        if key in seen:
+            continue
+        qb = cross_family_disjoint_quorum(graph_b, qa)
+        seen[key] = bool(qb)
+        if qb:
+            return sorted(qa), sorted(qb), enumerated
+    return None, None, enumerated
 
 
 def is_quorum(graph: TrustGraph, members: Sequence[int]) -> bool:

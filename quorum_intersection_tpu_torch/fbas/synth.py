@@ -5,7 +5,8 @@ full set.  :func:`near_disjoint_cores` is the block-guard pruning preset;
 :func:`random_fbas` feeds the frontier's differential cases.  :func:`inner_set_ring_fbas` is the port's own (no counterpart
 there): a circuit with hundreds of distinct inner sets inside one SCC, for
 the fused kernel's wide satisfaction masks.  :func:`nested_hierarchy`,
-:func:`sparse_giant` (the bitset engine's workload) and the density
+:func:`sparse_giant` (the bitset engine's workload), :func:`two_family_preset`
+(the relaxed query's two families) and the density
 annotations :func:`graph_density` and :func:`scc_qset_density` (the bitset
 routing's feature) are the JAX package's, copied unchanged.
 
@@ -21,7 +22,7 @@ broken twin differing by a single threshold.
 from __future__ import annotations
 
 import random
-from typing import TYPE_CHECKING, Dict, List, Optional
+from typing import TYPE_CHECKING, Dict, List, Optional, Tuple
 
 if TYPE_CHECKING:
     from quorum_intersection_tpu_torch.fbas.graph import TrustGraph
@@ -362,6 +363,50 @@ def nested_hierarchy(
     rng.shuffle(nodes)  # snapshot order is arbitrary; vertex 0 ≠ core
     return nodes
 
+
+def two_family_preset(
+    core: int = 9,
+    watchers: int = 6,
+    *,
+    broken: bool = False,
+    seed: int = 0,
+) -> Tuple[List[Dict], List[Dict]]:
+    """Adversarial two-family preset (the relaxed query, Fast Flexible Paxos
+    arXiv:2008.02671): ``(family_a, family_b)``, two quorum-set families over
+    one node set in one vertex order.
+
+    Family A is the classic family, ``k``-of-core majorities (``k = core // 2
+    + 1``); family B the fast family, ``t``-of-core slices with ``t = 3·core//4
+    + 1`` in the correct twin, above the Fast Paxos bound ``k + t > core``.
+    ``broken=True`` turns ``t`` down to ``core - k``: a fast quorum can dodge a
+    classic one, a split invisible to family A's own verdict.  Watchers
+    (identical in both families) trust a core majority and pad the vertex
+    space.  Same arguments, byte-identical pair.
+    """
+    if core < 4:
+        raise ValueError(f"need core >= 4, got {core}")
+    rng = random.Random(seed)
+    core_keys = keys(core, "TFC")
+    k_classic = core // 2 + 1
+    t_fast = (core - k_classic) if broken else (3 * core // 4 + 1)
+    t_fast = max(t_fast, 1)
+    order = list(range(core + watchers))
+    rng.shuffle(order)  # one arbitrary vertex order shared by both families
+
+    def family(threshold: int) -> List[Dict]:
+        out: List[Dict] = []
+        for ix in order:
+            if ix < core:
+                key = core_keys[ix]
+                out.append(_node(key, f"c{ix}", _qset(threshold, list(core_keys))))
+            else:
+                w = ix - core
+                trusted = rng_w[w]
+                out.append(_node(f"TFW{w:04d}", f"w{w}", _qset(len(trusted) // 2 + 1, trusted)))
+        return out
+
+    rng_w = [rng.sample(core_keys, min(core, 4)) for _ in range(watchers)]
+    return family(k_classic), family(t_fast)
 
 
 def sparse_giant(

@@ -365,17 +365,21 @@ def check_many(
             # One provenance slice for the whole batch: a pack's router
             # events cannot be attributed per job.
             batch_ev0 = rec.event_count()
-            if batch is not None:
-                scc_results = batch([(g, c, s) for _, g, c, s in jobs], scope_to_scc=scope_to_scc,
-                                    cancels=job_cancels)
-            else:
-                scc_results = []
-                for jx, (_, g, c, s) in enumerate(jobs):
-                    tok = job_cancels[jx] if job_cancels is not None else None
-                    if tok is not None and tok.cancelled:
-                        scc_results.append(cancelled_result(getattr(backend, "name", "?"), s))
-                    else:
-                        scc_results.append(backend.check_scc(g, c, s, scope_to_scc=scope_to_scc))
+            # The batched search is one span: every job's route, pack and
+            # native span nests under it.
+            with rec.span("pipeline.check_many", sources=len(sources), jobs=len(jobs),
+                          batched=batch is not None):
+                if batch is not None:
+                    scc_results = batch([(g, c, s) for _, g, c, s in jobs], scope_to_scc=scope_to_scc,
+                                        cancels=job_cancels)
+                else:
+                    scc_results = []
+                    for jx, (_, g, c, s) in enumerate(jobs):
+                        tok = job_cancels[jx] if job_cancels is not None else None
+                        if tok is not None and tok.cancelled:
+                            scc_results.append(cancelled_result(getattr(backend, "name", "?"), s))
+                        else:
+                            scc_results.append(backend.check_scc(g, c, s, scope_to_scc=scope_to_scc))
             search_s = time.perf_counter() - t_search
             batch_events = rec.events_since(batch_ev0)
             for (ix, graph, _, target_scc), res in zip(jobs, scc_results):

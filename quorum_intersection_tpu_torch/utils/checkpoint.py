@@ -14,9 +14,9 @@ Crash-only discipline: every write is atomic and durable (tmp file, flush
 and fsync, rename, best-effort directory fsync), and an ``OSError`` on the
 save path becomes the ``checkpoint.save_errors`` counter plus a warning, so
 the run continues unprotected rather than dying.  An unreadable file is
-renamed to ``<name>.corrupt`` and never retried.  The JAX package's
-injectable ``checkpoint.write`` fault point is not ported (the port has no
-fault-injection harness).
+renamed to ``<name>.corrupt`` and never retried.  Every write passes the
+``checkpoint.write`` fault point (:mod:`.faults`), whose ``oserror`` lands on
+that counter like a real full disk.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
+from quorum_intersection_tpu_torch.utils.faults import fault_point
 from quorum_intersection_tpu_torch.utils.telemetry import get_run_record
 
 log = logging.getLogger("quorum_intersection_tpu_torch.utils.checkpoint")
@@ -76,6 +77,7 @@ def _write_json(path: Path, payload: Dict[str, Any]) -> bool:
     """Atomic and durable write; False (never an exception) on failure."""
     tmp = path.with_suffix(".tmp")
     try:
+        fault_point("checkpoint.write")
         with open(tmp, "w", encoding="utf-8") as fh:
             fh.write(json.dumps(payload))
             fh.flush()

@@ -1,0 +1,206 @@
+"""One registry for every ``QI_*`` environment variable the port reads.
+
+Every read goes through :func:`qi_env` against a declared :class:`EnvVar`,
+so the catalog below is the documentation, defaults live in one place, and
+an undeclared name raises instead of silently reading nothing.  Names,
+defaults and descriptions are the JAX package's (its ``utils/env.py``), for
+the knobs the port reads; ``tests/test_torch_isolation.py`` scans the port
+for any other ``os.environ`` read of a ``QI_*`` key.
+
+Standard library only and below everything else in the import graph
+(:mod:`.logging` reads ``QI_LOG_LEVEL`` here while it sets itself up).
+Reads are not cached: a test that patches ``os.environ`` sees the next read
+change.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class EnvVar:
+    """One declared environment knob: its name, default, and contract."""
+
+    name: str
+    default: Optional[str]
+    description: str
+
+
+_REGISTRY: Dict[str, EnvVar] = {}
+
+
+def _declare(name: str, default: Optional[str], description: str) -> EnvVar:
+    var = EnvVar(name=name, default=default, description=description)
+    _REGISTRY[name] = var
+    return var
+
+
+# ---- the catalog -----------------------------------------------------------
+
+QI_LOG_LEVEL = _declare(
+    "QI_LOG_LEVEL", "",
+    "Initial log level by name (DEBUG/INFO/WARNING/ERROR/CRITICAL) or "
+    "numeric value; the CLI's -t still overrides it (utils/logging.py).",
+)
+QI_LOG_JSON = _declare(
+    "QI_LOG_JSON", "",
+    "Truthy: one JSON object per log line, interleavable with the "
+    "qi-telemetry/1 stream (utils/logging.py).",
+)
+QI_METRICS_JSON = _declare(
+    "QI_METRICS_JSON", "",
+    "Path of a qi-telemetry/1 JSONL stream every process appends to "
+    "(utils/telemetry.py env sink; the CLI flag --metrics-json plumbs the "
+    "same sink explicitly).",
+)
+QI_METRICS_PROM = _declare(
+    "QI_METRICS_PROM", "",
+    "Path of a Prometheus textfile rewritten at process finish "
+    "(utils/telemetry.py env sink; CLI flag --metrics-prom).",
+)
+QI_FRONTIER_CKPT_INTERVAL_S = _declare(
+    "QI_FRONTIER_CKPT_INTERVAL_S", "5.0",
+    "Frontier checkpoint write cadence in seconds — exists so process-death "
+    "tests can shrink the cadence of a CLI child they cannot construct "
+    "in-process (backends/frontier.py).",
+)
+QI_FAULTS = _declare(
+    "QI_FAULTS", "",
+    "Deterministic fault-injection rules, comma-separated "
+    "point=mode[:seconds][@hit[+]] (utils/faults.py — the declared "
+    "fault-point catalog and grammar live there).  Empty: no injection, "
+    "fault points are near-free.",
+)
+QI_NATIVE_WATCHDOG_S = _declare(
+    "QI_NATIVE_WATCHDOG_S", "0",
+    "Deadline in seconds for one in-process native oracle call under the "
+    "auto router: past it a monitor trips the CancelToken, and a call "
+    "that STILL does not return quarantines the native rung for the run "
+    "(backends/auto.py).  0 (default): watchdog off, calls run on the "
+    "caller's thread exactly as before.",
+)
+QI_TRACE_OUT = _declare(
+    "QI_TRACE_OUT", "",
+    "Path of a Chrome/Perfetto trace-event JSON file the run appends its "
+    "spans and events to (utils/telemetry.py ChromeTraceSink; CLI flag "
+    "--trace-out).  Multi-process runs share one file — open it in "
+    "ui.perfetto.dev to see the whole run as one timeline.",
+)
+QI_TRACE_CONTEXT = _declare(
+    "QI_TRACE_CONTEXT", "",
+    "Inherited trace context 'trace_id:span_id:pid' a parent process "
+    "exports before spawning children: the child's RunRecord adopts the "
+    "trace_id instead of minting its own, so every process of one run "
+    "shares a single causal trace (utils/telemetry.py TraceContext).",
+)
+QI_FLIGHT_RECORDER = _declare(
+    "QI_FLIGHT_RECORDER", "",
+    "Path the crash flight recorder dumps to: a bounded ring buffer of the "
+    "last spans/events is always on, and on fault firing, watchdog trip, "
+    "ladder degrade/quarantine, or unhandled exception its tail plus a "
+    "counter/gauge snapshot is written crash-only with fsync-before-rename "
+    "(utils/telemetry.py dump_flight_recorder).  Empty: dumps disabled, "
+    "the ring still records.",
+)
+QI_SWEEP_ORDER = _declare(
+    "QI_SWEEP_ORDER", "",
+    "Enumeration-order mode of the exhaustive sweep (backends/sweep.py): "
+    "'rank' applies the rank-order permutation (PageRank + top-tier "
+    "scores, deterministic tie-break) so low-rank nodes occupy high window "
+    "bits and the expected first-hit window of a false verdict shrinks; "
+    "empty/'natural' (default) keeps the SCC's natural order.  Verdicts "
+    "are order-independent; the permutation is stamped into cert "
+    "provenance.",
+)
+QI_SWEEP_PRUNE = _declare(
+    "QI_SWEEP_PRUNE", "",
+    "Device-side block-guard pruning of the exhaustive sweep "
+    "(backends/sweep.py): any value other than empty or '0' skips window "
+    "blocks whose maximal candidate contains no quorum (one "
+    "greatest-fixpoint guard per 2^k-window block), booking them as "
+    "checkable (prefix, k, rule) entries under the certificate's "
+    "windows_pruned_guard ledger term (tools/check_cert.py re-verifies "
+    "every block).  Empty/'0' (default): unpruned brute force.",
+)
+QI_SWEEP_ENGINE = _declare(
+    "QI_SWEEP_ENGINE", "",
+    "Kernel-engine request of the exhaustive sweep (backends/sweep.py): "
+    "'bitset' evaluates candidates by intersect-and-popcount over packed "
+    "words, 'pallas' the fused single-kernel engine; empty or anything "
+    "else (default) the default engine.  A constructor-supplied engine "
+    "wins over the knob; every request still flows through "
+    "resolve_engine's documented precedence (sweep.engine_resolved "
+    "event).  Verdicts are engine-independent.",
+)
+QI_QUERY_WHATIF_LIMIT = _declare(
+    "QI_QUERY_WHATIF_LIMIT", "512",
+    "Most removal subsets one what-if query may expand (query.py): the "
+    "k-subset frontier over the candidate validators is truncated at "
+    "this bound with a loud result field (truncated: true) — a typed "
+    "cap, never an unbounded batch from one request.",
+)
+
+
+# ---- reads -----------------------------------------------------------------
+
+
+def qi_env(name: str) -> str:
+    """The declared variable's value (its registered default when unset).
+
+    Raises ``KeyError`` for an undeclared name: a knob that is not in the
+    catalog above does not exist.
+    """
+    var = _REGISTRY.get(name)
+    if var is None:
+        raise KeyError(
+            f"{name!r} is not a declared QI_* environment variable; "
+            f"add it to quorum_intersection_tpu_torch/utils/env.py"
+        )
+    value = os.environ.get(var.name)
+    return (var.default or "") if value is None else value
+
+
+def qi_env_flag(name: str) -> bool:
+    """Boolean read: any non-empty value counts as set (``QI_LOG_JSON=0``
+    is still truthy)."""
+    return bool(qi_env(name))
+
+
+def qi_env_float(name: str, fallback: Optional[float] = None) -> float:
+    """Float read; malformed values fall back to the registered default
+    (or ``fallback`` when the default itself is unparseable)."""
+    raw = qi_env(name)
+    try:
+        return float(raw)
+    except ValueError:
+        default = _REGISTRY[name].default
+        try:
+            return float(default if default is not None else "")
+        except ValueError:
+            if fallback is None:
+                raise
+            return fallback
+
+
+def qi_env_int(name: str, fallback: Optional[int] = None) -> int:
+    """Integer read; malformed values fall back to the registered default
+    (or ``fallback`` when the default itself is unparseable)."""
+    raw = qi_env(name)
+    try:
+        return int(raw)
+    except ValueError:
+        default = _REGISTRY[name].default
+        try:
+            return int(default if default is not None else "")
+        except ValueError:
+            if fallback is None:
+                raise
+            return fallback
+
+
+def registry() -> Tuple[EnvVar, ...]:
+    """The full declared catalog, in declaration order."""
+    return tuple(_REGISTRY.values())

@@ -168,6 +168,12 @@ def test_sparse_giant_same_json(args, kwargs):
     assert json.dumps(synth.sparse_giant(*args, **kwargs)) == json.dumps(jax_synth.sparse_giant(*args, **kwargs))
 
 
+@pytest.mark.parametrize("kwargs", [{}, {"broken": True}, {"core": 12, "watchers": 9, "seed": 4},
+                                    {"core": 5, "watchers": 0, "broken": True, "seed": 2}])
+def test_two_family_preset_same_json(kwargs):
+    assert json.dumps(synth.two_family_preset(**kwargs)) == json.dumps(jax_synth.two_family_preset(**kwargs))
+
+
 @pytest.mark.parametrize(
     "make",
     [lambda s: s.sparse_giant(400), lambda s: s.benchmark_fbas(256, 34),

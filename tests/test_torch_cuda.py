@@ -1008,3 +1008,70 @@ def test_bitset_engine_solve_on_card_matches_cpu(name, cuda_device, monkeypatch)
     assert (on_card.intersects, on_card.q1, on_card.q2) == (on_cpu.intersects, on_cpu.q1, on_cpu.q2)
     assert on_card.stats.get("hit_index") == on_cpu.stats.get("hit_index")
     assert on_card.stats["encoding"] == "bitset" and on_card.cert["provenance"]["encoding"] == "bitset"
+
+
+@pytest.fixture
+def fault_plan():
+    """Install a ``QI_FAULTS``-style plan for one test, on a fresh run record."""
+    from quorum_intersection_tpu_torch.utils import faults, telemetry
+
+    telemetry.reset_run_record()
+    yield lambda spec: faults.install_plan(faults.parse_faults(spec))
+    faults.clear_plan()
+    telemetry.reset_run_record()
+
+
+@pytest.mark.parametrize("spec,options", [
+    ("sweep.bitset=error", {"engine": "bitset"}),
+    ("sweep.prune=error", {"prune": True}),
+    ("sweep.dispatch=oom", {}),
+    ("sweep.window=preempt", {}),
+])
+def test_sweep_fault_fails_the_card_solve(spec, options, cuda_device, fault_plan):
+    """A fired sweep point fails the solve on the card with the injected
+    exception: no degrade to the unpruned or dense encoding."""
+    from quorum_intersection_tpu_torch.utils.faults import FaultInjected
+
+    plan = fault_plan(spec)
+    with pytest.raises(FaultInjected) as exc:
+        solve((FIXTURES / "snapshot_correct.json").read_text(),
+              backend=GpuSweepBackend(device=cuda_device, **options))
+    assert exc.value.point == spec.split("=")[0] and plan.fired
+
+
+def test_frontier_chunk_fault_fails_the_card_solve(cuda_device, fault_plan):
+    from quorum_intersection_tpu_torch.backends.frontier import GpuFrontierBackend
+    from quorum_intersection_tpu_torch.utils.faults import FaultInjected
+
+    fault_plan("frontier.chunk=oom")
+    with pytest.raises(FaultInjected, match="frontier.chunk"):
+        solve(synth.hierarchical_fbas(5, 3), backend=GpuFrontierBackend(device=cuda_device))
+
+
+@pytest.mark.parametrize("spec", ["sweep.pack=error", "sweep.dispatch=oom", "sweep.compile=error"])
+def test_sweep_fault_under_auto_card_rung_fails(spec, cuda_device, fault_plan):
+    from quorum_intersection_tpu_torch.backends.auto import AutoBackend
+    from quorum_intersection_tpu_torch.utils.faults import FaultInjected
+
+    fault_plan(spec)
+    with pytest.raises(FaultInjected):
+        check_many([synth.majority_fbas(7), synth.majority_fbas(9)], backend=AutoBackend(device=cuda_device, pack=True))
+
+
+def test_full_width_windows_enumerated(cuda_device):
+    """The full-width correct twin's counters: cert.windows_enumerated is the
+    2^33-window space less the windows the plan pruned (the wide decode is
+    not pruned: none), and the sweep.window events' candidates sum to it."""
+    from quorum_intersection_tpu_torch.utils import telemetry
+
+    rec = telemetry.reset_run_record()
+    try:
+        res = solve(synth.benchmark_fbas(256, 34), backend=GpuSweepBackend(device=cuda_device, prune=True))
+    finally:
+        telemetry.reset_run_record()
+    assert res.intersects is True
+    pruned = rec.counters.get("cert.windows_pruned_guard", 0)
+    assert res.stats["cert"]["window_space"] == 1 << 33
+    assert rec.counters["cert.windows_enumerated"] == (1 << 33) - pruned == res.stats["candidates_checked"]
+    windows = [ev["attrs"]["candidates"] for ev in rec.events if ev["name"] == "sweep.window"]
+    assert sum(windows) == rec.counters["cert.windows_enumerated"] == rec.counters["sweep.candidates_checked"]

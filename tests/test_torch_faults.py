@@ -1,0 +1,292 @@
+"""The port's fault points on the CPU, against the JAX package's harness:
+
+- the registry, the ``QI_FAULTS`` grammar and ``fault_point``'s refusal of an
+  undeclared name, against the JAX ``utils/faults.py``;
+- every declared point reached by a test (``SCENARIOS``, one a point, each
+  run with a rule installed that fires there), and what a fired point does:
+  a ``sweep.*`` or ``frontier.chunk`` fault fails the solve with the injected
+  exception (no degrade to the unpruned or dense encoding, nor from the
+  card's rung to the host oracle); ``checkpoint.write``, ``cert.write`` and
+  ``telemetry.dump`` become counters; ``native.build`` and ``native.call``
+  degrade the auto router to the Python oracle; ``query.dispatch`` becomes a
+  typed ``QueryError``;
+- the disk-full cases of ``tests/test_checkpoint_faults.py`` (``:113-186``);
+- a ``FaultPreempted`` at ``sweep.window`` under a checkpoint resumes past
+  zero to the uninterrupted verdict and hit index;
+- a ``sweep.*`` fault under the auto router's packed rung fails the solve
+  (the card's twin is ``tests/test_torch_cuda.py``, which imports no JAX).
+"""
+
+import io
+import json
+import os
+
+import pytest
+import torch
+
+from quorum_intersection_tpu.utils import faults as jax_faults
+from quorum_intersection_tpu_torch import cli
+from quorum_intersection_tpu_torch.backends import cpp
+from quorum_intersection_tpu_torch.backends.auto import AutoBackend
+from quorum_intersection_tpu_torch.backends.frontier import GpuFrontierBackend
+from quorum_intersection_tpu_torch.backends.sweep import GpuSweepBackend
+from quorum_intersection_tpu_torch.cert import write_certificate
+from quorum_intersection_tpu_torch.fbas import synth
+from quorum_intersection_tpu_torch.pipeline import check_many, solve
+from quorum_intersection_tpu_torch.query import Query, QueryEngine, QueryError
+from quorum_intersection_tpu_torch.utils import faults, telemetry
+from quorum_intersection_tpu_torch.utils.checkpoint import FrontierCheckpoint, SweepCheckpoint
+from quorum_intersection_tpu_torch.utils.faults import FaultInjected, FaultPreempted
+
+from _torch_cases import fixture_data
+from _torch_faults_cases import late_hit_fbas
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def rec():
+    faults.clear_plan()
+    record = telemetry.reset_run_record()
+    yield record
+    faults.clear_plan()
+    telemetry.reset_run_record()
+
+
+def _plan(spec: str) -> faults.FaultPlan:
+    return faults.install_plan(faults.parse_faults(spec))
+
+
+def test_registry_is_a_subset_of_the_jax_catalog():
+    port = faults.registry()
+    assert set(port) <= set(jax_faults.registry())
+    assert set(port) == {
+        "sweep.prune", "sweep.bitset", "sweep.dispatch", "sweep.compile", "sweep.window", "sweep.pack",
+        "frontier.chunk", "checkpoint.write", "cert.write", "native.build", "native.call",
+        "telemetry.dump", "query.dispatch",
+    }
+
+
+def test_undeclared_point_raises_even_without_a_plan():
+    assert faults.active_plan() is None
+    with pytest.raises(KeyError):
+        faults.fault_point("sweep.nope")
+    with pytest.raises(KeyError):
+        faults.FaultRule(point="sweep.nope", mode="error")
+
+
+@pytest.mark.parametrize("spec", ["checkpoint.write=oserror@3", "native.call=hang:0.5@1",
+                                  "sweep.dispatch=oom", "sweep.window=preempt@2+;cert.write=oserror"])
+def test_grammar_is_the_jax_grammar(spec):
+    port, want = faults.parse_faults(spec), jax_faults.parse_faults(spec)
+    assert [r.spec() for r in port.rules] == [r.spec() for r in want.rules]
+    assert [(r.point, r.mode, r.first, r.every, r.seconds) for r in port.rules] == \
+        [(r.point, r.mode, r.first, r.every, r.seconds) for r in want.rules]
+    with pytest.raises(ValueError):
+        faults.parse_faults("sweep.dispatch")
+
+
+def test_qi_faults_env_fires_and_counts(monkeypatch, rec):
+    monkeypatch.setenv("QI_FAULTS", "cert.write=oserror@2")
+    faults.fault_point("cert.write")
+    with pytest.raises(OSError):
+        faults.fault_point("cert.write")
+    faults.fault_point("cert.write")
+    assert faults.active_plan().fired == [("cert.write", "oserror", 2)]
+    assert rec.counters["faults.injected"] == 1
+    assert [e["attrs"] for e in rec.events if e["name"] == "fault.injected"] == [
+        {"point": "cert.write", "mode": "oserror", "hit": 2}]
+
+
+# ---- every point, reached ----------------------------------------------------
+
+
+def _sweep(**kw):
+    return GpuSweepBackend(device="cpu", **kw)
+
+
+def _fails_solve(point, data=None, **backend_kw):
+    """A solve through a sweep point: the injected exception, no verdict."""
+    with pytest.raises(FaultInjected) as exc:
+        solve(data or synth.majority_fbas(9), backend=_sweep(**backend_kw))
+    assert exc.value.point == point
+
+
+def _scenario_sweep_pack(point, tmp, mp):
+    with pytest.raises(FaultInjected):
+        check_many([synth.majority_fbas(7), synth.majority_fbas(9)], backend=_sweep())
+
+
+def _scenario_packed_bitset(point):
+    with pytest.raises(FaultInjected):
+        check_many([synth.majority_fbas(7), synth.majority_fbas(9)], backend=_sweep(engine="bitset"))
+
+
+def _scenario_frontier(point, tmp, mp):
+    with pytest.raises(FaultInjected) as exc:
+        solve(fixture_data("nested_correct.json"), backend=GpuFrontierBackend(device="cpu"))
+    assert exc.value.point == "frontier.chunk"
+
+
+def _scenario_checkpoint(point, tmp, mp):
+    rec = telemetry.get_run_record()
+    ck = SweepCheckpoint(tmp / "c.ckpt")
+    res = solve(synth.majority_fbas(9), backend=_sweep(checkpoint=ck, batch=32))
+    assert res.intersects is True
+    assert rec.counters["checkpoint.save_errors"] >= 1
+
+
+def _scenario_cert(point, tmp, mp):
+    rec = telemetry.get_run_record()
+    res = solve(synth.majority_fbas(5), backend="python")
+    assert write_certificate(res.cert, str(tmp / "c.json")) is None
+    assert rec.counters["cert.write_errors"] == 1
+
+
+def _scenario_native_build(point, tmp, mp):
+    rec = telemetry.get_run_record()
+    mp.setattr(cpp, "BUILD_DIR", tmp / "native")  # nothing built there: the build runs
+    mp.setattr(cpp, "_lib", None)
+    res = solve(fixture_data("trivial_broken.json"), backend=AutoBackend(device="cpu", race=False))
+    assert res.intersects is False and res.stats["backend"] == "python"
+    assert [e["attrs"]["to"] for e in rec.events if e["name"] == "degrade"] == ["python-oracle"]
+
+
+def _scenario_native_call(point, tmp, mp):
+    rec = telemetry.get_run_record()
+    res = solve(fixture_data("trivial_broken.json"), backend=AutoBackend(device="cpu", race=False))
+    want = solve(fixture_data("trivial_broken.json"), backend="python")
+    assert (res.intersects, res.q1, res.q2) == (want.intersects, want.q1, want.q2)
+    assert res.stats["backend"] == "python"
+    assert [e["attrs"]["rung"] for e in rec.events if e["name"] == "degrade"] == ["native"]
+
+
+def _scenario_dump(point, tmp, mp):
+    rec = telemetry.get_run_record()
+    assert telemetry.dump_flight_recorder("test", path=str(tmp / "f.json")) is None
+    assert rec.counters["telemetry.dump_errors"] == 1
+
+
+def _scenario_query(point, tmp, mp):
+    fa, fb = synth.two_family_preset(core=6, watchers=0, seed=1)
+    with pytest.raises(QueryError) as exc:
+        QueryEngine(backend="python", device="cpu").resolve(fa, Query.parse({"kind": "relaxed", "family_b": fb}))
+    assert exc.value.code == "query_degraded"
+
+
+SCENARIOS = {
+    "sweep.prune": ("error", lambda p, tmp, mp: _fails_solve(p, prune=True)),
+    "sweep.bitset": ("error", lambda p, tmp, mp: (_fails_solve(p, engine="bitset"), _scenario_packed_bitset(p))),
+    "sweep.dispatch": ("oom", lambda p, tmp, mp: _fails_solve(p)),
+    "sweep.compile": ("error", lambda p, tmp, mp: _fails_solve(p)),
+    "sweep.window": ("preempt", lambda p, tmp, mp: _fails_solve(p)),
+    "sweep.pack": ("error", _scenario_sweep_pack),
+    "frontier.chunk": ("oom", _scenario_frontier),
+    "checkpoint.write": ("oserror", _scenario_checkpoint),
+    "cert.write": ("oserror", _scenario_cert),
+    "native.build": ("error", _scenario_native_build),
+    "native.call": ("error", _scenario_native_call),
+    "telemetry.dump": ("oserror", _scenario_dump),
+    "query.dispatch": ("error", _scenario_query),
+}
+
+
+def test_every_declared_point_has_a_scenario():
+    assert set(SCENARIOS) == set(faults.registry())
+
+
+@pytest.mark.parametrize("point", sorted(SCENARIOS))
+def test_point_is_reached_and_handled(point, tmp_path, monkeypatch, rec):
+    mode, scenario = SCENARIOS[point]
+    plan = _plan(f"{point}={mode}")
+    scenario(point, tmp_path, monkeypatch)
+    assert plan.counts.get(point, 0) >= 1
+    assert plan.fired and all(p == point for p, _, _ in plan.fired)
+    assert rec.counters["faults.injected"] == len(plan.fired)
+
+
+# ---- the disk-full cases ------------------------------------------------------
+
+
+def test_injected_disk_full_counts_and_cleans_tmp(tmp_path, rec):
+    _plan("checkpoint.write=oserror@1+")
+    p = tmp_path / "c.ckpt"
+    SweepCheckpoint(p).record(5, 10)
+    assert rec.counters.get("checkpoint.save_errors") == 1
+    assert not p.exists() and not p.with_suffix(".tmp").exists()
+    ev = [e for e in rec.events if e["name"] == "checkpoint.save_error"]
+    assert ev and "injected disk full" in ev[0]["attrs"]["error"]
+    FrontierCheckpoint(tmp_path / "f.ckpt").record([[[1], [2]]], fingerprint="fp")
+    assert rec.counters.get("checkpoint.save_errors") == 2
+
+
+def test_sweep_verdict_identical_with_and_without_faults(tmp_path, rec):
+    data = synth.majority_fbas(9, broken=True)
+    clean = solve(data, backend=_sweep(batch=32))
+    _plan("checkpoint.write=oserror@1+")
+    faulted = solve(data, backend=_sweep(checkpoint=SweepCheckpoint(tmp_path / "c.ckpt"), batch=32))
+    assert faulted.intersects is clean.intersects is False
+    assert (faulted.q1, faulted.q2, faulted.stats["hit_index"]) == (clean.q1, clean.q2, clean.stats["hit_index"])
+
+
+@pytest.mark.parametrize("point", ["cert.write", "checkpoint.write"])
+def test_host_faults_keep_the_cli_verdict(point, tmp_path, monkeypatch, capsys, rec):
+    data = json.dumps(synth.majority_fbas(9))
+    argv = ["--device", "cpu", "--backend", "gpu-sweep", "--cert-out", str(tmp_path / "c.json"),
+            "--checkpoint", str(tmp_path / "s.ckpt")]
+    monkeypatch.setenv("QI_FAULTS", f"{point}=oserror")
+    monkeypatch.setattr("sys.stdin", io.StringIO(data))
+    assert cli.main(argv) == 0
+    assert capsys.readouterr().out == "true\n"
+    counter = {"cert.write": "cert.write_errors", "checkpoint.write": "checkpoint.save_errors"}[point]
+    assert telemetry.get_run_record().counters.get(counter, 0) >= 1
+
+
+def test_preempted_window_resumes_from_the_checkpoint(tmp_path, rec):
+    """A preempt at the 40th window, after 8 programs drained: the checkpoint
+    on disk holds the drained prefix, and the rerun resumes there to the
+    uninterrupted verdict and hit index."""
+    data = late_hit_fbas()
+    plain = solve(data, backend=_sweep(batch=32))
+    assert plain.stats["hit_index"] == 4111
+    path = tmp_path / "s.ckpt"
+    _plan("sweep.window=preempt@40")
+    with pytest.raises(FaultPreempted):
+        solve(data, backend=_sweep(batch=32, checkpoint=SweepCheckpoint(path)))
+    faults.clear_plan()
+    recorded = json.loads(path.read_text())["position"]
+    assert 0 < recorded < plain.stats["hit_index"]
+    res = solve(data, backend=_sweep(batch=32, checkpoint=SweepCheckpoint(path)))
+    assert res.stats["resumed_from"] == recorded
+    assert (res.intersects, res.stats["hit_index"], res.q1, res.q2) == \
+        (plain.intersects, plain.stats["hit_index"], plain.q1, plain.q2)
+    assert not path.exists()
+
+
+def test_cli_sweep_fault_exits_with_an_error_and_no_verdict(monkeypatch, capsys):
+    monkeypatch.setenv("QI_FAULTS", "sweep.dispatch=error")
+    monkeypatch.setattr("sys.stdin", io.StringIO(json.dumps(synth.majority_fbas(9))))
+    with pytest.raises(FaultInjected, match="sweep.dispatch"):
+        cli.main(["--device", "cpu", "--backend", "gpu-sweep"])
+    assert capsys.readouterr().out == ""
+
+
+@pytest.mark.parametrize("spec", ["sweep.pack=error", "sweep.dispatch=oom", "sweep.compile=error"])
+def test_auto_packed_rung_fails_not_degrades(spec):
+    _plan(spec)
+    with pytest.raises(FaultInjected):
+        check_many([synth.majority_fbas(7), synth.majority_fbas(9)], backend=AutoBackend(device="cpu", pack=True))
+
+
+def test_flight_recorder_dump_on_fault(tmp_path, monkeypatch, rec):
+    target = tmp_path / "flight.json"
+    monkeypatch.setenv("QI_FLIGHT_RECORDER", str(target))
+    _plan("sweep.dispatch=error")
+    with pytest.raises(FaultInjected):
+        solve(synth.majority_fbas(5), backend=_sweep())
+    dump = json.loads(target.read_text())
+    assert dump["schema"] == "qi-flight/1" and dump["reason"] == "fault:sweep.dispatch:error"
+    assert dump["counters"]["faults.injected"] == 1
+    assert any(line["name"] == "fault.injected" for line in dump["tail"])
+    assert rec.counters["telemetry.dumps"] == 1
+    assert not os.path.exists(str(target) + f".tmp{os.getpid()}")

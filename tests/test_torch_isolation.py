@@ -147,3 +147,25 @@ def test_native_oracle_builds_from_the_ports_own_copy():
         assert PORT.resolve() in resolved.parents
         assert jax_pkg not in resolved.parents
     assert cpp.SRC.is_file() and cpp.SRC.name == "qi_oracle.cpp"
+
+
+_ENV_READ = re.compile(r"""(os\.environ|os\.getenv|environ\.get)\b[^\n]*["']QI_""")
+
+
+def test_no_qi_env_read_outside_the_registry():
+    """Every ``QI_*`` knob the port reads goes through ``utils/env.py``
+    (``qi_env`` refuses an undeclared name): no other module of the port
+    reads one from ``os.environ``."""
+    hits = [
+        f"{path.relative_to(ROOT)}:{i}: {line.strip()}"
+        for path in sorted(PORT.rglob("*.py"))
+        if path != PORT / "utils" / "env.py"
+        for i, line in enumerate(path.read_text().splitlines(), 1)
+        if _ENV_READ.search(line)
+    ]
+    assert hits == []
+    must = ['os.environ.get("QI_SWEEP_ENGINE", "")', "os.getenv('QI_FAULTS')", 'os.environ["QI_SWEEP_PRUNE"]']
+    assert all(_ENV_READ.search(line) for line in must)
+    assert not _ENV_READ.search('qi_env("QI_SWEEP_ENGINE")')
+    env_src = (PORT / "utils" / "env.py").read_text()
+    assert "os.environ.get(var.name)" in env_src
