@@ -9,6 +9,7 @@
     python3 chip_smoke.py --pagerank --k12-parent DIR   # ... and DIR's K12 and this one's launch shapes in turns
     python3 chip_smoke.py --bitset --k8-parent DIR      # ... and DIR's K8 in turns with this one on every shape
     python3 chip_smoke.py --observe      # build, then only observe, faults and query (27-29) and their certificates
+    python3 chip_smoke.py --delta        # build, then only incremental re-analysis (30) and its certificates
 
 Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
 
@@ -267,15 +268,36 @@ Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
               exit codes, each call's wall time;
               then the ``gpu-sweep`` what-if in process with K3's and K4's
               launches counted (K3 must launch);
-30. cert    — every certificate the runs above produced (CLI ``--cert-out``
+30. delta   — incremental re-analysis on the card: three churn traces,
+              each through one ``DeltaEngine`` (one store) a snapshot a
+              call and through ``check_many`` from scratch, in turns —
+              ``dump_scale_correct`` (``churn_trace_steps(16, seed=3,
+              max_diff=2)``) under ``auto``, ``benchmark_fbas(256, core=34)``
+              (8 steps, seed 5) under ``gpu-sweep``, ``hierarchical_fbas(8,
+              4)`` (4 steps, seed 6) under ``gpu-frontier`` — then
+              ``snapshot_correct.json``'s 15-step trace twice over in one
+              ``DeltaEngine.check_many`` under ``gpu-sweep`` against one
+              scratch ``check_many`` of the same list.  Every verdict and
+              witness pair equal to the scratch run's; the backend solves
+              equal to the ground truth of the generator's metas; scans
+              reused and fresh, ``delta.scc_reuse_pct``, the median step
+              seconds each way, the kernel launches (counts set to 0 before
+              each call, read after) and ``sweep.window`` events each way.
+              Two faults: ``sweep.dispatch`` under the engine on a step that
+              dirties the full-width core fails the call (and the step then
+              solves once), ``delta.diff`` degrades to the scratch verdicts
+              with ``delta.diff_faults`` counted;
+31. cert    — every certificate the runs above produced (CLI ``--cert-out``
               under auto, gpu-sweep and gpu-frontier, ``solve`` and
               ``check_many`` on both engines, pruned, rank-ordered and
-              frontier runs with every block) checked by the unmodified
+              frontier runs with every block, incremental re-analysis's
+              composed and fresh ones) checked by the unmodified
               ``tools/check_cert.py`` in a subprocess, from raw JSON.
 
 The line before the last is the kernels' JSON record (launches on the main
 path of each, error against the plain version, times, bound, device ms on
-the main path under the profiler, ptxas registers and spills per instance);
+the main path under the profiler, ptxas registers and spills per instance,
+launches on the incremental path of phase delta);
 the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -2875,6 +2897,197 @@ def query_phase(device, card, texts, cert_jobs, work):
                                   "launches": launches})
 
 
+DELTA_TRACES = (
+    # (label, snapshots a step, backend, churn_trace_steps arguments); the base
+    # is built in delta_phase.
+    ("dump_scale_correct", "auto", {"steps": 16, "seed": 3, "max_diff": 2}),
+    ("benchmark_fbas(256,core=34)", "gpu-sweep", {"steps": 8, "seed": 5}),
+    ("hierarchical_fbas(8,4)", "gpu-frontier", {"steps": 4, "seed": 6}),
+)
+
+
+def delta_ground_truth(metas, scratch) -> int:
+    """Backend solves an incremental engine must make on a churn trace: the
+    cold first solve plus every step whose predecessor's target SCC the
+    generator's metas mark as affected (a step decided by the SCC guard
+    solves nothing; a predecessor without a single target counts as
+    affected)."""
+    solves = 0
+    for k, res in enumerate(scratch):
+        if len(res.quorum_scc_ids) != 1:
+            continue
+        prev = scratch[k - 1] if k else None
+        if prev is None or len(prev.quorum_scc_ids) != 1 or prev.quorum_scc_ids[0] in metas[k - 1]["affected_scc_ids"]:
+            solves += 1
+    return solves
+
+
+def delta_phase(device, card, texts, cert_jobs, work):
+    """Phase delta: incremental re-analysis on the card.  Each churn trace
+    goes through one ``DeltaEngine`` (one store), a snapshot a call, and the
+    same snapshots through ``check_many`` from scratch, in turns; then one
+    batch of a trace twice over; then two faults.  Returns the incremental
+    path's kernel launches."""
+    from collections import Counter
+    from statistics import median
+
+    from quorum_intersection_tpu_torch.delta import DeltaEngine, SccVerdictStore
+    from quorum_intersection_tpu_torch.fbas import synth
+    from quorum_intersection_tpu_torch.kernels import frontier_cuda
+    from quorum_intersection_tpu_torch.kernels.bitset_sweep_cuda import bitset_sweep
+    from quorum_intersection_tpu_torch.kernels.packed_cuda import packed_sweep_bitset, packed_sweep_dense
+    from quorum_intersection_tpu_torch.kernels.sweep_cuda import sweep_fused
+    from quorum_intersection_tpu_torch.pipeline import check_many
+    from quorum_intersection_tpu_torch.utils import faults, telemetry
+    from quorum_intersection_tpu_torch.utils.faults import FaultInjected
+
+    t0 = time.perf_counter()
+    wrappers = {"sweep_fused_cuda": sweep_fused, "packed_sweep_dense_cuda": packed_sweep_dense,
+                "packed_sweep_bitset_cuda": packed_sweep_bitset, "bitset_sweep_cuda": bitset_sweep}
+
+    def zero_counts():
+        for fn in wrappers.values():
+            fn.launches = 0
+        for name in frontier_cuda.LAUNCHES:
+            frontier_cuda.LAUNCHES[name] = 0
+
+    def counts_now():
+        counts = {name: fn.launches for name, fn in wrappers.items()}
+        counts.update(frontier_chunk_cuda=frontier_cuda.LAUNCHES["frontier_chunk"],
+                      frontier_filter_cuda=frontier_cuda.LAUNCHES["frontier_filter"])
+        return counts
+
+    def witness(res):
+        return None if res.intersects else sorted(sorted(q) for q in (res.q1 or [], res.q2 or []))
+
+    def arm_call(rec, fn):
+        """One call with the launch counts set to 0 just before and read just
+        after: (results, seconds, launches, sweep.window events)."""
+        zero_counts()
+        ev0 = rec.event_count()
+        t = time.perf_counter()
+        out = fn()
+        secs = time.perf_counter() - t
+        return out, secs, counts_now(), sum(1 for ev in rec.events_since(ev0) if ev["name"] == "sweep.window")
+
+    def same(label, got, want):
+        for k, (a, b) in enumerate(zip(got, want)):
+            if a.intersects is not b.intersects or witness(a) != witness(b):
+                fail("delta", f"{label} step {k}: incremental {a.intersects} {witness(a)} != scratch "
+                              f"{b.intersects} {witness(b)}")
+
+    def row_of(label, backend, rec, engine, truth, times, launches, windows, n):
+        counters, gauges = rec.snapshot()
+        solves = counters.get("delta.solves", 0)
+        if solves != truth:
+            fail("delta", f"{label}: {solves} backend solves, ground truth {truth}")
+        return {"trace": label, "backend": backend, "snapshots": n, "solves": solves, "ground_truth": truth,
+                "scans_reused": counters.get("delta.scan_hits", 0),
+                "scans_fresh": counters.get("delta.scan_misses", 0),
+                "compositions": counters.get("delta.compositions", 0),
+                "scc_reuse_pct": gauges.get("delta.scc_reuse_pct"), "reuse_pct": engine.store.reuse_pct(),
+                "median_step_s": {arm: median(v) for arm, v in times.items()},
+                "step_s": times, "launches": {arm: dict(c) for arm, c in launches.items()},
+                "sweep_window_events": windows}
+
+    bases = {
+        "dump_scale_correct": json.loads(texts["dump_scale_correct.json.gz"]),
+        "benchmark_fbas(256,core=34)": synth.benchmark_fbas(256, 34),
+        "hierarchical_fbas(8,4)": synth.hierarchical_fbas(8, 4),
+    }
+    rows, delta_launches, engines = [], Counter(), {}
+    for label, backend, kw in DELTA_TRACES:
+        trace, metas = synth.churn_trace_steps(bases[label], **kw)
+        rec = telemetry.reset_run_record()
+        engine = DeltaEngine(SccVerdictStore())
+        engines[label] = (engine, trace)
+        inc, scratch = [], []
+        times = {"incremental": [], "scratch": []}
+        launches = {"incremental": Counter(), "scratch": Counter()}
+        windows = {"incremental": 0, "scratch": 0}
+        for k, snap in enumerate(trace):
+            for arm in (("incremental", "scratch") if k % 2 == 0 else ("scratch", "incremental")):
+                if arm == "incremental":
+                    out, secs, counts, evs = arm_call(rec, lambda: engine.check_many([snap], backend=backend))
+                else:
+                    out, secs, counts, evs = arm_call(rec, lambda: check_many([snap], backend=backend))
+                (inc if arm == "incremental" else scratch).append(out[0])
+                times[arm].append(secs)
+                launches[arm].update(counts)
+                windows[arm] += evs
+        same(label, inc, scratch)
+        cert_jobs += [(f"delta/{label} step {k}", snap, res.cert) for k, (snap, res) in enumerate(zip(trace, inc))]
+        delta_launches.update(launches["incremental"])
+        rows.append(row_of(label, backend, rec, engine, delta_ground_truth(metas, scratch), times, launches,
+                           windows, len(trace)))
+    if delta_launches["sweep_fused_cuda"] < 1 or delta_launches["frontier_chunk_cuda"] < 1:
+        fail("delta", f"the incremental path never launched K1 or K9: {dict(delta_launches)}")
+
+    # One batch: the snapshot trace's 16 snapshots, each twice, in one call.
+    trace, metas = synth.churn_trace_steps(json.loads(texts["snapshot_correct.json"]), 15, seed=3)
+    batch = trace + trace
+    rec = telemetry.reset_run_record()
+    engine = DeltaEngine(SccVerdictStore())
+    inc, inc_s, inc_counts, inc_windows = arm_call(rec, lambda: engine.check_many(batch, backend="gpu-sweep"))
+    scratch, scratch_s, scratch_counts, scratch_windows = arm_call(
+        rec, lambda: check_many(batch, backend="gpu-sweep"))
+    same("one batch", inc, scratch)
+    cert_jobs += [(f"delta/one batch {k}", snap, res.cert) for k, (snap, res) in enumerate(zip(batch, inc))]
+    delta_launches.update(inc_counts)
+    rows.append(row_of("snapshot_correct.json x2, one call", "gpu-sweep", rec, engine,
+                       delta_ground_truth(metas, scratch[:len(trace)]),
+                       {"incremental": [inc_s / len(batch)], "scratch": [scratch_s / len(batch)]},
+                       {"incremental": inc_counts, "scratch": scratch_counts},
+                       {"incremental": inc_windows, "scratch": scratch_windows}, len(batch)))
+    rows[-1]["call_s"] = {"incremental": inc_s, "scratch": scratch_s}
+
+    # Fault 1: sweep.dispatch inside the incremental solve of a step that
+    # dirties the full-width core fails the call (no degrade); the same step
+    # without the rule then solves once, equal to the scratch verdict.
+    engine, trace = engines["benchmark_fbas(256,core=34)"]
+    dirty = json.loads(json.dumps(trace[-1]))
+    core_node = next(n for n in dirty if n["publicKey"].startswith("CORE"))
+    core_node["quorumSet"]["threshold"] -= 1
+    rec = telemetry.reset_run_record()
+    plan = faults.install_plan(faults.parse_faults("sweep.dispatch=error"))
+    try:
+        engine.check_many([dirty], backend="gpu-sweep")
+        fail("delta", "a sweep.dispatch fault under DeltaEngine did not fail the call")
+    except FaultInjected as exc:
+        if exc.point != "sweep.dispatch" or len(plan.fired) != 1 or rec.counters.get("delta.errors", 0):
+            fail("delta", f"sweep.dispatch: point {exc.point}, fired {plan.fired}, "
+                          f"delta.errors {rec.counters.get('delta.errors')}")
+    finally:
+        faults.clear_plan()
+    got = engine.check_many([dirty], backend="gpu-sweep")[0]
+    want = check_many([dirty], backend="gpu-sweep")[0]
+    same("dirty core after the fault", [got], [want])
+    if rec.counters.get("delta.solves") != 2 or got.cert["provenance"]["delta"]["resolved_sccs"] != 1:
+        fail("delta", f"the dirtied core: delta.solves {rec.counters.get('delta.solves')} (2 expected)")
+    cert_jobs.append(("delta/dirty core", dirty, got.cert))
+    dispatch_fault = {"raised": "FaultInjected at sweep.dispatch", "fired": len(plan.fired),
+                      "delta_errors": 0, "then_verdict": got.intersects, "then_resolved": 1}
+
+    # Fault 2: delta.diff on every call degrades to the scratch verdicts.
+    rec = telemetry.reset_run_record()
+    faults.install_plan(faults.parse_faults("delta.diff=error@1+"))
+    try:
+        engine = DeltaEngine(SccVerdictStore())
+        degraded = [engine.check_many([snap], backend="gpu-sweep")[0] for snap in batch[:4]]
+    finally:
+        faults.clear_plan()
+    same("delta.diff fault", degraded, scratch[:4])
+    if rec.counters.get("delta.diff_faults") != 4 or len(engine.store):
+        fail("delta", f"delta.diff: {rec.counters.get('delta.diff_faults')} faults counted (4 expected), "
+                      f"store size {len(engine.store)}")
+    telemetry.reset_run_record()
+    phase_line("delta", card=card, seconds=round(time.perf_counter() - t0, 3), traces=rows,
+               faults={"sweep.dispatch": dispatch_fault,
+                       "delta.diff": {"calls": 4, "delta.diff_faults": 4, "verdicts": "scratch's"}},
+               incremental_launches=dict(delta_launches))
+    return dict(delta_launches)
+
+
 def check_certificates(cert_jobs, work):
     """Every ``(label, source, certificate)`` through the unmodified
     ``tools/check_cert.py`` in a subprocess, from raw JSON: ``(refused,
@@ -2963,6 +3176,9 @@ def main(argv=None) -> int:
     ap.add_argument("--observe", action="store_true",
                     help="only build, then run the observability, fault and query phases (observe, faults, "
                          "query) and check their certificates (no ok line)")
+    ap.add_argument("--delta", action="store_true",
+                    help="only build, then run the incremental re-analysis phase (delta) and check its "
+                         "certificates (no ok line)")
     ap.add_argument("--k12-parent", metavar="DIR", default=None,
                     help="a checkout (git archive) whose PageRank kernel timing_pagerank times in turns "
                          "with this tree's, per call and per iteration, beside this tree's launch shapes")
@@ -3026,6 +3242,18 @@ def main(argv=None) -> int:
         observe_phase(device, card, texts, manifest, cert_jobs, work)
         faults_phase(device, card, texts, cert_jobs, work)
         query_phase(device, card, texts, cert_jobs, work)
+        refused, _ = check_certificates(cert_jobs, work)
+        phase_line("cert", card=card, checked=len(cert_jobs), refused=refused)
+        return 1 if refused else 0
+
+    if args.delta:
+        import tempfile
+
+        manifest = json.loads((FIXTURES / "MANIFEST.json").read_text())
+        texts = {name: fixture_text(name) for name in manifest}
+        work = pathlib.Path(tempfile.mkdtemp(prefix="qi-chip-smoke-"))
+        cert_jobs = []
+        delta_phase(device, card, texts, cert_jobs, work)
         refused, _ = check_certificates(cert_jobs, work)
         phase_line("cert", card=card, checked=len(cert_jobs), refused=refused)
         return 1 if refused else 0
@@ -3985,7 +4213,10 @@ def main(argv=None) -> int:
     faults_phase(device, card, texts, cert_jobs, work)
     query_phase(device, card, texts, cert_jobs, work)
 
-    # -- 30. cert: every certificate through the unmodified checker --------
+    # -- 30. delta: incremental re-analysis through the card's kernels ------
+    delta_launches = delta_phase(device, card, texts, cert_jobs, work)
+
+    # -- 31. cert: every certificate through the unmodified checker --------
     t = time.perf_counter()
     bad, checked = check_certificates(cert_jobs, work)
     cert_wall = time.perf_counter() - t
@@ -4084,6 +4315,7 @@ def main(argv=None) -> int:
     library_of.update(frontier_chunk_cuda="frontier", frontier_filter_cuda="frontier")
     for entry in record["kernels"]:
         entry["instances"] = ptxas.get(library_of[entry["name"]])
+        entry["delta_path_launches"] = delta_launches.get(entry["name"], 0)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

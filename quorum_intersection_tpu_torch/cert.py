@@ -12,7 +12,9 @@ Every verdict carries one:
   accounting (ledger kind ``tpu-frontier``, engine ``gpu-frontier``);
 - **always**: provenance — the engine that answered, the run record's
   ``trace_id``, the router's events of this solve (race, routing, degrade),
-  and the front end's dangling-reference decisions.
+  and the front end's dangling-reference decisions; under incremental
+  re-analysis also ``delta`` (reused vs re-solved SCCs) and, on a composed
+  verdict, ``cost`` (the reuse credit).
 
 ``tools/check_cert.py``, a checker that imports only the standard library,
 re-validates a certificate against the raw stellarbeat JSON.  Certificates
@@ -184,9 +186,18 @@ def build_certificate(
     target_scc_index: Optional[int] = None,
     events: Optional[List[dict]] = None,
     batched: bool = False,
+    delta: Optional[Dict[str, object]] = None,
 ) -> Dict[str, object]:
     """Assemble one ``qi-cert/1`` certificate and record its summary
-    (``cert.emitted`` event, ``cert.certificates`` counter)."""
+    (``cert.emitted`` event, ``cert.certificates`` counter).
+
+    ``delta`` is the incremental re-analysis stamp (:mod:`.delta`): reused
+    vs re-solved SCC counts for this verdict, recorded under
+    ``provenance.delta`` so a consumer can tell a composed certificate
+    (a cached SCC fragment stitched against this snapshot) from a
+    from-scratch solve.  Purely provenance: the witness and ledger claims
+    are rebuilt against THIS graph either way, so ``tools/check_cert.py``
+    checks both alike."""
     rec = get_run_record()
     cert: Dict[str, object] = {
         "schema": CERT_SCHEMA,
@@ -223,6 +234,8 @@ def build_certificate(
             "events_truncated": rec.events_truncated(),
         },
     }
+    if delta is not None:
+        cert["provenance"]["delta"] = dict(delta)  # type: ignore[index]
     order = stats.get("order")
     if isinstance(order, dict):
         # Rank-ordered windows: which enumeration permutation the sweep ran
@@ -236,6 +249,11 @@ def build_certificate(
         # so dense certificates stay as they were).  Provenance only: the
         # witness and the ledger do not depend on it.
         cert["provenance"]["encoding"] = encoding  # type: ignore[index]
+    cost = stats.get("cost")
+    if isinstance(cost, dict):
+        # qi-cost/1: a composed verdict's reuse credit (cost.py).  Provenance
+        # only: the checker ignores it.
+        cert["provenance"]["cost"] = dict(cost)  # type: ignore[index]
     summary: Dict[str, object] = {
         "verdict": bool(intersects),
         "backend": stats.get("backend", reason),

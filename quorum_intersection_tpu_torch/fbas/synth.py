@@ -8,7 +8,10 @@ the fused kernel's wide satisfaction masks.  :func:`nested_hierarchy`,
 :func:`sparse_giant` (the bitset engine's workload), :func:`two_family_preset`
 (the relaxed query's two families) and the density
 annotations :func:`graph_density` and :func:`scc_qset_density` (the bitset
-routing's feature) are the JAX package's, copied unchanged.
+routing's feature) are the JAX package's, copied unchanged, and so are the
+churn generators :func:`churn_trace_steps` and :func:`churn_trace` (the
+snapshot streams incremental re-analysis replays): the same arguments give a
+byte-identical trace and metas in both packages.
 
 All generators emit stellarbeat-style raw dicts (the same shape
 :func:`quorum_intersection_tpu_torch.fbas.schema.parse_fbas` accepts), so every
@@ -21,7 +24,10 @@ broken twin differing by a single threshold.
 
 from __future__ import annotations
 
+import copy
+import json
 import random
+from collections import Counter
 from typing import TYPE_CHECKING, Dict, List, Optional, Tuple
 
 if TYPE_CHECKING:
@@ -491,3 +497,386 @@ def scc_qset_density(graph: TrustGraph, scc: List[int]) -> float:
                 stack.append(inner)
     denom = units * len(scc)
     return (refs / denom) if denom else 0.0
+
+
+# The default churn mix (the three bounded mutations a live stellarbeat
+# feed actually produces — see churn_trace_steps); the restructuring kinds
+# scc_split / scc_merge are opt-in via ``kinds`` because they change the
+# SCC partition itself, which most load-shaped consumers don't want.
+CHURN_KINDS = ("threshold", "swap", "rename")
+
+def _scc_partition(snapshot: List[Dict]) -> Tuple[List[int], List[str]]:
+    """``(comp, keys)``: the snapshot's SCC component id per node (JSON
+    order) and each node's publicKey — the ground truth churn annotations
+    are expressed against.  Uses the real front end (parse → build →
+    Tarjan) so annotations agree with what the pipeline will see."""
+    from quorum_intersection_tpu_torch.fbas.graph import build_graph, tarjan_scc
+    from quorum_intersection_tpu_torch.fbas.schema import parse_fbas
+
+    fbas = parse_fbas(snapshot)
+    graph = build_graph(fbas)
+    _, comp = tarjan_scc(graph.n, graph.succ)
+    return comp, list(graph.node_ids)
+
+
+def _key_sets(comp: List[int], keys: List[str]) -> List[frozenset]:
+    """One partition as member-publicKey sets (the ground-truth currency
+    of the restructure annotations)."""
+    groups: Dict[int, set] = {}
+    for v, c in enumerate(comp):
+        groups.setdefault(c, set()).add(keys[v])
+    return [frozenset(g) for g in groups.values()]
+
+
+def _spanning(parts: List[frozenset], others: List[frozenset]) -> int:
+    """How many of ``parts`` meet two or more of ``others`` (by list entry):
+    the merge and split counts of the restructure ground truth.  The JAX
+    package counts the same pairwise (``p & np`` over every pair); this
+    indexes each key's cells once, so a dump-scale partition costs linear
+    time instead of quadratic."""
+    cells: Dict[str, List[int]] = {}
+    for j, other in enumerate(others):
+        for key in other:
+            cells.setdefault(key, []).append(j)
+    return sum(1 for part in parts if len({j for key in part for j in cells.get(key, ())}) >= 2)
+
+
+def _zipf_pick(rng: random.Random, n: int, skew: float) -> int:
+    """One draw from a truncated Zipf over ranks ``0..n-1``:
+    ``P(r) ∝ 1/(r+1)^skew``.  Rank 0 is the hottest."""
+    weights = [(r + 1) ** -skew for r in range(n)]
+    total = sum(weights)
+    x = rng.random() * total
+    acc = 0.0
+    for r, w in enumerate(weights):
+        acc += w
+        if x <= acc:
+            return r
+    return n - 1
+
+
+def churn_trace_steps(
+    base: List[Dict],
+    steps: int,
+    seed: int = 0,
+    *,
+    max_diff: int = 2,
+    kinds: Tuple[str, ...] = CHURN_KINDS,
+    annotate: bool = True,
+    skew: float = 0.0,
+) -> Tuple[List[List[Dict]], List[Dict]]:
+    """Deterministic snapshot stream with **ground-truth step annotations**
+    (qi-delta): ``(trace, metas)`` where ``trace`` has
+    ``steps + 1`` consecutive snapshots starting at ``base`` and
+    ``metas[k]`` describes the mutations that produced ``trace[k + 1]``:
+
+    - ``mutations``: ``[{kind, node, scc_id}, ...]`` — each churned node's
+      publicKey and its SCC id in the **predecessor** snapshot's partition
+      (merge mutations list both touched nodes);
+    - ``affected_scc_ids``: the predecessor-partition SCC ids whose
+      structural fingerprint the step invalidated — empty for a pure
+      cosmetic-rename step, so incremental tests can assert *exactly*
+      which SCCs a delta engine must re-derive;
+    - ``partition_changed`` / ``merges`` / ``splits``: whether the SCC
+      partition itself restructured (computed independently of
+      ``fbas/diff.py`` by comparing member-key sets, so the differ is
+      tested against ground truth, not against itself).
+
+    ``kinds`` selects the mutation mix.  Beyond the bounded trio
+    (**threshold wobble**, **validator swap**, **cosmetic rename** — see
+    :func:`churn_trace`), two restructuring kinds are available:
+
+    - ``scc_merge``: the churned node and a node of another SCC add each
+      other as validators — the 2-cycle merges their components;
+    - ``scc_split``: a node of a multi-node SCC replaces its quorum set
+      with a self-only slice (threshold 1 over itself), splitting off —
+      the classic broken-config shape, so expect guard-decided verdicts.
+
+    Either falls back to a threshold wobble when the partition offers no
+    candidate (a single SCC to merge, no multi-node SCC to split).
+
+    ``skew`` (qi-fleet) adds **zipfian temporal skew**: with
+    ``skew > 0`` each emitted step either *advances* the underlying
+    bounded-diff mutation chain (rank 0) or *re-emits* a recent chain
+    snapshot byte-identically, with rank ``r`` (the r-th most recent)
+    drawn ``P(r) ∝ 1/(r+1)^skew`` — the hot-key request distribution the
+    fleet bench routes (the JAX package's ``benchmarks/serve.py --fleet``: identical
+    re-emissions are fleet-wide cache/coalesce hits, the advancing tail
+    spreads across workers).  The skew draws come from a separate
+    string-seeded RNG, so the mutation chain consumes exactly the same
+    ``seed`` stream with or without revisits — ``skew=0.0`` (default) is
+    **byte-identical** to the pre-skew generator.  Revisit metas are
+    ``{"revisit_of": <trace index>, "mutations": []}`` with empty
+    ``affected_scc_ids``: a revisit is a re-emission, not a bounded diff,
+    so the per-mutation ground-truth fields do not apply to it.
+
+    Same ``(base, steps, seed, max_diff, kinds, skew)`` ⇒ byte-identical
+    trace and metas; annotation never consumes randomness, so
+    ``annotate=False`` (what :func:`churn_trace` passes — load-shaped
+    consumers pay no parse/Tarjan passes for metas they discard) and the
+    default ``kinds`` yield a byte-identical trace with empty metas.
+    Nodes with null quorum sets are never churned.  Each snapshot is a
+    deep copy: mutating one never aliases another.
+    """
+    if steps < 0:
+        raise ValueError(f"steps must be >= 0, got {steps}")
+    if skew < 0:
+        raise ValueError(f"skew must be >= 0, got {skew}")
+    for kind in kinds:
+        if kind not in ("threshold", "swap", "rename", "scc_split",
+                        "scc_merge"):
+            raise ValueError(f"unknown churn kind {kind!r}")
+    rng = random.Random(seed)
+    # Separate, string-seeded RNG for the skew draws (sha-based seeding,
+    # deterministic across processes): the mutation chain consumes exactly
+    # the same `rng` stream whether or not revisits interleave, so a
+    # skew>0 trace shares its underlying chain with the skew=0 one.
+    rng_skew = random.Random(f"qi-churn-skew:{seed}")
+    trace = [copy.deepcopy(base)]
+    metas: List[Dict] = []
+    # The distinct mutation chain (head = next mutation's base) and each
+    # chain snapshot's first trace index — revisit steps re-emit from here.
+    chain: List[List[Dict]] = [trace[0]]
+    chain_emit_ix: List[int] = [0]
+    all_keys = [n.get("publicKey") for n in base if n.get("publicKey")]
+    # Predecessor partition: the coordinate system of the annotations and
+    # the candidate pool for merge/split.  Computed once per snapshot and
+    # carried forward — each step's successor partition (needed for the
+    # restructure ground truth anyway) IS the next step's predecessor, so
+    # the front end runs once per snapshot, not twice per step — and not
+    # at all when nothing needs it (annotate=False with the bounded trio,
+    # whose mutations never consult the partition).
+    needs_partition = annotate or bool(
+        {"scc_split", "scc_merge"}.intersection(kinds)
+    )
+    comp, keys = _scc_partition(base) if needs_partition else ([], [])
+    for step in range(steps):
+        if skew > 0:
+            r = _zipf_pick(rng_skew, len(chain) + 1, skew)
+            if r > 0:
+                # Zipfian revisit: re-emit the r-th most recent distinct
+                # snapshot byte-identically (a fleet-wide hot key).
+                trace.append(copy.deepcopy(chain[-r]))
+                if annotate:
+                    metas.append({
+                        "step": step + 1,
+                        "revisit_of": chain_emit_ix[-r],
+                        "mutations": [],
+                        "affected_scc_ids": [],
+                        "partition_changed": False,
+                        "merges": 0,
+                        "splits": 0,
+                    })
+                continue
+        prev = chain[-1]
+        snap = copy.deepcopy(prev)
+        mutable = [
+            i for i, n in enumerate(snap)
+            if isinstance(n.get("quorumSet"), dict)
+            and n["quorumSet"].get("validators")
+        ]
+        scc_of = dict(zip(keys, comp))
+        key_of_ix = [n.get("publicKey") for n in snap]
+        mutations: List[Dict] = []
+        affected: set = set()
+        for ix in (
+            rng.sample(mutable, min(max_diff, len(mutable))) if mutable else ()
+        ):
+            node = snap[ix]
+            q = node["quorumSet"]
+            kind = rng.choice(kinds)
+            own_scc = scc_of.get(key_of_ix[ix])
+            structural = False
+            extra: Dict = {}
+            if kind == "scc_merge":
+                partner = _merge_partner(
+                    rng, snap, mutable, scc_of, key_of_ix, own_scc
+                )
+                if partner is None:
+                    kind = "threshold"  # no second SCC to merge with
+                else:
+                    other = snap[partner]
+                    q["validators"].append(other["publicKey"])
+                    other["quorumSet"]["validators"].append(node["publicKey"])
+                    partner_scc = scc_of.get(key_of_ix[partner])
+                    structural = True
+                    extra = {"partner": other["publicKey"],
+                             "partner_scc_id": partner_scc}
+                    if partner_scc is not None:
+                        affected.add(partner_scc)
+            if kind == "scc_split":
+                # The drawn node may sit in a single-node SCC (most
+                # watchers do); redirect to a split-capable node so the
+                # requested kind actually restructures, falling back to a
+                # wobble only when NO multi-node SCC exists at all.
+                if sum(1 for c in comp if c == own_scc) < 2:
+                    sizes = Counter(comp)
+                    # A split only replaces the whole quorum set, so any
+                    # dict-qset member of a multi-node SCC qualifies —
+                    # including org-structured cores whose top-level
+                    # validator list is empty (all-inner-sets).
+                    capable = [
+                        j for j, n in enumerate(snap)
+                        if isinstance(n.get("quorumSet"), dict)
+                        and sizes.get(scc_of.get(key_of_ix[j]), 0) >= 2
+                    ]
+                    if not capable:
+                        kind = "threshold"  # nothing multi-node to split
+                    else:
+                        ix = rng.choice(capable)
+                        node = snap[ix]
+                        q = node["quorumSet"]
+                        own_scc = scc_of.get(key_of_ix[ix])
+                if kind == "scc_split":
+                    node["quorumSet"] = _qset(1, [node["publicKey"]])
+                    structural = True
+            if kind == "threshold":
+                lo, hi = 1, max(1, len(q["validators"]))
+                old_t = q.get("threshold", 1)
+                t = old_t + rng.choice((-1, 1))
+                q["threshold"] = min(max(t, lo), hi)
+                # A wobble clamped back to its old value mutated nothing.
+                structural = q["threshold"] != old_t
+            elif kind == "swap":
+                vix = rng.randrange(len(q["validators"]))
+                old_key = q["validators"][vix]
+                new_key = rng.choice(all_keys)
+                q["validators"][vix] = new_key
+                # SCC-local structure changes only when an endpoint is
+                # inside the owner's component or the dropped ref was
+                # dangling (strict policy folds dangling into n_dangling,
+                # a fingerprinted field); an outside→outside swap leaves
+                # the restricted problem identical — though it can still
+                # restructure the partition, which the key-set comparison
+                # below catches independently.
+                structural = old_key != new_key and (
+                    scc_of.get(old_key) == own_scc
+                    or scc_of.get(new_key) == own_scc
+                    or old_key not in scc_of
+                )
+                extra = {"old_key": old_key, "new_key": new_key}
+            elif kind == "rename":
+                node["name"] = f"{node.get('name', '')}~{rng.randrange(999)}"
+            mutations.append({
+                "kind": kind, "node": node.get("publicKey"),
+                "scc_id": own_scc, "structural": structural, **extra,
+            })
+            if structural and own_scc is not None:
+                affected.add(own_scc)
+        trace.append(snap)
+        chain.append(snap)
+        chain_emit_ix.append(len(trace) - 1)
+        if not needs_partition:
+            continue
+        old_parts = _key_sets(comp, keys)
+        comp, keys = _scc_partition(snap)  # becomes the next step's prev
+        if not annotate:
+            continue
+        # Partition restructure ground truth, by member-key sets (never by
+        # fingerprints — see docstring).  A validator swap can restructure
+        # the partition as a side effect (a new edge closing a cycle
+        # between components); every old SCC that gained or lost members
+        # is invalidated even when its own node wasn't churned.
+        new_parts = _key_sets(comp, keys)
+        new_set = set(new_parts)
+        changed = set(old_parts) != new_set
+        merges = _spanning(new_parts, old_parts)
+        splits = _spanning(old_parts, new_parts)
+        for part in old_parts:
+            if part not in new_set:
+                sid = old_ix_to_scc_id(part, scc_of)
+                if sid is not None:
+                    affected.add(sid)
+        metas.append({
+            "step": step + 1,
+            "mutations": mutations,
+            "affected_scc_ids": sorted(affected),
+            "partition_changed": changed,
+            "merges": merges,
+            "splits": splits,
+        })
+    # Determinism belt-and-braces: the trace must be JSON-serializable as
+    # produced (the serving layer journals exactly these dicts).
+    json.dumps(trace[-1])
+    json.dumps(metas)
+    return trace, metas
+
+
+def _merge_partner(
+    rng: random.Random,
+    snap: List[Dict],
+    mutable: List[int],
+    scc_of: Dict[str, int],
+    key_of_ix: List[Optional[str]],
+    own_scc: Optional[int],
+) -> Optional[int]:
+    """A deterministic merge partner: a mutable node in a different SCC
+    (rng draws among the candidates in snapshot order), or ``None``."""
+    candidates = [
+        j for j in mutable
+        if scc_of.get(key_of_ix[j]) is not None
+        and scc_of.get(key_of_ix[j]) != own_scc
+    ]
+    if not candidates or own_scc is None:
+        return None
+    return rng.choice(candidates)
+
+
+def old_ix_to_scc_id(
+    part: frozenset, scc_of: Dict[str, int]
+) -> Optional[int]:
+    """The predecessor SCC id of one old partition cell (any member's)."""
+    for key in part:
+        if key in scc_of:
+            return scc_of[key]
+    return None
+
+
+def churn_trace(
+    base: List[Dict],
+    steps: int,
+    seed: int = 0,
+    *,
+    max_diff: int = 2,
+    kinds: Tuple[str, ...] = CHURN_KINDS,
+    skew: float = 0.0,
+) -> List[List[Dict]]:
+    """Deterministic snapshot stream: ``steps + 1`` consecutive snapshots
+    starting at ``base``, each differing from its predecessor in at most
+    ``max_diff`` nodes' quorum sets (ROADMAP scenario-diversity item; the
+    serving layer's realistic traffic — the JAX package's
+    ``benchmarks/serve.py``).
+
+    Per step the generator draws, per churned node, one of three bounded
+    mutations a live stellarbeat feed actually produces:
+
+    - **threshold wobble**: a top-level threshold moves ±1, clamped to
+      ``[1, members]`` — the most common real churn (validators tuning
+      safety margins);
+    - **validator swap**: one top-level validator reference is replaced by
+      another key drawn from the snapshot (trust-edge churn);
+    - **cosmetic rename**: the node's display name changes — a diff the
+      SCC-local fingerprint (:func:`.diff.scc_fingerprint`) must
+      ignore, so caches stay hot across it.
+
+    ``kinds`` extends the mix with the restructuring mutations
+    ``scc_split`` / ``scc_merge`` (see :func:`churn_trace_steps`, which
+    also returns per-step ground-truth annotations — this wrapper is the
+    load-shaped view, so it skips the annotation work entirely:
+    ``annotate=False`` costs no parse/Tarjan passes with the default
+    ``kinds``).  ``skew > 0`` adds zipfian temporal skew — steps
+    re-emitting recent snapshots byte-identically with rank probability
+    ``∝ 1/(r+1)^skew`` — the hot-key traffic shape the fleet bench needs
+    (the JAX package's ``benchmarks/serve.py --fleet``); the default ``skew=0.0`` keeps the
+    trace byte-identical to the pre-skew generator.
+
+    Same ``(base, steps, seed, skew)`` ⇒ byte-identical trace.  Nodes
+    with null quorum sets are never churned (there is nothing bounded to
+    mutate).  Each snapshot is a deep copy: mutating one never aliases
+    another.
+    """
+    trace, _ = churn_trace_steps(
+        base, steps, seed, max_diff=max_diff, kinds=kinds, annotate=False,
+        skew=skew,
+    )
+    return trace

@@ -15,7 +15,7 @@ from __future__ import annotations
 import sys
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Sequence, TextIO, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, TextIO, Tuple, Union
 
 from quorum_intersection_tpu_torch.backends.base import (
     CancelToken,
@@ -39,6 +39,10 @@ from quorum_intersection_tpu_torch.utils.timers import PhaseTimers
 
 # Backends that run on a device and take ``device=``; the host oracles do not.
 DEVICE_BACKENDS = ("auto", "gpu-sweep", "gpu-frontier")
+
+# A substitute per-SCC scan: ``(graph, sccs) -> one quorum per SCC`` (empty or
+# None: no quorum inside it), the signature of :func:`scan_scc_quorums`.
+ScanProvider = Callable[[TrustGraph, List[List[int]]], List[Optional[List[int]]]]
 
 
 def named_backend(name: str, device: DeviceLike = None, **options) -> SearchBackend:
@@ -69,9 +73,13 @@ def quorum_bearing_sccs(graph: TrustGraph) -> List[Tuple[int, List[int]]]:
 
 
 def _classify_sccs(
-    graph: TrustGraph, *, scc_select: str, timers: PhaseTimers
+    graph: TrustGraph, *, scc_select: str, timers: PhaseTimers, scan: Optional[ScanProvider] = None
 ) -> Tuple[int, List[List[int]], List[int], Dict[int, List[int]], List[int]]:
-    """Tarjan + per-SCC quorum scan + main-SCC selection (Q5/Q8 semantics).
+    """Tarjan + per-SCC quorum scan + main-SCC selection (Q5/Q8 semantics),
+    shared by :func:`solve_graph`, :func:`check_many` and the incremental
+    engine (:mod:`.delta`), so their guard verdicts cannot drift.  ``scan``
+    substitutes the scan provider: the incremental engine passes one that
+    serves fingerprint-matched SCCs from its store.
     Returns ``(count, sccs, quorum_scc_ids, scc_quorums, main_scc)``."""
     with timers.phase("scc"):
         count, comp = tarjan_scc(graph.n, graph.succ)
@@ -79,7 +87,7 @@ def _classify_sccs(
     quorum_scc_ids: List[int] = []
     scc_quorums: Dict[int, List[int]] = {}
     with timers.phase("scc_scan"):
-        for sid, quorum in enumerate(scan_scc_quorums(graph, sccs)):
+        for sid, quorum in enumerate((scan or scan_scc_quorums)(graph, sccs)):
             if quorum:
                 quorum_scc_ids.append(sid)
                 scc_quorums[sid] = quorum
@@ -285,6 +293,8 @@ def check_many(
     scope_to_scc: bool = False,
     pack: Optional[bool] = None,
     cancels: Optional[Sequence[Optional[CancelToken]]] = None,
+    delta: Optional[Dict[str, object]] = None,
+    scan: Optional[ScanProvider] = None,
 ) -> List[SolveResult]:
     """Decide quorum intersection for MANY FBAS sources in one call — the
     shape a queue of snapshot checks arrives in.
@@ -304,6 +314,12 @@ def check_many(
     ``cancels`` is source-aligned: a tripped token retires that source alone
     and it comes back with ``stats["cancelled"]``, no verdict claim and a
     partial certificate holding only its cancelled-coverage ledger.
+
+    ``delta`` is the incremental engine's provenance stamp (:mod:`.delta`)
+    when this batch is the re-solve leg of an incremental step: it rides
+    every certificate of the batch, the guard-decided ones included, as
+    ``provenance.delta``.  ``scan`` substitutes the per-SCC scan provider
+    (:func:`_classify_sccs`).
     """
     caller_backend = not isinstance(backend, str)
     if isinstance(backend, str):
@@ -323,7 +339,7 @@ def check_many(
         with timers.phase("graph"):
             graph = build_graph(fbas, dangling=dangling)
         count, sccs, quorum_scc_ids, scc_quorums, main_scc = _classify_sccs(
-            graph, scc_select=scc_select, timers=timers
+            graph, scc_select=scc_select, timers=timers, scan=scan
         )
         if len(quorum_scc_ids) != 1:
             # Guard-decided, exactly as solve_graph.
@@ -340,7 +356,7 @@ def check_many(
                     n_sccs=count, quorum_bearing=len(quorum_scc_ids),
                     scc_select=scc_select, scope_to_scc=scope_to_scc,
                     stats={"reason": "scc_guard"}, q1=q1, q2=q2,
-                    events=rec.events_since(cert_ev0), batched=True,
+                    events=rec.events_since(cert_ev0), batched=True, delta=delta,
                 ),
             )
             continue
@@ -412,7 +428,7 @@ def check_many(
                         stats=res.stats, q1=res.q1, q2=res.q2,
                         target_scc=target_scc,
                         target_scc_index=0 if scc_select == "front" else quorum_scc_ids[0],
-                        events=batch_events, batched=True,
+                        events=batch_events, batched=True, delta=delta,
                     ),
                 )
     finally:

@@ -143,6 +143,24 @@ QI_QUERY_WHATIF_LIMIT = _declare(
     "cap, never an unbounded batch from one request.",
 )
 
+QI_DELTA_CACHE_MAX = _declare(
+    "QI_DELTA_CACHE_MAX", "4096",
+    "Per-SCC verdict-store capacity of the incremental re-analysis "
+    "subsystem (delta.py): SCC-local scan and verdict fragments retained "
+    "before LRU eviction (delta.store_evictions counter).  0 disables "
+    "qi-delta entirely — the serving layer then re-solves every snapshot "
+    "from scratch, exactly the pre-delta behavior.",
+)
+QI_FLEET_STORE_MAX_MB = _declare(
+    "QI_FLEET_STORE_MAX_MB", "0",
+    "Size budget (megabytes) of the shared SCC-fragment store directory "
+    "(delta.py SharedSccStore): past it a publish triggers an "
+    "LRU-by-mtime sweep deleting the stalest fragments until the "
+    "directory fits again (delta.store_evictions counter + "
+    "delta.store_gc event — loud, the fragments re-solve on next miss).  "
+    "0 (default): unbounded, the pre-GC behavior.",
+)
+
 
 # ---- reads -----------------------------------------------------------------
 

@@ -151,6 +151,26 @@ QUERY_DISPATCH = _declare(
     "query.degraded event), never a wrong or absent verdict; the intersection path does not pass "
     "through it.",
 )
+DELTA_DIFF = _declare(
+    "delta.diff",
+    "Snapshot diff / SCC-fingerprint path of the incremental re-analysis engine (delta.py "
+    "DeltaEngine.check_many): error simulates a broken differ; the engine degrades to the full "
+    "re-solve (pipeline.check_many on the same device), verdicts unchanged.  A backend's own "
+    "failure inside the incremental solve is not degraded: it fails the call.",
+)
+FLEET_STORE = _declare(
+    "fleet.store",
+    "Shared SCC-fragment store tier (delta.py SharedSccStore get/put): error/oserror simulate a "
+    "dead shared tier; the store degrades to local-LRU-only (fleet.store_errors counter, loud; "
+    "reuse across processes is lost, the verdict is not), and an unparseable or forged fragment "
+    "is a miss, never trusted.",
+)
+COST_ATTRIBUTE = _declare(
+    "cost.attribute",
+    "Reuse-credit booking of a composed verdict (delta.py DeltaEngine._compose, cost.py "
+    "reuse_credit): error simulates a broken accounting plane; the composed result carries no "
+    "cost (cost.attribute_errors counter, cost.degraded event), never a wrong verdict.",
+)
 TELEMETRY_DUMP = _declare(
     "telemetry.dump",
     "Flight-recorder dump write (utils/telemetry.py dump_flight_recorder): oserror simulates a "

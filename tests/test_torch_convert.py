@@ -1,7 +1,8 @@
 """State carried across from the JAX package: its circuit arrays become the
 port's circuit and kernel tables exactly, and the port's copies of the host
-modules (encoding, restriction, synthetic generators and the density
-annotations) agree with the originals.  Exact equality throughout: integer arrays and JSON.
+modules (encoding, restriction, synthetic generators, the density
+annotations, the churn generators, the SCC fingerprints and the snapshot
+diff) agree with the originals.  Exact equality throughout: integer arrays and JSON.
 """
 
 import json
@@ -220,3 +221,91 @@ def test_certificate_vocabulary_is_the_jax_packages():
     assert cert.CERT_SCHEMA == jax_cert.CERT_SCHEMA == "qi-cert/1"
     assert cert.WITNESS_CONVENTION == jax_cert.WITNESS_CONVENTION
     assert cert.PROVENANCE_EVENTS == jax_cert.PROVENANCE_EVENTS
+
+
+# ---- incremental re-analysis: churn traces, fingerprints, diffs ------------
+
+CHURN_CASES = [
+    (lambda s: s.stellar_like_fbas(n_core_orgs=3, per_org=2, n_watchers=8, seed=7), 10,
+     {"seed": 2}),
+    (lambda s: s.stellar_like_fbas(n_core_orgs=3, per_org=2, n_watchers=12, seed=11), 10,
+     {"seed": 5, "max_diff": 1, "kinds": ("scc_merge", "scc_split", "threshold")}),
+    (lambda s: s.benchmark_fbas(60, 10, broken=True, seed=1), 12,
+     {"seed": 3, "max_diff": 3, "kinds": ("threshold", "swap", "rename", "scc_merge", "scc_split")}),
+    (lambda s: s.benchmark_fbas(40, 8, seed=2), 16, {"seed": 4, "skew": 1.1}),
+    (lambda s: s.hierarchical_fbas(4, 3), 6, {"seed": 6, "kinds": ("swap", "rename")}),
+]
+
+
+@pytest.mark.parametrize("case", range(len(CHURN_CASES)))
+def test_churn_trace_steps_byte_identical(case):
+    """Same ``(base, steps, seed, max_diff, kinds, skew)``: the same trace
+    and metas, byte for byte (the skew RNG seeded by a string included), and
+    ``churn_trace`` is the trace alone."""
+    make, steps, kwargs = CHURN_CASES[case]
+    base = make(synth)
+    assert json.dumps(base) == json.dumps(make(jax_synth))
+    got = synth.churn_trace_steps(base, steps, **kwargs)
+    want = jax_synth.churn_trace_steps(base, steps, **kwargs)
+    assert json.dumps(got) == json.dumps(want)
+    assert json.dumps(synth.churn_trace(base, steps, **kwargs)) == json.dumps(got[0])
+    assert synth.CHURN_KINDS == jax_synth.CHURN_KINDS
+
+
+def test_churn_trace_rejects_what_jax_rejects():
+    base = synth.majority_fbas(5)
+    for kwargs in ({"kinds": ("bogus",)}, {"skew": -1.0}):
+        with pytest.raises(ValueError):
+            synth.churn_trace_steps(base, 2, **kwargs)
+        with pytest.raises(ValueError):
+            jax_synth.churn_trace_steps(base, 2, **kwargs)
+    with pytest.raises(ValueError):
+        synth.churn_trace(base, -1)
+
+
+def _sccs(graph):
+    from quorum_intersection_tpu_torch.fbas.graph import group_sccs, tarjan_scc
+
+    count, comp = tarjan_scc(graph.n, graph.succ)
+    return group_sccs(graph.n, comp, count)
+
+
+@pytest.mark.parametrize("name", ["snapshot_correct.json", "nested_broken.json", "dump_scale_correct.json.gz",
+                                  "stellar-broken", "bench-nested"])
+@pytest.mark.parametrize("dangling", ["strict", "alias0"])
+def test_scc_fingerprints_byte_identical(name, dangling):
+    """Every SCC's ``(fingerprint, closed)``: the same 32 hex digits in both
+    packages, which is what lets them share one fragment directory."""
+    from quorum_intersection_tpu.fbas.diff import scc_fingerprint as jax_fingerprint
+    from quorum_intersection_tpu_torch.fbas.diff import scc_fingerprint
+
+    from _torch_cases import fixture_data
+
+    data = {"stellar-broken": lambda: synth.stellar_like_fbas(5, 3, n_watchers=20, broken=True, seed=1),
+            "bench-nested": lambda: synth.benchmark_fbas(64, 9, nested_watchers=True, seed=4)}.get(
+        name, lambda: fixture_data(name))()
+    graph = build_graph(parse_fbas(data), dangling=dangling)
+    jax_graph = jax_build_graph(jax_parse(data), dangling=dangling)
+    sccs = _sccs(graph)
+    got = [scc_fingerprint(graph, m) for m in sccs]
+    want = [jax_fingerprint(jax_graph, m) for m in sccs]
+    assert got == want
+    assert all(len(fp) == 32 for fp, _ in got)
+    assert any(closed for _, closed in got)
+
+
+@pytest.mark.parametrize("case", [0, 1, 2])
+def test_diff_summaries_identical(case):
+    """Every step of a churn trace diffed by both packages: the same
+    summary and the same per-SCC classification."""
+    from quorum_intersection_tpu.fbas.diff import diff_snapshots as jax_diff
+    from quorum_intersection_tpu_torch.fbas.diff import diff_snapshots
+
+    make, steps, kwargs = CHURN_CASES[case]
+    trace, metas = synth.churn_trace_steps(make(synth), steps, **kwargs)
+    for prev, nxt, meta in zip(trace, trace[1:], metas):
+        got = diff_snapshots(build_graph(parse_fbas(prev)), build_graph(parse_fbas(nxt)))
+        want = jax_diff(jax_build_graph(jax_parse(prev)), jax_build_graph(jax_parse(nxt)))
+        assert json.dumps(got.summary()) == json.dumps(want.summary())
+        assert [vars(d) for d in got.deltas] == [vars(d) for d in want.deltas]
+        assert (got.merges, got.splits) == (meta["merges"], meta["splits"])

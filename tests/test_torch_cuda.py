@@ -1,7 +1,8 @@
 """The CUDA kernels on the card — the fused unpacked sweep, the unpacked
 bitset sweep, the two lane-packed sweeps and the two block-guard instances,
 the PageRank loop and the frontier's kernels — against their plain
-PyTorch versions and against the CPU path.  Card-only: every test takes the ``cuda_device``
+PyTorch versions and against the CPU path; and incremental re-analysis
+(``delta.DeltaEngine``) on the card against the same engine on the CPU.  Card-only: every test takes the ``cuda_device``
 fixture, which skips on a host without one.  This file imports nothing of
 JAX or the JAX package, so on the card's machine it runs as
 
@@ -1075,3 +1076,42 @@ def test_full_width_windows_enumerated(cuda_device):
     assert rec.counters["cert.windows_enumerated"] == (1 << 33) - pruned == res.stats["candidates_checked"]
     windows = [ev["attrs"]["candidates"] for ev in rec.events if ev["name"] == "sweep.window"]
     assert sum(windows) == rec.counters["cert.windows_enumerated"] == rec.counters["sweep.candidates_checked"]
+
+
+def _delta_steps(device):
+    """A 6-step churn of a broken 10-node majority core through one
+    ``DeltaEngine`` under gpu-sweep on ``device``, one snapshot a call."""
+    from quorum_intersection_tpu_torch.delta import DeltaEngine, SccVerdictStore
+
+    trace = synth.churn_trace(synth.benchmark_fbas(40, 10, broken=True, seed=1), 6, seed=0)
+    engine = DeltaEngine(SccVerdictStore(256), device=device)
+    return [engine.check_many([snap], backend="gpu-sweep")[0] for snap in trace]
+
+
+def test_delta_churn_on_card_equals_cpu(cuda_device, fault_plan):
+    """Step for step: verdict, witness, hit index and the provenance.delta
+    stamp equal between the card and the CPU; the core re-solves at least
+    once and some step composes."""
+    fault_plan("")  # a fresh run record, no rules
+    on_card = _delta_steps(None)
+    on_cpu = _delta_steps("cpu")
+    for a, b in zip(on_card, on_cpu):
+        assert (a.intersects, a.q1, a.q2) == (b.intersects, b.q1, b.q2)
+        assert a.stats.get("hit_index") == b.stats.get("hit_index")
+        assert a.cert["provenance"]["delta"] == b.cert["provenance"]["delta"]
+    stamps = [r.cert["provenance"]["delta"] for r in on_card]
+    assert sum(s["resolved_sccs"] for s in stamps) >= 2 and sum(s["reused_sccs"] for s in stamps) >= 1
+
+
+def test_delta_sweep_fault_fails_the_card_solve(cuda_device, fault_plan):
+    """A sweep.dispatch fault inside the incremental solve on the card fails
+    the call: the engine does not degrade it into a second solve."""
+    from quorum_intersection_tpu_torch.delta import DeltaEngine
+    from quorum_intersection_tpu_torch.utils import telemetry
+    from quorum_intersection_tpu_torch.utils.faults import FaultInjected
+
+    plan = fault_plan("sweep.dispatch=error")
+    with pytest.raises(FaultInjected) as exc:
+        DeltaEngine().check_many([synth.benchmark_fbas(40, 10, broken=True, seed=1)], backend="gpu-sweep")
+    assert exc.value.point == "sweep.dispatch" and len(plan.fired) == 1
+    assert telemetry.get_run_record().counters.get("delta.errors", 0) == 0

@@ -9,7 +9,9 @@
   card's rung to the host oracle); ``checkpoint.write``, ``cert.write`` and
   ``telemetry.dump`` become counters; ``native.build`` and ``native.call``
   degrade the auto router to the Python oracle; ``query.dispatch`` becomes a
-  typed ``QueryError``;
+  typed ``QueryError``; ``delta.diff`` degrades the incremental engine to
+  the full re-solve, ``fleet.store`` its shared tier to the local store and
+  ``cost.attribute`` a composed verdict to no cost;
 - the disk-full cases of ``tests/test_checkpoint_faults.py`` (``:113-186``);
 - a ``FaultPreempted`` at ``sweep.window`` under a checkpoint resumes past
   zero to the uninterrupted verdict and hit index;
@@ -31,6 +33,7 @@ from quorum_intersection_tpu_torch.backends.auto import AutoBackend
 from quorum_intersection_tpu_torch.backends.frontier import GpuFrontierBackend
 from quorum_intersection_tpu_torch.backends.sweep import GpuSweepBackend
 from quorum_intersection_tpu_torch.cert import write_certificate
+from quorum_intersection_tpu_torch.delta import DeltaEngine, SccVerdictStore, SharedSccStore
 from quorum_intersection_tpu_torch.fbas import synth
 from quorum_intersection_tpu_torch.pipeline import check_many, solve
 from quorum_intersection_tpu_torch.query import Query, QueryEngine, QueryError
@@ -63,7 +66,7 @@ def test_registry_is_a_subset_of_the_jax_catalog():
     assert set(port) == {
         "sweep.prune", "sweep.bitset", "sweep.dispatch", "sweep.compile", "sweep.window", "sweep.pack",
         "frontier.chunk", "checkpoint.write", "cert.write", "native.build", "native.call",
-        "telemetry.dump", "query.dispatch",
+        "telemetry.dump", "query.dispatch", "delta.diff", "fleet.store", "cost.attribute",
     }
 
 
@@ -174,6 +177,32 @@ def _scenario_query(point, tmp, mp):
     assert exc.value.code == "query_degraded"
 
 
+def _scenario_delta_diff(point, tmp, mp):
+    rec = telemetry.get_run_record()
+    data = synth.benchmark_fbas(14, 6, broken=True, seed=3)
+    res = DeltaEngine(device="cpu").check_many([data], backend=_sweep())[0]
+    want = solve(data, backend=_sweep())
+    assert (res.intersects, res.q1, res.q2) == (want.intersects, want.q1, want.q2)
+    assert rec.counters["delta.diff_faults"] == 1 and "delta" not in res.cert["provenance"]
+
+
+def _scenario_fleet_store(point, tmp, mp):
+    rec = telemetry.get_run_record()
+    engine = DeltaEngine(SccVerdictStore(shared=SharedSccStore(tmp / "store")), device="cpu")
+    res = engine.check_many([synth.majority_fbas(5)], backend="python")[0]
+    assert res.intersects is True and rec.counters["fleet.store_errors"] >= 1
+    assert not (tmp / "store").exists()
+
+
+def _scenario_cost(point, tmp, mp):
+    rec = telemetry.get_run_record()
+    engine = DeltaEngine(device="cpu")
+    first, again = (engine.check_many([synth.majority_fbas(5)], backend="python")[0] for _ in range(2))
+    assert first.intersects is again.intersects is True
+    assert again.cert["provenance"]["delta"]["reused_sccs"] == 1 and "cost" not in again.cert["provenance"]
+    assert rec.counters["cost.attribute_errors"] == 1
+
+
 SCENARIOS = {
     "sweep.prune": ("error", lambda p, tmp, mp: _fails_solve(p, prune=True)),
     "sweep.bitset": ("error", lambda p, tmp, mp: (_fails_solve(p, engine="bitset"), _scenario_packed_bitset(p))),
@@ -188,6 +217,9 @@ SCENARIOS = {
     "native.call": ("error", _scenario_native_call),
     "telemetry.dump": ("oserror", _scenario_dump),
     "query.dispatch": ("error", _scenario_query),
+    "delta.diff": ("error", _scenario_delta_diff),
+    "fleet.store": ("oserror", _scenario_fleet_store),
+    "cost.attribute": ("error", _scenario_cost),
 }
 
 

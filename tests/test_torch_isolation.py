@@ -51,6 +51,12 @@ for name, data in (("near_disjoint_cores(6,1)", synth.near_disjoint_cores(6, 1))
     assert res.stats["encoding"] == "bitset" and res.cert["provenance"]["encoding"] == "bitset"
     out[f"bitset {name}"] = [res.intersects, res.q1, res.q2]
 del os.environ["QI_SWEEP_ENGINE"]
+from quorum_intersection_tpu_torch.delta import DeltaEngine
+
+engine = DeltaEngine(device="cpu")
+for i, snap in enumerate(synth.churn_trace(synth.benchmark_fbas(14, 6, broken=True, seed=3), 3, seed=0)):
+    res = engine.check_many([snap], backend="gpu-sweep")[0]
+    out[f"delta step {i}"] = [res.intersects, res.q1, res.q2, res.cert["provenance"]["delta"]["reused_sccs"]]
 ckpt = pathlib.Path(sys.argv[2]) / "frontier.ckpt"
 for name, argv in (("nested_correct.json", ["--backend", "auto", "--device", "cpu"]),
                    ("trivial_broken.json", ["--backend", "cpp", "--device", "cpu"]),
@@ -90,7 +96,13 @@ def test_port_solves_with_jax_and_reference_blocked(tmp_path):
         "cli gpu-sweep nested_broken.json": 1,
         "bitset near_disjoint_cores(6,1)": True,
         "bitset sparse_giant(400,broken)": False,
+        "delta step 0": False,
+        "delta step 1": False,
+        "delta step 2": False,
+        "delta step 3": False,
     }
+    reused = [report["results"][f"delta step {i}"][3] for i in range(4)]
+    assert reused[0] == 0 and 1 in reused[1:]
     q1, q2 = report["results"]["trivial_broken.json"][1:]
     assert q1 and q2 and not set(q1) & set(q2)
 
@@ -111,7 +123,8 @@ def _sources():
     names = {str(path.relative_to(PORT)) for path in files if PORT in path.parents}
     assert {"backends/frontier.py", "kernels/frontier_ref.py", "kernels/frontier_cuda.py",
             "kernels/csrc/frontier.cu", "utils/checkpoint.py", "kernels/bitset_sweep_ref.py",
-            "kernels/bitset_sweep_cuda.py", "kernels/csrc/bitset_sweep.cu"} <= names
+            "kernels/bitset_sweep_cuda.py", "kernels/csrc/bitset_sweep.cu", "delta.py", "fbas/diff.py",
+            "cost.py"} <= names
     assert len(files) > 10 and (ROOT / "chip_smoke.py").exists()
     return files
 
@@ -156,10 +169,12 @@ def test_no_qi_env_read_outside_the_registry():
     """Every ``QI_*`` knob the port reads goes through ``utils/env.py``
     (``qi_env`` refuses an undeclared name): no other module of the port
     reads one from ``os.environ``."""
+    scanned = [path for path in sorted(PORT.rglob("*.py")) if path != PORT / "utils" / "env.py"]
+    assert {"delta.py", "cost.py", "fbas/diff.py", "fbas/synth.py"} <= {
+        str(path.relative_to(PORT)) for path in scanned}
     hits = [
         f"{path.relative_to(ROOT)}:{i}: {line.strip()}"
-        for path in sorted(PORT.rglob("*.py"))
-        if path != PORT / "utils" / "env.py"
+        for path in scanned
         for i, line in enumerate(path.read_text().splitlines(), 1)
         if _ENV_READ.search(line)
     ]
@@ -169,3 +184,5 @@ def test_no_qi_env_read_outside_the_registry():
     assert not _ENV_READ.search('qi_env("QI_SWEEP_ENGINE")')
     env_src = (PORT / "utils" / "env.py").read_text()
     assert "os.environ.get(var.name)" in env_src
+    delta_src = (PORT / "delta.py").read_text()
+    assert 'qi_env_int("QI_DELTA_CACHE_MAX"' in delta_src and 'qi_env_float("QI_FLEET_STORE_MAX_MB"' in delta_src

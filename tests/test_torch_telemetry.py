@@ -424,7 +424,7 @@ def test_env_registry_is_the_jax_packages():
     assert {"QI_SWEEP_ENGINE", "QI_SWEEP_PRUNE", "QI_SWEEP_ORDER", "QI_NATIVE_WATCHDOG_S",
             "QI_FRONTIER_CKPT_INTERVAL_S", "QI_METRICS_JSON", "QI_METRICS_PROM", "QI_TRACE_OUT",
             "QI_TRACE_CONTEXT", "QI_FAULTS", "QI_FLIGHT_RECORDER", "QI_LOG_LEVEL", "QI_LOG_JSON",
-            "QI_QUERY_WHATIF_LIMIT"} == set(port)
+            "QI_QUERY_WHATIF_LIMIT", "QI_DELTA_CACHE_MAX", "QI_FLEET_STORE_MAX_MB"} == set(port)
     with pytest.raises(KeyError):
         env.qi_env("QI_NOT_A_KNOB")
 
