@@ -10,6 +10,7 @@
     python3 chip_smoke.py --bitset --k8-parent DIR      # ... and DIR's K8 in turns with this one on every shape
     python3 chip_smoke.py --observe      # build, then only observe, faults and query (27-29) and their certificates
     python3 chip_smoke.py --delta        # build, then only incremental re-analysis (30) and its certificates
+    python3 chip_smoke.py --serve        # build, then only the serve subcommand's phase (31) and its certificates
 
 Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
 
@@ -287,17 +288,46 @@ Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
               dirties the full-width core fails the call (and the step then
               solves once), ``delta.diff`` degrades to the scratch verdicts
               with ``delta.diff_faults`` counted;
-31. cert    — every certificate the runs above produced (CLI ``--cert-out``
+31. serve   — ``python -m quorum_intersection_tpu_torch serve`` as processes
+              on the card (through ``SERVE_LAUNCHER``, which calls the CLI's
+              ``main`` and reports the process's kernel launches, counted
+              from 0, at exit), four streams: A, the default server
+              (``auto``, delta on, ``--emit-certs``) on 47 requests from three
+              clients — the dump's 16-step churn trace (seed 3, max_diff 2),
+              the snapshot's 15-step trace and the seven fixtures twice —
+              every verdict against the manifest or the scratch
+              ``check_many`` of the trace on the card; B, the batch phase's
+              16 sources (the 2^30 twin first) as 16 requests from four
+              clients to ``gpu-sweep``, ``QI_SERVE_FUSE_WINDOW_MS`` 5 and 0 in
+              turns (F, U, U, F), verdicts, witnesses and hit indices equal
+              across the arms and to ``check_many``'s, a cross-request pack in
+              every fused run, cost conserved per pack, in the counters and in
+              the tenant table; once more fused under the profiler (device
+              busy ms, idle share); C, a deadline inside a pack:
+              ``benchmark_fbas(48, core=31)`` (2^30 windows) with
+              ``deadline_s`` 0.35 co-packed with three small requests
+              (typed ``deadline_exceeded``; the co-packed ones' verdicts, hit
+              indices and certificates; the windows it retired between 1
+              and 2^30 - 1); D, a ``--journal`` server SIGKILLed after its
+              first response, ``--replay-only`` on its journal, a restart on a
+              copy, every journaled request answered with the uninterrupted
+              verdict; a fired ``sweep.dispatch`` (a typed error line, no
+              verdict, exit 0) and ``serve.drain`` (per-request solves on the
+              card).  Per stream: requests, wall, requests per second, p50 /
+              p99 of the responses' ``seconds``, first response, launches;
+32. cert    — every certificate the runs above produced (CLI ``--cert-out``
               under auto, gpu-sweep and gpu-frontier, ``solve`` and
               ``check_many`` on both engines, pruned, rank-ordered and
               frontier runs with every block, incremental re-analysis's
-              composed and fresh ones) checked by the unmodified
-              ``tools/check_cert.py`` in a subprocess, from raw JSON.
+              composed and fresh ones, the served ones) checked by the
+              unmodified ``tools/check_cert.py`` in a subprocess, from raw
+              JSON.
 
 The line before the last is the kernels' JSON record (launches on the main
 path of each, error against the plain version, times, bound, device ms on
 the main path under the profiler, ptxas registers and spills per instance,
-launches on the incremental path of phase delta);
+launches on the incremental path of phase delta and on the serve path of
+phase serve);
 the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -3088,6 +3118,430 @@ def delta_phase(device, card, texts, cert_jobs, work):
     return dict(delta_launches)
 
 
+# The serve phase's launcher: the ``serve`` subcommand through the CLI's own
+# entry point (``cli.main``, what ``python -m quorum_intersection_tpu_torch``
+# calls), in a fresh process whose kernel launch counts start at 0; at exit it
+# writes them (and, with ``--profile`` first, the device's busy ms under
+# ``torch.profiler``) to stderr on one ``serve-launches`` line.
+# Stream C's deadline on the 2^30 twin: past the short blocker's solve, short
+# of its own pack (2^30 rows, about 0.5-1 s of K3).
+SERVE_TWIN_DEADLINE_S = 0.35
+
+SERVE_LAUNCHER = r"""
+import json, sys, time
+argv = sys.argv[1:]
+profile = argv[:1] == ["--profile"]
+argv = argv[1:] if profile else argv
+from quorum_intersection_tpu_torch import cli
+from quorum_intersection_tpu_torch.kernels import frontier_cuda
+from quorum_intersection_tpu_torch.kernels.bitset_sweep_cuda import bitset_sweep
+from quorum_intersection_tpu_torch.kernels.guard_cuda import guard_bitset, guard_dense
+from quorum_intersection_tpu_torch.kernels.packed_cuda import packed_sweep_bitset, packed_sweep_dense
+from quorum_intersection_tpu_torch.kernels.sweep_cuda import sweep_fused
+wrappers = {"sweep_fused_cuda": sweep_fused, "packed_sweep_dense_cuda": packed_sweep_dense,
+            "packed_sweep_bitset_cuda": packed_sweep_bitset, "bitset_sweep_cuda": bitset_sweep,
+            "guard_dense_cuda": guard_dense, "guard_bitset_cuda": guard_bitset}
+for fn in wrappers.values():
+    fn.launches = 0
+for name in frontier_cuda.LAUNCHES:
+    frontier_cuda.LAUNCHES[name] = 0
+busy = None
+t0 = time.perf_counter()
+if profile:
+    import torch
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        rc = cli.main(["serve"] + argv)
+        torch.cuda.synchronize()
+    busy = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+               for e in prof.key_averages()) / 1e3
+else:
+    rc = cli.main(["serve"] + argv)
+counts = {name: fn.launches for name, fn in wrappers.items()}
+counts.update(frontier_chunk_cuda=frontier_cuda.LAUNCHES["frontier_chunk"],
+              frontier_filter_cuda=frontier_cuda.LAUNCHES["frontier_filter"])
+sys.stderr.write("serve-launches " + json.dumps({"launches": counts, "serve_s": time.perf_counter() - t0,
+                                                  "device_busy_ms": busy}) + "\n")
+sys.exit(rc)
+"""
+
+
+def serve_run(args, lines, env=None, kill_after_first=False, timeout=600, profile=False):
+    """One ``serve`` process through ``SERVE_LAUNCHER`` on the card: every
+    request line written to its stdin (on a thread of its own; a ``None``
+    among the lines holds the rest until the first response has arrived),
+    every response line read with its arrival time.  ``kill_after_first``:
+    SIGKILL it the moment the first response arrives.  Returns a dict: the
+    response objects, arrival seconds from the process's start, the return
+    code, the wall, stderr, and the launcher's record (launches, busy ms)."""
+    import os
+    import signal
+    import threading
+
+    cmd = [sys.executable, "-c", SERVE_LAUNCHER] + (["--profile"] if profile else []) + list(args)
+    full_env = {**os.environ, **(env or {})}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=full_env)
+    err_chunks = []
+    first_seen = threading.Event()
+
+    def feed():
+        try:
+            for line in lines:
+                if line is None:
+                    proc.stdin.flush()
+                    first_seen.wait(120)
+                    continue
+                proc.stdin.write(line + "\n")
+            proc.stdin.close()
+        except (BrokenPipeError, OSError):
+            pass
+
+    def drain_err():
+        err_chunks.append(proc.stderr.read())
+
+    threads = [threading.Thread(target=feed), threading.Thread(target=drain_err)]
+    for th in threads:
+        th.start()
+    killer = threading.Timer(timeout, proc.kill)
+    killer.start()
+    out, times = [], []
+    try:
+        for raw in proc.stdout:
+            try:
+                obj = json.loads(raw)
+            except json.JSONDecodeError:
+                continue  # a line torn by the kill
+            out.append(obj)
+            times.append(time.perf_counter() - t0)
+            if "verdict" in obj or "error" in obj:
+                first_seen.set()
+            if kill_after_first and ("verdict" in obj or "error" in obj):
+                os.kill(proc.pid, signal.SIGKILL)
+                break
+        proc.wait(timeout=timeout)
+    finally:
+        first_seen.set()
+        killer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for th in threads:
+            th.join(60)
+    err = "".join(err_chunks)
+    record = None
+    for line in err.splitlines():
+        if line.startswith("serve-launches "):
+            record = json.loads(line[len("serve-launches "):])
+    return {"responses": out, "times": times, "rc": proc.returncode, "wall": time.perf_counter() - t0,
+            "stderr": err, "record": record}
+
+
+def serve_stream_stats(run, n_requests):
+    """Requests, wall, requests per second, p50 / p99 of the responses'
+    ``seconds`` field, seconds from process start to the first response."""
+    from statistics import quantiles
+
+    answered = [r for r in run["responses"] if "verdict" in r or "error" in r]
+    secs = sorted(r["seconds"] for r in answered if "seconds" in r)
+    p50 = secs[len(secs) // 2] if secs else None
+    p99 = quantiles(secs, n=100)[98] if len(secs) >= 2 else (secs[0] if secs else None)
+    first = next((t for r, t in zip(run["responses"], run["times"]) if "verdict" in r or "error" in r), None)
+    return {"requests": n_requests, "answered": len(answered), "wall_s": run["wall"],
+            "requests_per_s": n_requests / run["wall"], "p50_s": p50, "p99_s": p99,
+            "first_response_s": first,
+            "launches": (run["record"] or {}).get("launches")}
+
+
+def metrics_of(path):
+    """The final counters, gauges and tenant table of a ``--metrics-json``
+    stream."""
+    counters, gauges, tenants = {}, {}, {}
+    for line in pathlib.Path(path).read_text().splitlines():
+        obj = json.loads(line)
+        if obj.get("kind") == "counter":
+            counters[obj["name"]] = obj["value"]
+        elif obj.get("kind") == "gauge":
+            gauges[obj["name"]] = obj["value"]
+        elif obj.get("kind") == "tenants":
+            tenants = obj["tenants"]
+    return counters, gauges, tenants
+
+
+def serve_phase(device, card, texts, manifest, cert_jobs, work):
+    """Phase serve: the ``serve`` subcommand as a process on the card, four
+    streams (the default server; fused against unfused in turns; a deadline
+    inside a pack; a kill and replay, and two faults).  Returns the serve
+    path's kernel launches."""
+    import threading
+    from collections import Counter
+
+    from quorum_intersection_tpu_torch.fbas import synth
+    from quorum_intersection_tpu_torch.pipeline import check_many
+
+    t0 = time.perf_counter()
+    launches = Counter()
+    streams = {}
+
+    def req(rid, src, client, **extra):
+        return json.dumps({"request_id": rid, "nodes": json.loads(raw_json(src)), "client": client, **extra})
+
+    def answered(run, label):
+        if run["rc"] != 0:
+            fail("serve", f"{label}: exit {run['rc']}: {run['stderr'][-1500:]}")
+        if run["record"] is None:
+            fail("serve", f"{label}: no launch record: {run['stderr'][-1500:]}")
+        launches.update(run["record"]["launches"])
+        return {r["request_id"]: r for r in run["responses"] if "request_id" in r}
+
+    def witness(res):
+        w = res.get("cert", {}).get("witness") if isinstance(res, dict) else None
+        return None if w is None else sorted(sorted(q) for q in (w["q1"], w["q2"]))
+
+    # -- Stream A: the default server (auto, delta on, certificates) -------
+    dump = json.loads(texts["dump_scale_correct.json.gz"])
+    dump_trace, _ = synth.churn_trace_steps(dump, 16, seed=3, max_diff=2)
+    snap_trace, _ = synth.churn_trace_steps(json.loads(texts["snapshot_correct.json"]), 15, seed=3)
+    fixtures = [(name, texts[name]) for name in manifest]
+    plan = []  # (request id, source, expected verdict or None for the scratch solve's)
+    for k in range(max(len(dump_trace), len(snap_trace))):
+        if k < len(dump_trace):
+            plan.append((f"dump-{k}", dump_trace[k], None))
+        if k < len(snap_trace):
+            plan.append((f"snap-{k}", snap_trace[k], None))
+        if k < len(fixtures):
+            plan.append((f"fix-{fixtures[k][0]}", fixtures[k][1], manifest[fixtures[k][0]]["verdict"]))
+    plan += [(f"fix-again-{name}", text, manifest[name]["verdict"]) for name, text in fixtures]
+    clients = ("explorer", "validator-ops", "researcher")
+    lines_a = [req(rid, src, clients[i % 3]) for i, (rid, src, _) in enumerate(plan)]
+    # The churn steps' verdicts: the scratch check_many on the card.
+    scratch = {}
+    for label, trace in (("dump", dump_trace), ("snap", snap_trace)):
+        for k, res in enumerate(check_many(trace, backend="gpu-sweep")):
+            scratch[f"{label}-{k}"] = res
+    metrics_a = work / "serve_a.jsonl"
+    run = serve_run(["--backend", "auto", "--emit-certs", "--metrics-json", str(metrics_a)], lines_a)
+    got = answered(run, "stream A")
+    for rid, src, want in plan:
+        r = got.get(rid)
+        if r is None or "verdict" not in r:
+            fail("serve", f"stream A: {rid} answered {r and r.get('error')}")
+        expect = want if want is not None else scratch[rid].intersects
+        if r["verdict"] is not expect:
+            fail("serve", f"stream A: {rid} verdict {r['verdict']}, expected {expect}")
+        if want is None and not scratch[rid].intersects:
+            if witness(r) != sorted(sorted(scratch[rid].cert["witness"][q]) for q in ("q1", "q2")):
+                fail("serve", f"stream A: {rid} witness differs from the scratch solve's")
+        if r.get("cert") and not r["cached"]:
+            cert_jobs.append((f"serve/A {rid}", src, r["cert"]))
+    counters_a, gauges_a, tenants_a = metrics_of(metrics_a)
+    streams["A"] = {**serve_stream_stats(run, len(lines_a)), "backend": "auto",
+                    "cached": sum(1 for r in got.values() if r.get("cached")),
+                    "delta_compositions": counters_a.get("delta.compositions"),
+                    "delta_scc_reuse_pct": gauges_a.get("delta.scc_reuse_pct"),
+                    "tenants": {c: row["requests"] for c, row in tenants_a.items()}}
+
+    # -- Stream B: fused against unfused, in turns --------------------------
+    sources = batch_sources(list(manifest))
+    first = next(i for i, (label, _, _) in enumerate(sources) if label == "benchmark_fbas(256,core=31,broken=False)")
+    sources = [sources[first]] + sources[:first] + sources[first + 1:]  # a long solve first: the rest queue
+    lines_b = [req(f"b{i}", src, f"tenant-{i % 4}") for i, (_, src, _) in enumerate(sources)]
+    want_b = check_many([src for _, src, _ in sources], backend="gpu-sweep")
+    turns, results_b, counters_b = [], {}, {}
+    for turn, window in enumerate(("5", "0", "0", "5")):
+        path = work / f"serve_b{turn}.jsonl"
+        run = serve_run(["--backend", "gpu-sweep", "--emit-certs", "--batch-max", "16", "--metrics-json", str(path)],
+                        lines_b, env={"QI_SERVE_FUSE_WINDOW_MS": window})
+        got = answered(run, f"stream B turn {turn}")
+        counters, gauges, tenants = metrics_of(path)
+        for i, ((label, src, expect), want) in enumerate(zip(sources, want_b)):
+            r = got.get(f"b{i}")
+            if r is None or r.get("verdict") is not expect or r["verdict"] is not want.intersects:
+                fail("serve", f"stream B turn {turn}: {label} answered {r and (r.get('verdict'), r.get('error'))}, "
+                              f"expected {expect}")
+            if r["stats"].get("hit_index") != want.stats.get("hit_index"):
+                fail("serve", f"stream B turn {turn}: {label} hit index {r['stats'].get('hit_index')} != "
+                              f"check_many's {want.stats.get('hit_index')}")
+            if not want.intersects and witness(r) != sorted(sorted(want.cert["witness"][q]) for q in ("q1", "q2")):
+                fail("serve", f"stream B turn {turn}: {label} witness differs from check_many's")
+        # Cost conservation: a packed request books lanes x the pack's rows,
+        # the packs of one shape and row count hold a whole number of lane
+        # tiles between them, and the solves' lane-windows together are the
+        # device work the process counted; the tenant rows sum to the
+        # requests'.  Requests of one fingerprint share one solve (the
+        # snapshot fixtures are stellar_like_fbas(7, 3, seed=0) and its broken
+        # twin), each rider booking it too: the solves are counted once.
+        solves = {r["cert"]["provenance"]["serve"]["fingerprint"]: (rid, r) for rid, r in sorted(got.items())}
+        packs = {}
+        for rid, r in solves.values():
+            st, cost = r.get("stats") or {}, r.get("cost")
+            if not (st.get("packed") and cost and not cost.get("reused")):
+                continue
+            if cost["windows"] != st["pack_rows_dispatched"] or cost["lane_windows"] != cost["lanes"] * cost["windows"]:
+                fail("serve", f"stream B turn {turn}: {rid} books {cost} in a pack of {st['pack_rows_dispatched']} rows")
+            key = (st["pack_rows_dispatched"], st["pack_shape"][0])
+            packs.setdefault(key, []).append((rid, int(cost["lanes"]), cost["groups"], st["pack_jobs"],
+                                              st["pack_groups"], st["pack_slot"], st["pack_seconds"]))
+        for (rows, n), members in packs.items():
+            if sum(m[1] for m in members) % n:
+                fail("serve", f"stream B turn {turn}: packs of {n} lanes x {rows} rows hold "
+                              f"{sum(m[1] for m in members)} booked lanes: (request, lanes, groups, pack_jobs, "
+                              f"pack_groups, pack_slot, pack_seconds) {members}")
+        solved = sum(int(r["cost"]["lane_windows"]) for _, r in solves.values() if r.get("cost"))
+        if solved != counters.get("cost.lane_windows_total"):
+            fail("serve", f"stream B turn {turn}: the solves book {solved} lane-windows, the process counted "
+                          f"{counters.get('cost.lane_windows_total')}")
+        booked = sum(int(r["cost"]["lane_windows"]) for r in got.values() if r.get("cost"))
+        if counters.get("cost.lane_windows_attributed") != counters.get("cost.lane_windows_total"):
+            fail("serve", f"stream B turn {turn}: attributed {counters.get('cost.lane_windows_attributed')} != "
+                          f"total {counters.get('cost.lane_windows_total')}")
+        if sum(int(row["lane_windows"]) for row in tenants.values()) != booked:
+            fail("serve", f"stream B turn {turn}: the tenant table books "
+                          f"{sum(int(row['lane_windows']) for row in tenants.values())}, the requests {booked}")
+        if window != "0" and (counters.get("fuse.packs_formed", 0) < 1 or counters.get("fuse.cross_request_lanes", 0) <= 0):
+            fail("serve", f"stream B turn {turn}: no cross-request pack formed: {counters}")
+        arm = "fused" if window != "0" else "unfused"
+        if arm in results_b:
+            for rid, r in got.items():
+                if (r.get("verdict"), witness(r)) != (results_b[arm][rid].get("verdict"), witness(results_b[arm][rid])):
+                    fail("serve", f"stream B: {rid} differs between two {arm} runs")
+        results_b[arm] = got
+        counters_b[arm] = counters
+        turns.append({"arm": arm, **serve_stream_stats(run, len(lines_b)),
+                      "packs_formed": counters.get("fuse.packs_formed", 0),
+                      "cross_request_lanes": counters.get("fuse.cross_request_lanes", 0),
+                      "fill_pct": gauges.get("fuse.fill_pct"), "solves": len(solves),
+                      "pack_shapes": {f"{n}x{rows}": len(v) for (rows, n), v in packs.items()},
+                      "lane_windows_total": counters.get("cost.lane_windows_total")})
+    for rid, r in results_b["fused"].items():
+        u = results_b["unfused"][rid]
+        if (r.get("verdict"), witness(r), r["stats"].get("hit_index")) != (
+                u.get("verdict"), witness(u), u["stats"].get("hit_index")):
+            fail("serve", f"stream B: {rid} fused {r.get('verdict')} differs from unfused {u.get('verdict')}")
+    for i, (label, src, _) in enumerate(sources):
+        cert_jobs.append((f"serve/B fused {label}", src, results_b["fused"][f"b{i}"]["cert"]))
+    prof = serve_run(["--backend", "gpu-sweep", "--batch-max", "16"], lines_b, env={"QI_SERVE_FUSE_WINDOW_MS": "5"},
+                     profile=True)
+    answered(prof, "stream B profiled")
+    busy = prof["record"].get("device_busy_ms") or 0.0
+    streams["B"] = {"turns": turns, "profiled_fused": {
+        "device_busy_ms": busy, "serve_s": prof["record"]["serve_s"],
+        "device_idle_share": 1 - busy / (prof["record"]["serve_s"] * 1e3) if busy > 0
+        else "not measured (no device events)"}}
+
+    # -- Stream C: a deadline inside a pack; Stream D's faults, at once ------
+    # C: a warm request (the CUDA context and kernel libraries come up), then,
+    # once it is answered, a short blocker (2^27 rows) during whose solve the
+    # 2^30 twin and three small requests queue; they drain as one batch and
+    # fuse into one pack, where the twin's deadline fires.
+    # 48 nodes: the batch former estimates lanes by node count, and a 256-node
+    # twin would fill the tile alone and flush alone.
+    twin = synth.benchmark_fbas(48, 31)
+    small = [synth.majority_fbas(9, prefix="SA"), synth.majority_fbas(11, prefix="SB"),
+             synth.majority_fbas(12, broken=True, prefix="SC")]
+    lines_c = [req("warm", synth.majority_fbas(7, prefix="W"), "ops"), None,
+               req("blocker", synth.benchmark_fbas(256, 28), "ops"),
+               req("twin-deadline", twin, "ops", deadline_s=SERVE_TWIN_DEADLINE_S)]
+    lines_c += [req(f"small-{i}", s, "ops") for i, s in enumerate(small)]
+    metrics_c = work / "serve_c.jsonl"
+    lines_dispatch = [req("faulted", synth.majority_fbas(13, prefix="F"), "ops")]
+    lines_drain = [req(f"drain-{i}", s, "ops") for i, s in enumerate(small)]
+    cmds = [["--backend", "gpu-sweep", "--emit-certs", "--metrics-json", str(metrics_c)], ["--backend", "gpu-sweep"],
+            ["--backend", "gpu-sweep", "--emit-certs", "--batch-max", "16"]]
+    envs = [{"QI_SERVE_FUSE_WINDOW_MS": "5"}, {"QI_FAULTS": "sweep.dispatch=error"},
+            {"QI_FAULTS": "serve.drain=error@1"}]
+    runs = [None] * 3
+
+    def go(i, lines):
+        runs[i] = serve_run(cmds[i], lines, env=envs[i])
+
+    ths = [threading.Thread(target=go, args=(i, lines)) for i, lines in enumerate((lines_c, lines_dispatch, lines_drain))]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join()
+    got = answered(runs[0], "stream C")
+    dead = got.get("twin-deadline", {})
+    if dead.get("error", {}).get("code") != "deadline_exceeded":
+        fail("serve", f"stream C: the 2^30 twin answered {dead}")
+    small_truth = check_many(small, backend="gpu-sweep")
+    copacked = []
+    for i, (s, want) in enumerate(zip(small, small_truth)):
+        r = got.get(f"small-{i}", {})
+        if r.get("verdict") is not want.intersects or r["stats"].get("hit_index") != want.stats.get("hit_index"):
+            fail("serve", f"stream C: small-{i} answered {r.get('verdict', r.get('error'))}, expected {want.intersects}")
+        copacked.append({"pack_jobs": r["stats"].get("pack_jobs"), "pack_origin": r["stats"].get("pack_origin"),
+                         "pack_rows_dispatched": r["stats"].get("pack_rows_dispatched")})
+        cert_jobs.append((f"serve/C small-{i}", s, r["cert"]))
+    counters_c, _, _ = metrics_of(metrics_c)
+    cancelled = counters_c.get("cert.windows_cancelled", 0)
+    if not 0 < cancelled < 1 << 30:
+        fail("serve", f"stream C: the twin's deadline retired {cancelled} windows (mid-pack: between 1 and 2^30 - 1)")
+    streams["C"] = {**serve_stream_stats(runs[0], len(lines_c) - 1), "twin": dead["error"],
+                    "twin_windows_cancelled": cancelled, "twin_windows_swept": (1 << 30) - cancelled,
+                    "copacked": copacked, "deadline_s": SERVE_TWIN_DEADLINE_S}
+    got = answered(runs[1], "sweep.dispatch fault")
+    faulted = got.get("faulted", {})
+    if "verdict" in faulted or "sweep.dispatch" not in faulted.get("error", {}).get("message", ""):
+        fail("serve", f"sweep.dispatch fault: {faulted}")
+    dispatch_fault = {"faulted": faulted["error"], "rc": runs[1]["rc"]}
+    got = answered(runs[2], "serve.drain fault")
+    for i, (s, want) in enumerate(zip(small, small_truth)):
+        r = got.get(f"drain-{i}", {})
+        if r.get("verdict") is not want.intersects or not str(r["stats"].get("device", "")).startswith("cuda"):
+            fail("serve", f"serve.drain fault: drain-{i} answered {r.get('verdict', r.get('error'))} on "
+                          f"{r.get('stats', {}).get('device')}")
+    drain_fault = {"verdicts": [got[f"drain-{i}"]["verdict"] for i in range(len(small))],
+                   "devices": sorted({got[f"drain-{i}"]["stats"]["device"] for i in range(len(small))})}
+
+    # -- Stream D: kill after the first response, replay, restart ------------
+    journal = work / "serve.journal"
+    full = synth.benchmark_fbas(256, 34)
+    kill_plan = [("k-small-0", synth.majority_fbas(9, prefix="KA"), True),
+                 ("k-small-1", synth.majority_fbas(10, broken=True, prefix="KB"), False),
+                 ("k-full", full, True), ("k-small-2", synth.majority_fbas(11, prefix="KC"), True)]
+    lines_d = [req(rid, s, "ops") for rid, s, _ in kill_plan]
+    killed = serve_run(["--backend", "gpu-sweep", "--journal", str(journal)], lines_d, kill_after_first=True)
+    seen = {r["request_id"]: r.get("verdict") for r in killed["responses"] if "request_id" in r}
+    twin_journal = work / "serve.journal.twin"
+    twin_journal.write_bytes(journal.read_bytes())
+    journaled = {json.loads(ln)["request_id"] for ln in journal.read_text().splitlines()
+                 if ln.strip().startswith("{") and '"kind": "req"' in ln}
+    replay = serve_run(["--backend", "gpu-sweep", "--journal", str(journal), "--replay-only"], [])
+    answered(replay, "stream D replay-only")
+    report = next((r for r in replay["responses"] if r.get("kind") == "replay"), None)
+    if report is None or report["pending"] < 1:
+        fail("serve", f"stream D: the replay found no unfinished work: {report}")
+    truth = {rid: v for rid, _, v in kill_plan}
+    for rid, v in report["verdicts"].items():
+        if v is not truth[rid]:
+            fail("serve", f"stream D: replayed {rid} {v}, uninterrupted {truth[rid]}")
+    if set(report["verdicts"]) | {k for k, v in seen.items() if v is not None} != journaled:
+        fail("serve", f"stream D: answered {seen} + replayed {report['verdicts']} != journaled {sorted(journaled)}")
+    restart = serve_run(["--backend", "gpu-sweep", "--journal", str(twin_journal)],
+                        [req(rid, s, "ops") for rid, s, _ in kill_plan if seen.get(rid) is None])
+    got = answered(restart, "stream D restart")
+    rep2 = next((r for r in restart["responses"] if r.get("kind") == "replay"), {})
+    for rid, _, v in kill_plan:
+        if seen.get(rid) is None and got.get(rid, {}).get("verdict") is not v:
+            fail("serve", f"stream D restart: {rid} answered {got.get(rid)}, uninterrupted {v}")
+    streams["D"] = {"killed_after_first": {"answered": seen, "journaled": sorted(journaled), "rc": killed["rc"],
+                                           "wall_s": killed["wall"]},
+                    "replay_only": {k: report[k] for k in ("pending", "already_done", "verdicts", "torn_tail")},
+                    "restart": {"replayed": rep2.get("verdicts"), "answered": {k: v.get("verdict") for k, v in got.items()},
+                                "cached": sum(1 for v in got.values() if v.get("cached"))},
+                    "sweep.dispatch": dispatch_fault, "serve.drain": drain_fault}
+
+    fused_wall = [t["wall_s"] for t in turns if t["arm"] == "fused"]
+    unfused_wall = [t["wall_s"] for t in turns if t["arm"] == "unfused"]
+    phase_line("serve", card=card, seconds=round(time.perf_counter() - t0, 3), streams=streams,
+               fused_vs_unfused_wall_s={"fused": fused_wall, "unfused": unfused_wall},
+               serve_launches={k: v for k, v in launches.items()})
+    if launches["packed_sweep_dense_cuda"] + launches["packed_sweep_bitset_cuda"] < 1:
+        fail("serve", f"the serve path never launched a packed kernel: {dict(launches)}")
+    return dict(launches)
+
+
 def check_certificates(cert_jobs, work):
     """Every ``(label, source, certificate)`` through the unmodified
     ``tools/check_cert.py`` in a subprocess, from raw JSON: ``(refused,
@@ -3179,6 +3633,9 @@ def main(argv=None) -> int:
     ap.add_argument("--delta", action="store_true",
                     help="only build, then run the incremental re-analysis phase (delta) and check its "
                          "certificates (no ok line)")
+    ap.add_argument("--serve", action="store_true",
+                    help="only build, then run the serve subcommand's phase (serve) and check its "
+                         "certificates (no ok line)")
     ap.add_argument("--k12-parent", metavar="DIR", default=None,
                     help="a checkout (git archive) whose PageRank kernel timing_pagerank times in turns "
                          "with this tree's, per call and per iteration, beside this tree's launch shapes")
@@ -3242,6 +3699,18 @@ def main(argv=None) -> int:
         observe_phase(device, card, texts, manifest, cert_jobs, work)
         faults_phase(device, card, texts, cert_jobs, work)
         query_phase(device, card, texts, cert_jobs, work)
+        refused, _ = check_certificates(cert_jobs, work)
+        phase_line("cert", card=card, checked=len(cert_jobs), refused=refused)
+        return 1 if refused else 0
+
+    if args.serve:
+        import tempfile
+
+        manifest = json.loads((FIXTURES / "MANIFEST.json").read_text())
+        texts = {name: fixture_text(name) for name in manifest}
+        work = pathlib.Path(tempfile.mkdtemp(prefix="qi-chip-smoke-"))
+        cert_jobs = []
+        serve_phase(device, card, texts, manifest, cert_jobs, work)
         refused, _ = check_certificates(cert_jobs, work)
         phase_line("cert", card=card, checked=len(cert_jobs), refused=refused)
         return 1 if refused else 0
@@ -4216,7 +4685,10 @@ def main(argv=None) -> int:
     # -- 30. delta: incremental re-analysis through the card's kernels ------
     delta_launches = delta_phase(device, card, texts, cert_jobs, work)
 
-    # -- 31. cert: every certificate through the unmodified checker --------
+    # -- 31. serve: the serve subcommand as processes on the card ----------
+    serve_launches = serve_phase(device, card, texts, manifest, cert_jobs, work)
+
+    # -- 32. cert: every certificate through the unmodified checker --------
     t = time.perf_counter()
     bad, checked = check_certificates(cert_jobs, work)
     cert_wall = time.perf_counter() - t
@@ -4316,6 +4788,7 @@ def main(argv=None) -> int:
     for entry in record["kernels"]:
         entry["instances"] = ptxas.get(library_of[entry["name"]])
         entry["delta_path_launches"] = delta_launches.get(entry["name"], 0)
+        entry["serve_path_launches"] = serve_launches.get(entry["name"], 0)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

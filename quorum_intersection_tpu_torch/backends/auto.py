@@ -775,6 +775,7 @@ class AutoBackend:
         *,
         scope_to_scc: bool = False,
         cancels: Optional[Sequence[Optional[CancelToken]]] = None,
+        origins: Optional[Sequence[str]] = None,
     ) -> List[SccCheckResult]:
         """Batch entry (``pipeline.check_many``): fuse sweep-sized jobs into
         lane packs where the pack gate allows, route the rest one by one
@@ -813,6 +814,7 @@ class AutoBackend:
             packed = sweep.check_sccs(
                 [jobs[i] for i in packable], scope_to_scc=scope_to_scc,
                 cancels=[cancels[i] for i in packable] if cancels is not None else None,
+                origins=[origins[i] for i in packable] if origins is not None else None,
             )
             for i, res in zip(packable, packed):
                 results[i] = res

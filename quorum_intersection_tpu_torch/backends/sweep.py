@@ -112,7 +112,7 @@ from quorum_intersection_tpu_torch.kernels.sweep_cuda import FusedSweep
 from quorum_intersection_tpu_torch.kernels.sweep_ref import _round_up
 from quorum_intersection_tpu_torch.utils.checkpoint import SweepCheckpoint, sweep_fingerprint
 from quorum_intersection_tpu_torch.utils.env import qi_env
-from quorum_intersection_tpu_torch.utils.faults import fault_point
+from quorum_intersection_tpu_torch.utils.faults import FaultInjected, fault_point
 from quorum_intersection_tpu_torch.utils.telemetry import get_run_record
 
 log = logging.getLogger("quorum_intersection_tpu_torch.backends.sweep")
@@ -446,6 +446,17 @@ class _SweepJob:
     # Rank-order provenance, stamped into the job's stats where the
     # enumeration order was permuted.
     order_meta: Optional[Dict[str, object]] = None
+
+
+def macs_per_candidate_row(n: int, n_units: int, depth: int, lane: int = 128) -> int:
+    """Shape-model MACs one candidate row costs per fixpoint iteration: the
+    direct-vote product over the (n, U) operand at lane-padded width, plus
+    ``depth`` child-propagation passes over the (U, U) operand.  The JAX
+    package's model, kept so both packages book the same ``macs`` for the
+    same work (qi-cost); it is a booking unit, not this card's count."""
+    wn = lane * ((max(n, 1) + lane - 1) // lane)
+    wu = lane * ((max(n_units, 1) + lane - 1) // lane)
+    return wn * wu + depth * wu * wu
 
 
 @dataclass
@@ -966,6 +977,7 @@ class GpuSweepBackend:
                 "windows_resumed_prefix": start0,
             },
         }
+        self._book_solo_cost(stats, circuit, engine, candidates, seconds)
         if order_meta is not None:
             stats["order"] = dict(order_meta)
         if engine == "bitset":
@@ -995,6 +1007,27 @@ class GpuSweepBackend:
         # Reference witness convention (cpp:372-373): q1 = the probe result,
         # q2 = the enumerated quorum.
         return SccCheckResult(intersects=False, q1=disjoint, q2=q, stats=stats)
+
+    @staticmethod
+    def _book_solo_cost(stats: Dict[str, object], circuit: Circuit, engine: str,
+                        candidates: int, seconds: float) -> None:
+        """qi-cost: an unfused solve occupied the whole device, one window a
+        candidate row over the lane axis the JAX drive dispatches (its
+        canonical padded shape except on its ``pallas`` engine), so both
+        packages book the same integers.  A failed booking drops the cost
+        (``cost.attribute`` degrade); the total counts either way."""
+        rec = get_run_record()
+        n, units = (circuit.n, circuit.n_units) if engine == "pallas" else pad_targets(circuit.n, circuit.n_units)
+        try:
+            fault_point("cost.attribute")
+            from quorum_intersection_tpu_torch.cost import solo_cost
+
+            stats["cost"] = solo_cost(n, candidates, macs_per_candidate_row(n, units, circuit.depth), seconds)
+            rec.add("cost.lane_windows_attributed", int(stats["cost"]["lane_windows"]))  # type: ignore[index]
+        except (FaultInjected, OSError) as exc:
+            rec.add("cost.attribute_errors")
+            rec.event("cost.degraded", site="sweep.solo", error=repr(exc))
+        rec.add("cost.lane_windows_total", n * candidates)
 
     # ---- lane-packed multi-problem sweep ---------------------------------
 
@@ -1033,6 +1066,7 @@ class GpuSweepBackend:
         *,
         scope_to_scc: bool = False,
         cancels: Optional[Sequence[Optional[CancelToken]]] = None,
+        origins: Optional[Sequence[str]] = None,
     ) -> List[SccCheckResult]:
         """Batched multi-problem sweep with LANE PACKING: up to 16
         independent problems fuse into one block-diagonal circuit of at most
@@ -1049,7 +1083,9 @@ class GpuSweepBackend:
         within ``MAX_UNITS``, so its pack statistics may differ there.
         ``cancels`` is job-aligned: a tripped token retires that job alone
         (a ``cancelled`` result, no verdict); a job already cancelled never
-        takes lanes.
+        takes lanes.  ``origins`` is job-aligned too: the request each job
+        came from, stamped per lane group on the pack (``pack_origin`` on the
+        job's stats, the ``fuse.*`` counters).
         """
         jobs = list(jobs)
         results: List[Optional[SccCheckResult]] = [None] * len(jobs)
@@ -1073,7 +1109,8 @@ class GpuSweepBackend:
         if prepared:
             fault_point("sweep.pack")
         for members in self.pack_members(prepared):
-            self._run_pack([prepared[i] for i in members], [token(i) for i in members])
+            self._run_pack([prepared[i] for i in members], [token(i) for i in members],
+                           [origins[i] for i in members] if origins is not None else None)
             for i in members:
                 results[i] = prepared[i].result
         for i, (graph, circuit, scc) in enumerate(jobs):
@@ -1094,7 +1131,7 @@ class GpuSweepBackend:
         return [members for pack_ixs in plan_packs([prepared[i].circuit.n for i in packable])
                 for members in fit_units([packable[ix] for ix in pack_ixs], lambda i: prepared[i].circuit)]
 
-    def plan_pack(self, jobs: List[_SweepJob]) -> PackPlan:
+    def plan_pack(self, jobs: List[_SweepJob], origins: Optional[Sequence[str]] = None) -> PackPlan:
         """Lay one pack out: each job's prune plan on its own restricted
         circuit, then spare lanes become extra windows of the jobs with the
         largest per-window enumerations (never split below about two blocks
@@ -1138,7 +1175,7 @@ class GpuSweepBackend:
             for t in range(w):
                 groups.append(_PackGroup(job=j, lo=bounds[t], hi=bounds[t + 1]))
                 members.append((job.circuit, job.circuit_d))
-        packed = pack_circuits(members)
+        packed = pack_circuits(members, origins=[origins[g.job] for g in groups] if origins is not None else None)
 
         batch = self.batch if self.batch is not None else _auto_batch(packed.circuit.n)
         # Never dispatch blocks beyond the largest window's work.
@@ -1157,6 +1194,7 @@ class GpuSweepBackend:
         self,
         jobs: List[_SweepJob],
         cancels: Sequence[Optional[CancelToken]],
+        origins: Optional[Sequence[str]] = None,
     ) -> None:
         """Sweep one pack of jobs to verdicts (stored on each job).
 
@@ -1170,12 +1208,20 @@ class GpuSweepBackend:
         t0 = time.perf_counter()
         n_jobs = len(jobs)
         self._bring_up(("packed_sweep", "guard") if self._prune_enabled() else ("packed_sweep",))
-        plan = self.plan_pack(jobs)
+        plan = self.plan_pack(jobs, origins)
         rec = get_run_record()
         self._emit_prune_telemetry(plan.prune_plans, [j.total for j in jobs], packed=True)
         emit_engine_resolution(plan.resolution, packed=True)
         self.pack_plans.append(plan)
         groups, packed, batch = plan.groups, plan.packed, plan.batch
+        if origins is not None:
+            # Cross-request fusion: the verdict-bearing lanes of this pack,
+            # and those sharing it with a different request.
+            rec.add("fuse.packs_formed")
+            rec.add("fuse.pack_lanes", sum(packed.sizes))
+            rec.gauge("fuse.fill_pct", round(packed.fill_pct, 2))
+            if packed.origin_count > 1:
+                rec.add("fuse.cross_request_lanes", sum(packed.sizes))
         if plan.resolution.resolved == "bitset":
             fault_point("sweep.bitset")
         sweep = PackedSweep(
@@ -1360,11 +1406,31 @@ class GpuSweepBackend:
             "pack_shape": [packed.circuit.n, packed.circuit.n_units],
             "pack_fill_pct": round(packed.fill_pct, 2),
             "pack_rows_dispatched": pack_rows,
+            "pack_macs_per_candidate_row": macs_per_candidate_row(
+                packed.circuit.n, packed.circuit.n_units, packed.circuit.depth),
             "pack_engine": plan.resolution.resolved,
             "pack_seconds": round(seconds, 4),
         }
         if plan.resolution.resolved == "bitset":
             pack_stats["encoding"] = "bitset"  # as on the unpacked drive
+        # qi-cost: the pack's device work booked to its jobs by integer lane
+        # share, padding included; the shares sum to the pack's lane-windows
+        # exactly (asserted in attribute_pack).  A cancelled job keeps its
+        # lane groups, so its dead lanes book to its own request.
+        pack_costs: Dict[object, Dict[str, object]] = {}
+        pack_lane_windows = packed.circuit.n * pack_rows
+        try:
+            fault_point("cost.attribute")
+            from quorum_intersection_tpu_torch.cost import attribute_pack
+
+            pack_costs = attribute_pack([g.job for g in groups], packed.circuit.n, packed.slot, pack_rows,
+                                        int(pack_stats["pack_macs_per_candidate_row"]), seconds)
+            rec.add("cost.lane_windows_attributed", pack_lane_windows)
+        except (FaultInjected, OSError) as exc:
+            pack_costs = {}
+            rec.add("cost.attribute_errors")
+            rec.event("cost.degraded", site="sweep.pack", error=repr(exc))
+        rec.add("cost.lane_windows_total", pack_lane_windows)
         for jix, job in enumerate(jobs):
             stats = {
                 "backend": self.name,
@@ -1379,6 +1445,11 @@ class GpuSweepBackend:
             }
             if job.order_meta is not None:
                 stats["order"] = dict(job.order_meta)
+            job_cost = pack_costs.get(jix)
+            if job_cost is not None:
+                stats["cost"] = dict(job_cost)
+            if origins is not None:
+                stats["pack_origin"] = origins[jix]
             if job.cancelled:
                 stats["cancelled"] = True
                 job.result = SccCheckResult(intersects=False, stats=stats)

@@ -70,6 +70,23 @@ PROVENANCE_EVENTS = frozenset((
 LEDGER_KIND = {"gpu-frontier": "tpu-frontier"}
 
 
+def ledger_stats(stats: Dict[str, object]) -> Dict[str, object]:
+    """A result's stats in the form a fragment shared with the JAX package
+    is banked in: ``backend`` as the ledger kind, the engine's own name kept
+    under ``cert.engine``.  The JAX certificate builder copies ``backend``
+    raw and ``stats["cert"]`` whole into its ledger entry, so a port-banked
+    ``gpu-frontier`` fragment composes there into an entry the checker
+    knows."""
+    backend = stats.get("backend")
+    if backend not in LEDGER_KIND:
+        return stats
+    out = dict(stats)
+    out["backend"] = LEDGER_KIND[backend]  # type: ignore[index]
+    cert_stats = out.get("cert")
+    out["cert"] = {**(cert_stats if isinstance(cert_stats, dict) else {}), "engine": backend}
+    return out
+
+
 def _slice_evidence(
     owner: int,
     qset: IndexedQSet,

@@ -39,9 +39,10 @@ Chrome/Perfetto trace events, and ``--timing`` prints the ``[timing]``
 phase lines and ``[stats]`` lines to stderr, then the ``[telemetry]``
 summary.  The record is finished on every exit path.
 
-Subcommand: ``query`` — one typed query over the snapshot on stdin
+Subcommands: ``query`` — one typed query over the snapshot on stdin
 (:mod:`.query`: relaxed two-family intersection, what-if removals,
-analytics), with its own flags and exit codes.
+analytics), with its own flags and exit codes; ``serve`` — the long-lived
+JSONL serving layer (:mod:`.serve`, :mod:`.serve_transport`).
 """
 
 from __future__ import annotations
@@ -150,6 +151,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None) -> int:
     arglist = sys.argv[1:] if argv is None else list(argv)
+    if arglist and arglist[0] == "serve":
+        # The long-lived serving layer: one JSON request a stdin line, one
+        # JSON response a stdout line; serve_transport.py owns its flags and
+        # exit semantics (a stream has no one verdict to exit with).
+        from quorum_intersection_tpu_torch.serve import serve_main
+
+        return serve_main(arglist[1:])
     if arglist and arglist[0] == "query":
         # One-shot typed query: query.py owns its flags and exit codes.
         from quorum_intersection_tpu_torch.query import query_main

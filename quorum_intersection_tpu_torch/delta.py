@@ -42,8 +42,12 @@ the JAX package, an exception raised by the backend's own solve of the misses
 propagates (as ``SearchCancelled`` does): a kernel failure or a fired
 ``sweep.*`` fault fails the call instead of running the batch again.
 
-Not ported yet, because the serving layer is not: the remote store tier
-(``RemoteStoreClient``) and the per-request ``origins`` of a fused batch.
+``check_many(..., cancels=, origins=)`` carries the serving layer's
+per-request cancel tokens and origins into the backend solve of the misses.
+A fragment is banked in the form the JAX engine composes too
+(:func:`cert.ledger_stats`: a ``gpu-frontier`` solve under its ledger kind).
+Not ported yet, because the fleet is not: the remote store tier
+(``RemoteStoreClient``).
 Telemetry: the ``delta.check`` span; the ``delta.classified``,
 ``delta.composed`` and ``delta.degraded`` events; the ``delta.*`` counters;
 the ``delta.scc_reuse_pct`` and ``delta.store_size`` gauges.
@@ -62,7 +66,7 @@ from pathlib import Path
 from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple, Union
 
 from quorum_intersection_tpu_torch.backends.base import CancelToken, SearchBackend, SearchCancelled
-from quorum_intersection_tpu_torch.cert import build_certificate
+from quorum_intersection_tpu_torch.cert import build_certificate, ledger_stats
 from quorum_intersection_tpu_torch.cost import reuse_credit
 from quorum_intersection_tpu_torch.device import DeviceLike
 from quorum_intersection_tpu_torch.fbas.diff import diff_snapshots, localize, project, scc_fingerprint
@@ -580,6 +584,7 @@ class DeltaEngine:
         backend: Union[str, SearchBackend] = "auto",
         pack: Optional[bool] = None,
         cancels: Optional[Sequence[Optional[CancelToken]]] = None,
+        origins: Optional[Sequence[str]] = None,
     ) -> List[SolveResult]:
         """Batch verdicts for ``sources``, reusing per-SCC work.
 
@@ -589,23 +594,25 @@ class DeltaEngine:
         injected or real ``delta.diff`` failure, and on any unexpected error
         of the incremental body itself (fingerprint, diff, store, compose).
         The backend's own failure while solving the misses propagates, and so
-        does ``SearchCancelled``.
+        does ``SearchCancelled``.  ``cancels`` and ``origins`` are
+        source-aligned and ride into the backend solve of the misses (or of
+        every source, degraded).
         """
         rec = get_run_record()
         try:
             fault_point("delta.diff")
         except (FaultInjected, OSError) as exc:
             rec.add("delta.diff_faults")
-            return self._degrade(sources, backend, pack, exc, cancels)
+            return self._degrade(sources, backend, pack, exc, cancels, origins)
         try:
-            return self._check_many_incremental(sources, backend, pack, cancels)
+            return self._check_many_incremental(sources, backend, pack, cancels, origins)
         except SearchCancelled:
             raise
         except _BackendFailure as failure:
             raise failure.__cause__ from None  # type: ignore[misc]
         except Exception as exc:  # noqa: BLE001 — any differ/store/compose failure
             rec.add("delta.errors")
-            return self._degrade(sources, backend, pack, exc, cancels)
+            return self._degrade(sources, backend, pack, exc, cancels, origins)
 
     def _degrade(
         self,
@@ -614,12 +621,14 @@ class DeltaEngine:
         pack: Optional[bool],
         exc: BaseException,
         cancels: Optional[Sequence[Optional[CancelToken]]] = None,
+        origins: Optional[Sequence[str]] = None,
     ) -> List[SolveResult]:
         get_run_record().event("delta.degraded", error=str(exc))
         log.warning("delta path failed (%s); degrading to full re-solve", exc)
         return check_many(
             sources, backend=backend, device=self.device, dangling=self.dangling,
             scc_select=self.scc_select, scope_to_scc=self.scope_to_scc, pack=pack, cancels=cancels,
+            origins=origins,
         )
 
     def _check_many_incremental(
@@ -628,6 +637,7 @@ class DeltaEngine:
         backend: Union[str, SearchBackend],
         pack: Optional[bool],
         cancels: Optional[Sequence[Optional[CancelToken]]] = None,
+        origins: Optional[Sequence[str]] = None,
     ) -> List[SolveResult]:
         rec = get_run_record()
         results: List[Optional[SolveResult]] = [None] * len(sources)
@@ -662,7 +672,7 @@ class DeltaEngine:
                         held.add(st.target_fp)
                         misses.append(st)
                 if misses:
-                    self._solve_misses(misses, results, backend, pack, held, cancels)
+                    self._solve_misses(misses, results, backend, pack, held, cancels, origins)
                 for st in followers:
                     cached = self.store.peek_verdict(st.target_fp, self.scope_to_scc)
                     # Intra-batch followers count toward the reuse gauge too:
@@ -678,7 +688,7 @@ class DeltaEngine:
                     # The leader's fragment never landed (failed solve or a
                     # witness that escaped the SCC): solve the stragglers
                     # directly — correctness over reuse.
-                    self._solve_misses(strag, results, backend, pack, set(), cancels)
+                    self._solve_misses(strag, results, backend, pack, set(), cancels, origins)
             finally:
                 # Any lease still held here (an exception mid-batch, a cancel
                 # inside the backend solve) is released as a failure so
@@ -868,6 +878,7 @@ class DeltaEngine:
         pack: Optional[bool],
         held: Set[str],
         cancels: Optional[Sequence[Optional[CancelToken]]] = None,
+        origins: Optional[Sequence[str]] = None,
     ) -> None:
         """Send the dirty/new target SCCs to the real backend (one batched
         ``check_many`` call — lane packing and the router apply as ever),
@@ -893,6 +904,7 @@ class DeltaEngine:
                 dangling=self.dangling, scc_select=self.scc_select,
                 scope_to_scc=self.scope_to_scc, pack=pack,
                 cancels=[cancels[st.ix] for st in misses] if cancels is not None else None,
+                origins=[origins[st.ix] for st in misses] if origins is not None else None,
                 delta={"schema": DELTA_SCHEMA, "reused_sccs": 0, "resolved_sccs": 1},
                 scan=prefix_scan,
             )
@@ -923,7 +935,7 @@ class DeltaEngine:
             witness_ok = res.intersects or (q1_local is not None and q2_local is not None)
             if witness_ok:
                 stats = _localize_pruned_evidence(
-                    {k: v for k, v in res.stats.items() if k not in _VOLATILE_STATS},
+                    ledger_stats({k: v for k, v in res.stats.items() if k not in _VOLATILE_STATS}),
                     st.graph, st.target_scc,
                 )
                 if stats is not None:

@@ -527,11 +527,22 @@ class PackedCircuit:
     groups: int
     slot: int
     sizes: Tuple[int, ...]
+    # Pack provenance: the originating request id per lane group, aligned
+    # with ``sizes``; None for packs formed outside the serve drain.
+    origins: Optional[Tuple[str, ...]] = None
+
+    @property
+    def origin_count(self) -> int:
+        """Distinct contributing origins (0 when provenance is untracked)."""
+        return len(set(self.origins)) if self.origins else 0
 
     @property
     def fill_pct(self) -> float:
         """Pack occupancy: verdict-bearing lanes / padded lane width."""
         return 100.0 * float(sum(self.sizes)) / float(max(self.circuit.n, 1))
+
+    def lane_base(self, g: int) -> int:
+        return g * self.slot
 
     def decode_tables(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """Per-lane-group decode map: ``(pos, scc_mask, lane_group, group_ind)``.
@@ -583,6 +594,7 @@ def plan_packs(sizes: Sequence[int], lane_tile: int = LANE_TILE) -> List[List[in
 def pack_circuits(
     members: Sequence[Tuple[Circuit, Optional[Circuit]]],
     lane_tile: int = LANE_TILE,
+    origins: Optional[Sequence[str]] = None,
 ) -> PackedCircuit:
     """Fuse K ``(scoped, q6_or_None)`` circuit pairs into one
     :class:`PackedCircuit` (invariants in the section comment above).
@@ -593,6 +605,9 @@ def pack_circuits(
     """
     if not members:
         raise ValueError("pack_circuits needs at least one circuit")
+    if origins is not None and len(origins) != len(members):
+        raise ValueError(f"{len(origins)} origins for {len(members)} members: pack "
+                         f"provenance must be lane-group-aligned")
     sizes = tuple(c.n for c, _ in members)
     for c, d in members:
         if d is not None and (d.n != c.n or d.n_units != c.n_units):
@@ -650,7 +665,8 @@ def pack_circuits(
     fused = pad_circuit(fused, n_to, units_to)
     if fused_d is not None:
         fused_d = pad_circuit(fused_d, n_to, units_to)
-    return PackedCircuit(circuit=fused, circuit_d=fused_d, groups=k, slot=slot, sizes=sizes)
+    return PackedCircuit(circuit=fused, circuit_d=fused_d, groups=k, slot=slot, sizes=sizes,
+                         origins=tuple(origins) if origins is not None else None)
 
 
 # ---------------------------------------------------------------------------

@@ -295,6 +295,7 @@ def check_many(
     cancels: Optional[Sequence[Optional[CancelToken]]] = None,
     delta: Optional[Dict[str, object]] = None,
     scan: Optional[ScanProvider] = None,
+    origins: Optional[Sequence[str]] = None,
 ) -> List[SolveResult]:
     """Decide quorum intersection for MANY FBAS sources in one call — the
     shape a queue of snapshot checks arrives in.
@@ -314,6 +315,9 @@ def check_many(
     ``cancels`` is source-aligned: a tripped token retires that source alone
     and it comes back with ``stats["cancelled"]``, no verdict claim and a
     partial certificate holding only its cancelled-coverage ledger.
+    ``origins`` is source-aligned too: the request each source came from,
+    which the packed sweep stamps on its lane groups (``pack_origin``, the
+    ``fuse.*`` counters) when the serving layer fuses requests.
 
     ``delta`` is the incremental engine's provenance stamp (:mod:`.delta`)
     when this batch is the re-solve leg of an incremental step: it rides
@@ -386,8 +390,9 @@ def check_many(
             with rec.span("pipeline.check_many", sources=len(sources), jobs=len(jobs),
                           batched=batch is not None):
                 if batch is not None:
+                    job_origins = {} if origins is None else {"origins": [origins[ix] for ix, _, _, _ in jobs]}
                     scc_results = batch([(g, c, s) for _, g, c, s in jobs], scope_to_scc=scope_to_scc,
-                                        cancels=job_cancels)
+                                        cancels=job_cancels, **job_origins)
                 else:
                     scc_results = []
                     for jx, (_, g, c, s) in enumerate(jobs):

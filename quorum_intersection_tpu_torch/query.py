@@ -28,9 +28,9 @@ certificate the unmodified ``tools/check_cert.py`` accepts:
 
 Every non-intersection kind passes the ``query.dispatch`` fault point first;
 an injected or real failure becomes a typed :class:`QueryError`, never a
-wrong or missing verdict.  Not ported yet: the serving layer's injected
-batch solver (a delta-aware what-if frontier); the default batch solver is
-:func:`pipeline.check_many`.
+wrong or missing verdict.  The default batch solver is
+:func:`pipeline.check_many`; the serving layer injects its own
+(``check_many_fn=``: delta-aware, cancellable, fused across requests).
 
 CLI: ``python -m quorum_intersection_tpu_torch query`` (one query over the
 node array on stdin; the result as one JSON line).

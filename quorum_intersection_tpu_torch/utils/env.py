@@ -162,6 +162,140 @@ QI_FLEET_STORE_MAX_MB = _declare(
 )
 
 
+# The serving layer (serve.py, serve_transport.py, fuse.py, cost.py,
+# utils/metrics_server.py).
+
+QI_SERVE_BATCH_MAX = _declare(
+    "QI_SERVE_BATCH_MAX", "8",
+    "Most solve units one serving drain cycle hands to "
+    "pipeline.check_many at once (serve.py): queued compatible requests "
+    "accumulate into one batched backend call (which lane-packs "
+    "sweep-sized problems together).",
+)
+
+QI_SERVE_QUEUE_DEPTH = _declare(
+    "QI_SERVE_QUEUE_DEPTH", "64",
+    "Admission-queue depth bound of the serving layer (serve.py): a "
+    "request arriving with this many solve units already queued is shed "
+    "with a typed Overloaded rejection instead of growing the queue "
+    "without bound.",
+)
+
+QI_SERVE_CACHE_MAX = _declare(
+    "QI_SERVE_CACHE_MAX", "1024",
+    "Verdict-cache capacity of the serving layer (serve.py): distinct "
+    "snapshot fingerprints retained before LRU eviction "
+    "(serve.cache_evictions counter).",
+)
+
+QI_SERVE_DEADLINE_S = _declare(
+    "QI_SERVE_DEADLINE_S", "0",
+    "Default per-request deadline budget in seconds for the serving layer "
+    "(serve.py): past it an in-flight solve is cancelled through the "
+    "CancelToken lattice and the request returns a typed DeadlineExceeded "
+    "with its partial-coverage certificate.  0 (default): no deadline.",
+)
+
+QI_SERVE_JOURNAL = _declare(
+    "QI_SERVE_JOURNAL", "",
+    "Path of the serving layer's crash-only request journal (serve.py): "
+    "accepted requests are journaled (fsync per entry) before solving and "
+    "marked done after, so a hard kill + restart replays in-flight work "
+    "with no lost or duplicated verdicts.  Empty (default): journaling "
+    "off (the CLI serve subcommand's --journal flag sets it explicitly).",
+)
+
+QI_SERVE_FUSE_WINDOW_MS = _declare(
+    "QI_SERVE_FUSE_WINDOW_MS", "0",
+    "Cross-request pack-fusion window in milliseconds (serve.py qi-fuse): "
+    "while positive, the drain accumulates window work from DIFFERENT "
+    "requests — intersection SCCs, what-if variants — into one shared "
+    "batch former (fuse.py BatchFormer) and dispatches when the estimated "
+    "lane tile fills or this deadline-aware timer fires, so mixed traffic "
+    "fills the packed kernels' lane tiles instead of dispatching partial packs per "
+    "request.  'auto' (qi-cost): the window is chosen each flush cycle by "
+    "cost.choose_fuse_window from the pulse queue-wait p99 and the SLO "
+    "burn state — hot queue ⇒ short positive window, sparse traffic ⇒ 0 "
+    "so latency never pays for an empty wait; every decision is a "
+    "serve.fuse_window event and the active value a serve.fuse_window_ms "
+    "gauge.  0 (default): fusion off, the byte-compatible legacy drain.",
+)
+
+QI_SERVE_BIND = _declare(
+    "QI_SERVE_BIND", "127.0.0.1",
+    "Bind address of the serve socket transport and the fleet's store "
+    "gateway (serve_transport.py SocketServeServer; CLI twin: serve --bind).  Default loopback — binding "
+    "a routable address is the explicit multi-host opt-in.",
+)
+
+QI_PULSE_SLOW_MS = _declare(
+    "QI_PULSE_SLOW_MS", "0",
+    "Slow-request exemplar threshold in milliseconds (serve.py, qi-pulse): "
+    "a served request whose end-to-end latency exceeds it fires the "
+    "pulse.exemplar event + pulse.exemplars counter and dumps a "
+    "qi-exemplar/1 record (stage breakdown + flight-recorder tail + trace "
+    "identity) to <QI_FLIGHT_RECORDER>.exemplar via the crash-only dump "
+    "path (utils/telemetry.py dump_exemplar).  0 (default): exemplars off.",
+)
+
+QI_COST_TENANTS_MAX = _declare(
+    "QI_COST_TENANTS_MAX", "256",
+    "Per-tenant cost table capacity (cost.py qi-cost): the per-client-id "
+    "device-cost aggregation tables (local and fleet-merged) keep at most "
+    "this many tenants, evicting least-recently-booked beyond it (evictions "
+    "are counted on cost.tenants_evicted, never silent).  Bounds serve-tier "
+    "memory against client-id cardinality attacks.",
+)
+
+QI_SLO = _declare(
+    "QI_SLO", "",
+    "Declarative SLO targets (cost.py SloPlane): a comma-separated list of "
+    "'metric<bound' / 'metric>bound' clauses, e.g. "
+    "'serve_e2e_p99_ms<500,pack_fill_pct>60'.  Metric names resolve "
+    "against the live gauge registry ('_' also matches '.'); each scrape "
+    "of /healthz or /sloz and each adaptive fuse-window decision "
+    "evaluates multi-window burn rates (QI_SLO_FAST_S / QI_SLO_SLOW_S) "
+    "and emits slo.burn events + the slo.burning gauge.  Empty (default): "
+    "SLO plane off.",
+)
+
+QI_SLO_FAST_S = _declare(
+    "QI_SLO_FAST_S", "300",
+    "Fast burn-rate window in seconds (cost.py SloPlane): a target is "
+    "fast-burning when at least half the ring samples within this window "
+    "violate its bound.  Default 300 (5 minutes).",
+)
+
+QI_SLO_SLOW_S = _declare(
+    "QI_SLO_SLOW_S", "3600",
+    "Slow burn-rate window in seconds (cost.py SloPlane): a target is "
+    "slow-burning when at least a tenth of the ring samples within this "
+    "window violate its bound; 'burning' requires BOTH windows, so a "
+    "recovered metric stops firing as soon as the fast window clears.  "
+    "Default 3600 (1 hour).",
+)
+
+QI_METRICS_PORT = _declare(
+    "QI_METRICS_PORT", "0",
+    "TCP port of the live observability endpoint (127.0.0.1): /healthz "
+    "serves ladder rung, quarantine state and in-flight packs as JSON, "
+    "/readyz serves the serving layer's admission picture (503 while "
+    "journal replay is in progress), /metrics serves the Prometheus "
+    "encoding of the run record (utils/metrics_server.py).  0 (default): "
+    "no server.",
+)
+
+QI_FLEET_STORE_DIR = _declare(
+    "QI_FLEET_STORE_DIR", "",
+    "Directory of the shared SCC-fragment store tier (delta.py "
+    "SharedSccStore): set in a serve worker's environment (the fleet "
+    "supervisor exports it to every worker it spawns), the per-process "
+    "SccVerdictStore reads through to it on every miss and writes every "
+    "banked fragment back, so one worker's solve composes into every "
+    "worker's certs.  Empty (default): local LRU only.",
+)
+
+
 # ---- reads -----------------------------------------------------------------
 
 

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import errno
 import logging
+import random
 import threading
 import time
 from dataclasses import dataclass
@@ -167,9 +168,43 @@ FLEET_STORE = _declare(
 )
 COST_ATTRIBUTE = _declare(
     "cost.attribute",
-    "Reuse-credit booking of a composed verdict (delta.py DeltaEngine._compose, cost.py "
-    "reuse_credit): error simulates a broken accounting plane; the composed result carries no "
-    "cost (cost.attribute_errors counter, cost.degraded event), never a wrong verdict.",
+    "Per-request device-cost attribution (cost.py: the sweep drive's solo booking and the pack "
+    "drain's per-origin booking, the reuse credit of a composed verdict, the serve tenant-table "
+    "booking and the SLO burn evaluation): error simulates a broken accounting plane; the step "
+    "degrades to no cost (cost.attribute_errors counter, cost.degraded event), never a wrong "
+    "verdict.",
+)
+SERVE_ADMIT = _declare(
+    "serve.admit",
+    "Request admission into the serving layer (serve.py ServeEngine.submit): error rejects the "
+    "request with a typed error, never a silent drop; the queue and every admitted request are "
+    "unaffected.",
+)
+SERVE_CACHE = _declare(
+    "serve.cache",
+    "Verdict-cache lookup/insert (serve.py): error bypasses the cache for that request "
+    "(serve.cache_errors counter) and solves it from scratch.",
+)
+SERVE_JOURNAL = _declare(
+    "serve.journal",
+    "Request-journal append (serve.py RequestJournal): oserror simulates a full disk; the write "
+    "is counted on serve.journal_errors and the request proceeds un-journaled.",
+)
+SERVE_DRAIN = _declare(
+    "serve.drain",
+    "Admission-queue drain into pipeline.check_many (serve.py drain loop): error degrades the "
+    "batch to per-request solves on the same backend and device; hang simulates a wedged drain.",
+)
+SERVE_RESPOND = _declare(
+    "serve.respond",
+    "Verdict delivery to a waiting client (serve.py): error gives the client a typed error while "
+    "the verdict is already cached and journal-marked done, so a retry is a cache hit.",
+)
+SERVE_FUSE = _declare(
+    "serve.fuse",
+    "Cross-request batch-former setup in the drain (serve.py _drain_batch, once a drained batch "
+    "while QI_SERVE_FUSE_WINDOW_MS is positive): error degrades the batch in place to the "
+    "unfused per-batch path (serve.fuse_faults counter, serve.fuse_degraded event).",
 )
 TELEMETRY_DUMP = _declare(
     "telemetry.dump",
@@ -335,3 +370,33 @@ def parse_faults(spec: str) -> FaultPlan:
             seconds = float(secs)
         rules.append(FaultRule(point=point.strip(), mode=rhs.strip(), first=first, every=every, seconds=seconds))
     return FaultPlan(rules, label=spec)
+
+
+# What the serving chaos schedule draws from: the serve.* boundaries plus the
+# delta and card points a served request crosses.
+_SERVE_CHAOS_CHOICES: Tuple[Tuple[str, str, float], ...] = (
+    (SERVE_ADMIT, "error", 0.0),
+    (SERVE_CACHE, "error", 0.0),
+    (SERVE_JOURNAL, "oserror", 0.0),
+    (SERVE_DRAIN, "error", 0.0),
+    (SERVE_DRAIN, "hang", 0.2),
+    (SERVE_RESPOND, "error", 0.0),
+    (DELTA_DIFF, "error", 0.0),
+    (NATIVE_CALL, "error", 0.0),
+    (SWEEP_DISPATCH, "oom", 0.0),
+)
+
+
+def sample_serve_plan(seed: int) -> FaultPlan:
+    """A deterministic serving-layer fault schedule drawn from ``seed`` (the
+    JAX package's draw: same seed, same rules, same firing sequence)."""
+    rng = random.Random(seed)
+    n_rules = 1 if rng.random() < 0.6 else 2
+    picks = rng.sample(range(len(_SERVE_CHAOS_CHOICES)), n_rules)
+    rules = []
+    for ix in picks:
+        point, mode, seconds = _SERVE_CHAOS_CHOICES[ix]
+        first = 1 if rng.random() < 0.6 else rng.randint(2, 3)
+        every = rng.random() < 0.5
+        rules.append(FaultRule(point=point, mode=mode, first=first, every=every, seconds=seconds))
+    return FaultPlan(rules, label=f"serve-chaos(seed={seed})")

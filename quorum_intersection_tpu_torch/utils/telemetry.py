@@ -42,8 +42,11 @@ lines are counted as dropped.  A bounded flight-recorder ring of the last
 fault fires, the router degrades or quarantines a rung, or an exception is
 not handled.
 
-Not ported yet, because the serving layer is not: the live metrics endpoint
-(``QI_METRICS_PORT``) and the SLO plane's snapshot ring.
+The serving layer adds :data:`LATENCY_WINDOW` for its p50/p99 gauges, the SLO
+plane's :class:`SnapshotRing`, per-request trace adoption
+(:meth:`RunRecord.adopted`), finish-time line providers
+(:func:`register_final_lines`, the tenant table) and the live metrics endpoint
+started from ``QI_METRICS_PORT`` (``utils/metrics_server.py``).
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ import uuid
 from collections import deque
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Deque, Dict, Iterator, List, Optional, Protocol, Sequence, Tuple
+from typing import Callable, Deque, Dict, Iterator, List, Optional, Protocol, Sequence, Tuple
 
 from quorum_intersection_tpu_torch.utils.env import qi_env
 
@@ -72,6 +75,10 @@ SCHEMA = "qi-telemetry/1"
 FLIGHT_SCHEMA = "qi-flight/1"
 PULSE_SCHEMA = "qi-pulse/1"
 EXEMPLAR_SCHEMA = "qi-exemplar/1"
+
+# The window behind the serving layer's p50/p99 gauges: large enough to smooth
+# scheduler noise, small enough that a live scrape tracks the current load.
+LATENCY_WINDOW = 512
 
 # Histogram bucket upper edges in milliseconds: log-spaced from sub-ms to the
 # minute class, the JAX package's, so the two packages' histograms merge.
@@ -105,15 +112,19 @@ def percentile(sorted_samples: List[float], pct: float) -> float:
 class Histogram:
     """Fixed-bucket latency histogram (``qi-pulse/1``): non-cumulative
     per-bucket counts over ``bounds`` plus one overflow bucket, exact count
-    and sum, lock-protected; the wire form the serving layer merges."""
+    and sum, lock-protected; the wire form the serving layer merges.  A
+    bounded raw-sample window (:data:`LATENCY_WINDOW`) rides along for the
+    serving layer's p50/p99 gauges (:meth:`window_percentile`)."""
 
-    def __init__(self, name: str, bounds: Optional[Sequence[float]] = None) -> None:
+    def __init__(self, name: str, bounds: Optional[Sequence[float]] = None,
+                 window: int = LATENCY_WINDOW) -> None:
         self.name = name
         self.bounds: Tuple[float, ...] = tuple(bounds) if bounds is not None else hist_bounds()
         self._lock = threading.Lock()
         self._counts = [0] * (len(self.bounds) + 1)
         self._count = 0
         self._sum = 0.0
+        self._window: Optional[Deque[float]] = deque(maxlen=window) if window > 0 else None
 
     def observe(self, value_ms: float) -> None:
         ix = bisect.bisect_left(self.bounds, value_ms)
@@ -121,6 +132,16 @@ class Histogram:
             self._counts[ix] += 1
             self._count += 1
             self._sum += value_ms
+            if self._window is not None:
+                self._window.append(value_ms)
+
+    def window_percentile(self, pct: float) -> float:
+        """Nearest-rank percentile over the bounded raw-sample window (sorted
+        outside the lock)."""
+        with self._lock:
+            samples = list(self._window) if self._window is not None else []
+        samples.sort()
+        return percentile(samples, pct)
 
     def snapshot(self) -> Dict[str, object]:
         """The wire form ``{schema, bounds, counts, count, sum}``."""
@@ -205,13 +226,17 @@ class Span:
     trace_id: str = ""
     tid: int = 0
     pid: int = 0
+    # A thread-root span opened under RunRecord.adopted() hangs under another
+    # process's span through these; None on every other span.
+    remote_parent_span: Optional[int] = None
+    remote_parent_pid: Optional[int] = None
 
     def set(self, **attrs: object) -> "Span":
         self.attrs.update(_jsonable(attrs))  # type: ignore[arg-type]
         return self
 
     def to_line(self) -> dict:
-        return {
+        line = {
             "kind": "span",
             "name": self.name,
             "span_id": self.span_id,
@@ -223,6 +248,59 @@ class Span:
             "tid": self.tid,
             "attrs": _jsonable(self.attrs),
         }
+        if self.remote_parent_span is not None:
+            line["remote_parent_span"] = self.remote_parent_span
+            line["remote_parent_pid"] = self.remote_parent_pid
+        return line
+
+
+class SnapshotRing:
+    """Bounded ring of timestamped metric snapshots (the SLO plane's store).
+
+    :meth:`record` appends ``(t, values)``, a flat name-to-float view of what
+    the caller sampled; :meth:`window` answers the samples of the trailing
+    ``seconds``, the burn-rate evaluator's only read.  Lock-protected; the
+    clock is injectable so tests replay hours in microseconds."""
+
+    def __init__(self, maxlen: int = 4096, clock: Optional[object] = None) -> None:
+        self._lock = threading.Lock()
+        self._ring: Deque[Tuple[float, Dict[str, float]]] = deque(maxlen=maxlen)
+        self._clock = clock if callable(clock) else time.monotonic
+
+    def record(self, values: Dict[str, float], t: Optional[float] = None) -> float:
+        """Append one snapshot; returns the timestamp used."""
+        now = float(t) if t is not None else float(self._clock())  # type: ignore[operator]
+        snap = {str(k): float(v) for k, v in values.items()}
+        with self._lock:
+            self._ring.append((now, snap))
+        return now
+
+    def window(self, seconds: float, now: Optional[float] = None) -> List[Tuple[float, Dict[str, float]]]:
+        """Samples within the trailing ``seconds``, oldest first."""
+        end = float(now) if now is not None else float(self._clock())  # type: ignore[operator]
+        cutoff = end - float(seconds)
+        with self._lock:
+            return [(t, dict(v)) for t, v in self._ring if t >= cutoff]
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._ring)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._ring.clear()
+
+
+# Finish-time line providers: a package module (cost.py's tenant table)
+# registers a callable and its lines join the counter and gauge dump; utils/
+# never imports the engines.  A provider that raises is skipped.
+_FINAL_LINE_PROVIDERS: List[Callable[[], List[dict]]] = []
+
+
+def register_final_lines(provider: Callable[[], List[dict]]) -> None:
+    """Register a finish-time JSONL line provider (idempotent)."""
+    if provider not in _FINAL_LINE_PROVIDERS:
+        _FINAL_LINE_PROVIDERS.append(provider)
 
 
 class JsonlSink:
@@ -426,6 +504,25 @@ class RunRecord:
         self._flight_lock = threading.Lock()
         self._flight: Deque[dict] = deque(maxlen=FLIGHT_RECORDER_N)
 
+    @contextmanager
+    def adopted(self, ctx: Optional[TraceContext]) -> Iterator[None]:
+        """Per-request trace adoption: while active on this thread, spans and
+        events carry ``ctx.trace_id``, and a thread-root span records
+        ``ctx.span_id``/``ctx.pid`` as its remote parent.  ``None`` (or a
+        blank trace) is a no-op."""
+        if ctx is None or not ctx.trace_id:
+            yield
+            return
+        prev = getattr(self._local, "adopt", None)
+        prev_first = getattr(self._local, "adopt_first", False)
+        self._local.adopt = ctx
+        self._local.adopt_first = True
+        try:
+            yield
+        finally:
+            self._local.adopt = prev
+            self._local.adopt_first = prev_first
+
     def snapshot(self) -> Tuple[Dict[str, float], Dict[str, object]]:
         """Consistent copies of (counters, gauges)."""
         with self._lock:
@@ -517,15 +614,24 @@ class RunRecord:
         with self._lock:
             self._next_id += 1
             sid = self._next_id
+        adopt: Optional[TraceContext] = getattr(self._local, "adopt", None)
+        local_parent = parent_id if parent_id is not None else (stack[-1] if stack else None)
+        # An adopted thread root, and the first span of an adoption even under
+        # a local parent, hangs under the remote request span.
+        graft = adopt is not None and (local_parent is None or getattr(self._local, "adopt_first", False))
+        if adopt is not None:
+            self._local.adopt_first = False
         sp = Span(
             name=name,
             span_id=sid,
-            parent_id=parent_id if parent_id is not None else (stack[-1] if stack else None),
+            parent_id=local_parent,
             start_s=time.monotonic() - self.t0,
             attrs=_jsonable(attrs),  # type: ignore[arg-type]
-            trace_id=self.trace_id,
+            trace_id=adopt.trace_id if adopt is not None else self.trace_id,
             tid=threading.get_native_id(),
             pid=self.pid,
+            remote_parent_span=adopt.span_id if graft else None,
+            remote_parent_pid=adopt.pid if graft else None,
         )
         stack.append(sid)
         try:
@@ -543,12 +649,13 @@ class RunRecord:
     # ---- events, counters, gauges ---------------------------------------
 
     def event(self, name: str, **attrs: object) -> None:
+        adopt: Optional[TraceContext] = getattr(self._local, "adopt", None)
         ev = {
             "kind": "event",
             "name": name,
             "t_s": round(time.monotonic() - self.t0, 6),
             "span_id": self.current_span_id,
-            "trace_id": self.trace_id,
+            "trace_id": adopt.trace_id if adopt is not None else self.trace_id,
             "pid": self.pid,
             "tid": threading.get_native_id(),
             "attrs": _jsonable(attrs),
@@ -603,6 +710,11 @@ class RunRecord:
                 lines.append(hist_line)
         if dropped:
             lines.append({"kind": "counter", "name": "telemetry.dropped", "value": dropped})
+        for provider in list(_FINAL_LINE_PROVIDERS):
+            try:
+                lines.extend(provider())
+            except Exception as exc:  # noqa: BLE001 - never cost the dump
+                log.info("final-line provider failed: %s", exc)
         return lines
 
     def summary_lines(self) -> List[str]:
@@ -669,6 +781,19 @@ def _install_crash_hook() -> None:
     sys.excepthook = hook
 
 
+def _maybe_start_metrics_server() -> None:
+    """Start the live /healthz and /metrics endpoint when QI_METRICS_PORT > 0
+    (best effort: a taken port logs and moves on)."""
+    if qi_env("QI_METRICS_PORT") in ("", "0"):
+        return
+    try:
+        from quorum_intersection_tpu_torch.utils.metrics_server import maybe_start_from_env
+
+        maybe_start_from_env()
+    except Exception as exc:  # noqa: BLE001 - observability never costs the verdict
+        log.info("metrics server unavailable: %s", exc)
+
+
 def get_run_record() -> RunRecord:
     """The process-wide record, created at first use with the env sinks
     attached and flushed at interpreter exit."""
@@ -681,6 +806,7 @@ def get_run_record() -> RunRecord:
                 atexit.register(record.finish)
                 _global = record
         _install_crash_hook()
+        _maybe_start_metrics_server()
     return _global
 
 

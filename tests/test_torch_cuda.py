@@ -1,8 +1,9 @@
 """The CUDA kernels on the card — the fused unpacked sweep, the unpacked
 bitset sweep, the two lane-packed sweeps and the two block-guard instances,
 the PageRank loop and the frontier's kernels — against their plain
-PyTorch versions and against the CPU path; and incremental re-analysis
-(``delta.DeltaEngine``) on the card against the same engine on the CPU.  Card-only: every test takes the ``cuda_device``
+PyTorch versions and against the CPU path; incremental re-analysis
+(``delta.DeltaEngine``) on the card against the same engine on the CPU; and
+the serving layer's cross-request fusion and mid-pack deadline on the card.  Card-only: every test takes the ``cuda_device``
 fixture, which skips on a host without one.  This file imports nothing of
 JAX or the JAX package, so on the card's machine it runs as
 
@@ -1115,3 +1116,68 @@ def test_delta_sweep_fault_fails_the_card_solve(cuda_device, fault_plan):
         DeltaEngine().check_many([synth.benchmark_fbas(40, 10, broken=True, seed=1)], backend="gpu-sweep")
     assert exc.value.point == "sweep.dispatch" and len(plan.fired) == 1
     assert telemetry.get_run_record().counters.get("delta.errors", 0) == 0
+
+
+def _serve_stream(device, sources, fuse_window_ms, deadlines=None):
+    """Serve ``sources`` through one ServeEngine on ``device``, every request
+    admitted before the drain starts; the outcomes (response or exception)."""
+    from quorum_intersection_tpu_torch.serve import ServeEngine
+
+    engine = ServeEngine(backend="gpu-sweep", fuse_window_ms=fuse_window_ms, device=device)
+    deadlines = deadlines or [None] * len(sources)
+    tickets = [engine.submit(s, request_id=f"r{i}", deadline_s=d, client=f"c{i % 2}")
+               for i, (s, d) in enumerate(zip(sources, deadlines))]
+    engine.start()
+    out = []
+    try:
+        for t in tickets:
+            try:
+                out.append(t.result(timeout=120.0))
+            except Exception as exc:  # noqa: BLE001 - the typed outcome is what is compared
+                out.append(exc)
+    finally:
+        engine.stop(drain=True, timeout=60.0)
+    return out
+
+
+def test_fused_serve_on_card_equals_unfused(cuda_device, fault_plan):
+    """Cross-request packs on the card: the fused server answers each request
+    as the unfused one and the CPU do (verdict, witness, hit index), forms a
+    pack of several requests, and its costs sum to the pack totals."""
+    from quorum_intersection_tpu_torch.utils import telemetry
+
+    sources = [synth.majority_fbas(n, broken=n % 2 == 0, prefix=f"F{n}") for n in (9, 10, 11, 12)]
+    fault_plan("")
+    fused = _serve_stream(None, sources, 50.0)
+    counters = dict(telemetry.get_run_record().counters)
+    unfused = _serve_stream(None, sources, 0.0)
+    on_cpu = _serve_stream("cpu", sources, 50.0)
+    for a, b, c in zip(fused, unfused, on_cpu):
+        assert (a.intersects, a.stats.get("hit_index")) == (b.intersects, b.stats.get("hit_index"))
+        assert (a.intersects, a.stats.get("hit_index")) == (c.intersects, c.stats.get("hit_index"))
+        assert a.cert.get("witness") == b.cert.get("witness") == c.cert.get("witness")
+    assert counters["fuse.packs_formed"] >= 1 and counters["fuse.cross_request_lanes"] > 0
+    assert counters["cost.lane_windows_attributed"] == counters["cost.lane_windows_total"]
+    assert sum(int(r.cost["lane_windows"]) for r in fused) == counters["cost.lane_windows_total"]
+
+
+def test_mid_pack_deadline_on_card_retires_only_its_request(cuda_device, fault_plan):
+    """A deadline that fires inside a fused pack on the card: that request
+    gets a typed deadline error with its partial ledger; its co-packed
+    request a full verdict."""
+    from quorum_intersection_tpu_torch.serve import DeadlineExceeded
+
+    fault_plan("")
+    # 2^30 windows in one lane group, about 0.5 s of K3; 48 nodes, so that the
+    # batch former's lane estimate (by node count) leaves room for the others.
+    slow = synth.benchmark_fbas(48, 31)
+    fast = [synth.majority_fbas(n, prefix=f"M{n}") for n in (9, 10, 11)]  # the pack's other three groups
+    check_many([synth.majority_fbas(7)], backend="gpu-sweep")  # the context and the kernels come up first
+    dead, *live = _serve_stream(None, [slow] + fast, 200.0, deadlines=[0.25, None, None, None])
+    assert [r.intersects for r in live] == [True, True, True]
+    assert all(not r.stats.get("cancelled") and r.stats["pack_jobs"] == 4 for r in live)
+    assert isinstance(dead, DeadlineExceeded) and dead.cert["partial"] is True
+    cov = dead.cert["coverage"]
+    assert (cov["windows_enumerated"] + cov["windows_pruned_guard"] + cov["windows_skipped_pack_fill"]
+            + cov["windows_cancelled"]) == cov["window_space"]
+    assert 0 < cov["windows_cancelled"] < cov["window_space"]  # retired inside its pack

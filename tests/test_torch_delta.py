@@ -674,12 +674,14 @@ class TestStore:
         assert delta_counters(rec)["delta.compositions"] == 15
 
     @pytest.mark.parametrize("writer", ["jax", "port"])
-    @pytest.mark.parametrize("backend", ["python", "gpu-sweep"])
-    def test_fragment_directory_shared_across_packages(self, rec, tmp_path, writer, backend):
+    @pytest.mark.parametrize("backend", ["python", "gpu-sweep", "gpu-frontier"])
+    @pytest.mark.parametrize("trace", ["core", "watchers"])
+    def test_fragment_directory_shared_across_packages(self, rec, tmp_path, writer, backend, trace):
         """One package solves the base into a shared directory; a fresh
         engine of the other composes it with no backend call, and its
-        certificate passes the checker."""
-        base = TRACES["core"](0)[0]
+        certificate passes the checker (on an intersecting base too, whose
+        coverage ledger the checker reads)."""
+        base = TRACES[trace](0)[0]
         make_port, make_jax = BACKENDS[backend]
         jax_engine = jax_delta.DeltaEngine(jax_delta.SccVerdictStore(64, shared=jax_delta.SharedSccStore(tmp_path)))
         port_engine = DeltaEngine(SccVerdictStore(64, shared=SharedSccStore(tmp_path)), device="cpu")

@@ -11,7 +11,9 @@
   degrade the auto router to the Python oracle; ``query.dispatch`` becomes a
   typed ``QueryError``; ``delta.diff`` degrades the incremental engine to
   the full re-solve, ``fleet.store`` its shared tier to the local store and
-  ``cost.attribute`` a composed verdict to no cost;
+  ``cost.attribute`` a composed verdict to no cost; the ``serve.*`` points
+  reject, bypass, un-journal, degrade to per-request or unfused solves, or
+  answer with a typed error, each on the same device;
 - the disk-full cases of ``tests/test_checkpoint_faults.py`` (``:113-186``);
 - a ``FaultPreempted`` at ``sweep.window`` under a checkpoint resumes past
   zero to the uninterrupted verdict and hit index;
@@ -67,6 +69,7 @@ def test_registry_is_a_subset_of_the_jax_catalog():
         "sweep.prune", "sweep.bitset", "sweep.dispatch", "sweep.compile", "sweep.window", "sweep.pack",
         "frontier.chunk", "checkpoint.write", "cert.write", "native.build", "native.call",
         "telemetry.dump", "query.dispatch", "delta.diff", "fleet.store", "cost.attribute",
+        "serve.admit", "serve.cache", "serve.journal", "serve.drain", "serve.respond", "serve.fuse",
     }
 
 
@@ -203,6 +206,34 @@ def _scenario_cost(point, tmp, mp):
     assert rec.counters["cost.attribute_errors"] == 1
 
 
+def _served(tmp, submit_raises=None, **engine_kw):
+    """One request through a fresh ServeEngine on the host; the response, or
+    the exception ``submit_raises`` names (from admission or delivery)."""
+    from quorum_intersection_tpu_torch.serve import ServeEngine
+
+    engine = ServeEngine(backend="python", device="cpu", **engine_kw)
+    engine.start()
+    try:
+        if submit_raises is not None:
+            with pytest.raises(submit_raises):
+                engine.submit(synth.majority_fbas(5), request_id="r0").result(timeout=30.0)
+            return None
+        res = engine.submit(synth.majority_fbas(5), request_id="r0").result(timeout=30.0)
+        assert res.intersects is True
+        return res
+    finally:
+        engine.stop(drain=True, timeout=30.0)
+
+
+def _scenario_serve_counter(counter, **engine_kw):
+    def scenario(point, tmp, mp):
+        if "journal" in engine_kw:
+            engine_kw["journal"] = tmp / "j.jsonl"
+        _served(tmp, **engine_kw)
+        assert telemetry.get_run_record().counters[counter] >= 1
+    return scenario
+
+
 SCENARIOS = {
     "sweep.prune": ("error", lambda p, tmp, mp: _fails_solve(p, prune=True)),
     "sweep.bitset": ("error", lambda p, tmp, mp: (_fails_solve(p, engine="bitset"), _scenario_packed_bitset(p))),
@@ -220,6 +251,12 @@ SCENARIOS = {
     "delta.diff": ("error", _scenario_delta_diff),
     "fleet.store": ("oserror", _scenario_fleet_store),
     "cost.attribute": ("error", _scenario_cost),
+    "serve.admit": ("error", lambda p, tmp, mp: _served(tmp, submit_raises=FaultInjected)),
+    "serve.cache": ("error", _scenario_serve_counter("serve.cache_errors")),
+    "serve.journal": ("oserror", _scenario_serve_counter("serve.journal_errors", journal=True)),
+    "serve.drain": ("error", _scenario_serve_counter("serve.drain_faults")),
+    "serve.respond": ("error", lambda p, tmp, mp: _served(tmp, submit_raises=FaultInjected)),
+    "serve.fuse": ("error", _scenario_serve_counter("serve.fuse_faults", fuse_window_ms=5)),
 }
 
 

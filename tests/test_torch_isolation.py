@@ -1,5 +1,6 @@
-"""The port imports neither JAX nor the JAX package: it solves with both
-blocked, and no source line of it (or of ``chip_smoke.py``) names them."""
+"""The port imports neither JAX nor the JAX package: it solves, and serves a
+two-line stream through ``serve``, with both blocked, and no source line of it
+(or of ``chip_smoke.py``) names them."""
 
 import json
 import pathlib
@@ -66,6 +67,22 @@ for name, argv in (("nested_correct.json", ["--backend", "auto", "--device", "cp
                                            "--checkpoint", str(ckpt) + ".sweep"])):
     sys.stdin = io.StringIO((pathlib.Path(sys.argv[1]) / name).read_text())
     out[f"cli {argv[1]} {name}"] = [cli.main(argv)]
+from quorum_intersection_tpu_torch import serve_transport
+
+fixtures = pathlib.Path(sys.argv[1])
+stream = "".join(json.dumps({"request_id": name, "nodes": json.loads((fixtures / name).read_text())}) + "\n"
+                 for name in ("trivial_correct.json", "nested_broken.json"))
+sys.stdin = io.StringIO(stream)
+served = io.StringIO()
+real_stdout, sys.stdout = sys.stdout, served
+try:
+    rc = serve_transport.serve_main(["--device", "cpu", "--backend", "gpu-sweep"])
+finally:
+    sys.stdout = real_stdout
+out["serve rc"] = [rc]
+for line in served.getvalue().splitlines():
+    obj = json.loads(line)
+    out[f"serve {obj['request_id']}"] = [obj["verdict"], obj["cached"]]
 sys.stdin = sys.__stdin__
 leaked = sorted(m for m in sys.modules
                 if m == "jax" and sys.modules[m] is not None
@@ -100,7 +117,11 @@ def test_port_solves_with_jax_and_reference_blocked(tmp_path):
         "delta step 1": False,
         "delta step 2": False,
         "delta step 3": False,
+        "serve rc": 0,
+        "serve trivial_correct.json": True,
+        "serve nested_broken.json": False,
     }
+    assert not any(report["results"][f"serve {name}"][1] for name in ("trivial_correct.json", "nested_broken.json"))
     reused = [report["results"][f"delta step {i}"][3] for i in range(4)]
     assert reused[0] == 0 and 1 in reused[1:]
     q1, q2 = report["results"]["trivial_broken.json"][1:]
@@ -124,7 +145,7 @@ def _sources():
     assert {"backends/frontier.py", "kernels/frontier_ref.py", "kernels/frontier_cuda.py",
             "kernels/csrc/frontier.cu", "utils/checkpoint.py", "kernels/bitset_sweep_ref.py",
             "kernels/bitset_sweep_cuda.py", "kernels/csrc/bitset_sweep.cu", "delta.py", "fbas/diff.py",
-            "cost.py"} <= names
+            "cost.py", "fuse.py", "serve.py", "serve_transport.py", "utils/metrics_server.py"} <= names
     assert len(files) > 10 and (ROOT / "chip_smoke.py").exists()
     return files
 
@@ -170,7 +191,8 @@ def test_no_qi_env_read_outside_the_registry():
     (``qi_env`` refuses an undeclared name): no other module of the port
     reads one from ``os.environ``."""
     scanned = [path for path in sorted(PORT.rglob("*.py")) if path != PORT / "utils" / "env.py"]
-    assert {"delta.py", "cost.py", "fbas/diff.py", "fbas/synth.py"} <= {
+    assert {"delta.py", "cost.py", "fbas/diff.py", "fbas/synth.py", "fuse.py", "serve.py", "serve_transport.py",
+            "utils/metrics_server.py"} <= {
         str(path.relative_to(PORT)) for path in scanned}
     hits = [
         f"{path.relative_to(ROOT)}:{i}: {line.strip()}"

@@ -424,7 +424,11 @@ def test_env_registry_is_the_jax_packages():
     assert {"QI_SWEEP_ENGINE", "QI_SWEEP_PRUNE", "QI_SWEEP_ORDER", "QI_NATIVE_WATCHDOG_S",
             "QI_FRONTIER_CKPT_INTERVAL_S", "QI_METRICS_JSON", "QI_METRICS_PROM", "QI_TRACE_OUT",
             "QI_TRACE_CONTEXT", "QI_FAULTS", "QI_FLIGHT_RECORDER", "QI_LOG_LEVEL", "QI_LOG_JSON",
-            "QI_QUERY_WHATIF_LIMIT", "QI_DELTA_CACHE_MAX", "QI_FLEET_STORE_MAX_MB"} == set(port)
+            "QI_QUERY_WHATIF_LIMIT", "QI_DELTA_CACHE_MAX", "QI_FLEET_STORE_MAX_MB",
+            "QI_SERVE_BATCH_MAX", "QI_SERVE_QUEUE_DEPTH", "QI_SERVE_CACHE_MAX", "QI_SERVE_DEADLINE_S",
+            "QI_SERVE_JOURNAL", "QI_SERVE_FUSE_WINDOW_MS", "QI_SERVE_BIND", "QI_PULSE_SLOW_MS",
+            "QI_COST_TENANTS_MAX", "QI_SLO", "QI_SLO_FAST_S", "QI_SLO_SLOW_S", "QI_METRICS_PORT",
+            "QI_FLEET_STORE_DIR"} == set(port)
     with pytest.raises(KeyError):
         env.qi_env("QI_NOT_A_KNOB")
 
