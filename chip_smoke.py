@@ -11,6 +11,7 @@
     python3 chip_smoke.py --observe      # build, then only observe, faults and query (27-29) and their certificates
     python3 chip_smoke.py --delta        # build, then only incremental re-analysis (30) and its certificates
     python3 chip_smoke.py --serve        # build, then only the serve subcommand's phase (31) and its certificates
+    python3 chip_smoke.py --fleet        # build, then only the replicated serve tier's phase (32) and its certificates
 
 Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
 
@@ -315,7 +316,30 @@ Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
               verdict, exit 0) and ``serve.drain`` (per-request solves on the
               card).  Per stream: requests, wall, requests per second, p50 /
               p99 of the responses' ``seconds``, first response, launches;
-32. cert    — every certificate the runs above produced (CLI ``--cert-out``
+32. fleet   — the replicated serve tier on the card, three streams.  F1, a
+              pipe fleet: ``python -m quorum_intersection_tpu_torch fleet -n
+              2 --backend gpu-sweep --emit-certs`` as a process fed the seven
+              fixtures twice, a zipfian churn of the snapshot (15 steps), the
+              2^30 twin and a key-renamed pair routed to the two workers
+              (both workers live; each repeated snapshot answered on one
+              worker, from its cache or coalesced; the pair's second
+              certificate composed from the fragment the other worker
+              banked); wall, requests per second, p50 / p99 of ``seconds``,
+              first response, ``fleet.store_hit_pct``, ``fleet.e2e_p99_ms``,
+              each worker's K1 and K3 launches (its ``launches`` line in the
+              shared ``QI_METRICS_JSON`` stream).  F2, a ``FleetEngine`` of
+              two worker processes on the card: the worker holding the 2^30
+              twin SIGKILLed in flight, zero lost or duplicated, the
+              re-routed verdicts the uninterrupted ones, one respawn,
+              ``/readyz`` 503 until the replay ends.  F3, a ``serve
+              --socket`` process on the card joined under ``QI_FLEET_TOKEN``
+              (``hello_ok``; a wrong token a typed ``bad_token`` and
+              ``MeshHandshakeError``), a request the peer answers on the
+              card, a peer's store miss fetched through the front door's
+              store gateway into a composed certificate, and a lease lapse
+              (SIGSTOP of the peer, SIGCONT once evicted) that ships its
+              journal and replays its pending requests on the survivor;
+33. cert    — every certificate the runs above produced (CLI ``--cert-out``
               under auto, gpu-sweep and gpu-frontier, ``solve`` and
               ``check_many`` on both engines, pruned, rank-ordered and
               frontier runs with every block, incremental re-analysis's
@@ -326,8 +350,8 @@ Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
 The line before the last is the kernels' JSON record (launches on the main
 path of each, error against the plain version, times, bound, device ms on
 the main path under the profiler, ptxas registers and spills per instance,
-launches on the incremental path of phase delta and on the serve path of
-phase serve);
+launches on the incremental path of phase delta, on the serve path of
+phase serve and on the fleet path of phase fleet);
 the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -3165,25 +3189,29 @@ sys.exit(rc)
 """
 
 
-def serve_run(args, lines, env=None, kill_after_first=False, timeout=600, profile=False):
+def serve_run(args, lines, env=None, kill_after_first=False, timeout=600, profile=False, launcher=None):
     """One ``serve`` process through ``SERVE_LAUNCHER`` on the card: every
     request line written to its stdin (on a thread of its own; a ``None``
-    among the lines holds the rest until the first response has arrived),
+    among the lines holds the rest until the first response has arrived, an
+    ``("after", request_id)`` until that request's response has),
     every response line read with its arrival time.  ``kill_after_first``:
     SIGKILL it the moment the first response arrives.  Returns a dict: the
     response objects, arrival seconds from the process's start, the return
-    code, the wall, stderr, and the launcher's record (launches, busy ms)."""
+    code, the wall, stderr, and the launcher's record (launches, busy ms).
+    ``launcher``: another command line to run instead (``args`` follow it)."""
     import os
     import signal
     import threading
 
-    cmd = [sys.executable, "-c", SERVE_LAUNCHER] + (["--profile"] if profile else []) + list(args)
+    cmd = (list(launcher) if launcher is not None
+           else [sys.executable, "-c", SERVE_LAUNCHER] + (["--profile"] if profile else [])) + list(args)
     full_env = {**os.environ, **(env or {})}
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, env=full_env)
     err_chunks = []
     first_seen = threading.Event()
+    answered = {}
 
     def feed():
         try:
@@ -3191,6 +3219,10 @@ def serve_run(args, lines, env=None, kill_after_first=False, timeout=600, profil
                 if line is None:
                     proc.stdin.flush()
                     first_seen.wait(120)
+                    continue
+                if isinstance(line, tuple):
+                    proc.stdin.flush()
+                    answered.setdefault(line[1], threading.Event()).wait(300)
                     continue
                 proc.stdin.write(line + "\n")
             proc.stdin.close()
@@ -3216,6 +3248,7 @@ def serve_run(args, lines, env=None, kill_after_first=False, timeout=600, profil
             times.append(time.perf_counter() - t0)
             if "verdict" in obj or "error" in obj:
                 first_seen.set()
+                answered.setdefault(obj.get("request_id"), threading.Event()).set()
             if kill_after_first and ("verdict" in obj or "error" in obj):
                 os.kill(proc.pid, signal.SIGKILL)
                 break
@@ -3542,6 +3575,439 @@ def serve_phase(device, card, texts, manifest, cert_jobs, work):
     return dict(launches)
 
 
+# Phase fleet's worker accounting: every process of a fleet run (the front
+# door and each worker) appends its qi-telemetry stream to one file through
+# QI_METRICS_JSON; a worker that launched a kernel writes its launch counts
+# there at exit (``kernels.launch_counts``), one line a process.
+FLEET_WAIT_S = 180.0
+# Where phase fleet's workers must have solved (the stats' device prefix).
+FLEET_DEVICE = "cuda"
+
+
+def worker_launches(path):
+    """The ``launches`` lines of a shared ``QI_METRICS_JSON`` stream, by pid."""
+    out = {}
+    if not pathlib.Path(path).exists():
+        return out
+    for line in pathlib.Path(path).read_text().splitlines():
+        try:
+            obj = json.loads(line)
+        except json.JSONDecodeError:
+            continue
+        if isinstance(obj, dict) and obj.get("kind") == "launches":
+            out[obj["pid"]] = obj["launches"]
+    return out
+
+
+def summed_counters(path, names):
+    """Each counter in ``names`` summed over every process of a shared
+    ``QI_METRICS_JSON`` stream."""
+    out = {name: 0 for name in names}
+    for line in pathlib.Path(path).read_text().splitlines():
+        try:
+            obj = json.loads(line)
+        except json.JSONDecodeError:
+            continue
+        if isinstance(obj, dict) and obj.get("kind") == "counter" and obj.get("name") in out:
+            out[obj["name"]] += obj["value"]
+    return out
+
+
+def journal_owners(journal_dir):
+    """request id -> worker id, from each worker's journal in ``journal_dir``."""
+    owners = {}
+    for path in sorted(pathlib.Path(journal_dir).glob("*.journal")):
+        for line in path.read_text().splitlines():
+            try:
+                obj = json.loads(line)
+            except json.JSONDecodeError:
+                continue
+            if isinstance(obj, dict) and obj.get("kind") == "req":
+                owners.setdefault(obj["request_id"], path.stem)
+    return owners
+
+
+def k1_k3(counts):
+    return {"K1 sweep_fused_cuda": counts.get("sweep_fused_cuda", 0),
+            "K3 packed_sweep_dense_cuda": counts.get("packed_sweep_dense_cuda", 0)}
+
+
+def fleet_phase(device, card, texts, manifest, cert_jobs, work):
+    """Phase fleet: the replicated serve tier on the card, three streams (a
+    pipe fleet as a process; a kill of one of two worker processes; a socket
+    peer joined over the mesh).  Returns the fleet path's kernel launches,
+    summed over every worker process and the in-process worker of F3."""
+    import os
+    import signal
+    import threading
+    from collections import Counter
+
+    from quorum_intersection_tpu_torch.fbas import synth
+    from quorum_intersection_tpu_torch.fbas.graph import build_graph
+    from quorum_intersection_tpu_torch.fbas.schema import parse_fbas
+    from quorum_intersection_tpu_torch.fleet import FleetEngine, HashRing, MeshHandshakeError
+    from quorum_intersection_tpu_torch.kernels import launch_counts
+    from quorum_intersection_tpu_torch.pipeline import check_many
+    from quorum_intersection_tpu_torch.serve import snapshot_fingerprint
+    from quorum_intersection_tpu_torch.utils import telemetry
+    from quorum_intersection_tpu_torch.utils.metrics_server import readyz_payload
+
+    t_phase = time.perf_counter()
+    launches = Counter()
+    streams = {}
+
+    def fp_of(src):
+        return snapshot_fingerprint(build_graph(parse_fbas(raw_json(src))))
+
+    def req(rid, src, client, **extra):
+        return json.dumps({"request_id": rid, "nodes": json.loads(raw_json(src)), "client": client, **extra})
+
+    def witness_of_cert(cert):
+        w = (cert or {}).get("witness")
+        return None if w is None else sorted(sorted(q) for q in (w["q1"], w["q2"]))
+
+    def witness_of(res):
+        return None if res.intersects else sorted(sorted(res.cert["witness"][q]) for q in ("q1", "q2"))
+
+    def routed_to(ring, want, tag, n=9):
+        for i in range(256):
+            cand = synth.majority_fbas(n, prefix=f"{tag}{i}")
+            if ring.route(fp_of(cand)) == want:
+                return cand
+        fail("fleet", f"no {tag} prefix routes to {want}")
+
+    # -- F1: a pipe fleet of two worker processes on the card ---------------
+    jdir, sdir = work / "fleet_f1", work / "fleet_f1_store"
+    metrics_front, metrics_all = work / "fleet_f1.jsonl", work / "fleet_f1_all.jsonl"
+    snap_trace, snap_metas = synth.churn_trace_steps(json.loads(texts["snapshot_correct.json"]), 15, seed=3, skew=1.0)
+    twin = synth.benchmark_fbas(256, 31)
+    ring = HashRing()
+    for wid in ("w0", "w1"):
+        ring.add(wid)
+    base = routed_to(ring, "w0", "FB")
+    other = routed_to(ring, "w1", "FO")
+    fixtures = [(name, texts[name]) for name in manifest]
+    plan = [(f"fix-{name}", text, manifest[name]["verdict"]) for name, text in fixtures]
+    plan += [(f"churn-{k}", snap, None) for k, snap in enumerate(snap_trace)]
+    plan += [("twin-2^30", twin, True)]
+    plan += [(f"fix-again-{name}", text, manifest[name]["verdict"]) for name, text in fixtures]
+    clients = ("explorer", "validator-ops", "researcher", "monitor")
+    lines = [req(rid, src, clients[i % len(clients)]) for i, (rid, src, _) in enumerate(plan)]
+    # The cross-worker pair last: the base first, its twin once the base is
+    # answered, so the twin's worker composes the fragment the other banked.
+    lines += [req("pair-base", base, "ops"), ("after", "pair-base"), req("pair-twin", other, "ops")]
+    n_requests = len(plan) + 2
+    scratch = dict(zip((f"churn-{k}" for k in range(len(snap_trace))), check_many(snap_trace, backend="gpu-sweep")))
+    fleet_cmd = [sys.executable, "-m", PORT, "fleet", "-n", "2", "--backend", "gpu-sweep", "--emit-certs",
+                 "--journal-dir", str(jdir), "--store-dir", str(sdir), "--metrics-json", str(metrics_front)]
+    run = serve_run([], lines, env={"QI_METRICS_JSON": str(metrics_all)}, launcher=fleet_cmd)
+
+    def stderr_tails():
+        return {p.name: p.read_text()[-800:] for p in sorted(jdir.glob("*.stderr"))}
+
+    if run["rc"] != 0:
+        fail("fleet", f"F1: exit {run['rc']}: {run['stderr'][-1500:]} workers: {stderr_tails()}")
+    start = next((r for r in run["responses"] if r.get("kind") == "fleet"), None)
+    if start is None or start.get("workers") != ["w0", "w1"]:
+        fail("fleet", f"F1: the fleet did not start both workers: {start} {stderr_tails()}")
+    got = {r["request_id"]: r for r in run["responses"] if "request_id" in r}
+    for rid, src, want in plan + [("pair-base", base, True), ("pair-twin", other, True)]:
+        r = got.get(rid)
+        if r is None or "verdict" not in r:
+            fail("fleet", f"F1: {rid} answered {r and r.get('error')}")
+        expect = want if want is not None else scratch[rid].intersects
+        if r["verdict"] is not expect:
+            fail("fleet", f"F1: {rid} verdict {r['verdict']}, expected {expect}")
+        if want is None and witness_of_cert(r.get("cert")) != witness_of(scratch[rid]):
+            fail("fleet", f"F1: {rid} witness differs from the scratch check_many's")
+        if r.get("cert") and not r.get("cached"):
+            cert_jobs.append((f"fleet/F1 {rid}", src, r["cert"]))
+    counters_f, gauges_f, _ = metrics_of(metrics_front)
+    if gauges_f.get("fleet.workers_live") != 2:
+        fail("fleet", f"F1: fleet.workers_live {gauges_f.get('fleet.workers_live')} at exit, not 2")
+    owners = journal_owners(jdir)
+    groups = {}
+    for rid, src, _ in plan:
+        groups.setdefault(fp_of(src), []).append(rid)
+    repeated = {fp: rids for fp, rids in groups.items() if len(rids) > 1}
+    for fp, rids in repeated.items():
+        on = {owners[rid] for rid in rids if rid in owners}
+        if len(on) > 1:
+            fail("fleet", f"F1: one snapshot answered by two workers: {rids} on {on}")
+    # Every repeat of a snapshot is a cache hit or a coalesced waiter of its
+    # one solve, on the worker its fingerprint routes to.
+    n_repeats = sum(len(rids) - 1 for rids in repeated.values())
+    single_flight = summed_counters(metrics_all, ("serve.cache_hits", "serve.coalesced", "serve.requests"))
+    if single_flight["serve.cache_hits"] + single_flight["serve.coalesced"] < n_repeats:
+        fail("fleet", f"F1: {n_repeats} repeated snapshots, single-flight counters {single_flight}")
+    pair = {rid: owners.get(rid) for rid in ("pair-base", "pair-twin")}
+    stamp = got["pair-twin"]["cert"]["provenance"].get("delta", {})
+    if pair["pair-base"] == pair["pair-twin"] or (stamp.get("reused_sccs"), stamp.get("resolved_sccs")) != (1, 0):
+        fail("fleet", f"F1: the twin on {pair} did not compose the other worker's fragment: {stamp}")
+    per_worker = worker_launches(metrics_all)
+    if len(per_worker) != 2:
+        fail("fleet", f"F1: launch records from {len(per_worker)} worker processes, not 2: {per_worker}")
+    for counts in per_worker.values():
+        launches.update(counts)
+    f1_k = sum(c.get("sweep_fused_cuda", 0) + c.get("packed_sweep_dense_cuda", 0) for c in per_worker.values())
+    if f1_k < 1:
+        fail("fleet", f"F1: no worker launched K1 or K3: {per_worker}")
+    stats = serve_stream_stats(run, n_requests)
+    stats.pop("launches", None)
+    streams["F1"] = {**stats, "workers": start["workers"], "workers_live": gauges_f.get("fleet.workers_live"),
+                     "store_hit_pct": gauges_f.get("fleet.store_hit_pct"),
+                     "e2e_p99_ms": gauges_f.get("fleet.e2e_p99_ms"),
+                     "cached": sum(1 for r in got.values() if r.get("cached")),
+                     "repeated_snapshots": len(repeated), "repeats": n_repeats, "single_flight": single_flight,
+                     "answered_by": dict(Counter(owners.get(rid, "cache") for rid in got)),
+                     "cross_worker_pair": {**pair, "twin_delta": stamp},
+                     "fleet_counters": {k: v for k, v in counters_f.items() if k.startswith("fleet.")},
+                     "worker_launches": {str(pid): k1_k3(c) for pid, c in per_worker.items()}}
+
+    # -- F2: kill one of two worker processes on the card ---------------------
+    jdir2 = work / "fleet_f2"
+    metrics_f2 = work / "fleet_f2_all.jsonl"
+    small = [synth.majority_fbas(n, broken=n % 2 == 0, prefix=f"K{n}") for n in (9, 10, 11, 12)]
+    f2_sources = [twin] + small
+    truth = check_many(f2_sources, backend="gpu-sweep")
+    rec = telemetry.reset_run_record()
+    # Set after the reset, so only the worker processes (the respawned one
+    # too) stream there, not this one.
+    os.environ["QI_METRICS_JSON"] = str(metrics_f2)
+    fleet = FleetEngine(2, backend="gpu-sweep", worker_mode="subprocess", journal_dir=jdir2, probe_interval_s=0.2)
+    try:
+        t = time.perf_counter()
+        fleet.start()
+        start_s = time.perf_counter() - t
+        if fleet.worker_ids() != ["w0", "w1"]:
+            fail("fleet", f"F2: workers live {fleet.worker_ids()}, not both")
+        victim = fleet._ring.route(fp_of(twin))
+        tickets = [("twin-2^30", fleet.submit(twin, request_id="twin-2^30"))]
+        journal = jdir2 / f"{victim}.journal"
+        deadline = time.monotonic() + FLEET_WAIT_S
+        while '"twin-2^30"' not in (journal.read_text() if journal.exists() else ""):
+            if time.monotonic() > deadline:
+                fail("fleet", "F2: the twin never reached its worker's journal")
+            time.sleep(0.005)
+        fleet.kill_worker(victim)  # SIGKILL while the twin is in flight
+        killed_t = time.monotonic()
+        tickets += [(f"k-{i}", fleet.submit(s, request_id=f"k-{i}")) for i, s in enumerate(small)]
+        ready_seen = []
+        while not all(tk.done() for _, tk in tickets):
+            if time.monotonic() - killed_t > FLEET_WAIT_S:
+                fail("fleet", f"F2: requests unresolved {FLEET_WAIT_S} s after the kill")
+            _, status = readyz_payload()
+            if not ready_seen or ready_seen[-1] != status:
+                ready_seen.append(status)
+            time.sleep(0.01)
+        results = {}
+        for rid, tk in tickets:
+            try:
+                results[rid] = tk.result(timeout=1.0)
+            except Exception as exc:  # noqa: BLE001 — a lost request is this stream's failure
+                fail("fleet", f"F2: {rid} lost: {exc!r}")
+        for (rid, _), want in zip(tickets, truth):
+            r = results[rid]
+            if (r.intersects, witness_of_cert(r.cert)) != (want.intersects, witness_of(want)):
+                fail("fleet", f"F2: {rid} answered {r.intersects}, uninterrupted {want.intersects}")
+        for (rid, _), src in zip(tickets, f2_sources):
+            cert_jobs.append((f"fleet/F2 {rid}", src, results[rid].cert))
+        deadline = time.monotonic() + FLEET_WAIT_S
+        while rec.snapshot()[0].get("fleet.respawns", 0) < 1:
+            if time.monotonic() > deadline:
+                fail("fleet", f"F2: the killed slot never respawned: {rec.snapshot()[0]}")
+            time.sleep(0.05)
+        _, ready_after = readyz_payload()
+        counters2 = dict(rec.snapshot()[0])
+        live_after = fleet.worker_ids()
+    finally:
+        fleet.stop(drain=True, timeout=120.0)
+        os.environ.pop("QI_METRICS_JSON", None)
+    if counters2.get("fleet.respawns") != 1 or counters2.get("fleet.errors", 0) != 0:
+        fail("fleet", f"F2: respawns {counters2.get('fleet.respawns')}, errors {counters2.get('fleet.errors', 0)}")
+    if counters2.get("fleet.verdicts") != len(tickets):
+        fail("fleet", f"F2: {counters2.get('fleet.verdicts')} verdicts delivered for {len(tickets)} requests")
+    if 503 not in ready_seen or ready_after != 200:
+        fail("fleet", f"F2: /readyz went {ready_seen} then {ready_after}; it must answer 503 until the replay")
+    per_worker2 = worker_launches(metrics_f2)
+    for counts in per_worker2.values():
+        launches.update(counts)
+    streams["F2"] = {"start_s": start_s, "victim": victim, "live_after": live_after,
+                     "readyz_seen": ready_seen, "readyz_after": ready_after,
+                     "kill_to_all_resolved_s": time.monotonic() - killed_t,
+                     "verdicts": {rid: results[rid].intersects for rid, _ in tickets},
+                     "fleet_counters": {k: v for k, v in counters2.items() if k.startswith("fleet.")},
+                     "worker_launches": {str(pid): k1_k3(c) for pid, c in per_worker2.items()}}
+
+    # -- F3: a socket peer on the card, joined over the mesh -----------------
+    token = "chip-smoke-mesh-token"
+    peer_journal, peer_metrics = work / "fleet_f3_peer.journal", work / "fleet_f3_peer.jsonl"
+    peer = subprocess.Popen(
+        [sys.executable, "-c", SERVE_LAUNCHER, "--socket", "0", "--journal", str(peer_journal),
+         "--backend", "gpu-sweep", "--emit-certs", "--metrics-json", str(peer_metrics)],
+        cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "QI_FLEET_TOKEN": token})
+    peer_err = []
+    threading.Thread(target=lambda: peer_err.append(peer.stderr.read()), daemon=True).start()
+    port = None
+    t = time.perf_counter()
+    for raw in peer.stdout:
+        obj = json.loads(raw)
+        if obj.get("kind") == "listening":
+            port = int(obj["port"])
+            break
+    threading.Thread(target=lambda: peer.stdout.read(), daemon=True).start()
+    peer_start_s = time.perf_counter() - t
+    old_token = os.environ.get("QI_FLEET_TOKEN")
+    mesh = None
+    try:
+        if port is None:
+            fail("fleet", f"F3: the peer never listened: {''.join(peer_err)[-1500:]}")
+        addr = f"127.0.0.1:{port}"
+        os.environ["QI_FLEET_TOKEN"] = "not-the-peer-token"
+        wrong = FleetEngine(0, backend="gpu-sweep", worker_mode="local", joins=[addr], respawn_max=0,
+                            journal_dir=work / "fleet_f3_wrong", probe_interval_s=30.0)
+        try:
+            wrong.start()
+            fail("fleet", "F3: a join under the wrong token was accepted")
+        except MeshHandshakeError as exc:
+            bad_token = {"reject_code": exc.reject_code, "code": exc.code}
+        finally:
+            wrong.stop(drain=False, timeout=10.0)
+        if bad_token["reject_code"] != "bad_token":
+            fail("fleet", f"F3: the wrong token was refused as {bad_token}")
+        os.environ["QI_FLEET_TOKEN"] = token
+        ring3 = HashRing()
+        for wid in ("j0", "w0"):
+            ring3.add(wid)
+        remote = routed_to(ring3, "j0", "MR", n=11)
+        local_base = routed_to(ring3, "w0", "ML", n=10)
+        peer_twin = routed_to(ring3, "j0", "MT", n=10)
+        pend = [routed_to(ring3, "j0", f"SP{i}", n=9 + i) for i in range(3)]
+        want_remote = check_many([remote], backend="gpu-sweep")[0]
+        pend_truth = check_many(pend, backend="gpu-sweep")
+        rec = telemetry.reset_run_record()
+        zero_script_launches()  # from here on: the in-process worker w0's launches
+        mesh = FleetEngine(1, backend="gpu-sweep", worker_mode="local", joins=[addr], respawn_max=0,
+                           journal_dir=work / "fleet_f3", store_dir=work / "fleet_f3_store",
+                           probe_interval_s=0.2, lease_s=1.5)
+        mesh.start()
+        j0 = mesh._workers.get("j0")
+        if mesh.worker_ids() != ["j0", "w0"] or j0 is None or j0.replay_report is None:
+            fail("fleet", f"F3: the join did not answer hello_ok: {mesh.worker_ids()}")
+        if any(mesh._ring.route(fp_of(src)) != want for src, want in (
+                (remote, "j0"), (local_base, "w0"), (peer_twin, "j0"), *((s, "j0") for s in pend))):
+            fail("fleet", "F3: the fleet's ring routes differently from the script's")
+        r_remote = mesh.submit(remote, request_id="remote").result(timeout=FLEET_WAIT_S)
+        if r_remote.intersects is not want_remote.intersects or not str(
+                r_remote.stats.get("device", "")).startswith(FLEET_DEVICE):
+            fail("fleet", f"F3: the peer answered {r_remote.intersects} on {r_remote.stats.get('device')}")
+        cert_jobs.append(("fleet/F3 remote", remote, r_remote.cert))
+        r_base = mesh.submit(local_base, request_id="local-base").result(timeout=FLEET_WAIT_S)
+        r_twin = mesh.submit(peer_twin, request_id="peer-twin").result(timeout=FLEET_WAIT_S)
+        stamp3 = r_twin.cert["provenance"].get("delta", {})
+        if (r_base.intersects, r_twin.intersects) != (True, True) or (
+                stamp3.get("reused_sccs"), stamp3.get("resolved_sccs")) != (1, 0):
+            fail("fleet", f"F3: the peer's miss did not compose the gateway's fragment: {stamp3}")
+        cert_jobs += [("fleet/F3 local-base", local_base, r_base.cert), ("fleet/F3 peer-twin", peer_twin, r_twin.cert)]
+        deadline = time.monotonic() + 30.0
+        while not (mesh.healthz()["workers"].get("j0", {}).get("counters", {}).get("fleet.store_hits", 0) >= 1):
+            if time.monotonic() > deadline:
+                fail("fleet", f"F3: the peer's pong shows no store hit: {mesh.healthz()['workers'].get('j0')}")
+            time.sleep(0.05)
+        peer_pong = mesh.healthz()["workers"]["j0"].get("counters", {})
+        # The lease lapse: the peer stopped, its requests in flight, then let go
+        # once the eviction has begun, so the journal ship completes.
+        os.kill(peer.pid, signal.SIGSTOP)
+        stopped_t = time.monotonic()
+        try:
+            pend_tickets = [mesh.submit(s, request_id=f"pend-{i}") for i, s in enumerate(pend)]
+            deadline = time.monotonic() + 60.0
+            while rec.snapshot()[0].get("fleet.evictions", 0) < 1:
+                if time.monotonic() > deadline:
+                    fail("fleet", f"F3: the stopped peer's lease never lapsed: {rec.snapshot()[0]}")
+                time.sleep(0.02)
+        finally:
+            os.kill(peer.pid, signal.SIGCONT)
+        evicted_after_s = time.monotonic() - stopped_t
+        pend_got = [tk.result(timeout=FLEET_WAIT_S) for tk in pend_tickets]
+        for i, (g, w) in enumerate(zip(pend_got, pend_truth)):
+            if (g.intersects, witness_of_cert(g.cert)) != (w.intersects, witness_of(w)):
+                fail("fleet", f"F3: pend-{i} answered {g.intersects}, expected {w.intersects}")
+            cert_jobs.append((f"fleet/F3 pend-{i}", pend[i], g.cert))
+        deadline = time.monotonic() + 60.0
+        while rec.snapshot()[0].get("fleet.ships", 0) + rec.snapshot()[0].get("fleet.ship_errors", 0) < 1:
+            if time.monotonic() > deadline:
+                fail("fleet", "F3: the evicted peer's journal ship never ended")
+            time.sleep(0.05)
+        counters3 = dict(rec.snapshot()[0])
+        spool = work / "fleet_f3" / "shipped" / "j0.shipped.journal"
+        shipped = spool.exists() and peer_journal.read_bytes().startswith(spool.read_bytes())
+        if counters3.get("fleet.ships") != 1 or not shipped:
+            fail("fleet", f"F3: the journal ship failed: {counters3}")
+        if mesh.worker_ids() != ["w0"] or counters3.get("fleet.errors", 0):
+            fail("fleet", f"F3: after the lapse {mesh.worker_ids()}, errors {counters3.get('fleet.errors', 0)}")
+        script_counts = launch_counts()
+    finally:
+        if mesh is not None:
+            mesh.stop(drain=True, timeout=120.0)
+        if old_token is None:
+            os.environ.pop("QI_FLEET_TOKEN", None)
+        else:
+            os.environ["QI_FLEET_TOKEN"] = old_token
+        try:
+            peer.stdin.close()
+            peer.wait(timeout=120)
+        except (OSError, subprocess.TimeoutExpired):
+            peer.kill()
+            peer.wait()
+    peer_record = None
+    time.sleep(0.2)
+    for line in "".join(peer_err).splitlines():
+        if line.startswith("serve-launches "):
+            peer_record = json.loads(line[len("serve-launches "):])
+    if peer_record is None:
+        fail("fleet", f"F3: no launch record from the peer: {''.join(peer_err)[-1500:]}")
+    launches.update(peer_record["launches"])
+    launches.update(script_counts)
+    peer_counters, _, _ = metrics_of(peer_metrics)
+    if peer_counters.get("store.fetches", 0) < 1 or peer_counters.get("store.fetch_errors", 0):
+        fail("fleet", f"F3: the peer fetched {peer_counters.get('store.fetches')} fragments, "
+                      f"{peer_counters.get('store.fetch_errors', 0)} errors")
+    streams["F3"] = {"peer_start_s": peer_start_s, "wrong_token": bad_token,
+                     "remote": {"verdict": r_remote.intersects, "device": r_remote.stats.get("device"),
+                                "seconds": r_remote.seconds},
+                     "peer_twin_delta": stamp3, "peer_pong_counters": peer_pong,
+                     "peer_store": {k: peer_counters.get(k, 0) for k in ("store.fetches", "store.publishes",
+                                                                          "fleet.store_hits", "store.fetch_errors")},
+                     "lease_lapse": {"stopped_to_evicted_s": evicted_after_s,
+                                     "pending_replayed": [g.intersects for g in pend_got],
+                                     "shipped_bytes": spool.stat().st_size},
+                     "fleet_counters": {k: v for k, v in counters3.items() if k.startswith("fleet.")},
+                     "peer_launches": k1_k3(peer_record["launches"]), "front_door_worker_launches": k1_k3(script_counts)}
+    phase_line("fleet", card=card, seconds=round(time.perf_counter() - t_phase, 3), streams=streams,
+               fleet_launches={k: v for k, v in launches.items()})
+    if launches["sweep_fused_cuda"] + launches["packed_sweep_dense_cuda"] < 1:
+        fail("fleet", f"the fleet path never launched K1 or K3: {dict(launches)}")
+    return dict(launches)
+
+
+def zero_script_launches():
+    """This process's kernel launch counts set to 0."""
+    from quorum_intersection_tpu_torch.kernels import frontier_cuda
+    from quorum_intersection_tpu_torch.kernels.bitset_sweep_cuda import bitset_sweep
+    from quorum_intersection_tpu_torch.kernels.guard_cuda import guard_bitset, guard_dense
+    from quorum_intersection_tpu_torch.kernels.packed_cuda import packed_sweep_bitset, packed_sweep_dense
+    from quorum_intersection_tpu_torch.kernels.pagerank_cuda import pagerank_power
+    from quorum_intersection_tpu_torch.kernels.sweep_cuda import sweep_fused
+
+    for fn in (sweep_fused, packed_sweep_dense, packed_sweep_bitset, bitset_sweep, guard_dense, guard_bitset,
+               pagerank_power):
+        fn.launches = 0
+    for name in frontier_cuda.LAUNCHES:
+        frontier_cuda.LAUNCHES[name] = 0
+
+
 def check_certificates(cert_jobs, work):
     """Every ``(label, source, certificate)`` through the unmodified
     ``tools/check_cert.py`` in a subprocess, from raw JSON: ``(refused,
@@ -3636,6 +4102,9 @@ def main(argv=None) -> int:
     ap.add_argument("--serve", action="store_true",
                     help="only build, then run the serve subcommand's phase (serve) and check its "
                          "certificates (no ok line)")
+    ap.add_argument("--fleet", action="store_true",
+                    help="only build, then run the replicated serve tier's phase (fleet: streams F1-F3) and "
+                         "check its certificates (no ok line)")
     ap.add_argument("--k12-parent", metavar="DIR", default=None,
                     help="a checkout (git archive) whose PageRank kernel timing_pagerank times in turns "
                          "with this tree's, per call and per iteration, beside this tree's launch shapes")
@@ -3711,6 +4180,18 @@ def main(argv=None) -> int:
         work = pathlib.Path(tempfile.mkdtemp(prefix="qi-chip-smoke-"))
         cert_jobs = []
         serve_phase(device, card, texts, manifest, cert_jobs, work)
+        refused, _ = check_certificates(cert_jobs, work)
+        phase_line("cert", card=card, checked=len(cert_jobs), refused=refused)
+        return 1 if refused else 0
+
+    if args.fleet:
+        import tempfile
+
+        manifest = json.loads((FIXTURES / "MANIFEST.json").read_text())
+        texts = {name: fixture_text(name) for name in manifest}
+        work = pathlib.Path(tempfile.mkdtemp(prefix="qi-chip-smoke-"))
+        cert_jobs = []
+        fleet_phase(device, card, texts, manifest, cert_jobs, work)
         refused, _ = check_certificates(cert_jobs, work)
         phase_line("cert", card=card, checked=len(cert_jobs), refused=refused)
         return 1 if refused else 0
@@ -4688,7 +5169,10 @@ def main(argv=None) -> int:
     # -- 31. serve: the serve subcommand as processes on the card ----------
     serve_launches = serve_phase(device, card, texts, manifest, cert_jobs, work)
 
-    # -- 32. cert: every certificate through the unmodified checker --------
+    # -- 32. fleet: the replicated serve tier on the card --------------------
+    fleet_launches = fleet_phase(device, card, texts, manifest, cert_jobs, work)
+
+    # -- 33. cert: every certificate through the unmodified checker --------
     t = time.perf_counter()
     bad, checked = check_certificates(cert_jobs, work)
     cert_wall = time.perf_counter() - t
@@ -4789,6 +5273,7 @@ def main(argv=None) -> int:
         entry["instances"] = ptxas.get(library_of[entry["name"]])
         entry["delta_path_launches"] = delta_launches.get(entry["name"], 0)
         entry["serve_path_launches"] = serve_launches.get(entry["name"], 0)
+        entry["fleet_path_launches"] = fleet_launches.get(entry["name"], 0)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,6 +1,7 @@
 """Command-line interface — the JAX package's CLI (``cli.py:63-161``,
-``:184-218``, ``:221-473``) without its serve and fleet subcommands, on the
-card.
+``:176-218``, ``:221-473``) on the card, with its ``serve``, ``fleet`` and
+``query`` subcommands routed to ``serve_transport.py``, ``fleet.py`` and
+``query.py``.
 
 - input is always **stdin**, output always stdout;
 - the default mode prints ``true``/``false`` and exits 0 iff intersecting,
@@ -158,6 +159,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         from quorum_intersection_tpu_torch.serve import serve_main
 
         return serve_main(arglist[1:])
+    if arglist and arglist[0] == "fleet":
+        # The replicated serve tier: N serve workers behind a consistent-hash
+        # front door, the same JSONL contract; fleet.py owns its flags.
+        from quorum_intersection_tpu_torch.fleet import fleet_main
+
+        return fleet_main(arglist[1:])
     if arglist and arglist[0] == "query":
         # One-shot typed query: query.py owns its flags and exit codes.
         from quorum_intersection_tpu_torch.query import query_main

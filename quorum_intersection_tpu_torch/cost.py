@@ -343,16 +343,17 @@ def merge_tenant_snapshots(
 
 
 _TENANTS = TenantTable()
+_FLEET_TENANTS = TenantTable()
 
 
 def tenant_table() -> TenantTable:
-    """This process's per-tenant table."""
+    """This process's per-tenant table (what pongs snapshot)."""
     return _TENANTS
 
 
-# fleet_tenant_table, the fleet front door's merged view, comes with the
-# fleet (ROADMAP Queue 1 item 1c); /sloz reports its "fleet" list empty, as
-# the JAX package does on every process that is not the front door.
+def fleet_tenant_table() -> TenantTable:
+    """The fleet-merged view (the fleet front door's; empty elsewhere)."""
+    return _FLEET_TENANTS
 
 
 # ---- SLO plane -------------------------------------------------------------
@@ -558,6 +559,7 @@ def reset_cost_state() -> None:
     """Test hook: fresh tenant tables and a re-read SLO plane."""
     global _SLO_PLANE
     _TENANTS.reset()
+    _FLEET_TENANTS.reset()
     with _SLO_LOCK:
         _SLO_PLANE = None
 
@@ -595,7 +597,7 @@ def sloz_payload(top_n: int = 10) -> Dict[str, object]:
     status = slo_plane().evaluate()
     status["tenants"] = {
         "local": [{"client": c, **row} for c, row in tenant_table().top(top_n)],
-        "fleet": [],
+        "fleet": [{"client": c, **row} for c, row in fleet_tenant_table().top(top_n)],
     }
     return status
 

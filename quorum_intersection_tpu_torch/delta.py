@@ -46,8 +46,9 @@ propagates (as ``SearchCancelled`` does): a kernel failure or a fired
 per-request cancel tokens and origins into the backend solve of the misses.
 A fragment is banked in the form the JAX engine composes too
 (:func:`cert.ledger_stats`: a ``gpu-frontier`` solve under its ledger kind).
-Not ported yet, because the fleet is not: the remote store tier
-(``RemoteStoreClient``).
+The remote tier (:class:`RemoteStoreClient`, ``qi-store/1``) reads a
+socket-joined fleet worker's misses through the front door's store gateway
+and publishes its banked fragments back; its wire is the JAX package's.
 Telemetry: the ``delta.check`` span; the ``delta.classified``,
 ``delta.composed`` and ``delta.degraded`` events; the ``delta.*`` counters;
 the ``delta.scc_reuse_pct`` and ``delta.store_size`` gauges.
@@ -55,9 +56,12 @@ the ``delta.scc_reuse_pct`` and ``delta.store_size`` gauges.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import logging
 import os
+import random
+import socket
 import threading
 import time
 from collections import OrderedDict
@@ -73,7 +77,7 @@ from quorum_intersection_tpu_torch.fbas.diff import diff_snapshots, localize, pr
 from quorum_intersection_tpu_torch.fbas.graph import TrustGraph, build_graph
 from quorum_intersection_tpu_torch.fbas.schema import Fbas, parse_fbas
 from quorum_intersection_tpu_torch.pipeline import SolveResult, _classify_sccs, check_many, scan_scc_quorums
-from quorum_intersection_tpu_torch.utils.env import qi_env_float, qi_env_int
+from quorum_intersection_tpu_torch.utils.env import qi_env, qi_env_float, qi_env_int
 from quorum_intersection_tpu_torch.utils.faults import FaultInjected, fault_point
 from quorum_intersection_tpu_torch.utils.telemetry import get_run_record
 from quorum_intersection_tpu_torch.utils.timers import PhaseTimers
@@ -172,6 +176,124 @@ class SccVerdict:
     stats: Dict[str, object] = field(default_factory=dict)
 
 
+STORE_SCHEMA = "qi-store/1"
+
+
+def _mesh_token_digest() -> str:
+    """SHA-256 digest of ``QI_FLEET_TOKEN`` (empty token: empty digest), the
+    store gateway's session auth; the wire never sees the raw token.  Kept
+    wire-identical to ``serve_transport.fleet_token_digest`` (importing it
+    here would cycle delta, serve, serve_transport)."""
+    token = qi_env("QI_FLEET_TOKEN")
+    if not token:
+        return ""
+    return hashlib.sha256(token.encode("utf-8")).hexdigest()
+
+
+class RemoteStoreClient:
+    """``qi-store/1``: SCC fragments fetched and published over the mesh wire.
+
+    One persistent token-authenticated JSONL connection to the fleet front
+    door's store gateway (``fleet.StoreGateway``); a socket worker with no
+    shared filesystem reads through to it on every local miss
+    (fetch-on-miss) and writes every banked fragment back
+    (publish-on-solve).  Safe by construction: a fetched payload passes the
+    same strict shape validation as a local file and the composed
+    certificate re-verifies through the checker, so a torn, corrupt or
+    forged fragment is just a miss, never trusted.
+
+    Every round trip sits behind the ``store.fetch`` fault point with a
+    deadline (socket timeout) and bounded retry with backoff and jitter;
+    exhausted retries degrade to a local solve (``store.fetch_errors``
+    counter, ``store.fetch_degraded`` event): shared reuse is lost, the
+    verdict is not.
+    """
+
+    def __init__(self, host: str, port: int, *, timeout_s: float = 2.0, retries: int = 2) -> None:
+        self.host = host
+        self.port = int(port)
+        self.timeout_s = max(float(timeout_s), 0.05)
+        self.retries = max(int(retries), 1)
+        self._lock = threading.Lock()
+        self._sock: Optional[socket.socket] = None
+        self._reader = None
+        self._writer = None
+
+    def _connect_locked(self) -> None:
+        sock = socket.create_connection((self.host, self.port), timeout=self.timeout_s)
+        sock.settimeout(self.timeout_s)
+        reader = sock.makefile("r", encoding="utf-8")
+        writer = sock.makefile("w", encoding="utf-8")
+        writer.write(json.dumps({"store_hello": {"schema": STORE_SCHEMA, "token": _mesh_token_digest()}}) + "\n")
+        writer.flush()
+        resp = json.loads(reader.readline() or "null")
+        if not (isinstance(resp, dict) and resp.get("ok")):
+            raise OSError(f"store gateway rejected the session: {resp!r}")
+        self._sock, self._reader, self._writer = sock, reader, writer
+
+    def _close_locked(self) -> None:
+        for closer in (self._reader, self._writer, self._sock):
+            try:
+                if closer is not None:
+                    closer.close()
+            except OSError:
+                pass
+        self._sock = self._reader = self._writer = None
+
+    def close(self) -> None:
+        with self._lock:
+            self._close_locked()
+
+    def _request(self, op: Dict[str, object]) -> Optional[Dict[str, object]]:
+        """One authenticated round trip: deadline, bounded retry with backoff
+        and jitter behind ``store.fetch``; ``None`` means degraded (the
+        caller solves locally)."""
+        rec = get_run_record()
+        last: Optional[Exception] = None
+        for attempt in range(self.retries + 1):
+            if attempt:
+                time.sleep(min(0.05 * (2 ** (attempt - 1)), 0.5) * (1.0 + random.random()))
+            try:
+                fault_point("store.fetch")
+                with self._lock:
+                    if self._sock is None:
+                        self._connect_locked()
+                    assert self._writer is not None and self._reader is not None
+                    self._writer.write(json.dumps(op, default=str) + "\n")
+                    self._writer.flush()
+                    line = self._reader.readline()
+                resp = json.loads(line or "null")
+                if not (isinstance(resp, dict) and resp.get("ok") is True):
+                    raise ValueError(f"store gateway answered {resp!r}")
+                return resp
+            except (FaultInjected, OSError, ValueError, TypeError) as exc:
+                last = exc
+                with self._lock:
+                    self._close_locked()
+        rec.add("store.fetch_errors")
+        rec.event("store.fetch_degraded", op=str(op.get("op")), error=str(last))
+        log.warning("remote store %s failed after %d attempt(s) (%s); degrading to local solve",
+                    op.get("op"), self.retries + 1, last)
+        return None
+
+    def fetch(self, kind: str, fp: str, scope: str = "") -> Optional[Dict[str, object]]:
+        """One fragment payload from the gateway, or ``None`` (a miss or
+        degraded, alike on purpose: both solve locally)."""
+        get_run_record().add("store.fetches")
+        resp = self._request({"op": "get", "kind": kind, "fp": fp, "scope": scope})
+        if resp is None:
+            return None
+        payload = resp.get("payload")
+        return payload if isinstance(payload, dict) else None
+
+    def publish(self, kind: str, fp: str, payload: Dict[str, object], scope: str = "") -> bool:
+        """Publish one banked fragment; ``False`` (never an exception) on a
+        degraded wire: the fragment stays local, loudly."""
+        get_run_record().add("store.publishes")
+        resp = self._request({"op": "put", "kind": kind, "fp": fp, "scope": scope, "payload": payload})
+        return resp is not None
+
+
 class SharedSccStore:
     """Fingerprint-keyed shared fragment tier.
 
@@ -201,9 +323,21 @@ class SharedSccStore:
         self._lock = threading.Lock()
         self._hits = 0
         self._misses = 0
+        # Optional third tier: a RemoteStoreClient to the fleet front door's
+        # store gateway, attached on a socket worker
+        # (serve.ServeEngine.attach_remote_store).  A local-file miss reads
+        # through to it and every local bank is published back.
+        self.remote: Optional[RemoteStoreClient] = None
 
     def _path(self, kind: str, fp: str, scope: str) -> Path:
         return self.root / f"{kind}-{scope or 'g'}-{fp}.json"
+
+    @staticmethod
+    def _tmp_path(path: Path) -> Path:
+        """The writer's own temporary file: keyed by process and thread, so two
+        writers of one fragment in one process (a fleet front door's store
+        gateway and its in-process worker) never rename each other's file."""
+        return path.with_name(f"{path.name}.tmp-{os.getpid()}-{threading.get_ident()}")
 
     def _note(self, hit: bool) -> None:
         with self._lock:
@@ -229,6 +363,10 @@ class SharedSccStore:
             if not isinstance(payload, dict):
                 raise ValueError("shared fragment is not a JSON object")
         except FileNotFoundError:
+            fetched = self._fetch_remote(kind, fp, scope)
+            if fetched is not None:
+                self._note(True)
+                return fetched
             self._note(False)
             return None
         except (OSError, ValueError, FaultInjected) as exc:
@@ -243,7 +381,7 @@ class SharedSccStore:
         """Bank one fragment; ``False`` (never an exception) on failure."""
         rec = get_run_record()
         path = self._path(kind, fp, scope)
-        tmp = path.with_name(f"{path.name}.tmp-{os.getpid()}")
+        tmp = self._tmp_path(path)
         try:
             fault_point("fleet.store")
             self.root.mkdir(parents=True, exist_ok=True)
@@ -259,7 +397,34 @@ class SharedSccStore:
                 pass
             return False
         self._maybe_gc()
+        if self.remote is not None:
+            # Publish-on-solve, best effort: the client degrades loudly on
+            # its own (store.fetch_errors), the local bank stands.
+            self.remote.publish(kind, fp, payload, scope)
         return True
+
+    def _fetch_remote(self, kind: str, fp: str, scope: str) -> Optional[Dict[str, object]]:
+        """Fetch-on-miss through the mesh gateway, banking the fragment
+        locally (atomic tmp and rename, as :meth:`put`) so the next miss is a
+        plain file hit.  ``None`` with no remote, on a remote miss, or on a
+        degraded wire: all just a local miss."""
+        if self.remote is None:
+            return None
+        payload = self.remote.fetch(kind, fp, scope)
+        if payload is None:
+            return None
+        path = self._path(kind, fp, scope)
+        tmp = self._tmp_path(path)
+        try:
+            self.root.mkdir(parents=True, exist_ok=True)
+            tmp.write_text(json.dumps(payload, separators=(",", ":")), encoding="utf-8")
+            os.replace(tmp, path)
+        except (OSError, TypeError, ValueError):
+            try:
+                tmp.unlink()
+            except OSError:
+                pass
+        return payload
 
     def _maybe_gc(self) -> None:
         """LRU-by-mtime sweep on publish: while the fragment directory

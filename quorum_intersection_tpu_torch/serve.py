@@ -49,6 +49,7 @@ import argparse
 import hashlib
 import json
 import os
+import tempfile
 import threading
 import time
 from collections import OrderedDict, deque
@@ -679,17 +680,34 @@ class ServeEngine:
 
     @property
     def journal_path(self) -> Optional[Path]:
-        """This engine's crash-only journal file (``None`` without one)."""
+        """This engine's crash-only journal file (``None`` without one); the
+        mesh ship protocol streams this file to an inheriting peer."""
         return self._journal.path if self._journal is not None else None
 
     @property
     def replay_report(self) -> Optional[Dict[str, object]]:
         """The start-time journal replay report (``None`` before start or
-        without a journal)."""
+        without a journal); the mesh ``hello_ok`` carries it."""
         return self._replay_report
 
-    # attach_remote_store, the mesh's remote fragment tier, comes with the
-    # fleet (ROADMAP Queue 1 item 1c).
+    def attach_remote_store(self, remote: object) -> bool:
+        """Attach a remote fragment tier (the fleet mesh): the shared SCC
+        store reads through to the front door's store gateway on every local
+        miss and publishes every banked fragment back.  A fetched fragment
+        passes the same strict shape validation as a local file, and composed
+        certificates still re-verify through the checker.  Returns ``False``
+        (the caller degrades, loudly) when the delta tier is off: there is no
+        fragment store to extend."""
+        if self._delta is None:
+            return False
+        store = self._delta.store
+        if store.shared is None:
+            # A worker joined with no shared directory of its own still
+            # takes part: fetched fragments bank into a private spill
+            # directory so a re-fetch is a local hit.
+            store.shared = SharedSccStore(Path(tempfile.mkdtemp(prefix="qi-mesh-store-")))
+        store.shared.remote = remote
+        return True
 
     def start(self) -> Optional[Dict[str, object]]:
         """Replay the journal (if any), then start the drain loop.

@@ -19,17 +19,22 @@ Protocol (one JSON value a line, ``qi-serve/1``):
   ``"cost"``, and ``"cert"``/``"stats"`` under ``--emit-certs``) or
   ``{"request_id", "error": {"code", "message"}}``;
 - probe: ``{"ping": token}`` answers ``{"pong": token, ...}`` with readiness
-  and a counter, gauge and histogram snapshot (:func:`pong_payload`).
-
-The fleet mesh's ``hello``, ``ship_journal`` and ``ship_ack`` lines, with
-``package_fingerprint`` and ``fleet_token_digest``, come with the fleet
-(ROADMAP Queue 1 item 1c); until then each gets a typed ``mesh_unsupported``
-error line.
+  and a counter, gauge and histogram snapshot (:func:`pong_payload`);
+- mesh: a fleet front door joining this server over TCP sends ``{"hello":
+  ...}`` (protocol, :func:`package_fingerprint`, :func:`fleet_token_digest`)
+  and gets ``hello_ok`` or a typed ``hello_err``; ``{"ship_journal": ...}``
+  streams this server's journal back in ``ship_chunk`` lines and a
+  ``ship_end`` digest (or a typed ``ship_err``), and ``ship_ack`` confirms
+  the receiver fsynced it.  The wire is the JAX package's byte for byte, so
+  either package's front door joins either package's server.
 """
 
 from __future__ import annotations
 
 import argparse
+import base64
+import hashlib
+import hmac
 import json
 import os
 import socketserver
@@ -52,6 +57,37 @@ from quorum_intersection_tpu_torch.utils.telemetry import get_run_record
 log = get_logger("serve.transport")
 
 PROTOCOL_SCHEMA = "qi-serve/1"
+
+# The versioned join handshake a fleet front door performs before a socket
+# worker enters its ring.  Bump on any wire-incompatible change: a mismatch
+# is a typed reject (hello_err), never a silently skewed mesh.
+MESH_PROTOCOL = 1
+
+# Journal-ship framing: chunk payload size before base64.  Each chunk line
+# carries its own byte length and the end line the stream digest; the
+# receiver fsyncs before it acknowledges, so an acknowledged ship is durable.
+SHIP_CHUNK_BYTES = 64 * 1024
+
+
+def package_fingerprint() -> str:
+    """The wire-compatibility fingerprint the join handshake compares: the
+    package version and every schema string a mesh peer must agree on.  The
+    port's version is the JAX package's, so the two fingerprints are equal
+    and either package's peers mesh."""
+    from quorum_intersection_tpu_torch import __version__
+
+    basis = "|".join((str(__version__), PROTOCOL_SCHEMA, f"mesh/{MESH_PROTOCOL}"))
+    return hashlib.sha256(basis.encode("utf-8")).hexdigest()[:16]
+
+
+def fleet_token_digest() -> str:
+    """SHA-256 digest of the shared mesh secret (``QI_FLEET_TOKEN``); the
+    wire never carries the raw token.  Empty token: empty digest
+    (unauthenticated loopback mode, and both sides must agree on it)."""
+    token = qi_env("QI_FLEET_TOKEN")
+    if not token:
+        return ""
+    return hashlib.sha256(token.encode("utf-8")).hexdigest()
 
 # The counter/gauge slice one pong carries (the JAX package's set, so a
 # fleet front door reads either package's pong alike).
@@ -185,6 +221,90 @@ class JsonlSession:
             self._outstanding -= 1
             self._drained.notify_all()
 
+    # ---- the mesh handshake and journal shipping -------------------------
+
+    def _handle_hello(self, hello: object) -> None:
+        """The versioned join handshake: protocol, package fingerprint and
+        shared-secret digest must all match, or the peer gets a typed
+        ``hello_err``.  A valid hello may announce the front door's store
+        gateway; the engine then reads through to it on every fragment miss
+        and publishes every banked fragment back."""
+        rec = get_run_record()
+        hello = hello if isinstance(hello, dict) else {}
+
+        def _reject(code: str, message: str) -> None:
+            rec.add("serve.hello_rejects")
+            rec.event("serve.hello_rejected", code=code)
+            log.warning("mesh hello rejected (%s): %s", code, message)
+            self.emit({"hello_err": {"code": code, "message": message}})
+
+        schema = hello.get("schema")
+        protocol = hello.get("protocol")
+        if schema != PROTOCOL_SCHEMA or protocol != MESH_PROTOCOL:
+            _reject("protocol_mismatch",
+                    f"peer speaks {schema!r}/mesh-{protocol!r}, this worker "
+                    f"speaks {PROTOCOL_SCHEMA!r}/mesh-{MESH_PROTOCOL}")
+            return
+        fingerprint = hello.get("fingerprint")
+        if fingerprint != package_fingerprint():
+            _reject("fingerprint_mismatch",
+                    f"peer package fingerprint {fingerprint!r} != "
+                    f"{package_fingerprint()!r} — upgrade one side; a skewed "
+                    f"mesh is refused, not guessed at")
+            return
+        if not hmac.compare_digest(str(hello.get("token") or ""), fleet_token_digest()):
+            _reject("bad_token", "QI_FLEET_TOKEN digest mismatch")
+            return
+        store = hello.get("store")
+        if isinstance(store, dict):
+            from quorum_intersection_tpu_torch.delta import RemoteStoreClient
+
+            client = RemoteStoreClient(str(store.get("host") or "127.0.0.1"), int(store.get("port") or 0))
+            self._engine.attach_remote_store(client)
+        rec.event("serve.hello_ok", peer=str(hello.get("peer") or ""))
+        _, gauges = rec.snapshot()
+        replay = gauges.get("serve.replay_complete")
+        self.emit({"hello_ok": {
+            "schema": PROTOCOL_SCHEMA,
+            "protocol": MESH_PROTOCOL,
+            "fingerprint": package_fingerprint(),
+            "pid": os.getpid(),
+            "ready": bool(replay) if replay is not None else True,
+            "replay": self._engine.replay_report,
+        }})
+
+    def _handle_ship(self, ship: object) -> None:
+        """Stream this server's crash-only journal to the requesting peer:
+        ``ship_chunk`` lines each with their byte length, then a ``ship_end``
+        line with the stream digest, so the receiver can fsync and then
+        acknowledge, and a torn stream is detected, never replayed."""
+        rec = get_run_record()
+        ship = ship if isinstance(ship, dict) else {}
+        if not hmac.compare_digest(str(ship.get("token") or ""), fleet_token_digest()):
+            rec.add("serve.hello_rejects")
+            rec.event("serve.hello_rejected", code="bad_token")
+            self.emit({"ship_err": {"code": "bad_token", "message": "QI_FLEET_TOKEN digest mismatch"}})
+            return
+        path = self._engine.journal_path
+        if path is None:
+            self.emit({"ship_err": {"code": "no_journal",
+                                    "message": "this worker runs without a request journal"}})
+            return
+        try:
+            raw = path.read_bytes()
+        except OSError as exc:
+            self.emit({"ship_err": {"code": "journal_unreadable", "message": str(exc)}})
+            return
+        chunks = 0
+        for off in range(0, len(raw), SHIP_CHUNK_BYTES):
+            piece = raw[off:off + SHIP_CHUNK_BYTES]
+            self.emit({"ship_chunk": {"seq": chunks, "len": len(piece),
+                                      "data": base64.b64encode(piece).decode("ascii")}})
+            chunks += 1
+        self.emit({"ship_end": {"chunks": chunks, "bytes": len(raw), "sha256": hashlib.sha256(raw).hexdigest()}})
+        rec.add("serve.journal_ships")
+        rec.event("serve.journal_shipped", chunks=chunks, bytes=len(raw))
+
     def handle_line(self, n: int, line: str) -> None:
         """One request line → submit (or ping/typed rejection), non-blocking."""
         line = line.strip()
@@ -196,15 +316,16 @@ class JsonlSession:
             if isinstance(obj, dict) and "ping" in obj:
                 self.emit(pong_payload(obj["ping"]))
                 return
-            mesh = _mesh_line(obj)
-            if mesh is not None:
-                # The fleet mesh's join handshake and journal shipping are
-                # not ported yet: a typed error line, never a silent drop.
-                get_run_record().event("serve.mesh_unsupported", line=mesh)
-                self.emit({"request_id": f"line-{n + 1}",
-                           "error": {"code": "mesh_unsupported",
-                                     "message": f"{mesh!r} lines belong to the fleet mesh, "
-                                                f"which this server does not run"}})
+            if isinstance(obj, dict) and "hello" in obj:
+                self._handle_hello(obj["hello"])
+                return
+            if isinstance(obj, dict) and "ship_journal" in obj:
+                self._handle_ship(obj["ship_journal"])
+                return
+            if isinstance(obj, dict) and "ship_ack" in obj:
+                # The receiving peer fsynced the shipped journal: the hand-off
+                # is durable on the inheriting side.
+                get_run_record().event("serve.ship_acked")
                 return
             nodes = obj
             deadline_s: Optional[float] = None
@@ -258,20 +379,11 @@ class JsonlSession:
             )
 
 
-def _mesh_line(obj: object) -> Optional[str]:
-    """The fleet-mesh line kind of ``obj`` (``hello``, ``ship_journal`` or
-    ``ship_ack``), or None for any other line."""
-    if isinstance(obj, dict):
-        for kind in ("hello", "ship_journal", "ship_ack"):
-            if kind in obj:
-                return kind
-    return None
-
-
 def run_jsonl_loop(session: JsonlSession, reader: TextIO) -> None:
     """Feed ``reader``'s lines through ``session`` until EOF (the caller
     decides whether EOF drains the engine or just this conversation) —
-    the one request loop shared by the stdio CLI and the socket handler."""
+    the one request loop shared by the stdio CLI, the socket handler and
+    the fleet CLI."""
     for n, line in enumerate(reader):
         session.handle_line(n, line)
 

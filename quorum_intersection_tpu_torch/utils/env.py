@@ -295,6 +295,101 @@ QI_FLEET_STORE_DIR = _declare(
     "worker's certs.  Empty (default): local LRU only.",
 )
 
+QI_FLEET_WORKERS = _declare(
+    "QI_FLEET_WORKERS", "2",
+    "Worker count of the replicated serve tier (fleet.py; CLI twin: "
+    "python -m quorum_intersection_tpu_torch fleet -n N): N ServeEngine "
+    "workers behind the consistent-hash front door.",
+)
+QI_FLEET_VNODES = _declare(
+    "QI_FLEET_VNODES", "32",
+    "Virtual nodes per worker on the fleet's consistent-hash ring "
+    "(fleet.py HashRing): more vnodes smooth the key distribution; "
+    "join/leave still moves only ~1/N of the fingerprint space.",
+)
+QI_FLEET_PROBE_INTERVAL_S = _declare(
+    "QI_FLEET_PROBE_INTERVAL_S", "0.5",
+    "Seconds between fleet health-probe cycles (fleet.py probe loop): "
+    "each cycle pings every live worker over its own JSONL pipe and "
+    "aggregates the pong snapshots into the fleet /healthz gauges.",
+)
+QI_FLEET_PROBE_FAILS = _declare(
+    "QI_FLEET_PROBE_FAILS", "2",
+    "Consecutive failed health probes before the fleet front door evicts "
+    "a worker from the ring and replays its unfinished journal on the "
+    "peers inheriting its hash range (fleet.py); a dead process is "
+    "evicted immediately regardless.",
+)
+QI_FLEET_RESPAWN_MAX = _declare(
+    "QI_FLEET_RESPAWN_MAX", "2",
+    "Replacement workers the fleet supervisor may spawn per worker SLOT "
+    "after an eviction (fleet.py): each respawn re-inserts a fresh "
+    "worker into the consistent-hash ring with bounded exponential "
+    "backoff (fleet.respawns counter), so a long-lived fleet does not "
+    "shrink until restart.  0: never respawn.",
+)
+QI_FLEET_TOKEN = _declare(
+    "QI_FLEET_TOKEN", "",
+    "Shared secret of the multi-host fleet mesh: every socket join "
+    "handshake (fleet.py SocketWorker, serve_transport.py hello) and "
+    "every store-gateway session carries a SHA-256 digest of it; a "
+    "digest mismatch is a TYPED reject (hello_err code bad_token / "
+    "store_err), never a silent skew.  Empty (default): unauthenticated "
+    "loopback mode — both sides must agree on emptiness too.",
+)
+QI_FLEET_LEASE_S = _declare(
+    "QI_FLEET_LEASE_S", "3.0",
+    "Heartbeat lease duration in seconds (fleet.py probe loop): every "
+    "answered ping renews a worker's lease; QI_FLEET_PROBE_FAILS "
+    "consecutive misses only SUSPECT it (routed around, requests hedged "
+    "to the next arc owner), and eviction + journal inheritance waits "
+    "for the lease to lapse — a slow link is not a dead worker.  A dead "
+    "process is still evicted immediately.",
+)
+QI_FLEET_SCALE_INTERVAL_S = _declare(
+    "QI_FLEET_SCALE_INTERVAL_S", "0",
+    "Seconds between elasticity-supervisor evaluations (fleet.py "
+    "scale_tick): each evaluation turns the fleet-merged pulse "
+    "queue-wait p99 and the SloPlane burn state into a spawn / retire / "
+    "hold decision.  0 (default): elasticity off, a fixed-size fleet.",
+)
+QI_FLEET_SCALE_UP_MS = _declare(
+    "QI_FLEET_SCALE_UP_MS", "250",
+    "Scale-up threshold (fleet.py elasticity supervisor): when the "
+    "fleet-merged pulse.queue_wait_ms p99 exceeds this many ms — or any "
+    "declared SLO is burning — and the fleet is below "
+    "QI_FLEET_SCALE_MAX, one replacement-machinery spawn is scheduled "
+    "(fleet.scale_ups counter + fleet.scaled event).",
+)
+QI_FLEET_SCALE_DOWN_MS = _declare(
+    "QI_FLEET_SCALE_DOWN_MS", "20",
+    "Scale-down threshold (fleet.py elasticity supervisor): when the "
+    "fleet-merged pulse.queue_wait_ms p99 is below this many ms, no SLO "
+    "is burning, and the fleet is above QI_FLEET_SCALE_MIN, one worker "
+    "is retired by DRAINING through the journal-inheritance path — "
+    "routed around first, gracefully drained, its journal inherited — "
+    "never a dropped request.",
+)
+QI_FLEET_SCALE_MIN = _declare(
+    "QI_FLEET_SCALE_MIN", "1",
+    "Fleet-size floor of the elasticity supervisor (fleet.py): scale-"
+    "down decisions never retire below this many live workers.",
+)
+QI_FLEET_SCALE_MAX = _declare(
+    "QI_FLEET_SCALE_MAX", "8",
+    "Fleet-size ceiling of the elasticity supervisor (fleet.py): scale-"
+    "up decisions never spawn past this many live workers — a burn "
+    "spiral must not fork-bomb the host.",
+)
+QI_PULSE_AGG = _declare(
+    "QI_PULSE_AGG", "1",
+    "Fleet metrics aggregation plane (fleet.py): while truthy and not "
+    "'0', each health-probe cycle merges the workers' pong-carried "
+    "pulse.* histogram snapshots bucket-wise into the front door's "
+    "fleet.pulse.* histograms (served on /metrics) and the fleet-wide "
+    "fleet.e2e_p99_ms gauge.  '0': per-worker metrics only.",
+)
+
 
 # ---- reads -----------------------------------------------------------------
 

@@ -166,6 +166,73 @@ FLEET_STORE = _declare(
     "reuse across processes is lost, the verdict is not), and an unparseable or forged fragment "
     "is a miss, never trusted.",
 )
+FLEET_ROUTE = _declare(
+    "fleet.route",
+    "Consistent-hash routing decision of the fleet front door (fleet.py FleetEngine._route): error "
+    "simulates a broken ring lookup; the request degrades to the first live worker "
+    "(fleet.route_errors counter, loud; only fleet-wide coalescing locality is lost), never a "
+    "dropped request.",
+)
+FLEET_PROBE = _declare(
+    "fleet.probe",
+    "Worker health probe of the fleet supervisor (fleet.py probe loop): error simulates a broken "
+    "probe path; the cycle is inconclusive (fleet.probe_errors counter) and no eviction happens on "
+    "an injected failure: eviction needs a dead process or consecutive real probe timeouts.",
+)
+FLEET_REPLAY = _declare(
+    "fleet.replay",
+    "Dead-worker journal inheritance (fleet.py FleetEngine._failover): error/oserror simulate an "
+    "unreadable journal; failover degrades to re-routing the front door's own in-flight tickets "
+    "only (fleet.replay_errors counter, loud), never a wrong or duplicated verdict.",
+)
+FLEET_JOIN = _declare(
+    "fleet.join",
+    "Socket-worker join handshake of the multi-host fleet (fleet.py FleetEngine._join_worker): "
+    "error simulates an unreachable or rejecting peer; the join degrades to bounded backoff and "
+    "jitter retries and then to a fleet without that peer (fleet.join_errors counter, "
+    "fleet.join_degraded event); a protocol, fingerprint or token mismatch is always a typed "
+    "reject, never a silently skewed mesh.",
+)
+FLEET_LEASE = _declare(
+    "fleet.lease",
+    "Heartbeat-lease evaluation of the fleet probe loop (fleet.py FleetEngine._expire_leases): "
+    "error simulates a broken lease clock; the cycle degrades to suspect-only (fleet.lease_errors "
+    "counter, fleet.lease_degraded event): a worker may be hedged around, but an injected lease "
+    "failure never evicts it; a dead process is still evicted immediately.",
+)
+FLEET_HEDGE = _declare(
+    "fleet.hedge",
+    "Hedged dispatch to a suspected worker's next arc owner (fleet.py FleetEngine._hedge_dispatch): "
+    "error simulates a broken hedging path; the request degrades to a single dispatch to the next "
+    "live arc owner (fleet.hedge_errors counter, fleet.hedge_degraded event).",
+)
+FLEET_SHIP = _declare(
+    "fleet.ship",
+    "Cross-host journal shipping at failover or drain (fleet.py FleetEngine._ship_journal, "
+    "serve_transport.py ship_journal): error/oserror simulate a dead wire or a torn stream; "
+    "shipping degrades to local-journal-only failover (fleet.ship_errors counter, "
+    "fleet.ship_degraded event) while the front door's own in-flight tickets still re-route.",
+)
+FLEET_SCALE = _declare(
+    "fleet.scale",
+    "Elasticity decision of the fleet supervisor (fleet.py FleetEngine._apply_scale): error "
+    "simulates a broken autoscaler; the fleet stays at its current size (fleet.scale_errors "
+    "counter, fleet.scale_degraded event), no verdict and no in-flight request touched.",
+)
+STORE_FETCH = _declare(
+    "store.fetch",
+    "Remote SCC-fragment fetch/publish over the store-gateway wire (delta.py RemoteStoreClient): "
+    "error/oserror simulate a partitioned or lying store peer; the lookup degrades to a local "
+    "solve (store.fetch_errors counter, store.fetch_degraded event), and a torn, corrupt or forged "
+    "fragment fails shape validation and is just a miss.",
+)
+PULSE_AGGREGATE = _declare(
+    "pulse.aggregate",
+    "Fleet metrics aggregation cycle (fleet.py FleetEngine._aggregate_pulse, once a probe cycle "
+    "before the workers' pong-carried pulse histograms merge): error degrades the cycle to "
+    "per-worker metrics only (pulse.agg_errors counter, pulse.agg_degraded event); no verdict is "
+    "touched.",
+)
 COST_ATTRIBUTE = _declare(
     "cost.attribute",
     "Per-request device-cost attribution (cost.py: the sweep drive's solo booking and the pack "
@@ -400,3 +467,62 @@ def sample_serve_plan(seed: int) -> FaultPlan:
         every = rng.random() < 0.5
         rules.append(FaultRule(point=point, mode=mode, first=first, every=every, seconds=seconds))
     return FaultPlan(rules, label=f"serve-chaos(seed={seed})")
+
+
+# What the fleet chaos schedule draws from: the fleet.* boundaries plus the
+# serve and delta points a routed request crosses inside its worker (the JAX
+# package's list, in its order).
+_FLEET_CHAOS_CHOICES: Tuple[Tuple[str, str, float], ...] = (
+    (FLEET_ROUTE, "error", 0.0),
+    (FLEET_PROBE, "error", 0.0),
+    (FLEET_REPLAY, "error", 0.0),
+    (FLEET_STORE, "error", 0.0),
+    (FLEET_STORE, "oserror", 0.0),
+    (FLEET_JOIN, "error", 0.0),
+    (FLEET_LEASE, "error", 0.0),
+    (FLEET_HEDGE, "error", 0.0),
+    (FLEET_SHIP, "error", 0.0),
+    (FLEET_SCALE, "error", 0.0),
+    (STORE_FETCH, "error", 0.0),
+    (STORE_FETCH, "oserror", 0.0),
+    (SERVE_CACHE, "error", 0.0),
+    (SERVE_JOURNAL, "oserror", 0.0),
+    (DELTA_DIFF, "error", 0.0),
+)
+
+# What the socket-mesh schedule draws from: the wire-tier boundaries only.
+_MESH_CHAOS_CHOICES: Tuple[Tuple[str, str, float], ...] = (
+    (FLEET_JOIN, "error", 0.0),
+    (FLEET_LEASE, "error", 0.0),
+    (FLEET_SHIP, "error", 0.0),
+)
+
+
+def sample_mesh_plan(seed: int) -> FaultPlan:
+    """A deterministic socket-mesh fault schedule drawn from ``seed``
+    (``fleet.join``, ``fleet.lease``, ``fleet.ship``; the JAX package's draw)."""
+    rng = random.Random(seed * 53 + 11)
+    n_rules = 1 if rng.random() < 0.5 else 2
+    picks = rng.sample(range(len(_MESH_CHAOS_CHOICES)), n_rules)
+    rules = []
+    for ix in picks:
+        point, mode, seconds = _MESH_CHAOS_CHOICES[ix]
+        first = 1 if rng.random() < 0.6 else rng.randint(2, 3)
+        every = rng.random() < 0.6
+        rules.append(FaultRule(point=point, mode=mode, first=first, every=every, seconds=seconds))
+    return FaultPlan(rules, label=f"mesh-chaos(seed={seed})")
+
+
+def sample_fleet_plan(seed: int) -> FaultPlan:
+    """A deterministic fleet-tier fault schedule drawn from ``seed`` (the JAX
+    package's draw: same seed, same rules, same firing sequence)."""
+    rng = random.Random(seed * 31 + 7)
+    n_rules = 1 if rng.random() < 0.5 else 2
+    picks = rng.sample(range(len(_FLEET_CHAOS_CHOICES)), n_rules)
+    rules = []
+    for ix in picks:
+        point, mode, seconds = _FLEET_CHAOS_CHOICES[ix]
+        first = 1 if rng.random() < 0.6 else rng.randint(2, 3)
+        every = rng.random() < 0.6
+        rules.append(FaultRule(point=point, mode=mode, first=first, every=every, seconds=seconds))
+    return FaultPlan(rules, label=f"fleet-chaos(seed={seed})")

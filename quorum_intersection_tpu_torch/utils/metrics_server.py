@@ -71,9 +71,10 @@ def healthz_payload() -> dict:
         # Per-SCC reuse and store occupancy of incremental re-analysis.
         "delta_scc_reuse_pct": gauges.get("delta.scc_reuse_pct", 0.0),
         "delta_store_size": gauges.get("delta.store_size", 0),
-        # The fleet front door's picture (the fleet is not ported yet:
-        # these read 0 here, as on any JAX process that is not a front
-        # door); the keys stay so both packages' payloads match.
+        # The fleet front door's picture: workers on the ring against
+        # workers answering probes, the shared fragment tier's hit rate and
+        # the fleet-wide p99 over the merged worker histograms (0 on any
+        # process that is not a front door).
         "fleet_workers_live": gauges.get("fleet.workers_live", 0),
         "fleet_ring_size": gauges.get("fleet.ring_size", 0),
         "fleet_store_hit_pct": gauges.get("fleet.store_hit_pct", 0.0),
@@ -88,8 +89,7 @@ def healthz_payload() -> dict:
 def sloz_payload() -> dict:
     """The /sloz body (``qi-slo/1``): one lazy SLO evaluation (per-target
     bounds, values, fast/slow burn ratios, burning flags) plus the
-    costliest tenants — the local table (the fleet-merged list stays empty until the
-    fleet is ported)."""
+    costliest tenants — the local table and the fleet-merged one."""
     from quorum_intersection_tpu_torch.cost import sloz_payload as _sloz
     return _sloz()
 
@@ -109,8 +109,9 @@ def readyz_payload() -> tuple:
     counters, gauges = rec.snapshot()
     replay = gauges.get("serve.replay_complete")
     replaying = replay is not None and not replay
-    # The fleet front door's replay gauge (set only by the fleet, not
-    # ported yet; kept so the readiness rule matches the JAX package's).
+    # The fleet front door is not ready until every live worker finished its
+    # journal replay and every inherited request re-solved
+    # (fleet.replay_complete, set only by the front door).
     fleet_replay = gauges.get("fleet.replay_complete")
     fleet_replaying = fleet_replay is not None and not fleet_replay
     not_ready = replaying or fleet_replaying

@@ -154,6 +154,65 @@ class Histogram:
                 "sum": round(self._sum, 6),
             }
 
+    def set_from_wire(self, wire: Dict[str, object]) -> None:
+        """Overwrite this histogram with a merged wire snapshot (the fleet
+        front door publishes each aggregation cycle's merge this way).  The
+        raw-sample window does not cross the wire and is cleared.  Bounds
+        that do not match are refused: merging differently-bucketed
+        histograms is unsound."""
+        bounds = tuple(float(b) for b in wire.get("bounds") or ())
+        counts = [int(c) for c in wire.get("counts") or ()]
+        if bounds != self.bounds or len(counts) != len(self._counts):
+            raise ValueError(f"histogram {self.name!r}: wire bounds do not match "
+                             f"(merging differently-bucketed histograms is unsound)")
+        with self._lock:
+            self._counts = counts
+            self._count = int(wire.get("count") or 0)
+            self._sum = float(wire.get("sum") or 0.0)
+            if self._window is not None:
+                self._window.clear()
+
+    def quantile_ms(self, pct: float) -> float:
+        """Bucket-resolution quantile: the upper edge of the bucket holding
+        the nearest-rank sample (the overflow bucket answers the largest
+        finite edge), which is what a merged view can answer."""
+        with self._lock:
+            total = self._count
+            counts = list(self._counts)
+        if total <= 0:
+            return 0.0
+        rank = max(math.ceil(pct / 100.0 * total), 1)
+        seen = 0
+        for ix, n in enumerate(counts):
+            seen += n
+            if seen >= rank:
+                return self.bounds[min(ix, len(self.bounds) - 1)]
+        return self.bounds[-1]
+
+    @staticmethod
+    def merge_wire(parts: Sequence[Dict[str, object]]) -> Dict[str, object]:
+        """Bucket-wise addition of wire snapshots: ``merge([h(A), h(B)]) ==
+        h(A + B)`` exactly.  Raises ``ValueError`` on bucket ladders that
+        differ (adding them would be silently wrong)."""
+        if not parts:
+            return {"schema": PULSE_SCHEMA, "bounds": [], "counts": [], "count": 0, "sum": 0.0}
+        bounds = list(parts[0].get("bounds") or ())
+        counts = [0] * len(list(parts[0].get("counts") or ()))
+        count = 0
+        total = 0.0
+        for part in parts:
+            if list(part.get("bounds") or ()) != bounds:
+                raise ValueError("histogram merge: bucket bounds differ across parts")
+            part_counts = list(part.get("counts") or ())
+            if len(part_counts) != len(counts):
+                raise ValueError("histogram merge: bucket count vectors differ in length")
+            for ix, n in enumerate(part_counts):
+                counts[ix] += int(n)
+            count += int(part.get("count") or 0)
+            total += float(part.get("sum") or 0.0)
+        return {"schema": PULSE_SCHEMA, "bounds": bounds, "counts": counts, "count": count,
+                "sum": round(total, 6)}
+
     def to_line(self) -> Dict[str, object]:
         """The JSONL stream line (``kind: histogram``)."""
         snap = self.snapshot()

@@ -309,3 +309,39 @@ def test_diff_summaries_identical(case):
         assert json.dumps(got.summary()) == json.dumps(want.summary())
         assert [vars(d) for d in got.deltas] == [vars(d) for d in want.deltas]
         assert (got.merges, got.splits) == (meta["merges"], meta["splits"])
+
+
+# ---- the fleet mesh's identity and its chaos draws ---------------------------
+
+
+@pytest.mark.parametrize("token", [None, "", "s3cret", "mesh token ü"])
+def test_mesh_identity_equals_the_jax_packages(token, monkeypatch):
+    """The join handshake's package fingerprint and both token digests are
+    the JAX package's byte for byte, with ``QI_FLEET_TOKEN`` unset, empty
+    and set: either package's front door joins either package's server."""
+    from quorum_intersection_tpu import delta as jax_delta
+    from quorum_intersection_tpu import serve_transport as jax_transport
+    from quorum_intersection_tpu_torch import delta, serve_transport
+
+    if token is None:
+        monkeypatch.delenv("QI_FLEET_TOKEN", raising=False)
+    else:
+        monkeypatch.setenv("QI_FLEET_TOKEN", token)
+    assert serve_transport.package_fingerprint() == jax_transport.package_fingerprint()
+    assert serve_transport.fleet_token_digest() == jax_transport.fleet_token_digest()
+    assert delta._mesh_token_digest() == jax_delta._mesh_token_digest() == serve_transport.fleet_token_digest()
+    assert (serve_transport.MESH_PROTOCOL, serve_transport.SHIP_CHUNK_BYTES, delta.STORE_SCHEMA) == (
+        jax_transport.MESH_PROTOCOL, jax_transport.SHIP_CHUNK_BYTES, jax_delta.STORE_SCHEMA)
+    assert bool(serve_transport.fleet_token_digest()) is bool(token)
+
+
+@pytest.mark.parametrize("sampler", ["sample_fleet_plan", "sample_mesh_plan"])
+def test_fleet_chaos_plans_are_the_jax_draws(sampler):
+    from quorum_intersection_tpu.utils import faults as jax_faults
+    from quorum_intersection_tpu_torch.utils import faults
+
+    for seed in range(16):
+        got, want = getattr(faults, sampler)(seed), getattr(jax_faults, sampler)(seed)
+        assert got.label == want.label
+        assert [(r.point, r.mode, r.first, r.every, r.seconds) for r in got.rules] == [
+            (r.point, r.mode, r.first, r.every, r.seconds) for r in want.rules]

@@ -3,7 +3,9 @@ bitset sweep, the two lane-packed sweeps and the two block-guard instances,
 the PageRank loop and the frontier's kernels — against their plain
 PyTorch versions and against the CPU path; incremental re-analysis
 (``delta.DeltaEngine``) on the card against the same engine on the CPU; and
-the serving layer's cross-request fusion and mid-pack deadline on the card.  Card-only: every test takes the ``cuda_device``
+the serving layer's cross-request fusion and mid-pack deadline on the card;
+and the replicated serve tier (``fleet.py``) of in-process and of process
+workers on the card.  Card-only: every test takes the ``cuda_device``
 fixture, which skips on a host without one.  This file imports nothing of
 JAX or the JAX package, so on the card's machine it runs as
 
@@ -1181,3 +1183,57 @@ def test_mid_pack_deadline_on_card_retires_only_its_request(cuda_device, fault_p
     assert (cov["windows_enumerated"] + cov["windows_pruned_guard"] + cov["windows_skipped_pack_fill"]
             + cov["windows_cancelled"]) == cov["window_space"]
     assert 0 < cov["windows_cancelled"] < cov["window_space"]  # retired inside its pack
+
+
+def test_local_worker_fleet_on_card_equals_check_many(cuda_device, fault_plan, tmp_path):
+    """Two in-process workers on the card under ``gpu-sweep``: the fleet's
+    verdicts, witnesses and hit indices are ``check_many``'s on the card, and
+    every certificate passes the unmodified checker."""
+    from quorum_intersection_tpu_torch.fleet import FleetEngine
+
+    fault_plan("")
+    names = ["trivial_correct.json", "trivial_broken.json", "nested_correct.json", "nested_broken.json",
+             "snapshot_correct.json", "snapshot_broken.json"]
+    sources = [_data(name) for name in names] + [synth.benchmark_fbas(48, 20, broken=True, seed=2)]
+    want = check_many(sources, backend="gpu-sweep")
+    fleet = FleetEngine(2, backend="gpu-sweep", worker_mode="local", journal_dir=tmp_path / "fleet",
+                        probe_interval_s=30.0, respawn_max=0)
+    fleet.start()
+    try:
+        assert fleet.worker_ids() == ["w0", "w1"] and fleet.device == "cuda"
+        got = [fleet.submit(src).result(timeout=300.0) for src in sources]
+    finally:
+        fleet.stop(drain=True, timeout=60.0)
+    checker = _checker()
+    for src, g, w in zip(sources, got, want):
+        assert (g.intersects, g.stats.get("hit_index")) == (w.intersects, w.stats.get("hit_index"))
+        assert g.cert.get("witness") == w.cert.get("witness")
+        if g.stats.get("reason") != "scc_guard":  # decided on the host before any search
+            assert str(g.stats.get("device", "")).startswith("cuda")
+        checker.check_certificate(g.cert, src)
+
+
+def test_proc_worker_fleet_on_card_survives_sigkill(cuda_device, fault_plan, tmp_path):
+    """Two ``serve --device cuda`` worker processes; one is SIGKILLed with
+    requests in flight: every ticket resolves once, with ``check_many``'s
+    verdict, and the dead worker is evicted."""
+    from quorum_intersection_tpu_torch.fleet import FleetEngine
+    from quorum_intersection_tpu_torch.utils import telemetry
+
+    fault_plan("")
+    trace = synth.churn_trace(synth.majority_fbas(11, prefix="CK"), 6, seed=4)
+    want = [r.intersects for r in check_many(trace, backend="gpu-sweep")]
+    fleet = FleetEngine(2, backend="gpu-sweep", worker_mode="subprocess", journal_dir=tmp_path / "proc",
+                        probe_interval_s=0.2, respawn_max=0)
+    fleet.start()
+    try:
+        assert fleet.worker_ids() == ["w0", "w1"]
+        tickets = [fleet.submit(s) for s in trace[:5]]
+        fleet.kill_worker("w0")
+        tickets += [fleet.submit(s) for s in trace[5:]]
+        got = [t.result(timeout=300.0).intersects for t in tickets]
+        counters = dict(telemetry.get_run_record().counters)
+    finally:
+        fleet.stop(drain=True, timeout=60.0)
+    assert got == want
+    assert counters["fleet.evictions"] == 1 and counters.get("fleet.errors", 0) == 0

@@ -13,7 +13,11 @@
   the full re-solve, ``fleet.store`` its shared tier to the local store and
   ``cost.attribute`` a composed verdict to no cost; the ``serve.*`` points
   reject, bypass, un-journal, degrade to per-request or unfused solves, or
-  answer with a typed error, each on the same device;
+  answer with a typed error, each on the same device; the ``fleet.*``,
+  ``store.fetch`` and ``pulse.aggregate`` points degrade the fleet one rung
+  (first live worker, inconclusive probe, in-flight re-route only, no peer,
+  suspect-only, single dispatch, local-journal-only, frozen size, local
+  solve, per-worker metrics), never to a wrong verdict;
 - the disk-full cases of ``tests/test_checkpoint_faults.py`` (``:113-186``);
 - a ``FaultPreempted`` at ``sweep.window`` under a checkpoint resumes past
   zero to the uninterrupted verdict and hit index;
@@ -24,6 +28,7 @@
 import io
 import json
 import os
+import time
 
 import pytest
 import torch
@@ -70,6 +75,8 @@ def test_registry_is_a_subset_of_the_jax_catalog():
         "frontier.chunk", "checkpoint.write", "cert.write", "native.build", "native.call",
         "telemetry.dump", "query.dispatch", "delta.diff", "fleet.store", "cost.attribute",
         "serve.admit", "serve.cache", "serve.journal", "serve.drain", "serve.respond", "serve.fuse",
+        "fleet.route", "fleet.probe", "fleet.replay", "fleet.join", "fleet.lease", "fleet.hedge", "fleet.ship",
+        "fleet.scale", "store.fetch", "pulse.aggregate",
     }
 
 
@@ -234,6 +241,153 @@ def _scenario_serve_counter(counter, **engine_kw):
     return scenario
 
 
+class _FleetOf:
+    """A started fleet of in-process workers on the host (python backend),
+    probes only on demand unless asked, no respawn; always stopped."""
+
+    def __init__(self, tmp, n=2, **kw):
+        from quorum_intersection_tpu_torch.fleet import FleetEngine
+
+        kw.setdefault("probe_interval_s", 30.0)
+        self.engine = FleetEngine(n, backend="python", worker_mode="local", device="cpu", journal_dir=tmp / "fleet",
+                                  respawn_max=0, **kw)
+
+    def __enter__(self):
+        self.engine.start()
+        return self.engine
+
+    def __exit__(self, *exc):
+        self.engine.stop(drain=True, timeout=30.0)
+        return False
+
+
+class _PeerOf:
+    """One in-process socket server of the port on the host."""
+
+    def __init__(self, journal=None):
+        from quorum_intersection_tpu_torch.serve import ServeEngine
+        from quorum_intersection_tpu_torch.serve_transport import SocketServeServer
+
+        self.engine = ServeEngine(backend="python", device="cpu", journal=journal)
+        self.engine.start()
+        self.server = SocketServeServer(self.engine, port=0, emit_certs=True)
+        self.addr = f"127.0.0.1:{self.server.port}"
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.server.stop()
+        self.engine.stop(drain=True, timeout=30.0)
+        return False
+
+
+def _lapsed(fleet, wid):
+    fleet._suspect_worker(wid, "forced partition (test)")
+    with fleet._lock:
+        fleet._leases[wid] = time.monotonic() - 1.0
+
+
+def _scenario_fleet_route(point, tmp, mp):
+    with _FleetOf(tmp) as fleet:
+        assert fleet.submit(synth.majority_fbas(5)).result(timeout=30.0).intersects is True
+    assert telemetry.get_run_record().counters["fleet.route_errors"] >= 1
+
+
+def _scenario_fleet_probe(point, tmp, mp):
+    rec = telemetry.get_run_record()
+    with _FleetOf(tmp, probe_interval_s=0.05) as fleet:
+        deadline = time.monotonic() + 10.0
+        while time.monotonic() < deadline and rec.snapshot()[0].get("fleet.probe_errors", 0) < 2:
+            time.sleep(0.02)
+        assert fleet.worker_ids() == ["w0", "w1"]
+    assert rec.counters["fleet.probe_errors"] >= 2 and rec.counters.get("fleet.evictions", 0) == 0
+
+
+def _scenario_fleet_replay(point, tmp, mp):
+    from quorum_intersection_tpu_torch.serve import RequestJournal
+
+    journal = RequestJournal(tmp / "dead.journal")
+    journal.append_request("orphan", "fp", synth.majority_fbas(5), None)
+    journal.close()
+    with _FleetOf(tmp) as fleet:
+        assert fleet.adopt_journal(journal.path) == 0
+        assert fleet.submit(synth.majority_fbas(5)).result(timeout=30.0).intersects is True
+    assert telemetry.get_run_record().counters["fleet.replay_errors"] == 1
+
+
+def _scenario_fleet_join(point, tmp, mp):
+    with _PeerOf() as peer:
+        with _FleetOf(tmp, n=1, joins=[peer.addr]) as fleet:
+            assert fleet.worker_ids() == ["w0"]
+            assert fleet.submit(synth.majority_fbas(5)).result(timeout=30.0).intersects is True
+    rec = telemetry.get_run_record()
+    assert rec.counters["fleet.join_errors"] == 1 and rec.counters.get("fleet.joins", 0) == 0
+
+
+def _scenario_fleet_lease(point, tmp, mp):
+    with _FleetOf(tmp) as fleet:
+        _lapsed(fleet, "w1")
+        fleet._expire_leases()
+        assert fleet.worker_ids() == ["w0", "w1"]  # suspect-only
+    rec = telemetry.get_run_record()
+    assert rec.counters["fleet.lease_errors"] == 1 and rec.counters.get("fleet.evictions", 0) == 0
+
+
+def _scenario_fleet_hedge(point, tmp, mp):
+    from quorum_intersection_tpu_torch.fbas.graph import build_graph
+    from quorum_intersection_tpu_torch.fbas.schema import parse_fbas
+    from quorum_intersection_tpu_torch.serve import snapshot_fingerprint
+
+    nodes = synth.majority_fbas(7)
+    with _FleetOf(tmp) as fleet:
+        fleet._suspect_worker(fleet._ring.route(snapshot_fingerprint(build_graph(parse_fbas(nodes)))), "test")
+        assert fleet.submit(nodes).result(timeout=30.0).intersects is True
+    rec = telemetry.get_run_record()
+    assert rec.counters["fleet.hedge_errors"] >= 1 and rec.counters.get("fleet.hedges", 0) == 0
+
+
+def _scenario_fleet_ship(point, tmp, mp):
+    with _PeerOf(journal=tmp / "peer.journal") as peer:
+        with _FleetOf(tmp, n=1, joins=[peer.addr]) as fleet:
+            _lapsed(fleet, "j0")
+            fleet._expire_leases()
+            assert fleet.worker_ids() == ["w0"]
+    rec = telemetry.get_run_record()
+    assert rec.counters["fleet.ship_errors"] == 1 and rec.counters.get("fleet.ships", 0) == 0
+
+
+def _scenario_fleet_scale(point, tmp, mp):
+    with _FleetOf(tmp, n=1) as fleet:
+        fleet.scale_up_ms = -1.0  # would scale up if healthy
+        assert fleet.scale_tick(force=True) is None and fleet.worker_ids() == ["w0"]
+    assert telemetry.get_run_record().counters["fleet.scale_errors"] == 1
+
+
+def _scenario_store_fetch(point, tmp, mp):
+    from quorum_intersection_tpu_torch.delta import RemoteStoreClient
+    from quorum_intersection_tpu_torch.fleet import StoreGateway
+
+    gateway = StoreGateway(SharedSccStore(tmp / "store"))
+    client = RemoteStoreClient("127.0.0.1", gateway.port, timeout_s=0.5, retries=1)
+    try:
+        assert client.fetch("scan", "fp") is None
+    finally:
+        client.close()
+        gateway.stop()
+    assert telemetry.get_run_record().counters["store.fetch_errors"] == 1
+
+
+def _scenario_pulse_aggregate(point, tmp, mp):
+    from quorum_intersection_tpu_torch.serve_transport import pong_payload
+
+    rec = telemetry.get_run_record()
+    with _FleetOf(tmp) as fleet:
+        assert fleet.submit(synth.majority_fbas(5)).result(timeout=30.0).intersects is True
+        fleet._aggregate_health({"w0": pong_payload("t")})
+    assert rec.counters["pulse.agg_errors"] == 1 and "fleet.pulse.e2e_ms" not in rec.histograms_snapshot()
+
+
 SCENARIOS = {
     "sweep.prune": ("error", lambda p, tmp, mp: _fails_solve(p, prune=True)),
     "sweep.bitset": ("error", lambda p, tmp, mp: (_fails_solve(p, engine="bitset"), _scenario_packed_bitset(p))),
@@ -257,6 +411,16 @@ SCENARIOS = {
     "serve.drain": ("error", _scenario_serve_counter("serve.drain_faults")),
     "serve.respond": ("error", lambda p, tmp, mp: _served(tmp, submit_raises=FaultInjected)),
     "serve.fuse": ("error", _scenario_serve_counter("serve.fuse_faults", fuse_window_ms=5)),
+    "fleet.route": ("error", _scenario_fleet_route),
+    "fleet.probe": ("error", _scenario_fleet_probe),
+    "fleet.replay": ("error", _scenario_fleet_replay),
+    "fleet.join": ("error", _scenario_fleet_join),
+    "fleet.lease": ("error", _scenario_fleet_lease),
+    "fleet.hedge": ("error", _scenario_fleet_hedge),
+    "fleet.ship": ("error", _scenario_fleet_ship),
+    "fleet.scale": ("error", _scenario_fleet_scale),
+    "store.fetch": ("oserror", _scenario_store_fetch),
+    "pulse.aggregate": ("error", _scenario_pulse_aggregate),
 }
 
 

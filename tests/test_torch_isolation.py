@@ -1,6 +1,6 @@
 """The port imports neither JAX nor the JAX package: it solves, and serves a
-two-line stream through ``serve``, with both blocked, and no source line of it
-(or of ``chip_smoke.py``) names them."""
+two-line stream through ``serve`` and through a two-worker ``fleet``, with
+both blocked, and no source line of it (or of ``chip_smoke.py``) names them."""
 
 import json
 import pathlib
@@ -83,6 +83,20 @@ out["serve rc"] = [rc]
 for line in served.getvalue().splitlines():
     obj = json.loads(line)
     out[f"serve {obj['request_id']}"] = [obj["verdict"], obj["cached"]]
+from quorum_intersection_tpu_torch import fleet
+
+sys.stdin = io.StringIO(stream)
+served = io.StringIO()
+real_stdout, sys.stdout = sys.stdout, served
+try:
+    rc = fleet.fleet_main(["-n", "2", "--device", "cpu", "--backend", "gpu-sweep", "--local-workers",
+                           "--journal-dir", str(pathlib.Path(sys.argv[2]) / "fleet")])
+finally:
+    sys.stdout = real_stdout
+out["fleet rc"] = [rc]
+for line in served.getvalue().splitlines()[1:]:
+    obj = json.loads(line)
+    out[f"fleet {obj['request_id']}"] = [obj["verdict"], obj["cached"]]
 sys.stdin = sys.__stdin__
 leaked = sorted(m for m in sys.modules
                 if m == "jax" and sys.modules[m] is not None
@@ -120,6 +134,9 @@ def test_port_solves_with_jax_and_reference_blocked(tmp_path):
         "serve rc": 0,
         "serve trivial_correct.json": True,
         "serve nested_broken.json": False,
+        "fleet rc": 0,
+        "fleet trivial_correct.json": True,
+        "fleet nested_broken.json": False,
     }
     assert not any(report["results"][f"serve {name}"][1] for name in ("trivial_correct.json", "nested_broken.json"))
     reused = [report["results"][f"delta step {i}"][3] for i in range(4)]
@@ -145,7 +162,7 @@ def _sources():
     assert {"backends/frontier.py", "kernels/frontier_ref.py", "kernels/frontier_cuda.py",
             "kernels/csrc/frontier.cu", "utils/checkpoint.py", "kernels/bitset_sweep_ref.py",
             "kernels/bitset_sweep_cuda.py", "kernels/csrc/bitset_sweep.cu", "delta.py", "fbas/diff.py",
-            "cost.py", "fuse.py", "serve.py", "serve_transport.py", "utils/metrics_server.py"} <= names
+            "cost.py", "fuse.py", "serve.py", "serve_transport.py", "utils/metrics_server.py", "fleet.py"} <= names
     assert len(files) > 10 and (ROOT / "chip_smoke.py").exists()
     return files
 
@@ -192,7 +209,7 @@ def test_no_qi_env_read_outside_the_registry():
     reads one from ``os.environ``."""
     scanned = [path for path in sorted(PORT.rglob("*.py")) if path != PORT / "utils" / "env.py"]
     assert {"delta.py", "cost.py", "fbas/diff.py", "fbas/synth.py", "fuse.py", "serve.py", "serve_transport.py",
-            "utils/metrics_server.py"} <= {
+            "utils/metrics_server.py", "fleet.py"} <= {
         str(path.relative_to(PORT)) for path in scanned}
     hits = [
         f"{path.relative_to(ROOT)}:{i}: {line.strip()}"

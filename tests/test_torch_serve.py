@@ -11,6 +11,7 @@ Every wait has a bound.
 """
 
 import copy
+import io
 import json
 
 import pytest
@@ -18,9 +19,10 @@ import torch
 
 from quorum_intersection_tpu import cost as jax_cost
 from quorum_intersection_tpu import delta as jax_delta
+from quorum_intersection_tpu import serve_transport as jax_transport
 from quorum_intersection_tpu.utils import faults as jax_faults
 from quorum_intersection_tpu.utils import telemetry as jax_telemetry
-from quorum_intersection_tpu_torch import cost, serve
+from quorum_intersection_tpu_torch import cost, serve, serve_transport
 from quorum_intersection_tpu_torch.delta import DeltaEngine, SccVerdictStore
 from quorum_intersection_tpu_torch.fbas.graph import build_graph
 from quorum_intersection_tpu_torch.fbas.schema import parse_fbas
@@ -118,11 +120,26 @@ class TestDifferentialParity:
         assert got["bad"]["error"]["code"] == want["bad"]["error"]["code"]
 
     def test_mesh_lines_get_a_typed_error(self, rec):
+        """A hello without the package fingerprint gets the typed
+        ``hello_err``, a journal ship from a journal-less server the typed
+        ``ship_err``, an acknowledgement nothing: the lines the JAX server
+        answers, no request error and no verdict."""
         lines = [json.dumps({"hello": {"schema": "qi-serve/1", "protocol": 1}}),
                  json.dumps({"ship_journal": {}}), json.dumps({"ship_ack": {}})]
-        got = session_lines(lines, backend="python")
-        assert sorted(got) == ["line-1", "line-2", "line-3"]
-        assert {line["error"]["code"] for line in got.values()} == {"mesh_unsupported"}
+
+        def answers(jax):
+            out = io.StringIO()
+            with Engine(jax=jax, backend="python") as engine:
+                session = (jax_transport if jax else serve_transport).JsonlSession(engine, out)
+                for n, line in enumerate(lines):
+                    session.handle_line(n, line)
+            return [json.loads(ln) for ln in out.getvalue().splitlines()]
+
+        got = answers(jax=False)
+        assert got == answers(jax=True)
+        assert [list(obj) for obj in got] == [["hello_err"], ["ship_err"]]
+        assert (got[0]["hello_err"]["code"], got[1]["ship_err"]["code"]) == ("fingerprint_mismatch", "no_journal")
+        assert rec.counters["serve.hello_rejects"] == 1 and "serve.ship_acked" in {e["name"] for e in rec.events}
 
 
 class TestServeFaultPoints:

@@ -3,7 +3,7 @@
 interchange with the JAX package (one file replays in either package, its
 lines byte-equal apart from wall time and pid), and the three process tests:
 the port's ``serve`` against the JAX ``serve`` line for line, a hard kill and
-replay, and a fleet-mesh line's typed error.  Every wait has a bound.
+replay, and the fleet mesh's handshake lines.  Every wait has a bound.
 """
 
 import json
@@ -269,10 +269,22 @@ class TestProcesses:
             assert verdict is oracle[rid], rid
 
     def test_mesh_line_gets_a_typed_error_and_the_stream_goes_on(self, tmp_path):
-        lines = [json.dumps({"hello": {"schema": "qi-serve/1", "protocol": 1, "token": ""}}),
+        """The port's ``serve`` process: a skewed hello gets the typed
+        ``hello_err``, a valid one ``hello_ok`` with the server's replay
+        report, and the request after them is answered."""
+        from quorum_intersection_tpu import serve_transport as jax_transport
+
+        hello = {"schema": "qi-serve/1", "protocol": 1, "token": "", "peer": "test",
+                 "fingerprint": jax_transport.package_fingerprint()}
+        lines = [json.dumps({"hello": {**hello, "protocol": 2}}), json.dumps({"hello": hello}),
                  json.dumps({"request_id": "after", "nodes": majority_fbas(5)})]
-        got = _run(PORT_CLI + ["--backend", "python"], "".join(line + "\n" for line in lines))
+        got = _run(PORT_CLI + ["--backend", "python", "--journal", str(tmp_path / "j.jsonl")],
+                   "".join(line + "\n" for line in lines))
         assert got.returncode == 0, got.stderr[-2000:]
-        objs = {o["request_id"]: o for o in map(json.loads, got.stdout.splitlines())}
-        assert objs["line-1"]["error"]["code"] == "mesh_unsupported"
-        assert objs["after"]["verdict"] is True
+        objs = [json.loads(ln) for ln in got.stdout.splitlines()]
+        assert [o["kind"] for o in objs[:1]] == ["replay"]
+        assert objs[1]["hello_err"]["code"] == "protocol_mismatch"
+        ok = objs[2]["hello_ok"]
+        assert ok["fingerprint"] == jax_transport.package_fingerprint() and ok["ready"] is True
+        assert ok["replay"]["journal"] == str(tmp_path / "j.jsonl")
+        assert objs[3]["request_id"] == "after" and objs[3]["verdict"] is True

@@ -428,7 +428,10 @@ def test_env_registry_is_the_jax_packages():
             "QI_SERVE_BATCH_MAX", "QI_SERVE_QUEUE_DEPTH", "QI_SERVE_CACHE_MAX", "QI_SERVE_DEADLINE_S",
             "QI_SERVE_JOURNAL", "QI_SERVE_FUSE_WINDOW_MS", "QI_SERVE_BIND", "QI_PULSE_SLOW_MS",
             "QI_COST_TENANTS_MAX", "QI_SLO", "QI_SLO_FAST_S", "QI_SLO_SLOW_S", "QI_METRICS_PORT",
-            "QI_FLEET_STORE_DIR"} == set(port)
+            "QI_FLEET_STORE_DIR", "QI_FLEET_WORKERS", "QI_FLEET_VNODES", "QI_FLEET_PROBE_INTERVAL_S",
+            "QI_FLEET_PROBE_FAILS", "QI_FLEET_RESPAWN_MAX", "QI_FLEET_TOKEN", "QI_FLEET_LEASE_S",
+            "QI_FLEET_SCALE_INTERVAL_S", "QI_FLEET_SCALE_UP_MS", "QI_FLEET_SCALE_DOWN_MS", "QI_FLEET_SCALE_MIN",
+            "QI_FLEET_SCALE_MAX", "QI_PULSE_AGG"} == set(port)
     with pytest.raises(KeyError):
         env.qi_env("QI_NOT_A_KNOB")
 
