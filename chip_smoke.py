@@ -12,8 +12,10 @@
     python3 chip_smoke.py --delta        # build, then only incremental re-analysis (30) and its certificates
     python3 chip_smoke.py --serve        # build, then only the serve subcommand's phase (31) and its certificates
     python3 chip_smoke.py --fleet        # build, then only the replicated serve tier's phase (32) and its certificates
+    python3 chip_smoke.py --native       # build, then only the native host layer and the tooling (33-34), certificates
 
-Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
+Phases, one line each, each with its wall ``seconds`` (any failure exits
+non-zero and prints no ``ok`` line):
 
 1. device   — CUDA must be available; the card's name and power limit;
 2. build    — the CUDA kernels, built from ``kernels/csrc`` with ``nvcc``
@@ -99,14 +101,16 @@ Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
               full width (phase full), and the batch packed against
               per-problem sweeps on both engines (the pack gate);
 13. auto    — the default backend: ``python -m quorum_intersection_tpu_torch``
-              on the seven fixtures and the full-width twins, racing, with
-              ``--no-race`` and with ``--backend gpu-sweep`` (verdicts and
-              exit codes equal, race winner, ``loser_joined``, process
-              seconds); the cold CLI alone on ``snapshot_correct.json``,
-              auto against gpu-sweep in turns; then ``solve`` through
+              on one source per route (the oracle: ``snapshot_broken.json``;
+              the sweep: the full-width correct twin; the SCC guard:
+              ``nested_broken.json``), racing, with ``--no-race`` and with
+              ``--backend gpu-sweep`` (verdicts and exit codes equal, race
+              winner, ``loser_joined``, process seconds); the cold CLI alone
+              on ``snapshot_correct.json`` under ``auto``; then ``solve`` through
               ``AutoBackend`` in process, race on and off (launch counts
-              reset before, read after: the correct full-width twin must be
-              decided by K1 in the race), and ``check_many`` through it;
+              reset before, read after: the seven fixtures and the full-width
+              twins; the correct twin must be decided by K1 in the race), and
+              ``check_many`` through it;
 14. compare_pagerank — the PageRank power-loop kernel (K12, one cooperative
               launch) against its plain version (sparse form) and against
               ``pagerank_np`` on the fixtures, the C15 quirk graphs (parallel
@@ -150,9 +154,11 @@ Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
               graph (the floor's route; on NumPy's the lines byte-equal to
               ``format_pagerank(pagerank_np)``);
 17. analysis — ``--top-tier``, ``--blocking-set``, ``--splitting-set`` and
-              the sanitizer (default, ``--compat``, ``--report-dangling``) as
-              processes, against the lines ``tests/_torch_analysis_lines.json``
-              pins to the JAX CLI;
+              the sanitizer (default, ``--compat``, ``--report-dangling``)
+              against the lines ``tests/_torch_analysis_lines.json`` pins to
+              the JAX CLI: one process a flag set (``ANALYSIS_PROCESSES``),
+              every other pinned case through the same entry point in this
+              process;
 18. rank    — ``order="rank"``: ``solve`` on the fixtures, the full-width
               twins (2^33 through K1) and the batch's sources, then the
               16-source ``check_many`` on both engines (every hit index equal
@@ -175,12 +181,14 @@ Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
               (``tests/_torch_frontier_blocks.wide_flag_block``), on every
               network past 16 lanes;
 20. frontier — ``python -m quorum_intersection_tpu_torch --backend
-              gpu-frontier --cert-out`` on the seven fixtures, ``majority_fbas(18)``
-              and its broken twin, ``hierarchical_fbas(6, 4)`` and ``(8, 4)``
-              (scc 32, full size) and the broken ``stellar_like_fbas(16 | 21,
-              3)`` (scc 48 and 63, past the sweep's reach), as processes (and
-              ``--checkpoint`` once); then ``GpuFrontierBackend`` in process on
-              the same (K9 and K10 launch counts reset before, read after, and
+              gpu-frontier --cert-out`` on the broken ``stellar_like_fbas(21,
+              3)`` (scc 63, past the sweep's reach) and ``--checkpoint`` on
+              ``hierarchical_fbas(6, 4)``, as processes; then
+              ``GpuFrontierBackend`` in process on the seven fixtures,
+              ``majority_fbas(18)`` and its broken twin, ``hierarchical_fbas(6,
+              4)`` and ``(8, 4)`` (scc 32, full size) and the broken
+              ``stellar_like_fbas(16 | 21, 3)`` (scc 48 and 63) (K9 and K10
+              launch counts reset before, read after, and
               CUDA events around every launch): verdicts, witnesses re-checked,
               popped and flagged counts equal to the enumeration's exact ones,
               states/s, chunks, first and steady chunk seconds; a kill and a
@@ -249,27 +257,29 @@ Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
               file; then the full-width twin warm in one process without and
               with a ``JsonlSink``, in turns, three times each (both medians;
               K1's launches counted);
-28. faults  — ``QI_FAULTS`` through the CLI: one fire each of
-              ``sweep.dispatch``, ``sweep.compile``, ``sweep.bitset`` (under
-              ``QI_SWEEP_ENGINE=bitset``), ``sweep.prune`` (under
-              ``QI_SWEEP_PRUNE=1``) and ``frontier.chunk`` exits with the
-              point's name on stderr and no verdict line; ``checkpoint.write``
-              and ``cert.write`` keep the verdict and exit code and raise
-              their counters; a ``FaultPreempted`` at the 33rd window of a
-              ``--checkpoint`` 2^30 sweep (``benchmark_fbas(256, core=31)``,
-              and ``late_hit_fbas(29)`` whose first hit lies at 2^28 + 15),
-              then a rerun: resumed past zero, the uninterrupted run's
-              verdict and hit index;
+28. faults  — ``QI_FAULTS`` through the CLI, one process a way a fault
+              ends one (started in phase observe's wave): ``sweep.dispatch`` exits with the point's name on
+              stderr and no verdict line; ``checkpoint.write`` and
+              ``cert.write`` keep the verdict and exit code and raise their
+              counters.  In this process, each under its plan: a fired
+              ``sweep.compile``, ``sweep.bitset`` (the bitset engine),
+              ``sweep.prune`` (pruning) and ``frontier.chunk`` fails the solve
+              on the card; a ``FaultPreempted`` at the 33rd window of a
+              checkpointed 2^30 sweep (``benchmark_fbas(256, core=31)``, and
+              ``late_hit_fbas(29)`` whose first hit lies at 2^28 + 15), then
+              a fresh backend on the file: resumed past zero, the
+              uninterrupted run's verdict and hit index;
 29. query   — ``python -m quorum_intersection_tpu_torch query`` on the card
               against ``--device cpu``: ``relaxed`` on both
-              ``two_family_preset`` twins, ``whatif`` (``max_k`` 2) on
-              ``snapshot_correct.json`` under ``gpu-sweep`` (the default 16
-              candidates, 137 variants) and ``auto`` (8 candidates, 37
-              variants; the CPU runs under ``cpp``), ``analytics`` for
-              all four metrics on ``nested_correct.json``: equal lines and
-              exit codes, each call's wall time;
-              then the ``gpu-sweep`` what-if in process with K3's and K4's
-              launches counted (K3 must launch);
+              ``two_family_preset`` twins (the broken one a process, the
+              other in this process), ``whatif`` (``max_k`` 1, 16 variants)
+              on ``nested_correct.json`` under ``gpu-sweep`` and ``auto``
+              (the CPU run a process under ``cpp``), ``analytics`` for all four metrics on
+              ``nested_correct.json`` (processes; their CPU runs in this
+              process): equal lines and exit codes, each call's wall time;
+              then the ``gpu-sweep`` what-if of the default 16 candidates (137
+              variants) in process with K3's and K4's launches counted (K3
+              must launch);
 30. delta   — incremental re-analysis on the card: three churn traces,
               each through one ``DeltaEngine`` (one store) a snapshot a
               call and through ``check_many`` from scratch, in turns —
@@ -293,25 +303,24 @@ Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
               on the card (through ``SERVE_LAUNCHER``, which calls the CLI's
               ``main`` and reports the process's kernel launches, counted
               from 0, at exit), four streams: A, the default server
-              (``auto``, delta on, ``--emit-certs``) on 47 requests from three
-              clients — the dump's 16-step churn trace (seed 3, max_diff 2),
-              the snapshot's 15-step trace and the seven fixtures twice —
+              (``auto``, delta on, ``--emit-certs``) on 32 requests from three
+              clients — the dump's 8-step churn trace (seed 3, max_diff 2),
+              the snapshot's 8-step trace and the seven fixtures twice —
               every verdict against the manifest or the scratch
               ``check_many`` of the trace on the card; B, the batch phase's
               16 sources (the 2^30 twin first) as 16 requests from four
-              clients to ``gpu-sweep``, ``QI_SERVE_FUSE_WINDOW_MS`` 5 and 0 in
-              turns (F, U, U, F), verdicts, witnesses and hit indices equal
-              across the arms and to ``check_many``'s, a cross-request pack in
-              every fused run, cost conserved per pack, in the counters and in
-              the tenant table; once more fused under the profiler (device
-              busy ms, idle share); C, a deadline inside a pack:
+              clients to ``gpu-sweep`` under ``QI_SERVE_FUSE_WINDOW_MS`` 5,
+              verdicts, witnesses and hit indices equal to ``check_many``'s,
+              a cross-request pack, cost conserved per pack, in the counters and in
+              the tenant table, the run under the profiler (device busy
+              ms, idle share); C, a deadline inside a pack:
               ``benchmark_fbas(48, core=31)`` (2^30 windows) with
               ``deadline_s`` 0.35 co-packed with three small requests
               (typed ``deadline_exceeded``; the co-packed ones' verdicts, hit
               indices and certificates; the windows it retired between 1
               and 2^30 - 1); D, a ``--journal`` server SIGKILLed after its
-              first response, ``--replay-only`` on its journal, a restart on a
-              copy, every journaled request answered with the uninterrupted
+              first response, ``--replay-only`` on its journal and
+              a restart on a copy (at once), every journaled request answered with the uninterrupted
               verdict; a fired ``sweep.dispatch`` (a typed error line, no
               verdict, exit 0) and ``serve.drain`` (per-request solves on the
               card).  Per stream: requests, wall, requests per second, p50 /
@@ -339,7 +348,29 @@ Phases, one line each (any failure exits non-zero and prints no ``ok`` line):
               store gateway into a composed certificate, and a lease lapse
               (SIGSTOP of the peer, SIGCONT once evicted) that ships its
               journal and replays its pending requests on the survivor;
-33. cert    — every certificate the runs above produced (CLI ``--cert-out``
+33. native  — the native host layer on the card's host: the per-SCC scan
+              (``pipeline.scan_scc_quorums``'s Python loop and
+              ``backends.cpp.native_scc_scan``) in turns (``SCAN_TURNS``) on
+              the dump, ``stellar_like_fbas(n_watchers=30000, seed=7)`` and
+              (once each way) the 200k network, equal quorums, medians and
+              spreads; the same on one SCC of 16-256 members
+              (``benchmark_fbas(s, s)``) and the SCC size, if any, from
+              which the native scan is the faster (the pipeline keeps the
+              Python loop); the dump's ``gpu-sweep`` solve on the card (K1
+              launched, its certificate checked) beside the native scan of
+              its SCCs (the same quorum-bearing SCC); the native binary (``build_native_cli``) on the seven
+              fixtures, stdout and exit equal to phase main's ``gpu-sweep``
+              CLI processes, ``-v`` equal to the port's CLI on the same
+              native search; ``native_candidate_rate`` beside K1's rate;
+34. tooling — the build cache: a process with ``QI_NO_COMPILE_CACHE=1``
+              builds all six kernel libraries into a private directory
+              (``compile_cache.misses`` 6), then one with the cache finds
+              them (``compile_cache.hits`` 6) in at most 10% of the cold
+              build's seconds; beside the second, ``--profile-dir`` on the
+              2^30 twin as a CLI process: its Chrome trace holds K1's kernel
+              events and the ``qi-trace:<trace_id>`` range of the metrics
+              stream's ``trace_id``; then the unprofiled solve in process;
+35. cert    — every certificate the runs above produced (CLI ``--cert-out``
               under auto, gpu-sweep and gpu-frontier, ``solve`` and
               ``check_many`` on both engines, pruned, rank-ordered and
               frontier runs with every block, incremental re-analysis's
@@ -383,7 +414,16 @@ def fail(phase: str, msg: str) -> None:
     raise SystemExit(1)
 
 
+_last_line = [time.perf_counter()]
+
+
 def phase_line(phase: str, **fields) -> None:
+    """One phase's line.  Every line carries ``seconds``: the phase's own
+    wall where it passes it, else the wall since the previous line (the
+    phases run one after the other)."""
+    now = time.perf_counter()
+    fields.setdefault("seconds", round(now - _last_line[0], 3))
+    _last_line[0] = now
     print(f"{phase}: " + json.dumps(fields, default=str), flush=True)
 
 
@@ -914,7 +954,7 @@ PAGERANK_QUIRKS = {
 # Watcher counts of the stellar_like_fbas(seed=7) graphs PageRank is timed
 # on: from the fixtures' size through the dump's (2971 nodes with n_null=150,
 # n_dangling=40) to 200k nodes and about a million edges.
-PAGERANK_SIZES = (30, 100, 300, 1000, 2800, 6000, 20_000, 50_000, 100_000, 200_000)
+PAGERANK_SIZES = (30, 100, 300, 1000, 2800, 6000, 20_000, 200_000)
 
 
 # Per entry: rtol 1e-3 and atol 1e-3 * m / n.  No rank is below m / n (a
@@ -1171,19 +1211,40 @@ def k12_parent_turns(parent, csr, want, m=0.0001):
 
 def call_profile(device, fn):
     """One call of ``fn`` under ``torch.profiler`` (device activity only),
-    after a control reduction profiled on its own: whether the profiler
-    records here, the call's device events by name, its kernels and any
-    host-to-device copy."""
+    after a control reduction in the same session (the profiler of a long
+    process records intermittently, one session to the next): whether the
+    session recorded the control, the call's device events by name with the
+    control's one launch taken out, its kernels and any host-to-device
+    copy."""
     import torch
 
-    control = profiler_records(device) > 0
+    x = torch.ones(1 << 20, device=device)
+    torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        x.sum()
+        torch.cuda.synchronize()
         fn()
         torch.cuda.synchronize()
     events = device_ms_by_kernel(prof)
-    kernels = {k: v for k, v in events.items() if not k.startswith(("aten::", "Memcpy", "Memset", "Activity "))}
-    h2d = [k for k in events if "HtoD" in k]
-    return {"control_recorded": control, "kernels": kernels, "host_to_device": h2d, "events": events}
+    counts = {}
+    for e in prof.key_averages():
+        if e.key in events:
+            counts[e.key] = counts.get(e.key, 0) + e.count
+    # The control launches one reduction kernel: that one launch goes, any
+    # other launch of the same kernel stays the call's.
+    control = next((k for k in events if "reduce_kernel" in k), None)
+    if control is not None:
+        counts[control] -= 1
+    call = {k: ms for k, ms in events.items() if counts[k] > 0}
+    kernels = {k: ms for k, ms in call.items() if not k.startswith(("aten::", "Memcpy", "Memset", "Activity "))}
+    h2d = [k for k in call if "HtoD" in k]
+    return {"control_recorded": control is not None, "kernels": kernels, "host_to_device": h2d,
+            "events": call, "launches": {k: counts[k] for k in call}}
+
+
+# Trust graphs built once a run, by label: phase native scans the 200k
+# network the PageRank phases built.
+GRAPHS = {}
 
 
 def pagerank_phases(device, card, texts, work, k12_parent=None):
@@ -1215,7 +1276,7 @@ def pagerank_phases(device, card, texts, work, k12_parent=None):
     def stellar(n_watchers, **kw):
         return synth.stellar_like_fbas(n_watchers=n_watchers, seed=7, **kw)
 
-    graphs = {}
+    graphs = GRAPHS
 
     def graph_of(label, data=None):
         if label not in graphs:
@@ -1524,36 +1585,47 @@ ANALYSIS_SYNTH = {
 }
 
 
+# The pinned lines phase analysis runs as processes: one a flag set (each
+# analysis mode, the sanitizer's three); the rest run in this process.
+ANALYSIS_PROCESSES = ("nested_correct.json --top-tier", "nested_correct.json --blocking-set",
+                      "nested_correct.json --splitting-set", "snapshot_correct.json",
+                      "snapshot_correct.json --compat", "snapshot_correct.json --report-dangling")
+
+
 def analysis_phase(card, texts):
     """Phase analysis: --top-tier, --blocking-set, --splitting-set and the
-    sanitizer as a user runs them, against the pinned lines."""
+    sanitizer against the pinned lines: one process a flag set as a user
+    runs it, every other pinned case through the same entry point in this
+    process."""
     import hashlib
 
-    from quorum_intersection_tpu_torch.fbas import synth
+    from quorum_intersection_tpu_torch import cli
+    from quorum_intersection_tpu_torch.fbas import sanitize, synth
 
+    t = time.perf_counter()
     pinned = json.loads((ROOT / "tests" / "_torch_analysis_lines.json").read_text())
-    cmds, inputs, keys = [], [], []
+    cases = []  # (kind, key, the entry point, its argv, stdin)
     for key in pinned["analysis"]:
         source, mode = key.rsplit(" ", 1)
         text = texts[source] if source in texts else json.dumps(ANALYSIS_SYNTH[source](synth))
-        cmds.append([sys.executable, "-m", PORT, mode])
-        inputs.append(text)
-        keys.append(("analysis", key))
+        cases.append(("analysis", key, ([sys.executable, "-m", PORT], cli.main), [mode], text))
     for key in pinned["sanitize"]:
         source, *flags = key.split(" ")
-        cmds.append([sys.executable, "-m", f"{PORT}.fbas.sanitize", *flags])
-        inputs.append(texts[source])
-        keys.append(("sanitize", key))
-    t = time.perf_counter()
-    runs = run_all(cmds, inputs=inputs)
-    seconds = time.perf_counter() - t
-    for (kind, key), (so, se, rc, _) in zip(keys, runs):
+        cases.append(("sanitize", key, ([sys.executable, "-m", f"{PORT}.fbas.sanitize"], sanitize.main), flags,
+                      texts[source]))
+    procs = [c for c in cases if c[1] in ANALYSIS_PROCESSES]
+    if len(procs) != len(ANALYSIS_PROCESSES):
+        fail("analysis", f"the pinned lines lack a process case: {sorted(ANALYSIS_PROCESSES)}")
+    runs = dict(zip([c[1] for c in procs], run_all([c[2][0] + c[3] for c in procs], inputs=[c[4] for c in procs],
+                                                  parallel=len(procs))))
+    for kind, key, (_, entry), argv, text in cases:
+        so, se, rc = runs[key][:3] if key in runs else in_process(entry, argv, text)
         want = pinned[kind][key]
         got = (so if kind == "analysis" else
                {"stdout_sha256": hashlib.sha256(so.encode()).hexdigest(), "stderr": se, "exit": rc})
         if got != want or (kind == "analysis" and rc != 0):
             fail("analysis", f"{kind} {key}: printed {str(got)[:300]!r} exit {rc}, pinned {str(want)[:300]!r}")
-    phase_line("analysis", card=card, seconds=seconds,
+    phase_line("analysis", card=card, seconds=round(time.perf_counter() - t, 3), processes=list(ANALYSIS_PROCESSES),
                analysis=f"{len(pinned['analysis'])}/{len(pinned['analysis'])} lines equal to the pinned JAX CLI's",
                sanitize=f"{len(pinned['sanitize'])}/{len(pinned['sanitize'])} outputs equal to the pinned ones")
 
@@ -1570,54 +1642,10 @@ def rank_phase(card, texts, manifest, sources, cert_jobs, witness_ok, work):
     from quorum_intersection_tpu_torch.kernels.sweep_cuda import sweep_fused
     from quorum_intersection_tpu_torch.pipeline import check_many, solve
 
-    twins = [(f"benchmark_fbas(256,core=34,broken={b})", synth.benchmark_fbas(256, 34, broken=b), not b)
-             for b in (False, True)]
-    solo_sources = [(name, texts[name], manifest[name]["verdict"]) for name in manifest] + twins
-    sweep_fused.launches = packed_sweep_dense.launches = packed_sweep_bitset.launches = 0
-    solo_rows, solo = [], {}
-    for name, src, want in solo_sources + [s for s in sources if s[0] not in manifest]:
-        t = time.perf_counter()
-        res = solo[name] = solve(src, backend=GpuSweepBackend(order="rank"))
-        seconds = time.perf_counter() - t
-        if res.intersects is not want:
-            fail("rank", f"{name}: intersects={res.intersects}, expected {want}")
-        if not want and not witness_ok(src, res):
-            fail("rank", f"{name}: witness pair is not two disjoint quorums")
-        order = res.stats.get("order")
-        if res.stats.get("backend") == "gpu-sweep" and (not order or res.cert["provenance"].get("order") != order):
-            fail("rank", f"{name}: no rank-order provenance on a swept verdict")
-        cert_jobs.append((f"rank/solve/{name}", src, res.cert))
-        solo_rows.append({"source": name, "verdict": res.intersects, "seconds": seconds,
-                          "hit_index": res.stats.get("hit_index"),
-                          "candidates": res.stats.get("candidates_checked"),
-                          "order_source": (order or {}).get("source")})
-    k1_launches = sweep_fused.launches
-    batch_rows = {}
-    for engine in (None, "bitset"):
-        label = engine or "default"
-        t = time.perf_counter()
-        res = check_many([src for _, src, _ in sources], backend=GpuSweepBackend(engine=engine, order="rank"))
-        seconds = time.perf_counter() - t
-        for (name, src, want), r in zip(sources, res):
-            if r.intersects is not want:
-                fail("rank", f"batch {name} (engine={label}): intersects={r.intersects}, expected {want}")
-            if not want and not witness_ok(src, r):
-                fail("rank", f"batch {name} (engine={label}): witness pair is not two disjoint quorums")
-            got, expect = r.stats.get("hit_index"), solo[name].stats.get("hit_index")
-            if got != expect or r.stats.get("order") != solo[name].stats.get("order"):
-                fail("rank", f"batch {name} (engine={label}): hit index {got} != the unpacked rank-ordered "
-                             f"solve's {expect}")
-            cert_jobs.append((f"rank/batch/{label}/{name}", src, r.cert))
-        batch_rows[label] = {"seconds": seconds, "packed": sum(1 for r in res if r.stats.get("packed"))}
-    launches = {"sweep_fused_cuda": k1_launches, "packed_sweep_dense_cuda": packed_sweep_dense.launches,
-                "packed_sweep_bitset_cuda": packed_sweep_bitset.launches}
-    if min(launches.values()) < 1:
-        fail("rank", f"a sweep kernel never launched under the rank order: {launches}")
-    # The CLI under the variable, the default router's sweep rung included.
+    # The CLI under the variable, one process a backend (the default router's
+    # sweep rung included), started first and read at the end.
     env = dict(os.environ, QI_SWEEP_ORDER="rank")
-    cli_cases = [(name, backend) for name in ("snapshot_broken.json", "snapshot_correct.json",
-                                              "nested_broken.json") if name in manifest
-                 for backend in ("gpu-sweep", "auto")]
+    cli_cases = [("snapshot_correct.json", backend) for backend in ("gpu-sweep", "auto")]
     procs, outs = [], []
     for i, (name, backend) in enumerate(cli_cases):
         cert = work / f"rank_cli{i}.cert.json"
@@ -1625,6 +1653,49 @@ def rank_phase(card, texts, manifest, sources, cert_jobs, witness_ok, work):
             [sys.executable, "-m", PORT, "--backend", backend, "--cert-out", str(cert)], cwd=ROOT, env=env,
             stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     try:
+        twins = [(f"benchmark_fbas(256,core=34,broken={b})", synth.benchmark_fbas(256, 34, broken=b), not b)
+                 for b in (False, True)]
+        solo_sources = [(name, texts[name], manifest[name]["verdict"]) for name in manifest] + twins
+        sweep_fused.launches = packed_sweep_dense.launches = packed_sweep_bitset.launches = 0
+        solo_rows, solo = [], {}
+        for name, src, want in solo_sources + [s for s in sources if s[0] not in manifest]:
+            t = time.perf_counter()
+            res = solo[name] = solve(src, backend=GpuSweepBackend(order="rank"))
+            seconds = time.perf_counter() - t
+            if res.intersects is not want:
+                fail("rank", f"{name}: intersects={res.intersects}, expected {want}")
+            if not want and not witness_ok(src, res):
+                fail("rank", f"{name}: witness pair is not two disjoint quorums")
+            order = res.stats.get("order")
+            if res.stats.get("backend") == "gpu-sweep" and (not order or res.cert["provenance"].get("order") != order):
+                fail("rank", f"{name}: no rank-order provenance on a swept verdict")
+            cert_jobs.append((f"rank/solve/{name}", src, res.cert))
+            solo_rows.append({"source": name, "verdict": res.intersects, "seconds": seconds,
+                              "hit_index": res.stats.get("hit_index"),
+                              "candidates": res.stats.get("candidates_checked"),
+                              "order_source": (order or {}).get("source")})
+        k1_launches = sweep_fused.launches
+        batch_rows = {}
+        for engine in (None, "bitset"):
+            label = engine or "default"
+            t = time.perf_counter()
+            res = check_many([src for _, src, _ in sources], backend=GpuSweepBackend(engine=engine, order="rank"))
+            seconds = time.perf_counter() - t
+            for (name, src, want), r in zip(sources, res):
+                if r.intersects is not want:
+                    fail("rank", f"batch {name} (engine={label}): intersects={r.intersects}, expected {want}")
+                if not want and not witness_ok(src, r):
+                    fail("rank", f"batch {name} (engine={label}): witness pair is not two disjoint quorums")
+                got, expect = r.stats.get("hit_index"), solo[name].stats.get("hit_index")
+                if got != expect or r.stats.get("order") != solo[name].stats.get("order"):
+                    fail("rank", f"batch {name} (engine={label}): hit index {got} != the unpacked rank-ordered "
+                                 f"solve's {expect}")
+                cert_jobs.append((f"rank/batch/{label}/{name}", src, r.cert))
+            batch_rows[label] = {"seconds": seconds, "packed": sum(1 for r in res if r.stats.get("packed"))}
+        launches = {"sweep_fused_cuda": k1_launches, "packed_sweep_dense_cuda": packed_sweep_dense.launches,
+                    "packed_sweep_bitset_cuda": packed_sweep_bitset.launches}
+        if min(launches.values()) < 1:
+            fail("rank", f"a sweep kernel never launched under the rank order: {launches}")
         for name, backend, cert, proc in procs:
             so, se = proc.communicate(texts[name], timeout=300)
             outs.append((name, backend, cert, so, se, proc.returncode))
@@ -1664,7 +1735,7 @@ FRONTIER_STATS = ("device_iters", "device_chunks", "states_popped", "flagged", "
                   "seconds", "padded_shape")
 # The native oracle's time cap per run in phase frontier_route (a capped run
 # counts as a loss of the oracle only where the frontier finished first).
-ORACLE_CAP_S = 30.0
+ORACLE_CAP_S = 5.0
 
 
 def frontier_networks(synth):
@@ -2037,8 +2108,12 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, 
 
     # -- frontier: the CLI and GpuFrontierBackend in process ----------------
     nets = [(name, texts[name], manifest[name]["verdict"]) for name in manifest] + frontier_networks(synth)
+    # The CLI as a process once a flag path: --cert-out on the widest broken
+    # twin (scc 63, past the sweep's reach), --checkpoint on hier 6x4; every
+    # network then runs through GpuFrontierBackend in process below.
+    cli_nets = [net for net in nets if net[0] == "stellar_like_fbas(21,3,broken)"]
     cmds, inputs = [], []
-    for i, (label, src, _) in enumerate(nets):
+    for i, (label, src, _) in enumerate(cli_nets):
         cmds.append([sys.executable, "-m", PORT, "--backend", "gpu-frontier", "--cert-out",
                      str(work / f"frontier{i}.cert.json")])
         inputs.append(raw_json(src))
@@ -2046,10 +2121,10 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, 
     cmds.append([sys.executable, "-m", PORT, "--backend", "gpu-frontier", "--checkpoint", str(ckpt)])
     inputs.append(raw_json(synth.hierarchical_fbas(6, 4)))
     t = time.perf_counter()
-    procs = run_all(cmds, inputs, parallel=8, timeout=600)
+    procs = run_all(cmds, inputs, parallel=len(cmds), timeout=600)
     cli_wall = time.perf_counter() - t
     cli_rows = {}
-    for i, ((label, src, want), (so, se, rc, secs)) in enumerate(zip(nets, procs)):
+    for i, ((label, src, want), (so, se, rc, secs)) in enumerate(zip(cli_nets, procs)):
         if so.strip().splitlines()[-1:] != ["true" if want else "false"] or rc != (0 if want else 1):
             fail("frontier", f"CLI --backend gpu-frontier on {label}: printed {so[-40:]!r} exit {rc}; {se[-400:]!r}")
         cert_jobs.append((f"frontier/cli/{label}", src, json.loads((work / f"frontier{i}.cert.json").read_text())))
@@ -2681,9 +2756,11 @@ def stderr_stats(err: str) -> dict:
     return dict(line[len("[stats] "):].split(": ", 1) for line in err.splitlines() if line.startswith("[stats] "))
 
 
-def observe_phase(device, card, texts, manifest, cert_jobs, work):
+def observe_phase(device, card, texts, manifest, cert_jobs, work, beside=None):
     """Phase observe: the CLI's observability flags on the card, then the
-    JSONL sink's cost on the full-width solve, in turns."""
+    JSONL sink's cost on the full-width solve, in turns.  ``beside``: other
+    CLI processes (``{name: (args, stdin, env)}``, phase faults') started in
+    the same wave; returns their ``{name: (stdout, stderr, code, seconds)}``."""
     from statistics import median
 
     from quorum_intersection_tpu_torch.backends.sweep import GpuSweepBackend
@@ -2703,7 +2780,13 @@ def observe_phase(device, card, texts, manifest, cert_jobs, work):
                          "--trace-out", str(files["trace.json"]), "--cert-out", str(files["cert.json"])])
             keys.append((name, backend, files))
             inputs.append(texts[name])
-    runs = run_all(cmds, inputs=inputs)
+    beside = beside or {}
+    runs = run_all(cmds + [[sys.executable, "-m", PORT, *args] for args, _, _ in beside.values()],
+                   inputs=inputs + [text for _, text, _ in beside.values()],
+                   envs=[None] * len(cmds) + [env for _, _, env in beside.values()],
+                   parallel=len(cmds) + len(beside))
+    beside_runs = dict(zip(beside, runs[len(cmds):]))
+    runs = runs[:len(cmds)]
     reports = run_all([[sys.executable, str(ROOT / "tools" / "metrics_report.py"), str(files["jsonl"]),
                         "--windows", "4"] for _, _, files in keys])
     rows = []
@@ -2776,60 +2859,55 @@ def observe_phase(device, card, texts, manifest, cert_jobs, work):
                          "median_without_s": median(turns["without"]), "median_with_s": median(turns["with"]),
                          "sweep_window_events_per_solve": sorted(set(events))},
                launches={"sweep_fused_cuda": launches})
+    return beside_runs
 
 
-def faults_phase(device, card, texts, cert_jobs, work):
-    """Phase faults: fired faults through the CLI on the card."""
+PREEMPT_AT = 33  # phase faults: the sweep.window hit a 2^30 sweep is preempted at
+
+
+def faults_cli_jobs(texts, work):
+    """Phase faults' CLI processes, one for each way a fired fault ends a
+    process: ``{point: (args, stdin, env)}`` (a failed solve:
+    ``sweep.dispatch``; a host fault that becomes a counter:
+    ``checkpoint.write``, ``cert.write``)."""
     import os
 
-    sys.path.insert(0, str(ROOT / "tests"))
-    from _torch_faults_cases import late_hit_fbas
-
-    from quorum_intersection_tpu_torch.fbas import synth
-
-    t0 = time.perf_counter()
     base_env = dict(os.environ)
     for var in ("QI_FAULTS", "QI_SWEEP_ENGINE", "QI_SWEEP_PRUNE"):
         base_env.pop(var, None)
-
-    def cli(args, text, **env):
-        return args, text, dict(base_env, **env)
-
     snapshot = texts["snapshot_correct.json"]
-    jobs = {
-        "sweep.dispatch": cli(["--backend", "gpu-sweep"], snapshot, QI_FAULTS="sweep.dispatch=error"),
-        "sweep.compile": cli(["--backend", "gpu-sweep"], snapshot, QI_FAULTS="sweep.compile=error"),
-        "sweep.bitset": cli(["--backend", "gpu-sweep"], snapshot, QI_FAULTS="sweep.bitset=error",
-                            QI_SWEEP_ENGINE="bitset"),
-        "sweep.prune": cli(["--backend", "gpu-sweep"], snapshot, QI_FAULTS="sweep.prune=error", QI_SWEEP_PRUNE="1"),
-        "frontier.chunk": cli(["--backend", "gpu-frontier"], snapshot, QI_FAULTS="frontier.chunk=error"),
-    }
+    jobs = {"sweep.dispatch": (["--backend", "gpu-sweep"], snapshot, dict(base_env, QI_FAULTS="sweep.dispatch=error"))}
     # Host-only points: the verdict and exit code stand, the counter rises.
     for point in ("checkpoint.write", "cert.write"):
         stem = work / f"fault-{point}"
-        jobs[point] = cli(["--backend", "gpu-sweep", "--checkpoint", f"{stem}.ckpt", "--cert-out", f"{stem}.cert",
-                           "--metrics-json", f"{stem}.jsonl"], snapshot, QI_FAULTS=f"{point}=oserror")
-    # Preempted at the 33rd program of a 2^30 sweep (1 of 33 drained), with
-    # a checkpoint; the same sweeps uninterrupted beside them.
-    twins = {"benchmark_fbas(256,core=31)": json.dumps(synth.benchmark_fbas(256, 31)),
-             "late_hit_fbas(29)": json.dumps(late_hit_fbas(29))}
-    for label, text in twins.items():
-        jobs[f"preempt {label}"] = cli(["--backend", "gpu-sweep", "--timing", "--checkpoint",
-                                        str(work / f"preempt-{label}.ckpt")], text,
-                                       QI_FAULTS="sweep.window=preempt@33")
-        jobs[f"plain {label}"] = cli(["--backend", "gpu-sweep", "--timing"], text)
-    names = list(jobs)
-    # One wave: the 11 processes wait on the card's kernels, not the CPU.
-    runs = run_all([[sys.executable, "-m", PORT, *jobs[n][0]] for n in names],
-                   inputs=[jobs[n][1] for n in names], envs=[jobs[n][2] for n in names], parallel=len(names))
-    out = dict(zip(names, runs))
+        jobs[point] = (["--backend", "gpu-sweep", "--checkpoint", f"{stem}.ckpt", "--cert-out", f"{stem}.cert",
+                        "--metrics-json", f"{stem}.jsonl"], snapshot, dict(base_env, QI_FAULTS=f"{point}=oserror"))
+    return jobs
+
+
+def faults_phase(device, card, texts, cert_jobs, work, out):
+    """Phase faults: the results ``out`` of ``faults_cli_jobs``' processes
+    (run in phase observe's wave); the other card points and a preempted
+    2^30 sweep's resume fire in this process through the same fault
+    points."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_faults_cases import late_hit_fbas
+
+    from quorum_intersection_tpu_torch.backends.frontier import GpuFrontierBackend
+    from quorum_intersection_tpu_torch.backends.sweep import GpuSweepBackend
+    from quorum_intersection_tpu_torch.fbas import synth
+    from quorum_intersection_tpu_torch.pipeline import solve
+    from quorum_intersection_tpu_torch.utils import faults
+    from quorum_intersection_tpu_torch.utils.checkpoint import SweepCheckpoint
+
+    t0 = time.perf_counter()
+    snapshot = texts["snapshot_correct.json"]
     rows = {}
-    for point in ("sweep.dispatch", "sweep.compile", "sweep.bitset", "sweep.prune", "frontier.chunk"):
-        so, se, rc, secs = out[point]
-        if rc == 0 or so.strip() or point not in se or "FaultInjected" not in se:
-            fail("faults", f"{point}: exit {rc}, stdout {so[-40:]!r} (a quiet degrade prints a verdict); "
-                           f"stderr {se[-400:]!r}")
-        rows[point] = {"exit": rc, "stdout": so, "process_s": secs}
+    so, se, rc, secs = out["sweep.dispatch"]
+    if rc == 0 or so.strip() or "sweep.dispatch" not in se or "FaultInjected" not in se:
+        fail("faults", f"sweep.dispatch: exit {rc}, stdout {so[-40:]!r} (a quiet degrade prints a verdict); "
+                       f"stderr {se[-400:]!r}")
+    rows["sweep.dispatch"] = {"exit": rc, "stdout": so, "process_s": secs}
     for point, counter in (("checkpoint.write", "checkpoint.save_errors"), ("cert.write", "cert.write_errors")):
         so, se, rc, secs = out[point]
         stem = work / f"fault-{point}"
@@ -2838,85 +2916,119 @@ def faults_phase(device, card, texts, cert_jobs, work):
         if rc != 0 or so.strip() != "true" or counters.get(counter, 0) < 1 or counters.get("faults.injected", 0) < 1:
             fail("faults", f"{point}: exit {rc}, stdout {so!r}, {counter} {counters.get(counter)}; {se[-300:]!r}")
         rows[point] = {"exit": rc, "stdout": so.strip(), counter: counters[counter], "process_s": secs}
-    for label, text in twins.items():
-        so, se, rc, _ = out[f"preempt {label}"]
-        if rc == 0 or so.strip() or "FaultPreempted" not in se or not (work / f"preempt-{label}.ckpt").exists():
-            fail("faults", f"preempt {label}: exit {rc} stdout {so!r} {se[-400:]!r}")
-    recorded = {label: json.loads((work / f"preempt-{label}.ckpt").read_text())["position"] for label in twins}
-    reruns = run_all([[sys.executable, "-m", PORT, "--backend", "gpu-sweep", "--timing", "--checkpoint",
-                       str(work / f"preempt-{label}.ckpt"), "--cert-out", str(work / f"preempt-{label}.cert.json")]
-                      for label in twins], inputs=list(twins.values()), envs=[base_env] * len(twins))
+
+    def fired(spec, run):
+        """``run`` under the plan ``spec``: the injected fault it raised."""
+        faults.install_plan(faults.parse_faults(spec))
+        try:
+            run()
+        except faults.FaultInjected as exc:
+            return exc
+        finally:
+            faults.clear_plan()
+        return None
+
+    in_process = {
+        "sweep.compile": lambda: solve(snapshot, backend=GpuSweepBackend()),
+        "sweep.bitset": lambda: solve(snapshot, backend=GpuSweepBackend(engine="bitset")),
+        "sweep.prune": lambda: solve(snapshot, backend=GpuSweepBackend(prune=True)),
+        "frontier.chunk": lambda: solve(snapshot, backend=GpuFrontierBackend()),
+    }
+    for point, run in in_process.items():
+        exc = fired(f"{point}=error", run)
+        if exc is None or point not in str(exc):
+            fail("faults", f"{point}: the solve did not fail with the injected fault ({exc!r})")
+        rows[point] = {"raised": type(exc).__name__, "in_process": True}
+    # Preempted at the 33rd window of a 2^30 sweep (1 of 33 drained), with
+    # a checkpoint; resumed by a fresh backend; the same sweep uninterrupted.
+    twins = {"benchmark_fbas(256,core=31)": json.dumps(synth.benchmark_fbas(256, 31)),
+             "late_hit_fbas(29)": json.dumps(late_hit_fbas(29))}
     resumes = []
-    for (label, text), (so2, se2, rc2, secs2) in zip(twins.items(), reruns):
-        pso, pse, prc, psecs = out[f"plain {label}"]
-        resumed, plain = stderr_stats(se2), stderr_stats(pse)
-        if not (recorded[label] > 0 and resumed.get("resumed_from") == str(recorded[label])
-                and (so2, rc2) == (pso, prc) and resumed.get("hit_index") == plain.get("hit_index")
-                and not (work / f"preempt-{label}.ckpt").exists()):
-            fail("faults", f"resume {label}: recorded {recorded[label]}, resumed {resumed.get('resumed_from')}, "
-                           f"{so2.strip()}/{rc2} against {pso.strip()}/{prc}, hit {resumed.get('hit_index')} "
-                           f"against {plain.get('hit_index')}; {se2[-300:]!r}")
-        cert_jobs.append((f"faults/resumed {label}", text,
-                          json.loads((work / f"preempt-{label}.cert.json").read_text())))
-        resumes.append({"network": label, "recorded_position": recorded[label], "verdict": so2.strip(),
-                        "hit_index": resumed.get("hit_index"), "uninterrupted_hit_index": plain.get("hit_index"),
-                        "resumed_s": secs2, "uninterrupted_s": psecs})
+    for label, text in twins.items():
+        t = time.perf_counter()
+        plain = solve(text, backend=GpuSweepBackend())
+        plain_s = time.perf_counter() - t
+        ckpt = work / f"preempt-{label}.ckpt"
+        exc = fired(f"sweep.window=preempt@{PREEMPT_AT}", lambda: solve(text, backend=GpuSweepBackend(
+            checkpoint=SweepCheckpoint(ckpt))))
+        if not isinstance(exc, faults.FaultPreempted) or not ckpt.exists():
+            fail("faults", f"preempt {label}: {exc!r}, checkpoint written: {ckpt.exists()}")
+        recorded = json.loads(ckpt.read_text())["position"]
+        t = time.perf_counter()
+        resumed = solve(text, backend=GpuSweepBackend(checkpoint=SweepCheckpoint(ckpt)))
+        resumed_s = time.perf_counter() - t
+        if not (recorded > 0 and resumed.stats.get("resumed_from") == recorded
+                and resumed.intersects is plain.intersects
+                and resumed.stats.get("hit_index") == plain.stats.get("hit_index") and not ckpt.exists()):
+            fail("faults", f"resume {label}: recorded {recorded}, resumed {resumed.stats.get('resumed_from')}, "
+                           f"{resumed.intersects} against {plain.intersects}, hit {resumed.stats.get('hit_index')} "
+                           f"against {plain.stats.get('hit_index')}")
+        cert_jobs.append((f"faults/resumed {label}", text, resumed.cert))
+        resumes.append({"network": label, "recorded_position": recorded, "verdict": resumed.intersects,
+                        "hit_index": resumed.stats.get("hit_index"),
+                        "uninterrupted_hit_index": plain.stats.get("hit_index"),
+                        "resumed_s": resumed_s, "uninterrupted_s": plain_s})
     phase_line("faults", card=card, seconds=round(time.perf_counter() - t0, 3), fired=rows, preempt=resumes)
 
 
 def query_phase(device, card, texts, cert_jobs, work):
-    """Phase query: the query subcommand on the card against --device cpu."""
+    """Phase query: the query subcommand on the card against ``--device
+    cpu``: one process on the card for each kind and backend (relaxed, the
+    what-if under gpu-sweep and auto, the four analytics metrics), the
+    relaxed intersecting twin in this process on the card; every CPU run in
+    this process."""
     from quorum_intersection_tpu_torch.fbas import synth
-    from quorum_intersection_tpu_torch.fbas.graph import build_graph
-    from quorum_intersection_tpu_torch.fbas.schema import parse_fbas
     from quorum_intersection_tpu_torch.kernels.packed_cuda import packed_sweep_bitset, packed_sweep_dense
-    from quorum_intersection_tpu_torch.pipeline import quorum_bearing_sccs
-    from quorum_intersection_tpu_torch.query import Query, QueryEngine, mask_nodes
+    from quorum_intersection_tpu_torch.query import Query, QueryEngine, mask_nodes, query_main
 
     t0 = time.perf_counter()
     snapshot = texts["snapshot_correct.json"]
-    # (label, the card's flags, the CPU run's flags, stdin).  The CPU run of a
-    # what-if takes the native oracle (the plain sweep of 137 snapshot
-    # variants would take the CPU most of an hour); the analytics run on
-    # nested_correct (a splitting-set search of the snapshot's 21-node SCC is
-    # 232 host solves, minutes a run).
+    # (label, the card's flags, the CPU run's flags, stdin, a process on the
+    # card).  The CPU run of a what-if takes the native oracle (the plain
+    # sweep of its variants would take the CPU most of an hour); the
+    # analytics run on nested_correct (a splitting-set search of the
+    # snapshot's 21-node SCC is 232 host solves, minutes a run).
     nested = texts["nested_correct.json"]
     jobs = []
-    for broken in (False, True):
+    for broken in (True, False):
         fa, fb = synth.two_family_preset(broken=broken)
         fb_file = work / f"family_b-{broken}.json"
         fb_file.write_text(json.dumps(fb))
         args = ["--kind", "relaxed", "--family-b", str(fb_file)]
-        jobs.append((f"relaxed two_family_preset(broken={broken})", args, args, json.dumps(fa)))
-    # The gpu-sweep what-if takes the default candidates (the SCC's first 16:
-    # 137 variants, lane-packed); the auto one, which races each variant
-    # alone, the first 8 of them (37 variants).
-    whatif = ["--kind", "whatif", "--max-k", "2"]
-    graph = build_graph(parse_fbas(snapshot))
-    first8 = [graph.node_ids[v] for _, scc in quorum_bearing_sccs(graph) for v in sorted(scc)][:8]
-    auto_whatif = whatif + [flag for key in first8 for flag in ("--remove", key)]
-    jobs.append(("whatif max_k 2 gpu-sweep snapshot_correct", whatif + ["--backend", "gpu-sweep"],
-                 whatif + ["--backend", "cpp"], snapshot))
-    jobs.append(("whatif max_k 2 auto snapshot_correct, 8 candidates", auto_whatif, auto_whatif + ["--backend", "cpp"],
-                 snapshot))
+        jobs.append((f"relaxed two_family_preset(broken={broken})", args, args, json.dumps(fa), broken))
+    # Both what-ifs remove nested_correct's 15 nodes one at a time (16
+    # variants): under gpu-sweep they lane-pack, under auto each races alone.
+    # The snapshot's default 16 candidates two at a time (137 variants) run
+    # in process below, K3's launches counted.
+    whatif = ["--kind", "whatif", "--max-k", "1"]
+    jobs.append(("whatif max_k 1 gpu-sweep nested_correct", whatif + ["--backend", "gpu-sweep"],
+                 whatif + ["--backend", "cpp"], nested, True))
+    jobs.append(("whatif max_k 1 auto nested_correct", whatif, whatif + ["--backend", "cpp"], nested, True))
     for metric in ("top_tier", "blocking_set", "splitting_set", "pagerank"):
         args = ["--kind", "analytics", "--metric", metric]
-        jobs.append((f"analytics {metric} nested_correct", args, args, nested))
-    cmds, inputs, cpu_of = [], [], {}
-    for i, (label, args, cpu_args, text) in enumerate(jobs):
-        cmds.append([sys.executable, "-m", PORT, "query", *args, "--device", "cuda",
-                     "--cert-out", str(work / f"query{i}-cuda.json")])
-        inputs.append(text)
-        key = (tuple(cpu_args), text)
-        if key not in cpu_of:
-            cpu_of[key] = len(cmds)
-            cmds.append([sys.executable, "-m", PORT, "query", *cpu_args, "--device", "cpu"])
+        jobs.append((f"analytics {metric} nested_correct", args, args, nested, True))
+    cmds, inputs, index = [], [], {}
+    for i, (label, args, cpu_args, text, process) in enumerate(jobs):
+        if process:
+            index[i] = len(cmds)
+            cmds.append([sys.executable, "-m", PORT, "query", *args, "--device", "cuda",
+                         "--cert-out", str(work / f"query{i}-cuda.json")])
             inputs.append(text)
-    starts = [i for i, c in enumerate(cmds) if "cuda" in c]
-    runs = run_all(cmds, inputs=inputs)
+    t = time.perf_counter()
+    runs = run_all(cmds, inputs=inputs, parallel=len(cmds))
+    process_wall = time.perf_counter() - t
     rows = []
-    for i, (label, _, cpu_args, text) in enumerate(jobs):
-        (so, se, rc, secs), (cso, cse, crc, csecs) = runs[starts[i]], runs[cpu_of[(tuple(cpu_args), text)]]
+    for i, (label, args, cpu_args, text, process) in enumerate(jobs):
+        if process:
+            so, se, rc, secs = runs[index[i]]
+        else:
+            t = time.perf_counter()
+            so, se, rc = in_process(query_main, [*args, "--device", "cuda", "--cert-out",
+                                                 str(work / f"query{i}-cuda.json")], text)
+            secs = time.perf_counter() - t
+        t = time.perf_counter()
+        cso, cse, crc = in_process(query_main, [*cpu_args, "--device", "cpu"], text)
+        csecs = time.perf_counter() - t
         try:
             line, cpu_line = json.loads(so), json.loads(cso)
         except json.JSONDecodeError:
@@ -2931,6 +3043,7 @@ def query_phase(device, card, texts, cert_jobs, work):
             masked = mask_nodes(json.loads(text), line["result"]["minimal_failing"])
             cert_jobs.append((f"query/{label} failing variant", json.dumps(masked), failing))
         rows.append({"query": label, "verdict": line["verdict"], "exit": rc, "card_s": secs, "cpu_s": csecs,
+                     "card_process": process,
                      **({"variants": line["result"]["variants"], "minimal_failing": line["result"]["minimal_failing"]}
                         if line["kind"] == "whatif" else {})})
     # The what-if query in process with the launch counts reset before and
@@ -2943,10 +3056,10 @@ def query_phase(device, card, texts, cert_jobs, work):
                 "packed_sweep_bitset_cuda": packed_sweep_bitset.launches}
     if launches["packed_sweep_dense_cuda"] < 1:
         fail("query", "the what-if query under gpu-sweep never launched packed_sweep_dense_cuda")
-    whatif_cli = next(r for r in rows if r["query"] == "whatif max_k 2 gpu-sweep snapshot_correct")
-    if out.result["minimal_failing"] != whatif_cli["minimal_failing"]:
-        fail("query", "the in-process what-if disagrees with the CLI's")
+    if out.result["minimal_failing"] is not None or out.verdict is not True:
+        fail("query", f"the in-process what-if of 137 variants: {out.verdict}, {out.result['minimal_failing']}")
     phase_line("query", card=card, seconds=round(time.perf_counter() - t0, 3), runs=rows,
+               process_wall_s=process_wall,
                whatif_in_process={"seconds": in_process_s, "variants": out.result["variants"],
                                   "launches": launches})
 
@@ -3333,8 +3446,8 @@ def serve_phase(device, card, texts, manifest, cert_jobs, work):
 
     # -- Stream A: the default server (auto, delta on, certificates) -------
     dump = json.loads(texts["dump_scale_correct.json.gz"])
-    dump_trace, _ = synth.churn_trace_steps(dump, 16, seed=3, max_diff=2)
-    snap_trace, _ = synth.churn_trace_steps(json.loads(texts["snapshot_correct.json"]), 15, seed=3)
+    dump_trace, _ = synth.churn_trace_steps(dump, 8, seed=3, max_diff=2)
+    snap_trace, _ = synth.churn_trace_steps(json.loads(texts["snapshot_correct.json"]), 8, seed=3)
     fixtures = [(name, texts[name]) for name in manifest]
     plan = []  # (request id, source, expected verdict or None for the scratch solve's)
     for k in range(max(len(dump_trace), len(snap_trace))):
@@ -3381,10 +3494,12 @@ def serve_phase(device, card, texts, manifest, cert_jobs, work):
     lines_b = [req(f"b{i}", src, f"tenant-{i % 4}") for i, (_, src, _) in enumerate(sources)]
     want_b = check_many([src for _, src, _ in sources], backend="gpu-sweep")
     turns, results_b, counters_b = [], {}, {}
-    for turn, window in enumerate(("5", "0", "0", "5")):
+    # One fused run, under the profiler (an unfused drain serves streams A,
+    # C's faults and D); every answer held to check_many's.
+    for turn, window in enumerate(("5",)):
         path = work / f"serve_b{turn}.jsonl"
         run = serve_run(["--backend", "gpu-sweep", "--emit-certs", "--batch-max", "16", "--metrics-json", str(path)],
-                        lines_b, env={"QI_SERVE_FUSE_WINDOW_MS": window})
+                        lines_b, env={"QI_SERVE_FUSE_WINDOW_MS": window}, profile=True)
         got = answered(run, f"stream B turn {turn}")
         counters, gauges, tenants = metrics_of(path)
         for i, ((label, src, expect), want) in enumerate(zip(sources, want_b)):
@@ -3446,20 +3561,12 @@ def serve_phase(device, card, texts, manifest, cert_jobs, work):
                       "fill_pct": gauges.get("fuse.fill_pct"), "solves": len(solves),
                       "pack_shapes": {f"{n}x{rows}": len(v) for (rows, n), v in packs.items()},
                       "lane_windows_total": counters.get("cost.lane_windows_total")})
-    for rid, r in results_b["fused"].items():
-        u = results_b["unfused"][rid]
-        if (r.get("verdict"), witness(r), r["stats"].get("hit_index")) != (
-                u.get("verdict"), witness(u), u["stats"].get("hit_index")):
-            fail("serve", f"stream B: {rid} fused {r.get('verdict')} differs from unfused {u.get('verdict')}")
     for i, (label, src, _) in enumerate(sources):
         cert_jobs.append((f"serve/B fused {label}", src, results_b["fused"][f"b{i}"]["cert"]))
-    prof = serve_run(["--backend", "gpu-sweep", "--batch-max", "16"], lines_b, env={"QI_SERVE_FUSE_WINDOW_MS": "5"},
-                     profile=True)
-    answered(prof, "stream B profiled")
-    busy = prof["record"].get("device_busy_ms") or 0.0
+    busy = run["record"].get("device_busy_ms") or 0.0
     streams["B"] = {"turns": turns, "profiled_fused": {
-        "device_busy_ms": busy, "serve_s": prof["record"]["serve_s"],
-        "device_idle_share": 1 - busy / (prof["record"]["serve_s"] * 1e3) if busy > 0
+        "device_busy_ms": busy, "serve_s": run["record"]["serve_s"],
+        "device_idle_share": 1 - busy / (run["record"]["serve_s"] * 1e3) if busy > 0
         else "not measured (no device events)"}}
 
     # -- Stream C: a deadline inside a pack; Stream D's faults, at once ------
@@ -3534,13 +3641,33 @@ def serve_phase(device, card, texts, manifest, cert_jobs, work):
                  ("k-small-1", synth.majority_fbas(10, broken=True, prefix="KB"), False),
                  ("k-full", full, True), ("k-small-2", synth.majority_fbas(11, prefix="KC"), True)]
     lines_d = [req(rid, s, "ops") for rid, s, _ in kill_plan]
-    killed = serve_run(["--backend", "gpu-sweep", "--journal", str(journal)], lines_d, kill_after_first=True)
+    # The uninterrupted answers: verdict, hit index and witness of each.
+    want_d = {rid: res for (rid, _, _), res in zip(kill_plan, check_many([s for _, s, _ in kill_plan],
+                                                                         backend="gpu-sweep"))}
+    killed = serve_run(["--backend", "gpu-sweep", "--emit-certs", "--journal", str(journal)], lines_d,
+                       kill_after_first=True)
     seen = {r["request_id"]: r.get("verdict") for r in killed["responses"] if "request_id" in r}
+    held_d = [r for r in killed["responses"] if "request_id" in r]
     twin_journal = work / "serve.journal.twin"
     twin_journal.write_bytes(journal.read_bytes())
     journaled = {json.loads(ln)["request_id"] for ln in journal.read_text().splitlines()
                  if ln.strip().startswith("{") and '"kind": "req"' in ln}
-    replay = serve_run(["--backend", "gpu-sweep", "--journal", str(journal), "--replay-only"], [])
+    # The replay and the restart read two copies of the journal: one wave.
+    restart_lines = [req(rid, s, "ops") for rid, s, _ in kill_plan if seen.get(rid) is None]
+    d_runs = [None, None]
+
+    def d_go(i, args, lines):
+        d_runs[i] = serve_run(args, lines)
+
+    ths = [threading.Thread(target=d_go, args=(0, ["--backend", "gpu-sweep", "--journal", str(journal),
+                                                    "--replay-only"], [])),
+           threading.Thread(target=d_go, args=(1, ["--backend", "gpu-sweep", "--emit-certs", "--journal",
+                                                    str(twin_journal)], restart_lines))]
+    for th in ths:
+        th.start()
+    for th in ths:
+        th.join()
+    replay, restart = d_runs
     answered(replay, "stream D replay-only")
     report = next((r for r in replay["responses"] if r.get("kind") == "replay"), None)
     if report is None or report["pending"] < 1:
@@ -3551,13 +3678,22 @@ def serve_phase(device, card, texts, manifest, cert_jobs, work):
             fail("serve", f"stream D: replayed {rid} {v}, uninterrupted {truth[rid]}")
     if set(report["verdicts"]) | {k for k, v in seen.items() if v is not None} != journaled:
         fail("serve", f"stream D: answered {seen} + replayed {report['verdicts']} != journaled {sorted(journaled)}")
-    restart = serve_run(["--backend", "gpu-sweep", "--journal", str(twin_journal)],
-                        [req(rid, s, "ops") for rid, s, _ in kill_plan if seen.get(rid) is None])
     got = answered(restart, "stream D restart")
     rep2 = next((r for r in restart["responses"] if r.get("kind") == "replay"), {})
     for rid, _, v in kill_plan:
         if seen.get(rid) is None and got.get(rid, {}).get("verdict") is not v:
             fail("serve", f"stream D restart: {rid} answered {got.get(rid)}, uninterrupted {v}")
+    # The answers before the kill and after the restart (the replayed ones
+    # from its cache) hold check_many's verdict, hit index and witness.
+    for r in held_d + list(got.values()):
+        want = want_d[r["request_id"]]
+        if (r.get("verdict") is not want.intersects
+                or (r.get("stats") or {}).get("hit_index") != want.stats.get("hit_index")
+                or (not want.intersects
+                    and witness(r) != sorted(sorted(want.cert["witness"][q]) for q in ("q1", "q2")))):
+            fail("serve", f"stream D: {r['request_id']} answered {r.get('verdict')} at hit "
+                          f"{r.get('stats', {}).get('hit_index')}, check_many {want.intersects} at "
+                          f"{want.stats.get('hit_index')}, or another witness")
     streams["D"] = {"killed_after_first": {"answered": seen, "journaled": sorted(journaled), "rc": killed["rc"],
                                            "wall_s": killed["wall"]},
                     "replay_only": {k: report[k] for k in ("pending", "already_done", "verdicts", "torn_tail")},
@@ -3565,10 +3701,7 @@ def serve_phase(device, card, texts, manifest, cert_jobs, work):
                                 "cached": sum(1 for v in got.values() if v.get("cached"))},
                     "sweep.dispatch": dispatch_fault, "serve.drain": drain_fault}
 
-    fused_wall = [t["wall_s"] for t in turns if t["arm"] == "fused"]
-    unfused_wall = [t["wall_s"] for t in turns if t["arm"] == "unfused"]
     phase_line("serve", card=card, seconds=round(time.perf_counter() - t0, 3), streams=streams,
-               fused_vs_unfused_wall_s={"fused": fused_wall, "unfused": unfused_wall},
                serve_launches={k: v for k, v in launches.items()})
     if launches["packed_sweep_dense_cuda"] + launches["packed_sweep_bitset_cuda"] < 1:
         fail("serve", f"the serve path never launched a packed kernel: {dict(launches)}")
@@ -3992,6 +4125,262 @@ def fleet_phase(device, card, texts, manifest, cert_jobs, work):
     return dict(launches)
 
 
+# The per-SCC scan in turns (phase native): Python loop and native call on
+# one graph, alternately, so both see the same host and cache state.
+SCAN_TURNS = ("python", "native", "native", "python", "python", "native")
+SCAN_WATCHERS = 30_000  # the larger of the two networks scanned in SCAN_TURNS
+SCAN_FULL_WATCHERS = 200_000  # the 200k network: one turn each way (a native turn takes seconds)
+SCAN_SCC_SIZES = (16, 32, 48, 64, 96, 128, 192, 256)  # one SCC: benchmark_fbas(s, s)
+SCAN_SCC_REPS = 20  # scans a turn on one SCC, above the timer's resolution
+TOOLING_TWIN_CORE = 31  # phase tooling's profiled solve: benchmark_fbas(256, core=31), 2^30 candidates
+
+
+def scan_turns(graph, sccs, turns=SCAN_TURNS, reps=1):
+    """``turns`` over one graph, each ``reps`` scans: the seconds of one scan
+    each way, in order; fails unless every turn's quorums are equal."""
+    from quorum_intersection_tpu_torch.backends.cpp import native_scc_scan
+    from quorum_intersection_tpu_torch.pipeline import scan_scc_quorums
+
+    secs = {"python": [], "native": []}
+    want = None
+    for way in turns:
+        t = time.perf_counter()
+        for _ in range(reps):
+            got = native_scc_scan(graph, sccs) if way == "native" else scan_scc_quorums(graph, sccs)
+        secs[way].append((time.perf_counter() - t) / reps)
+        if want is None:
+            want = got
+        elif got != want:
+            fail("native", f"the {way} scan's quorums differ from the first turn's")
+    return secs
+
+
+def crossover_members(rows):
+    """The SCC size where the native scan's median meets the Python loop's:
+    linear between the two sizes around the first at which the native one
+    is faster; the first size if it is faster from the start, None if it
+    never is."""
+    prev = None
+    for r in rows:
+        d = r["python_median_s"] - r["native_median_s"]
+        if d > 0:
+            if prev is None:
+                return r["members"]
+            (s0, d0) = prev
+            return round(s0 + (r["members"] - s0) * -d0 / (d - d0), 1)
+        prev = (r["members"], d)
+    return None
+
+
+def native_phase(device, card, texts, manifest, cert_jobs, work, main_cli=None, k1_rate=None):
+    """Phase native: the native host layer on the card's host.  The per-SCC
+    scan in turns on the dump, the 30k and the 200k networks and on single
+    SCCs of growing size, and the SCC size, if any, from which the native
+    scan is the faster; the dump's ``gpu-sweep`` solve through K1 beside
+    the native scan of its SCCs; the native binary against
+    the ``gpu-sweep`` CLI processes on the fixtures (``main_cli``: phase
+    main's; else run here) and, under ``-v``, against the port's CLI in
+    process on the same native search (``--backend cpp``); ``native_candidate_rate`` beside K1's candidates/s
+    (``k1_rate``: phase full's; else measured here)."""
+    from statistics import median
+
+    import numpy as np
+
+    from quorum_intersection_tpu_torch import cli, pipeline
+    from quorum_intersection_tpu_torch.backends import cpp
+    from quorum_intersection_tpu_torch.backends.sweep import GpuSweepBackend
+    from quorum_intersection_tpu_torch.fbas import synth
+    from quorum_intersection_tpu_torch.fbas.graph import build_graph, group_sccs, tarjan_scc
+    from quorum_intersection_tpu_torch.fbas.schema import parse_fbas
+    from quorum_intersection_tpu_torch.kernels.sweep_cuda import sweep_fused
+    from quorum_intersection_tpu_torch.utils import telemetry
+
+    t0 = time.perf_counter()
+
+    def graph_and_sccs(text=None, graph=None):
+        graph = build_graph(parse_fbas(text)) if graph is None else graph
+        count, comp = tarjan_scc(graph.n, graph.succ)
+        return graph, group_sccs(graph.n, comp, count)
+
+    def turns_row(g, sccs, turns=SCAN_TURNS, reps=1, **row):
+        secs = scan_turns(g, sccs, turns, reps)
+        med = {way: median(v) for way, v in secs.items()}
+        return {**row, "nodes": g.n, "sccs": len(sccs), "largest_scc": max(map(len, sccs)),
+                "turns": list(turns), "scans_a_turn": reps,
+                "python_s": secs["python"], "native_s": secs["native"],
+                "python_median_s": med["python"], "native_median_s": med["native"],
+                "python_spread_s": max(secs["python"]) - min(secs["python"]),
+                "native_spread_s": max(secs["native"]) - min(secs["native"]),
+                "python_per_scc_us": med["python"] / len(sccs) * 1e6,
+                "native_per_scc_us": med["native"] / len(sccs) * 1e6,
+                "quorums_equal": True}
+
+    # -- the scan in turns: networks of many small SCCs ----------------------
+    cpp.build_library()
+    rows = []
+    for label, text in (("dump_scale_correct.json.gz", texts["dump_scale_correct.json.gz"]),
+                        (f"stellar_like_fbas(n_watchers={SCAN_WATCHERS},seed=7)",
+                         json.dumps(synth.stellar_like_fbas(n_watchers=SCAN_WATCHERS, seed=7)))):
+        rows.append(turns_row(*graph_and_sccs(text), graph=label))
+    label = f"stellar_like_fbas(n_watchers={SCAN_FULL_WATCHERS},seed=7)"
+    t = time.perf_counter()
+    if label in GRAPHS:
+        graph, sccs = graph_and_sccs(graph=GRAPHS.pop(label))
+    else:
+        graph, sccs = graph_and_sccs(json.dumps(synth.stellar_like_fbas(n_watchers=SCAN_FULL_WATCHERS, seed=7)))
+    rows.append(turns_row(graph, sccs, ("python", "native"), graph=label, graph_build_s=time.perf_counter() - t))
+    del graph, sccs
+
+    # -- the scan in turns: one SCC of growing size ---------------------------
+    scc_rows = []
+    for m in SCAN_SCC_SIZES:
+        graph, sccs = graph_and_sccs(json.dumps(synth.benchmark_fbas(m, m)))
+        if len(sccs) != 1:
+            fail("native", f"benchmark_fbas({m}, {m}): {len(sccs)} SCCs, not one")
+        scc_rows.append(turns_row(graph, sccs, reps=SCAN_SCC_REPS, graph=f"benchmark_fbas({m},{m})", members=m))
+    crossover = crossover_members(scc_rows)
+
+    # -- the dump solved on the card, beside the native scan of its SCCs ------
+    graph, sccs = graph_and_sccs(texts["dump_scale_correct.json.gz"])
+    telemetry.reset_run_record()
+    sweep_fused.launches = 0
+    t = time.perf_counter()
+    res = pipeline.solve_graph(graph, backend=GpuSweepBackend(device=device))
+    solve_s = time.perf_counter() - t
+    if "native.scan_fixpoints" in telemetry.get_run_record().counters:
+        fail("native", "the dump's solve scanned natively")
+    cert_jobs.append(("native/dump_scale_correct.json.gz", texts["dump_scale_correct.json.gz"], res.cert))
+    native_bearing = [sid for sid, q in enumerate(cpp.native_scc_scan(graph, sccs)) if q]
+    if res.intersects is not True or sweep_fused.launches < 1 or native_bearing != res.quorum_scc_ids:
+        fail("native", f"the dump: verdict {res.intersects}, K1 {sweep_fused.launches}, quorum-bearing SCCs "
+                       f"{res.quorum_scc_ids} in the solve, {native_bearing} natively")
+    solve_row = {"graph": "dump_scale_correct.json.gz", "nodes": graph.n, "sccs": len(sccs), "solve_s": solve_s,
+                 "verdict": res.intersects, "k1_launches": sweep_fused.launches,
+                 "scc_scan_timer_s": res.timers.get("scc_scan"), "quorum_scc_ids": res.quorum_scc_ids,
+                 "native_quorum_scc_ids": native_bearing}
+    del graph, sccs
+
+    # -- the native binary against the CLI ------------------------------------
+    binary = str(cpp.build_native_cli())
+    names = list(manifest)
+    if main_cli is None:
+        runs = run_all([[sys.executable, "-m", PORT, "--backend", "gpu-sweep", "--device", device.type]
+                        for _ in names], inputs=[texts[name] for name in names])
+        main_cli = {name: (so, se, rc) for name, (so, se, rc, _) in zip(names, runs)}
+    native_runs = run_all([[binary] for _ in names] + [[binary, "-v"] for _ in names],
+                          inputs=[texts[name] for name in names] * 2)
+    binary_rows = {}
+    for i, name in enumerate(names):
+        so, _, rc, secs = native_runs[i]
+        cso, _, crc = main_cli[name]
+        if (so, rc) != (cso, crc):
+            fail("native", f"{name}: the binary printed {so[-60:]!r} exit {rc}, the CLI {cso[-60:]!r} exit {crc}")
+        vso, _, vrc, _ = native_runs[len(names) + i]
+        pso, _, prc = in_process(cli.main, ["--backend", "cpp", "--device", device.type, "-v"], texts[name])
+        if (vso, vrc) != (pso, prc):
+            fail("native", f"{name}: the binary's -v output differs from the port's CLI (cpp) in process")
+        binary_rows[name] = {"stdout": so.strip(), "exit": rc, "binary_s": secs, "verbose_lines": len(vso.splitlines())}
+
+    # -- the candidate rate --------------------------------------------------
+    rate_graph = build_graph(parse_fbas(json.dumps(synth.benchmark_fbas(256, 34))))
+    masks = np.random.default_rng(0).random((1 << 16, rate_graph.n)) < 0.5
+    native_rate = cpp.native_candidate_rate(rate_graph, masks)
+    if k1_rate is None:
+        t = time.perf_counter()
+        k1_res = pipeline.solve(synth.benchmark_fbas(256, 34), backend="gpu-sweep", device=device)
+        k1_rate = k1_res.stats["candidates_checked"] / (time.perf_counter() - t)
+    phase_line("native", card=card, seconds=round(time.perf_counter() - t0, 3), scan_turns=rows,
+               scan_turns_one_scc=scc_rows, native_faster_from_members=crossover,
+               gpu_sweep_solve=solve_row, binary=binary_rows,
+               binary_vs="stdout and exit equal to the gpu-sweep CLI processes; -v byte-equal to the port's CLI "
+                         "in process under --backend cpp (the same witness pair as the binary's search)",
+               candidate_rate={"native_per_s": native_rate, "host_core": "one", "masks": int(masks.shape[0]),
+                               "graph": "benchmark_fbas(256, core=34), random masks over all nodes (bench.py's)",
+                               "k1_per_s": k1_rate, "k1_over_native": k1_rate / native_rate})
+
+
+# A fresh process's kernel build: every library of kernels/build.py through
+# the backends' own timed_build, with the build cache's counters.
+BUILD_PROBE = r"""
+import json
+from quorum_intersection_tpu_torch.kernels import build
+from quorum_intersection_tpu_torch.utils.telemetry import get_run_record
+seconds = build.timed_build(build.SOURCES)
+rec = get_run_record()
+print(json.dumps({"kernel_build_seconds": seconds, "hits": rec.counters.get("compile_cache.hits", 0),
+                  "misses": rec.counters.get("compile_cache.misses", 0),
+                  "enabled_dirs": [ev["attrs"]["dir"] for ev in rec.events if ev["name"] == "compile_cache.enabled"],
+                  "libraries": sorted(str(build._target(name)) for name in build.SOURCES)}))
+"""
+
+
+def tooling_phase(device, card, cert_jobs, work):
+    """Phase tooling: the build cache, a process with
+    ``QI_NO_COMPILE_CACHE=1`` (every library built into a private
+    directory), then one with the cache (every library found); beside the
+    second, a profiled CLI solve of the 2^30 twin (the trace holds K1's
+    events and the run's ``qi-trace`` range, the id the metrics stream's);
+    then the same solve unprofiled in process."""
+    import os
+
+    from quorum_intersection_tpu_torch.fbas import synth
+    from quorum_intersection_tpu_torch.kernels import build
+    from quorum_intersection_tpu_torch.pipeline import solve
+    from quorum_intersection_tpu_torch.utils.profiling import trace_file
+
+    t0 = time.perf_counter()
+    base = {k: v for k, v in os.environ.items() if k != "QI_NO_COMPILE_CACHE"}
+    twin = json.dumps(synth.benchmark_fbas(256, TOOLING_TWIN_CORE))
+    prof_dir, metrics, cert = work / "profile", work / "profile.jsonl", work / "profile.cert.json"
+    probe = [sys.executable, "-c", BUILD_PROBE]
+    cold_run = run_all([probe], envs=[dict(base, QI_NO_COMPILE_CACHE="1")])[0]
+    warm_run, (so, se, rc, process_s) = run_all(
+        [probe, [sys.executable, "-m", PORT, "--backend", "gpu-sweep", "--device", device.type, "--profile-dir",
+                 str(prof_dir), "--metrics-json", str(metrics), "--cert-out", str(cert)]],
+        inputs=["", twin], envs=[base, base])
+    def probe_result(run):
+        out, err, code, secs = run
+        if code != 0:
+            fail("tooling", f"build probe exit {code}: {err[-800:]!r}")
+        return dict(json.loads(out.strip().splitlines()[-1]), process_s=secs)
+
+    cold, warm = probe_result(cold_run), probe_result(warm_run)
+    n = len(build.SOURCES)
+    private = all(str(ROOT) not in lib for lib in cold["libraries"])
+    if (cold["misses"], cold["hits"], warm["hits"], warm["misses"]) != (n, 0, n, 0) or not private:
+        fail("tooling", f"build cache: cold {cold}, warm {warm}")
+    if warm["kernel_build_seconds"] > 0.1 * cold["kernel_build_seconds"]:
+        fail("tooling", f"warm build {warm['kernel_build_seconds']} s > 10% of cold {cold['kernel_build_seconds']} s")
+
+    if (so, rc) != ("true\n", 0):
+        fail("tooling", f"profiled CLI: printed {so[-40:]!r} exit {rc}; {se[-600:]!r}")
+    lines = [json.loads(ln) for ln in metrics.read_text().splitlines()]
+    trace_id = lines[0]["trace_id"]
+    spans = {ln["name"]: ln for ln in lines if ln["kind"] == "span"}
+    events = json.loads(trace_file(str(prof_dir), trace_id).read_text())["traceEvents"]
+    k1_events = [ev for ev in events if "sweep_kernel" in ev.get("name", "")]
+    ranges = [ev for ev in events if ev.get("name") == f"qi-trace:{trace_id}"]
+    if not k1_events or not ranges or spans.get("profile.trace", {}).get("attrs", {}).get("trace_id") != trace_id:
+        fail("tooling", f"trace {trace_id}: {len(k1_events)} K1 events, {len(ranges)} qi-trace ranges, "
+                        f"span {spans.get('profile.trace')}")
+    cert_jobs.append(("tooling/profiled twin", twin, json.loads(cert.read_text())))
+    unprofiled = []
+    for _ in range(3):
+        t = time.perf_counter()
+        res = solve(twin, backend="gpu-sweep", device=device)
+        unprofiled.append(time.perf_counter() - t)
+        if res.intersects is not True:
+            fail("tooling", "the unprofiled twin solve is not true")
+    profiled = {"process_s": process_s, "trace_id": trace_id, "k1_events": len(k1_events),
+                "k1_device_ms": sum(ev.get("dur", 0) for ev in k1_events) / 1e3,
+                "search_s": spans["phase.search"]["seconds"], "profile_span_s": spans["profile.trace"]["seconds"],
+                "trace_bytes": trace_file(str(prof_dir), trace_id).stat().st_size,
+                "unprofiled_in_process_s": unprofiled, "beside": "the warm build probe"}
+    phase_line("tooling", card=card, seconds=round(time.perf_counter() - t0, 3), profiled=profiled,
+               build_cache={"cold": cold, "warm": warm,
+                            "warm_over_cold": warm["kernel_build_seconds"] / cold["kernel_build_seconds"]})
+
+
 def zero_script_launches():
     """This process's kernel launch counts set to 0."""
     from quorum_intersection_tpu_torch.kernels import frontier_cuda
@@ -4066,6 +4455,22 @@ def run_all(cmds, inputs=None, parallel: int = 8, timeout: int = 600, envs=None)
     return out
 
 
+def in_process(main, argv, stdin_text):
+    """One CLI entry point called in this process as a process would run
+    it: ``stdin_text`` on stdin; returns ``(stdout, stderr, exit code)``."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    real_stdin, sys.stdin = sys.stdin, io.StringIO(stdin_text)
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = main(argv)
+    finally:
+        sys.stdin = real_stdin
+    return out.getvalue(), err.getvalue(), rc
+
+
 def raw_json(src) -> str:
     return src if isinstance(src, str) else json.dumps(src)
 
@@ -4105,6 +4510,9 @@ def main(argv=None) -> int:
     ap.add_argument("--fleet", action="store_true",
                     help="only build, then run the replicated serve tier's phase (fleet: streams F1-F3) and "
                          "check its certificates (no ok line)")
+    ap.add_argument("--native", action="store_true",
+                    help="only build, then run the native host layer's and the tooling's phases (native, tooling) "
+                         "and check their certificates (no ok line)")
     ap.add_argument("--k12-parent", metavar="DIR", default=None,
                     help="a checkout (git archive) whose PageRank kernel timing_pagerank times in turns "
                          "with this tree's, per call and per iteration, beside this tree's launch shapes")
@@ -4165,8 +4573,8 @@ def main(argv=None) -> int:
         texts = {name: fixture_text(name) for name in manifest}
         work = pathlib.Path(tempfile.mkdtemp(prefix="qi-chip-smoke-"))
         cert_jobs = []
-        observe_phase(device, card, texts, manifest, cert_jobs, work)
-        faults_phase(device, card, texts, cert_jobs, work)
+        fault_runs = observe_phase(device, card, texts, manifest, cert_jobs, work, beside=faults_cli_jobs(texts, work))
+        faults_phase(device, card, texts, cert_jobs, work, fault_runs)
         query_phase(device, card, texts, cert_jobs, work)
         refused, _ = check_certificates(cert_jobs, work)
         phase_line("cert", card=card, checked=len(cert_jobs), refused=refused)
@@ -4180,6 +4588,19 @@ def main(argv=None) -> int:
         work = pathlib.Path(tempfile.mkdtemp(prefix="qi-chip-smoke-"))
         cert_jobs = []
         serve_phase(device, card, texts, manifest, cert_jobs, work)
+        refused, _ = check_certificates(cert_jobs, work)
+        phase_line("cert", card=card, checked=len(cert_jobs), refused=refused)
+        return 1 if refused else 0
+
+    if args.native:
+        import tempfile
+
+        manifest = json.loads((FIXTURES / "MANIFEST.json").read_text())
+        texts = {name: fixture_text(name) for name in manifest}
+        work = pathlib.Path(tempfile.mkdtemp(prefix="qi-chip-smoke-"))
+        cert_jobs = []
+        native_phase(device, card, texts, manifest, cert_jobs, work)
+        tooling_phase(device, card, cert_jobs, work)
         refused, _ = check_certificates(cert_jobs, work)
         phase_line("cert", card=card, checked=len(cert_jobs), refused=refused)
         return 1 if refused else 0
@@ -4480,16 +4901,6 @@ def main(argv=None) -> int:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    # The end-to-end number a CLI user sees on a snapshot: one process alone,
-    # from start (Python, torch, CUDA context, kernel load) to exit.
-    t = time.perf_counter()
-    alone = subprocess.run([sys.executable, "-m", PORT, "--backend", "gpu-sweep"], cwd=ROOT,
-                           input=texts["snapshot_correct.json"],
-                           capture_output=True, text=True, timeout=300)
-    cli_seconds = time.perf_counter() - t
-    if alone.returncode != 0 or alone.stdout.strip() != "true":
-        fail("main", f"CLI alone on snapshot_correct.json: exit {alone.returncode} {alone.stderr[-400:]!r}")
-
     sweep_fused.launches = 0
     main_rows = []
     for name, text in texts.items():
@@ -4510,6 +4921,8 @@ def main(argv=None) -> int:
         main_rows.append({"fixture": name, "verdict": res.intersects, "seconds": seconds,
                           "hit_index": res.stats.get("hit_index"),
                           "candidates": res.stats.get("candidates_checked")})
+    phase_line("main", fixtures=main_rows,
+               cli="python -m " + PORT + " --backend gpu-sweep: 7/7 verdicts and exit codes")
 
     # -- 6. full width ---------------------------------------------------
     full = []
@@ -4538,9 +4951,6 @@ def main(argv=None) -> int:
         solve(synth.benchmark_fbas(256, 34), backend="gpu-sweep")
         torch.cuda.synchronize()
     full_device_ms = device_ms_by_kernel(prof)
-    phase_line("main", fixtures=main_rows,
-               cli="python -m " + PORT + " --backend gpu-sweep: 7/7 verdicts and exit codes",
-               cli_snapshot_correct_seconds=cli_seconds)
     phase_line("full", card=card, runs=full)
     if launches < 1:
         fail("main", "the main path never launched sweep_fused_cuda")
@@ -5045,13 +5455,17 @@ def main(argv=None) -> int:
         files[name] = work / f"source{i}.json"
         files[name].write_text(src)
     variants = {"auto": [], "auto_no_race": ["--no-race"], "gpu_sweep": ["--backend", "gpu-sweep"]}
+    # The CLI as a process on one source per route the router takes (the
+    # oracle, the sweep, the SCC guard) under each mode; every source runs
+    # through AutoBackend in process below.
+    cli_sources = ("snapshot_broken.json", "benchmark_fbas(256,core=34,broken=False)", "nested_broken.json")
     cmds, keys = [], []
-    for name, _, _ in auto_sources:
+    for name in cli_sources:
         for var, flags in variants.items():
             cert = work / f"{files[name].stem}.{var}.cert.json"
             cmds.append([sys.executable, "-m", PORT, *flags, "--cert-out", str(cert)])
             keys.append((name, var, cert))
-    runs = run_all(cmds, inputs=[files[name].read_text() for name, _, _ in keys])
+    runs = run_all(cmds, inputs=[files[name].read_text() for name, _, _ in keys], parallel=len(cmds))
     cli_rows = {}
     for (name, var, cert), (so, se, rc, secs) in zip(keys, runs):
         want = dict((n, w) for n, _, w in auto_sources)[name]
@@ -5074,10 +5488,11 @@ def main(argv=None) -> int:
         for var in variants:
             row[var].pop("witness")
     profiler_seen["auto CLI processes"] = profiler_records(device)
-    # The cold process a CLI user starts, alone, on a real snapshot: auto
-    # against gpu-sweep, in turns.
-    cold_cli = {"gpu_sweep": [], "auto": []}
-    for var in ("gpu_sweep", "auto", "auto", "gpu_sweep"):
+    # The end-to-end number a CLI user sees on a snapshot: one process alone
+    # under the default backend, from start (Python, torch, CUDA context,
+    # kernel load) to exit.
+    cold_cli = {"auto": []}
+    for var in cold_cli:
         so, se, rc, secs = run_all([[sys.executable, "-m", PORT, *variants[var]]],
                                    inputs=[texts["snapshot_correct.json"]])[0]
         if rc != 0 or so.strip() != "true":
@@ -5133,13 +5548,14 @@ def main(argv=None) -> int:
     cert_jobs += [(f"auto_batch/{name}", src, r.cert) for (name, src, _), r in zip(sources, auto_batch)]
     pipeline_mod.build_certificate = real_build_certificate
     profiler_seen["auto check_many"] = profiler_records(device)
-    phase_line("profiler", device_events_recorded_after=profiler_seen)
     phase_line("auto", card=card, cli=cli_rows, cold_cli_snapshot_correct_seconds=cold_cli,
                in_process=auto_rows, launches=auto_launches,
                batch={"seconds": auto_batch_s,
                       "backends": sorted({r.stats.get("backend", "scc_guard") for r in auto_batch}),
                       "packed": sum(1 for r in auto_batch if r.stats.get("packed"))},
-               verdicts=f"{len(auto_sources)}/{len(auto_sources)} equal to gpu-sweep's (verdict and exit code)")
+               verdicts=f"{len(cli_sources)}/{len(cli_sources)} CLI exit codes equal across the modes; "
+                        f"{len(auto_sources)}/{len(auto_sources)} in-process verdicts right")
+    phase_line("profiler", device_events_recorded_after=profiler_seen)
 
     # -- 14-16. PageRank: K12 against its plain version, timed, -p ---------
     pagerank_record = pagerank_phases(device, card, texts, work, args.k12_parent)
@@ -5159,8 +5575,8 @@ def main(argv=None) -> int:
     bitset_record = bitset_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, ptxas, args.k8_parent)
 
     # -- 27-29. the observability and fault layer and the query subcommand --
-    observe_phase(device, card, texts, manifest, cert_jobs, work)
-    faults_phase(device, card, texts, cert_jobs, work)
+    fault_runs = observe_phase(device, card, texts, manifest, cert_jobs, work, beside=faults_cli_jobs(texts, work))
+    faults_phase(device, card, texts, cert_jobs, work, fault_runs)
     query_phase(device, card, texts, cert_jobs, work)
 
     # -- 30. delta: incremental re-analysis through the card's kernels ------
@@ -5172,7 +5588,11 @@ def main(argv=None) -> int:
     # -- 32. fleet: the replicated serve tier on the card --------------------
     fleet_launches = fleet_phase(device, card, texts, manifest, cert_jobs, work)
 
-    # -- 33. cert: every certificate through the unmodified checker --------
+    # -- 33-34. the native host layer and the tooling ------------------------
+    native_phase(device, card, texts, manifest, cert_jobs, work, main_cli=cli, k1_rate=full[0]["candidates_per_s"])
+    tooling_phase(device, card, cert_jobs, work)
+
+    # -- 35. cert: every certificate through the unmodified checker --------
     t = time.perf_counter()
     bad, checked = check_certificates(cert_jobs, work)
     cert_wall = time.perf_counter() - t

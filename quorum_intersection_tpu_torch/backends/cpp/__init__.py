@@ -1,25 +1,36 @@
-"""Native C++ branch-and-bound oracle: build, bindings and marshalling.
+"""Native C++ host layer: the branch-and-bound oracle, the standalone CLI,
+their builds, bindings and marshalling.
 
-The port's copy of the JAX package's ``backends/cpp/__init__.py``
-(``:45-110``, ``:199-480``), trimmed to the oracle the auto router races.
-The search core is ``qi_oracle.cpp`` beside this file, the JAX package's
-source with one comment line reworded (``tests/test_torch_convert.py`` pins
-the rest byte for byte).  It is compiled at first use with
-``g++ -O3 -fPIC -shared`` into ``_build/`` (gitignored), named by a hash of
-the source so an edit rebuilds; the build writes a temporary file and renames
-it into place, so concurrent builders never load a half-written library.
-The library is loaded through :mod:`ctypes`, which releases the GIL for the
-whole search.
+The port's copy of the JAX package's ``backends/cpp/__init__.py``.  Two
+sources sit beside this file, each the JAX package's with one comment line
+reworded (``tests/test_torch_convert.py`` pins the rest byte for byte):
+
+- ``qi_oracle.cpp``, the search core, compiled at first use with
+  ``g++ -O3 -fPIC -shared`` into a library loaded through :mod:`ctypes`
+  (which releases the GIL for the whole search);
+- ``qi_native.cpp``, the standalone CLI (the reference tool's single-binary
+  deployment: parser, trust graph, Tarjan, the per-SCC scan, the search
+  linked from ``qi_oracle.cpp``, PageRank, Graphviz), built by
+  :func:`build_native_cli`, optionally under a sanitizer (``QI_SANITIZER``).
+  It touches no device.
+
+Every build lands in ``_build/`` (gitignored), or under
+``QI_NO_COMPILE_CACHE`` in a private directory of the process
+(:mod:`..utils.compile_cache`), named by a hash of the sources and flags so
+an edit rebuilds; the build writes a temporary file and renames it into
+place, so concurrent builders never load a half-written file.
 
 Marshalling: the :class:`TrustGraph` is flattened per call into int32 arrays
 (:class:`FlatGraph`) — CSR successor lists plus a pool of quorum-set
 "units" (threshold, a span of direct members, a span of inner units); a null
 qset (Q2) is root ``-1``.
 
-:func:`native_top_tier` binds the same library's minimal-quorum
-enumeration (``qi_top_tier``) for the top-tier analysis and the rank order;
+:func:`native_top_tier` binds the library's minimal-quorum enumeration
+(``qi_top_tier``) for the top-tier analysis and the rank order;
 :class:`NativeMaxQuorum` its greatest fixpoint (``qi_max_quorum``) for the
-frontier's exact host checks of flagged sets.
+frontier's exact host checks of flagged sets and :func:`native_scc_scan`,
+the pipeline's per-SCC scan on big graphs; :func:`native_candidate_check`
+its per-candidate check (``qi_candidate_check``), the host's candidate rate.
 
 The backend gives the Python oracle's verdicts, witnesses and search
 statistics (:mod:`.python_oracle`) in deterministic mode.
@@ -32,9 +43,10 @@ import hashlib
 import logging
 import os
 import subprocess
+import tempfile
 import time
 from pathlib import Path
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -46,17 +58,30 @@ from quorum_intersection_tpu_torch.backends.base import (
 from quorum_intersection_tpu_torch.encode.circuit import Circuit
 from quorum_intersection_tpu_torch.fbas.graph import IndexedQSet, TrustGraph
 from quorum_intersection_tpu_torch.fbas.schema import MAX_QSET_DEPTH
+from quorum_intersection_tpu_torch.utils import compile_cache
+from quorum_intersection_tpu_torch.utils.env import qi_env
 from quorum_intersection_tpu_torch.utils.faults import fault_point
 from quorum_intersection_tpu_torch.utils.telemetry import Span, get_run_record
 
 log = logging.getLogger("quorum_intersection_tpu_torch.backends.cpp")
 
 SRC = Path(__file__).with_name("qi_oracle.cpp")
+CLI_SRC = Path(__file__).with_name("qi_native.cpp")
 BUILD_DIR = Path(__file__).with_name("_build")
 GXX_FLAGS = ["-std=c++17", "-O3", "-fPIC", "-shared"]
+CLI_FLAGS = ["-std=c++17", "-O2"]
 
-# Ceiling on one g++ run: the oracle builds in a few seconds, so this means
-# a wedged compiler — fail with its output instead of hanging the solve.
+# The instrumented builds of the standalone CLI, by sanitizer: asan is the
+# memory and undefined-behaviour check, tsan vets the cancel flag another
+# thread flips under the racing router.
+SANITIZER_FLAGS: Dict[str, List[str]] = {
+    "asan": ["-std=c++17", "-O1", "-g", "-fsanitize=address,undefined", "-fno-sanitize-recover=all"],
+    "tsan": ["-std=c++17", "-O1", "-g", "-fsanitize=thread"],
+}
+
+# Ceiling on one g++ run: the oracle builds in a few seconds and the
+# sanitized CLI in tens, so this means a wedged compiler — fail with its
+# output instead of hanging the solve.
 BUILD_TIMEOUT_S = 600
 
 _i32p = ctypes.POINTER(ctypes.c_int32)
@@ -66,12 +91,16 @@ _u8p = ctypes.POINTER(ctypes.c_uint8)
 _lib: Optional[ctypes.CDLL] = None
 
 
+def _hashed(stem: str, sources: Sequence[Path], flags: Sequence[str], suffix: str = "") -> Path:
+    text = b"".join(src.read_bytes() for src in sources) + " ".join(flags).encode()
+    return compile_cache.build_dir(BUILD_DIR) / f"{stem}-{hashlib.sha256(text).hexdigest()[:16]}{suffix}"
+
+
 def so_path() -> Path:
-    digest = hashlib.sha256(SRC.read_bytes() + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"qi_oracle-{digest}.so"
+    return _hashed("qi_oracle", [SRC], GXX_FLAGS, ".so")
 
 
-def _run_gxx(cmd: Sequence[str]) -> "subprocess.CompletedProcess":
+def _run_gxx(cmd: Sequence[str], what: str) -> "subprocess.CompletedProcess":
     try:
         return subprocess.run(cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S)
     except subprocess.TimeoutExpired as exc:
@@ -79,27 +108,86 @@ def _run_gxx(cmd: Sequence[str]) -> "subprocess.CompletedProcess":
         if isinstance(stderr, bytes):
             stderr = stderr.decode("utf-8", "replace")
         raise RuntimeError(
-            f"native oracle build timed out after {BUILD_TIMEOUT_S}s (`{' '.join(cmd)}`):\n{stderr.strip()}"
+            f"{what} timed out after {BUILD_TIMEOUT_S}s (`{' '.join(cmd)}`):\n{stderr.strip()}"
         ) from exc
 
 
-def build_library(force: bool = False) -> Path:
-    """Compile ``qi_oracle.cpp`` into its content-hashed ``.so`` (idempotent;
-    a temporary file renamed into place, one per builder process)."""
-    out = so_path()
+def _compile(out: Path, sources: Sequence[Path], flags: Sequence[str], what: str, force: bool) -> Path:
+    """One content-hashed g++ artifact (idempotent; a temporary file renamed
+    into place, one per builder process)."""
+    compile_cache.note(out, hit=out.exists() and not force)
     if out.exists() and not force:
         return out
-    BUILD_DIR.mkdir(exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(out.name + f".tmp{os.getpid()}")
-    cmd = ["g++", *GXX_FLAGS, "-o", str(tmp), str(SRC)]
-    log.info("building the native oracle: %s", " ".join(cmd))
+    cmd = ["g++", *flags, "-o", str(tmp), *map(str, sources)]
+    log.info("building the %s: %s", what, " ".join(cmd))
     # A broken toolchain: the auto router degrades to the Python oracle.
     fault_point("native.build")
-    proc = _run_gxx(cmd)
+    proc = _run_gxx(cmd, f"{what} build")
     if proc.returncode != 0:
-        raise RuntimeError(f"native oracle build failed (exit {proc.returncode}):\n{proc.stderr}")
+        raise RuntimeError(f"{what} build failed (exit {proc.returncode}):\n{proc.stderr}")
     tmp.replace(out)
     return out
+
+
+def build_library(force: bool = False) -> Path:
+    """Compile ``qi_oracle.cpp`` into its content-hashed ``.so`` (idempotent)."""
+    return _compile(so_path(), [SRC], GXX_FLAGS, "native oracle", force)
+
+
+def sanitizer_mode() -> str:
+    """The sanitizer an instrumented build uses: ``QI_SANITIZER`` in
+    {asan, tsan, none}, default asan."""
+    mode = qi_env("QI_SANITIZER").strip().lower() or "asan"
+    if mode not in ("asan", "tsan", "none"):
+        raise ValueError(f"QI_SANITIZER={mode!r} not in {{asan, tsan, none}}")
+    return mode
+
+
+def _probe_sanitizer_runtime(mode: str) -> None:
+    """Compile and link a two-line program under the sanitizer, so a
+    toolchain without its runtime fails here, naming it — never by handing
+    back an uninstrumented binary."""
+    with tempfile.TemporaryDirectory(prefix="qi-sanprobe-") as tmp:
+        src = Path(tmp) / "probe.cpp"
+        src.write_text("int main() { return 0; }\n")
+        cmd = ["g++", *SANITIZER_FLAGS[mode], "-o", str(Path(tmp) / "probe"), str(src)]
+        proc = _run_gxx(cmd, f"{mode} sanitizer probe")
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"toolchain lacks the {mode} sanitizer runtime (probe `{' '.join(cmd)}` failed):\n"
+            f"{proc.stderr.strip()}\nInstall the lib{mode} runtime or set QI_SANITIZER=none."
+        )
+
+
+def build_native_cli(force: bool = False, sanitize: Union[bool, str] = False) -> Path:
+    """Compile the standalone native CLI (``qi_native.cpp`` and the oracle)
+    into a content-hashed binary and return its path (idempotent).
+
+    ``sanitize`` picks an instrumented build, cached apart per sanitizer
+    (``qi_native-{asan,tsan}-<digest>``): ``True`` takes the mode
+    ``QI_SANITIZER`` names (default asan), or pass ``"asan"``/``"tsan"``.
+    ``QI_SANITIZER=none`` (or ``sanitize="none"``) refuses the instrumented
+    build instead of returning the plain binary: a passing sanitized run
+    must mean the instrumentation ran.  A toolchain without the sanitizer's
+    runtime fails at a probe first, naming the runtime."""
+    if not sanitize:
+        return _compile(_hashed("qi_native", [CLI_SRC, SRC], CLI_FLAGS), [CLI_SRC, SRC], CLI_FLAGS,
+                        "native CLI", force)
+    mode = sanitizer_mode() if sanitize is True else str(sanitize).lower()
+    if mode == "none":
+        raise RuntimeError(
+            "sanitized build requested but QI_SANITIZER=none — unset it (or pick asan/tsan) to build "
+            "an instrumented binary"
+        )
+    if mode not in SANITIZER_FLAGS:
+        raise ValueError(f"unknown sanitizer {mode!r}; expected one of {sorted(SANITIZER_FLAGS)} or 'none'")
+    flags = SANITIZER_FLAGS[mode]
+    exe = _hashed(f"qi_native-{mode}", [CLI_SRC, SRC], flags)
+    if force or not exe.exists():
+        _probe_sanitizer_runtime(mode)
+    return _compile(exe, [CLI_SRC, SRC], flags, f"{mode}-sanitized native CLI", force)
 
 
 def _load() -> ctypes.CDLL:
@@ -136,6 +224,12 @@ def _load() -> ctypes.CDLL:
         _i32p, _i32p, _i32p, _i32p,  # roots, units, mem, inner
         _i32p, ctypes.c_int32,  # nodes, nodes_len
         _u8p, _i32p,  # avail (restored on return), out
+    ]
+    lib.qi_candidate_check.restype = ctypes.c_int64
+    lib.qi_candidate_check.argtypes = [
+        ctypes.c_int32,  # n
+        _i32p, _i32p, _i32p, _i32p,  # roots, units, mem, inner
+        _u8p, ctypes.c_int32,  # masks, batch
     ]
     _lib = lib
     return lib
@@ -376,3 +470,46 @@ class NativeMaxQuorum:
 
     def __call__(self, candidates, avail: np.ndarray) -> List[int]:
         return self._out[: self.count(candidates, avail)].tolist()
+
+
+def native_scc_scan(graph: TrustGraph, sccs: List[List[int]]) -> List[List[int]]:
+    """One max-quorum per SCC, restricted to its members, through
+    ``qi_max_quorum`` (the JAX package's ``native_scc_scan``), with the
+    Python scan's member order.  The JAX pipeline takes it above 256 nodes;
+    the port's pipeline keeps its Python loop, the faster of the two on the
+    card's host (``pipeline.scan_scc_quorums``).  Books ``native.scan_fixpoints`` and
+    ``native.scan_seconds``."""
+    t0 = time.perf_counter()
+    nmq = NativeMaxQuorum(graph)
+    avail = np.zeros(graph.n, dtype=np.uint8)
+    quorums: List[List[int]] = []
+    for members in sccs:
+        arr = np.asarray(members, dtype=np.int32)
+        avail[arr] = 1
+        quorums.append(nmq(arr, avail))
+        avail[arr] = 0
+    rec = get_run_record()
+    rec.add("native.scan_fixpoints", len(sccs))
+    rec.add("native.scan_seconds", round(time.perf_counter() - t0, 6))
+    return quorums
+
+
+def native_candidate_check(graph: TrustGraph, masks: np.ndarray) -> Tuple[int, float]:
+    """The sweep's per-candidate check (the fixpoint and the complement
+    probe) over a batch of availability masks (rows of ``graph.n`` bytes),
+    in native code on one host core.  Returns ``(hits, seconds)``."""
+    lib = _load()
+    flat = FlatGraph(graph)
+    m = np.ascontiguousarray(masks.astype(np.uint8))
+    t0 = time.perf_counter()
+    hits = lib.qi_candidate_check(
+        flat.n, flat.ptr(flat.roots), flat.ptr(flat.units), flat.ptr(flat.mem), flat.ptr(flat.inner),
+        m.ctypes.data_as(_u8p), m.shape[0],
+    )
+    return int(hits), time.perf_counter() - t0
+
+
+def native_candidate_rate(graph: TrustGraph, masks: np.ndarray) -> float:
+    """Candidates a second of :func:`native_candidate_check` on one host core."""
+    _, seconds = native_candidate_check(graph, masks)
+    return masks.shape[0] / seconds if seconds > 0 else float("inf")

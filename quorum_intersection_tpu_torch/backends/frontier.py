@@ -61,6 +61,7 @@ from quorum_intersection_tpu_torch.device import DeviceLike, resolve_device
 from quorum_intersection_tpu_torch.encode.circuit import Circuit
 from quorum_intersection_tpu_torch.fbas.graph import TrustGraph
 from quorum_intersection_tpu_torch.fbas.semantics import max_quorum
+from quorum_intersection_tpu_torch.kernels import build
 from quorum_intersection_tpu_torch.kernels.frontier_ref import ChunkShape, frozen_row
 from quorum_intersection_tpu_torch.utils.env import qi_env_float
 from quorum_intersection_tpu_torch.utils.faults import fault_point
@@ -320,6 +321,10 @@ class GpuFrontierBackend:
         # flags at most K: at the threshold's cap no flag can be dropped.
         flag_cap = self.flag_exit * FLAG_EXIT_GROWTH + K
         shape = ChunkShape(half=prob.half, K=K, C=C, chunk_iters=self.chunk_iters, flag_cap=flag_cap)
+        # The kernels' build before their first use (the stat
+        # kernel_build_seconds; nothing to build for the plain versions).
+        build_s = build.timed_build(("frontier",)) if self.device.type == "cuda" else 0.0
+        get_run_record().gauge("frontier.kernel_build_seconds", round(build_s, 4))
         kern = FrontierKernels(circuit, prob.scc_dev, prob.a_scc, shape, probe_circuit=probe_circuit,
                                frozen=prob.frozen, device=self.device)
         host_check = None  # built on the first flagged batch
@@ -338,6 +343,7 @@ class GpuFrontierBackend:
             # Dispatched-but-abandoned chunks: their counts never reach the
             # counters above.
             "discarded_chunks": 0,
+            "kernel_build_seconds": round(build_s, 4),
         }
         if prob.padded_from is not None:
             stats["padded_from"] = prob.padded_from

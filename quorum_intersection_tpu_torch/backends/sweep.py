@@ -715,25 +715,28 @@ class GpuSweepBackend:
             }
         return cert
 
-    def _bring_up(self, kernels: Sequence[str]) -> None:
+    def _bring_up(self, kernels: Sequence[str]) -> float:
         """The card's first touch, in the order a losing race arm must stop
         at: the cancel token before the kernels' build (a cold ``nvcc``
         takes seconds), again before the CUDA context, which is made current
         on the calling thread.  A kernel this backend has not brought up
         before passes the ``sweep.compile`` fault point first (on the CPU
         too, where its plain version stands in for the library); nothing
-        else happens on the CPU."""
+        else happens on the CPU.  Returns the wall seconds spent on the
+        kernels' build (the stat ``kernel_build_seconds``, the gauge
+        ``sweep.kernel_build_seconds``; 0.0 on the CPU)."""
         for name in kernels:
             if name not in self._brought_up:
                 fault_point("sweep.compile")
                 self._brought_up.add(name)
         if self.device.type != "cuda":
-            return
+            return 0.0
         self._check_cancel("before the kernel build")
-        build.build_all(kernels)
+        seconds = build.timed_build(kernels)
         self._check_cancel("before the CUDA context")
         index = self.device.index
         torch.cuda.set_device(torch.cuda.current_device() if index is None else index)
+        return seconds
 
     @staticmethod
     def _witness(
@@ -823,7 +826,8 @@ class GpuSweepBackend:
         # surviving fragment never burns a full-size program.
         prune = self._prune_enabled() and not hi_nodes
         kernel = "bitset_sweep" if engine == "bitset" else "sweep"
-        self._bring_up((kernel, "guard") if prune else (kernel,))
+        build_s = self._bring_up((kernel, "guard") if prune else (kernel,))
+        get_run_record().gauge("sweep.kernel_build_seconds", round(build_s, 4))
         plan = None
         if prune:
             plan = self._plan_pruning(circuit, bit_nodes, bits, total, start0, engine)
@@ -971,6 +975,7 @@ class GpuSweepBackend:
             "enumeration_total": total,
             "seconds": seconds,
             "candidates_per_sec": candidates / seconds if seconds > 0 else 0.0,
+            "kernel_build_seconds": round(build_s, 4),
             **self._guard_stats(plan),
             "cert": {
                 **self._cert_stats(graph, nodes, plan, total, candidates),
@@ -1207,9 +1212,10 @@ class GpuSweepBackend:
         evaluated (they cannot hit) but never counted as checked."""
         t0 = time.perf_counter()
         n_jobs = len(jobs)
-        self._bring_up(("packed_sweep", "guard") if self._prune_enabled() else ("packed_sweep",))
+        build_s = self._bring_up(("packed_sweep", "guard") if self._prune_enabled() else ("packed_sweep",))
         plan = self.plan_pack(jobs, origins)
         rec = get_run_record()
+        rec.gauge("sweep.kernel_build_seconds", round(build_s, 4))
         self._emit_prune_telemetry(plan.prune_plans, [j.total for j in jobs], packed=True)
         emit_engine_resolution(plan.resolution, packed=True)
         self.pack_plans.append(plan)
@@ -1410,6 +1416,7 @@ class GpuSweepBackend:
                 packed.circuit.n, packed.circuit.n_units, packed.circuit.depth),
             "pack_engine": plan.resolution.resolved,
             "pack_seconds": round(seconds, 4),
+            "kernel_build_seconds": round(build_s, 4),
         }
         if plan.resolution.resolved == "bitset":
             pack_stats["encoding"] = "bitset"  # as on the unpacked drive

@@ -38,7 +38,10 @@ Observability (the JAX CLI's, ``cli.py:104-119``, ``:199-218``,
 textfile, ``--trace-out PATH`` appends its spans and events as
 Chrome/Perfetto trace events, and ``--timing`` prints the ``[timing]``
 phase lines and ``[stats]`` lines to stderr, then the ``[telemetry]``
-summary.  The record is finished on every exit path.
+summary.  The record is finished on every exit path.  ``--profile-dir DIR``
+records a ``torch.profiler`` trace of the solve (the card's kernels
+included) into DIR (:mod:`.utils.profiling`, the JAX CLI's ``cli.py:137``,
+``:440``).
 
 Subcommands: ``query`` — one typed query over the snapshot on stdin
 (:mod:`.query`: relaxed two-family intersection, what-if removals,
@@ -113,6 +116,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="append the run's spans/events to PATH as Chrome/Perfetto trace-event JSON "
                         "(one timeline incl. both race arms; open in ui.perfetto.dev); env twin: "
                         "QI_TRACE_OUT")
+    p.add_argument("--profile-dir", metavar="DIR", default=None,
+                   help="record a torch.profiler trace of the solve into DIR (a Chrome trace "
+                        "holding the card's kernels and the range qi-trace:<trace_id>)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the sweep and the PageRank kernel run (default cuda; cpu runs "
                         "the plain versions)")
@@ -252,15 +258,18 @@ def _main(args, record) -> int:
     except (RuntimeError, ValueError) as exc:
         sys.stderr.write(f"backend {args.backend!r} unavailable: {exc}\n")
         return 1
-    result = solve_graph(
-        graph,
-        backend=backend,
-        verbose=args.verbose,
-        out=sys.stdout,
-        graphviz=args.graph,
-        scc_select=scc_select,
-        scope_to_scc=args.scope_scc,
-    )
+    from quorum_intersection_tpu_torch.utils.profiling import profile_trace
+
+    with profile_trace(args.profile_dir, args.device):
+        result = solve_graph(
+            graph,
+            backend=backend,
+            verbose=args.verbose,
+            out=sys.stdout,
+            graphviz=args.graph,
+            scc_select=scc_select,
+            scope_to_scc=args.scope_scc,
+        )
     if args.cert_out and result.cert is not None:
         from quorum_intersection_tpu_torch.cert import write_certificate
 

@@ -5,8 +5,12 @@ Sources are the ``csrc/*.cu`` files of this package and the headers they
 share (``csrc/*.cuh``), nothing else.  The build lands in ``kernels/_build/``
 (listed in ``.gitignore``), keyed by a hash of the source, the headers and
 the flags, so one checkout builds each kernel once and a changed source never
-loads a stale library.  Several kernels build in
+loads a stale library; under ``QI_NO_COMPILE_CACHE`` it lands in a private
+directory of the process instead (:mod:`..utils.compile_cache`, which also
+counts each library as a cache hit or miss).  Several kernels build in
 parallel: :func:`build_all` starts one ``nvcc`` per source at once.
+:func:`timed_build` gives the wall seconds a caller spent on it, the port's
+counterpart of the JAX package's XLA compile seconds.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Iterable
+
+from quorum_intersection_tpu_torch.utils import compile_cache
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -73,7 +79,7 @@ def _target(name: str) -> Path:
     text = (CSRC / SOURCES[name]).read_bytes()
     text += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    return compile_cache.build_dir(BUILD_DIR) / f"{name}-{digest[:16]}.so"
 
 
 def is_built(name: str) -> bool:
@@ -84,12 +90,13 @@ def is_built(name: str) -> bool:
 def build_all(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Built]:
     """Build every named kernel that is not built yet, one ``nvcc`` each,
     all started together; raise :class:`KernelBuildError` on any failure."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     done: Dict[str, Built] = {}
     running = {}
     t0 = time.perf_counter()
     for name in names:
         target = _target(name)
+        target.parent.mkdir(parents=True, exist_ok=True)
+        compile_cache.note(target, hit=target.exists())
         if target.exists():
             log = target.with_suffix(".log")
             done[name] = Built(name, target, 0.0, log.read_text() if log.exists() else "")
@@ -114,6 +121,22 @@ def build_all(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Built]:
 
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def loaded(name: str) -> bool:
+    """Whether this process has loaded the named kernel's library."""
+    return name in _loaded
+
+
+def timed_build(names: Iterable[str]) -> float:
+    """Wall seconds spent making sure the named kernels are built: their
+    ``nvcc`` runs on a cold cache, the sources' hashing on a warm one, and
+    nothing for a library this process has loaded already."""
+    t0 = time.perf_counter()
+    pending = [name for name in names if not loaded(name)]
+    if pending:
+        build_all(pending)
+    return time.perf_counter() - t0
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -197,6 +197,12 @@ def _launch(row_ptr, src, outdeg, m, conv, max_iterations, timing: Optional[torc
 
 
 def _library() -> ctypes.CDLL:
+    if not build.loaded("pagerank"):
+        # The process's first launch builds (or finds) the library first: the
+        # gauge pagerank.kernel_build_seconds.
+        from quorum_intersection_tpu_torch.utils.telemetry import get_run_record
+
+        get_run_record().gauge("pagerank.kernel_build_seconds", round(build.timed_build(("pagerank",)), 4))
     lib = build.load("pagerank")
     if not getattr(lib, "_qi_typed", False):
         p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong

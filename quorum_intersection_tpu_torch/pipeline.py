@@ -53,13 +53,23 @@ def named_backend(name: str, device: DeviceLike = None, **options) -> SearchBack
 
 
 def scan_scc_quorums(graph: TrustGraph, sccs: List[List[int]]) -> List[List[int]]:
-    """One max-quorum per SCC, restricted to its members (cpp:645-672)."""
+    """One max-quorum per SCC, restricted to its members (cpp:645-672),
+    over one availability row set and cleared an SCC (a fresh row an SCC
+    made the scan quadratic in the node count).
+
+    The JAX package sends graphs of more than 256 nodes to its native scan
+    (``backends.cpp.native_scc_scan``, ported too); on the H100 machine's
+    host this loop was the faster of the two on every graph measured, from
+    the dump to 200 049 nodes and on one SCC of 16 to 256 members
+    (``chip_smoke.py`` phase ``native``)."""
     quorums: List[List[int]] = []
+    avail = [False] * graph.n
     for members in sccs:
-        avail = [False] * graph.n
         for v in members:
             avail[v] = True
         quorums.append(max_quorum(graph, members, avail))
+        for v in members:
+            avail[v] = False
     return quorums
 
 

@@ -389,6 +389,29 @@ QI_PULSE_AGG = _declare(
     "fleet.pulse.* histograms (served on /metrics) and the fleet-wide "
     "fleet.e2e_p99_ms gauge.  '0': per-worker metrics only.",
 )
+QI_PULSE_BUCKETS = _declare(
+    "QI_PULSE_BUCKETS", "",
+    "Histogram bucket override (utils/telemetry.py hist_bounds): a "
+    "comma-separated ASCENDING list of bucket upper edges in milliseconds "
+    "replacing the default log-spaced ladder for every histogram the "
+    "process creates.  Must be identical across a fleet — bucket-wise "
+    "merging refuses mismatched ladders.  Empty (default): the built-in "
+    "ladder; malformed values log and fall back.",
+)
+QI_NO_COMPILE_CACHE = _declare(
+    "QI_NO_COMPILE_CACHE", "",
+    "Truthy: reuse no built library across processes — the CUDA kernels "
+    "(kernels/build.py) and the g++ oracle and CLI (backends/cpp) build "
+    "into a private temporary directory of the process "
+    "(utils/compile_cache.py).",
+)
+QI_SANITIZER = _declare(
+    "QI_SANITIZER", "asan",
+    "Which sanitizer the instrumented native build uses: 'asan' "
+    "(address+undefined, the default), 'tsan' (thread), or 'none' "
+    "(sanitized builds refused with a clear error) — "
+    "backends/cpp/build_native_cli(sanitize=True).",
+)
 
 
 # ---- reads -----------------------------------------------------------------

@@ -95,9 +95,23 @@ FLIGHT_RECORDER_N = 512
 
 
 def hist_bounds() -> Tuple[float, ...]:
-    """The histogram bucket ladder (the JAX package's default; its
-    ``QI_PULSE_BUCKETS`` override belongs to the serving layer, not ported)."""
-    return DEFAULT_HIST_BOUNDS_MS
+    """The process's histogram bucket ladder: ``QI_PULSE_BUCKETS`` (a
+    comma-separated strictly ascending list of upper edges in ms) overrides
+    the default; a malformed override logs and falls back — a typo'd knob
+    must cost resolution, never a request."""
+    raw = qi_env("QI_PULSE_BUCKETS")
+    if not raw:
+        return DEFAULT_HIST_BOUNDS_MS
+    try:
+        bounds = tuple(float(part) for part in raw.split(",") if part.strip())
+        if not bounds or list(bounds) != sorted(set(bounds)):
+            # A duplicate edge would render duplicate le labels, and
+            # Prometheus rejects the whole scrape.
+            raise ValueError("bounds must be non-empty, strictly ascending")
+        return bounds
+    except ValueError as exc:
+        log.warning("malformed QI_PULSE_BUCKETS (%s); using defaults", exc)
+        return DEFAULT_HIST_BOUNDS_MS
 
 
 def percentile(sorted_samples: List[float], pct: float) -> float:

@@ -214,6 +214,24 @@ def test_native_oracle_source_is_the_jax_packages():
     assert jax_lines[3].endswith(b"/quorum_intersection.cpp:90-400) as a standalone C++17\n")
 
 
+def test_native_cli_source_is_the_jax_packages():
+    """The port's ``qi_native.cpp`` is the JAX package's, byte for byte,
+    but for the one comment line that names the reference tool's source by
+    its path on the original machine."""
+    import pathlib
+
+    import quorum_intersection_tpu.backends.cpp as jax_cpp
+    import quorum_intersection_tpu_torch.backends.cpp as port_cpp
+
+    jax_lines = pathlib.Path(jax_cpp.__file__).with_name("qi_native.cpp").read_bytes().splitlines(True)
+    port_lines = port_cpp.CLI_SRC.read_bytes().splitlines(True)
+    assert len(port_lines) == len(jax_lines)
+    differ = [i for i, (a, b) in enumerate(zip(jax_lines, port_lines)) if a != b]
+    assert differ == [4]
+    assert port_lines[4] == b"// the reference tool's quorum_intersection.cpp:402-800).  This translation unit is\n"
+    assert jax_lines[4].endswith(b"/quorum_intersection.cpp:402-800).  This translation unit is\n")
+
+
 def test_certificate_vocabulary_is_the_jax_packages():
     from quorum_intersection_tpu import cert as jax_cert
     from quorum_intersection_tpu_torch import cert

@@ -5,7 +5,9 @@ PyTorch versions and against the CPU path; incremental re-analysis
 (``delta.DeltaEngine``) on the card against the same engine on the CPU; and
 the serving layer's cross-request fusion and mid-pack deadline on the card;
 and the replicated serve tier (``fleet.py``) of in-process and of process
-workers on the card.  Card-only: every test takes the ``cuda_device``
+workers on the card; the tooling on the card (a profiled solve's trace, the
+build cache's cold and warm processes) and the native SCC scan inside a card
+solve.  Card-only: every test takes the ``cuda_device``
 fixture, which skips on a host without one.  This file imports nothing of
 JAX or the JAX package, so on the card's machine it runs as
 
@@ -1237,3 +1239,79 @@ def test_proc_worker_fleet_on_card_survives_sigkill(cuda_device, fault_plan, tmp
         fleet.stop(drain=True, timeout=60.0)
     assert got == want
     assert counters["fleet.evictions"] == 1 and counters.get("fleet.errors", 0) == 0
+
+
+def test_profiled_gpu_sweep_solve_traces_k1(cuda_device, fault_plan, tmp_path):
+    """``profile_trace`` around a full-width ``gpu-sweep`` solve: the Chrome
+    trace holds K1's kernel events and the run's ``qi-trace`` range."""
+    from quorum_intersection_tpu_torch.utils import telemetry
+    from quorum_intersection_tpu_torch.utils.profiling import profile_trace, trace_file
+
+    fault_plan("")
+    src = synth.benchmark_fbas(256, 30)
+    solve(src, backend="gpu-sweep")  # the kernel built and loaded first
+    with profile_trace(str(tmp_path), cuda_device):
+        res = solve(src, backend="gpu-sweep")
+    assert res.intersects is True
+    trace_id = telemetry.get_run_record().trace_id
+    names = [ev.get("name", "") for ev in json.loads(trace_file(str(tmp_path), trace_id).read_text())["traceEvents"]]
+    assert sum("sweep_kernel" in name for name in names) >= 1
+    assert f"qi-trace:{trace_id}" in names
+
+
+_BUILD_PROBE = """
+import json
+from quorum_intersection_tpu_torch.kernels import build
+from quorum_intersection_tpu_torch.utils.telemetry import get_run_record
+seconds = build.timed_build(build.SOURCES)
+counters = get_run_record().counters
+print(json.dumps({"seconds": seconds, "hits": counters.get("compile_cache.hits", 0),
+                  "misses": counters.get("compile_cache.misses", 0)}))
+"""
+
+
+def test_warm_build_takes_at_most_a_tenth_of_a_cold_private_build(cuda_device):
+    """The port's counterpart of ``tests/test_warm_start.py``: a process with
+    ``QI_NO_COMPILE_CACHE=1`` builds every kernel into a private directory;
+    a later process with the cache finds them all and takes at most 10% of
+    the cold build's seconds."""
+    import os
+    import subprocess
+    import sys
+
+    from quorum_intersection_tpu_torch.kernels import build
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    build.build_all()  # the cached libraries exist before the warm process
+
+    def probe(**env):
+        proc = subprocess.run([sys.executable, "-c", _BUILD_PROBE], cwd=root, capture_output=True, text=True,
+                              timeout=900, env={**os.environ, **env})
+        assert proc.returncode == 0, proc.stderr
+        return json.loads(proc.stdout.strip().splitlines()[-1])
+
+    cold = probe(QI_NO_COMPILE_CACHE="1")
+    warm = probe()
+    assert (cold["misses"], cold["hits"]) == (len(build.SOURCES), 0)
+    assert (warm["misses"], warm["hits"]) == (0, len(build.SOURCES))
+    assert warm["seconds"] <= 0.1 * cold["seconds"], (warm, cold)
+
+
+def test_native_scan_agrees_with_a_card_solve(cuda_device, fault_plan):
+    """The dump solved on the card (its scan the Python loop) and the native
+    scan of the same SCCs: the same quorum-bearing SCCs and quorums."""
+    import gzip
+
+    from quorum_intersection_tpu_torch.backends.cpp import native_scc_scan
+    from quorum_intersection_tpu_torch.pipeline import scan_scc_quorums, solve_graph
+
+    fault_plan("")
+    text = gzip.decompress((FIXTURES / "dump_scale_correct.json.gz").read_bytes()).decode()
+    graph = build_graph(parse_fbas(text))
+    res = solve_graph(graph, backend="gpu-sweep")
+    count, comp = tarjan_scc(graph.n, graph.succ)
+    sccs = group_sccs(graph.n, comp, count)
+    native = native_scc_scan(graph, sccs)
+    assert native == scan_scc_quorums(graph, sccs)
+    assert [sid for sid, q in enumerate(native) if q] == res.quorum_scc_ids
+    assert res.intersects is True

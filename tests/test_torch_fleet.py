@@ -578,8 +578,10 @@ class TestFleetHealth:
         with _Fleet(tmp_path, n=2, probe_interval_s=0.05) as fleet:
             for i in range(3):
                 fleet.submit(majority_fbas(5 + i, prefix="TEN"), client=f"t{i % 2}").result(timeout=30.0)
+            # The probes merge each worker's table every 0.05 s: wait for the
+            # merge to catch up with the last request's booking.
             deadline = time.monotonic() + 5.0
-            while time.monotonic() < deadline and not cost.fleet_tenant_table().snapshot():
+            while time.monotonic() < deadline and cost.fleet_tenant_table().snapshot() != cost.tenant_table().snapshot():
                 time.sleep(0.02)
         merged = cost.fleet_tenant_table().snapshot()
         assert set(merged) == {"t0", "t1"} and merged == cost.tenant_table().snapshot()

@@ -1,6 +1,8 @@
-"""The port imports neither JAX nor the JAX package: it solves, and serves a
-two-line stream through ``serve`` and through a two-worker ``fleet``, with
-both blocked, and no source line of it (or of ``chip_smoke.py``) names them."""
+"""The port imports neither JAX nor the JAX package: it solves (profiled
+too), scans SCCs natively, and serves a two-line stream through ``serve``
+and through a two-worker ``fleet``, with both blocked; no source line of it
+(or of ``chip_smoke.py``) names them, and its native builds compile only its
+own sources."""
 
 import json
 import pathlib
@@ -98,6 +100,19 @@ for line in served.getvalue().splitlines()[1:]:
     obj = json.loads(line)
     out[f"fleet {obj['request_id']}"] = [obj["verdict"], obj["cached"]]
 sys.stdin = sys.__stdin__
+from quorum_intersection_tpu_torch.backends.cpp import native_scc_scan
+from quorum_intersection_tpu_torch.fbas.graph import build_graph, group_sccs, tarjan_scc
+from quorum_intersection_tpu_torch.fbas.schema import parse_fbas
+from quorum_intersection_tpu_torch.pipeline import scan_scc_quorums
+from quorum_intersection_tpu_torch.utils.profiling import profile_trace
+
+with profile_trace(str(pathlib.Path(sys.argv[2]) / "prof"), "cpu"):
+    res = solve((fixtures / "snapshot_broken.json").read_text(), device="cpu")
+out["profiled snapshot_broken.json"] = [res.intersects, len(list((pathlib.Path(sys.argv[2]) / "prof").iterdir()))]
+graph = build_graph(parse_fbas((fixtures / "snapshot_correct.json").read_text()))
+count, comp = tarjan_scc(graph.n, graph.succ)
+sccs = group_sccs(graph.n, comp, count)
+out["native scan"] = [native_scc_scan(graph, sccs) == scan_scc_quorums(graph, sccs)]
 leaked = sorted(m for m in sys.modules
                 if m == "jax" and sys.modules[m] is not None
                 or m.split(".")[0] == "quorum_intersection_tpu")
@@ -137,7 +152,10 @@ def test_port_solves_with_jax_and_reference_blocked(tmp_path):
         "fleet rc": 0,
         "fleet trivial_correct.json": True,
         "fleet nested_broken.json": False,
+        "profiled snapshot_broken.json": False,
+        "native scan": True,
     }
+    assert report["results"]["profiled snapshot_broken.json"][1] == 1
     assert not any(report["results"][f"serve {name}"][1] for name in ("trivial_correct.json", "nested_broken.json"))
     reused = [report["results"][f"delta step {i}"][3] for i in range(4)]
     assert reused[0] == 0 and 1 in reused[1:]
@@ -162,7 +180,9 @@ def _sources():
     assert {"backends/frontier.py", "kernels/frontier_ref.py", "kernels/frontier_cuda.py",
             "kernels/csrc/frontier.cu", "utils/checkpoint.py", "kernels/bitset_sweep_ref.py",
             "kernels/bitset_sweep_cuda.py", "kernels/csrc/bitset_sweep.cu", "delta.py", "fbas/diff.py",
-            "cost.py", "fuse.py", "serve.py", "serve_transport.py", "utils/metrics_server.py", "fleet.py"} <= names
+            "cost.py", "fuse.py", "serve.py", "serve_transport.py", "utils/metrics_server.py", "fleet.py",
+            "utils/compile_cache.py", "utils/profiling.py", "backends/cpp/qi_native.cpp",
+            "backends/cpp/qi_oracle.cpp"} <= names
     assert len(files) > 10 and (ROOT / "chip_smoke.py").exists()
     return files
 
@@ -198,6 +218,34 @@ def test_native_oracle_builds_from_the_ports_own_copy():
         assert PORT.resolve() in resolved.parents
         assert jax_pkg not in resolved.parents
     assert cpp.SRC.is_file() and cpp.SRC.name == "qi_oracle.cpp"
+
+
+def test_native_cli_builds_from_the_ports_own_sources(tmp_path, monkeypatch):
+    """``build_native_cli`` (plain and sanitized) hands g++ only sources
+    under the port, read from the command it runs; by default it writes
+    into the port's own build directory."""
+    from quorum_intersection_tpu_torch.backends import cpp
+
+    assert PORT.resolve() in cpp.BUILD_DIR.resolve().parents
+    monkeypatch.setattr(cpp, "BUILD_DIR", tmp_path / "_build")
+    commands = []
+
+    def fake_gxx(cmd, what):
+        commands.append(list(cmd))
+        pathlib.Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+        return subprocess.CompletedProcess(cmd, 0, "", "")
+
+    monkeypatch.setattr(cpp, "_run_gxx", fake_gxx)
+    cpp.build_native_cli()
+    cpp.build_native_cli(sanitize="asan")
+    builds = [cmd for cmd in commands if cmd[-1].endswith(".cpp") and "probe.cpp" not in cmd[-1]]
+    assert len(builds) == 2
+    for cmd in builds:
+        sources = [pathlib.Path(arg).resolve() for arg in cmd if arg.endswith(".cpp")]
+        assert [src.name for src in sources] == ["qi_native.cpp", "qi_oracle.cpp"]
+        assert all(src.parent == (PORT / "backends" / "cpp").resolve() for src in sources)
+        assert pathlib.Path(cmd[cmd.index("-o") + 1]).parent == tmp_path / "_build"
+    assert "-fsanitize=address,undefined" in builds[1]
 
 
 _ENV_READ = re.compile(r"""(os\.environ|os\.getenv|environ\.get)\b[^\n]*["']QI_""")
