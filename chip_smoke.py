@@ -13,6 +13,7 @@
     python3 chip_smoke.py --serve        # build, then only the serve subcommand's phase (31) and its certificates
     python3 chip_smoke.py --fleet        # build, then only the replicated serve tier's phase (32) and its certificates
     python3 chip_smoke.py --native       # build, then only the native host layer and the tooling (33-34), certificates
+    python3 chip_smoke.py --mesh         # build, then only the sharded sweep's phase (36) and its certificates
 
 Phases, one line each, each with its wall ``seconds`` (any failure exits
 non-zero and prints no ``ok`` line):
@@ -370,7 +371,27 @@ non-zero and prints no ``ok`` line):
               2^30 twin as a CLI process: its Chrome trace holds K1's kernel
               events and the ``qi-trace:<trace_id>`` range of the metrics
               stream's ``trace_id``; then the unprofiled solve in process;
-35. cert    — every certificate the runs above produced (CLI ``--cert-out``
+35. mesh    — the sharded sweep K11 (the sharded instance of the fused
+              kernel) against its plain version rank by rank on 1, 2, 4 and
+              8 ranks of the one card (narrow, restricted with D
+              thresholds, wide with a hi row, both table instances, a clean
+              miss), the ranks' min against K1's contiguous program, a hit
+              placed in rank 2's sub-block of the second block; then at the
+              main path's sizes (4 ranks, _auto_batch(34) / 4 rows a rank at
+              stride _auto_batch(34), 8 blocks): the broken twin's first
+              program, the correct twin's, and late_hit_fbas(29)'s first
+              hit placed at rank 2 of block 5 and at the program's last
+              row; the processes below solve and time only after this
+              comparison; the full-width twins on 4 ranks (K11's launches counted from 0,
+              verdict, witness and hit index equal to the unsharded solve's,
+              certificates checked); ``--backend gpu-sweep --mesh all`` as a
+              CLI process; a world-size-1 NCCL group and two processes of two
+              ranks joined by ``distributed.initialize`` (NCCL on two cards,
+              gloo on one), in waves of their own, their verdicts equal to
+              the single-process solve's; K11's 2^20 window on 1, 2 and 4 ranks (and 4 cards),
+              the collective alone; on several cards the full width on 1, 2
+              and 4 of them (one line saying skipped on one card);
+36. cert    — every certificate the runs above produced (CLI ``--cert-out``
               under auto, gpu-sweep and gpu-frontier, ``solve`` and
               ``check_many`` on both engines, pruned, rank-ordered and
               frontier runs with every block, incremental re-analysis's
@@ -410,7 +431,10 @@ PACK_KEYS = ("pack_jobs", "pack_groups", "pack_slot", "pack_shape", "pack_fill_p
 
 
 def fail(phase: str, msg: str) -> None:
+    # On both streams: a caller that keeps only the end of one still sees
+    # which check failed.
     print(f"FAIL {phase}: {msg}", flush=True)
+    print(f"FAIL {phase}: {msg}", file=sys.stderr, flush=True)
     raise SystemExit(1)
 
 
@@ -4381,6 +4405,467 @@ def tooling_phase(device, card, cert_jobs, work):
                             "warm_over_cold": warm["kernel_build_seconds"] / cold["kernel_build_seconds"]})
 
 
+# -- 35. mesh: the sharded sweep K11, the candidate mesh and the multi-process runtime --
+
+MESH_RANKS = (1, 2, 4, 8)  # ranks on the one card (repeated cuda:0) in K11's comparison
+MESH_SOLVE_RANKS = 4  # the full-width solve's ranks on the one card
+MESH_TWIN_CORE = 31  # the multi-process solves: benchmark_fbas(256, core=31), 2^30 candidates
+MESH_COLLECTIVE_REPS = 200  # collectives timed back to back
+MESH_MAIN_STEPS = 8  # blocks a program in K11's comparison at the main path's sizes
+# A process of the multi-process part: joins through distributed.initialize,
+# builds its ranks on its card, waits for the parent's go file (written once
+# the parent's own comparisons are done, so nothing of them runs beside the
+# solves and the timed collectives), solves the 2^30 twins on the global
+# mesh, and times mesh_pmin and the bare all_reduce(MIN) alone.  argv: port, process id, processes,
+# backend, card index, ranks on it, core, repetitions, go file.
+MESH_WORKER = r"""
+import json, os, sys, time
+import torch
+from quorum_intersection_tpu_torch.backends.sweep import GpuSweepBackend
+from quorum_intersection_tpu_torch.fbas import synth
+from quorum_intersection_tpu_torch.kernels.sweep_cuda import sweep_fused, sweep_sharded
+from quorum_intersection_tpu_torch.parallel import distributed
+from quorum_intersection_tpu_torch.parallel.mesh import collective_of, mesh_pmin
+from quorum_intersection_tpu_torch.pipeline import solve
+port, backend = sys.argv[1], sys.argv[4]
+pid, nprocs, card, ranks, core, reps = map(int, sys.argv[2:4] + sys.argv[5:9])
+torch.cuda.set_device(card)
+distributed.initialize(f"127.0.0.1:{port}", num_processes=nprocs, process_id=pid, local_device_ids=[card],
+                       backend=backend)
+mesh = distributed.global_candidate_mesh(devices=[torch.device("cuda", card)] * ranks)
+assert mesh.process_count == nprocs, mesh
+deadline = time.monotonic() + 600
+while not os.path.exists(sys.argv[9]):
+    if time.monotonic() > deadline:
+        sys.exit("the parent's go file never came")
+    time.sleep(0.01)
+out = {"process_index": mesh.process_index, "process_count": mesh.process_count, "ranks": mesh.size,
+       "collective": collective_of(mesh), "solves": {}}
+for broken in (False, True):
+    data = synth.benchmark_fbas(256, core, broken=broken)
+    sweep_fused.launches = sweep_sharded.launches = 0
+    t = time.perf_counter()
+    res = solve(data, backend=GpuSweepBackend(mesh=mesh), with_cert=False)
+    out["solves"][str(broken)] = {"intersects": res.intersects, "q1": res.q1, "q2": res.q2,
+                                  "hit_index": res.stats.get("hit_index"), "seconds": time.perf_counter() - t,
+                                  "candidates": res.stats.get("candidates_checked"),
+                                  "k11_launches": sweep_sharded.launches, "k1_launches": sweep_fused.launches}
+ones = [torch.full((), 7 + r, dtype=torch.int32, device=mesh.devices[r]) for r in range(ranks)]
+for _ in range(10):
+    mesh_pmin(mesh, ones)
+torch.cuda.synchronize()
+torch.distributed.barrier()
+t = time.perf_counter()
+for _ in range(reps):
+    best = mesh_pmin(mesh, ones)
+torch.cuda.synchronize()
+out["pmin_ms"] = (time.perf_counter() - t) * 1e3 / reps
+out["pmin_value"] = int(best)
+# The bare all_reduce(MIN) of one int32 (mesh_pmin calls none in a group of
+# one process): on the card under nccl, a host tensor under gloo.
+x = torch.full((), 7 + pid, dtype=torch.int32, device=f"cuda:{card}" if backend == "nccl" else "cpu")
+for _ in range(10):
+    torch.distributed.all_reduce(x, op=torch.distributed.ReduceOp.MIN)
+torch.cuda.synchronize()
+torch.distributed.barrier()
+t = time.perf_counter()
+for _ in range(reps):
+    torch.distributed.all_reduce(x, op=torch.distributed.ReduceOp.MIN)
+torch.cuda.synchronize()
+out["all_reduce_ms"] = (time.perf_counter() - t) * 1e3 / reps
+out["all_reduce_value"], out["all_reduce_on"] = int(x), str(x.device)
+torch.distributed.destroy_process_group()
+print(json.dumps(out), flush=True)
+"""
+
+
+def mesh_free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mesh_worker_cmds(nprocs, backend, cards, ranks, go):
+    """One process group of MESH_WORKER: ``cards[i]`` is process i's card;
+    each process starts its solves once the file ``go`` exists."""
+    port = mesh_free_port()
+    return [[sys.executable, "-c", MESH_WORKER, str(port), str(pid), str(nprocs), backend, str(cards[pid]),
+             str(ranks), str(MESH_TWIN_CORE), str(MESH_COLLECTIVE_REPS), str(go)] for pid in range(nprocs)]
+
+
+def mesh_worker_results(label, runs):
+    rows = []
+    for so, se, rc, seconds in runs:
+        if rc != 0:
+            fail("mesh", f"{label}: a process exited {rc}: {se[-1500:]}")
+        row = json.loads(so.strip().splitlines()[-1])
+        row["process_seconds"] = seconds
+        rows.append(row)
+    return rows
+
+
+def mesh_compare(device, card, texts) -> int:
+    """Phase mesh, part 1: K11 (the sharded instance of the fused kernel)
+    against its plain version rank by rank, and the ranks' min against K1's
+    contiguous program over the same coverage, at small launches and at the
+    main path's sizes.  Returns the largest difference (0 when it passes)."""
+    import numpy as np
+    import torch
+
+    from quorum_intersection_tpu_torch.backends.sweep import _auto_batch
+    from quorum_intersection_tpu_torch.fbas import synth
+    from quorum_intersection_tpu_torch.kernels import sweep_ref as ref
+    from quorum_intersection_tpu_torch.kernels.sweep_cuda import FusedSweep, KernelLimitError, mask_bits
+
+    problems = []
+    problem = sweep_problem(texts["nested_correct.json"])
+    problems.append(("nested_correct narrow", problem, len(problem[2]) - 1, 0))
+    broken_snap = sweep_problem(texts["snapshot_broken.json"])
+    problems.append(("snapshot_broken restricted", broken_snap, len(broken_snap[2]) - 1, 0))
+    problems.append(("snapshot_correct restricted, a clean miss",
+                     sweep_problem(texts["snapshot_correct.json"]), 20, 0))
+    for broken in (False, True):
+        problems.append((f"benchmark_fbas(256,34,broken={broken}) wide, hi row 5",
+                         sweep_problem(json.dumps(synth.benchmark_fbas(256, 34, broken=broken))), 30, 5))
+    compare_rows, max_err = [], 0
+    for label, (circuit, circuit_d, local, scc_mask, frozen), lo_bits, hi in problems:
+        lo_nodes = np.asarray(local[1:1 + lo_bits], dtype=np.int32)
+        hi_row = np.zeros(circuit.n, dtype=np.int32)
+        for j, v in enumerate(local[1 + lo_bits:]):
+            hi_row[v] = (hi >> j) & 1
+        hi_arg = hi_row if hi_row.any() else None
+        hits = windows = 0
+        for ranks in MESH_RANKS:
+            per_dev, steps = max(min(1 << 11, (1 << lo_bits) // (4 * ranks)), 1), 3
+            base = per_dev * ranks
+            plain = ref.SweepRef(circuit, lo_nodes, scc_mask, frozen, per_dev, circuit_d, device)
+            k1 = FusedSweep(circuit, lo_nodes, scc_mask, frozen, base, circuit_d, device)
+            instances = {}
+            for stream in (False, True):
+                try:
+                    instances[stream] = FusedSweep(circuit, lo_nodes, scc_mask, frozen, per_dev, circuit_d,
+                                                   device, stream=stream)
+                except KernelLimitError:  # a resident instance that does not fit
+                    if stream:
+                        raise
+            for start in sorted({0, (1 << lo_bits) // 2, 3 << 27 if lo_bits == 30 else 0}):
+                want = [int(plain.sharded_program(start + g * per_dev, per_dev, base, steps, hi_arg))
+                        for g in range(ranks)]
+                windows += 1
+                hits += min(want) != ref.INT32_MAX
+                for stream, kern in instances.items():
+                    got = [int(kern.sharded(start + g * per_dev, per_dev, base, steps, mask_bits(hi_row)))
+                           for g in range(ranks)]
+                    torch.cuda.synchronize()
+                    max_err = max([max_err] + [abs(a - b) for a, b in zip(got, want)])
+                    if got != want:
+                        fail("mesh", f"{label} ranks={ranks} streamed={stream} start={start}: K11 {got} != "
+                                     f"plain {want}")
+                contiguous = int(k1.program(start, steps, mask_bits(hi_row)))
+                if min(want) != contiguous:
+                    fail("mesh", f"{label} ranks={ranks} start={start}: the ranks' min {min(want)} != K1's "
+                                 f"contiguous {contiguous}")
+        compare_rows.append({"label": label, "n": circuit.n, "units": circuit.n_units, "lo_bits": lo_bits,
+                             "restricted": circuit_d is not None, "windows": windows, "windows_with_hits": hits,
+                             "instances": ["streamed" if s else "resident" for s in instances]})
+    if any(r["windows_with_hits"] for r in compare_rows if "clean miss" in r["label"]):
+        fail("mesh", "the clean-miss case has a hit")
+    # A hit placed in rank 2's sub-block of the second block: snapshot_broken's
+    # first hit h, the program started so that h lands there.
+    circuit, circuit_d, local, scc_mask, frozen = broken_snap
+    lo_nodes = np.asarray(local[1:], dtype=np.int32)
+    first = ref.SweepRef(circuit, lo_nodes, scc_mask, frozen, 1 << 12, circuit_d, device)
+    h = int(first.program(0, 1))
+    placed = {}
+    for ranks, per_dev in ((4, 32), (8, 16)):
+        base = per_dev * ranks
+        start = h - base - 2 * per_dev - per_dev // 2
+        if start < 0:
+            fail("mesh", f"snapshot_broken's first hit {h} lies too early to place")
+        kern = FusedSweep(circuit, lo_nodes, scc_mask, frozen, per_dev, circuit_d, device)
+        got = [int(kern.sharded(start + g * per_dev, per_dev, base, 2)) for g in range(ranks)]
+        if min(got) != h or got.index(h) != 2:
+            fail("mesh", f"the hit {h} placed in rank 2's second sub-block came back as {got}")
+        placed[ranks] = {"start": start, "per_dev": per_dev, "ranks_min": got}
+    # K11 at the main path's sizes: the full-width drive's sub-blocks
+    # (_auto_batch(34) // 4 rows a rank at stride _auto_batch(34)), over
+    # MESH_MAIN_STEPS blocks, so every warp walks the grid-stride loop.  The
+    # broken twin's hits are dense (one in every 2^17 rows), so its windows
+    # only reach each rank's first sub-block; late_hit_fbas(29) misses on
+    # every row before its first hit h2 = 2^28 + 15, which is placed at rank
+    # 2 of block 5 (the ranks before it then hit first in block 6) and at
+    # the program's last row (rank 3 of the last block, the others missing).
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_faults_cases import late_hit_fbas
+
+    block = _auto_batch(34)
+    sub, steps, ranks = block // MESH_SOLVE_RANKS, MESH_MAIN_STEPS, MESH_SOLVE_RANKS
+    late = sweep_problem(json.dumps(late_hit_fbas(29)))
+    late_lo = np.asarray(late[2][1:], dtype=np.int32)
+    late_k1 = FusedSweep(late[0], late_lo, late[3], late[4], block, late[1], device)
+    h2 = min(int(late_k1.program(0, 1024)), int(late_k1.program(1 << 29, 1024)))
+    twins = {broken: problems[3 + broken][1] for broken in (False, True)}
+    windows = [("benchmark_fbas(256,34,broken=True), the main path's first program", twins[True], 30, 0, None),
+               ("benchmark_fbas(256,34,broken=False), a clean miss", twins[False], 30, 0, None),
+               ("late_hit_fbas(29), h2 at rank 2 of block 5", late, 30, h2 - (5 * block + 2 * sub + 17), 2),
+               ("late_hit_fbas(29), h2 at the program's last row", late, 30, h2 - steps * block + 1, ranks - 1)]
+    main_rows = []
+    for label, (circuit, circuit_d, local, scc_mask, frozen), lo_bits, start, rank in windows:
+        lo_nodes = np.asarray(local[1:1 + lo_bits], dtype=np.int32)
+        if start < 0 or start + steps * block > 1 << lo_bits:
+            fail("mesh", f"{label}: the window from {start} leaves the 2^{lo_bits} range")
+        plain = ref.SweepRef(circuit, lo_nodes, scc_mask, frozen, sub, circuit_d, device)
+        want = [int(plain.sharded_program(start + g * sub, sub, block, steps)) for g in range(ranks)]
+        if rank is not None and (min(want) != h2 or want.index(h2) != rank):
+            fail("mesh", f"{label}: the plain version's ranks {want} do not hold h2 = {h2} at rank {rank}")
+        if "clean miss" in label and min(want) != ref.INT32_MAX:
+            fail("mesh", f"{label}: the plain version hits ({want})")
+        if "first program" in label and min(want) == ref.INT32_MAX:
+            fail("mesh", f"{label}: the plain version has no hit")
+        instances = []
+        for stream in (False, True):
+            try:
+                kern = FusedSweep(circuit, lo_nodes, scc_mask, frozen, sub, circuit_d, device, stream=stream)
+            except KernelLimitError:  # a resident instance that does not fit
+                if stream:
+                    raise
+                continue
+            got = [int(kern.sharded(start + g * sub, sub, block, steps)) for g in range(ranks)]
+            max_err = max([max_err] + [abs(a - b) for a, b in zip(got, want)])
+            if got != want:
+                fail("mesh", f"{label} streamed={stream}: K11 {got} != plain {want}")
+            instances.append("streamed" if stream else "resident")
+        contiguous = int(FusedSweep(circuit, lo_nodes, scc_mask, frozen, block, circuit_d, device)
+                         .program(start, steps))
+        if min(want) != contiguous:
+            fail("mesh", f"{label}: the ranks' min {min(want)} != K1's contiguous {contiguous}")
+        main_rows.append({"label": label, "start": start, "ranks_min": want, "instances": instances})
+    phase_line("mesh_compare", card=card, tolerance="exact (integer hit indices)", ranks=list(MESH_RANKS),
+               cases=compare_rows, max_abs_err=max_err, placed_hit={"index": h, "by_ranks": placed},
+               main_path_sizes={"sub": sub, "stride": block, "steps": steps, "ranks": ranks,
+                                "rows_a_rank": steps * sub, "late_hit_h2": h2, "windows": main_rows},
+               against_k1="the ranks' min equals K1's contiguous program on every window")
+    return max_err
+
+
+def mesh_phase(device, card, texts, manifest, cert_jobs, work):
+    """Phase mesh: K11 (the sharded instance of the fused kernel) against
+    its plain version rank by rank and against K1 over the same coverage;
+    the full-width twins on a 4-rank mesh of the one card against the
+    unsharded solves; ``--mesh all`` as a CLI process; ``torch.distributed``
+    as a world-size-1 NCCL group and as two processes of two ranks each; the
+    window's times; and, on a host of several cards, the full width on 1, 2
+    and 4 of them.  Returns the K11 record of the kernels line."""
+    import numpy as np
+    import torch
+
+    from quorum_intersection_tpu_torch.backends.sweep import GpuSweepBackend, ShardedSweep
+    from quorum_intersection_tpu_torch.fbas import synth
+    from quorum_intersection_tpu_torch.fbas.graph import build_graph
+    from quorum_intersection_tpu_torch.fbas.schema import parse_fbas
+    from quorum_intersection_tpu_torch.fbas.semantics import is_quorum
+    from quorum_intersection_tpu_torch.kernels import sweep_ref as ref
+    from quorum_intersection_tpu_torch.kernels.sweep_cuda import FusedSweep, mask_bits, sweep_fused, sweep_sharded
+    from quorum_intersection_tpu_torch.parallel import candidate_mesh
+    from quorum_intersection_tpu_torch.parallel.mesh import mesh_pmin
+    from quorum_intersection_tpu_torch.pipeline import solve
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    card0 = torch.device("cuda", 0)
+    # The processes first, in waves one after the other: the CLI under
+    # --mesh all beside two processes of two ranks (NCCL on two cards, else
+    # gloo on the one: NCCL refuses two ranks on one device); a world-size-1
+    # NCCL group alone; on four cards, four NCCL processes alone.  They start
+    # while mesh_compare runs, and solve and time once it is done (the go
+    # file), so nothing of it and no other timed group runs beside them.
+    go = work / "mesh.go"
+    go.unlink(missing_ok=True)
+    pair_backend = "nccl" if cards >= 2 else "gloo"
+    cmds = [[sys.executable, "-m", PORT, "--backend", "gpu-sweep", "--mesh", "all"]]
+    cmds += mesh_worker_cmds(2, pair_backend, [0, 1] if cards >= 2 else [0, 0], 2, go)
+    waves = [(cmds, [texts["snapshot_broken.json"], None, None]),
+             (mesh_worker_cmds(1, "nccl", [0], 2, go), [None])]
+    if cards >= 4:
+        waves.append((mesh_worker_cmds(4, "nccl", [0, 1, 2, 3], 1, go), [None] * 4))
+    import threading
+
+    wave_out = {}
+
+    def run_waves():
+        wave_out["runs"] = [run_all(c, inputs=i, timeout=600) for c, i in waves]
+
+    wave_thread = threading.Thread(target=run_waves)
+    wave_thread.start()
+    try:
+        max_err = mesh_compare(device, card, texts)
+    finally:
+        go.touch()  # a failed comparison still lets the processes run to their end
+
+    # 3-4. The processes' results, before anything here is timed.
+    wave_thread.join()
+    (first_wave, world1_wave, *rest) = wave_out["runs"]
+    out, err, code, cli_s = first_wave[0]
+    want = manifest["snapshot_broken.json"]["verdict"]
+    if out.strip().splitlines()[-1:] != ["true" if want else "false"] or code != (0 if want else 1):
+        fail("mesh", f"--mesh all CLI: {out[-40:]!r} exit {code}; {err[-600:]!r}")
+    world1 = mesh_worker_results("world-size-1 nccl", world1_wave)
+    pair = mesh_worker_results(f"two processes ({pair_backend})", first_wave[1:3])
+    four = mesh_worker_results("four processes (nccl)", rest[0]) if rest else []
+    singles = {}
+    for broken in (False, True):
+        res = solve(synth.benchmark_fbas(256, MESH_TWIN_CORE, broken=broken), backend="gpu-sweep",
+                    with_cert=False)
+        singles[str(broken)] = [res.intersects, res.q1, res.q2, res.stats.get("hit_index")]
+    for label, rows in (("world-size-1 nccl", world1), ("two processes", pair), ("four processes", four)):
+        for row in rows:
+            for key, want_row in singles.items():
+                s = row["solves"][key]
+                if [s["intersects"], s["q1"], s["q2"], s["hit_index"]] != want_row:
+                    fail("mesh", f"{label}, process {row['process_index']}, broken={key}: {s} != the "
+                                 f"single-process solve {want_row}")
+                if s["k11_launches"] < 1 or s["k1_launches"]:
+                    fail("mesh", f"{label}: K11 {s['k11_launches']}, K1 {s['k1_launches']} launches")
+            if row["pmin_value"] != 7 or row["all_reduce_value"] != 7:
+                fail("mesh", f"{label}: the collectives gave {row['pmin_value']} and "
+                             f"{row['all_reduce_value']}, not 7")
+    phase_line("mesh_processes", card=card,
+               cli={"argv": "--backend gpu-sweep --mesh all", "fixture": "snapshot_broken.json", "exit": code,
+                    "process_seconds": cli_s},
+               world1=world1, pair={"backend": pair_backend, "host_copy": pair_backend == "gloo", "rows": pair},
+               four=four or "not run (fewer than 4 cards)",
+               verdicts="every process's verdict, witness and hit index equal the single-process solve's")
+    # 2. Full width on a 4-rank mesh of the one card, in turns with the
+    # unsharded solve; K11's launches counted on the sharded solves alone.
+    mesh4 = candidate_mesh(devices=[card0] * MESH_SOLVE_RANKS)
+    full_rows, k11_launches = [], 0
+    for broken in (False, True):
+        data = synth.benchmark_fbas(256, 34, broken=broken)
+        # Each solve starts on an idle card: a broken twin returns at its
+        # first drained hit, leaving the programs behind it running.
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        plain_solve = solve(data, backend="gpu-sweep")
+        unsharded_s = time.perf_counter() - t
+        torch.cuda.synchronize()
+        sweep_fused.launches = sweep_sharded.launches = 0
+        t = time.perf_counter()
+        res = solve(data, backend=GpuSweepBackend(mesh=mesh4))
+        sharded_s = time.perf_counter() - t
+        k11_launches += sweep_sharded.launches
+        if sweep_sharded.launches < 1 or sweep_fused.launches:
+            fail("mesh", f"full width (broken={broken}) on the mesh: K11 {sweep_sharded.launches}, "
+                         f"K1 {sweep_fused.launches} launches")
+        same = (res.intersects, res.q1, res.q2, res.stats.get("hit_index")) == (
+            plain_solve.intersects, plain_solve.q1, plain_solve.q2, plain_solve.stats.get("hit_index"))
+        if not same or res.intersects is broken:
+            fail("mesh", f"full width (broken={broken}): the 4-rank solve differs from the unsharded one")
+        if broken:
+            graph = build_graph(parse_fbas(data))
+            if not (is_quorum(graph, res.q1) and is_quorum(graph, res.q2) and not set(res.q1) & set(res.q2)):
+                fail("mesh", "the broken twin's witness pair is not two disjoint quorums")
+        cert_jobs.append((f"mesh/full/broken={broken}", data, res.cert))
+        full_rows.append({"config": f"benchmark_fbas(256, core=34, broken={broken})", "ranks": mesh4.size,
+                          "intersects": res.intersects, "hit_index": res.stats.get("hit_index"),
+                          "sharded_seconds": sharded_s, "unsharded_seconds": unsharded_s,
+                          "candidates": res.stats["candidates_checked"], "device_steps": res.stats["device_steps"],
+                          "k11_launches": sweep_sharded.launches, "mesh": res.stats["mesh"]})
+    phase_line("mesh_full", card=card, runs=full_rows, k11_launches=k11_launches,
+               verdicts="verdict, witness and hit index equal to the unsharded solve's")
+
+    # The window's times: a 2^20-candidate window at full width (the timing
+    # phase's bench256_34 shape, hi row 5, start 2^20) through K11 on 1, 2
+    # and 4 ranks of the one card and on 4 cards, beside the plain version,
+    # the bound (K1's window bound over the cards) and the collective alone.
+    circuit, circuit_d, local, scc_mask, frozen = sweep_problem(json.dumps(synth.benchmark_fbas(256, 34)))
+    lo_nodes = np.asarray(local[1:31], dtype=np.int32)
+    hi_row = np.zeros(circuit.n, dtype=np.int32)
+    for j, v in enumerate(local[31:]):
+        hi_row[v] = (5 >> j) & 1
+    start, hi_bits = 1 << 20, mask_bits(hi_row)
+    k1_bound_ms, bound_by, _ = window_bound_ms(circuit, circuit_d, lo_nodes, scc_mask, frozen, start, hi_row,
+                                               device)
+
+    def sharded_window(devices):
+        mesh = candidate_mesh(devices=devices)
+        per_dev = WINDOW // 8 // mesh.size
+        tables = {}
+        for dev in mesh.devices:
+            if dev not in tables:
+                tables[dev] = FusedSweep(circuit, lo_nodes, scc_mask, frozen, per_dev, circuit_d, dev)
+        return mesh, ShardedSweep(mesh, per_dev, [tables[d] for d in mesh.devices])
+
+    window_rows = {}
+    for label, devices in [(f"{r} ranks, 1 card", [card0] * r) for r in (1, 2, 4)] + (
+            [("4 ranks, 4 cards", [torch.device("cuda", i) for i in range(4)])] if cards >= 4 else []):
+        mesh, sharded = sharded_window(devices)
+        want = int(ref.SweepRef(circuit, lo_nodes, scc_mask, frozen, WINDOW // 8, circuit_d, device)
+                   .program(start, 8, hi_row)) if not window_rows else window_rows["1 ranks, 1 card"]["hit"]
+        got = int(sharded.program(start, 8, hi_bits))
+        if got != want:
+            fail("mesh", f"the timed window on {label}: {got} != {want}")
+        used = len({str(d) for d in mesh.devices})
+        window_rows[label] = {"hit": got, "ms": time_ms(lambda: sharded.program(start, 8, hi_bits), 50),
+                              "device_ms": device_ms(lambda: sharded.program(start, 8, hi_bits), 10),
+                              "bound_ms": k1_bound_ms / used, "bound_by": bound_by, "cards": used}
+    if cards < 4:
+        window_rows["4 ranks, 4 cards"] = "not measured (one card)"
+    mesh4_window, sharded4 = sharded_window([card0] * 4)
+    plain4 = ref.SweepRef(circuit, lo_nodes, scc_mask, frozen, sharded4.per_dev, circuit_d, device)
+    plain_ms = time_ms(lambda: [plain4.sharded_program(start + g * sharded4.per_dev, sharded4.per_dev,
+                                                       sharded4.base_block, 8, hi_row) for g in range(4)], 2)
+    parts = [torch.full((), 100 + g, dtype=torch.int32, device=card0) for g in range(4)]
+    gather_ms = time_ms(lambda: mesh_pmin(mesh4_window, parts), MESH_COLLECTIVE_REPS)
+    phase_line("mesh_timing", card=card, window=WINDOW, per_window=window_rows, plain_ms_4_ranks=plain_ms,
+               gather_min_ms_4_ranks=gather_ms, k1_window_bound_ms=k1_bound_ms)
+
+    # 5. More than one card: the full width on 1, 2 and 4 of them (one
+    # process driving the cards), and on candidate_mesh() over all.
+    if cards >= 2:
+        multi = []
+        data = synth.benchmark_fbas(256, 34)
+        for n_cards in sorted({1, 2, min(4, cards), cards}):
+            mesh = candidate_mesh(n_cards)
+            sweep_sharded.launches = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = solve(data, backend=GpuSweepBackend(mesh=mesh), with_cert=False)
+            seconds = time.perf_counter() - t
+            if res.intersects is not True or sweep_sharded.launches < 1:
+                fail("mesh", f"full width on {n_cards} cards: intersects={res.intersects}")
+            multi.append({"cards": n_cards, "seconds": seconds, "k11_launches": sweep_sharded.launches,
+                          "mesh": res.stats["mesh"]})
+        phase_line("mesh_cards", card=card, cards=cards, full_width_correct=multi)
+    else:
+        phase_line("mesh_cards", card=card, cards=cards,
+                   skipped="one card: the full width on 2 and 4 cards needs a host with them")
+
+    phase_line("mesh", card=card, seconds=round(time.perf_counter() - t_phase, 3))
+    nccl_ms = [r["all_reduce_ms"] for r in (four or world1)]
+    one_card = window_rows[f"{MESH_SOLVE_RANKS} ranks, 1 card"]
+    return {
+        "name": "sweep_sharded_cuda",
+        "route": "cuda",
+        "source": f"{PORT}/kernels/csrc/sweep.cu",
+        "replaces": "quorum_intersection_tpu/backends/tpu/sweep.py:2196",
+        "launches": k11_launches,
+        "max_abs_err": max_err,
+        "ms": one_card["ms"],
+        "plain_ms": plain_ms,
+        "bound_ms": one_card["bound_ms"],
+        "bound_by": one_card["bound_by"],
+        "library_ms": gather_ms,
+        "library_call": "mesh_pmin of 4 ranks' int32 on the home card (gather, min), no process group",
+        "nccl_all_reduce_ms": max(nccl_ms),
+        "nccl_all_reduce_of": "all_reduce(MIN) of one int32, " + (
+            "4 processes on 4 cards" if four else "a world-size-1 group on the one card"),
+        "window_ms": window_rows,
+        "main_path_launches_of": "mesh_full: the full-width twins on 4 ranks of one card",
+    }
+
+
 def zero_script_launches():
     """This process's kernel launch counts set to 0."""
     from quorum_intersection_tpu_torch.kernels import frontier_cuda
@@ -4388,10 +4873,10 @@ def zero_script_launches():
     from quorum_intersection_tpu_torch.kernels.guard_cuda import guard_bitset, guard_dense
     from quorum_intersection_tpu_torch.kernels.packed_cuda import packed_sweep_bitset, packed_sweep_dense
     from quorum_intersection_tpu_torch.kernels.pagerank_cuda import pagerank_power
-    from quorum_intersection_tpu_torch.kernels.sweep_cuda import sweep_fused
+    from quorum_intersection_tpu_torch.kernels.sweep_cuda import sweep_fused, sweep_sharded
 
-    for fn in (sweep_fused, packed_sweep_dense, packed_sweep_bitset, bitset_sweep, guard_dense, guard_bitset,
-               pagerank_power):
+    for fn in (sweep_fused, sweep_sharded, packed_sweep_dense, packed_sweep_bitset, bitset_sweep, guard_dense,
+               guard_bitset, pagerank_power):
         fn.launches = 0
     for name in frontier_cuda.LAUNCHES:
         frontier_cuda.LAUNCHES[name] = 0
@@ -4513,6 +4998,9 @@ def main(argv=None) -> int:
     ap.add_argument("--native", action="store_true",
                     help="only build, then run the native host layer's and the tooling's phases (native, tooling) "
                          "and check their certificates (no ok line)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="only build, then run the sharded sweep's phase (mesh) and check its certificates "
+                         "(no ok line)")
     ap.add_argument("--k12-parent", metavar="DIR", default=None,
                     help="a checkout (git archive) whose PageRank kernel timing_pagerank times in turns "
                          "with this tree's, per call and per iteration, beside this tree's launch shapes")
@@ -4603,6 +5091,20 @@ def main(argv=None) -> int:
         tooling_phase(device, card, cert_jobs, work)
         refused, _ = check_certificates(cert_jobs, work)
         phase_line("cert", card=card, checked=len(cert_jobs), refused=refused)
+        return 1 if refused else 0
+
+    if args.mesh:
+        import tempfile
+
+        manifest = json.loads((FIXTURES / "MANIFEST.json").read_text())
+        texts = {name: fixture_text(name) for name in manifest}
+        work = pathlib.Path(tempfile.mkdtemp(prefix="qi-chip-smoke-"))
+        cert_jobs = []
+        record = mesh_phase(device, card, texts, manifest, cert_jobs, work)
+        record["instances"] = ptxas.get("sweep")
+        refused, _ = check_certificates(cert_jobs, work)
+        phase_line("cert", card=card, checked=len(cert_jobs), refused=refused)
+        print(json.dumps({"kernels": [record]}), flush=True)
         return 1 if refused else 0
 
     if args.fleet:
@@ -4733,6 +5235,13 @@ def main(argv=None) -> int:
             "source": f"{PORT}/kernels/csrc/frontier.cu",
             "replaces": "quorum_intersection_tpu/backends/tpu/frontier.py:254",
             "counterparts": "K10 TpuFrontierBackend._build_flag_filter (frontier.py:254; filter_block :300)",
+        },
+        "sweep_sharded_cuda": {
+            "route": "cuda",
+            "source": f"{PORT}/kernels/csrc/sweep.cu",
+            "replaces": "quorum_intersection_tpu/backends/tpu/sweep.py:2196",
+            "counterparts": "K11 TpuSweepBackend._build_sharded_step (sweep.py:2196-2261; shard_map body :2227, "
+                            "lax.pmin :2249): the sharded instance of sweep.cu a rank, parallel/mesh.py mesh_pmin",
         },
     }
     phase_line("kernels", kernels={k: v["counterparts"] for k, v in kernels_meta.items()})
@@ -5592,7 +6101,10 @@ def main(argv=None) -> int:
     native_phase(device, card, texts, manifest, cert_jobs, work, main_cli=cli, k1_rate=full[0]["candidates_per_s"])
     tooling_phase(device, card, cert_jobs, work)
 
-    # -- 35. cert: every certificate through the unmodified checker --------
+    # -- 35. mesh: the sharded sweep K11 and the multi-process runtime ------
+    mesh_record = mesh_phase(device, card, texts, manifest, cert_jobs, work)
+
+    # -- 36. cert: every certificate through the unmodified checker --------
     t = time.perf_counter()
     bad, checked = check_certificates(cert_jobs, work)
     cert_wall = time.perf_counter() - t
@@ -5689,6 +6201,8 @@ def main(argv=None) -> int:
     library_of["pagerank_cuda"] = "pagerank"
     record["kernels"] += frontier_records
     library_of.update(frontier_chunk_cuda="frontier", frontier_filter_cuda="frontier")
+    record["kernels"].append(mesh_record)
+    library_of["sweep_sharded_cuda"] = "sweep"
     for entry in record["kernels"]:
         entry["instances"] = ptxas.get(library_of[entry["name"]])
         entry["delta_path_launches"] = delta_launches.get(entry["name"], 0)

@@ -34,7 +34,15 @@ pack entry; an explicit ``QI_SWEEP_ENGINE`` always wins.  A
 sweep, and to the frontier rung at the same path as a frontier file; a
 checkpoint with recorded progress skips the oracle and the race, a losing
 race arm clears what it recorded, and the batch entry does not pack with
-one.  Meshes of the JAX router are not ported.
+one.
+
+A ``mesh=`` (:class:`..parallel.mesh.CandidateMesh`, the CLI's ``--mesh``)
+goes to every sweep the router builds (the JAX router's ``:682``), and
+closes the pack gate (``:1194``): the sharded sweep packs nothing.  Unlike
+the JAX router, which hands the mesh to its frontier rung too (``:1492``),
+the port keeps that rung closed under a mesh, a choice made on the host
+before any build and named in the ``route.decision`` event's reason: the
+frontier's sharded fixpoint is not ported.
 
 The router's constants come from :mod:`.calibration`, keyed by the live
 card's name; the device is explicit (``device=``), so the budget needs no
@@ -60,10 +68,11 @@ from quorum_intersection_tpu_torch.backends.base import (
 )
 from quorum_intersection_tpu_torch.backends.calibration import H100, HOST_CPU, Calibration
 from quorum_intersection_tpu_torch.backends.sweep import LO_BITS, MAX_BITS
-from quorum_intersection_tpu_torch.device import DeviceLike, resolve_device
+from quorum_intersection_tpu_torch.device import DeviceLike
 from quorum_intersection_tpu_torch.encode.circuit import Circuit
 from quorum_intersection_tpu_torch.fbas.graph import TrustGraph
 from quorum_intersection_tpu_torch.fbas.synth import scc_qset_density
+from quorum_intersection_tpu_torch.parallel.mesh import CandidateMesh, mesh_device
 from quorum_intersection_tpu_torch.utils.checkpoint import SweepCheckpoint
 from quorum_intersection_tpu_torch.utils.env import qi_env, qi_env_float
 from quorum_intersection_tpu_torch.utils.telemetry import Span, dump_flight_recorder, get_run_record
@@ -325,10 +334,12 @@ class AutoBackend:
         seed: Optional[int] = None,
         randomized: bool = False,
         checkpoint: Optional[SweepCheckpoint] = None,
+        mesh: Optional[CandidateMesh] = None,
     ) -> None:
         # The device is resolved now: CUDA without a card raises here, as
-        # resolve_device does, before any routing.
-        self.device = resolve_device(device)
+        # resolve_device does, before any routing.  Under a mesh, its home.
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
         # race=False (--no-race): the budgeted oracle alone, then the sweep
         # only after a burned budget.  Verdicts are the same either way.
         self.race = race
@@ -399,7 +410,7 @@ class AutoBackend:
         from quorum_intersection_tpu_torch.backends.sweep import GpuSweepBackend
 
         return GpuSweepBackend(cancel=cancel if cancel is not None else self.cancel, device=self.device,
-                               engine=engine, checkpoint=self.checkpoint)
+                               engine=engine, checkpoint=self.checkpoint, mesh=self.mesh)
 
     def _bitset_hint(self, graph: TrustGraph, scc: List[int]) -> Optional[str]:
         """``"bitset"`` where the bitset engine's win region measured on the
@@ -729,7 +740,8 @@ class AutoBackend:
                       else f"oracle budget burned; |scc| <= sweep limit {limit}")
             return backend.check_scc(graph, circuit, scc, scope_to_scc=scope_to_scc)
         region = self._frontier_region()
-        if region is not None and region[0] <= len(scc) <= region[1]:
+        in_region = region is not None and region[0] <= len(scc) <= region[1]
+        if in_region and self.mesh is None:
             # The frontier rung: no degrade, no retry, as the sweep rung.
             from quorum_intersection_tpu_torch.backends.frontier import GpuFrontierBackend
             from quorum_intersection_tpu_torch.utils.checkpoint import FrontierCheckpoint
@@ -746,8 +758,10 @@ class AutoBackend:
             log.warning("checkpoint not honored: |scc|=%d routed to a host oracle "
                         "(no progress will be recorded)", len(scc))
         backend = self._cpu_oracle(cancel=self.cancel) if self.cancel is not None else self._cpu_oracle()
-        rec.event("route.decision", engine=backend.name, scc=len(scc),
-                  reason=f"host oracle (|scc| above the sweep limit {limit})")
+        reason = f"host oracle (|scc| above the sweep limit {limit})"
+        if in_region:
+            reason += "; the frontier rung is closed under a mesh (its sharded fixpoint is not ported)"
+        rec.event("route.decision", engine=backend.name, scc=len(scc), reason=reason)
         return backend.check_scc(graph, circuit, scc, scope_to_scc=scope_to_scc)
 
     # ---- batch entry ------------------------------------------------------
@@ -758,8 +772,8 @@ class AutoBackend:
         decode ceiling, ``pack=None`` engages only behind the pack win
         measured on the live card kind (plus one grid step), with at least
         two jobs that could share a pack.  Never with a checkpoint (packs
-        keep none)."""
-        if self.pack is False or self.checkpoint is not None:
+        keep none) or a mesh (the sharded sweep packs nothing)."""
+        if self.pack is False or self.checkpoint is not None or self.mesh is not None:
             return None
         if self.pack is True:
             return SWEEP_DECODE_CEILING

@@ -41,9 +41,13 @@ checkpoint writes, and its statistics key for key.  Where JAX arrays are
 immutable, the port's arena is updated in place, so the drive ping-pongs two
 arena sets: a chunk reads one and writes the other, and the host reads a
 finished chunk's set (flags, spill, checkpoint) while the speculative chunk
-writes the other.  The mesh argument is not ported (it waits for K11).  On
-CUDA the backend launches K9 and K10 or raises: no path falls back to the
-CPU or to the plain versions.
+writes the other.  The mesh argument is not ported: the JAX frontier's
+sharded fixpoint all-gathers the rows inside every iteration of its device
+loop (``frontier.py:351-363``, ``:475-502``), while K9 runs a whole chunk in
+one cooperative launch with a grid barrier an iteration, between which no
+NCCL collective can run.  It waits for K9 split into per-iteration stage
+kernels with a collective between them.  On CUDA the backend launches K9
+and K10 or raises: no path falls back to the CPU or to the plain versions.
 """
 
 from __future__ import annotations

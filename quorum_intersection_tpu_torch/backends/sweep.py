@@ -43,6 +43,23 @@ the packed dense kernel.  Unlike the JAX drive, a bitset kernel that fails
 to build or launch fails the solve: there is no in-place degrade to the
 dense encoding (``sweep.py:919-957``).
 
+The unpacked drive takes the JAX drive's mesh (``mesh=``, a
+:class:`..parallel.mesh.CandidateMesh`; ``sweep.py:2196-2261``, K11): each
+rank sweeps its own ``batch // ranks``-row sub-block of every block of a
+program, through the sharded instance of the fused kernel
+(:meth:`..kernels.sweep_cuda.FusedSweep.sharded`, one launch a rank and
+program, ranks that share a card sharing its tables and running one after
+the other on its stream), and the ranks' first hits meet in one
+:func:`..parallel.mesh.mesh_pmin`.  A program still returns one int32, so
+the drive below (queue, drain, checkpoint) runs unchanged, every process of
+a multi-process mesh in step; its ramp is the JAX drive's with the jump
+target's compile landing at once, so a mesh solve's ``candidates_checked``
+and ``device_steps`` equal the JAX mesh's (the single-card drive keeps its
+own ramp).  The JAX mesh rules hold: the
+``pallas`` and ``bitset`` requests resolve to ``xla`` (K11 is the only
+sharded program), there is no pruning, and ``check_sccs`` packs nothing.
+A failed build, launch or collective fails the solve.
+
 The unpacked drive takes the JAX drive's checkpoint and resume
 (``checkpoint=``, a :class:`..utils.checkpoint.SweepCheckpoint`;
 ``sweep.py:797-824``, ``:1072-1083``): the position after each drained
@@ -89,7 +106,7 @@ from quorum_intersection_tpu_torch.backends.base import (
     SearchCancelled,
     cancelled_result,
 )
-from quorum_intersection_tpu_torch.device import DeviceLike, resolve_device
+from quorum_intersection_tpu_torch.device import DeviceLike
 from quorum_intersection_tpu_torch.encode.circuit import (
     LANE_TILE,
     Circuit,
@@ -110,6 +127,7 @@ from quorum_intersection_tpu_torch.kernels.guard_cuda import BlockGuard
 from quorum_intersection_tpu_torch.kernels.packed_cuda import MAX_UNITS, PackedSweep
 from quorum_intersection_tpu_torch.kernels.sweep_cuda import FusedSweep
 from quorum_intersection_tpu_torch.kernels.sweep_ref import _round_up
+from quorum_intersection_tpu_torch.parallel.mesh import CandidateMesh, collective_of, mesh_device, mesh_pmin
 from quorum_intersection_tpu_torch.utils.checkpoint import SweepCheckpoint, sweep_fingerprint
 from quorum_intersection_tpu_torch.utils.env import qi_env
 from quorum_intersection_tpu_torch.utils.faults import FaultInjected, fault_point
@@ -309,17 +327,23 @@ def resolve_engine(
     requested: str,
     circuit: Circuit,
     *,
+    mesh: bool = False,
     wide: bool = False,
     restricted: bool = False,
 ) -> EngineResolution:
     """The JAX ``resolve_engine`` (``backends/tpu/sweep.py:269-328``), rule
-    for rule and reason for reason, without its mesh rule (the port has no
-    mesh): ``xla`` as requested; ``bitset`` where every vote is 0/1 (wide
-    and restricted sweeps included), else ``xla``; ``pallas`` becomes
+    for rule and reason for reason: ``xla`` as requested; under a mesh
+    ``xla`` (its sharded kernel is K11); ``bitset`` where every vote is 0/1
+    (wide and restricted sweeps included), else ``xla``; ``pallas`` becomes
     ``xla`` on a wide or an SCC-restricted sweep and on votes past int8.
-    The packed drive resolves with ``wide`` and ``restricted`` False."""
+    The packed drive resolves with ``mesh``, ``wide`` and ``restricted``
+    False."""
     if requested == "xla":
         return EngineResolution(requested, "xla", "as requested")
+    if mesh:
+        return EngineResolution(
+            requested, "xla", f"mesh sharding: the {requested} kernel has no sharded program"
+        )
     if requested == "bitset":
         if not bitset_supported(circuit):
             return EngineResolution(
@@ -410,9 +434,12 @@ class _Pending:
             return cls(thunk=program)
         out = program()
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        # The copy runs on the current stream of the card the result lies on
+        # (a mesh's home card, behind its collective); the event goes there
+        # too, not on the calling thread's current device.
         host.copy_(out, non_blocking=True)
         event = torch.cuda.Event()
-        event.record()
+        event.record(torch.cuda.current_stream(out.device))
         return cls(event=event, host=host)
 
     def result(self) -> torch.Tensor:
@@ -420,6 +447,29 @@ class _Pending:
             return self._thunk()
         self._event.synchronize()
         return self._host
+
+
+class ShardedSweep:
+    """One sweep problem on a mesh: rank ``local`` sweeps the sub-block
+    ``[block + g·per_dev, + per_dev)`` of every block of a program (``g``
+    its global rank) through ``sweeps[local]`` (ranks on one card share one
+    :class:`FusedSweep`), and the ranks' results meet in
+    :func:`mesh_pmin`."""
+
+    def __init__(self, mesh: CandidateMesh, per_dev: int, sweeps: List[FusedSweep]) -> None:
+        self.mesh, self.per_dev, self.sweeps = mesh, per_dev, sweeps
+        self.base_block = per_dev * mesh.size
+
+    def program(self, start: int, steps: int, hi_mask: int = 0) -> torch.Tensor:
+        """Min hit index over ``steps`` blocks of ``base_block`` from
+        ``start``, replicated on every process (the home device's 0-dim
+        int32)."""
+        per_rank = [
+            sweep.sharded(start + self.mesh.global_rank(local) * self.per_dev, self.per_dev,
+                          self.base_block, steps, hi_mask)
+            for local, sweep in enumerate(self.sweeps)
+        ]
+        return mesh_pmin(self.mesh, per_rank)
 
 
 @dataclass
@@ -513,7 +563,9 @@ class GpuSweepBackend:
     ``engine`` (``xla``, ``pallas``, ``bitset``) pins the engine; None
     reads ``QI_SWEEP_ENGINE`` at check time.  ``checkpoint`` attaches a
     :class:`SweepCheckpoint` to the unpacked drive (``check_sccs`` then
-    packs nothing).
+    packs nothing).  ``mesh`` (a :class:`CandidateMesh`) shards the
+    unpacked drive over its ranks (K11); ``device`` then defaults to the
+    mesh's home device and must equal it.
 
     On CUDA the backend builds its kernels and creates the CUDA context at
     the first solve that needs them, checking its cancel token before the
@@ -539,6 +591,7 @@ class GpuSweepBackend:
         prune: Optional[bool] = None,
         order: Optional[str] = None,
         checkpoint: Optional[SweepCheckpoint] = None,
+        mesh: Optional[CandidateMesh] = None,
     ) -> None:
         if lo_bits > LO_BITS:
             raise ValueError(f"lo_bits={lo_bits} exceeds the index ceiling {LO_BITS}")
@@ -549,7 +602,8 @@ class GpuSweepBackend:
         self.batch = batch  # None ⇒ _auto_batch(circuit.n) at check time
         self.lo_bits = lo_bits
         self.cancel = cancel
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
         self.engine = engine
         # The unpacked drive's resume file (utils.checkpoint.SweepCheckpoint);
         # with one attached, check_sccs does not pack.
@@ -738,6 +792,29 @@ class GpuSweepBackend:
         torch.cuda.set_device(torch.cuda.current_device() if index is None else index)
         return seconds
 
+    def _build_sharded_step(
+        self,
+        circuit: Circuit,
+        lo_nodes: np.ndarray,
+        scc_mask: np.ndarray,
+        frozen: Optional[np.ndarray],
+        batch: int,
+        circuit_d: Optional[Circuit] = None,
+    ) -> Tuple[int, "ShardedSweep"]:
+        """The mesh-sharded step (JAX ``_build_sharded_step``,
+        ``sweep.py:2196-2261``): ``per_dev = max(batch // ranks, 1)`` rows a
+        rank and block, ``base_block = per_dev · ranks``.  Returns
+        ``(base_block, sweep)``; ``sweep.program`` keeps the unsharded
+        program's contract."""
+        mesh = self.mesh
+        per_dev = max(batch // mesh.size, 1)
+        tables: Dict[torch.device, FusedSweep] = {}
+        for dev in mesh.devices:
+            if dev not in tables:
+                tables[dev] = FusedSweep(circuit, lo_nodes, scc_mask, frozen, per_dev,
+                                         circuit_d=circuit_d, device=dev)
+        return per_dev * mesh.size, ShardedSweep(mesh, per_dev, [tables[d] for d in mesh.devices])
+
     @staticmethod
     def _witness(
         graph: TrustGraph, scc: List[int], subset: List[int], scope_to_scc: bool
@@ -813,18 +890,20 @@ class GpuSweepBackend:
 
         # The engine: one typed decision, recorded as one event a check.
         # bitset runs K8; xla and pallas both run the fused kernel K1.
-        resolution = resolve_engine(self._engine_mode(), circuit, wide=bool(hi_nodes), restricted=restricted)
+        resolution = resolve_engine(self._engine_mode(), circuit, mesh=self.mesh is not None,
+                                    wide=bool(hi_nodes), restricted=restricted)
         emit_engine_resolution(resolution)
         engine = resolution.resolved
 
         start0, fingerprint = self._resume_position(circuit, circuit_d, bit_nodes, scc_mask, frozen, total)
 
-        # Block-guard pruning: narrow enumerations only (the wide decode's
-        # hi row speaks no non-contiguous work), on the scoped circuit, by
-        # the engine's encoding.  Planned before the batch: when blocks
-        # pruned, the base program shrinks toward the block size so a
-        # surviving fragment never burns a full-size program.
-        prune = self._prune_enabled() and not hi_nodes
+        # Block-guard pruning: narrow unsharded enumerations only (the wide
+        # decode's hi row and the mesh's sub-blocks speak no non-contiguous
+        # work), on the scoped circuit, by the engine's encoding.  Planned
+        # before the batch: when blocks pruned, the base program shrinks
+        # toward the block size so a surviving fragment never burns a
+        # full-size program.
+        prune = self._prune_enabled() and not hi_nodes and self.mesh is None
         kernel = "bitset_sweep" if engine == "bitset" else "sweep"
         build_s = self._bring_up((kernel, "guard") if prune else (kernel,))
         get_run_record().gauge("sweep.kernel_build_seconds", round(build_s, 4))
@@ -851,19 +930,24 @@ class GpuSweepBackend:
         if hi_nodes:
             # Power-of-two blocks make chunk tails exact.
             batch = 1 << (min(batch, lo_total).bit_length() - 1)
-        if engine == "pallas":
-            # The JAX pallas drive's whole grid blocks (plan_batch), so both
-            # packages cut the same programs.
-            base_block = plan_batch(min(batch, max(total, 1)))
+        if self.mesh is not None:
+            base_block, sweep = self._build_sharded_step(
+                circuit, lo_nodes, scc_mask, frozen, batch, circuit_d=circuit_d
+            )
         else:
-            base_block = min(batch, max(lo_total, 1))
-        if engine == "bitset":
-            fault_point("sweep.bitset")
-        sweep_class = BitsetSweep if engine == "bitset" else FusedSweep
-        sweep = sweep_class(
-            circuit, lo_nodes, scc_mask, frozen, base_block,
-            circuit_d=circuit_d, device=self.device,
-        )
+            if engine == "pallas":
+                # The JAX pallas drive's whole grid blocks (plan_batch), so
+                # both packages cut the same programs.
+                base_block = plan_batch(min(batch, max(total, 1)))
+            else:
+                base_block = min(batch, max(lo_total, 1))
+            if engine == "bitset":
+                fault_point("sweep.bitset")
+            sweep_class = BitsetSweep if engine == "bitset" else FusedSweep
+            sweep = sweep_class(
+                circuit, lo_nodes, scc_mask, frozen, base_block,
+                circuit_d=circuit_d, device=self.device,
+            )
 
         def hi_row(hi: int) -> int:
             return sum(1 << v for j, v in enumerate(hi_nodes) if (hi >> j) & 1)
@@ -922,6 +1006,24 @@ class GpuSweepBackend:
             """Surviving windows not yet dispatched."""
             return range_suffix[seg_ix] - (start - ranges[seg_ix][0])
 
+        def jump_worthwhile() -> bool:
+            """The JAX drive's guard: the remaining work still fills two
+            programs of the next level."""
+            return ramp_ix + 1 < len(STEPS_RAMP) and remaining_work() >= STEPS_RAMP[ramp_ix + 1] * base_block * 2
+
+        # A mesh drive takes the JAX drive's ramp (sweep.py:1165-1245), so
+        # its candidates_checked and device_steps equal the JAX mesh's: the
+        # jump target's compile lands at once, so the target is chosen
+        # before the first program and taken after one program ran, while
+        # it still fits; a target that no longer fits is chosen anew and
+        # taken a program later, as the JAX drive's recompile lands.  The
+        # single-card drive keeps its own ramp: each jump chosen when it is
+        # taken.
+        jax_ramp = self.mesh is not None
+        jump_to = None
+        if jax_ramp and ranges and jump_worthwhile():
+            jump_to = STEPS_RAMP[_jump_target_ix(STEPS_RAMP, ramp_ix, base_block, remaining_work())]
+
         pruned_windows = plan.windows if plan is not None else 0
         with rec.span("sweep.drive", scc=s, total=total, resumed_from=start0,
                       pruned=pruned_windows, engine=engine) as drive_span:
@@ -936,10 +1038,19 @@ class GpuSweepBackend:
                 self._check_cancel(f"at candidate {start}/{total}")
                 # A preempt here leaves any recorded checkpoint on disk.
                 fault_point("sweep.window")
-                if since_ramp >= RAMP_DISPATCHES:
-                    target = _jump_target_ix(STEPS_RAMP, ramp_ix, base_block, remaining_work())
-                    if target != ramp_ix:
-                        ramp_ix, since_ramp = target, 0
+                if not jax_ramp:
+                    if since_ramp >= RAMP_DISPATCHES:
+                        target = _jump_target_ix(STEPS_RAMP, ramp_ix, base_block, remaining_work())
+                        if target != ramp_ix:
+                            ramp_ix, since_ramp = target, 0
+                elif since_ramp >= RAMP_DISPATCHES and jump_worthwhile():
+                    if jump_to is not None and remaining_work() >= jump_to * base_block:
+                        ramp_ix, since_ramp, jump_to = STEPS_RAMP.index(jump_to), 0, None
+                    else:
+                        target = _jump_target_ix(STEPS_RAMP, ramp_ix, base_block, remaining_work())
+                        jump_to = None if target == ramp_ix else STEPS_RAMP[target]
+                elif jump_to is not None and not jump_worthwhile():
+                    jump_to = None
                 hi, lo = start >> lo_bits, start & (lo_total - 1)
                 spc = STEPS_RAMP[ramp_ix]
                 coverage = spc * base_block
@@ -985,6 +1096,9 @@ class GpuSweepBackend:
         self._book_solo_cost(stats, circuit, engine, candidates, seconds)
         if order_meta is not None:
             stats["order"] = dict(order_meta)
+        if self.mesh is not None:
+            stats["mesh"] = {"devices": self.mesh.describe(), "ranks": self.mesh.size,
+                             "processes": self.mesh.process_count, "collective": collective_of(self.mesh)}
         if engine == "bitset":
             # Stamped on the bitset path only: dense certificates stay as
             # they were (cert.py lifts it into provenance.encoding).
@@ -1103,8 +1217,8 @@ class GpuSweepBackend:
         self.pack_plans = []
         prepared: Dict[int, _SweepJob] = {}
         for i, (graph, circuit, scc) in enumerate(jobs):
-            if self.checkpoint is not None:
-                break  # packs keep no checkpoint: every job sweeps unpacked
+            if self.checkpoint is not None or self.mesh is not None:
+                break  # no packs with a checkpoint or a mesh: every job sweeps unpacked
             if len(scc) - 1 > min(self.lo_bits, LO_BITS):
                 continue  # wide two-level enumerations stay unpacked
             tok = token(i)

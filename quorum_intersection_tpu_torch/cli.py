@@ -23,6 +23,10 @@ PATH`` records and resumes a long search in the JAX package's file formats:
 the sweep's scan position under ``auto`` and ``gpu-sweep``, the frontier's
 state under ``gpu-frontier`` (the host oracles refuse it);
 ``--no-race`` runs the auto router's sequential chain instead of the race;
+``--mesh N|all`` shards the sweep over N cards (``all``: every visible
+card; with ``--device cpu``, N CPU ranks, ``all`` one) under ``auto`` and
+``gpu-sweep`` (:mod:`.parallel.mesh`); ``gpu-frontier`` refuses it, its
+sharded fixpoint not being ported;
 ``--cert-out PATH`` writes the verdict's qi-cert/1 certificate, which
 ``tools/check_cert.py`` re-validates against the input.  ``--seed`` and
 ``--randomized`` switch the host oracles to the reference's randomized
@@ -119,6 +123,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--profile-dir", metavar="DIR", default=None,
                    help="record a torch.profiler trace of the solve into DIR (a Chrome trace "
                         "holding the card's kernels and the range qi-trace:<trace_id>)")
+    p.add_argument("--mesh", metavar="N", default=None,
+                   help="shard the device search across N devices ('all' = every "
+                        "visible device); applies to auto/gpu-sweep")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the sweep and the PageRank kernel run (default cuda; cpu runs "
                         "the plain versions)")
@@ -253,6 +260,31 @@ def _main(args, record) -> int:
         # scan position.
         checkpoint_class = FrontierCheckpoint if args.backend == "gpu-frontier" else SweepCheckpoint
         options["checkpoint"] = checkpoint_class(args.checkpoint)
+    if args.mesh is not None:
+        if args.backend not in ("auto", "gpu-sweep", "gpu-frontier"):
+            sys.stderr.write("--mesh requires a device backend (auto/gpu-sweep/gpu-frontier)\n")
+            return 1
+        if args.backend == "gpu-frontier":
+            sys.stderr.write("--mesh: the frontier's sharded fixpoint is not ported yet "
+                             "(--backend gpu-sweep or auto shard the sweep)\n")
+            return 1
+        try:
+            n_dev = None if args.mesh == "all" else int(args.mesh)
+        except ValueError:
+            sys.stderr.write(f"--mesh expects a device count or 'all', got {args.mesh!r}\n")
+            return 1
+        if n_dev is not None and n_dev < 1:
+            sys.stderr.write(f"--mesh expects a positive device count, got {n_dev}\n")
+            return 1
+        try:
+            from quorum_intersection_tpu_torch.parallel.mesh import candidate_mesh
+
+            options["mesh"] = candidate_mesh(n_dev, device=args.device)
+        except (RuntimeError, ValueError) as exc:
+            # ValueError: more devices requested than visible; RuntimeError:
+            # no card — the same one-line contract as backend construction.
+            sys.stderr.write(f"--mesh {args.mesh}: {exc}\n")
+            return 1
     try:
         backend = named_backend(args.backend, args.device, **options)
     except (RuntimeError, ValueError) as exc:

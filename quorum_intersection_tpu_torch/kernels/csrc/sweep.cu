@@ -9,7 +9,11 @@
 // an SCC-restricted circuit (the Q6 fold) and the hi row of the two-level
 // wide decode, so it serves every sweep of the CLI path.
 //
-// For each candidate index idx in [start, start + rows):
+// For each candidate index idx in [start, start + rows) (K1), or, in the
+// sharded instance, each idx = start + (r / sub) * stride + r % sub of row r
+// in [0, rows) (one rank's share of the JAX package's mesh-sharded step K11,
+// `TpuSweepBackend._build_sharded_step`, backends/tpu/sweep.py:2196-2261:
+// sub-block `sub` rows of each of rows / sub blocks `stride` apart):
 //   S     = hi_mask | {lo_nodes[j] : bit j of idx, j < lo_bits}
 //   Q     = greatest fixpoint of S under the Q thresholds (scoped)
 //   D     = greatest fixpoint of scc & ~Q under the D thresholds, with the
@@ -31,6 +35,14 @@
 // last real unit.  Persistent grid-stride blocks of eight warps share the
 // tables and the four byte-indexed decode tables in shared memory, or stream
 // the tables where they do not fit (chosen on the host from their size).
+//
+// The sharded instance differs only in the index map, a template argument,
+// so the contiguous instance compiles to the code it had before.  One
+// launch covers a rank's whole share of a program (up to 1024 sub-blocks at
+// STEPS_RAMP's top), where K1 a sub-block would take a launch each; its
+// bound is K1's, over the rows it covers.  The min over ranks is the
+// caller's (parallel/mesh.py `mesh_pmin`: a gather on the home card, then
+// NCCL's all_reduce(MIN) across processes).
 
 #include "warp_mma.cuh"
 
@@ -47,10 +59,28 @@ __device__ __forceinline__ uint64_t decode_row(const uint64_t* decode, uint64_t 
          decode[512 + ((idx >> 16) & 255)] | decode[768 + (idx >> 24)];
 }
 
-template <class Src, bool kS1>
+// Row r → candidate index: K1's contiguous range.
+struct Contiguous {
+  long long start;
+  __device__ __forceinline__ uint32_t operator()(long long r) const { return (uint32_t)(start + r); }
+};
+
+// Row r → candidate index: K11's rank share, sub-block r / sub of a program
+// at stride `stride`.  The wrapper keeps rows and every index below 2^31, so
+// the division runs in 32 bits.
+struct Strided {
+  long long start;
+  uint32_t sub, stride;
+  __device__ __forceinline__ uint32_t operator()(long long r) const {
+    const uint32_t rr = (uint32_t)r;
+    return (uint32_t)start + (rr / sub) * stride + rr % sub;
+  }
+};
+
+template <class Src, bool kS1, class Map>
 __global__ void __launch_bounds__(kThreads)
 sweep_kernel(Params p, const int* __restrict__ lo_nodes, int lo_bits, uint64_t hi_mask,
-             uint64_t scc_mask, uint64_t frozen, long long start, long long rows,
+             uint64_t scc_mask, uint64_t frozen, Map map, long long rows,
              int* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout l = make_layout(true, Src::kStream, p);
@@ -76,7 +106,7 @@ sweep_kernel(Params p, const int* __restrict__ lo_nodes, int lo_bits, uint64_t h
   for (long long t = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5); t < tiles;
        t += (long long)gridDim.x * kWarps) {
     const long long r0 = t * kRows + g, r1 = r0 + 8;
-    const uint32_t idx0 = (uint32_t)(start + r0), idx1 = (uint32_t)(start + r1);
+    const uint32_t idx0 = map(r0), idx1 = map(r1);
     uint32_t a0 = r0 < rows ? word_of(decode_row(decode, hi_mask, idx0), q) : 0u;
     uint32_t a1 = r1 < rows ? word_of(decode_row(decode, hi_mask, idx1), q) : 0u;
     w.fixpoint(a0, a1, 0u, w.src.thr_q);
@@ -96,17 +126,31 @@ sweep_kernel(Params p, const int* __restrict__ lo_nodes, int lo_bits, uint64_t h
   if (lane == 0 && best != kMiss) atomicMin(out, best);
 }
 
-template <class Src, bool kS1>
+template <class Src, bool kS1, class Map>
 cudaError_t launch(const Params& p, const int* lo_nodes, int lo_bits, uint64_t hi_mask,
-                   uint64_t scc_mask, uint64_t frozen, long long start, long long rows, int* out,
+                   uint64_t scc_mask, uint64_t frozen, Map map, long long rows, int* out,
                    cudaStream_t stream) {
   const size_t smem = make_layout(true, Src::kStream, p).end;
   int grid = 0;
-  cudaError_t err = plan_grid<sweep_kernel<Src, kS1>>(smem, (rows + kRows - 1) / kRows, &grid);
+  cudaError_t err = plan_grid<sweep_kernel<Src, kS1, Map>>(smem, (rows + kRows - 1) / kRows, &grid);
   if (err != cudaSuccess || grid < 1) return err;
-  sweep_kernel<Src, kS1><<<grid, kThreads, smem, stream>>>(p, lo_nodes, lo_bits, hi_mask,
-                                                           scc_mask, frozen, start, rows, out);
+  sweep_kernel<Src, kS1, Map><<<grid, kThreads, smem, stream>>>(p, lo_nodes, lo_bits, hi_mask,
+                                                                scc_mask, frozen, map, rows, out);
   return cudaGetLastError();
+}
+
+// The table instance (resident or streamed) and the one-slab case, for
+// either index map.
+template <class Map>
+cudaError_t dispatch(const Params& p, int stream, const int* lo_nodes, int lo_bits,
+                     uint64_t hi_mask, uint64_t scc_mask, uint64_t frozen, Map map, long long rows,
+                     int* out, cudaStream_t s) {
+  const bool s1 = p.slabs <= 1;
+  if (stream)
+    return s1 ? launch<Streamed, true>(p, lo_nodes, lo_bits, hi_mask, scc_mask, frozen, map, rows, out, s)
+              : launch<Streamed, false>(p, lo_nodes, lo_bits, hi_mask, scc_mask, frozen, map, rows, out, s);
+  return s1 ? launch<Resident, true>(p, lo_nodes, lo_bits, hi_mask, scc_mask, frozen, map, rows, out, s)
+            : launch<Resident, false>(p, lo_nodes, lo_bits, hi_mask, scc_mask, frozen, map, rows, out, s);
 }
 
 }  // namespace
@@ -126,11 +170,22 @@ extern "C" int qi_sweep_fused(const void* blocks, const void* chunks, const int*
                               void* cuda_stream) {
   const Params p{static_cast<const uint4*>(blocks), static_cast<const int4*>(chunks), thr_q, thr_d,
                  n, n_units, units, depth, c0, slabs, pc, nblocks};
-  cudaStream_t s = static_cast<cudaStream_t>(cuda_stream);
-  const bool s1 = slabs <= 1;
-  if (stream)
-    return s1 ? launch<Streamed, true>(p, lo_nodes, lo_bits, hi_mask, scc_mask, frozen, start, rows, out, s)
-              : launch<Streamed, false>(p, lo_nodes, lo_bits, hi_mask, scc_mask, frozen, start, rows, out, s);
-  return s1 ? launch<Resident, true>(p, lo_nodes, lo_bits, hi_mask, scc_mask, frozen, start, rows, out, s)
-            : launch<Resident, false>(p, lo_nodes, lo_bits, hi_mask, scc_mask, frozen, start, rows, out, s);
+  return dispatch(p, stream, lo_nodes, lo_bits, hi_mask, scc_mask, frozen, Contiguous{start}, rows,
+                  out, static_cast<cudaStream_t>(cuda_stream));
+}
+
+// The sharded instance (K11's per-rank body): as qi_sweep_fused, over the
+// rows r in [0, rows) at idx = start + (r / sub) * stride + r % sub.  The
+// wrapper has checked 1 <= sub <= stride and every index below 2^31.
+extern "C" int qi_sweep_sharded(const void* blocks, const void* chunks, const int* thr_q,
+                                const int* thr_d, const int* lo_nodes, int lo_bits,
+                                uint64_t hi_mask, uint64_t scc_mask, uint64_t frozen, int n,
+                                int n_units, int units, int depth, int c0, int slabs, int pc,
+                                int nblocks, int stream, long long start, long long sub,
+                                long long stride, long long rows, int* out, void* cuda_stream) {
+  const Params p{static_cast<const uint4*>(blocks), static_cast<const int4*>(chunks), thr_q, thr_d,
+                 n, n_units, units, depth, c0, slabs, pc, nblocks};
+  const Strided map{start, (uint32_t)sub, (uint32_t)stride};
+  return dispatch(p, stream, lo_nodes, lo_bits, hi_mask, scc_mask, frozen, map, rows, out,
+                  static_cast<cudaStream_t>(cuda_stream));
 }

@@ -10,6 +10,12 @@ On a CUDA device it launches the kernel (:func:`sweep_fused`, which counts
 its launches) or raises; it never falls back.  On the CPU it runs the plain
 version (:mod:`.sweep_ref`) — only because the tables lie on the CPU.
 
+:meth:`FusedSweep.sharded` is one mesh rank's share of the JAX package's
+sharded step K11 (``TpuSweepBackend._build_sharded_step``,
+``backends/tpu/sweep.py:2196-2261``): ``steps`` sub-blocks of ``sub`` rows,
+``stride`` apart, in one launch of the kernel's sharded instance
+(:func:`sweep_sharded`, counted apart from :func:`sweep_fused`).
+
 The kernel takes the votes as b1 and-popc tensor-core products, 16 rows a
 warp (``csrc/warp_mma.cuh``).  :func:`plane_tables` lays the circuit out as
 the kernel reads it (shared with the block guard, :mod:`.guard_cuda`): per
@@ -257,6 +263,57 @@ class FusedSweep:
             return self.ref.program(start, steps, hi)
         return sweep_fused(self, start, steps * self.batch, hi_mask)
 
+    def sharded(self, start: int, sub: int, stride: int, steps: int, hi_mask: int = 0) -> torch.Tensor:
+        """Min hit index over the ``steps`` sub-blocks ``[start + j·stride,
+        + sub)``: one rank's share of a mesh program (K11)."""
+        if self.ref is not None:
+            hi = None if not hi_mask else _bits_row(hi_mask, self.n)
+            return self.ref.sharded_program(start, sub, stride, steps, hi)
+        return sweep_sharded(self, start, sub, stride, steps * sub, hi_mask)
+
+
+def sharded_last_index(start: int, sub: int, stride: int, rows: int) -> int:
+    """The largest candidate index of the sharded map's ``rows`` rows."""
+    last = rows - 1
+    return start + (last // sub) * stride + last % sub
+
+
+def sweep_sharded(sweep: FusedSweep, start: int, sub: int, stride: int, rows: int,
+                  hi_mask: int = 0) -> torch.Tensor:
+    """Launch the sharded instance over ``rows`` rows, row ``r`` at index
+    ``start + (r // sub)·stride + r % sub``, on the current stream of the
+    sweep's card (made current for the launch); returns the 0-dim int32
+    result there without synchronising."""
+    if sweep.device.type != "cuda":
+        raise ValueError(f"sweep_sharded launches on CUDA only, got {sweep.device}")
+    if sub < 1 or stride < sub or rows < 1:
+        raise KernelLimitError(
+            f"sharded map needs 1 <= sub <= stride and rows >= 1, got sub={sub}, stride={stride}, rows={rows}"
+        )
+    last = sharded_last_index(start, sub, stride, rows)
+    if start < 0 or last >= INDEX_CEILING:
+        raise KernelLimitError(f"sharded rows [{start}, {last}] cross the 2^31 index ceiling")
+    t = sweep.tables
+    lib = _library()
+    with torch.cuda.device(sweep.device):
+        out = torch.full((), INT32_MAX, dtype=torch.int32, device=sweep.device)
+        stream = torch.cuda.current_stream(sweep.device).cuda_stream
+        err = lib.qi_sweep_sharded(
+            t.blocks.data_ptr(), t.chunks.data_ptr(), t.neg_thresholds.data_ptr(), sweep.neg_thr_d.data_ptr(),
+            sweep.lo_nodes.data_ptr(), sweep.lo_bits, hi_mask, sweep.scc_bits, sweep.frozen_bits,
+            t.n, t.n_units, t.units, t.depth, t.c0, t.slabs, t.pc, t.nblocks, int(t.stream),
+            start, sub, stride, rows, out.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"qi_sweep_sharded launch failed: {lib.qi_cuda_error_string(err).decode()}"
+        )
+    sweep_sharded.launches += 1
+    return out
+
+
+sweep_sharded.launches = 0  # type: ignore[attr-defined]
+
 
 def sweep_fused(sweep: FusedSweep, start: int, rows: int, hi_mask: int = 0) -> torch.Tensor:
     """Launch the fused kernel over ``rows`` candidates on the current
@@ -294,6 +351,10 @@ def _library() -> ctypes.CDLL:
             p, p, p, p, p, i, u64, u64, u64, i, i, i, i, i, i, i, i, i, i64, i64, p, p,
         ]
         lib.qi_sweep_fused.restype = i
+        lib.qi_sweep_sharded.argtypes = [
+            p, p, p, p, p, i, u64, u64, u64, i, i, i, i, i, i, i, i, i, i64, i64, i64, i64, p, p,
+        ]
+        lib.qi_sweep_sharded.restype = i
         lib.qi_cuda_error_string.argtypes = [i]
         lib.qi_cuda_error_string.restype = ctypes.c_char_p
         lib._qi_typed = True

@@ -67,9 +67,11 @@ class CircuitTables:
                 )
             self.dtype = torch.int8
             # _int_mm's preferred layout: row-major left operand, column-major
-            # right operand, both padded to multiples of 8.
+            # right operand, both padded to multiples of 8, the unit columns
+            # to 16: on the H100 cuBLASLt refuses 2^17 rows against 40
+            # columns (8 mod 16) at an inner size of 16, 32, 48 or 64.
             n8 = _round_up(max(self.n, 1), 8)
-            u8 = _round_up(max(self.n_units, 1), 8)
+            u8 = _round_up(max(self.n_units, 1), 16)
             m = np.zeros((u8, n8), dtype=np.int8)
             m[: self.n_units, : self.n] = circuit.members
             k8 = _round_up(max(self.n_units - self.child_from, 1), 8)
@@ -170,8 +172,21 @@ def decode_masks(
 ) -> torch.Tensor:
     """Candidate indices ``start + [0, batch)`` → (batch, n) 0/1 rows.
     Indices stay below 2^31 (the sweep backend's index ceiling)."""
-    idx = start + torch.arange(batch, dtype=torch.int32, device=pos.device)
+    return decode_indices(start + torch.arange(batch, dtype=torch.int32, device=pos.device), pos, dtype)
+
+
+def decode_indices(idx: torch.Tensor, pos: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """int32 candidate indices (B,) → (B, n) 0/1 rows."""
     return ((idx[:, None] >> pos[None, :]) & 1).to(dtype)
+
+
+def sharded_indices(start: int, sub: int, stride: int, r0: int, r1: int,
+                    device: torch.device) -> torch.Tensor:
+    """The sharded map of rows ``[r0, r1)``: row ``r`` at index ``start +
+    (r // sub)·stride + r % sub`` (one mesh rank's share of a program, K11's
+    per-device body), as int32."""
+    r = torch.arange(r0, r1, dtype=torch.int64, device=device)
+    return (start + torch.div(r, sub, rounding_mode="floor") * stride + r % sub).to(torch.int32)
 
 
 def sweep_step(
@@ -187,8 +202,22 @@ def sweep_step(
     """One block of candidates: Q = fixpoint(S); hit ⇔ Q ≠ ∅ ∧
     fixpoint(scc ∖ Q) ≠ ∅, the probe under ``tables_d``'s thresholds (the
     SCC-restricted Q6 fold) or ``frozen``.  Returns ``(hit, q_size)``."""
+    idx = start + torch.arange(batch, dtype=torch.int32, device=pos.device)
+    return sweep_rows(tables, idx, pos, scc_mask, frozen, hi_mask, tables_d)
+
+
+def sweep_rows(
+    tables: CircuitTables,
+    idx: torch.Tensor,
+    pos: torch.Tensor,
+    scc_mask: torch.Tensor,
+    frozen: torch.Tensor,
+    hi_mask: Optional[torch.Tensor] = None,
+    tables_d: Optional[CircuitTables] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`sweep_step` on explicit int32 candidate indices ``idx``."""
     td = tables if tables_d is None else tables_d
-    avail = decode_masks(start, batch, pos, tables.dtype)
+    avail = decode_indices(idx, pos, tables.dtype)
     if hi_mask is not None:
         avail = torch.maximum(avail, tables.cast(hi_mask))
     q = fixpoint(tables, avail)
@@ -229,11 +258,14 @@ class SweepRef:
         )
 
     def block_min_hit(self, start: int, hi_mask: Optional[torch.Tensor]) -> torch.Tensor:
-        hit, _ = sweep_step(
-            self.tables, start, self.batch, self.pos, self.scc_mask, self.frozen,
-            hi_mask, tables_d=self.tables_d,
+        idx = start + torch.arange(self.batch, dtype=torch.int32, device=self.pos.device)
+        return self.rows_min_hit(idx, hi_mask)
+
+    def rows_min_hit(self, idx: torch.Tensor, hi_mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """Min hit index among the int32 candidate indices ``idx``."""
+        hit, _ = sweep_rows(
+            self.tables, idx, self.pos, self.scc_mask, self.frozen, hi_mask, tables_d=self.tables_d,
         )
-        idx = start + torch.arange(self.batch, dtype=torch.int32, device=hit.device)
         miss = torch.full_like(idx, INT32_MAX)
         return torch.where(hit, idx, miss).min()
 
@@ -244,6 +276,17 @@ class SweepRef:
         best = self.block_min_hit(start, hi)
         for i in range(1, steps):
             best = torch.minimum(best, self.block_min_hit(start + i * self.batch, hi))
+        return best
+
+    def sharded_program(self, start: int, sub: int, stride: int, steps: int, hi_mask=None) -> torch.Tensor:
+        """The sharded instance's function (K11's per-device body): min hit
+        index over the ``steps · sub`` rows of the sharded map
+        (:func:`sharded_indices`), evaluated a sub-block at a time."""
+        hi = None if hi_mask is None else self.tables.cast(np.asarray(hi_mask))
+        best = torch.tensor(INT32_MAX, dtype=torch.int32, device=self.pos.device)
+        for j in range(steps):
+            idx = sharded_indices(start, sub, stride, j * sub, (j + 1) * sub, self.pos.device)
+            best = torch.minimum(best, self.rows_min_hit(idx, hi))
         return best
 
 

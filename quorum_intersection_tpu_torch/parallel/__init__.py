@@ -1,0 +1,12 @@
+"""The candidate mesh and the multi-process runtime of the sweep (the JAX
+package's ``parallel/``).
+
+Not ported: ``shard_map_fn`` and ``shard_map_unchecked``, thin wrappers of
+JAX's ``shard_map`` with no PyTorch counterpart; the port's sharded sweep
+launches each rank's kernel itself and combines the ranks' results with
+:func:`~.mesh.mesh_pmin`.
+"""
+
+from quorum_intersection_tpu_torch.parallel.mesh import CANDIDATE_AXIS, candidate_mesh
+
+__all__ = ["candidate_mesh", "CANDIDATE_AXIS"]

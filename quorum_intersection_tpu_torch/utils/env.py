@@ -105,6 +105,14 @@ QI_FLIGHT_RECORDER = _declare(
     "(utils/telemetry.py dump_flight_recorder).  Empty: dumps disabled, "
     "the ring still records.",
 )
+QI_DIST_INIT_TIMEOUT_S = _declare(
+    "QI_DIST_INIT_TIMEOUT_S", "20",
+    "Total time budget for joining the multi-process runtime: "
+    "coordinator-join failures retry with backoff under this deadline "
+    "before degrading loudly to single-process "
+    "(parallel/distributed.py initialize; event "
+    "distributed.init_degraded).",
+)
 QI_SWEEP_ORDER = _declare(
     "QI_SWEEP_ORDER", "",
     "Enumeration-order mode of the exhaustive sweep (backends/sweep.py): "

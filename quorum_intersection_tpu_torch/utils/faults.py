@@ -135,6 +135,11 @@ SWEEP_BITSET = _declare(
     "built, unpacked and packed drives alike): error simulates a broken sparse encoding; the "
     "solve fails (no in-place degrade to the dense encoding).",
 )
+DISTRIBUTED_INIT = _declare(
+    "distributed.init",
+    "Coordinator join (parallel/distributed.py initialize): error simulates a dead or unreachable "
+    "coordinator; bounded retry under QI_DIST_INIT_TIMEOUT_S, then a loud single-process degrade.",
+)
 FRONTIER_CHUNK = _declare(
     "frontier.chunk",
     "Frontier chunk dispatch (backends/frontier.py, once per chunk): oom/error simulate a device "

@@ -7,7 +7,9 @@ the serving layer's cross-request fusion and mid-pack deadline on the card;
 and the replicated serve tier (``fleet.py``) of in-process and of process
 workers on the card; the tooling on the card (a profiled solve's trace, the
 build cache's cold and warm processes) and the native SCC scan inside a card
-solve.  Card-only: every test takes the ``cuda_device``
+solve; the sharded sweep K11 (the sharded instance of the fused kernel, the
+mesh solve, its limits and a failed collective).  Card-only: every test
+takes the ``cuda_device``
 fixture, which skips on a host without one.  This file imports nothing of
 JAX or the JAX package, so on the card's machine it runs as
 
@@ -1315,3 +1317,82 @@ def test_native_scan_agrees_with_a_card_solve(cuda_device, fault_plan):
     assert native == scan_scc_quorums(graph, sccs)
     assert [sid for sid, q in enumerate(native) if q] == res.quorum_scc_ids
     assert res.intersects is True
+
+
+# ---- the sharded sweep (K11) -------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["nested_correct.json", "snapshot_broken.json", "9-broken", "10-correct"])
+def test_sharded_instance_matches_plain_on_card(case, cuda_device):
+    """The sharded instance against its plain version rank by rank (narrow,
+    restricted, wide with a hi row; both table instances), on 1, 2, 4 and 8
+    ranks, and the ranks' min against K1's contiguous program over the same
+    coverage."""
+    from quorum_intersection_tpu_torch.kernels.sweep_cuda import sweep_sharded
+
+    for mode, q, d, local, mask, frozen, lo_bits, hi in _problems(case):
+        lo_nodes = np.asarray(local[1:1 + lo_bits], dtype=np.int32)
+        hi_row = np.zeros(q.n, dtype=np.int32)
+        for j, v in enumerate(local[1 + lo_bits:]):
+            hi_row[v] = (hi >> j) & 1
+        hi_arg = hi_row if hi_row.any() else None
+        for ranks in (1, 2, 4, 8):
+            per_dev, steps = max(min(1 << 10, (1 << lo_bits) // (4 * ranks)), 1), 3
+            base = per_dev * ranks
+            contiguous = FusedSweep(q, lo_nodes, mask, frozen, base, circuit_d=d, device=cuda_device)
+            plain = ref.SweepRef(q, lo_nodes, mask, frozen, per_dev, d, cuda_device)
+            for stream in (False, True):
+                fused = FusedSweep(q, lo_nodes, mask, frozen, per_dev, circuit_d=d, device=cuda_device,
+                                   stream=stream)
+                for start in sorted({0, base, (1 << lo_bits) // 2}):
+                    launches = sweep_sharded.launches
+                    got = [int(fused.sharded(start + g * per_dev, per_dev, base, steps, mask_bits(hi_row)))
+                           for g in range(ranks)]
+                    want = [int(plain.sharded_program(start + g * per_dev, per_dev, base, steps, hi_arg))
+                            for g in range(ranks)]
+                    assert got == want, (mode, ranks, stream, start)
+                    assert sweep_sharded.launches == launches + ranks
+                    assert min(got) == int(contiguous.program(start, steps, mask_bits(hi_row)))
+
+
+def test_sharded_limits_raise_before_launch(cuda_device):
+    from quorum_intersection_tpu_torch.kernels.sweep_cuda import sweep_sharded
+
+    _, q, d, local, mask, frozen, _, _ = _problems("9-broken")[0]
+    fused = FusedSweep(q, np.asarray(local[1:], dtype=np.int32), mask, frozen, 1 << 8, d, cuda_device)
+    launches = sweep_sharded.launches
+    for args in ((0, 0, 8, 16), (0, 8, 4, 16), ((1 << 31) - 64, 8, 32, 24), (0, 8, 16, 0)):
+        with pytest.raises(KernelLimitError):
+            sweep_sharded(fused, *args)
+    assert sweep_sharded.launches == launches
+
+
+@pytest.mark.parametrize("name", ["trivial_broken.json", "nested_correct.json", "snapshot_broken.json"])
+def test_mesh_solve_on_card_matches_cpu_mesh(name, cuda_device):
+    """Four ranks on the one card against four CPU ranks: the same verdict,
+    witness, hit index and drive; K11 launched, K1 not."""
+    from quorum_intersection_tpu_torch.kernels.sweep_cuda import sweep_sharded
+    from quorum_intersection_tpu_torch.parallel import candidate_mesh
+
+    text = (FIXTURES / name).read_text()
+    fused, sharded = sweep_fused.launches, sweep_sharded.launches
+    on_card = solve(text, backend=GpuSweepBackend(batch=1 << 12, mesh=candidate_mesh(devices=[cuda_device] * 4)))
+    card_fused = sweep_fused.launches - fused
+    on_cpu = solve(text, backend=GpuSweepBackend(device="cpu", batch=1 << 12, mesh=candidate_mesh(4, device="cpu")))
+    keys = ("hit_index", "candidates_checked", "device_steps")
+    assert (on_card.intersects, on_card.q1, on_card.q2) == (on_cpu.intersects, on_cpu.q1, on_cpu.q2)
+    assert [on_card.stats.get(k) for k in keys] == [on_cpu.stats.get(k) for k in keys]
+    if "candidates_checked" in on_card.stats:
+        assert sweep_sharded.launches > sharded and card_fused == 0
+        assert on_card.stats["mesh"]["devices"] == "cuda:0 x4"
+
+
+def test_failed_collective_fails_the_card_solve(cuda_device):
+    """A mesh naming a second process with no process group behind it: the
+    collective raises and the solve fails, with no verdict."""
+    from quorum_intersection_tpu_torch.parallel.mesh import CandidateMesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = CandidateMesh(devices=(dev, dev), process_count=2)
+    with pytest.raises((RuntimeError, ValueError)):
+        solve(synth.majority_fbas(9), backend=GpuSweepBackend(batch=64, mesh=mesh))

@@ -17,7 +17,9 @@
   ``store.fetch`` and ``pulse.aggregate`` points degrade the fleet one rung
   (first live worker, inconclusive probe, in-flight re-route only, no peer,
   suspect-only, single dispatch, local-journal-only, frozen size, local
-  solve, per-worker metrics), never to a wrong verdict;
+  solve, per-worker metrics), never to a wrong verdict; ``distributed.init``
+  retries under ``QI_DIST_INIT_TIMEOUT_S``, then degrades loudly to one
+  process;
 - the disk-full cases of ``tests/test_checkpoint_faults.py`` (``:113-186``);
 - a ``FaultPreempted`` at ``sweep.window`` under a checkpoint resumes past
   zero to the uninterrupted verdict and hit index;
@@ -76,7 +78,7 @@ def test_registry_is_a_subset_of_the_jax_catalog():
         "telemetry.dump", "query.dispatch", "delta.diff", "fleet.store", "cost.attribute",
         "serve.admit", "serve.cache", "serve.journal", "serve.drain", "serve.respond", "serve.fuse",
         "fleet.route", "fleet.probe", "fleet.replay", "fleet.join", "fleet.lease", "fleet.hedge", "fleet.ship",
-        "fleet.scale", "store.fetch", "pulse.aggregate",
+        "fleet.scale", "store.fetch", "pulse.aggregate", "distributed.init",
     }
 
 
@@ -388,6 +390,17 @@ def _scenario_pulse_aggregate(point, tmp, mp):
     assert rec.counters["pulse.agg_errors"] == 1 and "fleet.pulse.e2e_ms" not in rec.histograms_snapshot()
 
 
+def _scenario_distributed_init(point, tmp, mp):
+    from quorum_intersection_tpu_torch.parallel import distributed
+
+    mp.setattr(distributed, "_initialized", False)
+    mp.setattr(distributed, "_retry_sleep", lambda s: None)
+    mp.setenv("QI_DIST_INIT_TIMEOUT_S", "0")
+    distributed.initialize(coordinator_address="127.0.0.1:1", num_processes=2, process_id=0, backend="gloo")
+    ev = [e for e in telemetry.get_run_record().events if e["name"] == "distributed.init_degraded"]
+    assert len(ev) == 1 and "injected" in ev[0]["attrs"]["cause"] and not distributed.is_multihost()
+
+
 SCENARIOS = {
     "sweep.prune": ("error", lambda p, tmp, mp: _fails_solve(p, prune=True)),
     "sweep.bitset": ("error", lambda p, tmp, mp: (_fails_solve(p, engine="bitset"), _scenario_packed_bitset(p))),
@@ -421,6 +434,7 @@ SCENARIOS = {
     "fleet.scale": ("error", _scenario_fleet_scale),
     "store.fetch": ("oserror", _scenario_store_fetch),
     "pulse.aggregate": ("error", _scenario_pulse_aggregate),
+    "distributed.init": ("error", _scenario_distributed_init),
 }
 
 

@@ -1,8 +1,9 @@
 """The port imports neither JAX nor the JAX package: it solves (profiled
-too), scans SCCs natively, and serves a two-line stream through ``serve``
-and through a two-worker ``fleet``, with both blocked; no source line of it
-(or of ``chip_smoke.py``) names them, and its native builds compile only its
-own sources."""
+too, and on a 2-rank CPU mesh), scans SCCs natively, and serves a two-line
+stream through ``serve`` and through a two-worker ``fleet``, with both
+blocked; no source line of it (or of ``chip_smoke.py``, or of the
+multi-process worker ``tests/_torch_dist_worker.py``) names them, and its
+native builds compile only its own sources."""
 
 import json
 import pathlib
@@ -54,6 +55,12 @@ for name, data in (("near_disjoint_cores(6,1)", synth.near_disjoint_cores(6, 1))
     assert res.stats["encoding"] == "bitset" and res.cert["provenance"]["encoding"] == "bitset"
     out[f"bitset {name}"] = [res.intersects, res.q1, res.q2]
 del os.environ["QI_SWEEP_ENGINE"]
+from quorum_intersection_tpu_torch.backends.sweep import GpuSweepBackend
+from quorum_intersection_tpu_torch.parallel import candidate_mesh
+
+res = solve(json.dumps(synth.majority_fbas(9, broken=True)),
+            backend=GpuSweepBackend(device="cpu", batch=128, mesh=candidate_mesh(2, device="cpu")))
+out["mesh majority(9,broken)"] = [res.intersects, res.stats["mesh"]["ranks"], res.stats["hit_index"]]
 from quorum_intersection_tpu_torch.delta import DeltaEngine
 
 engine = DeltaEngine(device="cpu")
@@ -154,7 +161,9 @@ def test_port_solves_with_jax_and_reference_blocked(tmp_path):
         "fleet nested_broken.json": False,
         "profiled snapshot_broken.json": False,
         "native scan": True,
+        "mesh majority(9,broken)": False,
     }
+    assert report["results"]["mesh majority(9,broken)"][1:] == [2, 31]
     assert report["results"]["profiled snapshot_broken.json"][1] == 1
     assert not any(report["results"][f"serve {name}"][1] for name in ("trivial_correct.json", "nested_broken.json"))
     reused = [report["results"][f"delta step {i}"][3] for i in range(4)]
@@ -174,7 +183,7 @@ _FORBIDDEN = [
 
 def _sources():
     files = (sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")) + sorted(PORT.rglob("*.cuh"))
-             + sorted(PORT.rglob("*.cpp")) + [ROOT / "chip_smoke.py"])
+             + sorted(PORT.rglob("*.cpp")) + [ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist_worker.py"])
     assert any(path.suffix == ".cpp" for path in files)
     names = {str(path.relative_to(PORT)) for path in files if PORT in path.parents}
     assert {"backends/frontier.py", "kernels/frontier_ref.py", "kernels/frontier_cuda.py",
@@ -182,8 +191,9 @@ def _sources():
             "kernels/bitset_sweep_cuda.py", "kernels/csrc/bitset_sweep.cu", "delta.py", "fbas/diff.py",
             "cost.py", "fuse.py", "serve.py", "serve_transport.py", "utils/metrics_server.py", "fleet.py",
             "utils/compile_cache.py", "utils/profiling.py", "backends/cpp/qi_native.cpp",
-            "backends/cpp/qi_oracle.cpp"} <= names
-    assert len(files) > 10 and (ROOT / "chip_smoke.py").exists()
+            "backends/cpp/qi_oracle.cpp", "parallel/__init__.py", "parallel/mesh.py",
+            "parallel/distributed.py"} <= names
+    assert len(files) > 10 and all(path.exists() for path in files[-2:])
     return files
 
 

@@ -431,7 +431,8 @@ def test_env_registry_is_the_jax_packages():
             "QI_FLEET_STORE_DIR", "QI_FLEET_WORKERS", "QI_FLEET_VNODES", "QI_FLEET_PROBE_INTERVAL_S",
             "QI_FLEET_PROBE_FAILS", "QI_FLEET_RESPAWN_MAX", "QI_FLEET_TOKEN", "QI_FLEET_LEASE_S",
             "QI_FLEET_SCALE_INTERVAL_S", "QI_FLEET_SCALE_UP_MS", "QI_FLEET_SCALE_DOWN_MS", "QI_FLEET_SCALE_MIN",
-            "QI_FLEET_SCALE_MAX", "QI_PULSE_AGG", "QI_PULSE_BUCKETS", "QI_NO_COMPILE_CACHE", "QI_SANITIZER"} == set(port)
+            "QI_FLEET_SCALE_MAX", "QI_PULSE_AGG", "QI_PULSE_BUCKETS", "QI_NO_COMPILE_CACHE", "QI_SANITIZER",
+            "QI_DIST_INIT_TIMEOUT_S"} == set(port)
     with pytest.raises(KeyError):
         env.qi_env("QI_NOT_A_KNOB")
 
