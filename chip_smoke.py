@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py            # from the root of a checkout, one NVIDIA card
     python3 chip_smoke.py --stress 400   # build, then only compare_packed's and compare_warp's repeats
-    python3 chip_smoke.py --frontier     # build, then only the frontier's phases (19-22) and their certificates
+    python3 chip_smoke.py --frontier     # build, then only the frontier's phases (19-22, 36) and their certificates
     python3 chip_smoke.py --pagerank     # build, then only the PageRank phases (14-16)
     python3 chip_smoke.py --bitset       # build, then only the bitset engine's phases (23-26) and their certificates
     python3 chip_smoke.py --pagerank --k12-parent DIR   # ... and DIR's K12 and this one's launch shapes in turns
@@ -13,7 +13,8 @@
     python3 chip_smoke.py --serve        # build, then only the serve subcommand's phase (31) and its certificates
     python3 chip_smoke.py --fleet        # build, then only the replicated serve tier's phase (32) and its certificates
     python3 chip_smoke.py --native       # build, then only the native host layer and the tooling (33-34), certificates
-    python3 chip_smoke.py --mesh         # build, then only the sharded sweep's phase (36) and its certificates
+    python3 chip_smoke.py --mesh         # build, then only the mesh phases (35-36) and their certificates
+    python3 chip_smoke.py --frontier-mesh    # build, then only the frontier's mesh phase (36) and its certificates
 
 Phases, one line each, each with its wall ``seconds`` (any failure exits
 non-zero and prints no ``ok`` line):
@@ -391,7 +392,23 @@ non-zero and prints no ``ok`` line):
               the single-process solve's; K11's 2^20 window on 1, 2 and 4 ranks (and 4 cards),
               the collective alone; on several cards the full width on 1, 2
               and 4 of them (one line saying skipped on one card);
-36. cert    — every certificate the runs above produced (CLI ``--cert-out``
+36. frontier_mesh — K9's iteration instance (the frontier under a mesh)
+              against its plain version rank by rank on 1, 2 and 4 ranks of
+              the one card (hier-8x4 and random_fbas(64) at the defaults, 3
+              chunks, and hier-4x3 through its spills; every rank's arena
+              rows, counters and flags equal), and a chunk across the cards
+              where there are several; GpuFrontierBackend on 4 ranks of the
+              card on hier-8x4 and the broken stellar 16x3 (scc 48), its
+              verdict, witness and counts equal to K9's single-card solve,
+              the launches counted from 0 (the iteration instance's only,
+              K9's none), certificates checked; ``--backend gpu-frontier
+              --mesh all --cert-out`` as a CLI process; two processes of
+              two ranks joined by ``distributed.initialize`` (gloo on one
+              card, NCCL on two), their solves equal to the single-process
+              solve's; the iteration's time on 1, 2 and 4 ranks beside K9's
+              per iteration, the plain version, the gather alone and the
+              bound;
+37. cert    — every certificate the runs above produced (CLI ``--cert-out``
               under auto, gpu-sweep and gpu-frontier, ``solve`` and
               ``check_many`` on both engines, pruned, rank-ordered and
               frontier runs with every block, incremental re-analysis's
@@ -1954,6 +1971,64 @@ def native_capped(src, cap_s):
         timer.cancel()
 
 
+def k9_replay(prob, shape, plain, state, top, iters):
+    """The plain version's iterations of a chunk from ``state`` (rows [0,
+    ``top``)), replayed one at a time: ``(top, flags, fixpoint passes of the
+    popped rows, the per-iteration traffic model in bytes: every popped row
+    read and every child and flag row written)`` after ``iters`` of them
+    (fewer where the chunk loop's guards end it first)."""
+    import torch
+
+    from quorum_intersection_tpu_torch.kernels.frontier_ref import expand, rows_in_circuit
+    from quorum_intersection_tpu_torch.kernels.sweep_ref import fixpoint_passes
+
+    T, D = state.T.clone(), state.D.clone()
+    flags = torch.zeros_like(state.flags)
+    ptop, fc, passes, model_bytes = top, 0, 0, 0
+    for _ in range(iters):
+        if ptop == 0 or ptop > shape.C - 2 * shape.K:
+            break
+        k = min(ptop, shape.K)
+        base = ptop - k
+        blk_T, blk_D = T[base:ptop].to(torch.int32), D[base:ptop].to(torch.int32)
+        stacked = rows_in_circuit(plain.tables, plain.scc_idx, torch.cat([blk_D, torch.maximum(blk_T, blk_D)]))
+        passes += int(fixpoint_passes(plain.tables, stacked)[1].sum())
+        new_top, fc2, _ = expand(plain.tables, plain.scc_idx, plain.a_mat, shape, T, D, ptop, flags, fc)
+        model_bytes += 2 * k * prob.s_dev + 2 * max(new_top - base, 0) * prob.s_dev + (fc2 - fc) * prob.s_dev
+        ptop, fc = new_top, fc2
+    return ptop, fc, passes, model_bytes
+
+
+def k9_least_bytes(prob, kern, top, p_top, p_fc) -> int:
+    """A chunk's own least traffic: its inputs read once (the source rows
+    [0, top), the tables, the in-degree planes, the counters) and its
+    outputs written once (the rows [0, p_top), the p_fc flags, the
+    counters)."""
+    return (2 * top * prob.s_dev + table_bytes(prob.circuit) + kern.planes.numel() * 8 + 16
+            + 2 * p_top * prob.s_dev + p_fc * prob.s_dev + 16)
+
+
+def k9_timing_state(kern, prob, shape):
+    """timing_frontier's mid-search state at hier-8x4's shape: default
+    chunks of K9 from the seed until the stack holds more than a pop and a
+    flag block has gathered; ``(state, its top, the flag rows met)``."""
+    import torch
+
+    from quorum_intersection_tpu_torch.kernels import frontier_cuda
+
+    cur, nxt = frontier_seed(kern, prob), kern.arena()
+    flag_rows = []
+    for _ in range(8):
+        frontier_cuda.frontier_chunk(kern, cur, nxt, 512 * 16)
+        top, fcount = nxt.ctr.tolist()[:2]
+        flag_rows.append(nxt.flags[:fcount].clone())
+        cur, nxt = nxt, cur
+        if sum(len(f) for f in flag_rows) >= shape.flag_cap and top > shape.K:
+            break
+    torch.cuda.synchronize()
+    return cur, cur.ctr.tolist()[0], flag_rows
+
+
 def k9_breakdown(kern, state, dst, far, want, ms_per_iteration, reps=10):
     """K9's timed instance on ``reps`` 33-iteration chunks from ``state``
     (each held equal to the untimed chunk ``want``): the cycles warp 0 of
@@ -2060,7 +2135,7 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, 
     from quorum_intersection_tpu_torch.backends.frontier import GpuFrontierBackend
     from quorum_intersection_tpu_torch.fbas import synth
     from quorum_intersection_tpu_torch.kernels import frontier_cuda
-    from quorum_intersection_tpu_torch.kernels.frontier_ref import expand, rows_in_circuit
+    from quorum_intersection_tpu_torch.kernels.frontier_ref import rows_in_circuit
     from quorum_intersection_tpu_torch.kernels.sweep_ref import fixpoint_passes
     from quorum_intersection_tpu_torch.pipeline import solve
 
@@ -2191,7 +2266,7 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, 
     for label, (since, until) in spans.items():
         runs[label]["device_ms_by_kernel"] = timer.ms(since, until)
         runs[label]["launches_by_kernel"] = timer.launches(since, until)
-    launches = {LaunchTimer.NAMES[fn]: n for fn, n in frontier_cuda.LAUNCHES.items()}
+    launches = {name: frontier_cuda.LAUNCHES[fn] for fn, name in LaunchTimer.NAMES.items()}
     for name, n in launches.items():
         if n < 1:
             fail("frontier", f"the main path never launched {name}")
@@ -2249,17 +2324,7 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, 
     prob, shape, kern, plain = frontier_setup(src, device, 1 << 18, 2048)
     # A mid-search state: default chunks from the seed until the stack holds
     # more than a pop, collecting the flagged sets on the way.
-    cur, nxt = frontier_seed(kern, prob), kern.arena()
-    flag_rows = []
-    for _ in range(8):
-        frontier_cuda.frontier_chunk(kern, cur, nxt, 512 * 16)
-        top, fcount = nxt.ctr.tolist()[:2]
-        flag_rows.append(nxt.flags[:fcount].clone())
-        cur, nxt = nxt, cur
-        if sum(len(f) for f in flag_rows) >= shape.flag_cap and top > shape.K:
-            break
-    state = cur
-    top = state.ctr.tolist()[0]
+    state, top, flag_rows = k9_timing_state(kern, prob, shape)
     dst = kern.arena()
     far = shape.flag_cap - shape.K  # a flag exit no timed chunk reaches
 
@@ -2295,20 +2360,7 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, 
     # plain version's iterations; the replay also gives PR 9's traffic model
     # (every popped row read and every child row written through the arena,
     # an iteration at a time), kept beside the chunk's own bound.
-    T, D = state.T.clone(), state.D.clone()
-    flags = torch.zeros_like(state.flags)
-    ptop, fc, passes, model_bytes = top, 0, 0, 0
-    for _ in range(33):
-        if ptop == 0 or ptop > shape.C - 2 * shape.K:
-            break
-        k = min(ptop, shape.K)
-        base = ptop - k
-        blk_T, blk_D = T[base:ptop].to(torch.int32), D[base:ptop].to(torch.int32)
-        stacked = rows_in_circuit(plain.tables, plain.scc_idx, torch.cat([blk_D, torch.maximum(blk_T, blk_D)]))
-        passes += int(fixpoint_passes(plain.tables, stacked)[1].sum())
-        new_top, fc2, _ = expand(plain.tables, plain.scc_idx, plain.a_mat, shape, T, D, ptop, flags, fc)
-        model_bytes += 2 * k * prob.s_dev + 2 * max(new_top - base, 0) * prob.s_dev + (fc2 - fc) * prob.s_dev
-        ptop, fc = new_top, fc2
+    ptop, fc, passes, model_bytes = k9_replay(prob, shape, plain, state, top, 33)
     p_top, p_fc = pdst.ctr.tolist()[:2]
     if k33.ctr.tolist() != pdst.ctr.tolist() or not (
         torch.equal(k33.T[:p_top], pdst.T[:p_top]) and torch.equal(k33.D[:p_top], pdst.D[:p_top])
@@ -2320,11 +2372,7 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, 
         fail("timing_frontier", f"the bound's replay ended at top {ptop}, {fc} flags; the plain chunk at "
                                 f"{pdst.ctr.tolist()}")
     macs = macs_per_pass(prob.circuit)
-    # The chunk's own least traffic: its inputs read once (the source rows
-    # [0, top), the tables, the in-degree planes, the counters) and its
-    # outputs written once (the rows [0, top'), the flags, the counters).
-    nbytes = (2 * top * prob.s_dev + table_bytes(prob.circuit) + kern.planes.numel() * 8 + 16
-              + 2 * p_top * prob.s_dev + p_fc * prob.s_dev + 16)
+    nbytes = k9_least_bytes(prob, kern, top, p_top, p_fc)
     b_ms, b_by = bound(passes * macs, nbytes)
     model_ms, _ = bound(passes * macs, model_bytes)
     timing["K9_breakdown"] = k9_breakdown(kern, state, dst, far, k33, (t33 - t1) / 32)
@@ -4866,6 +4914,331 @@ def mesh_phase(device, card, texts, manifest, cert_jobs, work):
     }
 
 
+FRONTIER_MESH_RANKS = (1, 2, 4)  # ranks on the one card in the iteration instance's checks
+FRONTIER_MESH_WORKER = r"""
+import json, os, sys, time
+import torch
+from quorum_intersection_tpu_torch.backends.frontier import GpuFrontierBackend
+from quorum_intersection_tpu_torch.fbas import synth
+from quorum_intersection_tpu_torch.kernels import frontier_cuda
+from quorum_intersection_tpu_torch.parallel import distributed
+from quorum_intersection_tpu_torch.parallel.mesh import collective_of
+from quorum_intersection_tpu_torch.pipeline import solve
+port, backend = sys.argv[1], sys.argv[4]
+pid, nprocs, card, ranks = map(int, sys.argv[2:4] + sys.argv[5:7])
+torch.cuda.set_device(card)
+distributed.initialize(f"127.0.0.1:{port}", num_processes=nprocs, process_id=pid, local_device_ids=[card],
+                       backend=backend)
+mesh = distributed.global_candidate_mesh(devices=[torch.device("cuda", card)] * ranks)
+assert mesh.process_count == nprocs, mesh
+out = {"process_index": mesh.process_index, "process_count": mesh.process_count, "ranks": mesh.size,
+       "collective": collective_of(mesh), "solves": {}}
+for label, data in (("hierarchical_fbas(6,4)", synth.hierarchical_fbas(6, 4)),
+                    ("stellar_like_fbas(16,3,broken)", synth.stellar_like_fbas(16, 3, broken=True))):
+    for name in frontier_cuda.LAUNCHES:
+        frontier_cuda.LAUNCHES[name] = 0
+    t = time.perf_counter()
+    res = solve(data, backend=GpuFrontierBackend(mesh=mesh), with_cert=False)
+    out["solves"][label] = {"intersects": res.intersects, "q1": res.q1, "q2": res.q2,
+                            **{k: res.stats.get(k) for k in ("states_popped", "device_iters", "device_chunks",
+                                                             "flagged", "minimal_quorums")},
+                            "seconds": time.perf_counter() - t, "launches": dict(frontier_cuda.LAUNCHES),
+                            "mesh": res.stats.get("mesh")}
+torch.distributed.destroy_process_group()
+print(json.dumps(out), flush=True)
+"""
+FRONTIER_MESH_KEYS = ("states_popped", "device_iters", "device_chunks", "flagged", "minimal_quorums", "host_checks",
+                      "device_flag_checks", "spills", "discarded_chunks")
+
+
+def frontier_mesh_phase(device, card, texts, cert_jobs, work):
+    """Phase frontier_mesh: K9's iteration instance (the frontier under a
+    mesh) against its plain version rank by rank on 1, 2 and 4 ranks of the
+    one card (and across cards where there are several); GpuFrontierBackend
+    on a 4-rank mesh of the card against K9's single-card solve at the JAX
+    constants; ``--backend gpu-frontier --mesh all --cert-out`` as a CLI
+    process; two processes joined by ``distributed.initialize`` (gloo on one
+    card, NCCL on two); the iteration's time on 1, 2 and 4 ranks beside K9's
+    per iteration, the gather alone, and the launches.  Returns the
+    iteration instance's record of the kernels line."""
+    import threading
+
+    import torch
+
+    from quorum_intersection_tpu_torch.backends.frontier import GpuFrontierBackend
+    from quorum_intersection_tpu_torch.fbas import synth
+    from quorum_intersection_tpu_torch.fbas.graph import build_graph
+    from quorum_intersection_tpu_torch.fbas.schema import parse_fbas
+    from quorum_intersection_tpu_torch.fbas.semantics import is_quorum
+    from quorum_intersection_tpu_torch.kernels import frontier_cuda
+    from quorum_intersection_tpu_torch.kernels.frontier_cuda import (
+        IterationState,
+        frontier_iteration,
+        gather_shares,
+        mesh_chunk,
+    )
+    from quorum_intersection_tpu_torch.parallel import candidate_mesh
+    from quorum_intersection_tpu_torch.pipeline import solve
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_frontier_blocks import mesh_lockstep
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    card0 = torch.device("cuda", 0)
+    # (c, d) The processes, in a thread while the comparison runs (nothing
+    # of it is timed): the CLI
+    # under --mesh all, then two processes of two ranks (NCCL on two cards,
+    # gloo on the one: NCCL refuses two ranks on one device).
+    pair_backend = "nccl" if cards >= 2 else "gloo"
+    port = mesh_free_port()
+    pair_cmds = [[sys.executable, "-c", FRONTIER_MESH_WORKER, str(port), str(pid), "2", pair_backend,
+                  str(pid if cards >= 2 else 0), "2"] for pid in (0, 1)]
+    cli_cert = work / "frontier_mesh.cert.json"
+    cli_src = synth.stellar_like_fbas(16, 3, broken=True)
+    cli_cmd = [sys.executable, "-m", PORT, "--backend", "gpu-frontier", "--mesh", "all", "--cert-out", str(cli_cert)]
+    procs = {}
+
+    def run_procs():
+        procs["cli"] = run_all([cli_cmd], inputs=[raw_json(cli_src)], timeout=600)[0]
+        procs["pair"] = run_all(pair_cmds, inputs=[None, None], parallel=2, timeout=600)
+
+    proc_thread = threading.Thread(target=run_procs)
+    proc_thread.start()
+
+    # (a) The iteration instance against its plain version, rank by rank.
+    # (label, source, arena, pop, chunks, chunk_iters)
+    cases = [("hierarchical_fbas(8,4) defaults, 3 chunks", synth.hierarchical_fbas(8, 4), 1 << 18, 2048, 3, 512),
+             ("random_fbas(64,seed=0) defaults, 2 chunks of 64 iterations", synth.random_fbas(64, seed=0), 1 << 18,
+              2048, 2, 64),
+             ("hierarchical_fbas(4,3) spill, 8 chunks", synth.hierarchical_fbas(4, 3), 64, 16, 8, 512)]
+    compare_rows, mismatches, all_flags = {}, [], 0
+    for label, src, arena, pop, chunks, chunk_iters in cases:
+        prob, shape, kern, plain = frontier_setup(src, device, arena, pop, chunk_iters=chunk_iters)
+        for ranks in FRONTIER_MESH_RANKS:
+            done, iters, flags, steps, bad, reasons, tops = mesh_lockstep(prob, shape, kern, plain, ranks, chunks)
+            compare_rows[f"{label}, {ranks} ranks"] = {
+                "s": prob.s, "s_dev": prob.s_dev, "pop": shape.K, "arena": arena, "chunks": done,
+                "iterations": iters, "flags": flags, "launches_a_rank": steps, "tops": tops, "exits": reasons,
+                "instance": instance_of(kern), "equal": not bad}
+            mismatches += [f"{label}, {ranks} ranks: {b}" for b in bad]
+            all_flags += flags
+            if not bad and iters < 2:
+                mismatches.append(f"{label}, {ranks} ranks: {iters} iterations")
+    if not all_flags:
+        mismatches.append("no case wrote a flag")
+    if cards >= 2:
+        # One default chunk on a mesh of the cards against K9's.
+        prob, shape, kern, plain = frontier_setup(cases[0][1], device, 1 << 18, 2048)
+        mesh = candidate_mesh(min(cards, 4))
+        kerns = [frontier_cuda.FrontierKernels(prob.circuit, prob.scc_dev, prob.a_scc, shape, prob.probe_circuit,
+                                               prob.frozen, device=d) for d in mesh.devices]
+        states = [IterationState.empty(shape.K, mesh.size, frontier_seed(k, prob), k.arena()) for k in kerns]
+        mesh_chunk(mesh, kerns, states, 512)
+        want_pair = (frontier_seed(kern, prob), kern.arena())
+        frontier_cuda.frontier_chunk(kern, *want_pair, 512)
+        torch.cuda.synchronize()
+        top, fcount = want_pair[1].ctr.tolist()[:2]
+        same = all(st.dst.ctr.tolist() == want_pair[1].ctr.tolist()
+                   and torch.equal(st.dst.T[:top].to(card0), want_pair[1].T[:top])
+                   and torch.equal(st.dst.D[:top].to(card0), want_pair[1].D[:top])
+                   and torch.equal(st.dst.flags[:fcount].to(card0), want_pair[1].flags[:fcount]) for st in states)
+        compare_rows[f"hierarchical_fbas(8,4), one chunk on {mesh.size} cards against K9"] = {"equal": same}
+        if not same:
+            mismatches.append(f"{mesh.size} cards: the chunk differs from K9's")
+    if mismatches:
+        fail("frontier_mesh", "; ".join(mismatches[:6]))
+    phase_line("frontier_mesh_compare", card=card, tolerance="exact (integer arena rows, counters and flags)",
+               ranks=list(FRONTIER_MESH_RANKS), cases=compare_rows,
+               across_cards="compared" if cards >= 2 else "not run (one card)")
+
+    # (c, d) The processes' results, against single-process solves here.
+    proc_thread.join()
+    single = {}
+    for label, src in (("hierarchical_fbas(6,4)", synth.hierarchical_fbas(6, 4)),
+                       ("stellar_like_fbas(16,3,broken)", synth.stellar_like_fbas(16, 3, broken=True))):
+        res = solve(src, backend=GpuFrontierBackend(), with_cert=False)
+        single[label] = {"intersects": res.intersects, "q1": res.q1, "q2": res.q2,
+                         **{k: res.stats.get(k) for k in FRONTIER_MESH_KEYS[:5]}}
+    out, err, code, cli_s = procs["cli"]
+    if out.strip().splitlines()[-1:] != ["false"] or code != 1:
+        fail("frontier_mesh", f"--backend gpu-frontier --mesh all CLI: {out[-40:]!r} exit {code}; {err[-600:]!r}")
+    cert_jobs.append(("frontier_mesh/cli/stellar_like_fbas(16,3,broken)", cli_src, json.loads(cli_cert.read_text())))
+    pair = mesh_worker_results(f"frontier, two processes ({pair_backend})", procs["pair"])
+    for row in pair:
+        for label, want_row in single.items():
+            s = row["solves"][label]
+            if {k: s[k] for k in want_row} != want_row:
+                fail("frontier_mesh", f"two processes, process {row['process_index']}, {label}: {s} != the "
+                                      f"single-process solve {want_row}")
+            if s["launches"]["frontier_iteration"] < 1 or s["launches"]["frontier_chunk"]:
+                fail("frontier_mesh", f"two processes, {label}: launches {s['launches']}")
+    phase_line("frontier_mesh_processes", card=card,
+               cli={"argv": "--backend gpu-frontier --mesh all --cert-out", "network": "stellar_like_fbas(16,3,broken)",
+                    "exit": code, "process_seconds": cli_s},
+               pair={"backend": pair_backend, "host_copy": pair_backend == "gloo", "rows": pair},
+               verdicts="every process's verdict, witness and counts equal to the single-process solve's")
+
+    # (b) GpuFrontierBackend on a 4-rank mesh of the card against K9's
+    # single-card solve, at the JAX constants (pop 2048 splits over 4).
+    mesh4 = candidate_mesh(devices=[card0] * 4)
+    solve_rows, launches = {}, {name: 0 for name in frontier_cuda.LAUNCHES}
+    for label, src in (("hierarchical_fbas(8,4)", synth.hierarchical_fbas(8, 4)),
+                       ("stellar_like_fbas(16,3,broken)", synth.stellar_like_fbas(16, 3, broken=True))):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want = solve(src, backend=GpuFrontierBackend(), with_cert=False)
+        single_s = time.perf_counter() - t
+        zero_script_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = solve(src, backend=GpuFrontierBackend(mesh=mesh4))
+        mesh_s = time.perf_counter() - t
+        got_launches = dict(frontier_cuda.LAUNCHES)
+        for name, n in got_launches.items():
+            launches[name] += n
+        if got_launches["frontier_iteration"] < 1 or got_launches["frontier_chunk"]:
+            fail("frontier_mesh", f"{label} on the mesh: launches {got_launches}")
+        if (res.intersects, res.q1, res.q2) != (want.intersects, want.q1, want.q2):
+            fail("frontier_mesh", f"{label}: the 4-rank solve says {res.intersects} {res.q1} {res.q2}, K9's "
+                                  f"{want.intersects} {want.q1} {want.q2}")
+        counts = {k: res.stats.get(k) for k in FRONTIER_MESH_KEYS}
+        if counts != {k: want.stats.get(k) for k in FRONTIER_MESH_KEYS}:
+            fail("frontier_mesh", f"{label}: counts {counts} != K9's {({k: want.stats.get(k) for k in FRONTIER_MESH_KEYS})}")
+        if not res.intersects:
+            graph = build_graph(parse_fbas(raw_json(src)))
+            if not (is_quorum(graph, res.q1) and is_quorum(graph, res.q2) and not set(res.q1) & set(res.q2)):
+                fail("frontier_mesh", f"{label}: the witness pair is not two disjoint quorums")
+        cert_jobs.append((f"frontier_mesh/solve/{label}", src, res.cert))
+        solve_rows[label] = {"verdict": res.intersects, **counts, "mesh_seconds": mesh_s, "single_card_seconds": single_s,
+                             "launches": got_launches, "mesh": res.stats["mesh"],
+                             "single_card_chunk_launches": want.stats["device_chunks"]}
+    phase_line("frontier_mesh_solves", card=card, runs=solve_rows, launches=launches,
+               verdicts="verdict, witness pair and counts equal to K9's single-card solve")
+
+    # (e) The iteration's time at hier-8x4's shape (s 32, K 2048) on 1, 2 and
+    # 4 ranks of the card, from timing_frontier's mid-search state, beside
+    # K9's per iteration in this call, the plain version, the gather alone
+    # and the bound (one iteration's share of K9's by its traffic model).
+    prob, shape, kern, plain = frontier_setup(synth.hierarchical_fbas(8, 4), device, 1 << 18, 2048)
+    state, top, _ = k9_timing_state(kern, prob, shape)
+    far = shape.flag_cap - shape.K
+
+    def k9(iters):
+        kern.shape.chunk_iters = iters
+        frontier_cuda.frontier_chunk(kern, state, k9_dst, far)
+
+    k9_dst = kern.arena()
+    k9_1, k9_33 = time_ms(lambda: k9(1), 20), time_ms(lambda: k9(33), 10)
+    k9_d1, k9_d33 = device_ms(lambda: k9(1), 10), device_ms(lambda: k9(33), 10)
+    k9(33)
+    want33 = [t.clone() for t in (k9_dst.ctr, k9_dst.T, k9_dst.D, k9_dst.flags)]
+    p_top, p_fc = int(want33[0][0]), int(want33[0][1])
+    timing, gather, gather_alone = {}, {}, {}
+    layouts = [(f"{r} ranks, 1 card", [card0] * r) for r in FRONTIER_MESH_RANKS]
+    if cards >= 4:
+        layouts.append(("4 ranks, 4 cards", [torch.device("cuda", i) for i in range(4)]))
+    kerns_on = {card0: kern}
+    for label, devices in layouts:
+        mesh = candidate_mesh(devices=devices)
+        ranks = mesh.size
+        for d in mesh.devices:
+            if d not in kerns_on:
+                kerns_on[d] = frontier_cuda.FrontierKernels(prob.circuit, prob.scc_dev, prob.a_scc, shape,
+                                                            prob.probe_circuit, prob.frozen, device=d)
+        kerns = [kerns_on[d] for d in mesh.devices]
+        srcs = {d: state if d == card0 else frontier_cuda.ArenaSet(*(getattr(state, f).to(d) for f in
+                                                                     ("T", "D", "flags", "ctr")))
+                for d in mesh.devices}
+        states = [IterationState.empty(shape.K, ranks, srcs[d], k.arena()) for d, k in zip(mesh.devices, kerns)]
+
+        def iterations(iters):
+            # iters iterations and the launch that ends the chunk, enqueued
+            # without a read, as mesh_chunk enqueues them.
+            for k in kerns:
+                k.shape.chunk_iters = iters
+            for st in states:
+                st.begin(st.src, st.dst)
+            for step in range(iters + 1):
+                for r, (k, st) in enumerate(zip(kerns, states)):
+                    frontier_iteration(k, st, r, ranks, far)
+                gather_shares(mesh, states, shape.K, step & 1)
+
+        def sync():
+            for d in set(mesh.devices):
+                torch.cuda.synchronize(d)
+
+        t1, t33 = time_ms(lambda: iterations(1), 20), time_ms(lambda: iterations(33), 10)
+        # Behind a longer spin than device_ms's default: the host enqueues
+        # up to 34 launches a rank and 34 gathers a call.
+        d1 = device_ms(lambda: iterations(1), 10, spin_cycles=40_000_000)
+        d33 = device_ms(lambda: iterations(33), 10, spin_cycles=40_000_000)
+        iterations(33)
+        sync()
+        for r, st in enumerate(states):
+            got = [t.to(card0) for t in (st.dst.ctr, st.dst.T[:p_top], st.dst.D[:p_top], st.dst.flags[:p_fc])]
+            if got[0].tolist() != want33[0].tolist() or not (
+                    torch.equal(got[1], want33[1][:p_top]) and torch.equal(got[2], want33[2][:p_top])
+                    and torch.equal(got[3], want33[3][:p_fc])):
+                fail("frontier_mesh", f"{label}, rank {r}: the timed 33 iterations differ from K9's 33-iteration "
+                                      f"chunk ({got[0].tolist()} against {want33[0].tolist()})")
+        timing[label] = {"ms_1_iteration": t1, "ms_33_iterations": t33, "ms_per_iteration": (t33 - t1) / 32,
+                         "ms_per_iteration_device_alone": (d33 - d1) / 32, "launches_per_iteration": ranks,
+                         "gathers_per_iteration": 1, "cards": len(set(mesh.devices))}
+        if ranks > 1:
+            # The gather alone, by the cards' events (time_ms's events are on
+            # the current card's stream, which every copy joins).
+            gather[label] = time_ms(lambda: gather_shares(mesh, states, shape.K, 0), MESH_COLLECTIVE_REPS)
+            gather_alone[label] = device_ms(lambda: gather_shares(mesh, states, shape.K, 0), 20)
+        if label == "4 ranks, 1 card":
+            # The plain version of the same 33 iterations on 4 ranks.
+            for st in states:
+                st.begin(state, st.dst)
+            kern.shape.chunk_iters = 33
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            mesh_chunk(mesh, [plain] * ranks, states, far, iterate=lambda k, st, r, n, fe: k.iteration(st, r, n, fe))
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t) * 1e3 / 33
+    if cards < 4:
+        timing["4 ranks, 4 cards"] = "not measured (one card)"
+    gather_ms = gather["4 ranks, 1 card"]
+    for k in kerns_on.values():
+        k.shape.chunk_iters = 512
+    _, _, passes, _ = k9_replay(prob, shape, plain, state, top, 33)
+    k9_bound_33, bound_by = bound(passes * macs_per_pass(prob.circuit), k9_least_bytes(prob, kern, top, p_top, p_fc))
+    per_iteration_bound = k9_bound_33 / 33
+    four = timing["4 ranks, 1 card"]
+    phase_line("frontier_mesh_timing", card=card, shape=f"hierarchical_fbas(8,4): s={prob.s} (s_dev {prob.s_dev}), "
+                                                        f"K={shape.K}, C={shape.C}, top {top} at the timed state",
+               per_ranks=timing, k9={"ms_per_iteration": (k9_33 - k9_1) / 32,
+                                     "ms_per_iteration_device_alone": (k9_d33 - k9_d1) / 32},
+               plain_ms_per_iteration_4_ranks=plain_ms, gather_ms=gather, gather_ms_device_alone=gather_alone,
+               k9_bound_ms_per_iteration=per_iteration_bound, bound_ms_a_rank_of_4=per_iteration_bound / 4,
+               bound_by=bound_by)
+    phase_line("frontier_mesh", card=card, seconds=round(time.perf_counter() - t_phase, 3))
+    return {
+        "name": "frontier_iteration_cuda",
+        "route": "cuda",
+        "source": f"{PORT}/kernels/csrc/frontier.cu",
+        "replaces": "quorum_intersection_tpu/backends/tpu/frontier.py:351",
+        "launches": launches["frontier_iteration"],
+        "max_abs_err": 0,
+        "ms": four["ms_per_iteration"],
+        "ms_of": "one iteration on 4 ranks of the one card (4 launches and a gather), hier-8x4's shape",
+        "plain_ms": plain_ms,
+        "bound_ms": per_iteration_bound,
+        "bound_of": "one iteration's work, all 4 ranks' shares on the one card (K9's per-iteration bound); "
+                    "a rank's share is bound_ms / 4",
+        "bound_by": bound_by,
+        "library_ms": gather_ms,
+        "library_call": "mesh_all_gather of 4 ranks' stash shares on the one card (gather_shares)",
+        "per_ranks": timing,
+        "k9_ms_per_iteration": (k9_33 - k9_1) / 32,
+        "main_path_launches_of": "frontier_mesh_solves: hier-8x4 and stellar 16x3 broken on 4 ranks of one card",
+    }
+
+
 def zero_script_launches():
     """This process's kernel launch counts set to 0."""
     from quorum_intersection_tpu_torch.kernels import frontier_cuda
@@ -4970,7 +5343,7 @@ def main(argv=None) -> int:
                          "compare_warp's (no ok line)")
     ap.add_argument("--frontier", action="store_true",
                     help="only build, then run the frontier's phases (compare_frontier, frontier, "
-                         "frontier_route, timing_frontier) and check their certificates (no ok line)")
+                         "frontier_route, timing_frontier, frontier_mesh) and check their certificates (no ok line)")
     ap.add_argument("--k10-parent", metavar="DIR", default=None,
                     help="a checkout (git archive) whose flag filter body timing_frontier times in turns "
                          "with this tree's, on a side stream")
@@ -4999,7 +5372,10 @@ def main(argv=None) -> int:
                     help="only build, then run the native host layer's and the tooling's phases (native, tooling) "
                          "and check their certificates (no ok line)")
     ap.add_argument("--mesh", action="store_true",
-                    help="only build, then run the sharded sweep's phase (mesh) and check its certificates "
+                    help="only build, then run the mesh phases (mesh, frontier_mesh) and check their "
+                         "certificates (no ok line)")
+    ap.add_argument("--frontier-mesh", action="store_true",
+                    help="only build, then run the frontier's mesh phase (frontier_mesh) and check its certificates "
                          "(no ok line)")
     ap.add_argument("--k12-parent", metavar="DIR", default=None,
                     help="a checkout (git archive) whose PageRank kernel timing_pagerank times in turns "
@@ -5102,6 +5478,22 @@ def main(argv=None) -> int:
         cert_jobs = []
         record = mesh_phase(device, card, texts, manifest, cert_jobs, work)
         record["instances"] = ptxas.get("sweep")
+        frontier_record = frontier_mesh_phase(device, card, texts, cert_jobs, work)
+        frontier_record["instances"] = ptxas.get("frontier")
+        refused, _ = check_certificates(cert_jobs, work)
+        phase_line("cert", card=card, checked=len(cert_jobs), refused=refused)
+        print(json.dumps({"kernels": [record, frontier_record]}), flush=True)
+        return 1 if refused else 0
+
+    if args.frontier_mesh:
+        import tempfile
+
+        manifest = json.loads((FIXTURES / "MANIFEST.json").read_text())
+        texts = {name: fixture_text(name) for name in manifest}
+        work = pathlib.Path(tempfile.mkdtemp(prefix="qi-chip-smoke-"))
+        cert_jobs = []
+        record = frontier_mesh_phase(device, card, texts, cert_jobs, work)
+        record["instances"] = ptxas.get("frontier")
         refused, _ = check_certificates(cert_jobs, work)
         phase_line("cert", card=card, checked=len(cert_jobs), refused=refused)
         print(json.dumps({"kernels": [record]}), flush=True)
@@ -5171,6 +5563,7 @@ def main(argv=None) -> int:
         work = pathlib.Path(tempfile.mkdtemp(prefix="qi-chip-smoke-"))
         cert_jobs = []
         records = frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, args.k10_parent)
+        records.append(frontier_mesh_phase(device, card, texts, cert_jobs, work))
         refused, _ = check_certificates(cert_jobs, work)
         phase_line("cert", card=card, checked=len(cert_jobs), refused=refused)
         print(json.dumps({"kernels": records}), flush=True)
@@ -6104,7 +6497,10 @@ def main(argv=None) -> int:
     # -- 35. mesh: the sharded sweep K11 and the multi-process runtime ------
     mesh_record = mesh_phase(device, card, texts, manifest, cert_jobs, work)
 
-    # -- 36. cert: every certificate through the unmodified checker --------
+    # -- 36. frontier_mesh: K9's iteration instance, the frontier under a mesh
+    frontier_mesh_record = frontier_mesh_phase(device, card, texts, cert_jobs, work)
+
+    # -- 37. cert: every certificate through the unmodified checker --------
     t = time.perf_counter()
     bad, checked = check_certificates(cert_jobs, work)
     cert_wall = time.perf_counter() - t
@@ -6203,6 +6599,8 @@ def main(argv=None) -> int:
     library_of.update(frontier_chunk_cuda="frontier", frontier_filter_cuda="frontier")
     record["kernels"].append(mesh_record)
     library_of["sweep_sharded_cuda"] = "sweep"
+    record["kernels"].append(frontier_mesh_record)
+    library_of["frontier_iteration_cuda"] = "frontier"
     for entry in record["kernels"]:
         entry["instances"] = ptxas.get(library_of[entry["name"]])
         entry["delta_path_launches"] = delta_launches.get(entry["name"], 0)

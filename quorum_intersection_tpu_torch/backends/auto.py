@@ -37,12 +37,9 @@ race arm clears what it recorded, and the batch entry does not pack with
 one.
 
 A ``mesh=`` (:class:`..parallel.mesh.CandidateMesh`, the CLI's ``--mesh``)
-goes to every sweep the router builds (the JAX router's ``:682``), and
-closes the pack gate (``:1194``): the sharded sweep packs nothing.  Unlike
-the JAX router, which hands the mesh to its frontier rung too (``:1492``),
-the port keeps that rung closed under a mesh, a choice made on the host
-before any build and named in the ``route.decision`` event's reason: the
-frontier's sharded fixpoint is not ported.
+goes to every sweep the router builds (the JAX router's ``:682``) and to
+its frontier rung (``:1492``), and closes the pack gate (``:1194``): the
+sharded sweep packs nothing.
 
 The router's constants come from :mod:`.calibration`, keyed by the live
 card's name; the device is explicit (``device=``), so the budget needs no
@@ -741,14 +738,14 @@ class AutoBackend:
             return backend.check_scc(graph, circuit, scc, scope_to_scc=scope_to_scc)
         region = self._frontier_region()
         in_region = region is not None and region[0] <= len(scc) <= region[1]
-        if in_region and self.mesh is None:
+        if in_region:
             # The frontier rung: no degrade, no retry, as the sweep rung.
             from quorum_intersection_tpu_torch.backends.frontier import GpuFrontierBackend
             from quorum_intersection_tpu_torch.utils.checkpoint import FrontierCheckpoint
 
             cal = self.calibration()
             ckpt = None if self.checkpoint is None else FrontierCheckpoint(self.checkpoint.path)
-            frontier = GpuFrontierBackend(device=self.device, checkpoint=ckpt)
+            frontier = GpuFrontierBackend(device=self.device, checkpoint=ckpt, mesh=self.mesh)
             rec.event("route.decision", engine="gpu-frontier", scc=len(scc),
                       reason=f"measured win region [{region[0]}, {region[1]}] on {cal.kind}",
                       provenance=cal.provenance.get("frontier"))
@@ -759,8 +756,6 @@ class AutoBackend:
                         "(no progress will be recorded)", len(scc))
         backend = self._cpu_oracle(cancel=self.cancel) if self.cancel is not None else self._cpu_oracle()
         reason = f"host oracle (|scc| above the sweep limit {limit})"
-        if in_region:
-            reason += "; the frontier rung is closed under a mesh (its sharded fixpoint is not ported)"
         rec.event("route.decision", engine=backend.name, scc=len(scc), reason=reason)
         return backend.check_scc(graph, circuit, scc, scope_to_scc=scope_to_scc)
 

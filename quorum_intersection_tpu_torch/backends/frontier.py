@@ -41,13 +41,29 @@ checkpoint writes, and its statistics key for key.  Where JAX arrays are
 immutable, the port's arena is updated in place, so the drive ping-pongs two
 arena sets: a chunk reads one and writes the other, and the host reads a
 finished chunk's set (flags, spill, checkpoint) while the speculative chunk
-writes the other.  The mesh argument is not ported: the JAX frontier's
-sharded fixpoint all-gathers the rows inside every iteration of its device
-loop (``frontier.py:351-363``, ``:475-502``), while K9 runs a whole chunk in
-one cooperative launch with a grid barrier an iteration, between which no
-NCCL collective can run.  It waits for K9 split into per-iteration stage
-kernels with a collective between them.  On CUDA the backend launches K9
-and K10 or raises: no path falls back to the CPU or to the plain versions.
+writes the other.
+
+Under a mesh (``mesh=``, a :class:`..parallel.mesh.CandidateMesh`; the JAX
+drive's row-sharded fixpoint, ``frontier.py:351-363``, under the
+``shard_map`` of ``:475-502``) the pop block is rounded as the JAX drive
+rounds it (``:602-617``) and a chunk is a host-driven sequence of
+iteration launches (K9's iteration instance,
+:func:`..kernels.frontier_cuda.frontier_iteration`) on every rank, with a
+gather of the ranks' stash shares between two launches
+(:func:`..kernels.frontier_cuda.mesh_chunk`): no collective can run inside
+K9's one cooperative launch a chunk.  Each rank keeps its own pair of arena
+sets, written alike by the seed, the resume, the refeed and the spill; the
+host reads the counters, the flags, the spill blocks and the checkpoints
+from the home rank's, and runs the flag checks (K10 or the host) once a
+process on the home device, outside the sharded loop, as the JAX filter
+runs replicated outside its ``shard_map``.  Every rank of every process
+launches the same iterations and gathers: a chunk runs when the drive reads
+its counters, not when it is dispatched, so the speculative chunk, the
+flag-exit doubling, the spills and ``interrupt_after_chunks`` follow values
+every rank holds alike, and a checkpoint write, timed by the clock, adds or
+drops no collective.  A mesh never falls back to K9, to the plain versions
+or to the host oracle.  On CUDA the backend launches its kernels or raises:
+no path falls back to the CPU or to the plain versions.
 """
 
 from __future__ import annotations
@@ -61,12 +77,13 @@ import numpy as np
 import torch
 
 from quorum_intersection_tpu_torch.backends.base import SccCheckResult
-from quorum_intersection_tpu_torch.device import DeviceLike, resolve_device
+from quorum_intersection_tpu_torch.device import DeviceLike
 from quorum_intersection_tpu_torch.encode.circuit import Circuit
 from quorum_intersection_tpu_torch.fbas.graph import TrustGraph
 from quorum_intersection_tpu_torch.fbas.semantics import max_quorum
 from quorum_intersection_tpu_torch.kernels import build
 from quorum_intersection_tpu_torch.kernels.frontier_ref import ChunkShape, frozen_row
+from quorum_intersection_tpu_torch.parallel.mesh import CandidateMesh, collective_of, mesh_device
 from quorum_intersection_tpu_torch.utils.env import qi_env_float
 from quorum_intersection_tpu_torch.utils.faults import fault_point
 from quorum_intersection_tpu_torch.utils.telemetry import get_run_record
@@ -195,6 +212,28 @@ class _Chunk:
         return src[:count].numpy().copy()
 
 
+class _MeshChunk:
+    """One dispatched chunk under a mesh: ``run`` drives it on every rank
+    (:func:`..kernels.frontier_cuda.mesh_chunk`) when the drive first reads
+    it, so that a chunk the drive drops never runs; ``dst`` is the home
+    rank's destination set, which the drive reads."""
+
+    def __init__(self, index: int, dst, flag_exit: int, run):
+        self.index = index
+        self.dst = dst
+        self.flag_exit = flag_exit
+        self._run = run
+
+    def counters(self) -> List[int]:
+        if self._run is not None:
+            self._run()
+            self._run = None
+        return [int(x) for x in self.dst.ctr.tolist()]
+
+    def flags(self, count: int) -> np.ndarray:
+        return self.dst.flags[:count].cpu().numpy().copy()
+
+
 class GpuFrontierBackend:
     """Device-resident branch-and-bound over the quorum-bearing SCC."""
 
@@ -212,13 +251,16 @@ class GpuFrontierBackend:
         interrupt_after_chunks: Optional[int] = None,
         flag_check: str = "auto",
         device: DeviceLike = None,
+        mesh: Optional[CandidateMesh] = None,
     ) -> None:
         if arena < 4:
             # pop is clamped to arena // 4: a zero pop would spin forever.
             raise ValueError(f"arena={arena} too small (needs >= 4)")
         if flag_check not in ("auto", "device", "host"):
             raise ValueError(f"flag_check={flag_check!r} not in auto/device/host")
-        self.device = resolve_device(device)
+        # Under a mesh its home device, which a given device must equal.
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
         self.arena = arena
         self.pop = min(pop, arena // 4)
         self.flag_exit = flag_exit
@@ -310,8 +352,10 @@ class GpuFrontierBackend:
             raise ValueError("frontier backend requires the encoded circuit")
         from quorum_intersection_tpu_torch.kernels.frontier_cuda import (
             FrontierKernels,
+            IterationState,
             frontier_chunk,
             frontier_filter,
+            mesh_chunk,
         )
 
         t0 = time.perf_counter()
@@ -321,16 +365,32 @@ class GpuFrontierBackend:
 
         K = self.pop
         C = self.arena
+        mesh = self.mesh
+        if mesh is not None:
+            # The pop block splits evenly over the ranks: K rounded up to a
+            # multiple of them, but never above arena // 4, where the spill's
+            # keep = top - C // 2 could go negative (JAX :602-617).
+            n_dev = mesh.size
+            if C < 4 * n_dev:
+                raise ValueError(f"arena={C} too small for a {n_dev}-device mesh (needs >= {4 * n_dev})")
+            K = min(((K + n_dev - 1) // n_dev) * n_dev, (C // 4 // n_dev) * n_dev)
         # The loop exits once flag_exit is reached, and one more iteration
-        # flags at most K: at the threshold's cap no flag can be dropped.
+        # flags at most K (the effective K): at the threshold's cap no flag
+        # can be dropped.
         flag_cap = self.flag_exit * FLAG_EXIT_GROWTH + K
         shape = ChunkShape(half=prob.half, K=K, C=C, chunk_iters=self.chunk_iters, flag_cap=flag_cap)
         # The kernels' build before their first use (the stat
         # kernel_build_seconds; nothing to build for the plain versions).
         build_s = build.timed_build(("frontier",)) if self.device.type == "cuda" else 0.0
         get_run_record().gauge("frontier.kernel_build_seconds", round(build_s, 4))
-        kern = FrontierKernels(circuit, prob.scc_dev, prob.a_scc, shape, probe_circuit=probe_circuit,
-                               frozen=prob.frozen, device=self.device)
+        # One problem a device: ranks on one device share its tables.
+        kerns_by_device: Dict[torch.device, FrontierKernels] = {}
+        for dev in (mesh.devices if mesh is not None else (self.device,)):
+            if dev not in kerns_by_device:
+                kerns_by_device[dev] = FrontierKernels(circuit, prob.scc_dev, prob.a_scc, shape,
+                                                       probe_circuit=probe_circuit, frozen=prob.frozen, device=dev)
+        rank_kerns = [kerns_by_device[d] for d in (mesh.devices if mesh is not None else (self.device,))]
+        kern = rank_kerns[0]  # the home device's: K10 and the reads
         host_check = None  # built on the first flagged batch
 
         stats = {
@@ -352,6 +412,9 @@ class GpuFrontierBackend:
         if prob.padded_from is not None:
             stats["padded_from"] = prob.padded_from
             stats["padded_shape"] = [s_dev, circuit.n, circuit.n_units]
+        if mesh is not None:
+            stats["mesh"] = {"devices": mesh.describe(), "ranks": mesh.size, "processes": mesh.process_count,
+                             "collective": collective_of(mesh), "pop": K, "iteration_launches": 0}
 
         fingerprint = None
         resumed = None
@@ -387,18 +450,23 @@ class GpuFrontierBackend:
                     d_blk[r, scc_pos[v]] = 1
             return t_blk, d_blk
 
-        sets = (kern.arena(), kern.arena())
+        # A pair of arena sets a rank; the home rank's is the one read.
+        rank_sets = [(k.arena(), k.arena()) for k in rank_kerns]
+        sets = rank_sets[0]
 
-        def load(st, t_rows: np.ndarray, d_rows: np.ndarray) -> None:
-            """Rows [0, len) of ``st`` and its top from host blocks."""
+        def load(index: int, t_rows: np.ndarray, d_rows: np.ndarray) -> None:
+            """Rows [0, len) of every rank's set ``index`` and its top from
+            host blocks."""
             top = len(t_rows)
-            if top:
-                st.T[:top] = torch.from_numpy(t_rows).to(st.T.device)
-                st.D[:top] = torch.from_numpy(d_rows).to(st.D.device)
-            st.ctr.copy_(torch.tensor([top, 0, 0, 0], dtype=torch.int32))
+            for pair in rank_sets:
+                st = pair[index]
+                if top:
+                    st.T[:top] = torch.from_numpy(t_rows).to(st.T.device)
+                    st.D[:top] = torch.from_numpy(d_rows).to(st.D.device)
+                st.ctr.copy_(torch.tensor([top, 0, 0, 0], dtype=torch.int32))
 
         seed = resumed[: C // 2] if resumed else [(list(scc), [])]
-        load(sets[0], *encode_states(seed))
+        load(0, *encode_states(seed))
         if resumed:
             stats["resumed_states"] = len(resumed)
             # The excess goes to the host spill in C // 2-row blocks, as
@@ -412,11 +480,23 @@ class GpuFrontierBackend:
             pinned = [(torch.empty(4, dtype=torch.int32).pin_memory(),
                        torch.empty((flag_cap, s_dev), dtype=torch.int8).pin_memory()) for _ in sets]
 
-        def dispatch(src_i: int, flag_exit_now: int) -> _Chunk:
+        iteration_states = None
+        if mesh is not None:
+            iteration_states = [IterationState.empty(K, mesh.size, pair[0], pair[1]) for pair in rank_sets]
+
+        def run_mesh_chunk(src_i: int, flag_exit_now: int) -> None:
+            for pair, st in zip(rank_sets, iteration_states):
+                st.begin(pair[src_i], pair[1 - src_i])
+            stats["mesh"]["iteration_launches"] += mesh_chunk(mesh, rank_kerns, iteration_states, flag_exit_now)
+
+        def dispatch(src_i: int, flag_exit_now: int):
             """Chunk from set ``src_i`` into the other one; on the card its
-            counters and flags follow to pinned memory behind an event."""
+            counters and flags follow to pinned memory behind an event.
+            Under a mesh the chunk runs when it is first read."""
             dst_i = 1 - src_i
             dst = sets[dst_i]
+            if mesh is not None:
+                return _MeshChunk(dst_i, dst, flag_exit_now, lambda: run_mesh_chunk(src_i, flag_exit_now))
             frontier_chunk(kern, sets[src_i], dst, flag_exit_now)
             host = None
             if on_card:
@@ -575,13 +655,15 @@ class GpuFrontierBackend:
             intervened = False
             if top_h > C - 2 * K:
                 # Overflow: spill the oldest half [0, C // 2) to the host and
-                # move the rest down.  Stream order puts this after the
-                # speculative chunk, which only reads this set.
+                # move the rest down, on every rank.  Stream order puts this
+                # after the speculative chunk, which only reads this set.
                 spill.append((cur.T[: C // 2].cpu().numpy().copy(), cur.D[: C // 2].cpu().numpy().copy()))
                 keep = top_h - C // 2
-                cur.T[:keep] = cur.T[C // 2: top_h].clone()
-                cur.D[:keep] = cur.D[C // 2: top_h].clone()
-                cur.ctr[0] = keep
+                for pair in rank_sets:
+                    st = pair[inflight.index]
+                    st.T[:keep] = st.T[C // 2: top_h].clone()
+                    st.D[:keep] = st.D[C // 2: top_h].clone()
+                    st.ctr[0] = keep
                 top_h = keep
                 stats["spills"] += 1
                 intervened = True
@@ -594,7 +676,7 @@ class GpuFrontierBackend:
                     break
                 T_blk, D_blk = spill.pop()
                 live = np.nonzero((T_blk | D_blk).any(axis=1))[0]
-                load(cur, T_blk[live], D_blk[live])
+                load(inflight.index, T_blk[live], D_blk[live])
                 top_h = len(live)
                 intervened = True
 
@@ -628,7 +710,8 @@ class GpuFrontierBackend:
             t_chunk = time.perf_counter()
 
         if on_card:
-            torch.cuda.synchronize(self.device)  # abandoned chunks end before the arenas go
+            for dev in kerns_by_device:  # abandoned chunks end before the arenas go
+                torch.cuda.synchronize(dev)
         stats["seconds"] = time.perf_counter() - t0
         stats["first_chunk_seconds"] = round(first_chunk_s, 3)
         stats["chunk_seconds"] = round(chunk_s, 3)

@@ -23,10 +23,9 @@ PATH`` records and resumes a long search in the JAX package's file formats:
 the sweep's scan position under ``auto`` and ``gpu-sweep``, the frontier's
 state under ``gpu-frontier`` (the host oracles refuse it);
 ``--no-race`` runs the auto router's sequential chain instead of the race;
-``--mesh N|all`` shards the sweep over N cards (``all``: every visible
-card; with ``--device cpu``, N CPU ranks, ``all`` one) under ``auto`` and
-``gpu-sweep`` (:mod:`.parallel.mesh`); ``gpu-frontier`` refuses it, its
-sharded fixpoint not being ported;
+``--mesh N|all`` shards the search over N cards (``all``: every visible
+card; with ``--device cpu``, N CPU ranks, ``all`` one) under ``auto``,
+``gpu-sweep`` and ``gpu-frontier`` (:mod:`.parallel.mesh`);
 ``--cert-out PATH`` writes the verdict's qi-cert/1 certificate, which
 ``tools/check_cert.py`` re-validates against the input.  ``--seed`` and
 ``--randomized`` switch the host oracles to the reference's randomized
@@ -263,10 +262,6 @@ def _main(args, record) -> int:
     if args.mesh is not None:
         if args.backend not in ("auto", "gpu-sweep", "gpu-frontier"):
             sys.stderr.write("--mesh requires a device backend (auto/gpu-sweep/gpu-frontier)\n")
-            return 1
-        if args.backend == "gpu-frontier":
-            sys.stderr.write("--mesh: the frontier's sharded fixpoint is not ported yet "
-                             "(--backend gpu-sweep or auto shard the sweep)\n")
             return 1
         try:
             n_dev = None if args.mesh == "all" else int(args.mesh)

@@ -42,6 +42,23 @@
 // exit test reads only values every block holds alike, so all blocks leave
 // the loop together.
 //
+// K9's iteration instance, the frontier under a mesh (the JAX row-sharded
+// fixpoint, frontier.py:351-363, under the shard_map of :475-502): one
+// ordinary launch an iteration and a rank, the kernel boundary in place of
+// the grid barrier.  Each rank keeps its own arena and its own stash; rank r
+// pops the states [r K/n, (r+1) K/n) of the pop block (K a multiple of the
+// n ranks) and writes their stash entries into its share of the stash half;
+// between two launches the host gathers the shares (parallel/mesh.py
+// mesh_all_gather), so every rank scans the whole stash and writes the same
+// children and flags into its arena.  A stash half is share-major: share r
+// holds Ks = K/n rounded up to 8 slots, its toRemove words, its dontRemove
+// words, then its codes (18 Ks bytes), so a share is one contiguous range to
+// gather and a group of 8 codes never leaves its share.  The loop state
+// [top, fcount, iters, popped, pbase, pk, done] lives on the device in two
+// slots (launch j reads slot j & 1 and writes the other), so the host
+// enqueues launches without reading it; a launch after the chunk's end only
+// carries the state forward.
+//
 // The branch variable by popcount: the wrapper passes a_scc's column
 // bit-planes (plane b of lane w: the members u with bit b of a_scc[u][w] set),
 // so the in-degree of lane w from a quorum f2 is sum_b popc(f2 & plane_b[w])
@@ -177,17 +194,25 @@ __device__ __forceinline__ void stash_child(const ChunkArgs& a, int half, unsign
   if (!(x & 1)) D |= 1ull << (__ldcg(a.st_code + e) >> 8);
 }
 
+// K9's stash codes: entry e of a half at code + e.
+struct LinearCodes {
+  const uint16_t* code;
+  __device__ __forceinline__ const uint16_t* operator()(int e) const { return code + e; }
+};
+
 // Every block alike: the exclusive scan of the n codes of a stash half in row
-// order, a thread 8 codes (one 16-byte load) at a time; fills the child map
-// cmap (position - base -> 2 e + exclude) and the flag map fmap (flag -> e).
-// Returns children | flags << 16 (children <= 2K, flags <= K, K <= 8192).
-__device__ int scan_stash(const uint16_t* code, int n, uint16_t* cmap, uint16_t* fmap, int* red) {
+// order, a thread 8 codes (one 16-byte load, codes(e) for e a multiple of 8)
+// at a time; fills the child map cmap (position - base -> 2 e + exclude) and
+// the flag map fmap (flag -> e).  Returns children | flags << 16 (children <=
+// 2K, flags <= K, K <= 8192).
+template <class Codes>
+__device__ int scan_stash(const Codes& codes, int n, uint16_t* cmap, uint16_t* fmap, int* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int per = 8 * ((n + 8 * kThreads - 1) / (8 * kThreads));
   const int e0 = threadIdx.x * per, e1 = min(n, e0 + per);
   int v = 0;
   for (int e = e0; e < e1; e += 8) {
-    const uint4 w = __ldcg(reinterpret_cast<const uint4*>(code + e));
+    const uint4 w = __ldcg(reinterpret_cast<const uint4*>(codes(e)));
     const unsigned h[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
     for (int m = 0; m < 8; ++m)
@@ -212,7 +237,7 @@ __device__ int scan_stash(const uint16_t* code, int n, uint16_t* cmap, uint16_t*
   const int total = red[kWarps - 1];
   int run = (warp ? red[warp - 1] : 0) + x - v;
   for (int e = e0; e < e1; e += 8) {
-    const uint4 w = __ldcg(reinterpret_cast<const uint4*>(code + e));
+    const uint4 w = __ldcg(reinterpret_cast<const uint4*>(codes(e)));
     const unsigned h[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
     for (int m = 0; m < 8; ++m) {
@@ -296,7 +321,7 @@ __global__ void __launch_bounds__(kThreads) chunk_kernel(ChunkArgs a) {
     const int fprev = fcount;
     int nflags = 0;
     if (pk) {
-      const int total = scan_stash(a.st_code + prev, pk, cmap, fmap, red);
+      const int total = scan_stash(LinearCodes{a.st_code + prev}, pk, cmap, fmap, red);
       top = pbase + (total & 0xffff);
       nflags = total >> 16;
       fcount = min(fcount + nflags, a.flag_cap);
@@ -394,6 +419,222 @@ __global__ void __launch_bounds__(kThreads) chunk_kernel(ChunkArgs a) {
       for (int ph = 0; ph < kPhases; ++ph) a.timing[ph] = t_acc[ph];
       a.timing[kPhases] = iters;
     }
+  }
+}
+
+// ---- K9's iteration instance: one iteration of one mesh rank a launch ----
+
+struct IterArgs {
+  Params p;
+  int s, half, K, C, chunk_iters, flag_cap, flag_exit, P;
+  const unsigned long long* planes;
+  int rank, ranks;  // this rank's share: states [rank Kn, rank Kn + Kn) of the pop block
+  int Kn, Ks;       // states a share, and its slots (Kn rounded up to 8)
+  int step;         // launches of this chunk before this one
+  const int8_t* src_T;  // step 0: the source arena and its counters
+  const int8_t* src_D;
+  const int* src_ctr;
+  int8_t* T;  // [C][s] this rank's destination arena
+  int8_t* D;
+  int8_t* flags;  // [flag_cap][s]
+  int* ctr;       // [4]: top, fcount, iters, popped, written when the chunk ends
+  unsigned char* stash;  // [2][ranks][18 Ks]: a share's toRemove words, dontRemove words, codes
+  int* loop;             // [2][8]: top, fcount, iters, popped, pbase, pk, done; launch j reads j & 1
+};
+
+// Bytes of one share of a stash half: Ks toRemove and Ks dontRemove words,
+// Ks codes (a multiple of 16 bytes, Ks being one of 8).
+__host__ __device__ inline size_t share_bytes(int Ks) { return (size_t)18 * Ks; }
+
+// The codes of a gathered stash half, slot e = r Ks + j being entry j of
+// share r (Ks a multiple of 8: a group of 8 never leaves its share).
+struct ShareCodes {
+  const unsigned char* half;
+  int Ks;
+  __device__ __forceinline__ const uint16_t* operator()(int e) const {
+    const int r = e / Ks;
+    return reinterpret_cast<const uint16_t*>(half + r * share_bytes(Ks) + 16 * (size_t)Ks) + (e - r * Ks);
+  }
+};
+
+// Entry x of the child map (2 e: include, 2 e + 1: exclude, e a slot) of a
+// gathered stash half, as a state (T, D).
+__device__ __forceinline__ void share_child(const unsigned char* half, int Ks, unsigned x, uint64_t& T,
+                                            uint64_t& D) {
+  const int e = (int)(x >> 1), r = e / Ks, j = e - r * Ks;
+  const unsigned char* blk = half + r * share_bytes(Ks);
+  T = __ldcg(reinterpret_cast<const unsigned long long*>(blk) + j);
+  D = __ldcg(reinterpret_cast<const unsigned long long*>(blk + 8 * (size_t)Ks) + j);
+  if (!(x & 1)) D |= 1ull << (__ldcg(reinterpret_cast<const uint16_t*>(blk + 16 * (size_t)Ks) + j) >> 8);
+}
+
+// One iteration of K9 for one rank: (a) every block scans the whole
+// gathered stash i-1, (b) writes its surviving children and its flags into
+// this rank's arena, (c) runs the exit test on values every rank holds
+// alike, and (d) if it passes, pops this rank's share of [base, top), runs
+// its fixpoints, prunes, branches and writes the share's stash entries
+// (every slot of the share: 0 past the valid states).  The kernel boundary
+// takes the place of K9's grid barrier, and the gather between two launches
+// gives every rank the other shares.  A launch after the chunk's end carries
+// the loop state forward and does nothing else.
+template <class Src, bool kS1>
+__global__ void __launch_bounds__(kThreads) iteration_kernel(IterArgs a) {
+  const int* in = a.loop + 8 * (a.step & 1);
+  int* out = a.loop + 8 * ((a.step + 1) & 1);
+  if (a.step && in[6]) {
+    if (blockIdx.x == 0 && threadIdx.x < 8) out[threadIdx.x] = in[threadIdx.x];
+    return;
+  }
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout l = make_layout(false, Src::kStream, a.p);
+  Warp<Src, kS1> w;
+  w.init(smem, l, a.p, false);
+  const int s = a.s, Ks = a.Ks, slots = a.ranks * a.Ks;
+  const unsigned plane_bytes = round16(8u * a.P * s);
+  unsigned long long* planes = reinterpret_cast<unsigned long long*>(smem + l.end);
+  uint16_t* cmap = reinterpret_cast<uint16_t*>(smem + l.end + plane_bytes);  // [2 slots]
+  uint16_t* fmap = cmap + 2 * slots;                                            // [slots]
+  int* red = reinterpret_cast<int*>(smem + l.end + plane_bytes + round16(6u * slots));
+  for (int i = threadIdx.x; i < a.P * s; i += blockDim.x) planes[i] = a.planes[i];
+
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3, warp = threadIdx.x >> 5;
+  const int gwarp = blockIdx.x * kWarps + warp, nwarps = gridDim.x * kWarps;
+  int top, fcount, iters, popped, pbase, pk;
+  const int8_t* rT = a.T;  // where this launch's pops below pbase come from
+  const int8_t* rD = a.D;
+  if (a.step == 0) {
+    top = a.src_ctr[0];
+    fcount = iters = popped = pbase = pk = 0;
+    if (a.src_T != a.T) {
+      // The source's live rows into the destination, as K9's copy; this
+      // launch pops from the source, which nothing writes.
+      rT = a.src_T;
+      rD = a.src_D;
+      const long long nbytes = (long long)top * s;
+      const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+      const long long stride = (long long)gridDim.x * blockDim.x;
+      const long long vec = nbytes / 16;
+      for (long long i = tid; i < vec; i += stride) {
+        reinterpret_cast<uint4*>(a.T)[i] = reinterpret_cast<const uint4*>(a.src_T)[i];
+        reinterpret_cast<uint4*>(a.D)[i] = reinterpret_cast<const uint4*>(a.src_D)[i];
+      }
+      for (long long i = 16 * vec + tid; i < nbytes; i += stride) {
+        a.T[i] = a.src_T[i];
+        a.D[i] = a.src_D[i];
+      }
+    }
+  } else {
+    top = in[0];
+    fcount = in[1];
+    iters = in[2];
+    popped = in[3];
+    pbase = in[4];
+    pk = in[5];
+  }
+  __syncthreads();
+
+  // (a) stash i-1, gathered: the slots of its pk entries.
+  const unsigned char* prev = a.stash + ((iters + 1) & 1) * (size_t)slots * 18;
+  const int fprev = fcount;
+  int nflags = 0;
+  if (pk) {
+    const int last = pk - 1;
+    const int total = scan_stash(ShareCodes{prev, Ks}, (last / a.Kn) * Ks + last % a.Kn + 1, cmap, fmap, red);
+    top = pbase + (total & 0xffff);
+    nflags = total >> 16;
+    fcount = min(fcount + nflags, a.flag_cap);
+  }
+  // (c) the exit test, alike in every block of every rank.
+  const bool go = top > 0 && iters < a.chunk_iters && fcount < a.flag_exit && top <= a.C - 2 * a.K;
+  const int k = go ? min(top, a.K) : 0, base = top - k;
+
+  // (b) stash i-1's children that stay on the stack, and its flags.
+  if (pk) {
+    const int nw = max(0, base - pbase), nf = max(0, min(nflags, a.flag_cap - fprev));
+    for (int t = gwarp; 8 * t < nw; t += nwarps) {
+      const int j = 8 * t + g;
+      const long long pos = (long long)pbase + j;
+      if (j < nw && pos < a.C) {
+        uint64_t cT, cD;
+        share_child(prev, Ks, cmap[j], cT, cD);
+        store_part(a.T + pos * s, cT, s, q);
+        store_part(a.D + pos * s, cD, s, q);
+      }
+    }
+    for (int t = gwarp; 8 * t < nf; t += nwarps) {
+      const int j = 8 * t + g;
+      if (j < nf) {
+        const int e = fmap[j], r = e / Ks;
+        const unsigned char* blk = prev + r * share_bytes(Ks) + 8 * (size_t)Ks;
+        store_part(a.flags + (long long)(fprev + j) * s,
+                   __ldcg(reinterpret_cast<const unsigned long long*>(blk) + (e - r * Ks)), s, q);
+      }
+    }
+  }
+  if (!go) {
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      a.ctr[0] = top;
+      a.ctr[1] = fcount;
+      a.ctr[2] = iters;
+      a.ctr[3] = popped;
+      const int st[8] = {top, fcount, iters, popped, pbase, pk, 1, 0};
+      for (int x = 0; x < 8; ++x) out[x] = st[x];
+    }
+    return;
+  }
+
+  // (d) this rank's share: pop, fixpoint, prune, branch, stash.
+  unsigned char* mine = a.stash + ((size_t)(iters & 1) * a.ranks + a.rank) * share_bytes(Ks);
+  for (int t = gwarp; 8 * t < Ks; t += nwarps) {
+    const int j = 8 * t + g, i = a.rank * a.Kn + j;
+    const bool valid = j < a.Kn && i < k;
+    const int pos = base + i;
+    uint64_t myT = 0, myD = 0;
+    if (valid && pk && pos >= pbase) {
+      share_child(prev, Ks, cmap[pos - pbase], myT, myD);  // whole in each thread of the quad
+    } else if (valid) {
+      myT = load_part(rT + (long long)pos * s, s, q);
+      myD = load_part(rD + (long long)pos * s, s, q);
+    }
+    myT = quad_or(myT);
+    myD = quad_or(myD);
+    const uint64_t uni = myT | myD;
+    uint32_t a0 = word_of(myD, q), a1 = word_of(uni, q);
+    w.fixpoint(a0, a1, 0u, w.src.thr_q);
+    const uint64_t f1 = quad_row(a0, lane), f2 = quad_row(a1, lane);
+    const int dsize = __popcll(myD);
+    const bool live = valid && dsize <= a.half && uni != 0;
+    const bool dq = live && f1 != 0;
+    const uint64_t elig = f2 & ~myD;
+    const bool br = live && !dq && f2 != 0 && (myD & ~f2) == 0 && elig != 0;
+
+    // Branch variable: the largest in-degree within quorum minus
+    // dontRemove, the lowest lane on ties (K9's).
+    unsigned key = 0;
+    if (br) {
+      for (int x = q; x < s; x += 4) {
+        if (!((elig >> x) & 1)) continue;
+        int m = 0;
+        for (int b = 0; b < a.P; ++b) m += __popcll(f2 & planes[b * s + x]) << b;
+        key = max(key, ((unsigned)(m + 1) << 8) | (unsigned)(255 - x));
+      }
+    }
+    key = max(key, __shfl_xor_sync(kFull, key, 1));
+    key = max(key, __shfl_xor_sync(kFull, key, 2));
+    const int best = key ? 255 - (int)(key & 255u) : 0;
+    if (q == 0) {
+      const uint64_t child = elig & ~(1ull << best);
+      const bool incl = br && dsize + 1 <= a.half;
+      const bool excl = br && (__popcll(child) + dsize) > 0;
+      reinterpret_cast<unsigned long long*>(mine)[j] = valid ? child : 0;
+      reinterpret_cast<unsigned long long*>(mine + 8 * (size_t)Ks)[j] = valid ? myD : 0;
+      reinterpret_cast<uint16_t*>(mine + 16 * (size_t)Ks)[j] =
+          valid ? (uint16_t)((int)incl | ((int)excl << 1) | ((int)dq << 2) | (best << 8)) : 0;
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    const int st[8] = {top, fcount, iters + 1, popped + k, base, k, 0, 0};
+    for (int x = 0; x < 8; ++x) out[x] = st[x];
   }
 }
 
@@ -540,6 +781,19 @@ cudaError_t chunk_launch(ChunkArgs& a, int grid, cudaStream_t stream) {
 }
 
 template <class Src, bool kS1>
+cudaError_t iteration_launch(const IterArgs& a, cudaStream_t stream) {
+  const size_t smem = make_layout(false, Src::kStream, a.p).end + chunk_extra_bytes(a.s, a.ranks * a.Ks, a.P);
+  long long cap = 0;
+  cudaError_t err = resident_blocks<iteration_kernel<Src, kS1>>(smem, &cap);
+  if (err != cudaSuccess) return err;
+  if (cap < 1) return cudaErrorInvalidConfiguration;
+  // A warp takes 8 slots of the share; no co-residency needed.
+  const int grid = (a.Ks + 8 * kWarps - 1) / (8 * kWarps);
+  iteration_kernel<Src, kS1><<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <class Src, bool kS1>
 cudaError_t filter_launch(const FilterArgs& a, cudaStream_t stream) {
   const size_t smem = make_layout(true, Src::kStream, a.p).end + filter_extra_bytes();
   long long cap = 0;
@@ -639,6 +893,49 @@ extern "C" int qi_frontier_chunk(const void* blocks, const void* chunks, const i
   }
   if (stream) return s1 ? chunk_launch<Streamed, true>(a, grid, st) : chunk_launch<Streamed, false>(a, grid, st);
   return s1 ? chunk_launch<Resident, true>(a, grid, st) : chunk_launch<Resident, false>(a, grid, st);
+}
+
+// One iteration of K9's iteration instance for rank `rank` of `ranks` on
+// `cuda_stream` (step: the chunk's launches before this one; step 0 reads
+// the source arena).  Returns a cudaError_t (0 on success).
+extern "C" int qi_frontier_iteration(const void* blocks, const void* chunks, const int* thr, int n,
+                                     int n_units, int units, int depth, int c0, int slabs, int pc,
+                                     int nblocks, int stream, int s, int half, int K, int C,
+                                     int chunk_iters, int flag_cap, int flag_exit, int P,
+                                     const unsigned long long* planes, int rank, int ranks, int step,
+                                     const int8_t* src_T, const int8_t* src_D, const int* src_ctr, int8_t* T,
+                                     int8_t* D, int8_t* flags, int* ctr, unsigned char* stash, int* loop,
+                                     void* cuda_stream) {
+  if (ranks < 1 || rank < 0 || rank >= ranks || K % ranks || step < 0) return cudaErrorInvalidValue;
+  IterArgs a{};
+  a.p = make_params(blocks, chunks, thr, thr, n, n_units, units, depth, c0, slabs, pc, nblocks);
+  a.s = s;
+  a.half = half;
+  a.K = K;
+  a.C = C;
+  a.chunk_iters = chunk_iters;
+  a.flag_cap = flag_cap;
+  a.flag_exit = flag_exit;
+  a.P = P;
+  a.planes = planes;
+  a.rank = rank;
+  a.ranks = ranks;
+  a.Kn = K / ranks;
+  a.Ks = (a.Kn + 7) / 8 * 8;
+  a.step = step;
+  a.src_T = src_T;
+  a.src_D = src_D;
+  a.src_ctr = src_ctr;
+  a.T = T;
+  a.D = D;
+  a.flags = flags;
+  a.ctr = ctr;
+  a.stash = stash;
+  a.loop = loop;
+  cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
+  const bool s1 = slabs <= 1;
+  if (stream) return s1 ? iteration_launch<Streamed, true>(a, st) : iteration_launch<Streamed, false>(a, st);
+  return s1 ? iteration_launch<Resident, true>(a, st) : iteration_launch<Resident, false>(a, st);
 }
 
 // One flag block of K10 on `cuda_stream`: out[0] += minimal sets, out[1] =

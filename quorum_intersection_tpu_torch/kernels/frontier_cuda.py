@@ -1,6 +1,7 @@
 """Wrappers of the frontier's CUDA kernels (``csrc/frontier.cu``): the chunk
-loop (K9, :func:`frontier_chunk`) and the flag filter (K10,
-:func:`frontier_filter`).
+loop (K9, :func:`frontier_chunk`), its iteration instance under a mesh
+(:func:`frontier_iteration`, driven a chunk at a time by :func:`mesh_chunk`)
+and the flag filter (K10, :func:`frontier_filter`).
 
 :class:`FrontierKernels` holds one frontier problem's constants on its
 device.  The arena lives in :class:`ArenaSet`\\ s: ``T``/``D`` ``(C, s)`` int8
@@ -25,7 +26,9 @@ below 2^8 (the evaluator's 8 bit-planes), in-degree counts below 2^16 (the
 branch variable's bit-planes, :func:`indegree_planes`), at most
 :data:`MAX_POP` states popped an iteration (the scan packs its counts in 16
 bits), the evaluator's shared memory, and a grid the card holds at once
-(the cooperative launch).
+(the cooperative launch).  The iteration instance adds a pop block that
+splits evenly over the ranks and at most :data:`MAX_SLOTS` stash slots a
+half (its child map holds ``2 slot + 1`` in 16 bits).
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,7 +44,14 @@ import torch
 from quorum_intersection_tpu_torch.device import DeviceLike, resolve_device
 from quorum_intersection_tpu_torch.encode.circuit import Circuit
 from quorum_intersection_tpu_torch.kernels import build
-from quorum_intersection_tpu_torch.kernels.frontier_ref import ChunkShape, chunk_loop, filter_block
+from quorum_intersection_tpu_torch.kernels.frontier_ref import (
+    ChunkShape,
+    chunk_loop,
+    filter_block,
+    share_iteration,
+    share_slots,
+    stash_half_bytes,
+)
 from quorum_intersection_tpu_torch.kernels.sweep_cuda import (
     SMEM_LIMIT,
     KernelLimitError,
@@ -56,9 +66,14 @@ MAX_POP = 8192
 MAX_PLANES = 16
 WARPS = 8  # csrc/warp_mma.cuh kWarps
 SETS = 8  # csrc/frontier.cu kSets: K10's flagged sets a warp
+MAX_SLOTS = 32767  # the iteration instance's stash slots a half
+# Iterations a rank the host enqueues under a mesh before it reads whether
+# the chunk has ended (the home rank's loop state; a launch past the end
+# only carries that state forward).
+MESH_BATCH = 8
 
 # Kernel launches since import (or since a caller reset them), by wrapper.
-LAUNCHES = {"frontier_chunk": 0, "frontier_filter": 0}
+LAUNCHES = {"frontier_chunk": 0, "frontier_filter": 0, "frontier_iteration": 0}
 # The parts of a K9 iteration that the timed instance (:func:`frontier_chunk_timed`)
 # clocks, in ``csrc/frontier.cu``'s order.
 TIMED_PHASES = ("scan and maps", "children and flags written", "pop loads", "fixpoint", "branch variable",
@@ -74,11 +89,13 @@ def stash_rows(K: int) -> int:
     return -(-K // 8) * 8
 
 
-def chunk_extra_bytes(s: int, K: int, planes: int) -> int:
+def chunk_extra_bytes(s: int, K: int, planes: int, rows: Optional[int] = None) -> int:
     """K9's shared memory beyond the evaluator's (``csrc/frontier.cu``
-    ``chunk_extra_bytes``): the in-degree planes, the child and flag maps,
-    the warp sums."""
-    return _round16(8 * planes * s) + _round16(6 * stash_rows(K)) + _round16(4 * (WARPS + 1))
+    ``chunk_extra_bytes``): the in-degree planes, the child and flag maps
+    over ``rows`` stash entries (default: K9's, the pop rounded up to 8; the
+    iteration instance's: its slots a half), the warp sums."""
+    rows = stash_rows(K) if rows is None else rows
+    return _round16(8 * planes * s) + _round16(6 * rows) + _round16(4 * (WARPS + 1))
 
 
 def filter_extra_bytes() -> int:
@@ -147,6 +164,40 @@ class ArenaSet:
         )
 
 
+@dataclass
+class IterationState:
+    """One rank's chunk under a mesh: the source and destination arena sets,
+    the rank's stash (``2 · stash_half_bytes`` bytes, ``csrc/frontier.cu``'s
+    share-major halves) and loop state (``(2, 8)`` int32), and the launches
+    of this chunk so far (``step``).  :meth:`begin` starts a chunk; the
+    stash and the loop state serve every chunk of a solve."""
+
+    src: ArenaSet
+    dst: ArenaSet
+    stash: torch.Tensor
+    loop: torch.Tensor
+    step: int = 0
+
+    @classmethod
+    def empty(cls, K: int, ranks: int, src: ArenaSet, dst: ArenaSet) -> "IterationState":
+        dev = dst.T.device
+        return cls(src=src, dst=dst, stash=torch.zeros(2 * stash_half_bytes(K, ranks), dtype=torch.uint8, device=dev),
+                   loop=torch.zeros((2, 8), dtype=torch.int32, device=dev))
+
+    def begin(self, src: ArenaSet, dst: ArenaSet) -> None:
+        self.src, self.dst, self.step = src, dst, 0
+
+    def share(self, K: int, rank: int, ranks: int, half: int) -> torch.Tensor:
+        """Rank ``rank``'s share of stash half ``half``, as bytes."""
+        nbytes = stash_half_bytes(K, ranks)
+        share = nbytes // ranks
+        return self.stash[half * nbytes + rank * share: half * nbytes + (rank + 1) * share]
+
+    def half(self, K: int, ranks: int, half: int) -> torch.Tensor:
+        nbytes = stash_half_bytes(K, ranks)
+        return self.stash[half * nbytes:(half + 1) * nbytes]
+
+
 class FrontierRef:
     """The plain versions' constants for one problem on ``device``: the
     fixpoint tables of the scoped and the probe circuit, the lane → node map,
@@ -167,6 +218,12 @@ class FrontierRef:
         res = chunk_loop(self.tables, self.scc_idx, self.a_mat, self.shape, src.T, src.D, top,
                          dst.T, dst.D, dst.flags, flag_exit)
         dst.ctr.copy_(torch.tensor(res, dtype=torch.int32))
+
+    def iteration(self, st: IterationState, rank: int, ranks: int, flag_exit: int) -> None:
+        share_iteration(self.tables, self.scc_idx, self.a_mat, self.shape, rank, ranks, st.step, st.src.T,
+                        st.src.D, int(st.src.ctr[0]) if st.step == 0 else 0, st.dst.T, st.dst.D, st.dst.flags,
+                        st.dst.ctr, st.stash, st.loop, flag_exit)
+        st.step += 1
 
     def filter(self, flags_blk: torch.Tensor, count: int) -> torch.Tensor:
         mins, widx = filter_block(self.tables, self.probe_tables, self.scc_idx, self.frozen, flags_blk, count)
@@ -323,6 +380,98 @@ def _chunk(kern: FrontierKernels, src: ArenaSet, dst: ArenaSet, flag_exit: int,
         LAUNCHES["frontier_chunk"] += 1
 
 
+def frontier_iteration(kern: FrontierKernels, st: IterationState, rank: int, ranks: int, flag_exit: int) -> None:
+    """Launch ``st.step`` of a chunk for rank ``rank`` of ``ranks`` (K9's
+    iteration instance, on the current stream of ``kern``'s device, without
+    synchronising) and count it; then ``st.step`` is one more.  Step 0 reads
+    ``st.src``; the rows ``[0, top)``, flags and counters of ``st.dst`` are
+    the chunk's result once the loop state says it has ended, and the share
+    this launch wrote (``st.share(K, rank, ranks, step & 1)``) must reach
+    every rank before the next step (:func:`gather_shares`)."""
+    sh = kern.shape
+    Kn, Ks = share_slots(sh.K, ranks)
+    if not 0 <= rank < ranks:
+        raise ValueError(f"rank {rank} of {ranks}")
+    if st.stash.dtype != torch.uint8 or st.stash.numel() != 2 * stash_half_bytes(sh.K, ranks) \
+            or tuple(st.loop.shape) != (2, 8) or st.loop.dtype != torch.int32:
+        raise ValueError(f"iteration state must hold a uint8 stash of {2 * stash_half_bytes(sh.K, ranks)} bytes "
+                         f"and an int32 (2, 8) loop state")
+    devices = {st.src.T.device, st.dst.T.device, st.stash.device, st.loop.device}
+    if len(devices) != 1:
+        raise ValueError(f"iteration state lies on different devices: {devices}")
+    if st.dst.T.device.type == "cpu":
+        if kern.ref is None:
+            raise ValueError("frontier kernels built for CUDA got CPU arenas")
+        kern.ref.iteration(st, rank, ranks, flag_exit)
+        return
+    dev = st.dst.T.device
+    if dev.type != "cuda" or kern.ref is not None or kern.tables.blocks.device != dev:
+        raise ValueError(f"frontier_iteration launches on CUDA only, on its problem's card: got {dev} for a "
+                         f"{kern.tables.blocks.device} problem")
+    slots = ranks * Ks
+    if slots > MAX_SLOTS:
+        raise KernelLimitError(f"frontier iteration kernel: {slots} stash slots a half > {MAX_SLOTS}")
+    t = kern.tables
+    smem = smem_bytes(False, t.stream, t.nblocks, t.units, t.slabs) + chunk_extra_bytes(kern.s, sh.K, len(kern.planes),
+                                                                                         rows=slots)
+    if smem > SMEM_LIMIT:
+        raise KernelLimitError(f"frontier iteration kernel: {smem} bytes of shared memory a block; one block may "
+                               f"take at most {SMEM_LIMIT}")
+    _check_set(kern, st.src)
+    _check_set(kern, st.dst)
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.qi_frontier_iteration(
+            *kern._table_args(), kern.s, sh.half, sh.K, sh.C, sh.chunk_iters, sh.flag_cap, int(flag_exit),
+            len(kern.planes), kern.planes.data_ptr(), rank, ranks, st.step, st.src.T.data_ptr(),
+            st.src.D.data_ptr(), st.src.ctr.data_ptr(), st.dst.T.data_ptr(), st.dst.D.data_ptr(),
+            st.dst.flags.data_ptr(), st.dst.ctr.data_ptr(), st.stash.data_ptr(), st.loop.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"frontier_iteration launch failed: {lib.qi_cuda_error_string(err).decode()}")
+    LAUNCHES["frontier_iteration"] += 1
+    st.step += 1
+
+
+def gather_shares(mesh, states: Sequence[IterationState], K: int, half: int) -> None:
+    """Every rank's share of stash half ``half`` into every local rank's
+    stash (:func:`..parallel.mesh.mesh_all_gather`, in place)."""
+    from quorum_intersection_tpu_torch.parallel.mesh import mesh_all_gather
+
+    n = mesh.size
+    mesh_all_gather(mesh, [st.share(K, mesh.global_rank(i), n, half) for i, st in enumerate(states)],
+                    out=[st.half(K, n, half) for st in states])
+
+
+Iterate = Callable[[object, IterationState, int, int, int], None]
+
+
+def mesh_chunk(mesh, kerns: Sequence, states: Sequence[IterationState], flag_exit: int,
+               iterate: Optional[Iterate] = None, batch: int = MESH_BATCH) -> int:
+    """One chunk on every local rank of ``mesh`` (each ``states[i]`` begun
+    on its source and destination): ``iterate(kerns[i], states[i], global
+    rank, ranks, flag_exit)`` on every rank (default :func:`frontier_iteration`),
+    then :func:`gather_shares`, ``batch`` times before the host reads the
+    home rank's loop state, until it says the chunk has ended.  Every rank of
+    every process makes the same launches and gathers: the end is read from
+    values every rank holds alike.  Returns the steps a rank."""
+    iterate = iterate or frontier_iteration
+    K, chunk_iters, n = kerns[0].shape.K, kerns[0].shape.chunk_iters, mesh.size
+    step = 0
+    while True:
+        todo = min(batch, chunk_iters + 1 - step)
+        if todo < 1:
+            raise RuntimeError(f"the chunk did not end within {chunk_iters + 1} iterations")
+        for _ in range(todo):
+            for local, (kern, st) in enumerate(zip(kerns, states)):
+                iterate(kern, st, mesh.global_rank(local), n, flag_exit)
+            gather_shares(mesh, states, K, step & 1)
+            step += 1
+        if int(states[0].loop[step & 1, 6]):
+            return step
+
+
 def frontier_filter(kern: FrontierKernels, flags_blk: torch.Tensor, count: int) -> torch.Tensor:
     """The flag filter over the first ``count`` rows of ``flags_blk`` (B, s)
     int8: ``(2,)`` int32 ``[minimal count, first witness index or B]``,
@@ -368,6 +517,8 @@ def _library() -> ctypes.CDLL:
         lib.qi_frontier_grid.restype = i
         lib.qi_frontier_chunk.argtypes = tables + [i] * 8 + [p] * 12 + [i, p]
         lib.qi_frontier_chunk.restype = i
+        lib.qi_frontier_iteration.argtypes = tables + [i] * 8 + [p] + [i] * 3 + [p] * 9 + [p]
+        lib.qi_frontier_iteration.restype = i
         lib.qi_frontier_filter.argtypes = [p, p, p, p] + [i] * 10 + [p, i, p, p]
         lib.qi_frontier_filter.restype = i
         lib.qi_cuda_error_string.argtypes = [i]

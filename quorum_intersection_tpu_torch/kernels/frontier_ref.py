@@ -6,7 +6,12 @@ the CPU path of ``gpu-frontier`` and the yardstick the CUDA kernels
   package's ``TpuFrontierBackend._build_chunk`` (``backends/tpu/frontier.py:330``,
   ``expand`` ``:380``, ``chunk_fn`` ``:463``), iteration for iteration;
 - :func:`filter_block` (K10): its flag filter ``_build_flag_filter``
-  (``frontier.py:254``, ``filter_block`` ``:300``).
+  (``frontier.py:254``, ``filter_block`` ``:300``);
+- :func:`share_iteration` (K9's iteration instance): one iteration of one
+  mesh rank, the JAX ``batch_fixpoint`` under a mesh (``frontier.py:356-363``)
+  with the pop block sharded by whole states, and :func:`sharded_chunk_loop`,
+  a chunk of such iterations over every rank with the gather of their stash
+  shares between two iterations.
 
 The arena is a LIFO stack of (toRemove, dontRemove) pairs as int8 0/1 rows
 over the SCC's ``s`` lanes, lane ``i`` being circuit node ``scc_idx[i]``.
@@ -20,7 +25,7 @@ are never read as states, so only ``[0, top)`` of a result is defined.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -202,3 +207,214 @@ def frozen_row(n: int, scc_idx: np.ndarray, q6: bool) -> Optional[np.ndarray]:
     row = np.ones(n, dtype=np.int32)
     row[np.asarray(scc_idx, dtype=np.int64)] = 0
     return row
+
+
+# ---- the iteration instance: one rank's share of one iteration -------------
+
+def share_slots(K: int, ranks: int) -> Tuple[int, int]:
+    """``(Kn, Ks)``: the states of a rank's share of a ``K``-state pop block
+    over ``ranks`` ranks, and its stash slots (``Kn`` rounded up to 8)."""
+    if ranks < 1 or K % ranks:
+        raise ValueError(f"a pop block of {K} states does not split over {ranks} ranks")
+    Kn = K // ranks
+    return Kn, -(-Kn // 8) * 8
+
+
+def stash_half_bytes(K: int, ranks: int) -> int:
+    """Bytes of one stash half: ``ranks`` shares of ``18 Ks`` bytes."""
+    return ranks * 18 * share_slots(K, ranks)[1]
+
+
+def stash_half(stash: torch.Tensor, K: int, ranks: int, half: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Views ``(T, D, code)``, each ``(ranks, Ks)``, of stash half ``half``
+    (``csrc/frontier.cu``'s share-major layout): share ``r`` holds its
+    ``Ks`` toRemove words (int64, bit ``x`` lane ``x``), its dontRemove
+    words, then its codes (int16: bit 0 include, 1 exclude, 2 flag, the
+    branch lane from bit 8)."""
+    Ks = share_slots(K, ranks)[1]
+    nbytes = stash_half_bytes(K, ranks)
+    blk = stash[half * nbytes:(half + 1) * nbytes].view(ranks, 18 * Ks)
+    return (blk[:, :8 * Ks].view(torch.int64), blk[:, 8 * Ks:16 * Ks].view(torch.int64),
+            blk[:, 16 * Ks:].view(torch.int16))
+
+
+def pack_words(rows: torch.Tensor) -> torch.Tensor:
+    """(B, s) 0/1 lane rows → (B,) int64 words, bit ``x`` lane ``x``."""
+    lanes = torch.arange(rows.shape[1], device=rows.device, dtype=torch.int64)
+    return (rows.to(torch.int64) << lanes).sum(-1)
+
+
+def unpack_words(words: torch.Tensor, s: int) -> torch.Tensor:
+    """(B,) int64 words → (B, s) int8 0/1 lane rows."""
+    lanes = torch.arange(s, device=words.device, dtype=torch.int64)
+    return ((words[:, None] >> lanes) & 1).to(torch.int8)
+
+
+def share_iteration(
+    tables: CircuitTables,
+    scc_idx: torch.Tensor,
+    a_mat: torch.Tensor,
+    shape: ChunkShape,
+    rank: int,
+    ranks: int,
+    step: int,
+    src_T: torch.Tensor,
+    src_D: torch.Tensor,
+    src_top: int,
+    T: torch.Tensor,
+    D: torch.Tensor,
+    flags: torch.Tensor,
+    ctr: torch.Tensor,
+    stash: torch.Tensor,
+    loop: torch.Tensor,
+    flag_exit: int,
+) -> None:
+    """Launch ``step`` of a chunk for rank ``rank`` of ``ranks``, as the
+    iteration instance does it (``csrc/frontier.cu`` ``iteration_kernel``):
+    read the loop state (``loop[step & 1]``; step 0 starts from the source
+    arena, copying its rows ``[0, src_top)`` into ``T``/``D``), scan the
+    whole gathered stash half of the previous iteration, write its children
+    that stay on the stack and its flags, run the exit test, and, if it
+    passes, pop this rank's share — states ``[rank K/n, (rank+1) K/n)`` of
+    the pop block — and write its stash entries into this rank's share of
+    the other half; the new state goes to ``loop[(step + 1) & 1]``.  Once
+    the chunk has ended, the counters are in ``ctr`` and a further step only
+    carries the state forward.  The JAX program's iteration (``expand``) is
+    the same function of the same rows, row for row."""
+    K, C, half, cap = shape.K, shape.C, shape.half, shape.flag_cap
+    Kn, Ks = share_slots(K, ranks)
+    s = T.shape[1]
+    dev = T.device
+    inp, out = loop[step & 1], loop[(step + 1) & 1]
+    if step == 0:
+        top, fcount, iters, popped, pbase, pk = src_top, 0, 0, 0, 0, 0
+        if top and src_T.data_ptr() != T.data_ptr():
+            T[:top] = src_T[:top]
+            D[:top] = src_D[:top]
+    else:
+        state = [int(x) for x in inp.tolist()]
+        if state[6]:
+            out.copy_(inp)
+            return
+        top, fcount, iters, popped, pbase, pk = state[:6]
+
+    pT, pD, pcode = (x.reshape(-1) for x in stash_half(stash, K, ranks, (iters + 1) & 1))
+    fprev, nflags = fcount, 0
+    child_slot = child_excl = fslots = None
+    if pk:
+        # The scan in slot order: a slot's include child, then its exclude child.
+        last = pk - 1
+        codes = pcode[: (last // Kn) * Ks + last % Kn + 1].to(torch.int64)
+        slot = torch.arange(codes.shape[0], device=dev)
+        both = torch.stack([(codes & 1) > 0, (codes & 2) > 0], 1)
+        child_slot = torch.stack([slot, slot], 1)[both]
+        child_excl = torch.stack([torch.zeros_like(slot), torch.ones_like(slot)], 1)[both] > 0
+        top = pbase + int(child_slot.shape[0])
+        fslots = slot[(codes & 4) > 0]
+        nflags = int(fslots.shape[0])
+        fcount = min(fcount + nflags, cap)
+
+    def children(idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Entries ``idx`` of the child list as lane rows: the include child
+        adds the branch lane to dontRemove."""
+        sl = child_slot[idx]
+        d = pD[sl]
+        with_best = d | (torch.ones_like(d) << (pcode[sl].to(torch.int64) >> 8))
+        return unpack_words(pT[sl], s), unpack_words(torch.where(child_excl[idx], d, with_best), s)
+
+    go = top > 0 and iters < shape.chunk_iters and fcount < flag_exit and top <= C - 2 * K
+    k = min(top, K) if go else 0
+    base = top - k
+    if pk:
+        nw = min(max(0, base - pbase), max(0, C - pbase))
+        if nw:
+            T[pbase:pbase + nw], D[pbase:pbase + nw] = children(torch.arange(nw, device=dev))
+        nf = max(0, min(nflags, cap - fprev))
+        if nf:
+            flags[fprev:fprev + nf] = unpack_words(pD[fslots[:nf]], s)
+    if not go:
+        ctr.copy_(torch.tensor([top, fcount, iters, popped], dtype=torch.int32))
+        out.copy_(torch.tensor([top, fcount, iters, popped, pbase, pk, 1, 0], dtype=torch.int32))
+        return
+
+    # This rank's share: pop, fixpoint, prune, branch, stash.
+    j = torch.arange(Ks, device=dev)
+    i = rank * Kn + j
+    valid = (j < Kn) & (i < k)
+    pos = base + i
+    blk_T = torch.zeros((Ks, s), dtype=torch.int32, device=dev)
+    blk_D = torch.zeros((Ks, s), dtype=torch.int32, device=dev)
+    stashed = valid & (pos >= pbase) if pk else torch.zeros_like(valid)
+    in_arena = valid & ~stashed
+    if bool(stashed.any()):
+        t_rows, d_rows = children(pos[stashed] - pbase)
+        blk_T[stashed], blk_D[stashed] = t_rows.to(torch.int32), d_rows.to(torch.int32)
+    blk_T[in_arena] = T[pos[in_arena]].to(torch.int32)
+    blk_D[in_arena] = D[pos[in_arena]].to(torch.int32)
+
+    dsize = blk_D.sum(-1)
+    union = torch.maximum(blk_T, blk_D)
+    live = valid & (dsize <= half) & (union.sum(-1) > 0)
+    fp = fixpoint(tables, rows_in_circuit(tables, scc_idx, torch.cat([blk_D, union], 0)))[:, scc_idx].to(torch.int32)
+    f1, f2 = fp[:Ks], fp[Ks:]
+    d_has_q = live & (f1.sum(-1) > 0)
+    eligible = f2 * (1 - blk_D)
+    branchable = (live & ~d_has_q & (f2.sum(-1) > 0) & ((blk_D * (1 - f2)).sum(-1) == 0)
+                  & (eligible.sum(-1) > 0))
+    masked = torch.where(eligible > 0, _indegree(f2, a_mat), torch.full_like(eligible, -1))
+    best = torch.where(branchable, torch.argmax(masked, dim=-1), torch.zeros_like(dsize).to(torch.int64))
+    child_T = eligible * (1 - torch.nn.functional.one_hot(best, s).to(torch.int32))
+    incl = branchable & (dsize + 1 <= half)
+    excl = branchable & ((child_T.sum(-1) + dsize) > 0)
+    code = incl.to(torch.int64) | (excl.to(torch.int64) << 1) | (d_has_q.to(torch.int64) << 2) | (best << 8)
+    cT, cD, ccode = stash_half(stash, K, ranks, iters & 1)
+    zero = torch.zeros(Ks, dtype=torch.int64, device=dev)
+    cT[rank] = torch.where(valid, pack_words(child_T), zero)
+    cD[rank] = torch.where(valid, pack_words(blk_D), zero)
+    ccode[rank] = torch.where(valid, code, zero).to(torch.int16)
+    out.copy_(torch.tensor([top, fcount, iters + 1, popped + k, base, k, 0, 0], dtype=torch.int32))
+
+
+def sharded_chunk_loop(
+    tables: CircuitTables,
+    scc_idx: torch.Tensor,
+    a_mat: torch.Tensor,
+    shape: ChunkShape,
+    ranks: int,
+    src_T: torch.Tensor,
+    src_D: torch.Tensor,
+    top: int,
+    arenas: Sequence[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]],
+    flag_exit: int,
+) -> List[Tuple[int, int, int, int]]:
+    """One chunk (JAX ``chunk_fn`` under a mesh) over ``ranks`` ranks in
+    one process: every rank's :func:`share_iteration`, then the copy of
+    each rank's stash share into every other stash, until the chunk has
+    ended.  ``arenas[r]`` is rank ``r``'s destination ``(T, D, flags)``.
+    Returns each rank's ``(top, fcount, iters, popped)``; with
+    :func:`chunk_loop`'s at the same ``K`` they are equal, and so are the
+    arena rows ``[0, top)`` and the flags."""
+    nbytes = stash_half_bytes(shape.K, ranks)
+    share = nbytes // ranks
+    stashes = [torch.zeros(2 * nbytes, dtype=torch.uint8, device=src_T.device) for _ in range(ranks)]
+    loops = [torch.zeros((2, 8), dtype=torch.int32, device=src_T.device) for _ in range(ranks)]
+    ctrs = [torch.zeros(4, dtype=torch.int32, device=src_T.device) for _ in range(ranks)]
+
+    def gather(half: int) -> None:
+        for r, src in enumerate(stashes):
+            part = src[half * nbytes + r * share: half * nbytes + (r + 1) * share]
+            for dst in stashes:
+                if dst is not src:
+                    dst[half * nbytes + r * share: half * nbytes + (r + 1) * share] = part
+
+    step = 0
+    while not int(loops[0][step & 1, 6]):
+        for r in range(ranks):
+            T, D, flags = arenas[r]
+            share_iteration(tables, scc_idx, a_mat, shape, r, ranks, step, src_T, src_D, top, T, D, flags,
+                            ctrs[r], stashes[r], loops[r], flag_exit)
+        gather(step & 1)
+        step += 1
+        if step > shape.chunk_iters + 1:
+            raise RuntimeError("the chunk did not end within chunk_iters + 1 iterations")
+    return [tuple(int(x) for x in c.tolist()) for c in ctrs]

@@ -1,10 +1,10 @@
-"""The candidate mesh and the multi-process runtime of the sweep (the JAX
-package's ``parallel/``).
+"""The candidate mesh and the multi-process runtime of the sweep and the
+frontier (the JAX package's ``parallel/``).
 
 Not ported: ``shard_map_fn`` and ``shard_map_unchecked``, thin wrappers of
 JAX's ``shard_map`` with no PyTorch counterpart; the port's sharded sweep
-launches each rank's kernel itself and combines the ranks' results with
-:func:`~.mesh.mesh_pmin`.
+and frontier launch each rank's kernel themselves and combine the ranks'
+results with :func:`~.mesh.mesh_pmin` and :func:`~.mesh.mesh_all_gather`.
 """
 
 from quorum_intersection_tpu_torch.parallel.mesh import CANDIDATE_AXIS, candidate_mesh

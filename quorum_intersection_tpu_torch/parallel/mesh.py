@@ -17,13 +17,17 @@ counterpart of the JAX tests' emulated host devices
 (``--xla_force_host_platform_device_count=8``), reachable through
 ``candidate_mesh(devices=...)`` or, on the CPU, ``candidate_mesh(n,
 device="cpu")``; a CUDA mesh built by count never repeats a card.
+
+The frontier under a mesh needs a second collective, :func:`mesh_all_gather`,
+the port's tiled ``lax.all_gather`` (JAX ``backends/tpu/frontier.py:361``):
+every rank's stash share of an iteration reaches every rank's stash.
 """
 
 from __future__ import annotations
 
 from contextlib import nullcontext
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -176,3 +180,75 @@ def mesh_pmin(mesh: CandidateMesh, per_rank: Sequence[torch.Tensor]) -> torch.Te
                 dist.all_reduce(best, op=dist.ReduceOp.MIN, group=mesh.group)
     return best
 
+
+
+def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.device == b.device and a.data_ptr() == b.data_ptr() and a.numel() == b.numel()
+
+
+def _ordered_copy(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)`` on the card behind an event recorded on the stream
+    of the card that wrote ``src``; nothing on the host waits."""
+    if dst.device.type == "cuda" and src.device != dst.device:
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(src.device))
+        torch.cuda.current_stream(dst.device).wait_event(ready)
+        with torch.cuda.device(dst.device):
+            dst.copy_(src, non_blocking=True)
+    else:
+        dst.copy_(src)
+
+
+def mesh_all_gather(mesh: CandidateMesh, per_rank: Sequence[torch.Tensor],
+                    out: Optional[Sequence[torch.Tensor]] = None) -> List[torch.Tensor]:
+    """The port's tiled ``lax.all_gather`` (JAX ``frontier.py:361``): every
+    global rank's share, in global rank order, on every local rank.
+
+    ``per_rank[i]`` is local rank ``i``'s share, a contiguous 1-D tensor on
+    ``mesh.devices[i]``, all of one length ``m`` and dtype; the result on
+    each local rank is ``mesh.size · m`` long, written into ``out[i]`` where
+    given (which may hold ``per_rank[i]`` at its own place: that share is
+    then not copied).  In one process the shares meet in the home rank's
+    result and the whole goes back to the other ranks, by device copies on
+    the cards' current streams ordered by events: nothing on the host waits.
+    Across processes the home rank's part of the whole goes through one
+    ``all_gather`` over the group, as bytes: ``all_gather_into_tensor`` on
+    the card under ``nccl``, a host copy under ``gloo`` (as
+    :func:`mesh_pmin` reduces).  A failed collective raises: the solve
+    fails."""
+    L = len(mesh.devices)
+    if len(per_rank) != L:
+        raise ValueError(f"{len(per_rank)} shares for a mesh of {L} local ranks")
+    m = per_rank[0].numel()
+    if any(t.numel() != m or t.dtype != per_rank[0].dtype or t.dim() != 1 for t in per_rank):
+        raise ValueError("mesh_all_gather takes 1-D shares of one length and dtype")
+    n = mesh.size
+    if out is None:
+        outs = [torch.empty(n * m, dtype=per_rank[0].dtype, device=d) for d in mesh.devices]
+    else:
+        outs = list(out)
+        if len(outs) != L or any(o.numel() != n * m or o.dim() != 1 for o in outs):
+            raise ValueError(f"mesh_all_gather writes {L} 1-D results of {n * m} elements")
+    home = outs[0]
+    for i, t in enumerate(per_rank):
+        g = mesh.global_rank(i)
+        dst = home[g * m:(g + 1) * m]
+        if not _same_memory(dst, t):
+            _ordered_copy(dst, t)
+    if mesh.process_count > 1:
+        import torch.distributed as dist
+
+        whole = home.view(torch.uint8)
+        mine = home[mesh.process_index * L * m:(mesh.process_index + 1) * L * m].view(torch.uint8)
+        if home.device.type == "cuda" and collective_of(mesh) != "gloo":
+            with torch.cuda.device(home):
+                dist.all_gather_into_tensor(whole, mine.clone(), group=mesh.group)
+        else:
+            host = mine.cpu()
+            parts = [torch.empty_like(host) for _ in range(mesh.process_count)]
+            dist.all_gather(parts, host, group=mesh.group)
+            whole.copy_(torch.cat(parts))
+    for o in outs[1:]:
+        if not _same_memory(o, home):
+            _ordered_copy(o, home)
+    return outs

@@ -2,7 +2,10 @@
 started as a subprocess): joins the port's multi-process runtime over gloo
 through a localhost coordinator, builds the global candidate mesh of its 4
 CPU ranks, and runs the sharded sweep on a correct and a broken majority
-network and on the restricted wide graph.  Imports nothing of JAX.  Prints
+network and on the restricted wide graph, then the frontier under the same
+mesh (the JAX ``tests/_dist_worker.py:56-70`` case: hier-4x3, arena 1024,
+pop 8 a rank), whose gathers cross the processes every iteration.  Imports
+nothing of JAX.  Prints
 one JSON line for the parent to compare across processes and against the
 JAX package's single-process 8-device solve.
 
@@ -18,8 +21,9 @@ def main() -> int:
     import torch
 
     torch.set_num_threads(1)
+    from quorum_intersection_tpu_torch.backends.frontier import GpuFrontierBackend
     from quorum_intersection_tpu_torch.backends.sweep import GpuSweepBackend
-    from quorum_intersection_tpu_torch.fbas.synth import benchmark_fbas, majority_fbas
+    from quorum_intersection_tpu_torch.fbas.synth import benchmark_fbas, hierarchical_fbas, majority_fbas
     from quorum_intersection_tpu_torch.parallel import distributed
     from quorum_intersection_tpu_torch.pipeline import solve
 
@@ -36,6 +40,12 @@ def main() -> int:
         out[label] = {"intersects": res.intersects, "q1": res.q1, "q2": res.q2,
                       **{k: res.stats.get(k) for k in ("hit_index", "candidates_checked", "device_steps")},
                       "mesh": res.stats.get("mesh")}
+    fr = solve(hierarchical_fbas(4, 3), backend=GpuFrontierBackend(device="cpu", arena=1024, pop=8 * mesh.size,
+                                                                   mesh=mesh))
+    out["frontier"] = {"intersects": fr.intersects, "q1": fr.q1, "q2": fr.q2,
+                       **{k: fr.stats.get(k) for k in ("minimal_quorums", "states_popped", "device_iters",
+                                                       "device_chunks", "flagged", "host_checks")},
+                       "mesh": fr.stats.get("mesh")}
     print(json.dumps(out), flush=True)
     return 0
 

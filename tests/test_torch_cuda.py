@@ -915,6 +915,82 @@ def test_frontier_refused_witness_candidate_fails_the_solve(cuda_device, monkeyp
         solve(synth.hierarchical_fbas(4, 3), backend=GpuFrontierBackend(device=cuda_device, arena=8192, pop=256))
 
 
+# ---- K9's iteration instance: the frontier under a mesh ----------------------
+
+MESH_FRONTIER_CASES = {
+    "hier-5x3": (lambda: synth.hierarchical_fbas(5, 3), 8192, 256, 6),
+    "hier-4x3-spill": (lambda: synth.hierarchical_fbas(4, 3), 64, 16, 8),
+    "hier-8x4": (lambda: synth.hierarchical_fbas(8, 4), 1 << 18, 2048, 3),
+    "random-64": (lambda: synth.random_fbas(64, seed=0), 1 << 18, 2048, 3),
+}
+
+
+@pytest.mark.parametrize("ranks", [1, 2, 4])
+@pytest.mark.parametrize("case", sorted(MESH_FRONTIER_CASES))
+def test_frontier_iteration_matches_plain_rank_by_rank(case, ranks, cuda_device):
+    """The iteration instance and its plain version over a mesh of ranks of
+    one card, chunk for chunk: every rank's counters, arena rows and flags
+    equal, and the launches counted."""
+    from quorum_intersection_tpu_torch.kernels.frontier_cuda import LAUNCHES
+
+    from _torch_frontier_blocks import mesh_lockstep
+
+    make, arena, pop, chunks = MESH_FRONTIER_CASES[case]
+    prob, shape, kern, plain = _frontier_setup(make(), cuda_device, arena, pop)
+    before = LAUNCHES["frontier_iteration"]
+    done, iters, flags, steps, bad, _, _ = mesh_lockstep(prob, shape, kern, plain, ranks, chunks)
+    assert not bad, bad[:3]
+    assert iters > 1 and LAUNCHES["frontier_iteration"] - before == steps * ranks >= done * ranks
+
+
+def test_frontier_mesh_solve_on_card_matches_single_card(cuda_device):
+    """A 4-rank mesh of the one card against K9's single-card solve at the
+    same pop: verdict, witness and counts; only the iteration instance ran."""
+    from quorum_intersection_tpu_torch.backends.frontier import GpuFrontierBackend
+    from quorum_intersection_tpu_torch.kernels.frontier_cuda import LAUNCHES
+    from quorum_intersection_tpu_torch.parallel import candidate_mesh
+
+    mesh = candidate_mesh(devices=[cuda_device] * 4)
+    for data in (synth.hierarchical_fbas(5, 3), synth.majority_fbas(14, broken=True)):
+        want = solve(data, backend=GpuFrontierBackend(device=cuda_device, arena=8192, pop=256))
+        before = dict(LAUNCHES)
+        got = solve(data, backend=GpuFrontierBackend(arena=8192, pop=256, mesh=mesh))
+        assert (got.intersects, got.q1, got.q2) == (want.intersects, want.q1, want.q2)
+        for key in ("device_iters", "device_chunks", "states_popped", "flagged", "minimal_quorums", "spills"):
+            assert got.stats[key] == want.stats[key], key
+        assert LAUNCHES["frontier_chunk"] == before["frontier_chunk"]
+        assert LAUNCHES["frontier_iteration"] > before["frontier_iteration"]
+
+
+def test_frontier_iteration_limits_raise_before_launch(cuda_device):
+    """Under a mesh, more than 64 lanes raise before a launch, as K9's
+    limits do; so does a pop that does not split over the ranks."""
+    from quorum_intersection_tpu_torch.backends.frontier import GpuFrontierBackend
+    from quorum_intersection_tpu_torch.kernels.frontier_cuda import LAUNCHES, IterationState, frontier_iteration
+    from quorum_intersection_tpu_torch.parallel import candidate_mesh
+
+    before = dict(LAUNCHES)
+    mesh = candidate_mesh(devices=[cuda_device] * 2)
+    with pytest.raises(KernelLimitError, match="lanes"):
+        solve(synth.majority_fbas(65), backend=GpuFrontierBackend(mesh=mesh))
+    prob, shape, kern, _ = _frontier_setup(synth.hierarchical_fbas(4, 3), cuda_device, 4096, 250)
+    st = IterationState.empty(250, 2, kern.arena(), kern.arena())
+    with pytest.raises(ValueError, match="does not split"):
+        frontier_iteration(kern, st, 0, 3, 512)
+    assert LAUNCHES == before
+
+
+def test_frontier_failed_gather_fails_the_solve(cuda_device):
+    """A mesh naming a second process with no process group behind it: the
+    first gather raises, and so does the solve."""
+    from quorum_intersection_tpu_torch.backends.frontier import GpuFrontierBackend
+    from quorum_intersection_tpu_torch.parallel.mesh import CandidateMesh
+
+    mesh = CandidateMesh(devices=(torch.device("cuda", torch.cuda.current_device()),) * 2, process_count=2)
+    with pytest.raises((RuntimeError, ValueError)):
+        solve(synth.hierarchical_fbas(4, 3), backend=GpuFrontierBackend(arena=4096, pop=256, mesh=mesh))
+
+
 # ---- the unpacked bitset sweep (K8) ----------------------------------------
 
 

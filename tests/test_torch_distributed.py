@@ -4,7 +4,10 @@ sweep; both join (``process_count == 2``), and their verdicts, witnesses,
 hit indices, ``candidates_checked`` and ``device_steps`` equal each other's
 and the JAX package's single-process solve on the conftest's 8 emulated
 devices (its ramp compiled inline, as in ``tests/test_torch_parallel.py``).
-Also: ``initialize()`` is a no-op in a single process, the injected
+The same two processes run the frontier under their mesh (the JAX
+``tests/test_distributed.py:87-110`` case): equal to each other, to the
+single-process 8-rank solve and to the JAX 8-device one, with the 108
+minimal quorums of hier-4x3.  Also: ``initialize()`` is a no-op in a single process, the injected
 ``distributed.init`` fault retries under ``QI_DIST_INIT_TIMEOUT_S`` through
 the ``_retry_sleep`` seam and then degrades loudly with its event, and an
 unrecoverable join degrades at once.  Exact equality throughout.
@@ -103,6 +106,35 @@ def test_processes_agree_with_each_other_and_with_jax(case, two_process_results,
     got = [{k: r[case][k] for k in KEYS} for r in (r0, r1)]
     assert got[0] == got[1] == jax_single_process[case]
     assert got[0]["intersects"] is (case == "safe")
+
+
+FRONTIER_KEYS = ("intersects", "q1", "q2", "minimal_quorums", "states_popped", "device_iters", "device_chunks",
+                 "flagged", "host_checks")
+
+
+def test_frontier_across_processes(two_process_results):
+    """Both processes' frontier equal each other's, the single-process
+    8-rank solve's and the JAX mesh frontier's, with hier-4x3's 108 minimal
+    quorums; the gathers went through gloo."""
+    from quorum_intersection_tpu.backends.tpu.frontier import TpuFrontierBackend
+    from quorum_intersection_tpu.fbas.synth import hierarchical_fbas as jax_hierarchical_fbas
+    from quorum_intersection_tpu_torch.backends.frontier import GpuFrontierBackend
+    from quorum_intersection_tpu_torch.fbas.synth import hierarchical_fbas
+    from quorum_intersection_tpu_torch.parallel import candidate_mesh
+    from quorum_intersection_tpu_torch.pipeline import solve
+
+    r0, r1 = (r["frontier"] for r in two_process_results)
+    got = [{k: r[k] for k in FRONTIER_KEYS} for r in (r0, r1)]
+    single = solve(hierarchical_fbas(4, 3), backend=GpuFrontierBackend(device="cpu", arena=1024, pop=64,
+                                                                       mesh=candidate_mesh(8, device="cpu")))
+    want = jax_solve(jax_hierarchical_fbas(4, 3), backend=TpuFrontierBackend(arena=1024, pop=64,
+                                                                            mesh=jax_candidate_mesh(8)))
+    for res in (single, want):
+        row = {"intersects": res.intersects, "q1": res.q1, "q2": res.q2, **res.stats}
+        assert got[0] == {k: row.get(k) for k in FRONTIER_KEYS}
+    assert got[0] == got[1] and got[0]["intersects"] is True and got[0]["minimal_quorums"] == 108
+    assert r0["mesh"]["ranks"] == 8 and r0["mesh"]["processes"] == 2 and r0["mesh"]["collective"] == "gloo"
+    assert r0["mesh"]["iteration_launches"] == r1["mesh"]["iteration_launches"] > 0
 
 
 @pytest.fixture

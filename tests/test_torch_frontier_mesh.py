@@ -1,0 +1,295 @@
+"""The frontier under a mesh on the CPU: ``GpuFrontierBackend(device="cpu",
+mesh=candidate_mesh(n, device="cpu"))`` against the JAX package's
+``TpuFrontierBackend(mesh=candidate_mesh(n))`` on the conftest's 8 emulated
+devices, with exact equality of the verdict, the witness pair and the
+statistics ``states_popped``, ``device_iters``, ``device_chunks``,
+``flagged``, ``minimal_quorums``, ``host_checks``, ``device_flag_checks``,
+``spills`` and ``discarded_chunks``.
+
+- the JAX multichip cases (``tests/test_multichip.py:190-290``): hier-4x3 at
+  arena 4096, pop 250; the broken ``majority_fbas(12)`` at pop 256;
+  hier-5x3 with ``flag_check="device"`` (the plain K10 on the CPU); the
+  broken ``stellar_like_fbas(4, 3, 10)``; hier-4x3 at arena 2048, pop 512
+  (the JAX test's 3 ranks round the pop to 510), and the "too small" error
+  at arena 8, pop 4; an arena small enough to spill; each on meshes of 1,
+  2, 3 and 8 ranks;
+- a checkpoint written under a mesh and resumed under one by both packages;
+- the plain sharded iteration (``frontier_ref.sharded_chunk_loop``) against
+  the unsharded chunk loop at the same pop, on 1, 2, 3 and 8 ranks, and its
+  gather through ``mesh_all_gather``;
+- ``mesh_all_gather`` itself, and a failed gather failing the solve.
+
+Everything compared is an integer, a node list or a string.
+"""
+
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from quorum_intersection_tpu.backends.tpu.frontier import FrontierSearchInterrupted as JaxInterrupted
+from quorum_intersection_tpu.backends.tpu.frontier import TpuFrontierBackend
+from quorum_intersection_tpu.fbas import synth as jax_synth
+from quorum_intersection_tpu.parallel.mesh import candidate_mesh as jax_candidate_mesh
+from quorum_intersection_tpu.pipeline import solve as jax_solve
+from quorum_intersection_tpu.utils.checkpoint import FrontierCheckpoint as JaxCheckpoint
+from quorum_intersection_tpu_torch.backends.frontier import (
+    FrontierSearchInterrupted,
+    GpuFrontierBackend,
+    frontier_problem,
+)
+from quorum_intersection_tpu_torch.encode.circuit import encode_circuit
+from quorum_intersection_tpu_torch.fbas import synth
+from quorum_intersection_tpu_torch.fbas.graph import build_graph
+from quorum_intersection_tpu_torch.fbas.schema import parse_fbas
+from quorum_intersection_tpu_torch.kernels.frontier_cuda import (
+    ArenaSet,
+    FrontierKernels,
+    FrontierRef,
+    IterationState,
+    mesh_chunk,
+)
+from quorum_intersection_tpu_torch.kernels.frontier_ref import (
+    ChunkShape,
+    chunk_loop,
+    sharded_chunk_loop,
+    stash_half_bytes,
+)
+from quorum_intersection_tpu_torch.parallel import candidate_mesh
+from quorum_intersection_tpu_torch.parallel.mesh import CandidateMesh, mesh_all_gather
+from quorum_intersection_tpu_torch.pipeline import quorum_bearing_sccs, solve
+from quorum_intersection_tpu_torch.utils.checkpoint import FrontierCheckpoint
+
+from tools.check_cert import check_certificate
+
+torch.set_num_threads(1)
+
+STATS = ("states_popped", "device_iters", "device_chunks", "flagged", "minimal_quorums", "host_checks",
+         "device_flag_checks", "spills", "discarded_chunks")
+# name: (network, backend arguments, meshes)
+CASES = {
+    "hier-4x3": (lambda s: s.hierarchical_fbas(4, 3), {"arena": 4096, "pop": 250}, (1, 2, 3, 8)),
+    "majority-12-broken": (lambda s: s.majority_fbas(12, broken=True), {"arena": 4096, "pop": 256}, (1, 2, 3, 8)),
+    "hier-5x3-device-filter": (lambda s: s.hierarchical_fbas(5, 3),
+                               {"arena": 8192, "pop": 256, "flag_check": "device"}, (1, 2, 3, 8)),
+    "stellar-4x3-10-broken": (lambda s: s.stellar_like_fbas(n_core_orgs=4, per_org=3, n_watchers=10, broken=True),
+                              {"arena": 8192, "pop": 256, "flag_check": "device"}, (1, 2, 3, 8)),
+    "hier-4x3-nondividing": (lambda s: s.hierarchical_fbas(4, 3), {"arena": 2048, "pop": 512}, (1, 2, 3, 8)),
+    # Overflows its arena: the spill and the refeed write every rank's set.
+    "hier-4x3-spill": (lambda s: s.hierarchical_fbas(4, 3), {"arena": 64, "pop": 16}, (1, 2, 3, 8)),
+}
+
+
+def _answer(res) -> dict:
+    return {"intersects": res.intersects, "q1": res.q1, "q2": res.q2, **{k: res.stats.get(k) for k in STATS}}
+
+
+@pytest.mark.parametrize("name,n", [(name, n) for name, (_, _, meshes) in CASES.items() for n in meshes])
+def test_mesh_frontier_equals_jax(name, n):
+    make, kw, _ = CASES[name]
+    want = jax_solve(make(jax_synth), backend=TpuFrontierBackend(mesh=jax_candidate_mesh(n), **kw))
+    got = solve(make(synth), backend=GpuFrontierBackend(device="cpu", mesh=candidate_mesh(n, device="cpu"), **kw))
+    assert _answer(got) == _answer(want)
+    assert got.stats["mesh"]["ranks"] == n and got.stats["mesh"]["iteration_launches"] > 0
+    if not got.intersects:
+        assert got.q1 and got.q2 and not set(got.q1) & set(got.q2)
+    if name == "hier-4x3-spill":
+        assert got.stats["spills"] > 0
+    if name == "hier-4x3" and n == 8:
+        # The JAX package's measured run: every count follows from pop 256.
+        assert (got.stats["states_popped"], got.stats["device_iters"], got.stats["minimal_quorums"]) == (1739, 17, 108)
+        assert got.stats["mesh"]["pop"] == 256
+
+
+def test_mesh_rounds_the_pop_block_as_jax():
+    """3 ranks at pop 512, arena 2048: K = min(513, 510) = 510, and the
+    flag buffer follows the effective K."""
+    res = solve(synth.hierarchical_fbas(4, 3), backend=GpuFrontierBackend(
+        device="cpu", arena=2048, pop=512, mesh=candidate_mesh(3, device="cpu")))
+    assert res.stats["mesh"]["pop"] == 510 and res.stats["device_iters"] == 13
+
+
+def test_too_small_arena_raises_the_jax_text():
+    mesh3 = candidate_mesh(3, device="cpu")
+    with pytest.raises(ValueError, match="too small") as jax_err:
+        jax_solve(jax_synth.majority_fbas(9), backend=TpuFrontierBackend(arena=8, pop=4, mesh=jax_candidate_mesh(3)))
+    with pytest.raises(ValueError, match="too small") as port_err:
+        solve(synth.majority_fbas(9), backend=GpuFrontierBackend(device="cpu", arena=8, pop=4, mesh=mesh3))
+    assert str(port_err.value) == str(jax_err.value) == "arena=8 too small for a 3-device mesh (needs >= 12)"
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_checkpoint_resumes_under_a_mesh(writer, tmp_path):
+    """A frontier file written under a 2-rank mesh after two chunks resumes
+    under a mesh in both packages, to the same verdict and the same
+    remaining counts."""
+    kw = {"arena": 8192, "pop": 256, "chunk_iters": 2}
+    path, copy = tmp_path / "frontier.ckpt", tmp_path / "copy.ckpt"
+    if writer == "jax":
+        with pytest.raises(JaxInterrupted):
+            jax_solve(jax_synth.hierarchical_fbas(5, 3), backend=TpuFrontierBackend(
+                mesh=jax_candidate_mesh(2), checkpoint=JaxCheckpoint(path), interrupt_after_chunks=2, **kw))
+    else:
+        with pytest.raises(FrontierSearchInterrupted):
+            solve(synth.hierarchical_fbas(5, 3), backend=GpuFrontierBackend(
+                device="cpu", mesh=candidate_mesh(2, device="cpu"), checkpoint=FrontierCheckpoint(path),
+                interrupt_after_chunks=2, **kw))
+    shutil.copy(path, copy)
+    got = solve(synth.hierarchical_fbas(5, 3), backend=GpuFrontierBackend(
+        device="cpu", mesh=candidate_mesh(4, device="cpu"), checkpoint=FrontierCheckpoint(path), **kw))
+    want = jax_solve(jax_synth.hierarchical_fbas(5, 3), backend=TpuFrontierBackend(
+        mesh=jax_candidate_mesh(4), checkpoint=JaxCheckpoint(copy), **kw))
+    assert got.stats.get("resumed_states", 0) > 0
+    assert _answer(got) == _answer(want) and got.intersects is True
+    assert got.stats["resumed_states"] == want.stats["resumed_states"]
+    assert not path.exists() and not copy.exists()
+
+
+@pytest.mark.parametrize("data", [synth.hierarchical_fbas(4, 3), synth.majority_fbas(10, broken=True)],
+                         ids=["true", "false"])
+def test_mesh_certificates_accepted_by_the_checker(data):
+    mesh = candidate_mesh(4, device="cpu")
+    res = solve(data, backend=GpuFrontierBackend(device="cpu", arena=4096, pop=256, mesh=mesh))
+    check_certificate(res.cert, data)
+    assert res.cert["provenance"]["backend"] == "gpu-frontier"
+
+
+# ---- the plain sharded iteration -------------------------------------------
+
+def _ref(data, K, C=512, chunk_iters=40, flag_exit=64):
+    graph = build_graph(parse_fbas(data))
+    prob = frontier_problem(graph, encode_circuit(graph), quorum_bearing_sccs(graph)[0][1])
+    shape = ChunkShape(half=prob.half, K=K, C=C, chunk_iters=chunk_iters, flag_cap=flag_exit + K)
+    return prob, shape, FrontierRef(prob.circuit, prob.scc_dev, prob.a_scc, shape, prob.probe_circuit, prob.frozen)
+
+
+def _arena(shape, s, T=None, D=None, top=0):
+    st = ArenaSet.empty(shape.C, s, shape.flag_cap, torch.device("cpu"))
+    if T is not None:
+        st.T.copy_(T)
+        st.D.copy_(D)
+    st.ctr[0] = top
+    return st
+
+
+def _seeded(prob, C, seed):
+    """A source arena: the seed state, or a random stack of 40 states."""
+    T = torch.zeros((C, prob.s_dev), dtype=torch.int8)
+    D = torch.zeros_like(T)
+    if seed is None:
+        T[0, : prob.s] = 1
+        return T, D, 1
+    rng = np.random.default_rng(seed)
+    pick = rng.random((40, prob.s))
+    T[:40, : prob.s] = torch.from_numpy((pick < 0.45).astype(np.int8))
+    D[:40, : prob.s] = torch.from_numpy(((pick > 0.8) & (rng.random((40, prob.s)) < 0.9)).astype(np.int8))
+    return T, D, 40
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 8])
+@pytest.mark.parametrize("data,seed", [(synth.hierarchical_fbas(4, 3), None), (synth.hierarchical_fbas(4, 3), 0),
+                                       (synth.majority_fbas(9), 1)], ids=["hier-4x3-seed", "hier-4x3-random",
+                                                                          "majority-9-random"])
+def test_plain_sharded_iteration_equals_unsharded(n, data, seed):
+    """Every rank's chunk of sharded iterations ends where the unsharded
+    chunk loop does at the same pop: counters, arena rows [0, top), flags."""
+    prob, shape, ref = _ref(data, K=24)
+    src_T, src_D, top = _seeded(prob, shape.C, seed)
+    T, D = torch.zeros_like(src_T), torch.zeros_like(src_D)
+    flags = torch.zeros((shape.flag_cap, prob.s_dev), dtype=torch.int8)
+    want = chunk_loop(ref.tables, ref.scc_idx, ref.a_mat, shape, src_T, src_D, top, T, D, flags, 64)
+    arenas = [(torch.zeros_like(T), torch.zeros_like(D), torch.zeros_like(flags)) for _ in range(n)]
+    got = sharded_chunk_loop(ref.tables, ref.scc_idx, ref.a_mat, shape, n, src_T, src_D, top, arenas, 64)
+    assert want[2] > 1  # more than one iteration, so the gathered stash is read
+    assert got == [tuple(want)] * n
+    wtop, wfc = want[:2]
+    for rT, rD, rF in arenas:
+        assert torch.equal(rT[:wtop], T[:wtop]) and torch.equal(rD[:wtop], D[:wtop])
+        assert torch.equal(rF[:wfc], flags[:wfc])
+
+
+@pytest.mark.parametrize("n", [2, 3])
+def test_mesh_chunk_gathers_through_mesh_all_gather(n):
+    """The drive's chunk (wrappers, states, mesh_all_gather) equals the plain
+    sharded loop's, on every rank."""
+    data = synth.hierarchical_fbas(4, 3)
+    prob, shape, ref = _ref(data, K=24)
+    src_T, src_D, top = _seeded(prob, shape.C, None)
+    arenas = [(torch.zeros_like(src_T), torch.zeros_like(src_D),
+               torch.zeros((shape.flag_cap, prob.s_dev), dtype=torch.int8)) for _ in range(n)]
+    want = sharded_chunk_loop(ref.tables, ref.scc_idx, ref.a_mat, shape, n, src_T, src_D, top, arenas, 64)
+    mesh = candidate_mesh(n, device="cpu")
+    src = _arena(shape, prob.s_dev, src_T, src_D, top)
+    states = [IterationState.empty(shape.K, n, src, _arena(shape, prob.s_dev)) for _ in range(n)]
+    steps = mesh_chunk(mesh, [ref] * n, states, 64, iterate=lambda k, st, r, m, fe: k.iteration(st, r, m, fe),
+                       batch=3)
+    # The launches the chunk needs (its iterations and the one that ends
+    # it), in whole batches of 3, never past chunk_iters + 1.
+    need = want[0][2] + 1
+    assert steps == min(-(-need // 3) * 3, shape.chunk_iters + 1)
+    wtop, wfc = want[0][:2]
+    for st, (rT, rD, rF) in zip(states, arenas):
+        assert tuple(st.dst.ctr.tolist()) == want[0]
+        assert torch.equal(st.dst.T[:wtop], rT[:wtop]) and torch.equal(st.dst.D[:wtop], rD[:wtop])
+        assert torch.equal(st.dst.flags[:wfc], rF[:wfc])
+
+
+# ---- the gather ------------------------------------------------------------
+
+def test_mesh_all_gather_concatenates_in_rank_order():
+    mesh = candidate_mesh(3, device="cpu")
+    parts = [torch.arange(4, dtype=torch.int16) + 10 * r for r in range(3)]
+    outs = mesh_all_gather(mesh, parts)
+    want = torch.cat(parts)
+    assert len(outs) == 3 and all(torch.equal(o, want) for o in outs)
+    # In place: each rank's share already sits at its place in its result.
+    bufs = [torch.zeros(12, dtype=torch.uint8) for _ in range(3)]
+    for r, b in enumerate(bufs):
+        b[4 * r: 4 * r + 4] = r + 1
+    mesh_all_gather(mesh, [b[4 * r: 4 * r + 4] for r, b in enumerate(bufs)], out=bufs)
+    assert all(b.tolist() == [1] * 4 + [2] * 4 + [3] * 4 for b in bufs)
+    with pytest.raises(ValueError):
+        mesh_all_gather(mesh, parts[:2])
+    # A process's ranks sit at its place among the global ranks.
+    two = CandidateMesh(devices=(torch.device("cpu"),) * 2, process_index=1, process_count=2)
+    assert [two.global_rank(i) for i in range(2)] == [2, 3]
+
+
+def test_failed_gather_fails_the_solve():
+    """A mesh that names a second process with no process group behind it:
+    the gather raises and so does the solve, with no verdict."""
+    mesh = CandidateMesh(devices=(torch.device("cpu"),) * 2, process_count=2)
+    with pytest.raises((RuntimeError, ValueError)):
+        solve(synth.hierarchical_fbas(4, 3), backend=GpuFrontierBackend(device="cpu", arena=4096, pop=256, mesh=mesh))
+
+
+def test_stash_share_layout():
+    """A share of a stash half is 18 Ks bytes: Ks words of toRemove, Ks of
+    dontRemove, Ks codes; Ks = K / n rounded up to 8."""
+    assert stash_half_bytes(2048, 4) == 4 * 18 * 512
+    assert stash_half_bytes(510, 3) == 3 * 18 * 176
+    assert stash_half_bytes(256, 8) == 8 * 18 * 32
+    with pytest.raises(ValueError):
+        stash_half_bytes(250, 8)
+    shape = ChunkShape(half=1, K=24, C=64, chunk_iters=1, flag_cap=30)
+    st = IterationState.empty(24, 3, _arena(shape, 8), _arena(shape, 8))
+    assert st.stash.numel() == 2 * 3 * 18 * 8
+    assert st.share(24, 2, 3, 1).data_ptr() == st.stash.data_ptr() + 3 * 144 + 2 * 144
+    assert st.half(24, 3, 1).numel() == 3 * 144
+
+
+@pytest.mark.parametrize("ranks", [1, 2, 4])
+def test_mesh_lockstep_on_the_cpu(ranks):
+    """The card checks' lockstep (``_torch_frontier_blocks.mesh_lockstep``)
+    on CPU ranks, where both sides run the plain version: every chunk equal
+    across ranks, through a spill, over more than one chunk."""
+    from _torch_frontier_blocks import mesh_lockstep
+
+    graph = build_graph(parse_fbas(synth.hierarchical_fbas(4, 3)))
+    prob = frontier_problem(graph, encode_circuit(graph), quorum_bearing_sccs(graph)[0][1])
+    shape = ChunkShape(half=prob.half, K=16, C=64, chunk_iters=512, flag_cap=512 * 16 + 16)
+    kern = FrontierKernels(prob.circuit, prob.scc_dev, prob.a_scc, shape, prob.probe_circuit, prob.frozen,
+                           device="cpu")
+    done, iters, flags, steps, bad, reasons, tops = mesh_lockstep(prob, shape, kern, kern.ref, ranks, 8, batch=4)
+    assert not bad and done > 1 and iters > done and "overflow guard" in reasons

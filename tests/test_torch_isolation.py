@@ -1,7 +1,8 @@
 """The port imports neither JAX nor the JAX package: it solves (profiled
 too, and on a 2-rank CPU mesh), scans SCCs natively, and serves a two-line
 stream through ``serve`` and through a two-worker ``fleet``, with both
-blocked; no source line of it (or of ``chip_smoke.py``, or of the
+blocked; no source line of it (or of ``chip_smoke.py``, of the helpers it
+shares with the card tests ``tests/_torch_frontier_blocks.py``, or of the
 multi-process worker ``tests/_torch_dist_worker.py``) names them, and its
 native builds compile only its own sources."""
 
@@ -183,7 +184,8 @@ _FORBIDDEN = [
 
 def _sources():
     files = (sorted(PORT.rglob("*.py")) + sorted(PORT.rglob("*.cu")) + sorted(PORT.rglob("*.cuh"))
-             + sorted(PORT.rglob("*.cpp")) + [ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_dist_worker.py"])
+             + sorted(PORT.rglob("*.cpp")) + [ROOT / "chip_smoke.py", ROOT / "tests" / "_torch_frontier_blocks.py",
+                                              ROOT / "tests" / "_torch_dist_worker.py"])
     assert any(path.suffix == ".cpp" for path in files)
     names = {str(path.relative_to(PORT)) for path in files if PORT in path.parents}
     assert {"backends/frontier.py", "kernels/frontier_ref.py", "kernels/frontier_cuda.py",

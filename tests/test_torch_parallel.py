@@ -12,8 +12,8 @@ devices:
   ``TestRampJump._InlineThread``), which makes its programs deterministic;
 - the mesh rules: the ``sweep.engine_resolved`` reason, no pruning, no
   packing, a checkpoint that resumes under a mesh;
-- ``AutoBackend(mesh=)``: the mesh reaches its sweeps, the pack gate and the
-  frontier rung are closed;
+- ``AutoBackend(mesh=)``: the mesh reaches its sweeps and its frontier rung
+  (the JAX ``test_auto_backend_forwards_mesh``), the pack gate is closed;
 - the plain sharded map against K1's plain contiguous program on the same
   coverage; ``candidate_mesh``'s prefix and its error text;
 - the CLI's ``--mesh`` cases of the JAX ``tests/test_cli.py:146-190`` with
@@ -233,22 +233,24 @@ def test_auto_forwards_the_mesh_and_closes_pack_and_frontier(monkeypatch):
     want = _jax("maj11-broken", 3)
     assert (res.intersects, res.q1, res.q2) == (want.intersects, want.q1, want.q2)
     assert res.stats["mesh"]["ranks"] == 3
-    # The frontier rung, open on its win region without a mesh, stays
-    # closed under one: the host oracle answers, and the reason says why.
-    # (A sweep limit of 0 sends this small SCC past the sweep.)
+    # The frontier rung, open on its win region, takes the mesh as the JAX
+    # router's does (auto.py:1492): the sharded frontier answers, with the
+    # JAX mesh frontier's witness.  (A sweep limit of 0 sends this small SCC
+    # past the sweep.)
+    from quorum_intersection_tpu.backends.tpu.frontier import TpuFrontierBackend
+
     data = synth.majority_fbas(7, broken=True)
+    want = jax_solve(jax_synth.majority_fbas(7, broken=True), backend=TpuFrontierBackend(mesh=jax_candidate_mesh(3)))
     for m in (None, mesh):
         router = AutoBackend(device="cpu", mesh=m)
         monkeypatch.setattr(router, "_frontier_region", lambda: (1, 64))
         monkeypatch.setattr(router, "_sweep_limit", lambda: 0)
         rec = telemetry.reset_run_record()
         got = solve(data, backend=router)
-        assert got.intersects is False
+        assert (got.intersects, got.q1, got.q2) == (want.intersects, want.q1, want.q2) and got.intersects is False
         decision = [e["attrs"] for e in rec.events if e["name"] == "route.decision"][-1]
-        if m is None:
-            assert decision["engine"] == "gpu-frontier"
-        else:
-            assert decision["engine"] != "gpu-frontier" and "closed under a mesh" in decision["reason"]
+        assert decision["engine"] == "gpu-frontier" and "mesh" not in decision["reason"]
+        assert got.stats.get("mesh", {}).get("ranks") == (None if m is None else 3)
 
 
 @pytest.mark.parametrize("n", [2, 3, 8])
@@ -348,9 +350,10 @@ def test_mesh_flag_requires_device_backend(monkeypatch, capsys):
     text = json.dumps(jax_synth.majority_fbas(3))
     _, err, code = _run(cli.main, ["--device", "cpu", "--backend", "python", "--mesh", "2"], text, monkeypatch, capsys)
     assert code == 1 and "--mesh requires a device backend" in err
-    _, err, code = _run(cli.main, ["--device", "cpu", "--backend", "gpu-frontier", "--mesh", "2"], text,
-                        monkeypatch, capsys)
-    assert code == 1 and err.count("\n") == 1 and "not ported yet" in err
+    # The frontier takes the mesh and answers as the JAX CLI's tpu-frontier.
+    want = _run(jax_cli.main, ["--backend", "tpu-frontier", "--mesh", "2"], text, monkeypatch, capsys)
+    got = _run(cli.main, ["--device", "cpu", "--backend", "gpu-frontier", "--mesh", "2"], text, monkeypatch, capsys)
+    assert (got[0], got[2]) == (want[0], want[2]) == ("true\n", 0)
 
 
 def test_mesh_flag_bad_values(monkeypatch, capsys):
