@@ -4951,16 +4951,25 @@ FRONTIER_MESH_KEYS = ("states_popped", "device_iters", "device_chunks", "flagged
                       "device_flag_checks", "spills", "discarded_chunks")
 
 
+NVLINK_BYTES_PER_S = 450e9  # H100 SXM NVLink to the host's other cards, each way
+
+
 def frontier_mesh_phase(device, card, texts, cert_jobs, work):
-    """Phase frontier_mesh: K9's iteration instance (the frontier under a
-    mesh) against its plain version rank by rank on 1, 2 and 4 ranks of the
-    one card (and across cards where there are several); GpuFrontierBackend
-    on a 4-rank mesh of the card against K9's single-card solve at the JAX
-    constants; ``--backend gpu-frontier --mesh all --cert-out`` as a CLI
-    process; two processes joined by ``distributed.initialize`` (gloo on one
-    card, NCCL on two); the iteration's time on 1, 2 and 4 ranks beside K9's
-    per iteration, the gather alone, and the launches.  Returns the
-    iteration instance's record of the kernels line."""
+    """Phase frontier_mesh: K9's two instances under a mesh.  The mesh-chunk
+    instance (a one-process mesh: one cooperative launch a chunk and a card)
+    against its plain version ``mesh_chunk_ref`` chunk for chunk, stash
+    included, and the iteration instance (joined processes) against its
+    plain version rank by rank, on 1, 2 and 4 ranks of the one card (and
+    across cards where there are several); GpuFrontierBackend on a 4-rank
+    mesh of the card (and on 4 cards) against K9's single-card solve at the
+    JAX constants, only the mesh-chunk instance launched; ``--backend
+    gpu-frontier --mesh all --cert-out`` as a CLI process; two processes
+    joined by ``distributed.initialize`` (gloo on one card, NCCL on two),
+    which run the iteration instance; each instance's time an iteration on
+    1, 2 and 4 ranks (and 4 cards) beside K9's, its 33 iterations held to
+    K9's 33-iteration chunk, the gather alone, the launches.  Returns the
+    kernels line's records: the mesh-chunk instance's, the iteration
+    instance's."""
     import threading
 
     import torch
@@ -4972,16 +4981,20 @@ def frontier_mesh_phase(device, card, texts, cert_jobs, work):
     from quorum_intersection_tpu_torch.fbas.semantics import is_quorum
     from quorum_intersection_tpu_torch.kernels import frontier_cuda
     from quorum_intersection_tpu_torch.kernels.frontier_cuda import (
+        CardState,
         IterationState,
-        frontier_iteration,
+        frontier_mesh_chunk,
         gather_shares,
+        iteration_launcher,
         mesh_chunk,
+        mesh_chunk_status,
     )
+    from quorum_intersection_tpu_torch.kernels.frontier_ref import share_slots
     from quorum_intersection_tpu_torch.parallel import candidate_mesh
     from quorum_intersection_tpu_torch.pipeline import solve
 
     sys.path.insert(0, str(ROOT / "tests"))
-    from _torch_frontier_blocks import mesh_lockstep
+    from _torch_frontier_blocks import mesh_chunk_lockstep, mesh_lockstep
 
     t_phase = time.perf_counter()
     cards = torch.cuda.device_count()
@@ -5006,7 +5019,7 @@ def frontier_mesh_phase(device, card, texts, cert_jobs, work):
     proc_thread = threading.Thread(target=run_procs)
     proc_thread.start()
 
-    # (a) The iteration instance against its plain version, rank by rank.
+    # (a) Both instances against their plain versions, chunk for chunk.
     # (label, source, arena, pop, chunks, chunk_iters)
     cases = [("hierarchical_fbas(8,4) defaults, 3 chunks", synth.hierarchical_fbas(8, 4), 1 << 18, 2048, 3, 512),
              ("random_fbas(64,seed=0) defaults, 2 chunks of 64 iterations", synth.random_fbas(64, seed=0), 1 << 18,
@@ -5016,39 +5029,55 @@ def frontier_mesh_phase(device, card, texts, cert_jobs, work):
     for label, src, arena, pop, chunks, chunk_iters in cases:
         prob, shape, kern, plain = frontier_setup(src, device, arena, pop, chunk_iters=chunk_iters)
         for ranks in FRONTIER_MESH_RANKS:
-            done, iters, flags, steps, bad, reasons, tops = mesh_lockstep(prob, shape, kern, plain, ranks, chunks)
-            compare_rows[f"{label}, {ranks} ranks"] = {
-                "s": prob.s, "s_dev": prob.s_dev, "pop": shape.K, "arena": arena, "chunks": done,
-                "iterations": iters, "flags": flags, "launches_a_rank": steps, "tops": tops, "exits": reasons,
-                "instance": instance_of(kern), "equal": not bad}
-            mismatches += [f"{label}, {ranks} ranks: {b}" for b in bad]
-            all_flags += flags
-            if not bad and iters < 2:
-                mismatches.append(f"{label}, {ranks} ranks: {iters} iterations")
+            for instance, lockstep in (("chunk", mesh_chunk_lockstep), ("iteration", mesh_lockstep)):
+                done, iters, flags, launches, bad, reasons, tops = lockstep(prob, shape, kern, plain, ranks, chunks)
+                compare_rows[f"{label}, {ranks} ranks, {instance} instance"] = {
+                    "s": prob.s, "s_dev": prob.s_dev, "pop": shape.K, "arena": arena, "chunks": done,
+                    "iterations": iters, "flags": flags, "launches": launches, "tops": tops, "exits": reasons,
+                    "instance": instance_of(kern), "equal": not bad}
+                mismatches += [f"{label}, {ranks} ranks, {instance} instance: {b}" for b in bad]
+                all_flags += flags
+                if not bad and iters < 2:
+                    mismatches.append(f"{label}, {ranks} ranks, {instance} instance: {iters} iterations")
     if not all_flags:
         mismatches.append("no case wrote a flag")
     if cards >= 2:
-        # One default chunk on a mesh of the cards against K9's.
+        # The cards: the mesh-chunk instance against its plain version over
+        # two default chunks, then one default chunk of each instance
+        # against K9's.
         prob, shape, kern, plain = frontier_setup(cases[0][1], device, 1 << 18, 2048)
-        mesh = candidate_mesh(min(cards, 4))
-        kerns = [frontier_cuda.FrontierKernels(prob.circuit, prob.scc_dev, prob.a_scc, shape, prob.probe_circuit,
-                                               prob.frozen, device=d) for d in mesh.devices]
-        states = [IterationState.empty(shape.K, mesh.size, frontier_seed(k, prob), k.arena()) for k in kerns]
-        mesh_chunk(mesh, kerns, states, 512)
+        devices = [torch.device("cuda", i) for i in range(min(cards, 4))]
+        kerns = {d: kern if d == card0 else frontier_cuda.FrontierKernels(
+            prob.circuit, prob.scc_dev, prob.a_scc, shape, prob.probe_circuit, prob.frozen, device=d) for d in devices}
+        n = len(devices)
+        done, iters, flags, launches, bad, reasons, tops = mesh_chunk_lockstep(prob, shape, kern, plain, n, 2,
+                                                                               kerns=kerns, devices=devices)
+        compare_rows[f"hierarchical_fbas(8,4) defaults, 2 chunks, {n} cards, chunk instance"] = {
+            "chunks": done, "iterations": iters, "flags": flags, "launches": launches, "tops": tops, "equal": not bad}
+        mismatches += [f"{n} cards, chunk instance: {b}" for b in bad]
         want_pair = (frontier_seed(kern, prob), kern.arena())
         frontier_cuda.frontier_chunk(kern, *want_pair, 512)
-        torch.cuda.synchronize()
+        i_states = [IterationState.empty(shape.K, n, frontier_seed(kerns[d], prob), kerns[d].arena()) for d in devices]
+        mesh_chunk(candidate_mesh(n), [kerns[d] for d in devices], i_states, 512)
+        c_states = [CardState.empty(shape.K, n, (r,), frontier_seed(kerns[d], prob), kerns[d].arena())
+                    for r, d in enumerate(devices)]
+        frontier_mesh_chunk([kerns[d] for d in devices], c_states, 512)
+        mesh_chunk_status(c_states)
+        for d in devices:
+            torch.cuda.synchronize(d)
         top, fcount = want_pair[1].ctr.tolist()[:2]
-        same = all(st.dst.ctr.tolist() == want_pair[1].ctr.tolist()
-                   and torch.equal(st.dst.T[:top].to(card0), want_pair[1].T[:top])
-                   and torch.equal(st.dst.D[:top].to(card0), want_pair[1].D[:top])
-                   and torch.equal(st.dst.flags[:fcount].to(card0), want_pair[1].flags[:fcount]) for st in states)
-        compare_rows[f"hierarchical_fbas(8,4), one chunk on {mesh.size} cards against K9"] = {"equal": same}
-        if not same:
-            mismatches.append(f"{mesh.size} cards: the chunk differs from K9's")
+        for instance, states in (("iteration", i_states), ("chunk", c_states)):
+            same = all(st.dst.ctr.tolist() == want_pair[1].ctr.tolist()
+                       and torch.equal(st.dst.T[:top].to(card0), want_pair[1].T[:top])
+                       and torch.equal(st.dst.D[:top].to(card0), want_pair[1].D[:top])
+                       and torch.equal(st.dst.flags[:fcount].to(card0), want_pair[1].flags[:fcount]) for st in states)
+            compare_rows[f"hierarchical_fbas(8,4), one chunk on {n} cards, {instance} instance, against K9"] = {
+                "equal": same}
+            if not same:
+                mismatches.append(f"{n} cards, {instance} instance: the chunk differs from K9's")
     if mismatches:
         fail("frontier_mesh", "; ".join(mismatches[:6]))
-    phase_line("frontier_mesh_compare", card=card, tolerance="exact (integer arena rows, counters and flags)",
+    phase_line("frontier_mesh_compare", card=card, tolerance="exact (integer arena rows, counters, flags and stash)",
                ranks=list(FRONTIER_MESH_RANKS), cases=compare_rows,
                across_cards="compared" if cards >= 2 else "not run (one card)")
 
@@ -5065,61 +5094,99 @@ def frontier_mesh_phase(device, card, texts, cert_jobs, work):
         fail("frontier_mesh", f"--backend gpu-frontier --mesh all CLI: {out[-40:]!r} exit {code}; {err[-600:]!r}")
     cert_jobs.append(("frontier_mesh/cli/stellar_like_fbas(16,3,broken)", cli_src, json.loads(cli_cert.read_text())))
     pair = mesh_worker_results(f"frontier, two processes ({pair_backend})", procs["pair"])
+    pair_launches = 0
     for row in pair:
         for label, want_row in single.items():
             s = row["solves"][label]
             if {k: s[k] for k in want_row} != want_row:
                 fail("frontier_mesh", f"two processes, process {row['process_index']}, {label}: {s} != the "
                                       f"single-process solve {want_row}")
-            if s["launches"]["frontier_iteration"] < 1 or s["launches"]["frontier_chunk"]:
-                fail("frontier_mesh", f"two processes, {label}: launches {s['launches']}")
+            if s["launches"]["frontier_iteration"] < 1 or s["launches"]["frontier_chunk"] \
+                    or s["launches"]["frontier_mesh_chunk"] or s["mesh"]["instance"] != "iteration":
+                fail("frontier_mesh", f"two processes, {label}: launches {s['launches']}, mesh {s['mesh']}")
+            pair_launches += s["launches"]["frontier_iteration"]
     phase_line("frontier_mesh_processes", card=card,
                cli={"argv": "--backend gpu-frontier --mesh all --cert-out", "network": "stellar_like_fbas(16,3,broken)",
                     "exit": code, "process_seconds": cli_s},
-               pair={"backend": pair_backend, "host_copy": pair_backend == "gloo", "rows": pair},
-               verdicts="every process's verdict, witness and counts equal to the single-process solve's")
+               pair={"backend": pair_backend, "host_copy": pair_backend == "gloo", "rows": pair,
+                     "iteration_launches": pair_launches},
+               verdicts="every process's verdict, witness and counts equal to the single-process solve's; "
+                        "the iteration instance alone launched")
 
-    # (b) GpuFrontierBackend on a 4-rank mesh of the card against K9's
-    # single-card solve, at the JAX constants (pop 2048 splits over 4).
-    mesh4 = candidate_mesh(devices=[card0] * 4)
+    # (b) GpuFrontierBackend on a 4-rank mesh of the card (and on 4 cards)
+    # against K9's single-card solve, at the JAX constants (pop 2048 splits
+    # over 4): the mesh-chunk instance alone, one launch a chunk and a card.
+    meshes = [("4 ranks, 1 card", candidate_mesh(devices=[card0] * 4), 1)]
+    if cards >= 4:
+        meshes.append(("4 cards", candidate_mesh(4), 4))
     solve_rows, launches = {}, {name: 0 for name in frontier_cuda.LAUNCHES}
     for label, src in (("hierarchical_fbas(8,4)", synth.hierarchical_fbas(8, 4)),
                        ("stellar_like_fbas(16,3,broken)", synth.stellar_like_fbas(16, 3, broken=True))):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        want = solve(src, backend=GpuFrontierBackend(), with_cert=False)
-        single_s = time.perf_counter() - t
-        zero_script_launches()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = solve(src, backend=GpuFrontierBackend(mesh=mesh4))
-        mesh_s = time.perf_counter() - t
-        got_launches = dict(frontier_cuda.LAUNCHES)
-        for name, n in got_launches.items():
-            launches[name] += n
-        if got_launches["frontier_iteration"] < 1 or got_launches["frontier_chunk"]:
-            fail("frontier_mesh", f"{label} on the mesh: launches {got_launches}")
-        if (res.intersects, res.q1, res.q2) != (want.intersects, want.q1, want.q2):
-            fail("frontier_mesh", f"{label}: the 4-rank solve says {res.intersects} {res.q1} {res.q2}, K9's "
-                                  f"{want.intersects} {want.q1} {want.q2}")
-        counts = {k: res.stats.get(k) for k in FRONTIER_MESH_KEYS}
-        if counts != {k: want.stats.get(k) for k in FRONTIER_MESH_KEYS}:
-            fail("frontier_mesh", f"{label}: counts {counts} != K9's {({k: want.stats.get(k) for k in FRONTIER_MESH_KEYS})}")
-        if not res.intersects:
-            graph = build_graph(parse_fbas(raw_json(src)))
-            if not (is_quorum(graph, res.q1) and is_quorum(graph, res.q2) and not set(res.q1) & set(res.q2)):
-                fail("frontier_mesh", f"{label}: the witness pair is not two disjoint quorums")
-        cert_jobs.append((f"frontier_mesh/solve/{label}", src, res.cert))
-        solve_rows[label] = {"verdict": res.intersects, **counts, "mesh_seconds": mesh_s, "single_card_seconds": single_s,
-                             "launches": got_launches, "mesh": res.stats["mesh"],
-                             "single_card_chunk_launches": want.stats["device_chunks"]}
-    phase_line("frontier_mesh_solves", card=card, runs=solve_rows, launches=launches,
-               verdicts="verdict, witness pair and counts equal to K9's single-card solve")
+        # In turns: K9, each mesh, each mesh again, K9; none builds a
+        # certificate (the certified solves come after).
+        single_s, mesh_s = [], {where: [] for where, _, _ in meshes}
 
-    # (e) The iteration's time at hier-8x4's shape (s 32, K 2048) on 1, 2 and
-    # 4 ranks of the card, from timing_frontier's mid-search state, beside
-    # K9's per iteration in this call, the plain version, the gather alone
-    # and the bound (one iteration's share of K9's by its traffic model).
+        def k9_solve():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = solve(src, backend=GpuFrontierBackend(), with_cert=False)
+            single_s.append(time.perf_counter() - t)
+            return res
+
+        want = k9_solve()
+        for turn in range(2):
+            for where, mesh, n_cards in meshes:
+                zero_script_launches()
+                for d in set(mesh.devices):
+                    torch.cuda.synchronize(d)
+                t = time.perf_counter()
+                res = solve(src, backend=GpuFrontierBackend(mesh=mesh), with_cert=False)
+                mesh_s[where].append(time.perf_counter() - t)
+                got_launches = dict(frontier_cuda.LAUNCHES)
+                for name, n in got_launches.items():
+                    launches[name] += n
+                # A launch a card for every chunk dispatched: the drained
+                # ones and the ones the drive dropped (its speculative chunks).
+                chunks = res.stats["device_chunks"] + res.stats["discarded_chunks"]
+                if got_launches["frontier_iteration"] or got_launches["frontier_chunk"] \
+                        or got_launches["frontier_mesh_chunk"] != chunks * n_cards \
+                        or res.stats["mesh"]["instance"] != "chunk" \
+                        or res.stats["mesh"]["chunk_launches"] != chunks * n_cards:
+                    fail("frontier_mesh", f"{label} on {where}: launches {got_launches} for {chunks} chunks, "
+                                          f"mesh {res.stats['mesh']}")
+                if (res.intersects, res.q1, res.q2) != (want.intersects, want.q1, want.q2):
+                    fail("frontier_mesh", f"{label} on {where}: the mesh solve says {res.intersects} {res.q1} "
+                                          f"{res.q2}, K9's {want.intersects} {want.q1} {want.q2}")
+                counts = {k: res.stats.get(k) for k in FRONTIER_MESH_KEYS}
+                if counts != {k: want.stats.get(k) for k in FRONTIER_MESH_KEYS}:
+                    fail("frontier_mesh", f"{label} on {where}: counts {counts} != K9's "
+                                          f"{({k: want.stats.get(k) for k in FRONTIER_MESH_KEYS})}")
+                if not res.intersects:
+                    graph = build_graph(parse_fbas(raw_json(src)))
+                    if not (is_quorum(graph, res.q1) and is_quorum(graph, res.q2) and not set(res.q1) & set(res.q2)):
+                        fail("frontier_mesh", f"{label} on {where}: the witness pair is not two disjoint quorums")
+                solve_rows[f"{label}, {where}"] = {
+                    "verdict": res.intersects, **counts, "launches": got_launches, "mesh": res.stats["mesh"],
+                    "single_card_chunk_launches": want.stats["device_chunks"] + want.stats["discarded_chunks"]}
+            if turn:
+                k9_solve()
+        for where, mesh, _ in meshes:
+            solve_rows[f"{label}, {where}"].update(mesh_seconds=mesh_s[where], single_card_seconds=single_s,
+                                                   order="K9, the meshes, the meshes, K9")
+            # Once more with its certificate, as the CLI builds it.
+            cert_res = solve(src, backend=GpuFrontierBackend(mesh=mesh))
+            if (cert_res.intersects, cert_res.q1, cert_res.q2) != (want.intersects, want.q1, want.q2):
+                fail("frontier_mesh", f"{label} on {where}: the certified solve disagrees with K9's")
+            cert_jobs.append((f"frontier_mesh/solve/{label}/{where}", src, cert_res.cert))
+    phase_line("frontier_mesh_solves", card=card, runs=solve_rows, launches=launches,
+               verdicts="verdict, witness pair and counts equal to K9's single-card solve; only the mesh-chunk "
+                        "instance launched, once a dispatched chunk and a card")
+
+    # (e) An iteration's time at hier-8x4's shape (s 32, K 2048) on 1, 2 and
+    # 4 ranks of the card (and 4 cards), both instances, from
+    # timing_frontier's mid-search state, beside K9's per iteration in this
+    # call, the plain versions, the gather alone and the bound (one
+    # iteration's share of K9's chunk bound).
     prob, shape, kern, plain = frontier_setup(synth.hierarchical_fbas(8, 4), device, 1 << 18, 2048)
     state, top, _ = k9_timing_state(kern, prob, shape)
     far = shape.flag_cap - shape.K
@@ -5134,11 +5201,21 @@ def frontier_mesh_phase(device, card, texts, cert_jobs, work):
     k9(33)
     want33 = [t.clone() for t in (k9_dst.ctr, k9_dst.T, k9_dst.D, k9_dst.flags)]
     p_top, p_fc = int(want33[0][0]), int(want33[0][1])
-    timing, gather, gather_alone = {}, {}, {}
     layouts = [(f"{r} ranks, 1 card", [card0] * r) for r in FRONTIER_MESH_RANKS]
     if cards >= 4:
         layouts.append(("4 ranks, 4 cards", [torch.device("cuda", i) for i in range(4)]))
     kerns_on = {card0: kern}
+
+    def equal_to_k9(label, instance, dst):
+        got = [t.to(card0) for t in (dst.ctr, dst.T[:p_top], dst.D[:p_top], dst.flags[:p_fc])]
+        if got[0].tolist() != want33[0].tolist() or not (
+                torch.equal(got[1], want33[1][:p_top]) and torch.equal(got[2], want33[2][:p_top])
+                and torch.equal(got[3], want33[3][:p_fc])):
+            fail("frontier_mesh", f"{label}, {instance} instance: the timed 33 iterations differ from K9's "
+                                  f"33-iteration chunk ({got[0].tolist()} against {want33[0].tolist()})")
+
+    chunk_timing, timing, gather, gather_alone = {}, {}, {}, {}
+    chunk_plain_ms = plain_ms = None
     for label, devices in layouts:
         mesh = candidate_mesh(devices=devices)
         ranks = mesh.size
@@ -5146,27 +5223,65 @@ def frontier_mesh_phase(device, card, texts, cert_jobs, work):
             if d not in kerns_on:
                 kerns_on[d] = frontier_cuda.FrontierKernels(prob.circuit, prob.scc_dev, prob.a_scc, shape,
                                                             prob.probe_circuit, prob.frozen, device=d)
-        kerns = [kerns_on[d] for d in mesh.devices]
         srcs = {d: state if d == card0 else frontier_cuda.ArenaSet(*(getattr(state, f).to(d) for f in
                                                                      ("T", "D", "flags", "ctr")))
                 for d in mesh.devices}
-        states = [IterationState.empty(shape.K, ranks, srcs[d], k.arena()) for d, k in zip(mesh.devices, kerns)]
-
-        def iterations(iters):
-            # iters iterations and the launch that ends the chunk, enqueued
-            # without a read, as mesh_chunk enqueues them.
-            for k in kerns:
-                k.shape.chunk_iters = iters
-            for st in states:
-                st.begin(st.src, st.dst)
-            for step in range(iters + 1):
-                for r, (k, st) in enumerate(zip(kerns, states)):
-                    frontier_iteration(k, st, r, ranks, far)
-                gather_shares(mesh, states, shape.K, step & 1)
 
         def sync():
             for d in set(mesh.devices):
                 torch.cuda.synchronize(d)
+
+        # The mesh-chunk instance: one launch a card for the whole chunk.
+        cards_of = frontier_cuda.mesh_cards(mesh.devices)
+        c_kerns = [kerns_on[d] for d, _ in cards_of]
+        c_states = [CardState.empty(shape.K, ranks, mine, srcs[d], kerns_on[d].arena()) for d, mine in cards_of]
+
+        def chunk(iters):
+            for k in c_kerns:
+                k.shape.chunk_iters = iters
+            frontier_mesh_chunk(c_kerns, c_states, far)
+
+        t1, t33 = time_ms(lambda: chunk(1), 20), time_ms(lambda: chunk(33), 10)
+        d1, d33 = device_ms(lambda: chunk(1), 10), device_ms(lambda: chunk(33), 10)
+        chunk(33)
+        sync()
+        mesh_chunk_status(c_states)
+        for st in c_states:
+            equal_to_k9(label, "chunk", st.dst)
+        chunk_timing[label] = {"ms_1_iteration": t1, "ms_33_iterations": t33, "ms_per_iteration": (t33 - t1) / 32,
+                               "ms_per_iteration_device_alone": (d33 - d1) / 32, "launches_per_chunk": len(c_states),
+                               "cards": len(c_states)}
+        if label == "4 ranks, 1 card":
+            # The plain version of the same 33 iterations on the 4 ranks,
+            # its stash held to the kernel's.
+            p_state = CardState.empty(shape.K, ranks, range(ranks), state, kern.arena())
+            kern.shape.chunk_iters = 33
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            plain.mesh_chunk(p_state, far)
+            torch.cuda.synchronize()
+            chunk_plain_ms = (time.perf_counter() - t) * 1e3 / 33
+            equal_to_k9(label, "plain mesh-chunk", p_state.dst)
+            if not torch.equal(p_state.stash, c_states[0].stash):
+                fail("frontier_mesh", f"{label}: the timed chunk's stash differs from mesh_chunk_ref's")
+
+        # The iteration instance: a launch a rank and a gather an iteration.
+        kerns = [kerns_on[d] for d in mesh.devices]
+        states = [IterationState.empty(shape.K, ranks, srcs[d], k.arena()) for d, k in zip(mesh.devices, kerns)]
+
+        def iterations(iters):
+            # iters iterations and the launch that ends the chunk, enqueued
+            # without a read through the launches mesh_chunk prepares once a
+            # chunk.
+            for k in kerns:
+                k.shape.chunk_iters = iters
+            for st in states:
+                st.begin(st.src, st.dst)
+            steps = [iteration_launcher(k, st, r, ranks, far) for r, (k, st) in enumerate(zip(kerns, states))]
+            for step in range(iters + 1):
+                for launch in steps:
+                    launch()
+                gather_shares(mesh, states, shape.K, step & 1)
 
         t1, t33 = time_ms(lambda: iterations(1), 20), time_ms(lambda: iterations(33), 10)
         # Behind a longer spin than device_ms's default: the host enqueues
@@ -5175,13 +5290,8 @@ def frontier_mesh_phase(device, card, texts, cert_jobs, work):
         d33 = device_ms(lambda: iterations(33), 10, spin_cycles=40_000_000)
         iterations(33)
         sync()
-        for r, st in enumerate(states):
-            got = [t.to(card0) for t in (st.dst.ctr, st.dst.T[:p_top], st.dst.D[:p_top], st.dst.flags[:p_fc])]
-            if got[0].tolist() != want33[0].tolist() or not (
-                    torch.equal(got[1], want33[1][:p_top]) and torch.equal(got[2], want33[2][:p_top])
-                    and torch.equal(got[3], want33[3][:p_fc])):
-                fail("frontier_mesh", f"{label}, rank {r}: the timed 33 iterations differ from K9's 33-iteration "
-                                      f"chunk ({got[0].tolist()} against {want33[0].tolist()})")
+        for st in states:
+            equal_to_k9(label, "iteration", st.dst)
         timing[label] = {"ms_1_iteration": t1, "ms_33_iterations": t33, "ms_per_iteration": (t33 - t1) / 32,
                          "ms_per_iteration_device_alone": (d33 - d1) / 32, "launches_per_iteration": ranks,
                          "gathers_per_iteration": 1, "cards": len(set(mesh.devices))}
@@ -5201,28 +5311,54 @@ def frontier_mesh_phase(device, card, texts, cert_jobs, work):
             torch.cuda.synchronize()
             plain_ms = (time.perf_counter() - t) * 1e3 / 33
     if cards < 4:
-        timing["4 ranks, 4 cards"] = "not measured (one card)"
-    gather_ms = gather["4 ranks, 1 card"]
+        chunk_timing["4 ranks, 4 cards"] = timing["4 ranks, 4 cards"] = "not measured (one card)"
     for k in kerns_on.values():
         k.shape.chunk_iters = 512
     _, _, passes, _ = k9_replay(prob, shape, plain, state, top, 33)
     k9_bound_33, bound_by = bound(passes * macs_per_pass(prob.circuit), k9_least_bytes(prob, kern, top, p_top, p_fc))
     per_iteration_bound = k9_bound_33 / 33
-    four = timing["4 ranks, 1 card"]
+    # On 4 cards each card also sends its share, 18 Ks bytes, to each of
+    # the 3 others an iteration, over NVLink.
+    nvlink_ms = 3 * 18 * share_slots(shape.K, 4)[1] / NVLINK_BYTES_PER_S * 1e3
+    k9_row = {"ms_per_iteration": (k9_33 - k9_1) / 32, "ms_per_iteration_device_alone": (k9_d33 - k9_d1) / 32}
     phase_line("frontier_mesh_timing", card=card, shape=f"hierarchical_fbas(8,4): s={prob.s} (s_dev {prob.s_dev}), "
                                                         f"K={shape.K}, C={shape.C}, top {top} at the timed state",
-               per_ranks=timing, k9={"ms_per_iteration": (k9_33 - k9_1) / 32,
-                                     "ms_per_iteration_device_alone": (k9_d33 - k9_d1) / 32},
-               plain_ms_per_iteration_4_ranks=plain_ms, gather_ms=gather, gather_ms_device_alone=gather_alone,
+               chunk_instance=chunk_timing, iteration_instance=timing, k9=k9_row,
+               plain_ms_per_iteration_4_ranks={"chunk instance (mesh_chunk_ref)": chunk_plain_ms,
+                                               "iteration instance (share_iteration lockstep)": plain_ms},
+               gather_ms=gather, gather_ms_device_alone=gather_alone,
                k9_bound_ms_per_iteration=per_iteration_bound, bound_ms_a_rank_of_4=per_iteration_bound / 4,
-               bound_by=bound_by)
+               nvlink_share_ms_per_iteration_4_cards=nvlink_ms, bound_by=bound_by)
     phase_line("frontier_mesh", card=card, seconds=round(time.perf_counter() - t_phase, 3))
-    return {
+    four, chunk_four = timing["4 ranks, 1 card"], chunk_timing["4 ranks, 1 card"]
+    chunk_record = {
+        "name": "frontier_mesh_chunk_cuda",
+        "route": "cuda",
+        "source": f"{PORT}/kernels/csrc/frontier.cu",
+        "replaces": "quorum_intersection_tpu/backends/tpu/frontier.py:351",
+        "launches": launches["frontier_mesh_chunk"],
+        "max_abs_err": 0,
+        "ms": chunk_four["ms_per_iteration"],
+        "ms_of": "one iteration on 4 ranks of the one card (one launch a chunk), hier-8x4's shape",
+        "plain_ms": chunk_plain_ms,
+        "bound_ms": per_iteration_bound,
+        "bound_of": "one iteration's work, all 4 ranks' shares on the one card (K9's per-iteration bound); on 4 "
+                    "cards also each card's share to the 3 others over NVLink (bound_ms_4_cards)",
+        "bound_ms_4_cards": max(per_iteration_bound, nvlink_ms),
+        "bound_by": bound_by,
+        "library_ms": None,
+        "per_ranks": chunk_timing,
+        "k9_ms_per_iteration": k9_row["ms_per_iteration"],
+        "iteration_instance_ms_per_iteration": four["ms_per_iteration"],
+        "main_path_launches_of": "frontier_mesh_solves: hier-8x4 and stellar 16x3 broken on 4 ranks of one card"
+                                 + (" and on 4 cards" if cards >= 4 else ""),
+    }
+    iteration_record = {
         "name": "frontier_iteration_cuda",
         "route": "cuda",
         "source": f"{PORT}/kernels/csrc/frontier.cu",
         "replaces": "quorum_intersection_tpu/backends/tpu/frontier.py:351",
-        "launches": launches["frontier_iteration"],
+        "launches": pair_launches,
         "max_abs_err": 0,
         "ms": four["ms_per_iteration"],
         "ms_of": "one iteration on 4 ranks of the one card (4 launches and a gather), hier-8x4's shape",
@@ -5231,12 +5367,15 @@ def frontier_mesh_phase(device, card, texts, cert_jobs, work):
         "bound_of": "one iteration's work, all 4 ranks' shares on the one card (K9's per-iteration bound); "
                     "a rank's share is bound_ms / 4",
         "bound_by": bound_by,
-        "library_ms": gather_ms,
-        "library_call": "mesh_all_gather of 4 ranks' stash shares on the one card (gather_shares)",
+        "library_ms": None,
+        "gather_ms": gather["4 ranks, 1 card"],
+        "gather_of": "mesh_all_gather of 4 ranks' stash shares on the one card (gather_shares)",
         "per_ranks": timing,
-        "k9_ms_per_iteration": (k9_33 - k9_1) / 32,
-        "main_path_launches_of": "frontier_mesh_solves: hier-8x4 and stellar 16x3 broken on 4 ranks of one card",
+        "k9_ms_per_iteration": k9_row["ms_per_iteration"],
+        "main_path_launches_of": "frontier_mesh_processes: hier-6x4 and stellar 16x3 broken in the two joined "
+                                 "processes, both processes",
     }
+    return [chunk_record, iteration_record]
 
 
 def zero_script_launches():
@@ -5478,11 +5617,12 @@ def main(argv=None) -> int:
         cert_jobs = []
         record = mesh_phase(device, card, texts, manifest, cert_jobs, work)
         record["instances"] = ptxas.get("sweep")
-        frontier_record = frontier_mesh_phase(device, card, texts, cert_jobs, work)
-        frontier_record["instances"] = ptxas.get("frontier")
+        frontier_records = frontier_mesh_phase(device, card, texts, cert_jobs, work)
+        for entry in frontier_records:
+            entry["instances"] = ptxas.get("frontier")
         refused, _ = check_certificates(cert_jobs, work)
         phase_line("cert", card=card, checked=len(cert_jobs), refused=refused)
-        print(json.dumps({"kernels": [record, frontier_record]}), flush=True)
+        print(json.dumps({"kernels": [record, *frontier_records]}), flush=True)
         return 1 if refused else 0
 
     if args.frontier_mesh:
@@ -5492,11 +5632,12 @@ def main(argv=None) -> int:
         texts = {name: fixture_text(name) for name in manifest}
         work = pathlib.Path(tempfile.mkdtemp(prefix="qi-chip-smoke-"))
         cert_jobs = []
-        record = frontier_mesh_phase(device, card, texts, cert_jobs, work)
-        record["instances"] = ptxas.get("frontier")
+        records = frontier_mesh_phase(device, card, texts, cert_jobs, work)
+        for entry in records:
+            entry["instances"] = ptxas.get("frontier")
         refused, _ = check_certificates(cert_jobs, work)
         phase_line("cert", card=card, checked=len(cert_jobs), refused=refused)
-        print(json.dumps({"kernels": [record]}), flush=True)
+        print(json.dumps({"kernels": records}), flush=True)
         return 1 if refused else 0
 
     if args.fleet:
@@ -5563,7 +5704,7 @@ def main(argv=None) -> int:
         work = pathlib.Path(tempfile.mkdtemp(prefix="qi-chip-smoke-"))
         cert_jobs = []
         records = frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, args.k10_parent)
-        records.append(frontier_mesh_phase(device, card, texts, cert_jobs, work))
+        records += frontier_mesh_phase(device, card, texts, cert_jobs, work)
         refused, _ = check_certificates(cert_jobs, work)
         phase_line("cert", card=card, checked=len(cert_jobs), refused=refused)
         print(json.dumps({"kernels": records}), flush=True)
@@ -6497,8 +6638,8 @@ def main(argv=None) -> int:
     # -- 35. mesh: the sharded sweep K11 and the multi-process runtime ------
     mesh_record = mesh_phase(device, card, texts, manifest, cert_jobs, work)
 
-    # -- 36. frontier_mesh: K9's iteration instance, the frontier under a mesh
-    frontier_mesh_record = frontier_mesh_phase(device, card, texts, cert_jobs, work)
+    # -- 36. frontier_mesh: K9's two mesh instances, the frontier under a mesh
+    frontier_mesh_records = frontier_mesh_phase(device, card, texts, cert_jobs, work)
 
     # -- 37. cert: every certificate through the unmodified checker --------
     t = time.perf_counter()
@@ -6599,8 +6740,8 @@ def main(argv=None) -> int:
     library_of.update(frontier_chunk_cuda="frontier", frontier_filter_cuda="frontier")
     record["kernels"].append(mesh_record)
     library_of["sweep_sharded_cuda"] = "sweep"
-    record["kernels"].append(frontier_mesh_record)
-    library_of["frontier_iteration_cuda"] = "frontier"
+    record["kernels"] += frontier_mesh_records
+    library_of.update(frontier_mesh_chunk_cuda="frontier", frontier_iteration_cuda="frontier")
     for entry in record["kernels"]:
         entry["instances"] = ptxas.get(library_of[entry["name"]])
         entry["delta_path_launches"] = delta_launches.get(entry["name"], 0)

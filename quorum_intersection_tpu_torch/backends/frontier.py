@@ -46,24 +46,37 @@ writes the other.
 Under a mesh (``mesh=``, a :class:`..parallel.mesh.CandidateMesh`; the JAX
 drive's row-sharded fixpoint, ``frontier.py:351-363``, under the
 ``shard_map`` of ``:475-502``) the pop block is rounded as the JAX drive
-rounds it (``:602-617``) and a chunk is a host-driven sequence of
-iteration launches (K9's iteration instance,
-:func:`..kernels.frontier_cuda.frontier_iteration`) on every rank, with a
-gather of the ranks' stash shares between two launches
-(:func:`..kernels.frontier_cuda.mesh_chunk`): no collective can run inside
-K9's one cooperative launch a chunk.  Each rank keeps its own pair of arena
-sets, written alike by the seed, the resume, the refeed and the spill; the
-host reads the counters, the flags, the spill blocks and the checkpoints
-from the home rank's, and runs the flag checks (K10 or the host) once a
-process on the home device, outside the sharded loop, as the JAX filter
-runs replicated outside its ``shard_map``.  Every rank of every process
-launches the same iterations and gathers: a chunk runs when the drive reads
-its counters, not when it is dispatched, so the speculative chunk, the
+rounds it (``:602-617``) and rank ``r`` pops states ``[r K/n, (r+1) K/n)``
+of every pop block.  The mesh picks one of K9's two mesh instances
+(``stats["mesh"]["instance"]``):
+
+- ``"chunk"``, a mesh of one process: one cooperative launch a chunk and a
+  card (:func:`..kernels.frontier_cuda.frontier_mesh_chunk`); the ranks of
+  a card share its launch, its arena sets and its stash, and the cards
+  exchange their stash shares on the device (peer stores; cards without
+  peer access raise).  Its chunks are dispatched ahead as K9's are, and
+  the host reads the home card's counters once a chunk;
+- ``"iteration"``, processes joined by ``parallel.distributed``: a
+  host-driven sequence of iteration launches
+  (:func:`..kernels.frontier_cuda.frontier_iteration`) on every rank, with
+  a gather of the ranks' stash shares between two launches
+  (:func:`..kernels.frontier_cuda.mesh_chunk`), since no kernel reaches
+  another process's memory.  Each rank keeps its own pair of arena sets.
+
+Every arena set, a card's or a rank's, is written alike by the seed, the
+resume, the refeed and the spill; the host reads the counters, the flags,
+the spill blocks and the checkpoints from the home device's, and runs the
+flag checks (K10 or the host) once a process on the home device, outside
+the sharded loop, as the JAX filter runs replicated outside its
+``shard_map``.  Under the iteration instance every rank of every process
+runs the same iterations and gathers: a chunk runs when the drive reads its
+counters, not when it is dispatched, so the speculative chunk, the
 flag-exit doubling, the spills and ``interrupt_after_chunks`` follow values
 every rank holds alike, and a checkpoint write, timed by the clock, adds or
-drops no collective.  A mesh never falls back to K9, to the plain versions
-or to the host oracle.  On CUDA the backend launches its kernels or raises:
-no path falls back to the CPU or to the plain versions.
+drops no collective.  A mesh
+never falls back to K9, to the other instance, to the plain versions or to
+the host oracle.  On CUDA the backend launches its kernels or raises: no
+path falls back to the CPU or to the plain versions.
 """
 
 from __future__ import annotations
@@ -193,15 +206,20 @@ def frontier_problem(graph: TrustGraph, circuit: Circuit, scc: List[int], *,
 class _Chunk:
     """One dispatched chunk: the arena set it writes, the flag threshold it
     ran under and, on the card, its counters and flags copied to pinned host
-    memory behind an event."""
+    memory behind an event; under the mesh-chunk instance the check of its
+    cards' status (:func:`..kernels.frontier_cuda.mesh_chunk_check`), made
+    before its counters are read."""
 
-    def __init__(self, index: int, dst, flag_exit: int, host):
+    def __init__(self, index: int, dst, flag_exit: int, host, check=None):
         self.index = index  # which of the two arena sets it writes
         self.dst = dst
         self.flag_exit = flag_exit
         self.host = host  # (ctr, flags, event) on the card, None on the CPU
+        self.check = check
 
     def counters(self) -> List[int]:
+        if self.check is not None:
+            self.check()
         if self.host is None:
             return [int(x) for x in self.dst.ctr.tolist()]
         self.host[2].synchronize()
@@ -213,10 +231,10 @@ class _Chunk:
 
 
 class _MeshChunk:
-    """One dispatched chunk under a mesh: ``run`` drives it on every rank
-    (:func:`..kernels.frontier_cuda.mesh_chunk`) when the drive first reads
-    it, so that a chunk the drive drops never runs; ``dst`` is the home
-    rank's destination set, which the drive reads."""
+    """One dispatched chunk of the iteration instance: ``run`` drives it on
+    every rank (:func:`..kernels.frontier_cuda.mesh_chunk`) when the drive
+    first reads it, so that a chunk the drive drops never runs; ``dst`` is
+    the home rank's destination set, which the drive reads."""
 
     def __init__(self, index: int, dst, flag_exit: int, run):
         self.index = index
@@ -351,11 +369,15 @@ class GpuFrontierBackend:
         if circuit is None:
             raise ValueError("frontier backend requires the encoded circuit")
         from quorum_intersection_tpu_torch.kernels.frontier_cuda import (
+            CardState,
             FrontierKernels,
             IterationState,
             frontier_chunk,
             frontier_filter,
+            frontier_mesh_chunk,
+            mesh_cards,
             mesh_chunk,
+            mesh_chunk_check,
         )
 
         t0 = time.perf_counter()
@@ -391,6 +413,12 @@ class GpuFrontierBackend:
                                                        probe_circuit=probe_circuit, frozen=prob.frozen, device=dev)
         rank_kerns = [kerns_by_device[d] for d in (mesh.devices if mesh is not None else (self.device,))]
         kern = rank_kerns[0]  # the home device's: K10 and the reads
+        # Under a mesh of one process, K9's mesh-chunk instance, whose ranks
+        # of a card share one arena; across processes the iteration
+        # instance, an arena a rank.
+        instance = None if mesh is None else ("chunk" if mesh.process_count == 1 else "iteration")
+        cards = mesh_cards(mesh.devices) if instance == "chunk" else []
+        holder_kerns = [kerns_by_device[d] for d, _ in cards] if cards else rank_kerns
         host_check = None  # built on the first flagged batch
 
         stats = {
@@ -414,7 +442,8 @@ class GpuFrontierBackend:
             stats["padded_shape"] = [s_dev, circuit.n, circuit.n_units]
         if mesh is not None:
             stats["mesh"] = {"devices": mesh.describe(), "ranks": mesh.size, "processes": mesh.process_count,
-                             "collective": collective_of(mesh), "pop": K, "iteration_launches": 0}
+                             "collective": collective_of(mesh), "pop": K, "instance": instance,
+                             f"{instance}_launches": 0}
 
         fingerprint = None
         resumed = None
@@ -450,15 +479,16 @@ class GpuFrontierBackend:
                     d_blk[r, scc_pos[v]] = 1
             return t_blk, d_blk
 
-        # A pair of arena sets a rank; the home rank's is the one read.
-        rank_sets = [(k.arena(), k.arena()) for k in rank_kerns]
-        sets = rank_sets[0]
+        # A pair of arena sets a card (the mesh-chunk instance) or a rank;
+        # the home device's is the one read.
+        holder_sets = [(k.arena(), k.arena()) for k in holder_kerns]
+        sets = holder_sets[0]
 
         def load(index: int, t_rows: np.ndarray, d_rows: np.ndarray) -> None:
-            """Rows [0, len) of every rank's set ``index`` and its top from
+            """Rows [0, len) of every holder's set ``index`` and its top from
             host blocks."""
             top = len(t_rows)
-            for pair in rank_sets:
+            for pair in holder_sets:
                 st = pair[index]
                 if top:
                     st.T[:top] = torch.from_numpy(t_rows).to(st.T.device)
@@ -480,24 +510,39 @@ class GpuFrontierBackend:
             pinned = [(torch.empty(4, dtype=torch.int32).pin_memory(),
                        torch.empty((flag_cap, s_dev), dtype=torch.int8).pin_memory()) for _ in sets]
 
-        iteration_states = None
-        if mesh is not None:
-            iteration_states = [IterationState.empty(K, mesh.size, pair[0], pair[1]) for pair in rank_sets]
+        mesh_states = None
+        if instance == "chunk":
+            mesh_states = [CardState.empty(K, mesh.size, ranks, *pair) for (_, ranks), pair in zip(cards, holder_sets)]
+        elif instance == "iteration":
+            mesh_states = [IterationState.empty(K, mesh.size, *pair) for pair in holder_sets]
 
-        def run_mesh_chunk(src_i: int, flag_exit_now: int) -> None:
-            for pair, st in zip(rank_sets, iteration_states):
+        status_pinned = None
+        if instance == "chunk" and on_card:
+            status_pinned = [[torch.empty(1, dtype=torch.int32).pin_memory() for _ in mesh_states] for _ in sets]
+
+        def run_iteration_chunk(src_i: int, flag_exit_now: int) -> None:
+            for pair, st in zip(holder_sets, mesh_states):
                 st.begin(pair[src_i], pair[1 - src_i])
-            stats["mesh"]["iteration_launches"] += mesh_chunk(mesh, rank_kerns, iteration_states, flag_exit_now)
+            stats["mesh"]["iteration_launches"] += mesh_chunk(mesh, holder_kerns, mesh_states, flag_exit_now)
 
         def dispatch(src_i: int, flag_exit_now: int):
             """Chunk from set ``src_i`` into the other one; on the card its
             counters and flags follow to pinned memory behind an event.
-            Under a mesh the chunk runs when it is first read."""
+            Under the iteration instance the chunk runs when it is first
+            read."""
             dst_i = 1 - src_i
             dst = sets[dst_i]
-            if mesh is not None:
-                return _MeshChunk(dst_i, dst, flag_exit_now, lambda: run_mesh_chunk(src_i, flag_exit_now))
-            frontier_chunk(kern, sets[src_i], dst, flag_exit_now)
+            check = None
+            if instance == "iteration":
+                return _MeshChunk(dst_i, dst, flag_exit_now, lambda: run_iteration_chunk(src_i, flag_exit_now))
+            if instance == "chunk":
+                for pair, st in zip(holder_sets, mesh_states):
+                    st.begin(pair[src_i], pair[dst_i])
+                frontier_mesh_chunk(holder_kerns, mesh_states, flag_exit_now)
+                stats["mesh"]["chunk_launches"] += len(mesh_states)
+                check = mesh_chunk_check(mesh_states, status_pinned[dst_i] if status_pinned else [])
+            else:
+                frontier_chunk(kern, sets[src_i], dst, flag_exit_now)
             host = None
             if on_card:
                 ctr_h, flags_h = pinned[dst_i]
@@ -506,7 +551,7 @@ class GpuFrontierBackend:
                 ev = torch.cuda.Event()
                 ev.record(torch.cuda.current_stream(self.device))
                 host = (ctr_h, flags_h, ev)
-            return _Chunk(dst_i, dst, flag_exit_now, host)
+            return _Chunk(dst_i, dst, flag_exit_now, host, check)
 
         witness: Optional[Tuple[List[int], List[int]]] = None
         last_ckpt = time.monotonic()
@@ -655,11 +700,11 @@ class GpuFrontierBackend:
             intervened = False
             if top_h > C - 2 * K:
                 # Overflow: spill the oldest half [0, C // 2) to the host and
-                # move the rest down, on every rank.  Stream order puts this
+                # move the rest down, on every holder.  Stream order puts this
                 # after the speculative chunk, which only reads this set.
                 spill.append((cur.T[: C // 2].cpu().numpy().copy(), cur.D[: C // 2].cpu().numpy().copy()))
                 keep = top_h - C // 2
-                for pair in rank_sets:
+                for pair in holder_sets:
                     st = pair[inflight.index]
                     st.T[:keep] = st.T[C // 2: top_h].clone()
                     st.D[:keep] = st.D[C // 2: top_h].clone()

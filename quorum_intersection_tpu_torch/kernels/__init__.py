@@ -38,6 +38,7 @@ def launch_counts() -> Dict[str, int]:
     counts["frontier_chunk_cuda"] = int(table.get("frontier_chunk", 0))
     counts["frontier_filter_cuda"] = int(table.get("frontier_filter", 0))
     counts["frontier_iteration_cuda"] = int(table.get("frontier_iteration", 0))
+    counts["frontier_mesh_chunk_cuda"] = int(table.get("frontier_mesh_chunk", 0))
     return counts
 
 

@@ -57,7 +57,46 @@
 // [top, fcount, iters, popped, pbase, pk, done] lives on the device in two
 // slots (launch j reads slot j & 1 and writes the other), so the host
 // enqueues launches without reading it; a launch after the chunk's end only
-// carries the state forward.
+// carries the state forward.  It serves meshes of several processes, whose
+// gather (NCCL or gloo) no kernel can reach.
+//
+// K9's mesh-chunk instance, the frontier under a mesh of one process (the
+// same JAX code: the row-sharded fixpoint, frontier.py:351-363, and the
+// jitted while_loop over it under the shard_map of :475-502, the whole chunk
+// one program): one cooperative launch a chunk and a card, K9's loop.  Ranks
+// that share a card share its launch, its arena, its flags and its stash:
+// the card's warps pop the shares of its ranks (rank r: states [r Kn,
+// r Kn + Kn) of the pop block, Kn = K/n, share-major halves as above) and
+// write their entries straight into its stash half, and (b) writes the
+// children and flags once a card.  On several cards each card runs its own
+// launch over its own copy of the arena and also stores its shares into
+// every other card's stash half through peer pointers (NVLink); after the
+// iteration's grid barrier one thread a card publishes the card's arrival
+// (a system-scope release increment of every card's arrival counter, after
+// __threadfence_system) and spins on its own counter with acquire loads
+// until every card has arrived; a second grid barrier releases the card's
+// blocks.  Why one exchange an iteration is enough: iteration i reads half
+// i-1 and writes half i, so a card writes half i+1 (= half i-1) into a peer
+// only after passing exchange i, which needs that peer's arrival at the end
+// of iteration i, after its last read of half i-1.  The chunk ends with one
+// more exchange, after the last reads of (a) and (b), so that the next
+// chunk's first stores (half 0) find every peer done reading.  The counter
+// only grows over a solve: exchange e of the solve waits for cards · e
+// arrivals, and the exchanges before the chunk are kept on the card
+// (sync[0]).  A wait longer than spin_cycles sets sync[1] (kSpinTimeout) and
+// every block of the card leaves; the wrapper raises.  Every card runs the
+// exit test on the same gathered stash, so all cards leave together, as the
+// JAX program's replicated while_loop condition does.
+//
+// What bounds the mesh-chunk instance: an iteration moves K9's bytes (the
+// arena rows, the children, the flags; 0.000832 ms a 33-iteration chunk of
+// hier-8x4 at 3.35 TB/s) on every card, plus each card's shares, 18 Ks
+// bytes a share, sent to each peer (about 37 KB an iteration at K = 2048
+// on 4 cards, 0.00008 ms at 450 GB/s), plus one NVLink round trip an
+// iteration (a few microseconds); on one card the round trip is absent and
+// it is K9's loop.  The design pays neither a kernel launch nor a host
+// gather an iteration: the host launches once a chunk and a card and reads
+// the counters once a chunk.
 //
 // The branch variable by popcount: the wrapper passes a_scc's column
 // bit-planes (plane b of lane w: the members u with bit b of a_scc[u][w] set),
@@ -85,6 +124,9 @@
 // it evaluates and the minimal sets' probes, a chain of fixpoints a warp.
 
 #include <cooperative_groups.h>
+
+#include <mutex>
+#include <set>
 
 #include "warp_mma.cuh"
 
@@ -638,6 +680,226 @@ __global__ void __launch_bounds__(kThreads) iteration_kernel(IterArgs a) {
   }
 }
 
+// ---- K9's mesh-chunk instance: one cooperative launch a chunk and a card ----
+
+constexpr int kMaxCards = 16;    // cards of one process's mesh (frontier_cuda.MAX_CARDS)
+constexpr int kSpinTimeout = 1;  // sync[1]: a peer card did not arrive within spin_cycles
+
+struct MeshArgs {
+  Params p;
+  int s, half, K, C, chunk_iters, flag_cap, flag_exit, P;
+  const unsigned long long* planes;
+  int ranks, Kn, Ks;  // the mesh's ranks, states a share and its slots
+  const int* mine;    // [nmine] the ranks whose shares this card pops
+  int nmine;
+  const int8_t* src_T;
+  const int8_t* src_D;
+  const int* src_ctr;
+  int8_t* T;  // [C][s] this card's destination arena
+  int8_t* D;
+  int8_t* flags;
+  int* ctr;              // [4]: top, fcount, iters, popped
+  unsigned char* stash;  // [2][ranks][18 Ks], every rank's shares
+  int* sync;             // [4]: exchanges of the solve before this chunk, status, arrivals, 0
+  int cards;             // 1: no exchange
+  unsigned char* peer_stash[kMaxCards];  // the other cards' stashes
+  int* peer_sync[kMaxCards];             // and their sync words
+  long long spin_cycles;
+};
+
+__device__ __forceinline__ int load_acquire_sys(const int* p) {
+  int v;
+  asm volatile("ld.acquire.sys.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void add_release_sys(int* p, int v) {
+  asm volatile("red.release.sys.global.add.s32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// Exchange n of the solve (1-based), after a grid barrier: thread 0 of block
+// 0 adds this card's arrival to every card's counter and waits for all
+// cards' arrivals at n; a second barrier releases the card's blocks.  False,
+// in every block, when the wait passed spin_cycles.
+__device__ bool exchange(const MeshArgs& a, cg::grid_group& grid, int n) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    __threadfence_system();
+    add_release_sys(a.sync + 2, 1);
+    for (int c = 0; c + 1 < a.cards; ++c) add_release_sys(a.peer_sync[c] + 2, 1);
+    const long long t0 = clock64();
+    while (load_acquire_sys(a.sync + 2) < n * a.cards) {
+      if (clock64() - t0 > a.spin_cycles) {
+        *reinterpret_cast<volatile int*>(a.sync + 1) = kSpinTimeout;
+        break;
+      }
+    }
+  }
+  grid.sync();
+  return *reinterpret_cast<volatile const int*>(a.sync + 1) == 0;
+}
+
+// K9's loop over the shares of this card's ranks: (a) every block scans the
+// whole stash half i-1 (gathered: this card's shares and the peers'), (b)
+// writes its surviving children and flags into this card's arena, the exit
+// test, (c) the card's warps pop its ranks' shares of [base, top) and store
+// their entries into this card's stash half i and every peer's; a grid
+// barrier (and on several cards an exchange) ends the iteration.
+template <class Src, bool kS1>
+__global__ void __launch_bounds__(kThreads) mesh_chunk_kernel(MeshArgs a) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout l = make_layout(false, Src::kStream, a.p);
+  Warp<Src, kS1> w;
+  w.init(smem, l, a.p, false);
+  const int s = a.s, Ks = a.Ks, slots = a.ranks * a.Ks;
+  const unsigned plane_bytes = round16(8u * a.P * s);
+  unsigned long long* planes = reinterpret_cast<unsigned long long*>(smem + l.end);
+  uint16_t* cmap = reinterpret_cast<uint16_t*>(smem + l.end + plane_bytes);  // [2 slots]
+  uint16_t* fmap = cmap + 2 * slots;                                            // [slots]
+  int* red = reinterpret_cast<int*>(smem + l.end + plane_bytes + round16(6u * slots));
+  for (int i = threadIdx.x; i < a.P * s; i += blockDim.x) planes[i] = a.planes[i];
+
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3, warp = threadIdx.x >> 5;
+  const int gwarp = blockIdx.x * kWarps + warp, nwarps = gridDim.x * kWarps;
+  const int epoch = __ldcg(a.sync);  // this solve's exchanges before this chunk
+  int top = a.src_ctr[0];
+  if (a.src_T != a.T) {
+    const long long nbytes = (long long)top * s;
+    const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    const long long vec = nbytes / 16;
+    for (long long i = tid; i < vec; i += stride) {
+      reinterpret_cast<uint4*>(a.T)[i] = reinterpret_cast<const uint4*>(a.src_T)[i];
+      reinterpret_cast<uint4*>(a.D)[i] = reinterpret_cast<const uint4*>(a.src_D)[i];
+    }
+    for (long long i = 16 * vec + tid; i < nbytes; i += stride) {
+      a.T[i] = a.src_T[i];
+      a.D[i] = a.src_D[i];
+    }
+  }
+  __syncthreads();
+  grid.sync();
+
+  int fcount = 0, iters = 0, popped = 0, pbase = 0, pk = 0, done = 0;
+  bool ok = true;
+  const int mslots = a.nmine * Ks;
+  for (;;) {
+    // (a) stash i-1, gathered: the slots of its pk entries.
+    const unsigned char* prev = a.stash + ((iters + 1) & 1) * (size_t)slots * 18;
+    const int fprev = fcount;
+    int nflags = 0;
+    if (pk) {
+      const int last = pk - 1;
+      const int total = scan_stash(ShareCodes{prev, Ks}, (last / a.Kn) * Ks + last % a.Kn + 1, cmap, fmap, red);
+      top = pbase + (total & 0xffff);
+      nflags = total >> 16;
+      fcount = min(fcount + nflags, a.flag_cap);
+    }
+    const bool go = top > 0 && iters < a.chunk_iters && fcount < a.flag_exit && top <= a.C - 2 * a.K;
+    const int k = go ? min(top, a.K) : 0, base = top - k;
+
+    // (b) stash i-1's children that stay on the stack, and its flags, once a card.
+    if (pk) {
+      const int nw = max(0, base - pbase), nf = max(0, min(nflags, a.flag_cap - fprev));
+      for (int t = gwarp; 8 * t < nw; t += nwarps) {
+        const int j = 8 * t + g;
+        const long long pos = (long long)pbase + j;
+        if (j < nw && pos < a.C) {
+          uint64_t cT, cD;
+          share_child(prev, Ks, cmap[j], cT, cD);
+          store_part(a.T + pos * s, cT, s, q);
+          store_part(a.D + pos * s, cD, s, q);
+        }
+      }
+      for (int t = gwarp; 8 * t < nf; t += nwarps) {
+        const int j = 8 * t + g;
+        if (j < nf) {
+          const int e = fmap[j], r = e / Ks;
+          const unsigned char* blk = prev + r * share_bytes(Ks) + 8 * (size_t)Ks;
+          store_part(a.flags + (long long)(fprev + j) * s,
+                     __ldcg(reinterpret_cast<const unsigned long long*>(blk) + (e - r * Ks)), s, q);
+        }
+      }
+    }
+    if (!go) break;
+
+    // (c) this card's shares: pop, fixpoint, prune, branch, stash.  Ks is a
+    // multiple of 8, so a warp's 8 slots lie in one share.
+    for (int t = gwarp; 8 * t < mslots; t += nwarps) {
+      const int m = 8 * t + g, jr = m / Ks, j = m - jr * Ks, r = __ldg(a.mine + jr), i = r * a.Kn + j;
+      const bool valid = j < a.Kn && i < k;
+      const int pos = base + i;
+      uint64_t myT = 0, myD = 0;
+      if (valid && pk && pos >= pbase) {
+        share_child(prev, Ks, cmap[pos - pbase], myT, myD);  // whole in each thread of the quad
+      } else if (valid) {
+        myT = load_part(a.T + (long long)pos * s, s, q);
+        myD = load_part(a.D + (long long)pos * s, s, q);
+      }
+      myT = quad_or(myT);
+      myD = quad_or(myD);
+      const uint64_t uni = myT | myD;
+      uint32_t a0 = word_of(myD, q), a1 = word_of(uni, q);
+      w.fixpoint(a0, a1, 0u, w.src.thr_q);
+      const uint64_t f1 = quad_row(a0, lane), f2 = quad_row(a1, lane);
+      const int dsize = __popcll(myD);
+      const bool live = valid && dsize <= a.half && uni != 0;
+      const bool dq = live && f1 != 0;
+      const uint64_t elig = f2 & ~myD;
+      const bool br = live && !dq && f2 != 0 && (myD & ~f2) == 0 && elig != 0;
+
+      // Branch variable: the largest in-degree within quorum minus
+      // dontRemove, the lowest lane on ties (K9's).
+      unsigned key = 0;
+      if (br) {
+        for (int x = q; x < s; x += 4) {
+          if (!((elig >> x) & 1)) continue;
+          int mm = 0;
+          for (int b = 0; b < a.P; ++b) mm += __popcll(f2 & planes[b * s + x]) << b;
+          key = max(key, ((unsigned)(mm + 1) << 8) | (unsigned)(255 - x));
+        }
+      }
+      key = max(key, __shfl_xor_sync(kFull, key, 1));
+      key = max(key, __shfl_xor_sync(kFull, key, 2));
+      const int best = key ? 255 - (int)(key & 255u) : 0;
+      if (q == 0) {
+        const uint64_t child = elig & ~(1ull << best);
+        const bool incl = br && dsize + 1 <= a.half;
+        const bool excl = br && (__popcll(child) + dsize) > 0;
+        const unsigned long long eT = valid ? child : 0, eD = valid ? myD : 0;
+        const uint16_t code = valid ? (uint16_t)((int)incl | ((int)excl << 1) | ((int)dq << 2) | (best << 8)) : 0;
+        const size_t off = ((size_t)(iters & 1) * a.ranks + r) * share_bytes(Ks);
+        for (int c = 0; c < a.cards; ++c) {
+          unsigned char* blk = (c ? a.peer_stash[c - 1] : a.stash) + off;
+          reinterpret_cast<unsigned long long*>(blk)[j] = eT;
+          reinterpret_cast<unsigned long long*>(blk + 8 * (size_t)Ks)[j] = eD;
+          reinterpret_cast<uint16_t*>(blk + 16 * (size_t)Ks)[j] = code;
+        }
+      }
+    }
+    if (a.cards > 1) __threadfence_system();
+    grid.sync();
+    if (a.cards > 1 && !(ok = exchange(a, grid, epoch + ++done))) break;
+    pbase = base;
+    pk = k;
+    ++iters;
+    popped += k;
+  }
+  // The chunk's last exchange: every card has done its last reads of the
+  // stash before any card's next chunk stores into it.
+  if (ok && a.cards > 1) {
+    grid.sync();
+    ok = exchange(a, grid, epoch + ++done);
+  }
+  if (ok && blockIdx.x == 0 && threadIdx.x == 0) {
+    a.ctr[0] = top;
+    a.ctr[1] = fcount;
+    a.ctr[2] = iters;
+    a.ctr[3] = popped;
+    a.sync[0] = epoch + done;
+  }
+}
+
 // K10's leave-one-out rows of a warp's sets in member-major order: position
 // p = j kSets + r is set r minus its j-th member, live while set r has more than j
 // members (more[j] bit r) and is not yet known not to be minimal.  Fills the
@@ -794,6 +1056,22 @@ cudaError_t iteration_launch(const IterArgs& a, cudaStream_t stream) {
 }
 
 template <class Src, bool kS1>
+cudaError_t mesh_chunk_launch(MeshArgs& a, cudaStream_t stream) {
+  const size_t smem = make_layout(false, Src::kStream, a.p).end + chunk_extra_bytes(a.s, a.ranks * a.Ks, a.P);
+  long long cap = 0;
+  cudaError_t err = resident_blocks<mesh_chunk_kernel<Src, kS1>>(smem, &cap);
+  if (err != cudaSuccess) return err;
+  // A warp pops 8 slots of this card's shares; every block co-resident.
+  const long long want = ((long long)a.nmine * a.Ks + 8 * kWarps - 1) / (8 * kWarps);
+  const int grid = (int)(want < cap ? want : cap);
+  if (grid < 1) return cudaErrorCooperativeLaunchTooLarge;
+  void* params[] = {&a};
+  err = cudaLaunchCooperativeKernel((const void*)mesh_chunk_kernel<Src, kS1>, dim3(grid), dim3(kThreads), params,
+                                    smem, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <class Src, bool kS1>
 cudaError_t filter_launch(const FilterArgs& a, cudaStream_t stream) {
   const size_t smem = make_layout(true, Src::kStream, a.p).end + filter_extra_bytes();
   long long cap = 0;
@@ -936,6 +1214,85 @@ extern "C" int qi_frontier_iteration(const void* blocks, const void* chunks, con
   const bool s1 = slabs <= 1;
   if (stream) return s1 ? iteration_launch<Streamed, true>(a, st) : iteration_launch<Streamed, false>(a, st);
   return s1 ? iteration_launch<Resident, true>(a, st) : iteration_launch<Resident, false>(a, st);
+}
+
+// Peer access from card `dev` to card `peer` (the mesh-chunk instance's
+// stores into a peer's stash and counter), enabled once a pair for the
+// process.  cudaErrorPeerAccessUnsupported where the pair has no peer path.
+// Returns a cudaError_t.
+extern "C" int qi_frontier_enable_peer(int dev, int peer) {
+  static std::mutex mu;
+  static std::set<std::pair<int, int>> enabled;
+  std::lock_guard<std::mutex> lock(mu);
+  if (enabled.count({dev, peer})) return cudaSuccess;
+  int can = 0, was = 0;
+  cudaError_t err = cudaDeviceCanAccessPeer(&can, dev, peer);
+  if (err != cudaSuccess) return err;
+  if (!can) return cudaErrorPeerAccessUnsupported;
+  if ((err = cudaGetDevice(&was)) != cudaSuccess || (err = cudaSetDevice(dev)) != cudaSuccess) return err;
+  err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();  // enabled before, by this library or by PyTorch's copies
+    err = cudaSuccess;
+  }
+  const cudaError_t back = cudaSetDevice(was);
+  if (err == cudaSuccess) err = back;
+  if (err == cudaSuccess) enabled.insert({dev, peer});
+  return err;
+}
+
+// One chunk of K9's mesh-chunk instance on this card (the current device)
+// on `cuda_stream`: the shares of the `nmine` ranks `mine` (a device array)
+// of a mesh of `ranks`, `cards` cards in all, the other cards' stashes and
+// sync words in the host arrays `peer_stash` and `peer_sync` (cards - 1
+// each).  Returns a cudaError_t (0 on success); a spin timeout shows in
+// sync[1] once the chunk has run.
+extern "C" int qi_frontier_mesh_chunk(const void* blocks, const void* chunks, const int* thr, int n,
+                                      int n_units, int units, int depth, int c0, int slabs, int pc,
+                                      int nblocks, int stream, int s, int half, int K, int C,
+                                      int chunk_iters, int flag_cap, int flag_exit, int P,
+                                      const unsigned long long* planes, int ranks, const int* mine, int nmine,
+                                      const int8_t* src_T, const int8_t* src_D, const int* src_ctr, int8_t* T,
+                                      int8_t* D, int8_t* flags, int* ctr, unsigned char* stash, int* sync,
+                                      int cards, unsigned char* const* peer_stash, int* const* peer_sync,
+                                      long long spin_cycles, void* cuda_stream) {
+  if (ranks < 1 || K % ranks || nmine < 1 || nmine > ranks || cards < 1 || cards > kMaxCards || spin_cycles < 1)
+    return cudaErrorInvalidValue;
+  MeshArgs a{};
+  a.p = make_params(blocks, chunks, thr, thr, n, n_units, units, depth, c0, slabs, pc, nblocks);
+  a.s = s;
+  a.half = half;
+  a.K = K;
+  a.C = C;
+  a.chunk_iters = chunk_iters;
+  a.flag_cap = flag_cap;
+  a.flag_exit = flag_exit;
+  a.P = P;
+  a.planes = planes;
+  a.ranks = ranks;
+  a.Kn = K / ranks;
+  a.Ks = (a.Kn + 7) / 8 * 8;
+  a.mine = mine;
+  a.nmine = nmine;
+  a.src_T = src_T;
+  a.src_D = src_D;
+  a.src_ctr = src_ctr;
+  a.T = T;
+  a.D = D;
+  a.flags = flags;
+  a.ctr = ctr;
+  a.stash = stash;
+  a.sync = sync;
+  a.cards = cards;
+  for (int c = 0; c + 1 < cards; ++c) {
+    a.peer_stash[c] = peer_stash[c];
+    a.peer_sync[c] = peer_sync[c];
+  }
+  a.spin_cycles = spin_cycles;
+  cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
+  const bool s1 = slabs <= 1;
+  if (stream) return s1 ? mesh_chunk_launch<Streamed, true>(a, st) : mesh_chunk_launch<Streamed, false>(a, st);
+  return s1 ? mesh_chunk_launch<Resident, true>(a, st) : mesh_chunk_launch<Resident, false>(a, st);
 }
 
 // One flag block of K10 on `cuda_stream`: out[0] += minimal sets, out[1] =

@@ -1,7 +1,10 @@
 """Wrappers of the frontier's CUDA kernels (``csrc/frontier.cu``): the chunk
-loop (K9, :func:`frontier_chunk`), its iteration instance under a mesh
+loop (K9, :func:`frontier_chunk`), its two instances under a mesh — the
+mesh-chunk instance of a one-process mesh (:func:`frontier_mesh_chunk`, one
+cooperative launch a chunk and a card, the ranks of a card sharing one
+:class:`CardState`) and the iteration instance of joined processes
 (:func:`frontier_iteration`, driven a chunk at a time by :func:`mesh_chunk`)
-and the flag filter (K10, :func:`frontier_filter`).
+— and the flag filter (K10, :func:`frontier_filter`).
 
 :class:`FrontierKernels` holds one frontier problem's constants on its
 device.  The arena lives in :class:`ArenaSet`\\ s: ``T``/``D`` ``(C, s)`` int8
@@ -26,9 +29,10 @@ below 2^8 (the evaluator's 8 bit-planes), in-degree counts below 2^16 (the
 branch variable's bit-planes, :func:`indegree_planes`), at most
 :data:`MAX_POP` states popped an iteration (the scan packs its counts in 16
 bits), the evaluator's shared memory, and a grid the card holds at once
-(the cooperative launch).  The iteration instance adds a pop block that
+(the cooperative launch).  Both mesh instances add a pop block that
 splits evenly over the ranks and at most :data:`MAX_SLOTS` stash slots a
-half (its child map holds ``2 slot + 1`` in 16 bits).
+half (the child map holds ``2 slot + 1`` in 16 bits); the mesh-chunk
+instance at most :data:`MAX_CARDS` cards, with peer access between them.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 from dataclasses import dataclass
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +52,7 @@ from quorum_intersection_tpu_torch.kernels.frontier_ref import (
     ChunkShape,
     chunk_loop,
     filter_block,
+    mesh_chunk_ref,
     share_iteration,
     share_slots,
     stash_half_bytes,
@@ -66,14 +71,21 @@ MAX_POP = 8192
 MAX_PLANES = 16
 WARPS = 8  # csrc/warp_mma.cuh kWarps
 SETS = 8  # csrc/frontier.cu kSets: K10's flagged sets a warp
-MAX_SLOTS = 32767  # the iteration instance's stash slots a half
-# Iterations a rank the host enqueues under a mesh before it reads whether
-# the chunk has ended (the home rank's loop state; a launch past the end
-# only carries that state forward).
+MAX_SLOTS = 32767  # the mesh instances' stash slots a half
+MAX_CARDS = 16  # csrc/frontier.cu kMaxCards: cards of the mesh-chunk instance
+# The mesh-chunk instance's bound on a wait for the other cards, in SM
+# clock cycles (about 8.7 s at the H100's 1.98 GHz): a card that passes it
+# leaves the chunk, and mesh_chunk_status raises.
+SPIN_CYCLES = 1 << 34
+# The mesh-chunk instance's sync[1] codes (csrc/frontier.cu).
+SYNC_STATUS = {1: "spin timeout: a peer card did not arrive at an exchange within spin_cycles"}
+# Iterations a rank the host enqueues under the iteration instance before it
+# reads whether the chunk has ended (the home rank's loop state; a launch
+# past the end only carries that state forward).
 MESH_BATCH = 8
 
 # Kernel launches since import (or since a caller reset them), by wrapper.
-LAUNCHES = {"frontier_chunk": 0, "frontier_filter": 0, "frontier_iteration": 0}
+LAUNCHES = {"frontier_chunk": 0, "frontier_filter": 0, "frontier_iteration": 0, "frontier_mesh_chunk": 0}
 # The parts of a K9 iteration that the timed instance (:func:`frontier_chunk_timed`)
 # clocks, in ``csrc/frontier.cu``'s order.
 TIMED_PHASES = ("scan and maps", "children and flags written", "pop loads", "fixpoint", "branch variable",
@@ -198,6 +210,45 @@ class IterationState:
         return self.stash[half * nbytes:(half + 1) * nbytes]
 
 
+@dataclass
+class CardState:
+    """One card's chunk under a one-process mesh (the mesh-chunk
+    instance): the source and destination arena sets, which the card's
+    ranks share, those ranks (``ranks``, global, as ``mine`` on the card),
+    the mesh's rank count, the card's stash (``2 · stash_half_bytes``
+    bytes, every rank's shares) and its sync words ``(4,)`` int32
+    ``[exchanges of the solve before this chunk, status, arrivals, 0]``.
+    The stash and the sync words serve every chunk of a solve."""
+
+    src: ArenaSet
+    dst: ArenaSet
+    ranks: Tuple[int, ...]
+    mesh_size: int
+    stash: torch.Tensor
+    sync: torch.Tensor
+    mine: torch.Tensor
+
+    @classmethod
+    def empty(cls, K: int, mesh_size: int, ranks: Sequence[int], src: ArenaSet, dst: ArenaSet) -> "CardState":
+        dev = dst.T.device
+        return cls(src=src, dst=dst, ranks=tuple(int(r) for r in ranks), mesh_size=mesh_size,
+                   stash=torch.zeros(2 * stash_half_bytes(K, mesh_size), dtype=torch.uint8, device=dev),
+                   sync=torch.zeros(4, dtype=torch.int32, device=dev),
+                   mine=torch.tensor([int(r) for r in ranks], dtype=torch.int32).to(dev))
+
+    def begin(self, src: ArenaSet, dst: ArenaSet) -> None:
+        self.src, self.dst = src, dst
+
+
+def mesh_cards(devices: Sequence[torch.device]) -> List[Tuple[torch.device, Tuple[int, ...]]]:
+    """The distinct devices of a one-process mesh's ranks, in order of first
+    appearance, each with the ranks it holds."""
+    cards: dict = {}
+    for rank, dev in enumerate(devices):
+        cards.setdefault(dev, []).append(rank)
+    return [(dev, tuple(ranks)) for dev, ranks in cards.items()]
+
+
 class FrontierRef:
     """The plain versions' constants for one problem on ``device``: the
     fixpoint tables of the scoped and the probe circuit, the lane → node map,
@@ -224,6 +275,13 @@ class FrontierRef:
                         st.src.D, int(st.src.ctr[0]) if st.step == 0 else 0, st.dst.T, st.dst.D, st.dst.flags,
                         st.dst.ctr, st.stash, st.loop, flag_exit)
         st.step += 1
+
+    def mesh_chunk(self, st: CardState, flag_exit: int) -> None:
+        if st.ranks != tuple(range(st.mesh_size)):
+            raise ValueError(f"the plain mesh-chunk instance runs every rank on one device, got ranks {st.ranks} "
+                             f"of {st.mesh_size}")
+        mesh_chunk_ref(self.tables, self.scc_idx, self.a_mat, self.shape, st.mesh_size, st.src.T, st.src.D,
+                       int(st.src.ctr[0]), st.dst.T, st.dst.D, st.dst.flags, st.dst.ctr, st.stash, flag_exit)
 
     def filter(self, flags_blk: torch.Tensor, count: int) -> torch.Tensor:
         mins, widx = filter_block(self.tables, self.probe_tables, self.scc_idx, self.frozen, flags_blk, count)
@@ -380,16 +438,30 @@ def _chunk(kern: FrontierKernels, src: ArenaSet, dst: ArenaSet, flag_exit: int,
         LAUNCHES["frontier_chunk"] += 1
 
 
-def frontier_iteration(kern: FrontierKernels, st: IterationState, rank: int, ranks: int, flag_exit: int) -> None:
-    """Launch ``st.step`` of a chunk for rank ``rank`` of ``ranks`` (K9's
-    iteration instance, on the current stream of ``kern``'s device, without
-    synchronising) and count it; then ``st.step`` is one more.  Step 0 reads
-    ``st.src``; the rows ``[0, top)``, flags and counters of ``st.dst`` are
-    the chunk's result once the loop state says it has ended, and the share
-    this launch wrote (``st.share(K, rank, ranks, step & 1)``) must reach
-    every rank before the next step (:func:`gather_shares`)."""
+def _mesh_limits(kern: FrontierKernels, ranks: int, what: str) -> None:
+    """The mesh instances' limits on the card: the stash slots a half and
+    the shared memory of a block, which holds the child map over them."""
+    Ks = share_slots(kern.shape.K, ranks)[1]
+    slots = ranks * Ks
+    if slots > MAX_SLOTS:
+        raise KernelLimitError(f"frontier {what} kernel: {slots} stash slots a half > {MAX_SLOTS}")
+    t = kern.tables
+    smem = smem_bytes(False, t.stream, t.nblocks, t.units, t.slabs) + chunk_extra_bytes(
+        kern.s, kern.shape.K, len(kern.planes), rows=slots)
+    if smem > SMEM_LIMIT:
+        raise KernelLimitError(f"frontier {what} kernel: {smem} bytes of shared memory a block; one block may "
+                               f"take at most {SMEM_LIMIT}")
+
+
+def iteration_launcher(kern: FrontierKernels, st: IterationState, rank: int, ranks: int,
+                       flag_exit: int) -> Callable[[], None]:
+    """Check rank ``rank``'s launches of a chunk once (the state, its
+    devices, the limits) and prepare their arguments: the returned function
+    launches ``st.step`` (K9's iteration instance, on the current stream of
+    the problem's card, without synchronising), counts it, and makes
+    ``st.step`` one more.  Raises before any launch."""
     sh = kern.shape
-    Kn, Ks = share_slots(sh.K, ranks)
+    share_slots(sh.K, ranks)
     if not 0 <= rank < ranks:
         raise ValueError(f"rank {rank} of {ranks}")
     if st.stash.dtype != torch.uint8 or st.stash.numel() != 2 * stash_half_bytes(sh.K, ranks) \
@@ -402,36 +474,42 @@ def frontier_iteration(kern: FrontierKernels, st: IterationState, rank: int, ran
     if st.dst.T.device.type == "cpu":
         if kern.ref is None:
             raise ValueError("frontier kernels built for CUDA got CPU arenas")
-        kern.ref.iteration(st, rank, ranks, flag_exit)
-        return
+        return lambda: kern.ref.iteration(st, rank, ranks, flag_exit)
     dev = st.dst.T.device
     if dev.type != "cuda" or kern.ref is not None or kern.tables.blocks.device != dev:
         raise ValueError(f"frontier_iteration launches on CUDA only, on its problem's card: got {dev} for a "
                          f"{kern.tables.blocks.device} problem")
-    slots = ranks * Ks
-    if slots > MAX_SLOTS:
-        raise KernelLimitError(f"frontier iteration kernel: {slots} stash slots a half > {MAX_SLOTS}")
-    t = kern.tables
-    smem = smem_bytes(False, t.stream, t.nblocks, t.units, t.slabs) + chunk_extra_bytes(kern.s, sh.K, len(kern.planes),
-                                                                                         rows=slots)
-    if smem > SMEM_LIMIT:
-        raise KernelLimitError(f"frontier iteration kernel: {smem} bytes of shared memory a block; one block may "
-                               f"take at most {SMEM_LIMIT}")
+    _mesh_limits(kern, ranks, "iteration")
     _check_set(kern, st.src)
     _check_set(kern, st.dst)
-    lib = _library()
-    with torch.cuda.device(dev):
-        err = lib.qi_frontier_iteration(
-            *kern._table_args(), kern.s, sh.half, sh.K, sh.C, sh.chunk_iters, sh.flag_cap, int(flag_exit),
-            len(kern.planes), kern.planes.data_ptr(), rank, ranks, st.step, st.src.T.data_ptr(),
-            st.src.D.data_ptr(), st.src.ctr.data_ptr(), st.dst.T.data_ptr(), st.dst.D.data_ptr(),
-            st.dst.flags.data_ptr(), st.dst.ctr.data_ptr(), st.stash.data_ptr(), st.loop.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"frontier_iteration launch failed: {lib.qi_cuda_error_string(err).decode()}")
-    LAUNCHES["frontier_iteration"] += 1
-    st.step += 1
+    fn = _library().qi_frontier_iteration
+    head = (*kern._table_args(), kern.s, sh.half, sh.K, sh.C, sh.chunk_iters, sh.flag_cap, int(flag_exit),
+            len(kern.planes), kern.planes.data_ptr(), rank, ranks)
+    tail = (st.src.T.data_ptr(), st.src.D.data_ptr(), st.src.ctr.data_ptr(), st.dst.T.data_ptr(),
+            st.dst.D.data_ptr(), st.dst.flags.data_ptr(), st.dst.ctr.data_ptr(), st.stash.data_ptr(),
+            st.loop.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+
+    def launch() -> None:
+        with torch.cuda.device(dev):
+            err = fn(*head, st.step, *tail)
+        if err != 0:
+            raise RuntimeError(f"frontier_iteration launch failed: {_library().qi_cuda_error_string(err).decode()}")
+        LAUNCHES["frontier_iteration"] += 1
+        st.step += 1
+
+    return launch
+
+
+def frontier_iteration(kern: FrontierKernels, st: IterationState, rank: int, ranks: int, flag_exit: int) -> None:
+    """Launch ``st.step`` of a chunk for rank ``rank`` of ``ranks`` (K9's
+    iteration instance, on the current stream of ``kern``'s device, without
+    synchronising) and count it; then ``st.step`` is one more.  Step 0 reads
+    ``st.src``; the rows ``[0, top)``, flags and counters of ``st.dst`` are
+    the chunk's result once the loop state says it has ended, and the share
+    this launch wrote (``st.share(K, rank, ranks, step & 1)``) must reach
+    every rank before the next step (:func:`gather_shares`).  One launch
+    with its checks; :func:`mesh_chunk` checks a chunk's launches once."""
+    iteration_launcher(kern, st, rank, ranks, flag_exit)()
 
 
 def gather_shares(mesh, states: Sequence[IterationState], K: int, half: int) -> None:
@@ -449,27 +527,157 @@ Iterate = Callable[[object, IterationState, int, int, int], None]
 
 def mesh_chunk(mesh, kerns: Sequence, states: Sequence[IterationState], flag_exit: int,
                iterate: Optional[Iterate] = None, batch: int = MESH_BATCH) -> int:
-    """One chunk on every local rank of ``mesh`` (each ``states[i]`` begun
-    on its source and destination): ``iterate(kerns[i], states[i], global
-    rank, ranks, flag_exit)`` on every rank (default :func:`frontier_iteration`),
-    then :func:`gather_shares`, ``batch`` times before the host reads the
-    home rank's loop state, until it says the chunk has ended.  Every rank of
-    every process makes the same launches and gathers: the end is read from
-    values every rank holds alike.  Returns the steps a rank."""
-    iterate = iterate or frontier_iteration
+    """One chunk of the iteration instance on every local rank of ``mesh``
+    (each ``states[i]`` begun on its source and destination): a launch on
+    every rank, then :func:`gather_shares`, ``batch`` times before the host
+    reads the home rank's loop state, until it says the chunk has ended.
+    Every rank's launches are checked and prepared once, before the first
+    (:func:`frontier_iteration`'s checks); ``iterate(kerns[i], states[i],
+    global rank, ranks, flag_exit)`` takes their place where given (a plain
+    version).  Every rank of every process makes the same launches and
+    gathers: the end is read from values every rank holds alike.  Returns
+    the steps a rank."""
     K, chunk_iters, n = kerns[0].shape.K, kerns[0].shape.chunk_iters, mesh.size
+    if iterate is None:
+        steps = [iteration_launcher(kern, st, mesh.global_rank(local), n, flag_exit)
+                 for local, (kern, st) in enumerate(zip(kerns, states))]
+    else:
+        steps = [(lambda kern=kern, st=st, g=mesh.global_rank(local): iterate(kern, st, g, n, flag_exit))
+                 for local, (kern, st) in enumerate(zip(kerns, states))]
     step = 0
     while True:
         todo = min(batch, chunk_iters + 1 - step)
         if todo < 1:
             raise RuntimeError(f"the chunk did not end within {chunk_iters + 1} iterations")
         for _ in range(todo):
-            for local, (kern, st) in enumerate(zip(kerns, states)):
-                iterate(kern, st, mesh.global_rank(local), n, flag_exit)
+            for launch in steps:
+                launch()
             gather_shares(mesh, states, K, step & 1)
             step += 1
         if int(states[0].loop[step & 1, 6]):
             return step
+
+
+CUDA_ERROR_PEER_ACCESS_UNSUPPORTED = 217  # cudaErrorPeerAccessUnsupported
+
+
+def enable_peer_access(dev: torch.device, peer: torch.device) -> None:
+    """Peer access from card ``dev`` to card ``peer`` (the library's
+    ``qi_frontier_enable_peer``, which enables it once a pair and process);
+    :class:`KernelLimitError` naming peer access where the pair has none."""
+    lib = _library()
+    err = lib.qi_frontier_enable_peer(dev.index, peer.index)
+    if err == CUDA_ERROR_PEER_ACCESS_UNSUPPORTED:
+        raise KernelLimitError(f"frontier mesh-chunk kernel: no peer access from {dev} to {peer} "
+                               f"(cudaDeviceCanAccessPeer): a one-process mesh over these cards cannot exchange "
+                               f"its stash shares on the device")
+    if err != 0:
+        raise RuntimeError(f"enabling peer access from {dev} to {peer} failed: "
+                           f"{lib.qi_cuda_error_string(err).decode()}")
+
+
+def frontier_mesh_chunk(kerns: Sequence[FrontierKernels], states: Sequence[CardState], flag_exit: int,
+                        spin_cycles: int = SPIN_CYCLES) -> None:
+    """One chunk of K9's mesh-chunk instance: on each card ``states[c]``
+    (begun on its source and destination; its problem ``kerns[c]``) one
+    cooperative launch, on the card's current stream, without
+    synchronising, each counted.  The cards' ranks cover the mesh's once;
+    each card pops its ranks' shares and stores them into every card's
+    stash, and waits at most ``spin_cycles`` for the others at an exchange.
+    Everything is checked, and peer access enabled, before the first
+    launch.  Once the chunk has run, :func:`mesh_chunk_status` raises if a
+    card timed out; otherwise every card's destination holds the chunk's
+    rows ``[0, top)``, flags and counters.  On the CPU (one state, every
+    rank) the plain version, :func:`..frontier_ref.mesh_chunk_ref`."""
+    if not states or len(kerns) != len(states):
+        raise ValueError(f"{len(kerns)} problems for {len(states)} cards")
+    n, K = states[0].mesh_size, kerns[0].shape.K
+    share_slots(K, n)
+    if sorted(r for st in states for r in st.ranks) != list(range(n)) or any(st.mesh_size != n for st in states):
+        raise ValueError(f"the cards' ranks {[st.ranks for st in states]} must cover the {n} ranks once")
+    for st in states:
+        if st.stash.dtype != torch.uint8 or st.stash.numel() != 2 * stash_half_bytes(K, n) \
+                or st.sync.dtype != torch.int32 or tuple(st.sync.shape) != (4,):
+            raise ValueError(f"a card state must hold a uint8 stash of {2 * stash_half_bytes(K, n)} bytes and "
+                             f"int32 (4,) sync words")
+        devices = {st.src.T.device, st.dst.T.device, st.stash.device, st.sync.device, st.mine.device}
+        if len(devices) != 1:
+            raise ValueError(f"card state lies on different devices: {devices}")
+    if states[0].dst.T.device.type == "cpu":
+        if len(states) != 1 or kerns[0].ref is None:
+            raise ValueError("the plain mesh-chunk instance runs one CPU state, every rank on it")
+        kerns[0].ref.mesh_chunk(states[0], flag_exit)
+        return
+    if len(states) > MAX_CARDS:
+        raise KernelLimitError(f"frontier mesh-chunk kernel: {len(states)} cards > {MAX_CARDS}")
+    if spin_cycles < 1:
+        raise ValueError(f"spin_cycles must be positive, got {spin_cycles}")
+    for kern, st in zip(kerns, states):
+        dev = st.dst.T.device
+        if dev.type != "cuda" or kern.ref is not None or kern.tables.blocks.device != dev:
+            raise ValueError(f"frontier_mesh_chunk launches on CUDA only, on its problem's card: got {dev} for a "
+                             f"{kern.tables.blocks.device} problem")
+        _mesh_limits(kern, n, "mesh-chunk")
+        _check_set(kern, st.src)
+        _check_set(kern, st.dst)
+    for a in states:
+        for b in states:
+            if a.stash.device != b.stash.device:
+                enable_peer_access(a.stash.device, b.stash.device)
+    lib = _library()
+    for kern, st in zip(kerns, states):
+        sh, dev = kern.shape, st.dst.T.device
+        peers = [o for o in states if o is not st]
+        peer_stash = (ctypes.c_void_p * MAX_CARDS)(*[o.stash.data_ptr() for o in peers])
+        peer_sync = (ctypes.c_void_p * MAX_CARDS)(*[o.sync.data_ptr() for o in peers])
+        with torch.cuda.device(dev):
+            err = lib.qi_frontier_mesh_chunk(
+                *kern._table_args(), kern.s, sh.half, sh.K, sh.C, sh.chunk_iters, sh.flag_cap, int(flag_exit),
+                len(kern.planes), kern.planes.data_ptr(), n, st.mine.data_ptr(), len(st.ranks), st.src.T.data_ptr(),
+                st.src.D.data_ptr(), st.src.ctr.data_ptr(), st.dst.T.data_ptr(), st.dst.D.data_ptr(),
+                st.dst.flags.data_ptr(), st.dst.ctr.data_ptr(), st.stash.data_ptr(), st.sync.data_ptr(),
+                len(states), peer_stash, peer_sync, int(spin_cycles), torch.cuda.current_stream(dev).cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"frontier_mesh_chunk launch on {dev} failed: {lib.qi_cuda_error_string(err).decode()}")
+        LAUNCHES["frontier_mesh_chunk"] += 1
+
+
+def _raise_status(dev, code: int) -> None:
+    if code:
+        raise RuntimeError(f"frontier_mesh_chunk on {dev}: {SYNC_STATUS.get(code, 'unknown status')} (status {code})")
+
+
+def mesh_chunk_status(states: Sequence[CardState]) -> None:
+    """Wait for a mesh chunk's launches and raise, naming the card and the
+    fault, if one of them left it early (a spin timeout)."""
+    for st in states:
+        _raise_status(st.sync.device, int(st.sync[1]))
+
+
+def mesh_chunk_check(states: Sequence[CardState], pinned: Sequence[torch.Tensor]) -> Callable[[], None]:
+    """:func:`mesh_chunk_status` of the chunk just launched on ``states``,
+    deferred: each card's status word follows to ``pinned[c]`` (a pinned
+    ``(1,)`` int32 host tensor) behind an event on the card's stream, so the
+    returned check waits for that chunk alone, not for what is queued after
+    it.  On the CPU the check reads the states."""
+    if states[0].sync.device.type == "cpu":
+        return lambda: mesh_chunk_status(states)
+    events = []
+    for st, host in zip(states, pinned):
+        dev = st.sync.device
+        with torch.cuda.device(dev):
+            host.copy_(st.sync[1:2], non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev))
+        events.append((dev, host, ev))
+
+    def check() -> None:
+        for dev, host, ev in events:
+            ev.synchronize()
+            _raise_status(dev, int(host[0]))
+
+    return check
 
 
 def frontier_filter(kern: FrontierKernels, flags_blk: torch.Tensor, count: int) -> torch.Tensor:
@@ -519,6 +727,10 @@ def _library() -> ctypes.CDLL:
         lib.qi_frontier_chunk.restype = i
         lib.qi_frontier_iteration.argtypes = tables + [i] * 8 + [p] + [i] * 3 + [p] * 9 + [p]
         lib.qi_frontier_iteration.restype = i
+        lib.qi_frontier_mesh_chunk.argtypes = tables + [i] * 8 + [p, i, p, i] + [p] * 9 + [i, p, p, ctypes.c_longlong, p]
+        lib.qi_frontier_mesh_chunk.restype = i
+        lib.qi_frontier_enable_peer.argtypes = [i, i]
+        lib.qi_frontier_enable_peer.restype = i
         lib.qi_frontier_filter.argtypes = [p, p, p, p] + [i] * 10 + [p, i, p, p]
         lib.qi_frontier_filter.restype = i
         lib.qi_cuda_error_string.argtypes = [i]

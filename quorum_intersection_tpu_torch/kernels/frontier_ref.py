@@ -11,7 +11,10 @@ the CPU path of ``gpu-frontier`` and the yardstick the CUDA kernels
   mesh rank, the JAX ``batch_fixpoint`` under a mesh (``frontier.py:356-363``)
   with the pop block sharded by whole states, and :func:`sharded_chunk_loop`,
   a chunk of such iterations over every rank with the gather of their stash
-  shares between two iterations.
+  shares between two iterations;
+- :func:`mesh_chunk_ref` (K9's mesh-chunk instance): the whole chunk of one
+  card that holds every rank of a one-process mesh, over one shared arena
+  and stash, built on :func:`share_iteration`.
 
 The arena is a LIFO stack of (toRemove, dontRemove) pairs as int8 0/1 rows
 over the SCC's ``s`` lanes, lane ``i`` being circuit node ``scc_idx[i]``.
@@ -280,7 +283,9 @@ def share_iteration(
     the other half; the new state goes to ``loop[(step + 1) & 1]``.  Once
     the chunk has ended, the counters are in ``ctr`` and a further step only
     carries the state forward.  The JAX program's iteration (``expand``) is
-    the same function of the same rows, row for row."""
+    the same function of the same rows, row for row.  Ranks that share one
+    arena (:func:`mesh_chunk_ref`) each write the same source rows, children
+    and flags into it, so the repeats change no byte."""
     K, C, half, cap = shape.K, shape.C, shape.half, shape.flag_cap
     Kn, Ks = share_slots(K, ranks)
     s = T.shape[1]
@@ -373,6 +378,45 @@ def share_iteration(
     cD[rank] = torch.where(valid, pack_words(blk_D), zero)
     ccode[rank] = torch.where(valid, code, zero).to(torch.int16)
     out.copy_(torch.tensor([top, fcount, iters + 1, popped + k, base, k, 0, 0], dtype=torch.int32))
+
+
+def mesh_chunk_ref(
+    tables: CircuitTables,
+    scc_idx: torch.Tensor,
+    a_mat: torch.Tensor,
+    shape: ChunkShape,
+    ranks: int,
+    src_T: torch.Tensor,
+    src_D: torch.Tensor,
+    src_top: int,
+    T: torch.Tensor,
+    D: torch.Tensor,
+    flags: torch.Tensor,
+    ctr: torch.Tensor,
+    stash: torch.Tensor,
+    flag_exit: int,
+) -> int:
+    """One chunk of K9's mesh-chunk instance (``csrc/frontier.cu``
+    ``mesh_chunk_kernel``) on one card that holds all ``ranks`` ranks of a
+    mesh: one arena ``T``/``D``/``flags``/``ctr`` and one stash (both
+    halves, every rank's share, :func:`stash_half` layout) for them all.
+    Iteration by iteration, every rank's :func:`share_iteration` on the
+    shared arena and stash, until the chunk has ended.  Each rank writes the
+    source rows and the previous iteration's children and flags (step (b)),
+    all the same bytes, which the kernel writes once a card.  The stash needs no gather: every rank
+    writes its share into it.  Leaves the counters in ``ctr``, the arena
+    rows ``[0, top)``, the flags and the stash as the kernel leaves them;
+    returns the iterations run, the one that ends the chunk included."""
+    loop = torch.zeros((2, 8), dtype=torch.int32, device=T.device)
+    step = 0
+    while not (step and int(loop[step & 1, 6])):
+        if step > shape.chunk_iters:
+            raise RuntimeError(f"the chunk did not end within {shape.chunk_iters + 1} iterations")
+        for r in range(ranks):
+            share_iteration(tables, scc_idx, a_mat, shape, r, ranks, step, src_T, src_D, src_top, T, D, flags,
+                            ctr, stash, loop, flag_exit)
+        step += 1
+    return step
 
 
 def sharded_chunk_loop(

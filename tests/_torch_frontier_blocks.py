@@ -7,7 +7,10 @@ package.
 - :func:`wide_flag_block`: flagged-set rows of more than 16 members, no
   multiple of 16, so that K10's leave-one-out rows of a set span tiles;
 - :func:`mesh_lockstep`: K9's iteration instance against its plain version
-  rank by rank over a mesh of ranks on one card, chunk for chunk.
+  rank by rank over a mesh of ranks on one card, chunk for chunk;
+- :func:`mesh_chunk_lockstep`: K9's mesh-chunk instance against its plain
+  version (and, on request, the iteration instance's plain lockstep), chunk
+  for chunk.
 """
 
 from __future__ import annotations
@@ -80,55 +83,48 @@ def wide_flag_block(prob, plain, seed: int = 0, count: int = 48, minimal: int = 
     return torch.cat(rows).contiguous()
 
 
-def mesh_lockstep(prob, shape, kern, plain, ranks: int, chunks: int, flag_exit: int = 512, batch=None):
-    """K9's iteration instance (``kern``, on its card) and its plain version
-    (``plain``, on the same card) over a mesh of ``ranks`` ranks of that
-    card, chunk for chunk from the seed state, the host's spill applied
-    alike: every rank's counters, arena rows ``[0, top)`` and flags held
-    equal to the plain rank's and to rank 0's.  Returns ``(chunks,
-    iterations, flags, launches a rank, mismatches, exit reasons, tops)``."""
-    from quorum_intersection_tpu_torch.kernels.frontier_cuda import MESH_BATCH, IterationState, mesh_chunk
-    from quorum_intersection_tpu_torch.parallel import candidate_mesh
-
-    mesh = candidate_mesh(devices=[kern.device] * ranks)
-    sides = []
-    for _ in range(2):
-        pairs = [(kern.arena(), kern.arena()) for _ in range(ranks)]
+def _lockstep(prob, shape, sides, chunks: int, flag_exit: int):
+    """Chunks from the seed state, run side by side and the host's spill
+    applied alike: ``sides`` is a list of ``(label, pairs, run, stashes)``,
+    ``pairs`` the side's arena set pairs (one a card or a rank), ``run(src)``
+    one chunk from set ``src`` into the other on every pair, ``stashes()``
+    the side's stash tensors after it.  Every pair's counters, arena rows
+    ``[0, top)`` and flags, and every stash, are held equal to the first
+    pair's and stash of the first side.  Returns ``(chunks, iterations,
+    flags, mismatches, exit reasons, tops)``."""
+    for _, pairs, _, _ in sides:
         for pair in pairs:
             pair[0].T[0, : prob.s] = 1
             pair[0].ctr.copy_(torch.tensor([1, 0, 0, 0], dtype=torch.int32))
-        sides.append((pairs, [IterationState.empty(shape.K, ranks, *pair) for pair in pairs]))
-    kernels = [kern] * ranks
-    plains = [plain] * ranks
-
-    def plain_step(k, st, rank, n, fe):
-        k.iteration(st, rank, n, fe)
-
-    src, done, iters, flags, steps, bad, reasons, tops = 0, 0, 0, 0, 0, [], [], []
+    src, done, iters, flags, bad, reasons, tops = 0, 0, 0, 0, [], [], []
     for c in range(chunks):
-        for (pairs, states), ks, step in ((sides[0], kernels, None), (sides[1], plains, plain_step)):
-            for pair, st in zip(pairs, states):
-                st.begin(pair[src], pair[1 - src])
-            n_steps = mesh_chunk(mesh, ks, states, flag_exit, iterate=step, batch=batch or MESH_BATCH)
-            if step is None:
-                steps += n_steps
-        if kern.device.type == "cuda":
-            torch.cuda.synchronize(kern.device)
+        for _, _, run, _ in sides:
+            run(src)
+        for dev in {pair[0].T.device for _, pairs, _, _ in sides for pair in pairs}:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
         done += 1
-        want = sides[1][0][0][1 - src]
+        want = sides[0][1][0][1 - src]
+        dev = want.T.device
         w_ctr = want.ctr.tolist()
         top, fcount = w_ctr[:2]
         iters += w_ctr[2]
         flags += fcount
         tops.append(top)
-        for r in range(ranks):
-            for label, got in (("kernel", sides[0][0][r][1 - src]), ("plain", sides[1][0][r][1 - src])):
+        w_stash = sides[0][3]()[0]
+        for label, pairs, _, stashes in sides:
+            for r, pair in enumerate(pairs):
+                got = pair[1 - src]
                 if got.ctr.tolist() != w_ctr:
-                    bad.append(f"chunk {c}, {label} rank {r}: counters {got.ctr.tolist()} != {w_ctr}")
-                elif not (torch.equal(got.T[:top], want.T[:top]) and torch.equal(got.D[:top], want.D[:top])):
-                    bad.append(f"chunk {c}, {label} rank {r}: arena rows differ")
-                elif not torch.equal(got.flags[:fcount], want.flags[:fcount]):
-                    bad.append(f"chunk {c}, {label} rank {r}: flags differ")
+                    bad.append(f"chunk {c}, {label} {r}: counters {got.ctr.tolist()} != {w_ctr}")
+                elif not (torch.equal(got.T[:top].to(dev), want.T[:top])
+                          and torch.equal(got.D[:top].to(dev), want.D[:top])):
+                    bad.append(f"chunk {c}, {label} {r}: arena rows differ")
+                elif not torch.equal(got.flags[:fcount].to(dev), want.flags[:fcount]):
+                    bad.append(f"chunk {c}, {label} {r}: flags differ")
+            for r, stash in enumerate(stashes()):
+                if not torch.equal(stash.to(dev), w_stash):
+                    bad.append(f"chunk {c}, {label} {r}: stash differs")
         if bad:
             break
         reasons.append(exit_reason(w_ctr, shape, flag_exit))
@@ -136,11 +132,102 @@ def mesh_lockstep(prob, shape, kern, plain, ranks: int, chunks: int, flag_exit: 
             break
         if top > shape.C - 2 * shape.K:
             keep = top - shape.C // 2
-            for pairs, _ in sides:
+            for _, pairs, _, _ in sides:
                 for pair in pairs:
                     st = pair[1 - src]
                     st.T[:keep] = st.T[shape.C // 2: top].clone()
                     st.D[:keep] = st.D[shape.C // 2: top].clone()
                     st.ctr[0] = keep
         src = 1 - src
-    return done, iters, flags, steps, bad, reasons, tops
+    return done, iters, flags, bad, reasons, tops
+
+
+def _iteration_side(label, shape, kern, ranks, flag_exit, step, batch, count):
+    """``ranks`` ranks of the iteration instance on ``kern``'s device, a pair
+    a rank; ``step`` None launches the kernel, else the plain iteration."""
+    from quorum_intersection_tpu_torch.kernels.frontier_cuda import MESH_BATCH, IterationState, mesh_chunk
+    from quorum_intersection_tpu_torch.parallel import candidate_mesh
+
+    device = kern.device if step is None else kern.scc_idx.device
+    mesh = candidate_mesh(devices=[device] * ranks)
+    arena = kern.arena if step is None else (lambda: _plain_arena(kern, shape))
+    pairs = [(arena(), arena()) for _ in range(ranks)]
+    states = [IterationState.empty(shape.K, ranks, *pair) for pair in pairs]
+
+    def run(src):
+        for pair, st in zip(pairs, states):
+            st.begin(pair[src], pair[1 - src])
+        count.append(mesh_chunk(mesh, [kern] * ranks, states, flag_exit, iterate=step, batch=batch or MESH_BATCH))
+
+    return label, pairs, run, lambda: [st.stash for st in states]
+
+
+def _plain_arena(plain, shape):
+    from quorum_intersection_tpu_torch.kernels.frontier_cuda import ArenaSet
+
+    return ArenaSet.empty(shape.C, plain.a_mat.shape[0], shape.flag_cap, plain.scc_idx.device)
+
+
+def _plain_step(k, st, rank, n, fe):
+    k.iteration(st, rank, n, fe)
+
+
+def mesh_lockstep(prob, shape, kern, plain, ranks: int, chunks: int, flag_exit: int = 512, batch=None):
+    """K9's iteration instance (``kern``, on its card) and its plain version
+    (``plain``, on the same card) over a mesh of ``ranks`` ranks of that
+    card, chunk for chunk from the seed state, the host's spill applied
+    alike: every rank's counters, arena rows ``[0, top)``, flags and stash
+    held equal to the plain rank 0's.  Returns ``(chunks, iterations,
+    flags, launches a rank, mismatches, exit reasons, tops)``."""
+    steps = []
+    sides = [_iteration_side("plain rank", shape, plain, ranks, flag_exit, _plain_step, batch, []),
+             _iteration_side("kernel rank", shape, kern, ranks, flag_exit, None, batch, steps)]
+    done, iters, flags, bad, reasons, tops = _lockstep(prob, shape, sides, chunks, flag_exit)
+    return done, iters, flags, sum(steps), bad, reasons, tops
+
+
+def mesh_chunk_lockstep(prob, shape, kern, plain, ranks: int, chunks: int, flag_exit: int = 512, kerns=None,
+                        devices=None, iteration: bool = False):
+    """K9's mesh-chunk instance over a one-process mesh of ``ranks`` ranks
+    (the ranks on ``devices``, by default all on ``kern``'s device; one
+    problem a card in ``kerns``, a device → problem map) against its plain
+    version :func:`..frontier_ref.mesh_chunk_ref` (``plain``, every rank on
+    its one device), chunk for chunk from the seed state, the host's spill
+    applied alike: every card's counters, arena rows ``[0, top)``, flags
+    and stash held equal to the plain version's.  ``iteration`` adds the
+    iteration instance's plain lockstep (:func:`mesh_lockstep`'s plain
+    side) to the comparison.  Returns ``(chunks, iterations, flags,
+    launches, mismatches, exit reasons, tops)``."""
+    from quorum_intersection_tpu_torch.kernels.frontier_cuda import (
+        CardState,
+        frontier_mesh_chunk,
+        mesh_cards,
+        mesh_chunk_status,
+    )
+
+    kerns = kerns or {kern.device: kern}
+    cards = mesh_cards(devices or [kern.device] * ranks)
+    card_kerns = [kerns[d] for d, _ in cards]
+    k_pairs = [(k.arena(), k.arena()) for k in card_kerns]
+    k_states = [CardState.empty(shape.K, ranks, mine, *pair) for (_, mine), pair in zip(cards, k_pairs)]
+    p_pair = (_plain_arena(plain, shape), _plain_arena(plain, shape))
+    p_state = CardState.empty(shape.K, ranks, range(ranks), *p_pair)
+    launches = []
+
+    def run_kernel(src):
+        for pair, st in zip(k_pairs, k_states):
+            st.begin(pair[src], pair[1 - src])
+        frontier_mesh_chunk(card_kerns, k_states, flag_exit)
+        mesh_chunk_status(k_states)
+        launches.append(len(k_states))
+
+    def run_plain(src):
+        p_state.begin(p_pair[src], p_pair[1 - src])
+        plain.mesh_chunk(p_state, flag_exit)
+
+    sides = [("plain chunk", [p_pair], run_plain, lambda: [p_state.stash]),
+             ("chunk instance card", k_pairs, run_kernel, lambda: [st.stash for st in k_states])]
+    if iteration:
+        sides.append(_iteration_side("plain iteration rank", shape, plain, ranks, flag_exit, _plain_step, None, []))
+    done, iters, flags, bad, reasons, tops = _lockstep(prob, shape, sides, chunks, flag_exit)
+    return done, iters, flags, sum(launches), bad, reasons, tops

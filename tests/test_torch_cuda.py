@@ -945,7 +945,8 @@ def test_frontier_iteration_matches_plain_rank_by_rank(case, ranks, cuda_device)
 
 def test_frontier_mesh_solve_on_card_matches_single_card(cuda_device):
     """A 4-rank mesh of the one card against K9's single-card solve at the
-    same pop: verdict, witness and counts; only the iteration instance ran."""
+    same pop: verdict, witness and counts; only the mesh-chunk instance ran,
+    one launch a dispatched chunk."""
     from quorum_intersection_tpu_torch.backends.frontier import GpuFrontierBackend
     from quorum_intersection_tpu_torch.kernels.frontier_cuda import LAUNCHES
     from quorum_intersection_tpu_torch.parallel import candidate_mesh
@@ -959,7 +960,10 @@ def test_frontier_mesh_solve_on_card_matches_single_card(cuda_device):
         for key in ("device_iters", "device_chunks", "states_popped", "flagged", "minimal_quorums", "spills"):
             assert got.stats[key] == want.stats[key], key
         assert LAUNCHES["frontier_chunk"] == before["frontier_chunk"]
-        assert LAUNCHES["frontier_iteration"] > before["frontier_iteration"]
+        assert LAUNCHES["frontier_iteration"] == before["frontier_iteration"]
+        assert LAUNCHES["frontier_mesh_chunk"] - before["frontier_mesh_chunk"] == \
+            got.stats["device_chunks"] + got.stats["discarded_chunks"] == got.stats["mesh"]["chunk_launches"]
+        assert got.stats["mesh"]["instance"] == "chunk"
 
 
 def test_frontier_iteration_limits_raise_before_launch(cuda_device):
@@ -978,6 +982,62 @@ def test_frontier_iteration_limits_raise_before_launch(cuda_device):
     with pytest.raises(ValueError, match="does not split"):
         frontier_iteration(kern, st, 0, 3, 512)
     assert LAUNCHES == before
+
+
+@pytest.mark.parametrize("ranks", [1, 2, 4])
+@pytest.mark.parametrize("case", sorted(MESH_FRONTIER_CASES))
+def test_frontier_mesh_chunk_matches_plain(case, ranks, cuda_device):
+    """The mesh-chunk instance (one launch a chunk for every rank of the
+    card) and its plain version ``mesh_chunk_ref``, chunk for chunk: the
+    counters, arena rows, flags and stash equal, a launch a chunk counted."""
+    from quorum_intersection_tpu_torch.kernels.frontier_cuda import LAUNCHES
+
+    from _torch_frontier_blocks import mesh_chunk_lockstep
+
+    make, arena, pop, chunks = MESH_FRONTIER_CASES[case]
+    prob, shape, kern, plain = _frontier_setup(make(), cuda_device, arena, pop)
+    before = dict(LAUNCHES)
+    done, iters, flags, launches, bad, _, _ = mesh_chunk_lockstep(prob, shape, kern, plain, ranks, chunks)
+    assert not bad, bad[:3]
+    assert iters > 1 and launches == done == LAUNCHES["frontier_mesh_chunk"] - before["frontier_mesh_chunk"]
+    assert LAUNCHES["frontier_iteration"] == before["frontier_iteration"]
+
+
+def test_frontier_mesh_chunk_limits_raise_before_launch(cuda_device, monkeypatch):
+    """The mesh-chunk instance's limits raise before any launch: the stash
+    slots a half, the shared memory of a block.  (A missing peer path is
+    held in ``tests/test_torch_frontier_mesh.py`` through the library's
+    answer, since a host whose cards reach each other cannot show it.)"""
+    from quorum_intersection_tpu_torch.kernels import frontier_cuda
+    from quorum_intersection_tpu_torch.kernels.frontier_cuda import LAUNCHES, CardState, frontier_mesh_chunk
+
+    before = dict(LAUNCHES)
+    prob, shape, kern, _ = _frontier_setup(synth.hierarchical_fbas(4, 3), cuda_device, 1 << 15, 8192)
+    st = CardState.empty(8192, 4096, range(4096), kern.arena(), kern.arena())
+    with pytest.raises(KernelLimitError, match="stash slots"):
+        frontier_mesh_chunk([kern], [st], 512)
+    st = CardState.empty(8192, 4, range(4), kern.arena(), kern.arena())
+    monkeypatch.setattr(frontier_cuda, "SMEM_LIMIT", 1024)
+    with pytest.raises(KernelLimitError, match="shared memory"):
+        frontier_mesh_chunk([kern], [st], 512)
+    assert LAUNCHES == before and not st.dst.ctr.any() and not st.stash.any()
+
+
+def test_frontier_mesh_chunk_spin_timeout_raises(cuda_device):
+    """Two card states on the one card, launched one after the other on its
+    stream: the first waits for the second's arrival, which cannot come
+    while it runs, and leaves at its spin bound; the wrapper raises, naming
+    the timeout, and nothing hangs."""
+    from quorum_intersection_tpu_torch.kernels.frontier_cuda import CardState, frontier_mesh_chunk, mesh_chunk_status
+
+    prob, shape, kern, _ = _frontier_setup(synth.hierarchical_fbas(5, 3), cuda_device, 8192, 256)
+    src = kern.arena()
+    src.T[0, : prob.s] = 1
+    src.ctr.copy_(torch.tensor([1, 0, 0, 0], dtype=torch.int32))
+    states = [CardState.empty(256, 4, ranks, src, kern.arena()) for ranks in ((0, 1), (2, 3))]
+    frontier_mesh_chunk([kern, kern], states, 512, spin_cycles=200_000)
+    with pytest.raises(RuntimeError, match="spin timeout"):
+        mesh_chunk_status(states)
 
 
 def test_frontier_failed_gather_fails_the_solve(cuda_device):

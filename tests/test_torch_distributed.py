@@ -137,6 +137,15 @@ def test_frontier_across_processes(two_process_results):
     assert r0["mesh"]["iteration_launches"] == r1["mesh"]["iteration_launches"] > 0
 
 
+def test_frontier_across_processes_runs_the_iteration_instance(two_process_results):
+    """Joined processes keep K9's iteration instance and the gathers: no
+    kernel reaches another process's memory."""
+    for r in two_process_results:
+        mesh = r["frontier"]["mesh"]
+        assert mesh["instance"] == "iteration" and mesh["processes"] == 2
+        assert mesh["iteration_launches"] > 0 and "chunk_launches" not in mesh
+
+
 @pytest.fixture
 def fresh_runtime(monkeypatch):
     monkeypatch.setattr(distributed, "_initialized", False)

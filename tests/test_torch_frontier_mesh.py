@@ -91,7 +91,10 @@ def test_mesh_frontier_equals_jax(name, n):
     want = jax_solve(make(jax_synth), backend=TpuFrontierBackend(mesh=jax_candidate_mesh(n), **kw))
     got = solve(make(synth), backend=GpuFrontierBackend(device="cpu", mesh=candidate_mesh(n, device="cpu"), **kw))
     assert _answer(got) == _answer(want)
-    assert got.stats["mesh"]["ranks"] == n and got.stats["mesh"]["iteration_launches"] > 0
+    # One process: the mesh-chunk instance, a launch a chunk dispatched (the
+    # drained ones and the discarded ones) on the one device.
+    assert got.stats["mesh"]["ranks"] == n and got.stats["mesh"]["instance"] == "chunk"
+    assert got.stats["mesh"]["chunk_launches"] == got.stats["device_chunks"] + got.stats["discarded_chunks"] > 0
     if not got.intersects:
         assert got.q1 and got.q2 and not set(got.q1) & set(got.q2)
     if name == "hier-4x3-spill":
@@ -293,3 +296,168 @@ def test_mesh_lockstep_on_the_cpu(ranks):
                            device="cpu")
     done, iters, flags, steps, bad, reasons, tops = mesh_lockstep(prob, shape, kern, kern.ref, ranks, 8, batch=4)
     assert not bad and done > 1 and iters > done and "overflow guard" in reasons
+
+
+# ---- the mesh-chunk instance's plain version and the routing ----------------
+
+# name: (network, arena, pop, chunk_iters, chunks): the pop splits over 1, 2,
+# 4 and 8 ranks; short chunks end on every exit, the spill case overflows.
+CHUNK_CASES = {
+    "random-24": (lambda: synth.random_fbas(24, seed=0), 512, 24, 6, 4),
+    "hier-4x3": (lambda: synth.hierarchical_fbas(4, 3), 512, 24, 6, 4),
+    "hier-4x3-spill": (lambda: synth.hierarchical_fbas(4, 3), 64, 16, 512, 6),
+}
+
+
+def _cpu_problem(data, arena, pop, chunk_iters):
+    graph = build_graph(parse_fbas(data))
+    prob = frontier_problem(graph, encode_circuit(graph), quorum_bearing_sccs(graph)[0][1])
+    shape = ChunkShape(half=prob.half, K=pop, C=arena, chunk_iters=chunk_iters, flag_cap=512 * 16 + pop)
+    kern = FrontierKernels(prob.circuit, prob.scc_dev, prob.a_scc, shape, prob.probe_circuit, prob.frozen,
+                           device="cpu")
+    return prob, shape, kern
+
+
+@pytest.mark.parametrize("ranks", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", sorted(CHUNK_CASES))
+def test_mesh_chunk_ref_equals_the_iteration_lockstep(case, ranks):
+    """The mesh-chunk instance's plain version (one arena and one stash for
+    every rank, through ``frontier_mesh_chunk`` and directly) against the
+    iteration instance's plain lockstep (an arena and a gathered stash a
+    rank), chunk for chunk: counters, arena rows [0, top), flags and the
+    stash, exactly."""
+    from _torch_frontier_blocks import mesh_chunk_lockstep
+
+    make, arena, pop, chunk_iters, chunks = CHUNK_CASES[case]
+    prob, shape, kern = _cpu_problem(make(), arena, pop, chunk_iters)
+    done, iters, flags, launches, bad, reasons, _ = mesh_chunk_lockstep(prob, shape, kern, kern.ref, ranks, chunks,
+                                                                        flag_exit=8, iteration=True)
+    assert not bad, bad[:3]
+    assert done > 1 and iters > done and launches == done
+    if case == "hier-4x3-spill":
+        assert "overflow guard" in reasons
+    elif case == "hier-4x3":
+        assert flags and "chunk_iters" in reasons
+    else:
+        assert reasons[-2:] == ["chunk_iters", "empty stack"]
+
+
+def test_mesh_chunk_ref_equals_the_unsharded_chunk_loop():
+    """A chunk of the plain mesh-chunk instance on 4 ranks ends where K9's
+    plain chunk loop does at the same pop."""
+    from quorum_intersection_tpu_torch.kernels.frontier_ref import mesh_chunk_ref
+
+    prob, shape, ref = _ref(synth.majority_fbas(9), K=24)
+    src_T, src_D, top = _seeded(prob, shape.C, 1)
+    T, D = torch.zeros_like(src_T), torch.zeros_like(src_D)
+    flags = torch.zeros((shape.flag_cap, prob.s_dev), dtype=torch.int8)
+    want = chunk_loop(ref.tables, ref.scc_idx, ref.a_mat, shape, src_T, src_D, top, T, D, flags, 64)
+    gT, gD, gF = torch.zeros_like(T), torch.zeros_like(D), torch.zeros_like(flags)
+    ctr = torch.zeros(4, dtype=torch.int32)
+    stash = torch.zeros(2 * stash_half_bytes(shape.K, 4), dtype=torch.uint8)
+    steps = mesh_chunk_ref(ref.tables, ref.scc_idx, ref.a_mat, shape, 4, src_T, src_D, top, gT, gD, gF, ctr, stash, 64)
+    assert want[2] > 1 and steps == want[2] + 1 and tuple(ctr.tolist()) == tuple(want)
+    wtop, wfc = want[:2]
+    assert torch.equal(gT[:wtop], T[:wtop]) and torch.equal(gD[:wtop], D[:wtop])
+    assert torch.equal(gF[:wfc], flags[:wfc])
+
+
+def test_one_process_mesh_runs_the_chunk_instance():
+    """A one-process mesh runs the mesh-chunk instance, a launch a chunk on
+    its one device, dispatched ahead as K9's chunks are (a chunk the drive
+    drops was launched too); its statistics name it."""
+    res = solve(synth.hierarchical_fbas(4, 3), backend=GpuFrontierBackend(
+        device="cpu", arena=4096, pop=256, mesh=candidate_mesh(4, device="cpu")))
+    mesh = res.stats["mesh"]
+    assert mesh["instance"] == "chunk" and mesh["processes"] == 1 and mesh["collective"] == "none"
+    assert mesh["chunk_launches"] == res.stats["device_chunks"] + res.stats["discarded_chunks"] > 0
+    assert "iteration_launches" not in mesh
+
+
+def test_mesh_cards_groups_the_ranks_of_a_device():
+    cpu = torch.device("cpu")
+    a, b = torch.device("cuda", 0), torch.device("cuda", 1)
+    from quorum_intersection_tpu_torch.kernels.frontier_cuda import mesh_cards
+
+    assert mesh_cards([cpu] * 3) == [(cpu, (0, 1, 2))]
+    assert mesh_cards([a, b, a, b]) == [(a, (0, 2)), (b, (1, 3))]
+
+
+def test_hoisted_checks_raise_before_any_launch():
+    """The iteration instance's checks, made once a chunk, raise the same
+    errors as before and before the first launch: a pop that does not split,
+    a rank out of range, a stash of the wrong size; so do the mesh-chunk
+    instance's: ranks that do not cover the mesh, a second CPU state."""
+    from quorum_intersection_tpu_torch.kernels.frontier_cuda import CardState, frontier_iteration, \
+        frontier_mesh_chunk
+
+    prob, shape, kern = _cpu_problem(synth.hierarchical_fbas(4, 3), 512, 24, 6)
+    seeded = _arena(shape, prob.s_dev, *_seeded(prob, shape.C, None))
+    mesh3 = candidate_mesh(3, device="cpu")
+
+    def fresh(ranks, K=24):
+        return [IterationState.empty(K, ranks, seeded, _arena(shape, prob.s_dev)) for _ in range(ranks)]
+
+    with pytest.raises(ValueError, match="does not split"):
+        mesh_chunk(candidate_mesh(5, device="cpu"), [kern] * 5, fresh(1) * 5, 64)
+    with pytest.raises(ValueError, match="rank 3 of 3"):
+        frontier_iteration(kern, fresh(3)[0], 3, 3, 64)
+    states = fresh(3)
+    states[2].stash = states[2].stash[:-1]
+    with pytest.raises(ValueError, match="stash"):
+        mesh_chunk(mesh3, [kern] * 3, states, 64)
+    # Nothing ran: no step taken, no loop state or destination written.
+    assert all(st.step == 0 and not st.loop.any() and not st.dst.ctr.any() for st in states)
+    card = CardState.empty(24, 3, (0, 1), seeded, _arena(shape, prob.s_dev))
+    with pytest.raises(ValueError, match="cover"):
+        frontier_mesh_chunk([kern], [card], 64)
+    halves = [CardState.empty(24, 2, (r,), seeded, _arena(shape, prob.s_dev)) for r in range(2)]
+    with pytest.raises(ValueError, match="one CPU state"):
+        frontier_mesh_chunk([kern] * 2, halves, 64)
+    assert not card.dst.ctr.any() and not any(st.dst.ctr.any() or st.stash.any() for st in halves)
+
+
+def test_iteration_checks_run_once_a_chunk(monkeypatch):
+    """``mesh_chunk`` checks and prepares each rank's launches once a chunk,
+    not once a launch."""
+    from quorum_intersection_tpu_torch.kernels import frontier_cuda
+
+    prob, shape, kern = _cpu_problem(synth.hierarchical_fbas(4, 3), 512, 24, 6)
+    seeded = _arena(shape, prob.s_dev, *_seeded(prob, shape.C, None))
+    states = [IterationState.empty(24, 3, seeded, _arena(shape, prob.s_dev)) for _ in range(3)]
+    prepared = []
+    real = frontier_cuda.iteration_launcher
+    monkeypatch.setattr(frontier_cuda, "iteration_launcher", lambda *a: prepared.append(a[2]) or real(*a))
+    steps = mesh_chunk(candidate_mesh(3, device="cpu"), [kern] * 3, states, 64)
+    assert steps > 3 and prepared == [0, 1, 2]
+
+
+@pytest.mark.parametrize("code", [217, 101, 0])
+def test_peer_access_codes_map_to_errors(monkeypatch, code):
+    """``enable_peer_access`` maps the library's answer: no peer path
+    (``cudaErrorPeerAccessUnsupported``) is a :class:`KernelLimitError`
+    naming peer access, any other fault a ``RuntimeError`` naming the CUDA
+    error, success nothing."""
+    from quorum_intersection_tpu_torch.kernels import frontier_cuda
+
+    class Library:
+        calls = []
+
+        def qi_frontier_enable_peer(self, dev, peer):
+            self.calls.append((dev, peer))
+            return code
+
+        def qi_cuda_error_string(self, err):
+            return f"cuda error {err}".encode()
+
+    monkeypatch.setattr(frontier_cuda, "_library", Library)
+    a, b = torch.device("cuda", 0), torch.device("cuda", 1)
+    if code == 217:
+        with pytest.raises(frontier_cuda.KernelLimitError, match="no peer access from cuda:0 to cuda:1"):
+            frontier_cuda.enable_peer_access(a, b)
+    elif code:
+        with pytest.raises(RuntimeError, match=f"cuda error {code}"):
+            frontier_cuda.enable_peer_access(a, b)
+    else:
+        frontier_cuda.enable_peer_access(a, b)
+    assert Library.calls == [(0, 1)]
