@@ -14,6 +14,7 @@
     python3 chip_smoke.py --fleet        # build, then only the replicated serve tier's phase (32) and its certificates
     python3 chip_smoke.py --native       # build, then only the native host layer and the tooling (33-34), certificates
     python3 chip_smoke.py --mesh         # build, then only the mesh phases (35-36) and their certificates
+    python3 chip_smoke.py --mesh --k1-parent DIR        # ... and DIR's K1 in turns with this one on the mesh window
     python3 chip_smoke.py --frontier-mesh    # build, then only the frontier's mesh phase (36) and its certificates
 
 Phases, one line each, each with its wall ``seconds`` (any failure exits
@@ -372,26 +373,33 @@ non-zero and prints no ``ok`` line):
               2^30 twin as a CLI process: its Chrome trace holds K1's kernel
               events and the ``qi-trace:<trace_id>`` range of the metrics
               stream's ``trace_id``; then the unprofiled solve in process;
-35. mesh    — the sharded sweep K11 (the sharded instance of the fused
-              kernel) against its plain version rank by rank on 1, 2, 4 and
-              8 ranks of the one card (narrow, restricted with D
-              thresholds, wide with a hi row, both table instances, a clean
-              miss), the ranks' min against K1's contiguous program, a hit
-              placed in rank 2's sub-block of the second block; then at the
-              main path's sizes (4 ranks, _auto_batch(34) / 4 rows a rank at
-              stride _auto_batch(34), 8 blocks): the broken twin's first
-              program, the correct twin's, and late_hit_fbas(29)'s first
-              hit placed at rank 2 of block 5 and at the program's last
-              row; the processes below solve and time only after this
-              comparison; the full-width twins on 4 ranks (K11's launches counted from 0,
-              verdict, witness and hit index equal to the unsharded solve's,
+35. mesh    — the mesh sweep K11 (one launch of the fused kernel a card
+              and program over the card's contiguous share, the cards'
+              minimum taken on the home card) against its plain version
+              (K1's plain contiguous program over the same range) and K1's
+              contiguous program, on 1, 2, 4 and 8 ranks of the one card
+              and, on a host of four, on cuda:0-3 and on two cards of two
+              ranks each (narrow, restricted with D thresholds, wide with a
+              hi row, both table instances, a clean miss; one launch a card
+              and program); then at the main path's sizes (4 ranks,
+              _auto_batch(34) / 4 rows a rank, 8 blocks): the broken twin's
+              first program, the correct twin's, and late_hit_fbas(29)'s
+              first hit placed at each card share's first and last row,
+              inside card 2's share (or the one card's) and at the
+              program's last row; the processes below solve and time only
+              after this comparison; the full-width twins on 4 ranks (K11's
+              launches counted from 0, one a program and card, verdict,
+              witness and hit index equal to the unsharded solve's,
               certificates checked); ``--backend gpu-sweep --mesh all`` as a
               CLI process; a world-size-1 NCCL group and two processes of two
               ranks joined by ``distributed.initialize`` (NCCL on two cards,
               gloo on one), in waves of their own, their verdicts equal to
-              the single-process solve's; K11's 2^20 window on 1, 2 and 4 ranks (and 4 cards),
-              the collective alone; on several cards the full width on 1, 2
-              and 4 of them (one line saying skipped on one card);
+              the single-process solve's; the 2^20 window on 1, 2 and 4
+              ranks (and 4 cards) through the wrapper and on the device
+              alone beside K1's window (and ``--k1-parent``'s K1 in turns)
+              and the bound, the collective alone; on several cards the full
+              width on 1, 2 and 4 of them (one line saying skipped on one
+              card);
 36. frontier_mesh — K9's iteration instance (the frontier under a mesh)
               against its plain version rank by rank on 1, 2 and 4 ranks of
               the one card (hier-8x4 and random_fbas(64) at the defaults, 3
@@ -2489,6 +2497,45 @@ class ParentK8:
         return out
 
 
+class ParentK1:
+    """K1 of another tree (its ``csrc/sweep.cu`` with the same
+    ``qi_sweep_fused`` C interface), built with ``nvcc`` beside this tree's.
+    :meth:`program` does what that tree's wrapper does a call (the int32
+    result filled on the stream, the launch) on this tree's tables, which
+    are that tree's."""
+
+    def __init__(self, tree, work):
+        import ctypes
+
+        from quorum_intersection_tpu_torch.kernels import build
+
+        src = pathlib.Path(tree) / PORT / "kernels" / "csrc" / "sweep.cu"
+        lib_path = work / "parent_sweep.so"
+        proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib_path), str(src)],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail("mesh", f"nvcc refused {src}: {(proc.stdout + proc.stderr)[-2000:]}")
+        self.ptxas = ptxas_instances(proc.stdout + proc.stderr)
+        lib = self.lib = ctypes.CDLL(str(lib_path))
+        p, i, u64, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint64, ctypes.c_longlong
+        lib.qi_sweep_fused.argtypes = [p, p, p, p, p, i, u64, u64, u64, i, i, i, i, i, i, i, i, i, i64, i64, p, p]
+        lib.qi_sweep_fused.restype = i
+
+    def program(self, sweep, start, steps, hi_mask):
+        import torch
+
+        t = sweep.tables
+        out = torch.full((), 2**31 - 1, dtype=torch.int32, device=sweep.device)
+        err = self.lib.qi_sweep_fused(
+            t.blocks.data_ptr(), t.chunks.data_ptr(), t.neg_thresholds.data_ptr(), sweep.neg_thr_d.data_ptr(),
+            sweep.lo_nodes.data_ptr(), sweep.lo_bits, hi_mask, sweep.scc_bits, sweep.frozen_bits,
+            t.n, t.n_units, t.units, t.depth, t.c0, t.slabs, t.pc, t.nblocks, int(t.stream),
+            start, steps * sweep.batch, out.data_ptr(), torch.cuda.current_stream(sweep.device).cuda_stream)
+        if err != 0:
+            fail("mesh", f"the parent's K1 launch failed: error {err}")
+        return out
+
+
 class TrippingCancel:
     """A cancel token that reads as cancelled after ``after`` polls: a sweep
     stopped after a few programs, as a preempted run is."""
@@ -4453,7 +4500,7 @@ def tooling_phase(device, card, cert_jobs, work):
                             "warm_over_cold": warm["kernel_build_seconds"] / cold["kernel_build_seconds"]})
 
 
-# -- 35. mesh: the sharded sweep K11, the candidate mesh and the multi-process runtime --
+# -- 35. mesh: the mesh sweep K11, the candidate mesh and the multi-process runtime --
 
 MESH_RANKS = (1, 2, 4, 8)  # ranks on the one card (repeated cuda:0) in K11's comparison
 MESH_SOLVE_RANKS = 4  # the full-width solve's ranks on the one card
@@ -4471,7 +4518,7 @@ import json, os, sys, time
 import torch
 from quorum_intersection_tpu_torch.backends.sweep import GpuSweepBackend
 from quorum_intersection_tpu_torch.fbas import synth
-from quorum_intersection_tpu_torch.kernels.sweep_cuda import sweep_fused, sweep_sharded
+from quorum_intersection_tpu_torch.kernels.sweep_cuda import sweep_fused, sweep_mesh
 from quorum_intersection_tpu_torch.parallel import distributed
 from quorum_intersection_tpu_torch.parallel.mesh import collective_of, mesh_pmin
 from quorum_intersection_tpu_torch.pipeline import solve
@@ -4491,26 +4538,27 @@ out = {"process_index": mesh.process_index, "process_count": mesh.process_count,
        "collective": collective_of(mesh), "solves": {}}
 for broken in (False, True):
     data = synth.benchmark_fbas(256, core, broken=broken)
-    sweep_fused.launches = sweep_sharded.launches = 0
+    sweep_fused.launches = sweep_mesh.launches = 0
     t = time.perf_counter()
     res = solve(data, backend=GpuSweepBackend(mesh=mesh), with_cert=False)
     out["solves"][str(broken)] = {"intersects": res.intersects, "q1": res.q1, "q2": res.q2,
                                   "hit_index": res.stats.get("hit_index"), "seconds": time.perf_counter() - t,
                                   "candidates": res.stats.get("candidates_checked"),
-                                  "k11_launches": sweep_sharded.launches, "k1_launches": sweep_fused.launches}
-ones = [torch.full((), 7 + r, dtype=torch.int32, device=mesh.devices[r]) for r in range(ranks)]
+                                  "k11_launches": sweep_mesh.launches, "k1_launches": sweep_fused.launches}
+mine = torch.full((), 7 + pid, dtype=torch.int32, device=mesh.home)
 for _ in range(10):
-    mesh_pmin(mesh, ones)
+    mesh_pmin(mesh, mine.clone())
 torch.cuda.synchronize()
 torch.distributed.barrier()
 t = time.perf_counter()
 for _ in range(reps):
-    best = mesh_pmin(mesh, ones)
+    best = mesh_pmin(mesh, mine.clone())
 torch.cuda.synchronize()
 out["pmin_ms"] = (time.perf_counter() - t) * 1e3 / reps
 out["pmin_value"] = int(best)
 # The bare all_reduce(MIN) of one int32 (mesh_pmin calls none in a group of
-# one process): on the card under nccl, a host tensor under gloo.
+# one process; it reduces its argument in place, hence the clones above): on
+# the card under nccl, a host tensor under gloo.
 x = torch.full((), 7 + pid, dtype=torch.int32, device=f"cuda:{card}" if backend == "nccl" else "cpu")
 for _ in range(10):
     torch.distributed.all_reduce(x, op=torch.distributed.ReduceOp.MIN)
@@ -4554,19 +4602,82 @@ def mesh_worker_results(label, runs):
     return rows
 
 
+def mesh_layouts(cards: int):
+    """K11's layouts: (label, ranks' devices) on 1, 2, 4 and 8 ranks of the
+    one card and, on a host of four cards, over cuda:0-3 and over two cards
+    holding two ranks each."""
+    import torch
+
+    card0 = torch.device("cuda", 0)
+    out = [(f"{r} ranks, 1 card", [card0] * r) for r in MESH_RANKS]
+    if cards >= 4:
+        four = [torch.device("cuda", i) for i in range(4)]
+        out += [("4 ranks, 4 cards", four), ("4 ranks, 2 cards", four[:2] * 2)]
+    return out
+
+
+def mesh_sweep(devices, circuit, circuit_d, lo_nodes, scc_mask, frozen, per_dev, stream=None):
+    """K11 as the backend builds it (``_build_sharded_step``) over the ranks
+    ``devices``: the mesh's ``ShardedSweep``, one ``FusedSweep`` a distinct
+    card (``stream`` forces a table instance)."""
+    from quorum_intersection_tpu_torch.backends.sweep import ShardedSweep
+    from quorum_intersection_tpu_torch.kernels.sweep_cuda import FusedSweep, MeshSweep
+    from quorum_intersection_tpu_torch.parallel import candidate_mesh
+
+    mesh = candidate_mesh(devices=devices)
+    cards = [FusedSweep(circuit, lo_nodes, scc_mask, frozen, per_dev * mesh.devices.count(dev), circuit_d, dev,
+                        stream=stream) for dev in dict.fromkeys(mesh.devices)]
+    return ShardedSweep(mesh, per_dev, MeshSweep(cards))
+
+
 def mesh_compare(device, card, texts) -> int:
-    """Phase mesh, part 1: K11 (the sharded instance of the fused kernel)
-    against its plain version rank by rank, and the ranks' min against K1's
-    contiguous program over the same coverage, at small launches and at the
-    main path's sizes.  Returns the largest difference (0 when it passes)."""
+    """Phase mesh, part 1: K11 (one launch of the fused kernel a card and
+    program, the cards' minimum on the home card) against its plain version
+    (K1's plain contiguous program over the same range) and against K1's
+    contiguous program, at small launches on every layout, then at the
+    main path's sizes with hits placed at the cards' share boundaries.
+    Returns the largest difference (0 when it passes)."""
     import numpy as np
     import torch
 
     from quorum_intersection_tpu_torch.backends.sweep import _auto_batch
     from quorum_intersection_tpu_torch.fbas import synth
     from quorum_intersection_tpu_torch.kernels import sweep_ref as ref
-    from quorum_intersection_tpu_torch.kernels.sweep_cuda import FusedSweep, KernelLimitError, mask_bits
+    from quorum_intersection_tpu_torch.kernels.sweep_cuda import FusedSweep, KernelLimitError, mask_bits, sweep_mesh
+    from quorum_intersection_tpu_torch.parallel import candidate_mesh
+    from quorum_intersection_tpu_torch.parallel.mesh import card_shares
 
+    max_err = 0
+
+    def instances(devices, prob, lo_nodes, per_dev):
+        circuit, circuit_d, _, scc_mask, frozen = prob
+        out = {}
+        for stream in (False, True):
+            try:
+                out["streamed" if stream else "resident"] = mesh_sweep(devices, circuit, circuit_d, lo_nodes,
+                                                                       scc_mask, frozen, per_dev, stream)
+            except KernelLimitError:  # a resident instance that does not fit
+                if stream:
+                    raise
+        return out
+
+    def check(label, kerns, start, steps, hi_bits, want, contiguous):
+        """Every instance's mesh program equal to the plain ``want`` and
+        to K1's ``contiguous``, one launch a card."""
+        nonlocal max_err
+        for inst, sharded in kerns.items():
+            before = sweep_mesh.launches
+            got = int(sharded.program(start, steps, hi_bits))
+            cards = len(sharded.cards.devices)
+            if sweep_mesh.launches != before + cards:
+                fail("mesh", f"{label} {inst}: {sweep_mesh.launches - before} launches for {cards} cards")
+            max_err = max(max_err, abs(got - want))
+            if got != want:
+                fail("mesh", f"{label} {inst} start={start}: K11 {got} != plain {want}")
+        if contiguous != want:
+            fail("mesh", f"{label} start={start}: K1's contiguous program {contiguous} != plain {want}")
+
+    layouts = mesh_layouts(torch.cuda.device_count())
     problems = []
     problem = sweep_problem(texts["nested_correct.json"])
     problems.append(("nested_correct narrow", problem, len(problem[2]) - 1, 0))
@@ -4577,135 +4688,97 @@ def mesh_compare(device, card, texts) -> int:
     for broken in (False, True):
         problems.append((f"benchmark_fbas(256,34,broken={broken}) wide, hi row 5",
                          sweep_problem(json.dumps(synth.benchmark_fbas(256, 34, broken=broken))), 30, 5))
-    compare_rows, max_err = [], 0
-    for label, (circuit, circuit_d, local, scc_mask, frozen), lo_bits, hi in problems:
+    compare_rows = []
+    for label, prob, lo_bits, hi in problems:
+        circuit, circuit_d, local, scc_mask, frozen = prob
         lo_nodes = np.asarray(local[1:1 + lo_bits], dtype=np.int32)
         hi_row = np.zeros(circuit.n, dtype=np.int32)
         for j, v in enumerate(local[1 + lo_bits:]):
             hi_row[v] = (hi >> j) & 1
-        hi_arg = hi_row if hi_row.any() else None
+        hi_arg, hi_bits = (hi_row if hi_row.any() else None), mask_bits(hi_row)
         hits = windows = 0
-        for ranks in MESH_RANKS:
+        for layout, devices in layouts:
+            ranks = len(devices)
             per_dev, steps = max(min(1 << 11, (1 << lo_bits) // (4 * ranks)), 1), 3
             base = per_dev * ranks
-            plain = ref.SweepRef(circuit, lo_nodes, scc_mask, frozen, per_dev, circuit_d, device)
+            plain = ref.SweepRef(circuit, lo_nodes, scc_mask, frozen, base, circuit_d, device)
             k1 = FusedSweep(circuit, lo_nodes, scc_mask, frozen, base, circuit_d, device)
-            instances = {}
-            for stream in (False, True):
-                try:
-                    instances[stream] = FusedSweep(circuit, lo_nodes, scc_mask, frozen, per_dev, circuit_d,
-                                                   device, stream=stream)
-                except KernelLimitError:  # a resident instance that does not fit
-                    if stream:
-                        raise
+            kerns = instances(devices, prob, lo_nodes, per_dev)
             for start in sorted({0, (1 << lo_bits) // 2, 3 << 27 if lo_bits == 30 else 0}):
-                want = [int(plain.sharded_program(start + g * per_dev, per_dev, base, steps, hi_arg))
-                        for g in range(ranks)]
+                want = int(plain.program(start, steps, hi_arg))
                 windows += 1
-                hits += min(want) != ref.INT32_MAX
-                for stream, kern in instances.items():
-                    got = [int(kern.sharded(start + g * per_dev, per_dev, base, steps, mask_bits(hi_row)))
-                           for g in range(ranks)]
-                    torch.cuda.synchronize()
-                    max_err = max([max_err] + [abs(a - b) for a, b in zip(got, want)])
-                    if got != want:
-                        fail("mesh", f"{label} ranks={ranks} streamed={stream} start={start}: K11 {got} != "
-                                     f"plain {want}")
-                contiguous = int(k1.program(start, steps, mask_bits(hi_row)))
-                if min(want) != contiguous:
-                    fail("mesh", f"{label} ranks={ranks} start={start}: the ranks' min {min(want)} != K1's "
-                                 f"contiguous {contiguous}")
+                hits += want != ref.INT32_MAX
+                check(f"{label} {layout}", kerns, start, steps, hi_bits, want, int(k1.program(start, steps, hi_bits)))
         compare_rows.append({"label": label, "n": circuit.n, "units": circuit.n_units, "lo_bits": lo_bits,
                              "restricted": circuit_d is not None, "windows": windows, "windows_with_hits": hits,
-                             "instances": ["streamed" if s else "resident" for s in instances]})
+                             "instances": list(kerns)})
     if any(r["windows_with_hits"] for r in compare_rows if "clean miss" in r["label"]):
         fail("mesh", "the clean-miss case has a hit")
-    # A hit placed in rank 2's sub-block of the second block: snapshot_broken's
-    # first hit h, the program started so that h lands there.
-    circuit, circuit_d, local, scc_mask, frozen = broken_snap
-    lo_nodes = np.asarray(local[1:], dtype=np.int32)
-    first = ref.SweepRef(circuit, lo_nodes, scc_mask, frozen, 1 << 12, circuit_d, device)
-    h = int(first.program(0, 1))
-    placed = {}
-    for ranks, per_dev in ((4, 32), (8, 16)):
-        base = per_dev * ranks
-        start = h - base - 2 * per_dev - per_dev // 2
-        if start < 0:
-            fail("mesh", f"snapshot_broken's first hit {h} lies too early to place")
-        kern = FusedSweep(circuit, lo_nodes, scc_mask, frozen, per_dev, circuit_d, device)
-        got = [int(kern.sharded(start + g * per_dev, per_dev, base, 2)) for g in range(ranks)]
-        if min(got) != h or got.index(h) != 2:
-            fail("mesh", f"the hit {h} placed in rank 2's second sub-block came back as {got}")
-        placed[ranks] = {"start": start, "per_dev": per_dev, "ranks_min": got}
-    # K11 at the main path's sizes: the full-width drive's sub-blocks
-    # (_auto_batch(34) // 4 rows a rank at stride _auto_batch(34)), over
+    # K11 at the main path's sizes: the full-width drive's blocks
+    # (_auto_batch(34) rows, _auto_batch(34) // 4 a rank) over
     # MESH_MAIN_STEPS blocks, so every warp walks the grid-stride loop.  The
-    # broken twin's hits are dense (one in every 2^17 rows), so its windows
-    # only reach each rank's first sub-block; late_hit_fbas(29) misses on
-    # every row before its first hit h2 = 2^28 + 15, which is placed at rank
-    # 2 of block 5 (the ranks before it then hit first in block 6) and at
-    # the program's last row (rank 3 of the last block, the others missing).
+    # broken twin's hits are dense (one in every 2^17 rows); late_hit_fbas(29)
+    # misses on every row before its first hit h2 = 2^28 + 15, which is
+    # placed at each card share's first and last row, inside the third
+    # card's share (the one card's on one card) and at the program's last
+    # row, so a share cut one row short or long shows.
     sys.path.insert(0, str(ROOT / "tests"))
     from _torch_faults_cases import late_hit_fbas
 
-    block = _auto_batch(34)
-    sub, steps, ranks = block // MESH_SOLVE_RANKS, MESH_MAIN_STEPS, MESH_SOLVE_RANKS
+    block, steps = _auto_batch(34), MESH_MAIN_STEPS
     late = sweep_problem(json.dumps(late_hit_fbas(29)))
-    late_lo = np.asarray(late[2][1:], dtype=np.int32)
-    late_k1 = FusedSweep(late[0], late_lo, late[3], late[4], block, late[1], device)
+    late_k1 = FusedSweep(late[0], np.asarray(late[2][1:], dtype=np.int32), late[3], late[4], block, late[1], device)
     h2 = min(int(late_k1.program(0, 1024)), int(late_k1.program(1 << 29, 1024)))
     twins = {broken: problems[3 + broken][1] for broken in (False, True)}
-    windows = [("benchmark_fbas(256,34,broken=True), the main path's first program", twins[True], 30, 0, None),
-               ("benchmark_fbas(256,34,broken=False), a clean miss", twins[False], 30, 0, None),
-               ("late_hit_fbas(29), h2 at rank 2 of block 5", late, 30, h2 - (5 * block + 2 * sub + 17), 2),
-               ("late_hit_fbas(29), h2 at the program's last row", late, 30, h2 - steps * block + 1, ranks - 1)]
+    main_layouts = [row for row in layouts if row[0] in (f"{MESH_SOLVE_RANKS} ranks, 1 card", "4 ranks, 4 cards")]
     main_rows = []
-    for label, (circuit, circuit_d, local, scc_mask, frozen), lo_bits, start, rank in windows:
-        lo_nodes = np.asarray(local[1:1 + lo_bits], dtype=np.int32)
-        if start < 0 or start + steps * block > 1 << lo_bits:
-            fail("mesh", f"{label}: the window from {start} leaves the 2^{lo_bits} range")
-        plain = ref.SweepRef(circuit, lo_nodes, scc_mask, frozen, sub, circuit_d, device)
-        want = [int(plain.sharded_program(start + g * sub, sub, block, steps)) for g in range(ranks)]
-        if rank is not None and (min(want) != h2 or want.index(h2) != rank):
-            fail("mesh", f"{label}: the plain version's ranks {want} do not hold h2 = {h2} at rank {rank}")
-        if "clean miss" in label and min(want) != ref.INT32_MAX:
-            fail("mesh", f"{label}: the plain version hits ({want})")
-        if "first program" in label and min(want) == ref.INT32_MAX:
-            fail("mesh", f"{label}: the plain version has no hit")
-        instances = []
-        for stream in (False, True):
-            try:
-                kern = FusedSweep(circuit, lo_nodes, scc_mask, frozen, sub, circuit_d, device, stream=stream)
-            except KernelLimitError:  # a resident instance that does not fit
-                if stream:
-                    raise
-                continue
-            got = [int(kern.sharded(start + g * sub, sub, block, steps)) for g in range(ranks)]
-            max_err = max([max_err] + [abs(a - b) for a, b in zip(got, want)])
-            if got != want:
-                fail("mesh", f"{label} streamed={stream}: K11 {got} != plain {want}")
-            instances.append("streamed" if stream else "resident")
-        contiguous = int(FusedSweep(circuit, lo_nodes, scc_mask, frozen, block, circuit_d, device)
-                         .program(start, steps))
-        if min(want) != contiguous:
-            fail("mesh", f"{label}: the ranks' min {min(want)} != K1's contiguous {contiguous}")
-        main_rows.append({"label": label, "start": start, "ranks_min": want, "instances": instances})
-    phase_line("mesh_compare", card=card, tolerance="exact (integer hit indices)", ranks=list(MESH_RANKS),
-               cases=compare_rows, max_abs_err=max_err, placed_hit={"index": h, "by_ranks": placed},
-               main_path_sizes={"sub": sub, "stride": block, "steps": steps, "ranks": ranks,
-                                "rows_a_rank": steps * sub, "late_hit_h2": h2, "windows": main_rows},
-               against_k1="the ranks' min equals K1's contiguous program on every window")
+    for layout, devices in main_layouts:
+        sub = block // len(devices)
+        shares = card_shares(candidate_mesh(devices=devices), sub, steps, 0)
+        places = {}
+        for c, (_, first, rows) in enumerate(shares):
+            places.setdefault(first, f"card {c}'s first row")
+            places.setdefault(first + rows - 1, f"card {c}'s last row")
+        _, first, rows = shares[min(2, len(shares) - 1)]
+        places.setdefault(first + rows // 2 + 17, f"inside card {min(2, len(shares) - 1)}'s share")
+        places.setdefault(steps * block - 1, "the program's last row")
+        windows = [("benchmark_fbas(256,34,broken=True), the main path's first program", twins[True], 0, None),
+                   ("benchmark_fbas(256,34,broken=False), a clean miss", twins[False], 0, ref.INT32_MAX)]
+        windows += [(f"late_hit_fbas(29), h2 at {name}", late, h2 - offset, h2) for offset, name in places.items()]
+        kerns_of = {}
+        for label, prob, start, expect in windows:
+            circuit, circuit_d, local, scc_mask, frozen = prob
+            lo_nodes = np.asarray(local[1:31], dtype=np.int32)
+            if start < 0 or start + steps * block > 1 << 30:
+                fail("mesh", f"{label}: the window from {start} leaves the 2^30 range")
+            want = int(ref.SweepRef(circuit, lo_nodes, scc_mask, frozen, block, circuit_d, device).program(start, steps))
+            if (expect is not None and want != expect) or (expect is None and want == ref.INT32_MAX):
+                fail("mesh", f"{label}: the plain version gives {want}, not {expect if expect else 'a hit'}")
+            if id(prob) not in kerns_of:
+                kerns_of[id(prob)] = instances(devices, prob, lo_nodes, sub)
+            contiguous = int(FusedSweep(circuit, lo_nodes, scc_mask, frozen, block, circuit_d, device)
+                             .program(start, steps))
+            check(f"{label} ({layout})", kerns_of[id(prob)], start, steps, 0, want, contiguous)
+            main_rows.append({"layout": layout, "label": label, "start": start, "min": want,
+                              "instances": list(kerns_of[id(prob)])})
+    phase_line("mesh_compare", card=card, tolerance="exact (integer hit indices)",
+               layouts=[label for label, _ in layouts], cases=compare_rows, max_abs_err=max_err,
+               main_path_sizes={"rows_a_rank_and_block": block // MESH_SOLVE_RANKS, "block": block, "steps": steps,
+                                "late_hit_h2": h2, "windows": main_rows},
+               against_k1="every mesh program equals K1's contiguous program and the plain version, "
+                          "one launch a card")
     return max_err
 
 
-def mesh_phase(device, card, texts, manifest, cert_jobs, work):
-    """Phase mesh: K11 (the sharded instance of the fused kernel) against
-    its plain version rank by rank and against K1 over the same coverage;
-    the full-width twins on a 4-rank mesh of the one card against the
-    unsharded solves; ``--mesh all`` as a CLI process; ``torch.distributed``
-    as a world-size-1 NCCL group and as two processes of two ranks each; the
-    window's times; and, on a host of several cards, the full width on 1, 2
-    and 4 of them.  Returns the K11 record of the kernels line."""
+def mesh_phase(device, card, texts, manifest, cert_jobs, work, k1_parent=None):
+    """Phase mesh: K11 (one launch of the fused kernel a card and program)
+    against its plain version and against K1 over the same range; the
+    full-width twins on a 4-rank mesh of the one card against the unsharded
+    solves; ``--mesh all`` as a CLI process; ``torch.distributed`` as a
+    world-size-1 NCCL group and as two processes of two ranks each; the
+    window's times (and ``k1_parent``'s K1 in turns with this tree's); and,
+    on a host of several cards, the full width on 1, 2 and 4 of them.
+    Returns the K11 record of the kernels line."""
     import numpy as np
     import torch
 
@@ -4715,10 +4788,17 @@ def mesh_phase(device, card, texts, manifest, cert_jobs, work):
     from quorum_intersection_tpu_torch.fbas.schema import parse_fbas
     from quorum_intersection_tpu_torch.fbas.semantics import is_quorum
     from quorum_intersection_tpu_torch.kernels import sweep_ref as ref
-    from quorum_intersection_tpu_torch.kernels.sweep_cuda import FusedSweep, mask_bits, sweep_fused, sweep_sharded
+    from quorum_intersection_tpu_torch.kernels.sweep_cuda import FusedSweep, mask_bits, sweep_fused, sweep_mesh
     from quorum_intersection_tpu_torch.parallel import candidate_mesh
-    from quorum_intersection_tpu_torch.parallel.mesh import mesh_pmin
     from quorum_intersection_tpu_torch.pipeline import solve
+
+    # Programs the drive dispatches: K11 must launch once a card each.
+    programs = [0]
+    sharded_program = ShardedSweep.program
+
+    def counted_program(self, *args, **kwargs):
+        programs[0] += 1
+        return sharded_program(self, *args, **kwargs)
 
     t_phase = time.perf_counter()
     cards = torch.cuda.device_count()
@@ -4786,9 +4866,11 @@ def mesh_phase(device, card, texts, manifest, cert_jobs, work):
                four=four or "not run (fewer than 4 cards)",
                verdicts="every process's verdict, witness and hit index equal the single-process solve's")
     # 2. Full width on a 4-rank mesh of the one card, in turns with the
-    # unsharded solve; K11's launches counted on the sharded solves alone.
+    # unsharded solve; K11's launches counted on the sharded solves alone,
+    # one a program on the one card.
     mesh4 = candidate_mesh(devices=[card0] * MESH_SOLVE_RANKS)
     full_rows, k11_launches = [], 0
+    ShardedSweep.program = counted_program
     for broken in (False, True):
         data = synth.benchmark_fbas(256, 34, broken=broken)
         # Each solve starts on an idle card: a broken twin returns at its
@@ -4798,14 +4880,14 @@ def mesh_phase(device, card, texts, manifest, cert_jobs, work):
         plain_solve = solve(data, backend="gpu-sweep")
         unsharded_s = time.perf_counter() - t
         torch.cuda.synchronize()
-        sweep_fused.launches = sweep_sharded.launches = 0
+        sweep_fused.launches = sweep_mesh.launches = programs[0] = 0
         t = time.perf_counter()
         res = solve(data, backend=GpuSweepBackend(mesh=mesh4))
         sharded_s = time.perf_counter() - t
-        k11_launches += sweep_sharded.launches
-        if sweep_sharded.launches < 1 or sweep_fused.launches:
-            fail("mesh", f"full width (broken={broken}) on the mesh: K11 {sweep_sharded.launches}, "
-                         f"K1 {sweep_fused.launches} launches")
+        k11_launches += sweep_mesh.launches
+        if sweep_mesh.launches < 1 or sweep_mesh.launches != programs[0] or sweep_fused.launches:
+            fail("mesh", f"full width (broken={broken}) on the mesh: K11 {sweep_mesh.launches} launches for "
+                         f"{programs[0]} programs on one card, K1 {sweep_fused.launches}")
         same = (res.intersects, res.q1, res.q2, res.stats.get("hit_index")) == (
             plain_solve.intersects, plain_solve.q1, plain_solve.q2, plain_solve.stats.get("hit_index"))
         if not same or res.intersects is broken:
@@ -4819,14 +4901,17 @@ def mesh_phase(device, card, texts, manifest, cert_jobs, work):
                           "intersects": res.intersects, "hit_index": res.stats.get("hit_index"),
                           "sharded_seconds": sharded_s, "unsharded_seconds": unsharded_s,
                           "candidates": res.stats["candidates_checked"], "device_steps": res.stats["device_steps"],
-                          "k11_launches": sweep_sharded.launches, "mesh": res.stats["mesh"]})
+                          "k11_launches": sweep_mesh.launches, "programs": programs[0], "mesh": res.stats["mesh"]})
+    ShardedSweep.program = sharded_program
     phase_line("mesh_full", card=card, runs=full_rows, k11_launches=k11_launches,
+               launches_of="one a program and card (1 card)",
                verdicts="verdict, witness and hit index equal to the unsharded solve's")
 
     # The window's times: a 2^20-candidate window at full width (the timing
     # phase's bench256_34 shape, hi row 5, start 2^20) through K11 on 1, 2
-    # and 4 ranks of the one card and on 4 cards, beside the plain version,
-    # the bound (K1's window bound over the cards) and the collective alone.
+    # and 4 ranks of the one card and on 4 cards, beside K1 on the same
+    # window (and k1_parent's K1 in turns with it), the plain version and
+    # the bound (K1's window bound over the busiest card's rows).
     circuit, circuit_d, local, scc_mask, frozen = sweep_problem(json.dumps(synth.benchmark_fbas(256, 34)))
     lo_nodes = np.asarray(local[1:31], dtype=np.int32)
     hi_row = np.zeros(circuit.n, dtype=np.int32)
@@ -4835,39 +4920,36 @@ def mesh_phase(device, card, texts, manifest, cert_jobs, work):
     start, hi_bits = 1 << 20, mask_bits(hi_row)
     k1_bound_ms, bound_by, _ = window_bound_ms(circuit, circuit_d, lo_nodes, scc_mask, frozen, start, hi_row,
                                                device)
-
-    def sharded_window(devices):
-        mesh = candidate_mesh(devices=devices)
-        per_dev = WINDOW // 8 // mesh.size
-        tables = {}
-        for dev in mesh.devices:
-            if dev not in tables:
-                tables[dev] = FusedSweep(circuit, lo_nodes, scc_mask, frozen, per_dev, circuit_d, dev)
-        return mesh, ShardedSweep(mesh, per_dev, [tables[d] for d in mesh.devices])
-
+    k1 = FusedSweep(circuit, lo_nodes, scc_mask, frozen, WINDOW // 8, circuit_d, device)
+    want = int(k1.program(start, 8, hi_bits))
+    k1_arms = {"k1": lambda: k1.program(start, 8, hi_bits)}
+    if k1_parent is not None:
+        parent = ParentK1(k1_parent, work)
+        k1_arms["parent"] = lambda: parent.program(k1, start, 8, hi_bits)
+        if int(k1_arms["parent"]()) != want:
+            fail("mesh", f"the parent's K1 on the timed window: {int(k1_arms['parent']())} != {want}")
+    k1_turns = {f"{who}{suffix}": [] for who in k1_arms for suffix in ("", "_device")}
+    for who in (("k1", "k1") if k1_parent is None else ("parent", "k1", "k1", "parent")):
+        k1_turns[who].append(time_ms(k1_arms[who], 50))
+        k1_turns[f"{who}_device"].append(device_ms(k1_arms[who], 10))
     window_rows = {}
     for label, devices in [(f"{r} ranks, 1 card", [card0] * r) for r in (1, 2, 4)] + (
             [("4 ranks, 4 cards", [torch.device("cuda", i) for i in range(4)])] if cards >= 4 else []):
-        mesh, sharded = sharded_window(devices)
-        want = int(ref.SweepRef(circuit, lo_nodes, scc_mask, frozen, WINDOW // 8, circuit_d, device)
-                   .program(start, 8, hi_row)) if not window_rows else window_rows["1 ranks, 1 card"]["hit"]
+        sharded = mesh_sweep(devices, circuit, circuit_d, lo_nodes, scc_mask, frozen, WINDOW // 8 // len(devices))
         got = int(sharded.program(start, 8, hi_bits))
         if got != want:
-            fail("mesh", f"the timed window on {label}: {got} != {want}")
-        used = len({str(d) for d in mesh.devices})
+            fail("mesh", f"the timed window on {label}: {got} != K1's {want}")
+        used = len(sharded.cards.devices)
         window_rows[label] = {"hit": got, "ms": time_ms(lambda: sharded.program(start, 8, hi_bits), 50),
                               "device_ms": device_ms(lambda: sharded.program(start, 8, hi_bits), 10),
                               "bound_ms": k1_bound_ms / used, "bound_by": bound_by, "cards": used}
     if cards < 4:
         window_rows["4 ranks, 4 cards"] = "not measured (one card)"
-    mesh4_window, sharded4 = sharded_window([card0] * 4)
-    plain4 = ref.SweepRef(circuit, lo_nodes, scc_mask, frozen, sharded4.per_dev, circuit_d, device)
-    plain_ms = time_ms(lambda: [plain4.sharded_program(start + g * sharded4.per_dev, sharded4.per_dev,
-                                                       sharded4.base_block, 8, hi_row) for g in range(4)], 2)
-    parts = [torch.full((), 100 + g, dtype=torch.int32, device=card0) for g in range(4)]
-    gather_ms = time_ms(lambda: mesh_pmin(mesh4_window, parts), MESH_COLLECTIVE_REPS)
-    phase_line("mesh_timing", card=card, window=WINDOW, per_window=window_rows, plain_ms_4_ranks=plain_ms,
-               gather_min_ms_4_ranks=gather_ms, k1_window_bound_ms=k1_bound_ms)
+    plain = ref.SweepRef(circuit, lo_nodes, scc_mask, frozen, WINDOW // 8, circuit_d, device)
+    plain_ms = time_ms(lambda: plain.program(start, 8, hi_row), 2)
+    phase_line("mesh_timing", card=card, window=WINDOW, per_window=window_rows, plain_ms=plain_ms,
+               k1_window=k1_turns, k1_window_bound_ms=k1_bound_ms,
+               k1_turns="parent, this, this, parent" if k1_parent is not None else "this tree only")
 
     # 5. More than one card: the full width on 1, 2 and 4 of them (one
     # process driving the cards), and on candidate_mesh() over all.
@@ -4876,15 +4958,18 @@ def mesh_phase(device, card, texts, manifest, cert_jobs, work):
         data = synth.benchmark_fbas(256, 34)
         for n_cards in sorted({1, 2, min(4, cards), cards}):
             mesh = candidate_mesh(n_cards)
-            sweep_sharded.launches = 0
+            sweep_mesh.launches = programs[0] = 0
+            ShardedSweep.program = counted_program
             torch.cuda.synchronize()
             t = time.perf_counter()
             res = solve(data, backend=GpuSweepBackend(mesh=mesh), with_cert=False)
             seconds = time.perf_counter() - t
-            if res.intersects is not True or sweep_sharded.launches < 1:
-                fail("mesh", f"full width on {n_cards} cards: intersects={res.intersects}")
-            multi.append({"cards": n_cards, "seconds": seconds, "k11_launches": sweep_sharded.launches,
-                          "mesh": res.stats["mesh"]})
+            ShardedSweep.program = sharded_program
+            if res.intersects is not True or sweep_mesh.launches != programs[0] * n_cards:
+                fail("mesh", f"full width on {n_cards} cards: intersects={res.intersects}, K11 "
+                             f"{sweep_mesh.launches} launches for {programs[0]} programs")
+            multi.append({"cards": n_cards, "seconds": seconds, "k11_launches": sweep_mesh.launches,
+                          "programs": programs[0], "mesh": res.stats["mesh"]})
         phase_line("mesh_cards", card=card, cards=cards, full_width_correct=multi)
     else:
         phase_line("mesh_cards", card=card, cards=cards,
@@ -4894,18 +4979,19 @@ def mesh_phase(device, card, texts, manifest, cert_jobs, work):
     nccl_ms = [r["all_reduce_ms"] for r in (four or world1)]
     one_card = window_rows[f"{MESH_SOLVE_RANKS} ranks, 1 card"]
     return {
-        "name": "sweep_sharded_cuda",
+        "name": "sweep_mesh_cuda",
         "route": "cuda",
         "source": f"{PORT}/kernels/csrc/sweep.cu",
         "replaces": "quorum_intersection_tpu/backends/tpu/sweep.py:2196",
         "launches": k11_launches,
         "max_abs_err": max_err,
         "ms": one_card["ms"],
+        "device_ms": one_card["device_ms"],
         "plain_ms": plain_ms,
         "bound_ms": one_card["bound_ms"],
         "bound_by": one_card["bound_by"],
-        "library_ms": gather_ms,
-        "library_call": "mesh_pmin of 4 ranks' int32 on the home card (gather, min), no process group",
+        "library_ms": None,
+        "k1_window": k1_turns,
         "nccl_all_reduce_ms": max(nccl_ms),
         "nccl_all_reduce_of": "all_reduce(MIN) of one int32, " + (
             "4 processes on 4 cards" if four else "a world-size-1 group on the one card"),
@@ -5385,9 +5471,9 @@ def zero_script_launches():
     from quorum_intersection_tpu_torch.kernels.guard_cuda import guard_bitset, guard_dense
     from quorum_intersection_tpu_torch.kernels.packed_cuda import packed_sweep_bitset, packed_sweep_dense
     from quorum_intersection_tpu_torch.kernels.pagerank_cuda import pagerank_power
-    from quorum_intersection_tpu_torch.kernels.sweep_cuda import sweep_fused, sweep_sharded
+    from quorum_intersection_tpu_torch.kernels.sweep_cuda import sweep_fused, sweep_mesh
 
-    for fn in (sweep_fused, sweep_sharded, packed_sweep_dense, packed_sweep_bitset, bitset_sweep, guard_dense,
+    for fn in (sweep_fused, sweep_mesh, packed_sweep_dense, packed_sweep_bitset, bitset_sweep, guard_dense,
                guard_bitset, pagerank_power):
         fn.launches = 0
     for name in frontier_cuda.LAUNCHES:
@@ -5516,6 +5602,9 @@ def main(argv=None) -> int:
     ap.add_argument("--frontier-mesh", action="store_true",
                     help="only build, then run the frontier's mesh phase (frontier_mesh) and check its certificates "
                          "(no ok line)")
+    ap.add_argument("--k1-parent", metavar="DIR", default=None,
+                    help="a checkout (git archive) whose fused sweep kernel K1 the mesh phase times in turns with "
+                         "this tree's on the mesh window")
     ap.add_argument("--k12-parent", metavar="DIR", default=None,
                     help="a checkout (git archive) whose PageRank kernel timing_pagerank times in turns "
                          "with this tree's, per call and per iteration, beside this tree's launch shapes")
@@ -5615,7 +5704,7 @@ def main(argv=None) -> int:
         texts = {name: fixture_text(name) for name in manifest}
         work = pathlib.Path(tempfile.mkdtemp(prefix="qi-chip-smoke-"))
         cert_jobs = []
-        record = mesh_phase(device, card, texts, manifest, cert_jobs, work)
+        record = mesh_phase(device, card, texts, manifest, cert_jobs, work, args.k1_parent)
         record["instances"] = ptxas.get("sweep")
         frontier_records = frontier_mesh_phase(device, card, texts, cert_jobs, work)
         for entry in frontier_records:
@@ -5770,12 +5859,13 @@ def main(argv=None) -> int:
             "replaces": "quorum_intersection_tpu/backends/tpu/frontier.py:254",
             "counterparts": "K10 TpuFrontierBackend._build_flag_filter (frontier.py:254; filter_block :300)",
         },
-        "sweep_sharded_cuda": {
+        "sweep_mesh_cuda": {
             "route": "cuda",
             "source": f"{PORT}/kernels/csrc/sweep.cu",
             "replaces": "quorum_intersection_tpu/backends/tpu/sweep.py:2196",
             "counterparts": "K11 TpuSweepBackend._build_sharded_step (sweep.py:2196-2261; shard_map body :2227, "
-                            "lax.pmin :2249): the sharded instance of sweep.cu a rank, parallel/mesh.py mesh_pmin",
+                            "lax.pmin :2249): sweep.cu's qi_sweep_mesh, one launch a card over its contiguous "
+                            "share, the cards' min on the home card; parallel/mesh.py mesh_pmin across processes",
         },
     }
     phase_line("kernels", kernels={k: v["counterparts"] for k, v in kernels_meta.items()})
@@ -6635,8 +6725,8 @@ def main(argv=None) -> int:
     native_phase(device, card, texts, manifest, cert_jobs, work, main_cli=cli, k1_rate=full[0]["candidates_per_s"])
     tooling_phase(device, card, cert_jobs, work)
 
-    # -- 35. mesh: the sharded sweep K11 and the multi-process runtime ------
-    mesh_record = mesh_phase(device, card, texts, manifest, cert_jobs, work)
+    # -- 35. mesh: the mesh sweep K11 and the multi-process runtime ----------
+    mesh_record = mesh_phase(device, card, texts, manifest, cert_jobs, work, args.k1_parent)
 
     # -- 36. frontier_mesh: K9's two mesh instances, the frontier under a mesh
     frontier_mesh_records = frontier_mesh_phase(device, card, texts, cert_jobs, work)
@@ -6739,7 +6829,7 @@ def main(argv=None) -> int:
     record["kernels"] += frontier_records
     library_of.update(frontier_chunk_cuda="frontier", frontier_filter_cuda="frontier")
     record["kernels"].append(mesh_record)
-    library_of["sweep_sharded_cuda"] = "sweep"
+    library_of["sweep_mesh_cuda"] = "sweep"
     record["kernels"] += frontier_mesh_records
     library_of.update(frontier_mesh_chunk_cuda="frontier", frontier_iteration_cuda="frontier")
     for entry in record["kernels"]:

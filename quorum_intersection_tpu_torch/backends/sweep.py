@@ -44,12 +44,14 @@ to build or launch fails the solve: there is no in-place degrade to the
 dense encoding (``sweep.py:919-957``).
 
 The unpacked drive takes the JAX drive's mesh (``mesh=``, a
-:class:`..parallel.mesh.CandidateMesh`; ``sweep.py:2196-2261``, K11): each
-rank sweeps its own ``batch // ranks``-row sub-block of every block of a
-program, through the sharded instance of the fused kernel
-(:meth:`..kernels.sweep_cuda.FusedSweep.sharded`, one launch a rank and
-program, ranks that share a card sharing its tables and running one after
-the other on its stream), and the ranks' first hits meet in one
+:class:`..parallel.mesh.CandidateMesh`; ``sweep.py:2196-2261``, K11): a
+program keeps the JAX step's ``batch // ranks`` rows a rank and block, but
+its range is cut into one contiguous share a card
+(:func:`..parallel.mesh.card_shares`; JAX's ranks take sub-block ``r`` of
+every block, over the same indices), swept by one launch of the fused
+kernel a card (:class:`..kernels.sweep_cuda.MeshSweep`, ranks that share a
+card sharing its launch and tables), every card's minimum taken straight
+into the home card's result slot, and processes meet in one
 :func:`..parallel.mesh.mesh_pmin`.  A program still returns one int32, so
 the drive below (queue, drain, checkpoint) runs unchanged, every process of
 a multi-process mesh in step; its ramp is the JAX drive's with the jump
@@ -125,9 +127,15 @@ from quorum_intersection_tpu_torch.kernels import build
 from quorum_intersection_tpu_torch.kernels.bitset_sweep_cuda import BitsetSweep
 from quorum_intersection_tpu_torch.kernels.guard_cuda import BlockGuard
 from quorum_intersection_tpu_torch.kernels.packed_cuda import MAX_UNITS, PackedSweep
-from quorum_intersection_tpu_torch.kernels.sweep_cuda import FusedSweep
+from quorum_intersection_tpu_torch.kernels.sweep_cuda import FusedSweep, MeshSweep
 from quorum_intersection_tpu_torch.kernels.sweep_ref import _round_up
-from quorum_intersection_tpu_torch.parallel.mesh import CandidateMesh, collective_of, mesh_device, mesh_pmin
+from quorum_intersection_tpu_torch.parallel.mesh import (
+    CandidateMesh,
+    card_shares,
+    collective_of,
+    mesh_device,
+    mesh_pmin,
+)
 from quorum_intersection_tpu_torch.utils.checkpoint import SweepCheckpoint, sweep_fingerprint
 from quorum_intersection_tpu_torch.utils.env import qi_env
 from quorum_intersection_tpu_torch.utils.faults import FaultInjected, fault_point
@@ -450,26 +458,21 @@ class _Pending:
 
 
 class ShardedSweep:
-    """One sweep problem on a mesh: rank ``local`` sweeps the sub-block
-    ``[block + g·per_dev, + per_dev)`` of every block of a program (``g``
-    its global rank) through ``sweeps[local]`` (ranks on one card share one
-    :class:`FusedSweep`), and the ranks' results meet in
-    :func:`mesh_pmin`."""
+    """One sweep problem on a mesh: a program's range cut into this
+    process's cards' shares (:func:`card_shares`, ``per_dev`` rows a rank
+    and block), one launch a card through ``cards``, and the processes'
+    results met in :func:`mesh_pmin`."""
 
-    def __init__(self, mesh: CandidateMesh, per_dev: int, sweeps: List[FusedSweep]) -> None:
-        self.mesh, self.per_dev, self.sweeps = mesh, per_dev, sweeps
+    def __init__(self, mesh: CandidateMesh, per_dev: int, cards: MeshSweep) -> None:
+        self.mesh, self.per_dev, self.cards = mesh, per_dev, cards
         self.base_block = per_dev * mesh.size
 
     def program(self, start: int, steps: int, hi_mask: int = 0) -> torch.Tensor:
         """Min hit index over ``steps`` blocks of ``base_block`` from
         ``start``, replicated on every process (the home device's 0-dim
         int32)."""
-        per_rank = [
-            sweep.sharded(start + self.mesh.global_rank(local) * self.per_dev, self.per_dev,
-                          self.base_block, steps, hi_mask)
-            for local, sweep in enumerate(self.sweeps)
-        ]
-        return mesh_pmin(self.mesh, per_rank)
+        shares = card_shares(self.mesh, self.per_dev, steps, start)
+        return mesh_pmin(self.mesh, self.cards.program(shares, hi_mask))
 
 
 @dataclass
@@ -803,17 +806,16 @@ class GpuSweepBackend:
     ) -> Tuple[int, "ShardedSweep"]:
         """The mesh-sharded step (JAX ``_build_sharded_step``,
         ``sweep.py:2196-2261``): ``per_dev = max(batch // ranks, 1)`` rows a
-        rank and block, ``base_block = per_dev · ranks``.  Returns
-        ``(base_block, sweep)``; ``sweep.program`` keeps the unsharded
-        program's contract."""
+        rank and block, ``base_block = per_dev · ranks``, one
+        :class:`FusedSweep` a card of the process, its batch the card's
+        ranks' rows of a block (the plain version's block on the CPU).
+        Returns ``(base_block, sweep)``;
+        ``sweep.program`` keeps the unsharded program's contract."""
         mesh = self.mesh
         per_dev = max(batch // mesh.size, 1)
-        tables: Dict[torch.device, FusedSweep] = {}
-        for dev in mesh.devices:
-            if dev not in tables:
-                tables[dev] = FusedSweep(circuit, lo_nodes, scc_mask, frozen, per_dev,
-                                         circuit_d=circuit_d, device=dev)
-        return per_dev * mesh.size, ShardedSweep(mesh, per_dev, [tables[d] for d in mesh.devices])
+        sweeps = [FusedSweep(circuit, lo_nodes, scc_mask, frozen, per_dev * mesh.devices.count(dev),
+                             circuit_d=circuit_d, device=dev) for dev in dict.fromkeys(mesh.devices)]
+        return per_dev * mesh.size, ShardedSweep(mesh, per_dev, MeshSweep(sweeps))
 
     @staticmethod
     def _witness(

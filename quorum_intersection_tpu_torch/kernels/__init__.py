@@ -16,7 +16,7 @@ from quorum_intersection_tpu_torch.utils.telemetry import register_final_lines
 # (module, wrapper attribute, name in chip_smoke.py's kernels line)
 _WRAPPERS = (
     ("sweep_cuda", "sweep_fused", "sweep_fused_cuda"),
-    ("sweep_cuda", "sweep_sharded", "sweep_sharded_cuda"),
+    ("sweep_cuda", "sweep_mesh", "sweep_mesh_cuda"),
     ("guard_cuda", "guard_dense", "guard_dense_cuda"),
     ("guard_cuda", "guard_bitset", "guard_bitset_cuda"),
     ("packed_cuda", "packed_sweep_dense", "packed_sweep_dense_cuda"),

@@ -10,11 +10,14 @@ On a CUDA device it launches the kernel (:func:`sweep_fused`, which counts
 its launches) or raises; it never falls back.  On the CPU it runs the plain
 version (:mod:`.sweep_ref`) — only because the tables lie on the CPU.
 
-:meth:`FusedSweep.sharded` is one mesh rank's share of the JAX package's
-sharded step K11 (``TpuSweepBackend._build_sharded_step``,
-``backends/tpu/sweep.py:2196-2261``): ``steps`` sub-blocks of ``sub`` rows,
-``stride`` apart, in one launch of the kernel's sharded instance
-(:func:`sweep_sharded`, counted apart from :func:`sweep_fused`).
+:class:`MeshSweep` runs a mesh program (the JAX package's sharded step
+K11, ``TpuSweepBackend._build_sharded_step``,
+``backends/tpu/sweep.py:2196-2261``) on the cards of one process: one
+:class:`FusedSweep` a card, each card's contiguous range
+(``parallel.mesh.card_shares``) in one launch of the same kernel, every
+card's minimum taken straight into the home card's result slot
+(:func:`sweep_mesh`, one C call a program, counted a card launch at a time
+apart from :func:`sweep_fused`).
 
 The kernel takes the votes as b1 and-popc tensor-core products, 16 rows a
 warp (``csrc/warp_mma.cuh``).  :func:`plane_tables` lays the circuit out as
@@ -38,7 +41,8 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Optional
+import weakref
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -263,57 +267,6 @@ class FusedSweep:
             return self.ref.program(start, steps, hi)
         return sweep_fused(self, start, steps * self.batch, hi_mask)
 
-    def sharded(self, start: int, sub: int, stride: int, steps: int, hi_mask: int = 0) -> torch.Tensor:
-        """Min hit index over the ``steps`` sub-blocks ``[start + j·stride,
-        + sub)``: one rank's share of a mesh program (K11)."""
-        if self.ref is not None:
-            hi = None if not hi_mask else _bits_row(hi_mask, self.n)
-            return self.ref.sharded_program(start, sub, stride, steps, hi)
-        return sweep_sharded(self, start, sub, stride, steps * sub, hi_mask)
-
-
-def sharded_last_index(start: int, sub: int, stride: int, rows: int) -> int:
-    """The largest candidate index of the sharded map's ``rows`` rows."""
-    last = rows - 1
-    return start + (last // sub) * stride + last % sub
-
-
-def sweep_sharded(sweep: FusedSweep, start: int, sub: int, stride: int, rows: int,
-                  hi_mask: int = 0) -> torch.Tensor:
-    """Launch the sharded instance over ``rows`` rows, row ``r`` at index
-    ``start + (r // sub)·stride + r % sub``, on the current stream of the
-    sweep's card (made current for the launch); returns the 0-dim int32
-    result there without synchronising."""
-    if sweep.device.type != "cuda":
-        raise ValueError(f"sweep_sharded launches on CUDA only, got {sweep.device}")
-    if sub < 1 or stride < sub or rows < 1:
-        raise KernelLimitError(
-            f"sharded map needs 1 <= sub <= stride and rows >= 1, got sub={sub}, stride={stride}, rows={rows}"
-        )
-    last = sharded_last_index(start, sub, stride, rows)
-    if start < 0 or last >= INDEX_CEILING:
-        raise KernelLimitError(f"sharded rows [{start}, {last}] cross the 2^31 index ceiling")
-    t = sweep.tables
-    lib = _library()
-    with torch.cuda.device(sweep.device):
-        out = torch.full((), INT32_MAX, dtype=torch.int32, device=sweep.device)
-        stream = torch.cuda.current_stream(sweep.device).cuda_stream
-        err = lib.qi_sweep_sharded(
-            t.blocks.data_ptr(), t.chunks.data_ptr(), t.neg_thresholds.data_ptr(), sweep.neg_thr_d.data_ptr(),
-            sweep.lo_nodes.data_ptr(), sweep.lo_bits, hi_mask, sweep.scc_bits, sweep.frozen_bits,
-            t.n, t.n_units, t.units, t.depth, t.c0, t.slabs, t.pc, t.nblocks, int(t.stream),
-            start, sub, stride, rows, out.data_ptr(), stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"qi_sweep_sharded launch failed: {lib.qi_cuda_error_string(err).decode()}"
-        )
-    sweep_sharded.launches += 1
-    return out
-
-
-sweep_sharded.launches = 0  # type: ignore[attr-defined]
-
 
 def sweep_fused(sweep: FusedSweep, start: int, rows: int, hi_mask: int = 0) -> torch.Tensor:
     """Launch the fused kernel over ``rows`` candidates on the current
@@ -343,6 +296,135 @@ def sweep_fused(sweep: FusedSweep, start: int, rows: int, hi_mask: int = 0) -> t
 sweep_fused.launches = 0  # type: ignore[attr-defined]
 
 
+CUDA_ERROR_PEER_ACCESS_UNSUPPORTED = 217  # cudaErrorPeerAccessUnsupported
+
+
+def enable_peer_access(dev: torch.device, peer: torch.device) -> None:
+    """Peer access from card ``dev`` to card ``peer`` (the library's
+    ``qi_sweep_enable_peer``, which enables it once a pair and process);
+    :class:`KernelLimitError` naming peer access where the pair has none."""
+    lib = _library()
+    err = lib.qi_sweep_enable_peer(dev.index, peer.index)
+    if err == CUDA_ERROR_PEER_ACCESS_UNSUPPORTED:
+        raise KernelLimitError(f"mesh sweep: no peer access from {dev} to {peer} (cudaDeviceCanAccessPeer): "
+                               f"a one-process mesh over these cards cannot take their minimum on the device")
+    if err != 0:
+        raise RuntimeError(f"enabling peer access from {dev} to {peer} failed: "
+                           f"{lib.qi_cuda_error_string(err).decode()}")
+
+
+# (card, first candidate index, rows): one card's share of a mesh program.
+Share = Tuple[torch.device, int, int]
+
+
+class MeshSweep:
+    """One sweep problem on the cards of one process's mesh (K11):
+    ``sweeps[c]`` holds card ``c``'s tables, ``sweeps[0]`` on the home card,
+    where the cards' minimum lands.
+
+    On the card, building it enables peer access from every other card to
+    the home card (:class:`KernelLimitError` naming it where a pair has
+    none) and creates one event a card, before any launch.  On the CPU (a
+    single sweep: the CPU is one device) :meth:`program` is the plain
+    version over the one range."""
+
+    def __init__(self, sweeps: Sequence[FusedSweep]):
+        self.sweeps: List[FusedSweep] = list(sweeps)
+        self.devices = devices = [_card(s.device) for s in self.sweeps]
+        if not devices or len(set(devices)) != len(devices):
+            raise ValueError(f"a mesh sweep takes one sweep a card, got {devices}")
+        self.home = devices[0]
+        if any(d.type != self.home.type for d in devices):
+            raise ValueError(f"a mesh sweep's cards are all CUDA devices or one CPU, got {devices}")
+        if self.home.type != "cuda":
+            return
+        for dev in devices[1:]:
+            enable_peer_access(dev, self.home)
+        shape = [_table_shape(s) for s in self.sweeps]
+        if any(x != shape[0] for x in shape):
+            raise ValueError("a mesh sweep's cards must hold one problem's tables")
+        lib = _library()
+        self.events = []
+        weakref.finalize(self, _destroy_events, self.events)
+        for dev in devices:
+            event = ctypes.c_void_p()
+            err = lib.qi_sweep_event_create(dev.index, ctypes.byref(event))
+            if err != 0:
+                raise RuntimeError(f"creating an event on {dev} failed: {lib.qi_cuda_error_string(err).decode()}")
+            self.events.append(event.value)
+        n = len(devices)
+        table = lambda attr: (ctypes.c_void_p * n)(*[attr(s).data_ptr() for s in self.sweeps])  # noqa: E731
+        self._args = (
+            n, (ctypes.c_int * n)(*[d.index for d in devices]),
+            table(lambda s: s.tables.blocks), table(lambda s: s.tables.chunks),
+            table(lambda s: s.tables.neg_thresholds), table(lambda s: s.neg_thr_d), table(lambda s: s.lo_nodes),
+        )
+        self._events = (ctypes.c_void_p * n)(*self.events)
+
+    def program(self, shares: Sequence[Share], hi_mask: int = 0) -> torch.Tensor:
+        """Min hit index over the cards' ranges ``shares`` (one a card, in
+        the order of ``sweeps``), a 0-dim int32 on the home card."""
+        if self.home.type != "cuda":
+            if len(shares) != 1 or shares[0][0] != self.home:
+                raise ValueError(f"a CPU mesh sweep takes one range, got {shares}")
+            sweep, (_, start, rows) = self.sweeps[0], shares[0]
+            return sweep.program(start, rows // sweep.batch, hi_mask)
+        return sweep_mesh(self, shares, hi_mask)
+
+
+def _card(dev: torch.device) -> torch.device:
+    """``cuda`` without an index names the current card."""
+    return torch.device("cuda", torch.cuda.current_device()) if dev.type == "cuda" and dev.index is None else dev
+
+
+def _table_shape(s: FusedSweep) -> tuple:
+    t = s.tables
+    return (t.n, t.n_units, t.units, t.depth, t.c0, t.slabs, t.pc, t.nblocks, t.stream, s.lo_bits, s.scc_bits,
+            s.frozen_bits)
+
+
+def _destroy_events(events: List[int]) -> None:
+    lib = _library()
+    for event in events:
+        lib.qi_sweep_event_destroy(event)
+
+
+def sweep_mesh(mesh_sweep: MeshSweep, shares: Sequence[Share], hi_mask: int = 0) -> torch.Tensor:
+    """Launch the kernel once on each card of ``mesh_sweep`` over its range
+    in ``shares``, on the cards' current streams, all into one result slot
+    on the home card (filled there first; the other cards wait on it and
+    the home stream waits on them, by events); returns that 0-dim int32
+    without synchronising.  Every range is checked before any launch."""
+    sweeps, devices = mesh_sweep.sweeps, mesh_sweep.devices
+    if mesh_sweep.home.type != "cuda":
+        raise ValueError(f"sweep_mesh launches on CUDA only, got {mesh_sweep.home}")
+    if [_card(dev) for dev, _, _ in shares] != devices:
+        raise ValueError(f"one range a card of {[str(d) for d in devices]}, got {shares}")
+    for dev, start, rows in shares:
+        if rows < 1 or start < 0 or start + rows > INDEX_CEILING:
+            raise KernelLimitError(f"{dev}'s candidates [{start}, {start + rows}) are empty or cross the 2^31 "
+                                   f"index ceiling")
+    n = len(sweeps)
+    t, s0 = sweeps[0].tables, sweeps[0]
+    out = torch.empty((), dtype=torch.int32, device=mesh_sweep.home)
+    lib = _library()
+    err = lib.qi_sweep_mesh(
+        *mesh_sweep._args, s0.lo_bits, hi_mask, s0.scc_bits, s0.frozen_bits,
+        t.n, t.n_units, t.units, t.depth, t.c0, t.slabs, t.pc, t.nblocks, int(t.stream),
+        (ctypes.c_longlong * n)(*[start for _, start, _ in shares]),
+        (ctypes.c_longlong * n)(*[rows for _, _, rows in shares]),
+        (ctypes.c_void_p * n)(*[torch.cuda.current_stream(d).cuda_stream for d in devices]),
+        mesh_sweep._events, out.data_ptr(),
+    )
+    if err != 0:
+        raise RuntimeError(f"qi_sweep_mesh launch failed: {lib.qi_cuda_error_string(err).decode()}")
+    sweep_mesh.launches += n
+    return out
+
+
+sweep_mesh.launches = 0  # type: ignore[attr-defined]
+
+
 def _library() -> ctypes.CDLL:
     lib = build.load("sweep")
     if not getattr(lib, "_qi_typed", False):
@@ -351,10 +433,16 @@ def _library() -> ctypes.CDLL:
             p, p, p, p, p, i, u64, u64, u64, i, i, i, i, i, i, i, i, i, i64, i64, p, p,
         ]
         lib.qi_sweep_fused.restype = i
-        lib.qi_sweep_sharded.argtypes = [
-            p, p, p, p, p, i, u64, u64, u64, i, i, i, i, i, i, i, i, i, i64, i64, i64, i64, p, p,
+        lib.qi_sweep_mesh.argtypes = [
+            i, p, p, p, p, p, p, i, u64, u64, u64, i, i, i, i, i, i, i, i, i, p, p, p, p, p,
         ]
-        lib.qi_sweep_sharded.restype = i
+        lib.qi_sweep_mesh.restype = i
+        lib.qi_sweep_enable_peer.argtypes = [i, i]
+        lib.qi_sweep_enable_peer.restype = i
+        lib.qi_sweep_event_create.argtypes = [i, p]
+        lib.qi_sweep_event_create.restype = i
+        lib.qi_sweep_event_destroy.argtypes = [p]
+        lib.qi_sweep_event_destroy.restype = i
         lib.qi_cuda_error_string.argtypes = [i]
         lib.qi_cuda_error_string.restype = ctypes.c_char_p
         lib._qi_typed = True

@@ -180,15 +180,6 @@ def decode_indices(idx: torch.Tensor, pos: torch.Tensor, dtype: torch.dtype) -> 
     return ((idx[:, None] >> pos[None, :]) & 1).to(dtype)
 
 
-def sharded_indices(start: int, sub: int, stride: int, r0: int, r1: int,
-                    device: torch.device) -> torch.Tensor:
-    """The sharded map of rows ``[r0, r1)``: row ``r`` at index ``start +
-    (r // sub)·stride + r % sub`` (one mesh rank's share of a program, K11's
-    per-device body), as int32."""
-    r = torch.arange(r0, r1, dtype=torch.int64, device=device)
-    return (start + torch.div(r, sub, rounding_mode="floor") * stride + r % sub).to(torch.int32)
-
-
 def sweep_step(
     tables: CircuitTables,
     start: int,
@@ -276,17 +267,6 @@ class SweepRef:
         best = self.block_min_hit(start, hi)
         for i in range(1, steps):
             best = torch.minimum(best, self.block_min_hit(start + i * self.batch, hi))
-        return best
-
-    def sharded_program(self, start: int, sub: int, stride: int, steps: int, hi_mask=None) -> torch.Tensor:
-        """The sharded instance's function (K11's per-device body): min hit
-        index over the ``steps · sub`` rows of the sharded map
-        (:func:`sharded_indices`), evaluated a sub-block at a time."""
-        hi = None if hi_mask is None else self.tables.cast(np.asarray(hi_mask))
-        best = torch.tensor(INT32_MAX, dtype=torch.int32, device=self.pos.device)
-        for j in range(steps):
-            idx = sharded_indices(start, sub, stride, j * sub, (j + 1) * sub, self.pos.device)
-            best = torch.minimum(best, self.rows_min_hit(idx, hi))
         return best
 
 

@@ -3,10 +3,12 @@ the candidate mesh.
 
 The port of the JAX package's ``parallel/distributed.py`` (``initialize``
 ``:81-191``, ``is_multihost`` ``:194``, ``global_candidate_mesh`` ``:200``,
-``hybrid_candidate_mesh`` ``:213``).  Across processes the sweep's one
-collective, :func:`..mesh.mesh_pmin`, ends in one ``all_reduce(MIN)`` of
-an int32 per program: NCCL between cards, gloo on the CPU.  Candidate blocks
-never move between processes; each rank decodes its own indices.
+``hybrid_candidate_mesh`` ``:213``).  Each process sweeps one contiguous
+share of every program (:func:`..mesh.card_shares`), its cards' minimum
+taken on its home card, and the sweep's one collective,
+:func:`..mesh.mesh_pmin`, is one ``all_reduce(MIN)`` of an int32 a process
+and program: NCCL between cards, gloo on the CPU.  Candidates never move
+between processes; each card decodes its own indices.
 
 SPMD contract of the sweep driver (the JAX module's, ``:17-25``, unchanged):
 every process runs the same deterministic dispatch loop (same block

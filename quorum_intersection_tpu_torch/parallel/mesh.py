@@ -6,13 +6,19 @@ The port of the JAX package's ``parallel/mesh.py`` (``candidate_mesh``
 N devices; so is :class:`CandidateMesh`: one process drives its ranks (its
 ``devices``, in order), and a ``torch.distributed`` group joins several such
 processes host-major, as ``distributed.global_candidate_mesh`` orders them.
-Each rank sweeps its own sub-block of every block of a program (the sharded
-instance of ``kernels/csrc/sweep.cu``); the only communication is
-:func:`mesh_pmin`, the port's ``lax.pmin`` over the ranks' first-hit
-indices: one int32 per rank and program.
+
+A sweep program covers one contiguous index range, which :func:`card_shares`
+cuts into one contiguous range a card: each process takes its ranks' part,
+and each card of the process its own ranks' part of that.  (JAX's ranks
+sweep sub-block ``r`` of every block instead; the indices covered, and so
+their minimum, are the same.)  A program is then one launch a card
+(``kernels/sweep_cuda.py`` :class:`MeshSweep`), the cards' minimum taken on
+the home card's device, and the only communication left is
+:func:`mesh_pmin`, the port's ``lax.pmin`` across processes: one int32 a
+process and program.
 
 A mesh may list one device several times: the ranks then share that card
-(or the CPU), one after the other on its current stream.  It is the port's
+(or the CPU), and its range covers all of theirs.  It is the port's
 counterpart of the JAX tests' emulated host devices
 (``--xla_force_host_platform_device_count=8``), reachable through
 ``candidate_mesh(devices=...)`` or, on the CPU, ``candidate_mesh(n,
@@ -32,6 +38,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from quorum_intersection_tpu_torch.device import DeviceLike, resolve_device
+from quorum_intersection_tpu_torch.kernels.sweep_cuda import INDEX_CEILING, KernelLimitError, Share
 
 CANDIDATE_AXIS = "candidates"
 
@@ -141,45 +148,49 @@ def collective_of(mesh: CandidateMesh) -> str:
     return str(dist.get_backend(mesh.group)).lower()
 
 
-def mesh_pmin(mesh: CandidateMesh, per_rank: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The port's ``lax.pmin`` (JAX ``sweep.py:2249``): the min of this
-    process's ranks' 0-dim int32 results on the mesh's home device, then,
-    across processes, one ``all_reduce(MIN)`` over the group.
+def card_shares(mesh: CandidateMesh, per_dev: int, steps: int, start: int) -> List[Share]:
+    """This process's cards' shares of the program ``[start, start + steps ·
+    per_dev · mesh.size)``: ``(card, first index, rows)`` a distinct card of
+    ``mesh.devices``, in the order of its first appearance (the home card
+    first).  Process ``p`` of ``L`` local ranks takes the contiguous ``[start
+    + p·L·per_dev·steps, + L·per_dev·steps)``, and within it each card ``k ·
+    per_dev · steps`` rows, ``k`` its ranks.  Every process's shares tile the
+    program once.  The whole program must lie below the kernel's 2^31 index
+    ceiling (:class:`KernelLimitError` before any launch, on every process
+    alike)."""
+    rank_rows = per_dev * steps
+    end = start + rank_rows * mesh.size
+    if rank_rows < 1 or start < 0 or end > INDEX_CEILING:
+        raise KernelLimitError(f"mesh program [{start}, {end}) is empty or crosses the 2^31 index ceiling")
+    at = start + mesh.process_index * len(mesh.devices) * rank_rows
+    shares = []
+    for dev in dict.fromkeys(mesh.devices):
+        rows = mesh.devices.count(dev) * rank_rows
+        shares.append((dev, at, rows))
+        at += rows
+    return shares
 
-    On the card each rank's result joins the home device's stream behind an
-    event recorded on the stream of the card that computed it, so the min
-    waits for every rank and nothing on the host does.  ``nccl`` reduces on
-    the card; ``gloo`` reduces a host copy of the result (which waits for
-    this process's ranks) and puts it back on the home device.  A failed
-    collective raises: the solve fails."""
+
+def mesh_pmin(mesh: CandidateMesh, best: torch.Tensor) -> torch.Tensor:
+    """The port's ``lax.pmin`` (JAX ``sweep.py:2249``) across processes:
+    ``best``, this process's minimum (a 0-dim int32 on the mesh's home
+    device, its cards' minimum already taken there), through one
+    ``all_reduce(MIN)`` over the group; ``best`` itself in one process.
+    ``nccl`` reduces on the card; ``gloo`` reduces a host copy of the result
+    (which waits for this process's cards) and puts it back on the home
+    device.  A failed collective raises: the solve fails."""
+    if mesh.process_count <= 1:
+        return best
+    import torch.distributed as dist
+
     home = mesh.home
-    if home.type == "cuda":
-        home_stream = torch.cuda.current_stream(home)
-        gathered = []
-        for t in per_rank:
-            if t.device != home:
-                ready = torch.cuda.Event()
-                ready.record(torch.cuda.current_stream(t.device))
-                home_stream.wait_event(ready)
-                with torch.cuda.device(home):
-                    t = t.to(home, non_blocking=True)
-            gathered.append(t)
-        with torch.cuda.device(home):
-            best = torch.stack(gathered).min()
-    else:
-        best = torch.stack(list(per_rank)).min()
-    if mesh.process_count > 1:
-        import torch.distributed as dist
-
-        if home.type == "cuda" and collective_of(mesh) == "gloo":
-            host = best.cpu()
-            dist.all_reduce(host, op=dist.ReduceOp.MIN, group=mesh.group)
-            best = host.to(home)
-        else:
-            with torch.cuda.device(home) if home.type == "cuda" else nullcontext():
-                dist.all_reduce(best, op=dist.ReduceOp.MIN, group=mesh.group)
+    if home.type == "cuda" and collective_of(mesh) == "gloo":
+        host = best.cpu()
+        dist.all_reduce(host, op=dist.ReduceOp.MIN, group=mesh.group)
+        return host.to(home)
+    with torch.cuda.device(home) if home.type == "cuda" else nullcontext():
+        dist.all_reduce(best, op=dist.ReduceOp.MIN, group=mesh.group)
     return best
-
 
 
 def _same_memory(a: torch.Tensor, b: torch.Tensor) -> bool:

@@ -7,8 +7,9 @@ the serving layer's cross-request fusion and mid-pack deadline on the card;
 and the replicated serve tier (``fleet.py``) of in-process and of process
 workers on the card; the tooling on the card (a profiled solve's trace, the
 build cache's cold and warm processes) and the native SCC scan inside a card
-solve; the sharded sweep K11 (the sharded instance of the fused kernel, the
-mesh solve, its limits and a failed collective).  Card-only: every test
+solve; the mesh sweep K11 (one launch of the fused kernel a card and
+program, on 1-8 ranks of one card and on four cards; the mesh solve, its
+limits and a failed collective).  Card-only: every test
 takes the ``cuda_device``
 fixture, which skips on a host without one.  This file imports nothing of
 JAX or the JAX package, so on the card's machine it runs as
@@ -1455,63 +1456,116 @@ def test_native_scan_agrees_with_a_card_solve(cuda_device, fault_plan):
     assert res.intersects is True
 
 
-# ---- the sharded sweep (K11) -------------------------------------------------
+# ---- the mesh sweep (K11) ----------------------------------------------------
 
 
-@pytest.mark.parametrize("case", ["nested_correct.json", "snapshot_broken.json", "9-broken", "10-correct"])
-def test_sharded_instance_matches_plain_on_card(case, cuda_device):
-    """The sharded instance against its plain version rank by rank (narrow,
-    restricted, wide with a hi row; both table instances), on 1, 2, 4 and 8
-    ranks, and the ranks' min against K1's contiguous program over the same
-    coverage."""
-    from quorum_intersection_tpu_torch.kernels.sweep_cuda import sweep_sharded
+def _mesh_sweep(devices, q, d, lo_nodes, mask, frozen, per_dev, stream=None):
+    """K11 over ``devices`` (ranks; a card may repeat): the card layout's
+    ``ShardedSweep``, one ``FusedSweep`` a distinct card."""
+    from quorum_intersection_tpu_torch.backends.sweep import ShardedSweep
+    from quorum_intersection_tpu_torch.kernels.sweep_cuda import MeshSweep
+    from quorum_intersection_tpu_torch.parallel import candidate_mesh
 
+    mesh = candidate_mesh(devices=devices)
+    cards = [FusedSweep(q, lo_nodes, mask, frozen, per_dev * mesh.devices.count(dev), circuit_d=d, device=dev,
+                        stream=stream) for dev in dict.fromkeys(mesh.devices)]
+    return ShardedSweep(mesh, per_dev, MeshSweep(cards))
+
+
+def _mesh_matches(devices, case, device):
+    """The mesh program on ``devices`` against its plain version (K1's plain
+    contiguous program over the same coverage) and K1 itself, every
+    problem of ``case``, both table instances, one launch a card and
+    program."""
+    from quorum_intersection_tpu_torch.kernels.sweep_cuda import sweep_mesh
+
+    ranks, cards = len(devices), len(set(devices))
     for mode, q, d, local, mask, frozen, lo_bits, hi in _problems(case):
         lo_nodes = np.asarray(local[1:1 + lo_bits], dtype=np.int32)
         hi_row = np.zeros(q.n, dtype=np.int32)
         for j, v in enumerate(local[1 + lo_bits:]):
             hi_row[v] = (hi >> j) & 1
         hi_arg = hi_row if hi_row.any() else None
-        for ranks in (1, 2, 4, 8):
-            per_dev, steps = max(min(1 << 10, (1 << lo_bits) // (4 * ranks)), 1), 3
-            base = per_dev * ranks
-            contiguous = FusedSweep(q, lo_nodes, mask, frozen, base, circuit_d=d, device=cuda_device)
-            plain = ref.SweepRef(q, lo_nodes, mask, frozen, per_dev, d, cuda_device)
-            for stream in (False, True):
-                fused = FusedSweep(q, lo_nodes, mask, frozen, per_dev, circuit_d=d, device=cuda_device,
-                                   stream=stream)
-                for start in sorted({0, base, (1 << lo_bits) // 2}):
-                    launches = sweep_sharded.launches
-                    got = [int(fused.sharded(start + g * per_dev, per_dev, base, steps, mask_bits(hi_row)))
-                           for g in range(ranks)]
-                    want = [int(plain.sharded_program(start + g * per_dev, per_dev, base, steps, hi_arg))
-                            for g in range(ranks)]
-                    assert got == want, (mode, ranks, stream, start)
-                    assert sweep_sharded.launches == launches + ranks
-                    assert min(got) == int(contiguous.program(start, steps, mask_bits(hi_row)))
+        per_dev, steps = max(min(1 << 10, (1 << lo_bits) // (4 * ranks)), 1), 3
+        base = per_dev * ranks
+        contiguous = FusedSweep(q, lo_nodes, mask, frozen, base, circuit_d=d, device=device)
+        plain = ref.SweepRef(q, lo_nodes, mask, frozen, base, d, device)
+        for stream in (False, True):
+            sharded = _mesh_sweep(devices, q, d, lo_nodes, mask, frozen, per_dev, stream)
+            for start in sorted({0, base, (1 << lo_bits) // 2}):
+                launches = sweep_mesh.launches
+                got = int(sharded.program(start, steps, mask_bits(hi_row)))
+                assert sweep_mesh.launches == launches + cards
+                want = int(plain.program(start, steps, hi_arg))
+                assert got == want == int(contiguous.program(start, steps, mask_bits(hi_row))), \
+                    (mode, ranks, stream, start)
 
 
-def test_sharded_limits_raise_before_launch(cuda_device):
-    from quorum_intersection_tpu_torch.kernels.sweep_cuda import sweep_sharded
+@pytest.mark.parametrize("case", ["nested_correct.json", "snapshot_broken.json", "9-broken", "10-correct"])
+def test_mesh_instance_matches_plain_on_card(case, cuda_device):
+    """1, 2, 4 and 8 ranks of the one card: one launch a program."""
+    card = torch.device("cuda", torch.cuda.current_device())
+    for ranks in (1, 2, 4, 8):
+        _mesh_matches([card] * ranks, case, cuda_device)
+
+
+@pytest.mark.parametrize("layout", ["cuda:0-3", "c0,c1,c0,c1"])
+def test_mesh_instance_on_four_cards(layout, cuda_device):
+    """Four cards (or two, each holding two ranks): every card's blocks
+    take their minimum into the home card's slot across NVLink."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards of one host")
+    cards = [torch.device("cuda", i) for i in range(4)]
+    devices = cards if layout == "cuda:0-3" else [cards[0], cards[1]] * 2
+    _mesh_matches(devices, "snapshot_broken.json", cards[0])
+
+
+def test_mesh_limits_raise_before_launch(cuda_device, monkeypatch):
+    """A range past 2^31, a share that names another card, and a card pair
+    without peer access (the library's answer replaced) raise before any
+    launch."""
+    import types
+
+    from quorum_intersection_tpu_torch.kernels import sweep_cuda
+    from quorum_intersection_tpu_torch.kernels.sweep_cuda import MeshSweep, sweep_mesh
 
     _, q, d, local, mask, frozen, _, _ = _problems("9-broken")[0]
-    fused = FusedSweep(q, np.asarray(local[1:], dtype=np.int32), mask, frozen, 1 << 8, d, cuda_device)
-    launches = sweep_sharded.launches
-    for args in ((0, 0, 8, 16), (0, 8, 4, 16), ((1 << 31) - 64, 8, 32, 24), (0, 8, 16, 0)):
+    lo_nodes = np.asarray(local[1:], dtype=np.int32)
+    card = torch.device("cuda", torch.cuda.current_device())
+    sharded = _mesh_sweep([card] * 4, q, d, lo_nodes, mask, frozen, 1 << 6)
+    launches = sweep_mesh.launches
+    with pytest.raises(KernelLimitError, match="2\\^31 index ceiling"):
+        sharded.program((1 << 31) - (1 << 8), 2)
+    for share in ([(card, (1 << 31) - 64, 128)], [(card, 0, 0)]):
         with pytest.raises(KernelLimitError):
-            sweep_sharded(fused, *args)
-    assert sweep_sharded.launches == launches
+            sweep_mesh(sharded.cards, share)
+    with pytest.raises(ValueError, match="one range a card"):
+        sweep_mesh(sharded.cards, [(torch.device("cuda", card.index + 1), 0, 64)])
+    real = sweep_cuda._library()
+
+    class NoPeerPath:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        def qi_sweep_enable_peer(self, dev, peer):
+            return sweep_cuda.CUDA_ERROR_PEER_ACCESS_UNSUPPORTED
+
+    monkeypatch.setattr(sweep_cuda, "_library", NoPeerPath)
+    other = torch.device("cuda", card.index + 1)  # a stand-in: the peer check comes first
+    with pytest.raises(KernelLimitError, match="no peer access"):
+        MeshSweep([sharded.cards.sweeps[0], types.SimpleNamespace(device=other)])
+    assert sweep_mesh.launches == launches
 
 
 @pytest.mark.parametrize("name", ["trivial_broken.json", "nested_correct.json", "snapshot_broken.json"])
 def test_mesh_solve_on_card_matches_cpu_mesh(name, cuda_device):
     """Four ranks on the one card against four CPU ranks: the same verdict,
     witness, hit index and drive; K11 launched, K1 not."""
-    from quorum_intersection_tpu_torch.kernels.sweep_cuda import sweep_sharded
+    from quorum_intersection_tpu_torch.kernels.sweep_cuda import sweep_mesh
     from quorum_intersection_tpu_torch.parallel import candidate_mesh
 
     text = (FIXTURES / name).read_text()
-    fused, sharded = sweep_fused.launches, sweep_sharded.launches
+    fused, sharded = sweep_fused.launches, sweep_mesh.launches
     on_card = solve(text, backend=GpuSweepBackend(batch=1 << 12, mesh=candidate_mesh(devices=[cuda_device] * 4)))
     card_fused = sweep_fused.launches - fused
     on_cpu = solve(text, backend=GpuSweepBackend(device="cpu", batch=1 << 12, mesh=candidate_mesh(4, device="cpu")))
@@ -1519,7 +1573,7 @@ def test_mesh_solve_on_card_matches_cpu_mesh(name, cuda_device):
     assert (on_card.intersects, on_card.q1, on_card.q2) == (on_cpu.intersects, on_cpu.q1, on_cpu.q2)
     assert [on_card.stats.get(k) for k in keys] == [on_cpu.stats.get(k) for k in keys]
     if "candidates_checked" in on_card.stats:
-        assert sweep_sharded.launches > sharded and card_fused == 0
+        assert sweep_mesh.launches > sharded and card_fused == 0
         assert on_card.stats["mesh"]["devices"] == "cuda:0 x4"
 
 

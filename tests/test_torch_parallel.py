@@ -14,8 +14,12 @@ devices:
   packing, a checkpoint that resumes under a mesh;
 - ``AutoBackend(mesh=)``: the mesh reaches its sweeps and its frontier rung
   (the JAX ``test_auto_backend_forwards_mesh``), the pack gate is closed;
-- the plain sharded map against K1's plain contiguous program on the same
-  coverage; ``candidate_mesh``'s prefix and its error text;
+- ``card_shares``: the cards' contiguous shares tile a program once (one
+  card, four cards, a mesh that repeats two cards, two processes), the 2^31
+  ceiling raises before any launch; the plain mesh program (one range a
+  card) against K1's plain contiguous program and the JAX sharded step's
+  ``pmin``; the sweep's peer-access answers; ``candidate_mesh``'s prefix and
+  its error text;
 - the CLI's ``--mesh`` cases of the JAX ``tests/test_cli.py:146-190`` with
   ``--device cpu``, beside the JAX CLI.
 
@@ -28,6 +32,7 @@ import functools
 import io
 import json
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -47,19 +52,17 @@ from quorum_intersection_tpu_torch import cli
 from quorum_intersection_tpu_torch.backends.auto import AutoBackend
 from quorum_intersection_tpu_torch.backends.base import SearchCancelled
 from quorum_intersection_tpu_torch.backends.sweep import GpuSweepBackend
-from quorum_intersection_tpu_torch.encode.circuit import encode_circuit, restrict_circuit_pair
 from quorum_intersection_tpu_torch.fbas import synth
-from quorum_intersection_tpu_torch.fbas.graph import build_graph
-from quorum_intersection_tpu_torch.fbas.schema import parse_fbas
-from quorum_intersection_tpu_torch.kernels.sweep_cuda import sharded_last_index
-from quorum_intersection_tpu_torch.kernels.sweep_ref import SweepRef, sharded_indices
+from quorum_intersection_tpu_torch.kernels import sweep_cuda
+from quorum_intersection_tpu_torch.kernels.sweep_cuda import KernelLimitError, MeshSweep, sweep_fused, sweep_mesh
+from quorum_intersection_tpu_torch.kernels.sweep_ref import SweepRef
 from quorum_intersection_tpu_torch.parallel import CANDIDATE_AXIS, candidate_mesh
-from quorum_intersection_tpu_torch.parallel.mesh import CandidateMesh, mesh_pmin
+from quorum_intersection_tpu_torch.parallel.mesh import CandidateMesh, card_shares
 from quorum_intersection_tpu_torch.pipeline import check_many, solve
 from quorum_intersection_tpu_torch.utils import telemetry
 from quorum_intersection_tpu_torch.utils.checkpoint import SweepCheckpoint
 
-from _torch_cases import bearing_scc, fixture_data
+from _torch_cases import fixture_data, sweep_case
 
 torch.set_num_threads(1)
 
@@ -253,32 +256,118 @@ def test_auto_forwards_the_mesh_and_closes_pack_and_frontier(monkeypatch):
         assert got.stats.get("mesh", {}).get("ranks") == (None if m is None else 3)
 
 
+CARDS = [torch.device("cuda", i) for i in range(4)]  # device objects only: no card is touched
+# label: (local devices, processes)
+SHARE_MESHES = {
+    "cuda:0 x4": ((CARDS[0],) * 4, 1),
+    "cuda:0-3": (tuple(CARDS), 1),
+    "c0,c1,c0,c1": ((CARDS[0], CARDS[1], CARDS[0], CARDS[1]), 1),
+    "two processes x4": ((CARDS[0], CARDS[1], CARDS[1], CARDS[2]), 2),
+}
+
+
+@pytest.mark.parametrize("label", list(SHARE_MESHES))
+def test_card_shares_tile_a_program_once(label):
+    """Each process's cards take contiguous shares, home card first, each
+    card as many rows as its ranks cover; the processes' shares chain into
+    the program's range exactly once."""
+    devices, processes = SHARE_MESHES[label]
+    per_dev, steps = 5, 3
+    for start in (0, 7, (1 << 31) - per_dev * steps * len(devices) * processes):
+        spans = []
+        for p in range(processes):
+            mesh = CandidateMesh(devices=devices, process_index=p, process_count=processes)
+            shares = card_shares(mesh, per_dev, steps, start)
+            assert [d for d, _, _ in shares] == list(dict.fromkeys(devices)) and shares[0][0] == mesh.home
+            assert [rows for _, _, rows in shares] == [devices.count(d) * per_dev * steps for d, _, _ in shares]
+            assert shares[0][1] == start + p * len(devices) * per_dev * steps
+            spans += [(first, first + rows) for _, first, rows in shares]
+        assert spans[0][0] == start and spans[-1][1] == start + steps * per_dev * len(devices) * processes
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))  # no gap, no overlap
+
+
+@pytest.mark.parametrize("start, processes", [((1 << 31) - 40, 1), (-5, 1), ((1 << 31) - 100, 2)])
+def test_index_ceiling_raises_before_any_launch(start, processes, monkeypatch):
+    """A program whose range crosses 2^31 (or starts below 0) raises
+    ``KernelLimitError`` on every process, the one whose own share fits
+    too, before any card or plain program runs."""
+    devices = (CARDS[0], CARDS[1]) * 2
+    for p in range(processes):
+        with pytest.raises(KernelLimitError, match="2\\^31 index ceiling"):
+            card_shares(CandidateMesh(devices=devices, process_index=p, process_count=processes), 5, 4, start)
+    monkeypatch.setattr(MeshSweep, "program", lambda *a, **k: pytest.fail("a mesh program ran past the ceiling"))
+    sc = sweep_case("bench-broken:0")
+    (q, d) = sc.pair
+    lo_nodes = np.arange(1, q.n, dtype=np.int32)
+    mesh = CandidateMesh(devices=(torch.device("cpu"),) * 4, process_count=processes)  # process 0
+    backend = GpuSweepBackend(device="cpu", mesh=mesh)
+    _, sharded = backend._build_sharded_step(q, lo_nodes, np.ones(q.n, dtype=np.int32), None, 5 * mesh.size,
+                                             circuit_d=d)
+    launches = sweep_fused.launches, sweep_mesh.launches
+    with pytest.raises(KernelLimitError):
+        sharded.program(start, 4)
+    assert (sweep_fused.launches, sweep_mesh.launches) == launches
+
+
 @pytest.mark.parametrize("n", [2, 3, 8])
-def test_plain_sharded_map_equals_contiguous_program(n):
-    """Over one program of ``steps`` blocks, the ranks' sharded minima meet
-    at K1's plain contiguous minimum over the same coverage, and the ranks'
-    rows tile that coverage exactly once."""
-    graph = build_graph(parse_fbas(synth.benchmark_fbas(40, 9, broken=True, seed=2)))
-    scc = bearing_scc(graph)
-    q, d = restrict_circuit_pair(encode_circuit(graph), scc)
-    lo_nodes = np.arange(1, len(scc), dtype=np.int32)
-    mask = np.ones(len(scc), dtype=np.int32)
+def test_plain_mesh_program_equals_k1_and_jax_pmin(n):
+    """One program of ``steps`` blocks on an ``n``-rank CPU mesh (the one
+    card's range through the plain version) equals K1's plain contiguous
+    program over the same coverage and the JAX sharded step's ``pmin`` on
+    its ``n`` emulated devices, with the same ``base_block``."""
+    sc = sweep_case("bench-nested-broken:0")  # an SCC of 9: 2^8 candidates
+    (jq, jd), (q, d) = sc.jax_pair, sc.pair
+    lo_nodes = np.arange(1, q.n, dtype=np.int32)
+    mask = np.ones(q.n, dtype=np.int32)
     per_dev, steps = 5, 4
-    base = per_dev * n
-    ref = SweepRef(q, lo_nodes, mask, None, per_dev, d)
+    backend = GpuSweepBackend(device="cpu", mesh=candidate_mesh(n, device="cpu"))
+    base, sharded = backend._build_sharded_step(q, lo_nodes, mask, None, per_dev * n, circuit_d=d)
+    jax_base, make_dispatch = TpuSweepBackend(mesh=jax_candidate_mesh(n))._build_sharded_step(
+        jq, lo_nodes, mask, None, per_dev * n, circuit_d=jd)
+    assert base == jax_base == per_dev * n
+    jax_program = make_dispatch(steps)
     contiguous = SweepRef(q, lo_nodes, mask, None, base, d)
     hits = 0
-    for start in (0, 7, 40, (1 << (len(scc) - 1)) - steps * base):
-        ranks = [ref.sharded_program(start + g * per_dev, per_dev, base, steps) for g in range(n)]
-        got = mesh_pmin(candidate_mesh(n, device="cpu"), ranks)
-        assert int(got) == int(contiguous.program(start, steps))
-        hits += int(got) != 2**31 - 1
-        rows = torch.cat([sharded_indices(start + g * per_dev, per_dev, base, 0, steps * per_dev,
-                                          torch.device("cpu")) for g in range(n)])
-        assert sorted(rows.tolist()) == list(range(start, start + steps * base))
-        last = sharded_last_index(start + (n - 1) * per_dev, per_dev, base, steps * per_dev)
-        assert last == start + steps * base - 1
+    for start in (0, 7, 40, (1 << (q.n - 1)) - steps * base):
+        got = int(sharded.program(start, steps))
+        assert got == int(contiguous.program(start, steps)) == int(jax_program(start)), start
+        hits += got != 2**31 - 1
     assert hits  # windows with a hit among them
+
+
+@pytest.mark.parametrize("code", [0, 217, 999])
+def test_sweep_peer_access_codes_map_to_errors(monkeypatch, code):
+    """``sweep_cuda.enable_peer_access`` maps the library's answer: no peer
+    path (``cudaErrorPeerAccessUnsupported``) is a ``KernelLimitError``
+    naming peer access, any other fault a ``RuntimeError`` naming the CUDA
+    error, success nothing.  A ``MeshSweep`` over two cards asks it first,
+    before it touches a card's tables."""
+
+    class Library:
+        calls = []
+
+        def qi_sweep_enable_peer(self, dev, peer):
+            self.calls.append((dev, peer))
+            return code
+
+        def qi_cuda_error_string(self, err):
+            return f"cuda error {err}".encode()
+
+    monkeypatch.setattr(sweep_cuda, "_library", Library)
+    a, b = CARDS[0], CARDS[1]
+    if code == 217:
+        with pytest.raises(KernelLimitError, match="no peer access from cuda:1 to cuda:0"):
+            MeshSweep([types.SimpleNamespace(device=a), types.SimpleNamespace(device=b)])
+    elif code:
+        with pytest.raises(RuntimeError, match=f"cuda error {code}"):
+            sweep_cuda.enable_peer_access(b, a)
+    else:
+        sweep_cuda.enable_peer_access(b, a)
+    assert Library.calls == [(1, 0)]
+    with pytest.raises(ValueError, match="one sweep a card"):
+        MeshSweep([types.SimpleNamespace(device=a)] * 2)
+    with pytest.raises(ValueError, match="all CUDA devices or one CPU"):
+        MeshSweep([types.SimpleNamespace(device=torch.device("cpu")), types.SimpleNamespace(device=a)])
 
 
 def test_candidate_mesh_prefix_and_errors():
