@@ -16,6 +16,7 @@
     python3 chip_smoke.py --mesh         # build, then only the mesh phases (35-36) and their certificates
     python3 chip_smoke.py --mesh --k1-parent DIR        # ... and DIR's K1 in turns with this one on the mesh window
     python3 chip_smoke.py --frontier-mesh    # build, then only the frontier's mesh phase (36) and its certificates
+    python3 chip_smoke.py --frontier --frontier-parent DIR  # ... and DIR's frontier kernels in turns with this one's
 
 Phases, one line each, each with its wall ``seconds`` (any failure exits
 non-zero and prints no ``ok`` line):
@@ -177,20 +178,26 @@ non-zero and prints no ``ok`` line):
               iterations a chunk), four ``random_fbas(14)``, the spill
               configuration ``hierarchical_fbas(4, 3)`` at arena 64 / pop 16 on
               both instances, the restricted ``benchmark_fbas(64, 14, seed=1)``
-              and three default chunks of the wide networks (s 24 to 64).  Each
+              and three default chunks of the wide networks (s 24 to 64), two
+              of each network past 64 lanes (the broken stellar 22x3 and 42x3
+              on both instances, stellar 30x3, random_fbas(96 | 128)).  Each
               chunk's exit (empty stack, chunk_iters, flag_exit, the overflow
               guard): every one on each instance, or the phase fails.  K10 also
               on a block of sets over 16 members, off a multiple of 16
               (``tests/_torch_frontier_blocks.wide_flag_block``), on every
               network past 16 lanes;
 20. frontier — ``python -m quorum_intersection_tpu_torch --backend
-              gpu-frontier --cert-out`` on the broken ``stellar_like_fbas(21,
-              3)`` (scc 63, past the sweep's reach) and ``--checkpoint`` on
+              gpu-frontier --cert-out`` on the broken ``stellar_like_fbas(21 |
+              42, 3)`` (scc 63, past the sweep's reach, and 126, two words a
+              state) and ``--checkpoint`` on
               ``hierarchical_fbas(6, 4)``, as processes; then
               ``GpuFrontierBackend`` in process on the seven fixtures,
               ``majority_fbas(18)`` and its broken twin, ``hierarchical_fbas(6,
               4)`` and ``(8, 4)`` (scc 32, full size) and the broken
-              ``stellar_like_fbas(16 | 21, 3)`` (scc 48 and 63) (K9 and K10
+              ``stellar_like_fbas(16 | 21 | 22 | 42, 3)`` (scc 48, 63, 66
+              and 126), then the pinned JAX cases past 64 lanes and under
+              ``pad_shapes=False`` at their constants, every pinned count
+              equal (``FRONTIER_PINNED``) (K9 and K10
               launch counts reset before, read after, and
               CUDA events around every launch): verdicts, witnesses re-checked,
               popped and flagged counts equal to the enumeration's exact ones,
@@ -198,18 +205,23 @@ non-zero and prints no ``ok`` line):
               resume on the card;
 21. frontier_route — ``gpu-frontier`` against the native oracle on the same
               host (the oracle cut at ``ORACLE_CAP_S``) on hier 6x4, 7x4, 8x4 and
-              the two wide broken twins; the win region by the JAX rule beside
+              the broken stellar 16x3, 21x3 and 42x3; the win region by the JAX rule beside
               the one committed in ``backends/calibration.py``;
 22. timing_frontier — at ``hierarchical_fbas(8, 4)``'s shape (s 32, K 2048):
               K9 by CUDA events per 1-, 33- and 512-iteration chunk from a
               mid-search state; the clock64() breakdown of an iteration by K9's
               timed instance; K10 per 10 240-flag block of its own flags (on
               the device alone and back to back) and its event ms inside the
-              hier-8x4 solve; with ``--k10-parent DIR``, K10's body against
-              the one in DIR's tree, in turns on a side stream; the plain
-              versions' ms and each bound (the fixpoint passes the rows take
-              times the nonzero votes at the int8 peak, against the chunk's
-              source rows read once and its rows and flags written once);
+              hier-8x4 solve; with ``--frontier-parent DIR``, DIR's frontier
+              kernels in turns with this tree's (K9's 33-iteration chunk, the
+              mesh-chunk instance's iteration on 4 ranks, K10's body on a
+              side stream) and both builds' ptxas registers and spills; the
+              plain versions' ms and each bound (the fixpoint passes the rows
+              take times the nonzero votes at the int8 peak, against the
+              chunk's source rows read once and its rows and flags written
+              once); then K9 and K10 at two words a state, at the broken
+              stellar 42x3's shape (s 126, s_dev 128, 192 units), from its
+              own search, beside their plain versions and bounds;
 23. compare_bitset — the unpacked bitset sweep (K8) against its plain
               version, exact, on every instance that takes the case (the
               lane instance up to 128 units, the warp instance resident
@@ -415,7 +427,9 @@ non-zero and prints no ``ok`` line):
               card, NCCL on two), their solves equal to the single-process
               solve's; the iteration's time on 1, 2 and 4 ranks beside K9's
               per iteration, the plain version, the gather alone and the
-              bound;
+              bound; the broken stellar 42x3 (126 lanes, two words a state)
+              in the comparison, the 4-rank solves, the two processes and
+              both instances' time an iteration on 4 ranks;
 37. cert    — every certificate the runs above produced (CLI ``--cert-out``
               under auto, gpu-sweep and gpu-frontier, ``solve`` and
               ``check_many`` on both engines, pruned, rank-ordered and
@@ -1796,7 +1810,22 @@ def frontier_networks(synth):
         ("hierarchical_fbas(8,4)", synth.hierarchical_fbas(8, 4), True),
         ("stellar_like_fbas(16,3,broken)", synth.stellar_like_fbas(16, 3, broken=True), False),
         ("stellar_like_fbas(21,3,broken)", synth.stellar_like_fbas(21, 3, broken=True), False),
+        # Past 64 lanes: 66 and 126, two words a state.
+        *wide_networks(synth),
     ]
+
+
+def wide_networks(synth):
+    """The frontier's networks past 64 SCC lanes (the kernels' two-word
+    instances): ``(label, source, expected verdict)``."""
+    return [("stellar_like_fbas(22,3,broken)", synth.stellar_like_fbas(22, 3, broken=True), False),
+            ("stellar_like_fbas(42,3,broken)", synth.stellar_like_fbas(42, 3, broken=True), False)]
+
+
+# The pinned JAX cases (tests/_torch_frontier_jax.json) phase frontier holds
+# gpu-frontier's counts to on the card, at their constants: the wide twins,
+# padded and not.
+FRONTIER_PINNED = ("stellar-22x3-broken", "stellar-42x3-broken", "stellar-22x3-broken-unpadded", "hier-5x3-unpadded")
 
 
 def frontier_setup(src, device, arena, pop, stream=None, chunk_iters=512):
@@ -2068,29 +2097,133 @@ def k9_breakdown(kern, state, dst, far, want, ms_per_iteration, reps=10):
             "of": "clock64() of warp 0 of block 0 over 33-iteration chunks from the timed state"}
 
 
-def k10_bodies(kern, block, count, want, parent_tree, work):
-    """K10's body against the one in another tree's ``frontier.cu`` (the
-    checkout at ``parent_tree``), both through the same C call on one side
-    stream, in turns (the other tree's, this one's, this one's through its
-    wrapper, and back in the reverse order): ms a block on the device alone
-    (20 calls behind a stream spin) and back to back (50 calls), each turn's
-    result held against the plain version's ``want``."""
+def parent_frontier_library(parent_tree, work):
+    """The other tree's ``frontier.cu`` (the checkout at ``parent_tree``)
+    built with this tree's ``nvcc`` flags and typed as this tree's library
+    (the C interface is unchanged): ``(library, its source, nvcc's
+    output)``."""
     import ctypes
-
-    import torch
 
     from quorum_intersection_tpu_torch.kernels import build, frontier_cuda
 
     src = pathlib.Path(parent_tree) / PORT / "kernels" / "csrc" / "frontier.cu"
     lib_path = work / "parent_frontier.so"
+    t = time.perf_counter()
     proc = subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(lib_path), str(src)],
                           capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         fail("timing_frontier", f"nvcc refused {src}: {(proc.stdout + proc.stderr)[-2000:]}")
-    libs = {"parent": ctypes.CDLL(str(lib_path)), "this": frontier_cuda._library()}
-    p, i = ctypes.c_void_p, ctypes.c_int
-    libs["parent"].qi_frontier_filter.argtypes = [p, p, p, p] + [i] * 10 + [p, i, p, p]
-    libs["parent"].qi_frontier_filter.restype = i
+    phase_line("parent_build", source=str(src), seconds=round(time.perf_counter() - t, 3))
+    return frontier_cuda.typed_library(ctypes.CDLL(str(lib_path))), src, proc.stdout + proc.stderr
+
+
+def frontier_instance_key(name: str):
+    """A frontier kernel instance's (kernel, table source, one child slab,
+    words a state, timed) from its name, demangled (``true`` or ``(bool)1``)
+    or mangled (a tree without the words parameter: 1), or None."""
+    import re
+
+    m = re.search(r"(\w+_kernel)<(?:qi_warp::)?(Resident|Streamed), ([^>]*)>", name)
+    if m is not None:
+        args = [a.strip() for a in m.group(3).split(",")]
+        flags = [a in ("true", "(bool)1") for a in args if a in ("true", "false", "(bool)1", "(bool)0")]
+        words = [int(re.sub(r"\D", "", a)) for a in args if a not in ("true", "false", "(bool)1", "(bool)0")]
+    else:
+        m = re.search(r"\d+((?:mesh_)?chunk_kernel|iteration_kernel|filter_kernel)IN7qi_warp\d+(Resident|Streamed)E"
+                      r"((?:L[bi]\d+E)+)", name)
+        if m is None:
+            return None
+        args = re.findall(r"L([bi])(\d+)E", m.group(3))
+        flags = [v == "1" for kind, v in args if kind == "b"]
+        words = [int(v) for kind, v in args if kind == "i"]
+    return m.group(1), m.group(2), flags[0], words[0] if words else 1, len(flags) > 1 and flags[1]
+
+
+def frontier_parent_turns(kern, prob, shape, state, far, block, count, want, parent_tree, work):
+    """This tree's frontier kernels against the other tree's at hier-8x4's
+    shape, in turns (the other tree's, this one's, this one's, the other
+    tree's): K9's 33-iteration chunk from the timed state, the mesh-chunk
+    instance's time an iteration on 4 ranks of the card (its 1- and
+    33-iteration chunks), both through this tree's wrappers with the other
+    tree's library swapped in and each turn's result held to this tree's;
+    K10's body (:func:`k10_bodies`); and ptxas's registers and spills of
+    every one-word instance in both builds."""
+    import torch
+
+    from quorum_intersection_tpu_torch.kernels import build, frontier_cuda
+
+    lib, src, parent_log = parent_frontier_library(parent_tree, work)
+    libs = {"parent": lib, "this": frontier_cuda._library()}
+    dst = kern.arena()
+    card = frontier_cuda.CardState.empty(shape.K, 4, range(4), state, kern.arena())
+
+    def k9():
+        kern.shape.chunk_iters = 33
+        frontier_cuda.frontier_chunk(kern, state, dst, far)
+
+    def mesh(iters):
+        kern.shape.chunk_iters = iters
+        frontier_cuda.frontier_mesh_chunk([kern], [card], far)
+
+    def result():
+        torch.cuda.synchronize()
+        frontier_cuda.mesh_chunk_status([card])
+        top, fc = dst.ctr.tolist()[:2]
+        m_top = card.dst.ctr.tolist()[0]
+        return (dst.ctr.tolist(), dst.T[:top].clone(), dst.D[:top].clone(), dst.flags[:fc].clone(),
+                card.dst.ctr.tolist(), card.dst.T[:m_top].clone(), card.dst.D[:m_top].clone())
+
+    turns = {who: {"k9_ms_33_iterations": [], "mesh_chunk_ms_per_iteration_4_ranks": []} for who in libs}
+    results = {}
+    own = frontier_cuda._library
+    try:
+        for who in ("parent", "this", "this", "parent"):
+            frontier_cuda._library = lambda lib=libs[who]: lib
+            turns[who]["k9_ms_33_iterations"].append(time_ms(k9, 10))
+            m1, m33 = time_ms(lambda: mesh(1), 20), time_ms(lambda: mesh(33), 10)
+            turns[who]["mesh_chunk_ms_per_iteration_4_ranks"].append((m33 - m1) / 32)
+            k9()
+            mesh(33)
+            results[who] = result()
+    finally:
+        frontier_cuda._library = own
+        kern.shape.chunk_iters = 512
+    same = all(a == b if isinstance(a, list) else torch.equal(a, b)
+               for a, b in zip(results["parent"], results["this"]))
+    if not same:
+        fail("timing_frontier", "the other tree's K9 or mesh-chunk instance differs from this tree's at hier-8x4")
+    this_log = build.build_all(["frontier"])["frontier"].log
+    listed = {who: ptxas_instances(log) for who, log in (("parent", parent_log), ("this", this_log))}
+    ptx = {who: {frontier_instance_key(r["kernel"]): r for r in rows} for who, rows in listed.items()}
+    unnamed = [r["kernel"] for rows in listed.values() for r in rows if frontier_instance_key(r["kernel"]) is None]
+    instances = []
+    for key, this_row in sorted(((k, r) for k, r in ptx["this"].items() if k and k[3] == 1), key=str):
+        parent_row = ptx["parent"].get(key)
+        instances.append({"instance": "{}<{}, one slab {}, W {}, timed {}>".format(*key),
+                          "this": {k: this_row.get(k) for k in ("registers", "spill_stores", "spill_loads")},
+                          "parent": None if parent_row is None else {
+                              k: parent_row.get(k) for k in ("registers", "spill_stores", "spill_loads")}})
+    return {"order": "parent, this, this, parent", "turns": turns, "results_equal": same,
+            "K10_bodies": k10_bodies(kern, block, count, want, libs["parent"], src),
+            "ptxas_one_word_instances": instances,
+            "ptxas_rows": {who: len(rows) for who, rows in listed.items()}, "ptxas_unnamed": unnamed[:4],
+            "two_word_instances": [{"instance": "{}<{}, one slab {}, W {}, timed {}>".format(*k), **r}
+                                   for k, r in ptx["this"].items() if k and k[3] == 2],
+            "of": f"the other tree's frontier.cu from {src}"}
+
+
+def k10_bodies(kern, block, count, want, parent_lib, parent_src):
+    """K10's body against the other tree's (``parent_lib``, built from
+    ``parent_src``), both through the same C call on one side stream, in
+    turns (the other tree's, this one's, this one's through its wrapper,
+    and back in the reverse order): ms a block on the device alone (20
+    calls behind a stream spin) and back to back (50 calls), each turn's
+    result held against the plain version's ``want``."""
+    import torch
+
+    from quorum_intersection_tpu_torch.kernels import frontier_cuda
+
+    libs = {"parent": parent_lib, "this": frontier_cuda._library()}
     t = kern.tables
     init = torch.tensor([0, block.shape[0]], dtype=torch.int32, device=block.device)
     out = torch.empty_like(init)
@@ -2101,7 +2234,7 @@ def k10_bodies(kern, block, count, want, parent_tree, work):
         out.copy_(init)
         err = lib.qi_frontier_filter(
             t.blocks.data_ptr(), t.chunks.data_ptr(), t.neg_thresholds.data_ptr(), kern.neg_thr_d.data_ptr(),
-            t.n, t.n_units, t.units, t.depth, t.c0, t.slabs, t.pc, t.nblocks, int(t.stream), kern.s,
+            t.n, t.n_units, t.units, t.depth, t.c0, t.slabs, t.pc, t.nblocks, int(t.stream), kern.pitch,
             block.data_ptr(), count, out.data_ptr(), side.cuda_stream)
         if err != 0:
             fail("timing_frontier", f"K10 body launch failed: {lib.qi_cuda_error_string(err).decode()}")
@@ -2127,15 +2260,16 @@ def k10_bodies(kern, block, count, want, parent_tree, work):
                     arms[who]()
                 torch.cuda.synchronize()
             res[who]["profiler_device_ms_10_calls"] = device_ms_by_kernel(prof)
-    res["of"] = f"{count} flags of hierarchical_fbas(8,4); the other tree's body from {src}"
+    res["of"] = f"{count} flags of hierarchical_fbas(8,4); the other tree's body from {parent_src}"
     return res
 
 
-def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, k10_parent=None):
+def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, frontier_parent=None):
     """Phases compare_frontier, frontier, frontier_route and
-    timing_frontier; returns the K9 and K10 records of the kernels line.
-    ``k10_parent``: a checkout whose K10 body timing_frontier times in turns
-    with this one's."""
+    timing_frontier; returns the K9 and K10 records of the kernels line,
+    each kernel's one-word and two-word instances.  ``frontier_parent``: a
+    checkout whose frontier kernels timing_frontier times in turns with this
+    one's at hier-8x4's shape (:func:`frontier_parent_turns`)."""
     import numpy as np
     import torch
 
@@ -2175,6 +2309,16 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, 
         ("random_fbas(48,seed=0,slice_size=12) defaults, 3 chunks", synth.random_fbas(48, seed=0, slice_size=12),
          1 << 18, 2048, 3, None),
         ("random_fbas(64,seed=0) defaults, 3 chunks", synth.random_fbas(64, seed=0), 1 << 18, 2048, 3, None),
+        # Past 64 lanes, two words a state: the wide broken twins on both
+        # instances, an intersecting 90-lane network, and SCCs of 96 and 128
+        # lanes whose in-degrees differ.
+        *[(f"stellar_like_fbas({orgs},3,broken) defaults, 2 chunks{' streamed' if st else ''}",
+           synth.stellar_like_fbas(orgs, 3, broken=True), 1 << 18, 2048, 2, st)
+          for orgs in (22, 42) for st in (None, True)],
+        ("stellar_like_fbas(30,3) defaults, 2 chunks", synth.stellar_like_fbas(30, 3), 1 << 18, 2048, 2, None),
+        ("random_fbas(96,seed=0) defaults, 2 chunks", synth.random_fbas(96, seed=0), 1 << 18, 2048, 2, None),
+        ("random_fbas(128,seed=0) defaults, 2 chunks streamed", synth.random_fbas(128, seed=0), 1 << 18, 2048, 2,
+         True),
     ]
     sys.path.insert(0, str(ROOT / "tests"))
     from _torch_frontier_blocks import EXIT_REASONS, wide_flag_block
@@ -2215,10 +2359,11 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, 
 
     # -- frontier: the CLI and GpuFrontierBackend in process ----------------
     nets = [(name, texts[name], manifest[name]["verdict"]) for name in manifest] + frontier_networks(synth)
-    # The CLI as a process once a flag path: --cert-out on the widest broken
-    # twin (scc 63, past the sweep's reach), --checkpoint on hier 6x4; every
-    # network then runs through GpuFrontierBackend in process below.
-    cli_nets = [net for net in nets if net[0] == "stellar_like_fbas(21,3,broken)"]
+    # The CLI as a process once a flag path: --cert-out on the broken twins of
+    # scc 63 (past the sweep's reach) and 126 (past one-word states),
+    # --checkpoint on hier 6x4; every network then runs through
+    # GpuFrontierBackend in process below.
+    cli_nets = [net for net in nets if net[0] in ("stellar_like_fbas(21,3,broken)", "stellar_like_fbas(42,3,broken)")]
     cmds, inputs = [], []
     for i, (label, src, _) in enumerate(cli_nets):
         cmds.append([sys.executable, "-m", PORT, "--backend", "gpu-frontier", "--cert-out",
@@ -2270,6 +2415,30 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, 
                 row["counts"] = "equal to the enumeration's exact count"
             cert_jobs.append((f"frontier/solve/{label}", src, res.cert))
             runs[label] = row
+        # The pinned JAX cases past 64 lanes and off the pad ladder, at their
+        # constants: verdict, witness and every pinned statistic.
+        import _torch_frontier_pin as pin
+
+        pins = json.loads(pin.PIN.read_text())
+        for name in FRONTIER_PINNED:
+            label = f"{name} (pinned constants {pin.CASES[name][3]})"
+            src = pin.case_data(name, synth)
+            since = timer.mark()
+            t = time.perf_counter()
+            res = solve(src, backend=GpuFrontierBackend(**pin.CASES[name][3]))
+            seconds = time.perf_counter() - t
+            spans[label] = (since, timer.mark())
+            # The pins ran the host flag check (JAX on the CPU); here K10
+            # checks the flags, so the check counts are not compared.
+            keys = [k for k in pin.STAT_KEYS if k not in ("host_checks", "device_flag_checks", "minimal_quorums")]
+            got = {"intersects": bool(res.intersects), "q1": res.q1, "q2": res.q2,
+                   "stats": {k: res.stats.get(k) for k in keys}}
+            want_pin = {**pins[name], "stats": {k: pins[name]["stats"][k] for k in keys}}
+            if got != want_pin:
+                fail("frontier", f"{name}: gpu-frontier gives {got}, the JAX pin {want_pin}")
+            cert_jobs.append((f"frontier/pinned/{name}", src, res.cert))
+            runs[label] = {**{k: res.stats.get(k) for k in pin.STAT_KEYS}, "verdict": res.intersects,
+                           "solve_seconds": seconds, "counts": f"equal to the JAX pin: {', '.join(keys)}"}
     main_ms = timer.ms()
     for label, (since, until) in spans.items():
         runs[label]["device_ms_by_kernel"] = timer.ms(since, until)
@@ -2278,6 +2447,14 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, 
     for name, n in launches.items():
         if n < 1:
             fail("frontier", f"the main path never launched {name}")
+    # The two-word instances' launches: the runs past 64 lanes.
+    wide_labels = [label for label, _, _ in wide_networks(synth)] + [
+        label for label in runs if label.startswith(("stellar-22x3", "stellar-42x3"))]
+    wide_launches = {name: sum(runs[label]["launches_by_kernel"][name] for label in wide_labels)
+                     for name in launches}
+    for name, n in wide_launches.items():
+        if n < 1:
+            fail("frontier", f"the main path past 64 lanes never launched {name}")
     # A kill and a resume on the card: same verdict, the frontier picked up.
     from quorum_intersection_tpu_torch.backends.frontier import FrontierSearchInterrupted
     from quorum_intersection_tpu_torch.utils.checkpoint import FrontierCheckpoint
@@ -2292,7 +2469,8 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, 
     resumed = solve(synth.hierarchical_fbas(5, 3), backend=GpuFrontierBackend(arena=8192, pop=256, checkpoint=ck))
     if resumed.intersects is not True or not resumed.stats.get("resumed_states"):
         fail("frontier", f"checkpoint resume on the card: {resumed.intersects}, {resumed.stats}")
-    phase_line("frontier", card=card, launches=launches, main_path_device_ms=main_ms,
+    phase_line("frontier", card=card, launches=launches, launches_past_64_lanes=wide_launches,
+               main_path_device_ms=main_ms,
                main_path_device_ms_by="CUDA events around every launch", runs=runs, cli=cli_rows,
                cli_wall_seconds=cli_wall, resume={"resumed_states": resumed.stats["resumed_states"],
                                                   "states_popped": resumed.stats["states_popped"]})
@@ -2304,6 +2482,7 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, 
         ("hierarchical_fbas(8,4)", synth.hierarchical_fbas(8, 4), True),
         ("stellar_like_fbas(16,3,broken)", synth.stellar_like_fbas(16, 3, broken=True), False),
         ("stellar_like_fbas(21,3,broken)", synth.stellar_like_fbas(21, 3, broken=True), False),
+        ("stellar_like_fbas(42,3,broken)", synth.stellar_like_fbas(42, 3, broken=True), False),
     ]
     route_rows = []
     for label, src, want in route_nets:
@@ -2423,8 +2602,9 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, 
     probe_passes = int(fixpoint_passes(plain.probe_tables, rows_in_circuit(plain.probe_tables, plain.scc_idx,
                                                                             probe))[1].sum())
     k10_bound, k10_by = bound((loo_passes + probe_passes) * macs, count * prob.s_dev + 8)
-    if k10_parent is not None:
-        timing["K10_bodies"] = k10_bodies(kern, block, count, want, k10_parent, work)
+    if frontier_parent is not None:
+        timing["parent_in_turns"] = frontier_parent_turns(kern, prob, shape, state, far, block, count, want,
+                                                          frontier_parent, work)
     hier = runs["hierarchical_fbas(8,4)"]
     timing["K10"] = {"flags": count, "block": shape.flag_cap, "ms": k10_ms,
                      "ms_of": "50 launches back to back (CUDA events)", "ms_device_alone": k10_alone,
@@ -2433,6 +2613,7 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, 
                      "loo_rows": int(loo.shape[0]), "fixpoint_passes": loo_passes + probe_passes,
                      "in_hier_8x4_solve_ms": hier["device_ms_by_kernel"]["frontier_filter_cuda"],
                      "in_hier_8x4_solve_launches": hier["launches_by_kernel"]["frontier_filter_cuda"]}
+    timing["K9_w2"], timing["K10_w2"] = wide_timing(device, synth)
     phase_line("timing_frontier", card=card, timing=timing,
                bound="fixpoint passes x nonzero votes at the int8 peak against, at 3.35 TB/s, K9's source rows "
                      "read once and its rows and flags written once, K10's flag rows read once")
@@ -2455,7 +2636,120 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, 
          "main_path_device_ms": main_ms["frontier_filter_cuda"],
          "main_path_device_ms_of": "phase frontier, GpuFrontierBackend in process (CUDA events)"},
     ]
+    # The two-word instances (65-128 lanes), timed at broken
+    # stellar_like_fbas(42,3)'s shape, their launches the runs past 64 lanes.
+    for base, w2, of in ((records[0], timing["K9_w2"], "one 33-iteration chunk"),
+                         (records[1], timing["K10_w2"], f"one {timing['K10_w2']['flags']}-flag block")):
+        records.append({**{k: base[k] for k in ("route", "source", "replaces", "max_abs_err", "library_ms")},
+                        "name": base["name"] + "_w2", "launches": wide_launches[base["name"]],
+                        "ms": w2["ms"], "plain_ms": w2["plain_ms"], "bound_ms": w2["bound_ms"],
+                        "bound_by": w2["bound_by"], "x_bound": w2["ms"] / w2["bound_ms"],
+                        "ms_of": f"{of} at stellar_like_fbas(42,3,broken)'s shape: {w2['shape']}",
+                        "launches_of": "phase frontier's runs past 64 lanes: " + ", ".join(wide_labels)})
     return records
+
+
+def wide_timed_state(device, synth, phase):
+    """The two-word instances' timed state: broken stellar_like_fbas(42,3)
+    set up at the JAX constants and one chunk of 40 iterations from its seed
+    (a flag exit no chunk reaches); ``(prob, shape, kern, plain, state, its
+    top, that flag exit)``."""
+    from quorum_intersection_tpu_torch.kernels import frontier_cuda
+
+    prob, shape, kern, plain = frontier_setup(synth.stellar_like_fbas(42, 3, broken=True), device, 1 << 18, 2048)
+    far = shape.flag_cap - shape.K
+    state = kern.arena()
+    kern.shape.chunk_iters = 40
+    frontier_cuda.frontier_chunk(kern, frontier_seed(kern, prob), state, far)
+    top = state.ctr.tolist()[0]
+    if top <= shape.K:
+        fail(phase, f"the 128-lane timed state holds {top} states, not more than a pop")
+    return prob, shape, kern, plain, state, top, far
+
+
+def wide_timing(device, synth):
+    """K9 and K10 at two words a state, at broken stellar_like_fbas(42,3)'s
+    shape (126 lanes padded to 128, 192 units, K 2048), from its own search:
+    K9's 1- and 33-iteration chunks from the state 40 iterations after the
+    seed (held to the plain chunk), K10 on the flags its whole search
+    writes, each with its plain version and bound."""
+    import torch
+
+    from quorum_intersection_tpu_torch.kernels import frontier_cuda
+    from quorum_intersection_tpu_torch.kernels.frontier_ref import rows_in_circuit
+    from quorum_intersection_tpu_torch.kernels.sweep_ref import fixpoint_passes
+
+    prob, shape, kern, plain, state, top, far = wide_timed_state(device, synth, "timing_frontier")
+    dst = kern.arena()
+
+    def k9(iters):
+        kern.shape.chunk_iters = iters
+        frontier_cuda.frontier_chunk(kern, state, dst, far)
+
+    t1, t33 = time_ms(lambda: k9(1), 20), time_ms(lambda: k9(33), 10)
+    d1, d33 = device_ms(lambda: k9(1), 10), device_ms(lambda: k9(33), 10)
+    k9(33)
+    pdst = kern.arena()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    plain.chunk(state, pdst, far)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    kern.shape.chunk_iters = 512
+    p_top, p_fc = pdst.ctr.tolist()[:2]
+    if dst.ctr.tolist() != pdst.ctr.tolist() or not (
+        torch.equal(dst.T[:p_top], pdst.T[:p_top]) and torch.equal(dst.D[:p_top], pdst.D[:p_top])
+        and torch.equal(dst.flags[:p_fc], pdst.flags[:p_fc])
+    ):
+        fail("timing_frontier", f"K9's 128-lane 33-iteration chunk differs from the plain chunk: counters "
+                                f"{dst.ctr.tolist()} against {pdst.ctr.tolist()}, or its rows or flags")
+    iters = dst.ctr.tolist()[2]
+    _, _, passes, _ = k9_replay(prob, shape, plain, state, top, 33)
+    macs = macs_per_pass(prob.circuit)
+    b_ms, b_by = bound(passes * macs, k9_least_bytes(prob, kern, top, p_top, p_fc))
+    shape_text = (f"s={prob.s} (s_dev {prob.s_dev}, {kern.st_T.numel() // (2 * frontier_cuda.stash_rows(shape.K))} "
+                  f"words a state), units {prob.circuit.n_units}, K={shape.K}, C={shape.C}, top {top}")
+    k9_row = {"shape": shape_text, "instance": instance_of(kern), "grid_blocks": kern.grid, "ms": t33,
+              "ms_1_iteration_chunk": t1, "ms_per_iteration": (t33 - t1) / max(iters - 1, 1), "iterations": iters,
+              "device_alone_ms_1_and_33": [d1, d33], "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+              "fixpoint_passes": passes, "macs_per_pass": macs}
+
+    # K10 on every flag of the search, chunk after chunk from the seed.
+    cur, nxt = frontier_seed(kern, prob), kern.arena()
+    rows = []
+    for _ in range(64):
+        frontier_cuda.frontier_chunk(kern, cur, nxt, 512)
+        top, fcount = nxt.ctr.tolist()[:2]
+        rows.append(nxt.flags[:fcount].clone())
+        cur, nxt = nxt, cur
+        if top == 0 or top > shape.C - 2 * shape.K:
+            break
+    rows = torch.cat(rows)[: shape.flag_cap]
+    count = rows.shape[0]
+    if count < 1:
+        fail("timing_frontier", "the 128-lane search flagged no set")
+    block = torch.zeros((shape.flag_cap, prob.s_dev), dtype=torch.int8, device=device)
+    block[:count] = rows
+    k10_ms = time_ms(lambda: frontier_cuda.frontier_filter(kern, block, count), 50)
+    got = frontier_cuda.frontier_filter(kern, block, count).tolist()
+    t = time.perf_counter()
+    want = plain.filter(block, count).tolist()
+    torch.cuda.synchronize()
+    k10_plain = (time.perf_counter() - t) * 1e3
+    if got != want:
+        fail("timing_frontier", f"K10 on the 128-lane search's flags: {got} != plain {want}")
+    member = block[:count].to(torch.int32)
+    i_idx, j_idx = torch.nonzero(member, as_tuple=True)
+    loo = member[i_idx].clone()
+    loo[torch.arange(loo.shape[0], device=device), j_idx] = 0
+    loo_passes = int(fixpoint_passes(plain.tables, rows_in_circuit(plain.tables, plain.scc_idx, loo))[1].sum())
+    probe_passes = int(fixpoint_passes(plain.probe_tables, rows_in_circuit(
+        plain.probe_tables, plain.scc_idx, torch.clamp(1 - member, 0, 1)))[1].sum())
+    k10_bound, k10_by = bound((loo_passes + probe_passes) * macs, count * prob.s_dev + 8)
+    k10_row = {"shape": shape_text, "flags": count, "block": shape.flag_cap, "ms": k10_ms,
+               "ms_of": "50 launches back to back (CUDA events)", "plain_ms": k10_plain, "bound_ms": k10_bound,
+               "bound_by": k10_by, "minimal": got[0], "witness": got[1], "fixpoint_passes": loo_passes + probe_passes}
+    return k9_row, k10_row
 
 
 class ParentK8:
@@ -5020,7 +5314,8 @@ assert mesh.process_count == nprocs, mesh
 out = {"process_index": mesh.process_index, "process_count": mesh.process_count, "ranks": mesh.size,
        "collective": collective_of(mesh), "solves": {}}
 for label, data in (("hierarchical_fbas(6,4)", synth.hierarchical_fbas(6, 4)),
-                    ("stellar_like_fbas(16,3,broken)", synth.stellar_like_fbas(16, 3, broken=True))):
+                    ("stellar_like_fbas(16,3,broken)", synth.stellar_like_fbas(16, 3, broken=True)),
+                    ("stellar_like_fbas(42,3,broken)", synth.stellar_like_fbas(42, 3, broken=True))):
     for name in frontier_cuda.LAUNCHES:
         frontier_cuda.LAUNCHES[name] = 0
     t = time.perf_counter()
@@ -5110,7 +5405,10 @@ def frontier_mesh_phase(device, card, texts, cert_jobs, work):
     cases = [("hierarchical_fbas(8,4) defaults, 3 chunks", synth.hierarchical_fbas(8, 4), 1 << 18, 2048, 3, 512),
              ("random_fbas(64,seed=0) defaults, 2 chunks of 64 iterations", synth.random_fbas(64, seed=0), 1 << 18,
               2048, 2, 64),
-             ("hierarchical_fbas(4,3) spill, 8 chunks", synth.hierarchical_fbas(4, 3), 64, 16, 8, 512)]
+             ("hierarchical_fbas(4,3) spill, 8 chunks", synth.hierarchical_fbas(4, 3), 64, 16, 8, 512),
+             # Two words a state: 126 lanes padded to 128.
+             ("stellar_like_fbas(42,3,broken) defaults, 2 chunks", synth.stellar_like_fbas(42, 3, broken=True),
+              1 << 18, 2048, 2, 512)]
     compare_rows, mismatches, all_flags = {}, [], 0
     for label, src, arena, pop, chunks, chunk_iters in cases:
         prob, shape, kern, plain = frontier_setup(src, device, arena, pop, chunk_iters=chunk_iters)
@@ -5171,7 +5469,8 @@ def frontier_mesh_phase(device, card, texts, cert_jobs, work):
     proc_thread.join()
     single = {}
     for label, src in (("hierarchical_fbas(6,4)", synth.hierarchical_fbas(6, 4)),
-                       ("stellar_like_fbas(16,3,broken)", synth.stellar_like_fbas(16, 3, broken=True))):
+                       ("stellar_like_fbas(16,3,broken)", synth.stellar_like_fbas(16, 3, broken=True)),
+                       ("stellar_like_fbas(42,3,broken)", synth.stellar_like_fbas(42, 3, broken=True))):
         res = solve(src, backend=GpuFrontierBackend(), with_cert=False)
         single[label] = {"intersects": res.intersects, "q1": res.q1, "q2": res.q2,
                          **{k: res.stats.get(k) for k in FRONTIER_MESH_KEYS[:5]}}
@@ -5180,7 +5479,7 @@ def frontier_mesh_phase(device, card, texts, cert_jobs, work):
         fail("frontier_mesh", f"--backend gpu-frontier --mesh all CLI: {out[-40:]!r} exit {code}; {err[-600:]!r}")
     cert_jobs.append(("frontier_mesh/cli/stellar_like_fbas(16,3,broken)", cli_src, json.loads(cli_cert.read_text())))
     pair = mesh_worker_results(f"frontier, two processes ({pair_backend})", procs["pair"])
-    pair_launches = 0
+    pair_launches = pair_wide_launches = 0
     for row in pair:
         for label, want_row in single.items():
             s = row["solves"][label]
@@ -5191,6 +5490,8 @@ def frontier_mesh_phase(device, card, texts, cert_jobs, work):
                     or s["launches"]["frontier_mesh_chunk"] or s["mesh"]["instance"] != "iteration":
                 fail("frontier_mesh", f"two processes, {label}: launches {s['launches']}, mesh {s['mesh']}")
             pair_launches += s["launches"]["frontier_iteration"]
+            if label == "stellar_like_fbas(42,3,broken)":
+                pair_wide_launches += s["launches"]["frontier_iteration"]
     phase_line("frontier_mesh_processes", card=card,
                cli={"argv": "--backend gpu-frontier --mesh all --cert-out", "network": "stellar_like_fbas(16,3,broken)",
                     "exit": code, "process_seconds": cli_s},
@@ -5206,8 +5507,10 @@ def frontier_mesh_phase(device, card, texts, cert_jobs, work):
     if cards >= 4:
         meshes.append(("4 cards", candidate_mesh(4), 4))
     solve_rows, launches = {}, {name: 0 for name in frontier_cuda.LAUNCHES}
+    wide_launches = dict(launches)
     for label, src in (("hierarchical_fbas(8,4)", synth.hierarchical_fbas(8, 4)),
-                       ("stellar_like_fbas(16,3,broken)", synth.stellar_like_fbas(16, 3, broken=True))):
+                       ("stellar_like_fbas(16,3,broken)", synth.stellar_like_fbas(16, 3, broken=True)),
+                       ("stellar_like_fbas(42,3,broken)", synth.stellar_like_fbas(42, 3, broken=True))):
         # In turns: K9, each mesh, each mesh again, K9; none builds a
         # certificate (the certified solves come after).
         single_s, mesh_s = [], {where: [] for where, _, _ in meshes}
@@ -5231,6 +5534,8 @@ def frontier_mesh_phase(device, card, texts, cert_jobs, work):
                 got_launches = dict(frontier_cuda.LAUNCHES)
                 for name, n in got_launches.items():
                     launches[name] += n
+                    if label == "stellar_like_fbas(42,3,broken)":
+                        wide_launches[name] += n
                 # A launch a card for every chunk dispatched: the drained
                 # ones and the ones the drive dropped (its speculative chunks).
                 chunks = res.stats["device_chunks"] + res.stats["discarded_chunks"]
@@ -5415,6 +5720,8 @@ def frontier_mesh_phase(device, card, texts, cert_jobs, work):
                gather_ms=gather, gather_ms_device_alone=gather_alone,
                k9_bound_ms_per_iteration=per_iteration_bound, bound_ms_a_rank_of_4=per_iteration_bound / 4,
                nvlink_share_ms_per_iteration_4_cards=nvlink_ms, bound_by=bound_by)
+    wide = mesh_wide_timing(device, synth)
+    phase_line("frontier_mesh_timing_w2", card=card, **wide)
     phase_line("frontier_mesh", card=card, seconds=round(time.perf_counter() - t_phase, 3))
     four, chunk_four = timing["4 ranks, 1 card"], chunk_timing["4 ranks, 1 card"]
     chunk_record = {
@@ -5458,10 +5765,114 @@ def frontier_mesh_phase(device, card, texts, cert_jobs, work):
         "gather_of": "mesh_all_gather of 4 ranks' stash shares on the one card (gather_shares)",
         "per_ranks": timing,
         "k9_ms_per_iteration": k9_row["ms_per_iteration"],
-        "main_path_launches_of": "frontier_mesh_processes: hier-6x4 and stellar 16x3 broken in the two joined "
-                                 "processes, both processes",
+        "main_path_launches_of": "frontier_mesh_processes: hier-6x4 and stellar 16x3 and 42x3 broken in the two "
+                                 "joined processes, both processes",
     }
-    return [chunk_record, iteration_record]
+    wide_records = []
+    for base, row, n in ((chunk_record, wide["chunk_instance"], wide_launches["frontier_mesh_chunk"]),
+                         (iteration_record, wide["iteration_instance"], pair_wide_launches)):
+        wide_records.append({**{k: base[k] for k in ("route", "source", "replaces", "max_abs_err", "library_ms")},
+                             "name": base["name"] + "_w2", "launches": n, "ms": row["ms_per_iteration"],
+                             "plain_ms": row["plain_ms_per_iteration"], "bound_ms": wide["k9_bound_ms_per_iteration"],
+                             "bound_by": wide["bound_by"],
+                             "ms_of": f"one iteration on 4 ranks of the one card at {wide['shape']}",
+                             "launches_of": ("frontier_mesh_solves" if base is chunk_record else
+                                             "frontier_mesh_processes") + ": stellar 42x3 broken"})
+    return [chunk_record, iteration_record, *wide_records]
+
+
+def mesh_wide_timing(device, synth):
+    """Both mesh instances at two words a state, on 4 ranks of the one card,
+    at broken stellar_like_fbas(42,3)'s shape (126 lanes padded to 128, K
+    2048), from its state 40 iterations after the seed: ms an iteration
+    (1- and 33-iteration chunks), the 33 iterations held to K9's chunk, the
+    plain versions' ms an iteration, K9's per-iteration bound."""
+    import torch
+
+    from quorum_intersection_tpu_torch.kernels import frontier_cuda
+    from quorum_intersection_tpu_torch.kernels.frontier_cuda import (
+        CardState,
+        IterationState,
+        frontier_mesh_chunk,
+        gather_shares,
+        iteration_launcher,
+        mesh_chunk,
+        mesh_chunk_status,
+    )
+    from quorum_intersection_tpu_torch.parallel import candidate_mesh
+
+    prob, shape, kern, plain, state, top, far = wide_timed_state(device, synth, "frontier_mesh")
+    want = kern.arena()
+    kern.shape.chunk_iters = 33
+    frontier_cuda.frontier_chunk(kern, state, want, far)
+    torch.cuda.synchronize()
+    w_top, w_fc = want.ctr.tolist()[:2]
+    ranks = 4
+    mesh = candidate_mesh(devices=[device] * ranks)
+
+    def check(label, dst):
+        if dst.ctr.tolist() != want.ctr.tolist() or not (
+                torch.equal(dst.T[:w_top], want.T[:w_top]) and torch.equal(dst.D[:w_top], want.D[:w_top])
+                and torch.equal(dst.flags[:w_fc], want.flags[:w_fc])):
+            fail("frontier_mesh", f"128 lanes, {label}: the 33 iterations differ from K9's chunk "
+                                  f"({dst.ctr.tolist()} against {want.ctr.tolist()})")
+
+    card = CardState.empty(shape.K, ranks, range(ranks), state, kern.arena())
+
+    def chunk(iters):
+        kern.shape.chunk_iters = iters
+        frontier_mesh_chunk([kern], [card], far)
+
+    c1, c33 = time_ms(lambda: chunk(1), 20), time_ms(lambda: chunk(33), 10)
+    chunk(33)
+    torch.cuda.synchronize()
+    mesh_chunk_status([card])
+    check("chunk instance", card.dst)
+    states = [IterationState.empty(shape.K, ranks, state, kern.arena()) for _ in range(ranks)]
+
+    def iterations(iters):
+        kern.shape.chunk_iters = iters
+        for st in states:
+            st.begin(st.src, st.dst)
+        steps = [iteration_launcher(kern, st, r, ranks, far) for r, st in enumerate(states)]
+        for step in range(iters + 1):
+            for launch in steps:
+                launch()
+            gather_shares(mesh, states, shape.K, step & 1)
+
+    i1, i33 = time_ms(lambda: iterations(1), 20), time_ms(lambda: iterations(33), 10)
+    iterations(33)
+    torch.cuda.synchronize()
+    for st in states:
+        check("iteration instance", st.dst)
+    # The plain versions of the same 33 iterations on the 4 ranks.
+    kern.shape.chunk_iters = 33
+    p_card = CardState.empty(shape.K, ranks, range(ranks), state, kern.arena())
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    plain.mesh_chunk(p_card, far)
+    torch.cuda.synchronize()
+    chunk_plain = (time.perf_counter() - t) * 1e3 / 33
+    check("plain mesh-chunk", p_card.dst)
+    if not torch.equal(p_card.stash, card.stash):
+        fail("frontier_mesh", "128 lanes: the timed chunk's stash differs from mesh_chunk_ref's")
+    for st in states:
+        st.begin(state, st.dst)
+    t = time.perf_counter()
+    mesh_chunk(mesh, [plain] * ranks, states, far, iterate=lambda k, st, r, n, fe: k.iteration(st, r, n, fe))
+    torch.cuda.synchronize()
+    iteration_plain = (time.perf_counter() - t) * 1e3 / 33
+    kern.shape.chunk_iters = 512
+    _, _, passes, _ = k9_replay(prob, shape, plain, state, top, 33)
+    b_ms, b_by = bound(passes * macs_per_pass(prob.circuit), k9_least_bytes(prob, kern, top, w_top, w_fc))
+    return {"shape": f"stellar_like_fbas(42,3,broken): s={prob.s} (s_dev {prob.s_dev}), units "
+                     f"{prob.circuit.n_units}, K={shape.K}, top {top} at the timed state",
+            "ranks": ranks, "iterations": want.ctr.tolist()[2],
+            "chunk_instance": {"ms_1_iteration": c1, "ms_33_iterations": c33, "ms_per_iteration": (c33 - c1) / 32,
+                               "plain_ms_per_iteration": chunk_plain},
+            "iteration_instance": {"ms_1_iteration": i1, "ms_33_iterations": i33, "ms_per_iteration": (i33 - i1) / 32,
+                                   "plain_ms_per_iteration": iteration_plain},
+            "k9_bound_ms_per_iteration": b_ms / 33, "bound_by": b_by}
 
 
 def zero_script_launches():
@@ -5569,9 +5980,10 @@ def main(argv=None) -> int:
     ap.add_argument("--frontier", action="store_true",
                     help="only build, then run the frontier's phases (compare_frontier, frontier, "
                          "frontier_route, timing_frontier, frontier_mesh) and check their certificates (no ok line)")
-    ap.add_argument("--k10-parent", metavar="DIR", default=None,
-                    help="a checkout (git archive) whose flag filter body timing_frontier times in turns "
-                         "with this tree's, on a side stream")
+    ap.add_argument("--frontier-parent", metavar="DIR", default=None,
+                    help="a checkout (git archive) whose frontier kernels timing_frontier times in turns with this "
+                         "tree's at hier-8x4's shape (K9's chunk, the mesh-chunk instance's iteration, K10's body), "
+                         "beside both builds' ptxas registers and spills")
     ap.add_argument("--pagerank", action="store_true",
                     help="only build, then run the PageRank phases (compare_pagerank, timing_pagerank, "
                          "pagerank_cli; no ok line)")
@@ -5792,7 +6204,7 @@ def main(argv=None) -> int:
         texts = {name: fixture_text(name) for name in manifest}
         work = pathlib.Path(tempfile.mkdtemp(prefix="qi-chip-smoke-"))
         cert_jobs = []
-        records = frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, args.k10_parent)
+        records = frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, args.frontier_parent)
         records += frontier_mesh_phase(device, card, texts, cert_jobs, work)
         refused, _ = check_certificates(cert_jobs, work)
         phase_line("cert", card=card, checked=len(cert_jobs), refused=refused)
@@ -6701,7 +7113,8 @@ def main(argv=None) -> int:
 
     # -- 19-22. the frontier: K9 and K10 against their plain versions, driven,
     # routed and timed ----------------------------------------------------
-    frontier_records = frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, args.k10_parent)
+    frontier_records = frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work,
+                                       args.frontier_parent)
 
     # -- 23-26. the bitset engine: K8 against its plain version, timed beside
     # K1, routed, and the sweep's checkpoints -------------------------------
@@ -6827,11 +7240,11 @@ def main(argv=None) -> int:
     record["kernels"].append(pagerank_record)
     library_of["pagerank_cuda"] = "pagerank"
     record["kernels"] += frontier_records
-    library_of.update(frontier_chunk_cuda="frontier", frontier_filter_cuda="frontier")
+    library_of.update({entry["name"]: "frontier" for entry in frontier_records})
     record["kernels"].append(mesh_record)
     library_of["sweep_mesh_cuda"] = "sweep"
     record["kernels"] += frontier_mesh_records
-    library_of.update(frontier_mesh_chunk_cuda="frontier", frontier_iteration_cuda="frontier")
+    library_of.update({entry["name"]: "frontier" for entry in frontier_mesh_records})
     for entry in record["kernels"]:
         entry["instances"] = ptxas.get(library_of[entry["name"]])
         entry["delta_path_launches"] = delta_launches.get(entry["name"], 0)

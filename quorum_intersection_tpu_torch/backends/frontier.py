@@ -31,7 +31,9 @@ The branch variable always lies in ``quorum ∖ dontRemove`` (lowest lane on
 tied in-degrees): the JAX module's deliberate deviation from cpp:221.
 
 What the host drive keeps of the JAX one: SCC restriction and the pad
-ladder (always on: the JAX ``pad_shapes`` switch is not ported), the seed
+ladder (``pad_shapes``, on by default as in the JAX drive; off, the lane,
+node and unit counts stay exact and the statistics carry no
+``padded_shape``), the seed
 state or a resumed checkpoint (the excess in spill blocks), the speculative
 next chunk dispatched before the host reads the current one (so the flag
 checks overlap the device), the flag-exit threshold doubling up to
@@ -142,12 +144,13 @@ class FrontierProblem:
 
 
 def frontier_problem(graph: TrustGraph, circuit: Circuit, scc: List[int], *,
-                     scope_to_scc: bool = False) -> FrontierProblem:
-    """Set up ``scc`` of ``graph`` for the frontier, as the JAX drive does
-    with its default ``pad_shapes=True``: the lane count and the circuit's
-    axes rounded up the pad ladder (the JAX drive's compile buckets; here
-    they keep the traversal, the statistics and the checkpoint files the
-    JAX package's)."""
+                     scope_to_scc: bool = False, pad_shapes: bool = True) -> FrontierProblem:
+    """Set up ``scc`` of ``graph`` for the frontier, as the JAX drive does:
+    with ``pad_shapes`` (its default) the lane count and the circuit's axes
+    rounded up the pad ladder (the JAX drive's compile buckets; here they
+    keep the statistics and the checkpoint files the JAX package's), else
+    exact.  Padded lanes are inert, so the traversal is the same either
+    way."""
     from quorum_intersection_tpu_torch.encode.circuit import ladder_up, pad_circuit, restrict_circuit_pair
 
     s = len(scc)
@@ -177,14 +180,14 @@ def frontier_problem(graph: TrustGraph, circuit: Circuit, scc: List[int], *,
     fp_circuit, fp_probe = circuit, probe_circuit
     scc_dev = list(scc_local)
     padded_from = None
-    s_dev = ladder_up(s)
+    s_dev = ladder_up(s) if pad_shapes else s
     n_to = ladder_up(max(circuit.n, s_dev))
     if circuit.n_units > circuit.n:
         # Keep the strict inner-unit marker n_units > n.
         units_to = ladder_up(max(circuit.n_units, n_to + 1))
     else:
         units_to = n_to
-    if (n_to, units_to) != (circuit.n, circuit.n_units) or s_dev != s:
+    if pad_shapes and ((n_to, units_to) != (circuit.n, circuit.n_units) or s_dev != s):
         padded_from = [s, circuit.n, circuit.n_units]
         pad_base = circuit.n
         circuit = pad_circuit(circuit, n_to, units_to)
@@ -270,6 +273,7 @@ class GpuFrontierBackend:
         flag_check: str = "auto",
         device: DeviceLike = None,
         mesh: Optional[CandidateMesh] = None,
+        pad_shapes: bool = True,
     ) -> None:
         if arena < 4:
             # pop is clamped to arena // 4: a zero pop would spin forever.
@@ -291,6 +295,9 @@ class GpuFrontierBackend:
             checkpoint_interval_s = qi_env_float("QI_FRONTIER_CKPT_INTERVAL_S", 5.0)
         self.checkpoint_interval_s = checkpoint_interval_s
         self.interrupt_after_chunks = interrupt_after_chunks
+        # The JAX drive's pad ladder switch (frontier_problem); off, the
+        # kernels take the exact lane count (FrontierKernels aligns it).
+        self.pad_shapes = pad_shapes
 
     # ---- host-side exact checks (reference semantics) -------------------
 
@@ -381,7 +388,7 @@ class GpuFrontierBackend:
         )
 
         t0 = time.perf_counter()
-        prob = frontier_problem(graph, circuit, scc, scope_to_scc=scope_to_scc)
+        prob = frontier_problem(graph, circuit, scc, scope_to_scc=scope_to_scc, pad_shapes=self.pad_shapes)
         s_dev, scc_pos, circuit, probe_circuit = prob.s_dev, prob.scc_pos, prob.circuit, prob.probe_circuit
         fp_circuit, fp_probe, scc_local = prob.fp_circuit, prob.fp_probe, prob.scc_local
 

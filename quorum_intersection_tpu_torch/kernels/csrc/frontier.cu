@@ -7,10 +7,13 @@
 // `filter_block` :300).  Both evaluate fixpoints on the fused sweep's warp
 // evaluator (warp_mma.cuh: b1 and-popc mma.sync, 16 rows a warp), in lane
 // space: the wrapper relabels the circuit so that node i is the SCC's lane i,
-// so a (toRemove, dontRemove) state row of s <= 64 int8 lanes packs into one
-// 64-bit word and feeds the evaluator as it is.  A quad of a warp moves a
-// row: thread q holds lanes [16 q, 16 q + 16) as two 8-byte words of int8
-// 0/1 (s a multiple of 8), packed to and from bits with one multiply a word.
+// so a (toRemove, dontRemove) state row of s <= 128 int8 lanes packs into W =
+// ceil(s / 64) 64-bit words (every kernel has an instance a W: 1 up to 64
+// lanes, 2 up to 128) and feeds the evaluator as it is, the row being the
+// A operand's one 128-column k-slab.  A quad of a warp moves a row: thread q
+// holds lanes [16 W q, 16 W (q + 1)) as 2 W 8-byte words of int8 0/1 (s a
+// multiple of 8), packed to and from bits with one multiply a word; at W = 2
+// that is the evaluator's word q of the row.
 //
 // K9, one cooperative launch a chunk (grid.sync(), no -rdc), one grid barrier
 // an iteration:
@@ -51,9 +54,10 @@
 // between two launches the host gathers the shares (parallel/mesh.py
 // mesh_all_gather), so every rank scans the whole stash and writes the same
 // children and flags into its arena.  A stash half is share-major: share r
-// holds Ks = K/n rounded up to 8 slots, its toRemove words, its dontRemove
-// words, then its codes (18 Ks bytes), so a share is one contiguous range to
-// gather and a group of 8 codes never leaves its share.  The loop state
+// holds Ks = K/n rounded up to 8 slots, its toRemove states, its
+// dontRemove states, then its codes ((16 W + 2) Ks bytes: 18 Ks at W = 1),
+// so a share is one contiguous range to gather and a group of 8 codes never
+// leaves its share.  The loop state
 // [top, fcount, iters, popped, pbase, pk, done] lives on the device in two
 // slots (launch j reads slot j & 1 and writes the other), so the host
 // enqueues launches without reading it; a launch after the chunk's end only
@@ -90,7 +94,7 @@
 //
 // What bounds the mesh-chunk instance: an iteration moves K9's bytes (the
 // arena rows, the children, the flags; 0.000832 ms a 33-iteration chunk of
-// hier-8x4 at 3.35 TB/s) on every card, plus each card's shares, 18 Ks
+// hier-8x4 at 3.35 TB/s) on every card, plus each card's shares, (16 W + 2) Ks
 // bytes a share, sent to each peer (about 37 KB an iteration at K = 2048
 // on 4 cards, 0.00008 ms at 450 GB/s), plus one NVLink round trip an
 // iteration (a few microseconds); on one card the round trip is absent and
@@ -101,9 +105,11 @@
 // The branch variable by popcount: the wrapper passes a_scc's column
 // bit-planes (plane b of lane w: the members u with bit b of a_scc[u][w] set),
 // so the in-degree of lane w from a quorum f2 is sum_b popc(f2 & plane_b[w])
-// << b.  Quad thread q takes lanes q, q + 4, ... of its row and the quad keeps
-// the largest packed key ((m + 1) << 8) | (255 - lane) by two shuffles: the
-// lowest lane on ties, as JAX's argmax over the masked row.
+// << b (planes [P][W][s]: word j of plane b of lane w holds lanes 64 j to
+// 64 j + 63).  Quad thread q takes lanes q, q + 4, ... of its row and the
+// quad keeps the largest packed key ((m + 1) << 8) | (255 - lane) by two
+// shuffles: the lowest lane on ties, as JAX's argmax over the masked row
+// (lane 127 and an in-degree below 2^16 fit the key's 32 bits).
 //
 // K10, one launch a flag block: a warp takes 8 flagged sets D, the tasks
 // interleaved over a grid of at least a block an SM.  The leave-one-out rows
@@ -118,8 +124,8 @@
 //
 // What bounds them: an iteration of K9 moves 2k state rows in and at most 4k
 // child rows and k flag rows out (s bytes each; about 0.8 MB at k = 2048,
-// s = 64) and runs 2k fixpoint rows; the tensor-core work of those rows is
-// microseconds, so the grid barrier and the fixpoint's serial passes set the
+// s = 64, 1.6 MB at s = 128) and runs 2k fixpoint rows; the tensor-core work
+// of those rows is microseconds, so the grid barrier and the fixpoint's serial passes set the
 // pace.  K10 reads each flagged row once; its work is the leave-one-out rows
 // it evaluates and the minimal sets' probes, a chain of fixpoints a warp.
 
@@ -127,6 +133,7 @@
 
 #include <mutex>
 #include <set>
+#include <type_traits>
 
 #include "warp_mma.cuh"
 
@@ -141,10 +148,10 @@ constexpr int kSets = 8;    // K10: flagged sets a warp (probe rows g; 16 and 4 
 
 struct ChunkArgs {
   Params p;  // lane-space tables; thr_q the scoped thresholds
-  int s;     // lanes a state row (<= 64, a multiple of 8)
+  int s;     // lanes a state row (<= 128, a multiple of 8): W = state_words(s) words a state
   int half, K, Kp, C, chunk_iters, flag_cap, flag_exit;
   int P;                             // in-degree bit-planes
-  const unsigned long long* planes;  // [P][s] members u with bit b of a_scc[u][w]
+  const unsigned long long* planes;  // [P][W][s] members 64 j + x with bit b of a_scc[64 j + x][w]
   const int8_t* src_T;
   const int8_t* src_D;
   const int* src_ctr;  // [0]: top of the source arena
@@ -152,8 +159,8 @@ struct ChunkArgs {
   int8_t* D;
   int8_t* flags;  // [flag_cap][s]
   int* ctr;       // [4]: top, fcount, iters, popped
-  unsigned long long* st_T;  // [2][Kp] stash halves: the children's toRemove
-  unsigned long long* st_D;  // [2][Kp] the popped dontRemove
+  unsigned long long* st_T;  // [2][Kp][W] stash halves: the children's toRemove
+  unsigned long long* st_D;  // [2][Kp][W] the popped dontRemove
   uint16_t* st_code;         // [2][Kp] bit 0 include, 1 exclude, 2 flag; the branch lane from bit 8
   long long* timing;         // the timed instance: [kPhases] clock64 cycles of warp 0 of block 0, then iterations
 };
@@ -166,47 +173,140 @@ struct FilterArgs {
   int* out;  // [0] minimal count, [1] first witness index (preset to the block size)
 };
 
+// A state row over the SCC's lanes: W 64-bit words, bit x of word j lane
+// 64 j + x.  W = 1 (at most 64 lanes) is one unsigned long long, W = 2
+// (65-128 lanes) a ulonglong2 (x the lower word).  The operators and
+// helpers below give the kernels one text for both, and W = 1 the code of
+// one word.
+template <int W>
+struct RowType;
+template <>
+struct RowType<1> {
+  using T = unsigned long long;
+};
+template <>
+struct RowType<2> {
+  using T = ulonglong2;
+};
+template <int W>
+using Row = typename RowType<W>::T;
+
+__device__ __forceinline__ ulonglong2 operator|(ulonglong2 a, ulonglong2 b) {
+  return make_ulonglong2(a.x | b.x, a.y | b.y);
+}
+__device__ __forceinline__ ulonglong2 operator&(ulonglong2 a, ulonglong2 b) {
+  return make_ulonglong2(a.x & b.x, a.y & b.y);
+}
+__device__ __forceinline__ ulonglong2 operator~(ulonglong2 a) { return make_ulonglong2(~a.x, ~a.y); }
+
+__device__ __forceinline__ int popc(unsigned long long a) { return __popcll(a); }
+__device__ __forceinline__ int popc(ulonglong2 a) { return __popcll(a.x) + __popcll(a.y); }
+__device__ __forceinline__ bool any(unsigned long long a) { return a != 0; }
+__device__ __forceinline__ bool any(ulonglong2 a) { return (a.x | a.y) != 0; }
+__device__ __forceinline__ bool lane_set(unsigned long long a, int x) { return (a >> x) & 1; }
+__device__ __forceinline__ bool lane_set(ulonglong2 a, int x) { return ((x < 64 ? a.x : a.y) >> (x & 63)) & 1; }
+__device__ __forceinline__ unsigned long long shfl(unsigned long long a, int src) {
+  return __shfl_sync(kFull, a, src);
+}
+__device__ __forceinline__ ulonglong2 shfl(ulonglong2 a, int src) {
+  return make_ulonglong2(__shfl_sync(kFull, a.x, src), __shfl_sync(kFull, a.y, src));
+}
+__device__ __forceinline__ unsigned long long shfl_xor(unsigned long long a, int m) {
+  return __shfl_xor_sync(kFull, a, m);
+}
+__device__ __forceinline__ ulonglong2 shfl_xor(ulonglong2 a, int m) {
+  return make_ulonglong2(__shfl_xor_sync(kFull, a.x, m), __shfl_xor_sync(kFull, a.y, m));
+}
+
+// Words of a state row of s lanes.
+__host__ __device__ inline int state_words(int s) { return (s + 63) / 64; }
+
+// The row of lane x alone.
+template <int W>
+__device__ __forceinline__ Row<W> lane_row(int x) {
+  if constexpr (W == 1) {
+    return 1ull << x;
+  } else {
+    const unsigned long long b = 1ull << (x & 63);
+    return make_ulonglong2(x < 64 ? b : 0ull, x < 64 ? 0ull : b);
+  }
+}
+
+// The row of lanes [0, s).
+template <int W>
+__device__ __forceinline__ Row<W> lanes_below(int s) {
+  if constexpr (W == 1) {
+    return s >= 64 ? ~0ull : ((1ull << s) - 1);
+  } else {
+    return make_ulonglong2(s >= 64 ? ~0ull : ((1ull << s) - 1),
+                           s >= 128 ? ~0ull : (s > 64 ? (1ull << (s - 64)) - 1 : 0ull));
+  }
+}
+
 // Four int8 0/1 lanes as four bits, and back.
 __device__ __forceinline__ uint32_t pack4(uint32_t w) { return ((w & 0x01010101u) * 0x01020408u) >> 24; }
 __device__ __forceinline__ uint32_t unpack4(uint32_t x) { return (x * 0x00204081u) & 0x01010101u; }
 
-// Quad thread q's lanes [16 q, 16 q + 16) of a row of s int8 lanes, as bits.
-__device__ __forceinline__ uint64_t load_part(const int8_t* row, int s, int q) {
-  uint64_t bits = 0;
+// Quad thread q's part of a row of s int8 lanes, as bits: lanes [16 q,
+// 16 q + 16) at W = 1, [32 q, 32 q + 32) (the evaluator's word q) at W = 2.
+template <int W>
+__device__ __forceinline__ Row<W> load_part(const int8_t* row, int s, int q) {
+  unsigned long long bits = 0;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int off = 16 * q + 8 * h;
+  for (int h = 0; h < 2 * W; ++h) {
+    const int off = 16 * W * q + 8 * h;
     if (off < s) {
       const uint2 v = __ldcg(reinterpret_cast<const uint2*>(row + off));
-      bits |= (uint64_t)(pack4(v.x) | (pack4(v.y) << 4)) << off;
+      bits |= (unsigned long long)(pack4(v.x) | (pack4(v.y) << 4)) << (W == 1 ? off : 8 * h);
     }
   }
-  return bits;
+  if constexpr (W == 1) {
+    return bits;
+  } else {
+    return make_ulonglong2(q < 2 ? bits << (32 * q) : 0ull, q < 2 ? 0ull : bits << (32 * (q - 2)));
+  }
 }
 
-// Quad thread q writes lanes [16 q, 16 q + 16) of bits as int8 0/1.
-__device__ __forceinline__ void store_part(int8_t* row, uint64_t bits, int s, int q) {
+// Quad thread q writes its part of a row (load_part's lanes) as int8 0/1.
+template <int W>
+__device__ __forceinline__ void store_part(int8_t* row, Row<W> bits, int s, int q) {
+  unsigned long long mine;
+  if constexpr (W == 1) {
+    mine = bits;
+  } else {
+    mine = word_of(bits, q);
+  }
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int off = 16 * q + 8 * h;
+  for (int h = 0; h < 2 * W; ++h) {
+    const int off = 16 * W * q + 8 * h;
     if (off < s) {
-      const uint32_t b = (uint32_t)(bits >> off);
+      const uint32_t b = (uint32_t)(mine >> (W == 1 ? off : 8 * h));
       *reinterpret_cast<uint2*>(row + off) = make_uint2(unpack4(b & 15u), unpack4((b >> 4) & 15u));
     }
   }
 }
 
 // The quad's parts of a row, whole in each of its threads.
-__device__ __forceinline__ uint64_t quad_or(uint64_t x) {
-  x |= __shfl_xor_sync(kFull, x, 1);
-  x |= __shfl_xor_sync(kFull, x, 2);
+template <class R>
+__device__ __forceinline__ R quad_or(R x) {
+  x = x | shfl_xor(x, 1);
+  x = x | shfl_xor(x, 2);
   return x;
 }
 
-// Rows g and g + 8 back as 64-bit words from the quad's lanes 0 and 1.
-__device__ __forceinline__ uint64_t quad_row(uint32_t w, int lane) {
+// Rows g and g + 8 back as rows from the evaluator's words, the quad's
+// lanes 0 and 1 (W = 1) or lanes 0-3 (W = 2).
+template <int W>
+__device__ __forceinline__ Row<W> quad_row(uint32_t w, int lane) {
   const int qb = lane & ~3;
-  return (uint64_t)__shfl_sync(kFull, w, qb) | ((uint64_t)__shfl_sync(kFull, w, qb + 1) << 32);
+  const unsigned long long lo =
+      (unsigned long long)__shfl_sync(kFull, w, qb) | ((unsigned long long)__shfl_sync(kFull, w, qb + 1) << 32);
+  if constexpr (W == 1) {
+    return lo;
+  } else {
+    return make_ulonglong2(lo, (unsigned long long)__shfl_sync(kFull, w, qb + 2) |
+                                   ((unsigned long long)__shfl_sync(kFull, w, qb + 3) << 32));
+  }
 }
 
 // The n-th (0-based) set bit of x, which has more than n, as a one-bit mask.
@@ -224,16 +324,34 @@ __device__ __forceinline__ uint64_t nth_bit(uint64_t x, int n) {
   return 1ull << pos;
 }
 
+// d less its n-th (0-based) set lane; d has more than n.
+__device__ __forceinline__ unsigned long long drop_nth(unsigned long long d, int n) { return d & ~nth_bit(d, n); }
+__device__ __forceinline__ ulonglong2 drop_nth(ulonglong2 d, int n) {
+  const int c = __popcll(d.x);
+  return n < c ? make_ulonglong2(d.x & ~nth_bit(d.x, n), d.y) : make_ulonglong2(d.x, d.y & ~nth_bit(d.y, n - c));
+}
+
+// Lane x's in-degree bit-plane b, of the planes [P][W][s] in shared memory.
+template <int W>
+__device__ __forceinline__ Row<W> plane_of(const unsigned long long* planes, int b, int s, int x) {
+  if constexpr (W == 1) {
+    return planes[b * s + x];
+  } else {
+    return make_ulonglong2(planes[2 * b * s + x], planes[(2 * b + 1) * s + x]);
+  }
+}
+
 // Children, and flags << 16, that one stash code adds.
 __device__ __forceinline__ int code_count(unsigned c) { return (c & 1) + ((c >> 1) & 1) + (((c >> 2) & 1) << 16); }
 
 // Entry x of the child map (2 e: include, 2 e + 1: exclude) of the stash
 // half at `half`, as a state (T, D).
-__device__ __forceinline__ void stash_child(const ChunkArgs& a, int half, unsigned x, uint64_t& T, uint64_t& D) {
+template <int W>
+__device__ __forceinline__ void stash_child(const ChunkArgs& a, int half, unsigned x, Row<W>& T, Row<W>& D) {
   const int e = half + (int)(x >> 1);
-  T = __ldcg(a.st_T + e);
-  D = __ldcg(a.st_D + e);
-  if (!(x & 1)) D |= 1ull << (__ldcg(a.st_code + e) >> 8);
+  T = __ldcg(reinterpret_cast<const Row<W>*>(a.st_T) + e);
+  D = __ldcg(reinterpret_cast<const Row<W>*>(a.st_D) + e);
+  if (!(x & 1)) D = D | lane_row<W>(__ldcg(a.st_code + e) >> 8);
 }
 
 // K9's stash codes: entry e of a half at code + e.
@@ -298,14 +416,21 @@ __device__ int scan_stash(const Codes& codes, int n, uint16_t* cmap, uint16_t* f
 }
 
 __host__ __device__ inline unsigned chunk_extra_bytes(int s, int Kp, int P) {
-  return round16(8u * P * s) + round16(6u * Kp) + round16(4u * (kWarps + 1));
+  return round16(8u * P * state_words(s) * s) + round16(6u * Kp) + round16(4u * (kWarps + 1));
 }
 
-constexpr unsigned kFilterWarpBytes = 8 * kSets + 2 * 64 + 2 * 16 + 16;  // sets, more, slots, cursor
+// K10's shared memory a warp: its sets, per member index the sets with more
+// members, the tile's slots and cursor.
+template <int W>
+__host__ __device__ constexpr unsigned filter_warp_bytes() {
+  return 8 * W * kSets + 2 * 64 * W + 2 * 16 + 16;
+}
 
-__host__ __device__ inline unsigned filter_extra_bytes() { return kWarps * kFilterWarpBytes; }
+__host__ __device__ inline unsigned filter_extra_bytes(int s) {
+  return kWarps * (s > 64 ? filter_warp_bytes<2>() : filter_warp_bytes<1>());
+}
 
-template <class Src, bool kS1, bool kTimed>
+template <class Src, bool kS1, int W, bool kTimed>
 __global__ void __launch_bounds__(kThreads) chunk_kernel(ChunkArgs a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -313,12 +438,12 @@ __global__ void __launch_bounds__(kThreads) chunk_kernel(ChunkArgs a) {
   Warp<Src, kS1> w;
   w.init(smem, l, a.p, false);
   const int s = a.s, Kp = a.Kp;
-  const unsigned plane_bytes = round16(8u * a.P * s);
+  const unsigned plane_bytes = round16(8u * a.P * W * s);
   unsigned long long* planes = reinterpret_cast<unsigned long long*>(smem + l.end);
   uint16_t* cmap = reinterpret_cast<uint16_t*>(smem + l.end + plane_bytes);  // [2 Kp]
   uint16_t* fmap = cmap + 2 * Kp;                                               // [Kp]
   int* red = reinterpret_cast<int*>(smem + l.end + plane_bytes + round16(6u * Kp));
-  for (int i = threadIdx.x; i < a.P * s; i += blockDim.x) planes[i] = a.planes[i];
+  for (int i = threadIdx.x; i < a.P * W * s; i += blockDim.x) planes[i] = a.planes[i];
 
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3, warp = threadIdx.x >> 5;
   const int gwarp = blockIdx.x * kWarps + warp, nwarps = gridDim.x * kWarps;
@@ -379,15 +504,17 @@ __global__ void __launch_bounds__(kThreads) chunk_kernel(ChunkArgs a) {
         const int j = 8 * t + g;
         const long long pos = (long long)pbase + j;
         if (j < nw && pos < a.C) {
-          uint64_t cT, cD;
-          stash_child(a, prev, cmap[j], cT, cD);
-          store_part(a.T + pos * s, cT, s, q);
-          store_part(a.D + pos * s, cD, s, q);
+          Row<W> cT, cD;
+          stash_child<W>(a, prev, cmap[j], cT, cD);
+          store_part<W>(a.T + pos * s, cT, s, q);
+          store_part<W>(a.D + pos * s, cD, s, q);
         }
       }
       for (int t = gwarp; 8 * t < nf; t += nwarps) {
         const int j = 8 * t + g;
-        if (j < nf) store_part(a.flags + (long long)(fprev + j) * s, __ldcg(a.st_D + prev + fmap[j]), s, q);
+        if (j < nf)
+          store_part<W>(a.flags + (long long)(fprev + j) * s,
+                        __ldcg(reinterpret_cast<const Row<W>*>(a.st_D) + prev + fmap[j]), s, q);
       }
     }
     mark(1);
@@ -399,35 +526,35 @@ __global__ void __launch_bounds__(kThreads) chunk_kernel(ChunkArgs a) {
       const int i = 8 * t + g;
       const bool valid = i < k;
       const int pos = base + i;
-      uint64_t myT = 0, myD = 0;
+      Row<W> myT{}, myD{};
       if (valid && pk && pos >= pbase) {
-        stash_child(a, prev, cmap[pos - pbase], myT, myD);  // whole in each thread of the quad
+        stash_child<W>(a, prev, cmap[pos - pbase], myT, myD);  // whole in each thread of the quad
       } else if (valid) {
-        myT = load_part(a.T + (long long)pos * s, s, q);
-        myD = load_part(a.D + (long long)pos * s, s, q);
+        myT = load_part<W>(a.T + (long long)pos * s, s, q);
+        myD = load_part<W>(a.D + (long long)pos * s, s, q);
       }
       myT = quad_or(myT);
       myD = quad_or(myD);
       mark(2);
-      const uint64_t uni = myT | myD;
+      const Row<W> uni = myT | myD;
       uint32_t a0 = word_of(myD, q), a1 = word_of(uni, q);
       w.fixpoint(a0, a1, 0u, w.src.thr_q);
       mark(3);
-      const uint64_t f1 = quad_row(a0, lane), f2 = quad_row(a1, lane);
-      const int dsize = __popcll(myD);
-      const bool live = valid && dsize <= a.half && uni != 0;
-      const bool dq = live && f1 != 0;
-      const uint64_t elig = f2 & ~myD;
-      const bool br = live && !dq && f2 != 0 && (myD & ~f2) == 0 && elig != 0;
+      const Row<W> f1 = quad_row<W>(a0, lane), f2 = quad_row<W>(a1, lane);
+      const int dsize = popc(myD);
+      const bool live = valid && dsize <= a.half && any(uni);
+      const bool dq = live && any(f1);
+      const Row<W> elig = f2 & ~myD;
+      const bool br = live && !dq && any(f2) && !any(myD & ~f2) && any(elig);
 
       // Branch variable: the largest in-degree within quorum minus
       // dontRemove, the lowest lane on ties.
       unsigned key = 0;
       if (br) {
         for (int x = q; x < s; x += 4) {
-          if (!((elig >> x) & 1)) continue;
+          if (!lane_set(elig, x)) continue;
           int m = 0;
-          for (int b = 0; b < a.P; ++b) m += __popcll(f2 & planes[b * s + x]) << b;
+          for (int b = 0; b < a.P; ++b) m += popc(f2 & plane_of<W>(planes, b, s, x)) << b;
           key = max(key, ((unsigned)(m + 1) << 8) | (unsigned)(255 - x));
         }
       }
@@ -436,11 +563,11 @@ __global__ void __launch_bounds__(kThreads) chunk_kernel(ChunkArgs a) {
       const int best = key ? 255 - (int)(key & 255u) : 0;
       mark(4);
       if (q == 0 && valid) {
-        const uint64_t child = elig & ~(1ull << best);
+        const Row<W> child = elig & ~lane_row<W>(best);
         const bool incl = br && dsize + 1 <= a.half;
-        const bool excl = br && (__popcll(child) + dsize) > 0;
-        a.st_T[cur + i] = child;
-        a.st_D[cur + i] = myD;
+        const bool excl = br && (popc(child) + dsize) > 0;
+        reinterpret_cast<Row<W>*>(a.st_T)[cur + i] = child;
+        reinterpret_cast<Row<W>*>(a.st_D)[cur + i] = myD;
         a.st_code[cur + i] = (uint16_t)((int)incl | ((int)excl << 1) | ((int)dq << 2) | (best << 8));
       }
       mark(5);
@@ -480,34 +607,45 @@ struct IterArgs {
   int8_t* D;
   int8_t* flags;  // [flag_cap][s]
   int* ctr;       // [4]: top, fcount, iters, popped, written when the chunk ends
-  unsigned char* stash;  // [2][ranks][18 Ks]: a share's toRemove words, dontRemove words, codes
+  unsigned char* stash;  // [2][ranks][(16 W + 2) Ks]: a share's toRemove states, dontRemove states, codes
   int* loop;             // [2][8]: top, fcount, iters, popped, pbase, pk, done; launch j reads j & 1
 };
 
-// Bytes of one share of a stash half: Ks toRemove and Ks dontRemove words,
-// Ks codes (a multiple of 16 bytes, Ks being one of 8).
-__host__ __device__ inline size_t share_bytes(int Ks) { return (size_t)18 * Ks; }
+// Bytes of one share of a stash half: Ks toRemove and Ks dontRemove states
+// of W words, Ks codes (a multiple of 16 bytes, Ks being one of 8).
+template <int W>
+__host__ __device__ inline size_t share_bytes(int Ks) {
+  return (size_t)(16 * W + 2) * Ks;
+}
 
 // The codes of a gathered stash half, slot e = r Ks + j being entry j of
 // share r (Ks a multiple of 8: a group of 8 never leaves its share).
+template <int W>
 struct ShareCodes {
   const unsigned char* half;
   int Ks;
   __device__ __forceinline__ const uint16_t* operator()(int e) const {
     const int r = e / Ks;
-    return reinterpret_cast<const uint16_t*>(half + r * share_bytes(Ks) + 16 * (size_t)Ks) + (e - r * Ks);
+    return reinterpret_cast<const uint16_t*>(half + r * share_bytes<W>(Ks) + 16 * W * (size_t)Ks) + (e - r * Ks);
   }
 };
 
 // Entry x of the child map (2 e: include, 2 e + 1: exclude, e a slot) of a
 // gathered stash half, as a state (T, D).
-__device__ __forceinline__ void share_child(const unsigned char* half, int Ks, unsigned x, uint64_t& T,
-                                            uint64_t& D) {
+template <int W>
+__device__ __forceinline__ void share_child(const unsigned char* half, int Ks, unsigned x, Row<W>& T, Row<W>& D) {
   const int e = (int)(x >> 1), r = e / Ks, j = e - r * Ks;
-  const unsigned char* blk = half + r * share_bytes(Ks);
-  T = __ldcg(reinterpret_cast<const unsigned long long*>(blk) + j);
-  D = __ldcg(reinterpret_cast<const unsigned long long*>(blk + 8 * (size_t)Ks) + j);
-  if (!(x & 1)) D |= 1ull << (__ldcg(reinterpret_cast<const uint16_t*>(blk + 16 * (size_t)Ks) + j) >> 8);
+  const unsigned char* blk = half + r * share_bytes<W>(Ks);
+  T = __ldcg(reinterpret_cast<const Row<W>*>(blk) + j);
+  D = __ldcg(reinterpret_cast<const Row<W>*>(blk + 8 * W * (size_t)Ks) + j);
+  if (!(x & 1)) D = D | lane_row<W>(__ldcg(reinterpret_cast<const uint16_t*>(blk + 16 * W * (size_t)Ks) + j) >> 8);
+}
+
+// Flag e (a slot) of a gathered stash half: its dontRemove state.
+template <int W>
+__device__ __forceinline__ Row<W> share_flag(const unsigned char* half, int Ks, int e) {
+  const int r = e / Ks;
+  return __ldcg(reinterpret_cast<const Row<W>*>(half + r * share_bytes<W>(Ks) + 8 * W * (size_t)Ks) + (e - r * Ks));
 }
 
 // One iteration of K9 for one rank: (a) every block scans the whole
@@ -519,7 +657,7 @@ __device__ __forceinline__ void share_child(const unsigned char* half, int Ks, u
 // takes the place of K9's grid barrier, and the gather between two launches
 // gives every rank the other shares.  A launch after the chunk's end carries
 // the loop state forward and does nothing else.
-template <class Src, bool kS1>
+template <class Src, bool kS1, int W>
 __global__ void __launch_bounds__(kThreads) iteration_kernel(IterArgs a) {
   const int* in = a.loop + 8 * (a.step & 1);
   int* out = a.loop + 8 * ((a.step + 1) & 1);
@@ -532,12 +670,12 @@ __global__ void __launch_bounds__(kThreads) iteration_kernel(IterArgs a) {
   Warp<Src, kS1> w;
   w.init(smem, l, a.p, false);
   const int s = a.s, Ks = a.Ks, slots = a.ranks * a.Ks;
-  const unsigned plane_bytes = round16(8u * a.P * s);
+  const unsigned plane_bytes = round16(8u * a.P * W * s);
   unsigned long long* planes = reinterpret_cast<unsigned long long*>(smem + l.end);
   uint16_t* cmap = reinterpret_cast<uint16_t*>(smem + l.end + plane_bytes);  // [2 slots]
   uint16_t* fmap = cmap + 2 * slots;                                            // [slots]
   int* red = reinterpret_cast<int*>(smem + l.end + plane_bytes + round16(6u * slots));
-  for (int i = threadIdx.x; i < a.P * s; i += blockDim.x) planes[i] = a.planes[i];
+  for (int i = threadIdx.x; i < a.P * W * s; i += blockDim.x) planes[i] = a.planes[i];
 
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3, warp = threadIdx.x >> 5;
   const int gwarp = blockIdx.x * kWarps + warp, nwarps = gridDim.x * kWarps;
@@ -576,12 +714,12 @@ __global__ void __launch_bounds__(kThreads) iteration_kernel(IterArgs a) {
   __syncthreads();
 
   // (a) stash i-1, gathered: the slots of its pk entries.
-  const unsigned char* prev = a.stash + ((iters + 1) & 1) * (size_t)slots * 18;
+  const unsigned char* prev = a.stash + ((iters + 1) & 1) * (size_t)slots * (16 * W + 2);
   const int fprev = fcount;
   int nflags = 0;
   if (pk) {
     const int last = pk - 1;
-    const int total = scan_stash(ShareCodes{prev, Ks}, (last / a.Kn) * Ks + last % a.Kn + 1, cmap, fmap, red);
+    const int total = scan_stash(ShareCodes<W>{prev, Ks}, (last / a.Kn) * Ks + last % a.Kn + 1, cmap, fmap, red);
     top = pbase + (total & 0xffff);
     nflags = total >> 16;
     fcount = min(fcount + nflags, a.flag_cap);
@@ -597,20 +735,15 @@ __global__ void __launch_bounds__(kThreads) iteration_kernel(IterArgs a) {
       const int j = 8 * t + g;
       const long long pos = (long long)pbase + j;
       if (j < nw && pos < a.C) {
-        uint64_t cT, cD;
-        share_child(prev, Ks, cmap[j], cT, cD);
-        store_part(a.T + pos * s, cT, s, q);
-        store_part(a.D + pos * s, cD, s, q);
+        Row<W> cT, cD;
+        share_child<W>(prev, Ks, cmap[j], cT, cD);
+        store_part<W>(a.T + pos * s, cT, s, q);
+        store_part<W>(a.D + pos * s, cD, s, q);
       }
     }
     for (int t = gwarp; 8 * t < nf; t += nwarps) {
       const int j = 8 * t + g;
-      if (j < nf) {
-        const int e = fmap[j], r = e / Ks;
-        const unsigned char* blk = prev + r * share_bytes(Ks) + 8 * (size_t)Ks;
-        store_part(a.flags + (long long)(fprev + j) * s,
-                   __ldcg(reinterpret_cast<const unsigned long long*>(blk) + (e - r * Ks)), s, q);
-      }
+      if (j < nf) store_part<W>(a.flags + (long long)(fprev + j) * s, share_flag<W>(prev, Ks, fmap[j]), s, q);
     }
   }
   if (!go) {
@@ -626,38 +759,38 @@ __global__ void __launch_bounds__(kThreads) iteration_kernel(IterArgs a) {
   }
 
   // (d) this rank's share: pop, fixpoint, prune, branch, stash.
-  unsigned char* mine = a.stash + ((size_t)(iters & 1) * a.ranks + a.rank) * share_bytes(Ks);
+  unsigned char* mine = a.stash + ((size_t)(iters & 1) * a.ranks + a.rank) * share_bytes<W>(Ks);
   for (int t = gwarp; 8 * t < Ks; t += nwarps) {
     const int j = 8 * t + g, i = a.rank * a.Kn + j;
     const bool valid = j < a.Kn && i < k;
     const int pos = base + i;
-    uint64_t myT = 0, myD = 0;
+    Row<W> myT{}, myD{};
     if (valid && pk && pos >= pbase) {
-      share_child(prev, Ks, cmap[pos - pbase], myT, myD);  // whole in each thread of the quad
+      share_child<W>(prev, Ks, cmap[pos - pbase], myT, myD);  // whole in each thread of the quad
     } else if (valid) {
-      myT = load_part(rT + (long long)pos * s, s, q);
-      myD = load_part(rD + (long long)pos * s, s, q);
+      myT = load_part<W>(rT + (long long)pos * s, s, q);
+      myD = load_part<W>(rD + (long long)pos * s, s, q);
     }
     myT = quad_or(myT);
     myD = quad_or(myD);
-    const uint64_t uni = myT | myD;
+    const Row<W> uni = myT | myD;
     uint32_t a0 = word_of(myD, q), a1 = word_of(uni, q);
     w.fixpoint(a0, a1, 0u, w.src.thr_q);
-    const uint64_t f1 = quad_row(a0, lane), f2 = quad_row(a1, lane);
-    const int dsize = __popcll(myD);
-    const bool live = valid && dsize <= a.half && uni != 0;
-    const bool dq = live && f1 != 0;
-    const uint64_t elig = f2 & ~myD;
-    const bool br = live && !dq && f2 != 0 && (myD & ~f2) == 0 && elig != 0;
+    const Row<W> f1 = quad_row<W>(a0, lane), f2 = quad_row<W>(a1, lane);
+    const int dsize = popc(myD);
+    const bool live = valid && dsize <= a.half && any(uni);
+    const bool dq = live && any(f1);
+    const Row<W> elig = f2 & ~myD;
+    const bool br = live && !dq && any(f2) && !any(myD & ~f2) && any(elig);
 
     // Branch variable: the largest in-degree within quorum minus
     // dontRemove, the lowest lane on ties (K9's).
     unsigned key = 0;
     if (br) {
       for (int x = q; x < s; x += 4) {
-        if (!((elig >> x) & 1)) continue;
+        if (!lane_set(elig, x)) continue;
         int m = 0;
-        for (int b = 0; b < a.P; ++b) m += __popcll(f2 & planes[b * s + x]) << b;
+        for (int b = 0; b < a.P; ++b) m += popc(f2 & plane_of<W>(planes, b, s, x)) << b;
         key = max(key, ((unsigned)(m + 1) << 8) | (unsigned)(255 - x));
       }
     }
@@ -665,12 +798,12 @@ __global__ void __launch_bounds__(kThreads) iteration_kernel(IterArgs a) {
     key = max(key, __shfl_xor_sync(kFull, key, 2));
     const int best = key ? 255 - (int)(key & 255u) : 0;
     if (q == 0) {
-      const uint64_t child = elig & ~(1ull << best);
+      const Row<W> child = elig & ~lane_row<W>(best);
       const bool incl = br && dsize + 1 <= a.half;
-      const bool excl = br && (__popcll(child) + dsize) > 0;
-      reinterpret_cast<unsigned long long*>(mine)[j] = valid ? child : 0;
-      reinterpret_cast<unsigned long long*>(mine + 8 * (size_t)Ks)[j] = valid ? myD : 0;
-      reinterpret_cast<uint16_t*>(mine + 16 * (size_t)Ks)[j] =
+      const bool excl = br && (popc(child) + dsize) > 0;
+      reinterpret_cast<Row<W>*>(mine)[j] = valid ? child : Row<W>{};
+      reinterpret_cast<Row<W>*>(mine + 8 * W * (size_t)Ks)[j] = valid ? myD : Row<W>{};
+      reinterpret_cast<uint16_t*>(mine + 16 * W * (size_t)Ks)[j] =
           valid ? (uint16_t)((int)incl | ((int)excl << 1) | ((int)dq << 2) | (best << 8)) : 0;
     }
   }
@@ -699,7 +832,7 @@ struct MeshArgs {
   int8_t* D;
   int8_t* flags;
   int* ctr;              // [4]: top, fcount, iters, popped
-  unsigned char* stash;  // [2][ranks][18 Ks], every rank's shares
+  unsigned char* stash;  // [2][ranks][(16 W + 2) Ks], every rank's shares
   int* sync;             // [4]: exchanges of the solve before this chunk, status, arrivals, 0
   int cards;             // 1: no exchange
   unsigned char* peer_stash[kMaxCards];  // the other cards' stashes
@@ -744,7 +877,7 @@ __device__ bool exchange(const MeshArgs& a, cg::grid_group& grid, int n) {
 // test, (c) the card's warps pop its ranks' shares of [base, top) and store
 // their entries into this card's stash half i and every peer's; a grid
 // barrier (and on several cards an exchange) ends the iteration.
-template <class Src, bool kS1>
+template <class Src, bool kS1, int W>
 __global__ void __launch_bounds__(kThreads) mesh_chunk_kernel(MeshArgs a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem[];
@@ -752,12 +885,12 @@ __global__ void __launch_bounds__(kThreads) mesh_chunk_kernel(MeshArgs a) {
   Warp<Src, kS1> w;
   w.init(smem, l, a.p, false);
   const int s = a.s, Ks = a.Ks, slots = a.ranks * a.Ks;
-  const unsigned plane_bytes = round16(8u * a.P * s);
+  const unsigned plane_bytes = round16(8u * a.P * W * s);
   unsigned long long* planes = reinterpret_cast<unsigned long long*>(smem + l.end);
   uint16_t* cmap = reinterpret_cast<uint16_t*>(smem + l.end + plane_bytes);  // [2 slots]
   uint16_t* fmap = cmap + 2 * slots;                                            // [slots]
   int* red = reinterpret_cast<int*>(smem + l.end + plane_bytes + round16(6u * slots));
-  for (int i = threadIdx.x; i < a.P * s; i += blockDim.x) planes[i] = a.planes[i];
+  for (int i = threadIdx.x; i < a.P * W * s; i += blockDim.x) planes[i] = a.planes[i];
 
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3, warp = threadIdx.x >> 5;
   const int gwarp = blockIdx.x * kWarps + warp, nwarps = gridDim.x * kWarps;
@@ -785,12 +918,12 @@ __global__ void __launch_bounds__(kThreads) mesh_chunk_kernel(MeshArgs a) {
   const int mslots = a.nmine * Ks;
   for (;;) {
     // (a) stash i-1, gathered: the slots of its pk entries.
-    const unsigned char* prev = a.stash + ((iters + 1) & 1) * (size_t)slots * 18;
+    const unsigned char* prev = a.stash + ((iters + 1) & 1) * (size_t)slots * (16 * W + 2);
     const int fprev = fcount;
     int nflags = 0;
     if (pk) {
       const int last = pk - 1;
-      const int total = scan_stash(ShareCodes{prev, Ks}, (last / a.Kn) * Ks + last % a.Kn + 1, cmap, fmap, red);
+      const int total = scan_stash(ShareCodes<W>{prev, Ks}, (last / a.Kn) * Ks + last % a.Kn + 1, cmap, fmap, red);
       top = pbase + (total & 0xffff);
       nflags = total >> 16;
       fcount = min(fcount + nflags, a.flag_cap);
@@ -805,20 +938,15 @@ __global__ void __launch_bounds__(kThreads) mesh_chunk_kernel(MeshArgs a) {
         const int j = 8 * t + g;
         const long long pos = (long long)pbase + j;
         if (j < nw && pos < a.C) {
-          uint64_t cT, cD;
-          share_child(prev, Ks, cmap[j], cT, cD);
-          store_part(a.T + pos * s, cT, s, q);
-          store_part(a.D + pos * s, cD, s, q);
+          Row<W> cT, cD;
+          share_child<W>(prev, Ks, cmap[j], cT, cD);
+          store_part<W>(a.T + pos * s, cT, s, q);
+          store_part<W>(a.D + pos * s, cD, s, q);
         }
       }
       for (int t = gwarp; 8 * t < nf; t += nwarps) {
         const int j = 8 * t + g;
-        if (j < nf) {
-          const int e = fmap[j], r = e / Ks;
-          const unsigned char* blk = prev + r * share_bytes(Ks) + 8 * (size_t)Ks;
-          store_part(a.flags + (long long)(fprev + j) * s,
-                     __ldcg(reinterpret_cast<const unsigned long long*>(blk) + (e - r * Ks)), s, q);
-        }
+        if (j < nf) store_part<W>(a.flags + (long long)(fprev + j) * s, share_flag<W>(prev, Ks, fmap[j]), s, q);
       }
     }
     if (!go) break;
@@ -829,33 +957,33 @@ __global__ void __launch_bounds__(kThreads) mesh_chunk_kernel(MeshArgs a) {
       const int m = 8 * t + g, jr = m / Ks, j = m - jr * Ks, r = __ldg(a.mine + jr), i = r * a.Kn + j;
       const bool valid = j < a.Kn && i < k;
       const int pos = base + i;
-      uint64_t myT = 0, myD = 0;
+      Row<W> myT{}, myD{};
       if (valid && pk && pos >= pbase) {
-        share_child(prev, Ks, cmap[pos - pbase], myT, myD);  // whole in each thread of the quad
+        share_child<W>(prev, Ks, cmap[pos - pbase], myT, myD);  // whole in each thread of the quad
       } else if (valid) {
-        myT = load_part(a.T + (long long)pos * s, s, q);
-        myD = load_part(a.D + (long long)pos * s, s, q);
+        myT = load_part<W>(a.T + (long long)pos * s, s, q);
+        myD = load_part<W>(a.D + (long long)pos * s, s, q);
       }
       myT = quad_or(myT);
       myD = quad_or(myD);
-      const uint64_t uni = myT | myD;
+      const Row<W> uni = myT | myD;
       uint32_t a0 = word_of(myD, q), a1 = word_of(uni, q);
       w.fixpoint(a0, a1, 0u, w.src.thr_q);
-      const uint64_t f1 = quad_row(a0, lane), f2 = quad_row(a1, lane);
-      const int dsize = __popcll(myD);
-      const bool live = valid && dsize <= a.half && uni != 0;
-      const bool dq = live && f1 != 0;
-      const uint64_t elig = f2 & ~myD;
-      const bool br = live && !dq && f2 != 0 && (myD & ~f2) == 0 && elig != 0;
+      const Row<W> f1 = quad_row<W>(a0, lane), f2 = quad_row<W>(a1, lane);
+      const int dsize = popc(myD);
+      const bool live = valid && dsize <= a.half && any(uni);
+      const bool dq = live && any(f1);
+      const Row<W> elig = f2 & ~myD;
+      const bool br = live && !dq && any(f2) && !any(myD & ~f2) && any(elig);
 
       // Branch variable: the largest in-degree within quorum minus
       // dontRemove, the lowest lane on ties (K9's).
       unsigned key = 0;
       if (br) {
         for (int x = q; x < s; x += 4) {
-          if (!((elig >> x) & 1)) continue;
+          if (!lane_set(elig, x)) continue;
           int mm = 0;
-          for (int b = 0; b < a.P; ++b) mm += __popcll(f2 & planes[b * s + x]) << b;
+          for (int b = 0; b < a.P; ++b) mm += popc(f2 & plane_of<W>(planes, b, s, x)) << b;
           key = max(key, ((unsigned)(mm + 1) << 8) | (unsigned)(255 - x));
         }
       }
@@ -863,17 +991,17 @@ __global__ void __launch_bounds__(kThreads) mesh_chunk_kernel(MeshArgs a) {
       key = max(key, __shfl_xor_sync(kFull, key, 2));
       const int best = key ? 255 - (int)(key & 255u) : 0;
       if (q == 0) {
-        const uint64_t child = elig & ~(1ull << best);
+        const Row<W> child = elig & ~lane_row<W>(best);
         const bool incl = br && dsize + 1 <= a.half;
-        const bool excl = br && (__popcll(child) + dsize) > 0;
-        const unsigned long long eT = valid ? child : 0, eD = valid ? myD : 0;
+        const bool excl = br && (popc(child) + dsize) > 0;
+        const Row<W> eT = valid ? child : Row<W>{}, eD = valid ? myD : Row<W>{};
         const uint16_t code = valid ? (uint16_t)((int)incl | ((int)excl << 1) | ((int)dq << 2) | (best << 8)) : 0;
-        const size_t off = ((size_t)(iters & 1) * a.ranks + r) * share_bytes(Ks);
+        const size_t off = ((size_t)(iters & 1) * a.ranks + r) * share_bytes<W>(Ks);
         for (int c = 0; c < a.cards; ++c) {
           unsigned char* blk = (c ? a.peer_stash[c - 1] : a.stash) + off;
-          reinterpret_cast<unsigned long long*>(blk)[j] = eT;
-          reinterpret_cast<unsigned long long*>(blk + 8 * (size_t)Ks)[j] = eD;
-          reinterpret_cast<uint16_t*>(blk + 16 * (size_t)Ks)[j] = code;
+          reinterpret_cast<Row<W>*>(blk)[j] = eT;
+          reinterpret_cast<Row<W>*>(blk + 8 * W * (size_t)Ks)[j] = eD;
+          reinterpret_cast<uint16_t*>(blk + 16 * W * (size_t)Ks)[j] = code;
         }
       }
     }
@@ -905,13 +1033,15 @@ __global__ void __launch_bounds__(kThreads) mesh_chunk_kernel(MeshArgs a) {
 // members (more[j] bit r) and is not yet known not to be minimal.  Fills the
 // warp's 16 tile slots with the first live positions from p, 32 positions a
 // ballot (each lane tests one, its rank among the live ones a popcount), and
-// returns how many it filled; *next is the position after the last.
+// returns how many it filled; *next is the position after the last.  A set
+// has at most 64 W members.
+template <int W>
 __device__ __forceinline__ int fill_tile(const uint16_t* more, unsigned done, int p, uint16_t* slots, int* next) {
   const int lane = threadIdx.x & 31;
   int filled = 0;
-  for (; filled < 16 && p < 64 * kSets; p += 32) {
+  for (; filled < 16 && p < 64 * W * kSets; p += 32) {
     const int pos = p + lane, j = pos / kSets, r = pos % kSets;
-    const bool live = pos < 64 * kSets && ((more[j] & ~done) >> r) & 1;
+    const bool live = pos < 64 * W * kSets && ((more[j] & ~done) >> r) & 1;
     const unsigned m = __ballot_sync(kFull, live);
     const int rank = filled + __popc(m & ((1u << lane) - 1));
     if (live && rank < 16) {
@@ -926,13 +1056,13 @@ __device__ __forceinline__ int fill_tile(const uint16_t* more, unsigned done, in
 }
 
 // The row of tile slot x (set r minus its j-th member), 0 past the filled ones.
-__device__ __forceinline__ uint64_t slot_row(const uint64_t* sets, const uint16_t* slots, int filled, int x, int* r) {
+template <int W>
+__device__ __forceinline__ Row<W> slot_row(const Row<W>* sets, const uint16_t* slots, int filled, int x, int* r) {
   *r = -1;
-  if (x >= filled) return 0;
+  if (x >= filled) return Row<W>{};
   const int pos = slots[x];
   *r = pos % kSets;
-  const uint64_t d = sets[*r];
-  return d & ~nth_bit(d, pos / kSets);
+  return drop_nth(sets[*r], pos / kSets);
 }
 
 // Bit g of the result: row g of the tile (a ballot's quad lane 4 g).
@@ -942,7 +1072,7 @@ __device__ __forceinline__ unsigned row_mask(unsigned b) {
   return m;
 }
 
-template <class Src, bool kS1>
+template <class Src, bool kS1, int W>
 __global__ void __launch_bounds__(kThreads) filter_kernel(FilterArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout l = make_layout(true, Src::kStream, a.p);
@@ -951,29 +1081,29 @@ __global__ void __launch_bounds__(kThreads) filter_kernel(FilterArgs a) {
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3, warp = threadIdx.x >> 5;
   // A warp's part of the shared memory: its sets, per member index the sets
   // with more members, the tile's slots and the cursor.
-  unsigned char* mine = smem + l.end + warp * kFilterWarpBytes;
-  uint64_t* sets = reinterpret_cast<uint64_t*>(mine);
-  uint16_t* more = reinterpret_cast<uint16_t*>(mine + 8 * kSets);
-  uint16_t* slots = more + 64;
+  unsigned char* mine = smem + l.end + warp * filter_warp_bytes<W>();
+  Row<W>* sets = reinterpret_cast<Row<W>*>(mine);
+  uint16_t* more = reinterpret_cast<uint16_t*>(mine + 8 * W * kSets);
+  uint16_t* slots = more + 64 * W;
   int* cursor = reinterpret_cast<int*>(slots + 16);
   __syncthreads();
 
   const int s = a.s;
-  const uint64_t all = s >= 64 ? ~0ull : ((1ull << s) - 1);
+  const Row<W> all = lanes_below<W>(s);
   const int tasks = (a.count + kSets - 1) / kSets;
   // Tasks interleaved over the blocks, so that neighbouring sets (alike in
   // their cost) spread over the SMs.
   for (int t = warp * gridDim.x + blockIdx.x; t < tasks; t += gridDim.x * kWarps) {
     const int n = min(kSets, a.count - kSets * t);  // set kSets t + g in quad g
-    const uint64_t d = quad_or(g < n ? load_part(a.flags + (long long)(kSets * t + g) * s, s, q) : 0);
+    const Row<W> d = quad_or(g < n ? load_part<W>(a.flags + (long long)(kSets * t + g) * s, s, q) : Row<W>{});
 
     // The sets, and per member index j the sets with more than j members.
     __syncwarp();
     if (q == 0) sets[g] = d;
     int size[kSets];
 #pragma unroll
-    for (int r = 0; r < kSets; ++r) size[r] = r < n ? __popcll(__shfl_sync(kFull, d, 4 * r)) : 0;
-    for (int j = lane; j < 64; j += 32) {
+    for (int r = 0; r < kSets; ++r) size[r] = r < n ? popc(shfl(d, 4 * r)) : 0;
+    for (int j = lane; j < 64 * W; j += 32) {
       unsigned m = 0;
 #pragma unroll
       for (int r = 0; r < kSets; ++r) m |= (unsigned)(size[r] > j) << r;
@@ -984,12 +1114,12 @@ __global__ void __launch_bounds__(kThreads) filter_kernel(FilterArgs a) {
     // Minimality: the leave-one-out rows in full 16-row tiles under the
     // scoped thresholds; a set with a row that holds a quorum is done.
     unsigned done = 0;
-    for (int p = 0; p < 64 * kSets;) {
-      const int filled = fill_tile(more, done, p, slots, cursor);
+    for (int p = 0; p < 64 * W * kSets;) {
+      const int filled = fill_tile<W>(more, done, p, slots, cursor);
       if (!filled) break;
       int ra, rb;
-      uint32_t x0 = word_of(slot_row(sets, slots, filled, g, &ra), q);
-      uint32_t x1 = word_of(slot_row(sets, slots, filled, g + 8, &rb), q);
+      uint32_t x0 = word_of(slot_row<W>(sets, slots, filled, g, &ra), q);
+      uint32_t x1 = word_of(slot_row<W>(sets, slots, filled, g + 8, &rb), q);
       p = *cursor;
       __syncwarp();
       w.fixpoint(x0, x1, 0u, w.src.thr_q);
@@ -1001,7 +1131,7 @@ __global__ void __launch_bounds__(kThreads) filter_kernel(FilterArgs a) {
     // The probes of the minimal sets: scc minus D under the probe thresholds.
     unsigned wit = 0;
     if (minimal) {
-      uint32_t a0 = word_of((minimal >> g) & 1 ? all & ~d : 0, q), a1 = 0;
+      uint32_t a0 = word_of((minimal >> g) & 1 ? all & ~d : Row<W>{}, q), a1 = 0;
       w.fixpoint(a0, a1, 0u, w.src.thr_d);
       wit = minimal & row_mask(__ballot_sync(kFull, quad_any(a0 != 0) && q == 0));
     }
@@ -1012,71 +1142,71 @@ __global__ void __launch_bounds__(kThreads) filter_kernel(FilterArgs a) {
   }
 }
 
-template <class Src, bool kS1, bool kTimed = false>
+template <class Src, bool kS1, int W, bool kTimed = false>
 cudaError_t chunk_plan(const ChunkArgs& a, size_t* smem, long long* cap) {
   *smem = make_layout(false, Src::kStream, a.p).end + chunk_extra_bytes(a.s, a.Kp, a.P);
-  return resident_blocks<chunk_kernel<Src, kS1, kTimed>>(*smem, cap);
+  return resident_blocks<chunk_kernel<Src, kS1, W, kTimed>>(*smem, cap);
 }
 
-template <class Src, bool kS1>
+template <class Src, bool kS1, int W>
 cudaError_t chunk_grid(const ChunkArgs& a, int* grid) {
   size_t smem = 0;
   long long cap = 0;
-  const cudaError_t err = chunk_plan<Src, kS1>(a, &smem, &cap);
+  const cudaError_t err = chunk_plan<Src, kS1, W>(a, &smem, &cap);
   if (err != cudaSuccess) return err;
   const long long want = (a.K + 8 * kWarps - 1) / (8 * kWarps);  // a warp pops 8 states
   *grid = (int)(want < cap ? want : cap);
   return cudaSuccess;
 }
 
-template <class Src, bool kS1, bool kTimed = false>
+template <class Src, bool kS1, int W, bool kTimed = false>
 cudaError_t chunk_launch(ChunkArgs& a, int grid, cudaStream_t stream) {
   size_t smem = 0;
   long long cap = 0;
-  cudaError_t err = chunk_plan<Src, kS1, kTimed>(a, &smem, &cap);
+  cudaError_t err = chunk_plan<Src, kS1, W, kTimed>(a, &smem, &cap);
   if (err != cudaSuccess) return err;
   if (grid < 1 || grid > cap) return cudaErrorCooperativeLaunchTooLarge;
   void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel((const void*)chunk_kernel<Src, kS1, kTimed>, dim3(grid), dim3(kThreads),
+  err = cudaLaunchCooperativeKernel((const void*)chunk_kernel<Src, kS1, W, kTimed>, dim3(grid), dim3(kThreads),
                                     params, smem, stream);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <class Src, bool kS1>
+template <class Src, bool kS1, int W>
 cudaError_t iteration_launch(const IterArgs& a, cudaStream_t stream) {
   const size_t smem = make_layout(false, Src::kStream, a.p).end + chunk_extra_bytes(a.s, a.ranks * a.Ks, a.P);
   long long cap = 0;
-  cudaError_t err = resident_blocks<iteration_kernel<Src, kS1>>(smem, &cap);
+  cudaError_t err = resident_blocks<iteration_kernel<Src, kS1, W>>(smem, &cap);
   if (err != cudaSuccess) return err;
   if (cap < 1) return cudaErrorInvalidConfiguration;
   // A warp takes 8 slots of the share; no co-residency needed.
   const int grid = (a.Ks + 8 * kWarps - 1) / (8 * kWarps);
-  iteration_kernel<Src, kS1><<<grid, kThreads, smem, stream>>>(a);
+  iteration_kernel<Src, kS1, W><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <class Src, bool kS1>
+template <class Src, bool kS1, int W>
 cudaError_t mesh_chunk_launch(MeshArgs& a, cudaStream_t stream) {
   const size_t smem = make_layout(false, Src::kStream, a.p).end + chunk_extra_bytes(a.s, a.ranks * a.Ks, a.P);
   long long cap = 0;
-  cudaError_t err = resident_blocks<mesh_chunk_kernel<Src, kS1>>(smem, &cap);
+  cudaError_t err = resident_blocks<mesh_chunk_kernel<Src, kS1, W>>(smem, &cap);
   if (err != cudaSuccess) return err;
   // A warp pops 8 slots of this card's shares; every block co-resident.
   const long long want = ((long long)a.nmine * a.Ks + 8 * kWarps - 1) / (8 * kWarps);
   const int grid = (int)(want < cap ? want : cap);
   if (grid < 1) return cudaErrorCooperativeLaunchTooLarge;
   void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel((const void*)mesh_chunk_kernel<Src, kS1>, dim3(grid), dim3(kThreads), params,
+  err = cudaLaunchCooperativeKernel((const void*)mesh_chunk_kernel<Src, kS1, W>, dim3(grid), dim3(kThreads), params,
                                     smem, stream);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <class Src, bool kS1>
+template <class Src, bool kS1, int W>
 cudaError_t filter_launch(const FilterArgs& a, cudaStream_t stream) {
-  const size_t smem = make_layout(true, Src::kStream, a.p).end + filter_extra_bytes();
+  const size_t smem = make_layout(true, Src::kStream, a.p).end + filter_extra_bytes(a.s);
   long long cap = 0;
   int dev = 0, sms = 0;
-  cudaError_t err = resident_blocks<filter_kernel<Src, kS1>>(smem, &cap);
+  cudaError_t err = resident_blocks<filter_kernel<Src, kS1, W>>(smem, &cap);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
@@ -1087,8 +1217,28 @@ cudaError_t filter_launch(const FilterArgs& a, cudaStream_t stream) {
   if (grid < sms) grid = tasks < sms ? tasks : sms;
   if (grid > cap) grid = cap;
   if (grid < 1) return cudaSuccess;
-  filter_kernel<Src, kS1><<<(int)grid, kThreads, smem, stream>>>(a);
+  filter_kernel<Src, kS1, W><<<(int)grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <class T>
+struct Tag {
+  using type = T;
+};
+
+// f(Tag<Src>, kS1, W), the last two as integral constants, for the instance
+// the tables (streamed or resident, one child k-slab or more) and the lanes
+// (W = state_words(s) words a state) name; cudaErrorInvalidValue past 128
+// lanes.
+template <class F>
+cudaError_t by_instance(bool stream, int slabs, int s, F&& f) {
+  if (s < 1 || s > 128) return cudaErrorInvalidValue;
+  auto of = [&](auto w) -> cudaError_t {
+    if (stream)
+      return slabs <= 1 ? f(Tag<Streamed>{}, std::true_type{}, w) : f(Tag<Streamed>{}, std::false_type{}, w);
+    return slabs <= 1 ? f(Tag<Resident>{}, std::true_type{}, w) : f(Tag<Resident>{}, std::false_type{}, w);
+  };
+  return s <= 64 ? of(std::integral_constant<int, 1>{}) : of(std::integral_constant<int, 2>{});
 }
 
 Params make_params(const void* blocks, const void* chunks, const int* thr_q, const int* thr_d, int n,
@@ -1134,9 +1284,9 @@ extern "C" int qi_frontier_grid(const void* blocks, const void* chunks, const in
   if (err != cudaSuccess) return err;
   const ChunkArgs a = chunk_args(blocks, chunks, thr, n, n_units, units, depth, c0, slabs, pc, nblocks, s, 0, K,
                                  0, 0, 0, 0, P, nullptr);
-  const bool s1 = slabs <= 1;
-  if (stream) return s1 ? chunk_grid<Streamed, true>(a, grid) : chunk_grid<Streamed, false>(a, grid);
-  return s1 ? chunk_grid<Resident, true>(a, grid) : chunk_grid<Resident, false>(a, grid);
+  return by_instance(stream, slabs, s, [&](auto src, auto s1, auto w) {
+    return chunk_grid<typename decltype(src)::type, decltype(s1)::value, decltype(w)::value>(a, grid);
+  });
 }
 
 // One chunk of K9 on `cuda_stream`; with `timing`, the timed instance
@@ -1164,13 +1314,13 @@ extern "C" int qi_frontier_chunk(const void* blocks, const void* chunks, const i
   a.st_code = st_code;
   a.timing = timing;
   cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
-  const bool s1 = slabs <= 1;
   if (timing) {
-    if (stream || !s1) return cudaErrorNotSupported;
-    return chunk_launch<Resident, true, true>(a, grid, st);
+    if (stream || slabs > 1 || s > 64) return cudaErrorNotSupported;
+    return chunk_launch<Resident, true, 1, true>(a, grid, st);
   }
-  if (stream) return s1 ? chunk_launch<Streamed, true>(a, grid, st) : chunk_launch<Streamed, false>(a, grid, st);
-  return s1 ? chunk_launch<Resident, true>(a, grid, st) : chunk_launch<Resident, false>(a, grid, st);
+  return by_instance(stream, slabs, s, [&](auto src, auto s1, auto w) {
+    return chunk_launch<typename decltype(src)::type, decltype(s1)::value, decltype(w)::value>(a, grid, st);
+  });
 }
 
 // One iteration of K9's iteration instance for rank `rank` of `ranks` on
@@ -1211,9 +1361,9 @@ extern "C" int qi_frontier_iteration(const void* blocks, const void* chunks, con
   a.stash = stash;
   a.loop = loop;
   cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
-  const bool s1 = slabs <= 1;
-  if (stream) return s1 ? iteration_launch<Streamed, true>(a, st) : iteration_launch<Streamed, false>(a, st);
-  return s1 ? iteration_launch<Resident, true>(a, st) : iteration_launch<Resident, false>(a, st);
+  return by_instance(stream, slabs, s, [&](auto src, auto s1, auto w) {
+    return iteration_launch<typename decltype(src)::type, decltype(s1)::value, decltype(w)::value>(a, st);
+  });
 }
 
 // Peer access from card `dev` to card `peer` (the mesh-chunk instance's
@@ -1290,9 +1440,9 @@ extern "C" int qi_frontier_mesh_chunk(const void* blocks, const void* chunks, co
   }
   a.spin_cycles = spin_cycles;
   cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
-  const bool s1 = slabs <= 1;
-  if (stream) return s1 ? mesh_chunk_launch<Streamed, true>(a, st) : mesh_chunk_launch<Streamed, false>(a, st);
-  return s1 ? mesh_chunk_launch<Resident, true>(a, st) : mesh_chunk_launch<Resident, false>(a, st);
+  return by_instance(stream, slabs, s, [&](auto src, auto s1, auto w) {
+    return mesh_chunk_launch<typename decltype(src)::type, decltype(s1)::value, decltype(w)::value>(a, st);
+  });
 }
 
 // One flag block of K10 on `cuda_stream`: out[0] += minimal sets, out[1] =
@@ -1305,7 +1455,7 @@ extern "C" int qi_frontier_filter(const void* blocks, const void* chunks, const 
                                  nblocks),
                      s, flags, count, out};
   cudaStream_t st = static_cast<cudaStream_t>(cuda_stream);
-  const bool s1 = slabs <= 1;
-  if (stream) return s1 ? filter_launch<Streamed, true>(a, st) : filter_launch<Streamed, false>(a, st);
-  return s1 ? filter_launch<Resident, true>(a, st) : filter_launch<Resident, false>(a, st);
+  return by_instance(stream, slabs, s, [&](auto src, auto s1, auto w) {
+    return filter_launch<typename decltype(src)::type, decltype(s1)::value, decltype(w)::value>(a, st);
+  });
 }

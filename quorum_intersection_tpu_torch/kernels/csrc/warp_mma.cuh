@@ -6,7 +6,9 @@
 // between warps.  A row's availability (n <= 64 nodes) is the A operand of
 // `mma.sync m16n8k128 .row.col .s32.b1.b1.s32.and.popc`: thread t of the warp
 // (g = t / 4, q = t % 4) holds word q (nodes [32 q, 32 q + 32)) of rows g and
-// g + 8, so only threads q = 0, 1 hold nonzero words.  A unit's votes
+// g + 8, so only threads q = 0, 1 hold nonzero words.  (The frontier's
+// kernels, frontier.cu, take rows of up to 128 nodes, the whole k-slab: there
+// every thread of a quad holds a word.)  A unit's votes
 //   votes[r][u] = sum_b 2^b (popc(A[r] & members_b[u]) + popc(S[r] & child_b[u]))
 // are and-popc products over bit-planes b (vote count c = sum_b 2^b c_b), taken
 // highest plane first (Horner: the sum doubles between planes), so any vote
@@ -72,7 +74,7 @@ struct Params {
   const int4* chunks;   // [units / 32]: first block, member blocks, child slabs k0, k1
   const int* thr_q;     // [units] negated signed thresholds
   const int* thr_d;     // [units] the D probe's, negated (the guard passes thr_q)
-  int n;                // nodes (<= 64)
+  int n;                // nodes (<= 64; <= 128, one k-slab, for the frontier)
   int n_units;          // real units
   int units;            // units padded to a chunk
   int depth;            // child passes per fixpoint pass
@@ -129,6 +131,12 @@ __device__ __forceinline__ void cp_async_wait() {
 // Word q (nodes [32 q, 32 q + 32)) of a 64-bit node row.
 __device__ __forceinline__ uint32_t word_of(uint64_t row, int q) {
   return q < 2 ? (uint32_t)(row >> (32 * q)) : 0u;
+}
+
+// Word q of a 128-bit node row (the frontier's states past 64 lanes; x the
+// lower 64 nodes): all four threads of a quad hold a word.
+__device__ __forceinline__ uint32_t word_of(ulonglong2 row, int q) {
+  return (uint32_t)((q < 2 ? row.x : row.y) >> (32 * (q & 1)));
 }
 
 __device__ __forceinline__ bool quad_any(bool x) {

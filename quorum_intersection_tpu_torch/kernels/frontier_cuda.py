@@ -22,9 +22,14 @@ On a CPU tensor it runs the plain version (:mod:`.frontier_ref`) — only
 because the tensors lie on the CPU.
 
 Kernel limits, checked before any launch (:class:`KernelLimitError`): at
-most 64 SCC lanes, a multiple of 8 (a state is one 64-bit word, moved 8
-lanes at a time; the drive's pad ladder gives 8, 16, 24, 32, 48 or 64; the
-JAX program takes any width, and so does the plain version), vote counts
+most :data:`MAX_LANES` (128) SCC lanes (a state is ``W`` = ⌈lanes / 64⌉
+64-bit words, ``W`` 1 or 2, each kernel an instance a ``W``; the drive's pad
+ladder gives 8, 16, 24, 32, 48, 64, 96 or 128; the JAX program takes any
+width, and so does the plain version).  The kernels move a row 8 lanes at a
+time: a lane count off a multiple of 8 (the drive's ``pad_shapes=False``)
+runs on the circuit grown by inert nodes to the next multiple, its rows
+``pitch`` bytes apart in the arena sets :meth:`FrontierKernels.arena` makes,
+which hold the ``s`` lanes as views.  Vote counts
 below 2^8 (the evaluator's 8 bit-planes), in-degree counts below 2^16 (the
 branch variable's bit-planes, :func:`indegree_planes`), at most
 :data:`MAX_POP` states popped an iteration (the scan packs its counts in 16
@@ -46,7 +51,7 @@ import numpy as np
 import torch
 
 from quorum_intersection_tpu_torch.device import DeviceLike, resolve_device
-from quorum_intersection_tpu_torch.encode.circuit import Circuit
+from quorum_intersection_tpu_torch.encode.circuit import Circuit, pad_circuit
 from quorum_intersection_tpu_torch.kernels import build
 from quorum_intersection_tpu_torch.kernels.frontier_ref import (
     ChunkShape,
@@ -56,6 +61,7 @@ from quorum_intersection_tpu_torch.kernels.frontier_ref import (
     share_iteration,
     share_slots,
     stash_half_bytes,
+    state_words,
 )
 from quorum_intersection_tpu_torch.kernels.sweep_cuda import (
     SMEM_LIMIT,
@@ -66,7 +72,7 @@ from quorum_intersection_tpu_torch.kernels.sweep_cuda import (
 )
 from quorum_intersection_tpu_torch.kernels.sweep_ref import CircuitTables
 
-MAX_LANES = 64
+MAX_LANES = 128
 MAX_POP = 8192
 MAX_PLANES = 16
 WARPS = 8  # csrc/warp_mma.cuh kWarps
@@ -107,32 +113,37 @@ def chunk_extra_bytes(s: int, K: int, planes: int, rows: Optional[int] = None) -
     over ``rows`` stash entries (default: K9's, the pop rounded up to 8; the
     iteration instance's: its slots a half), the warp sums."""
     rows = stash_rows(K) if rows is None else rows
-    return _round16(8 * planes * s) + _round16(6 * rows) + _round16(4 * (WARPS + 1))
+    return _round16(8 * planes * state_words(s) * s) + _round16(6 * rows) + _round16(4 * (WARPS + 1))
 
 
-def filter_extra_bytes() -> int:
-    """K10's shared memory beyond the evaluator's: a warp's sets, per member
-    index the sets with more members, its tile's slots and cursor
-    (``csrc/frontier.cu`` ``filter_extra_bytes``)."""
-    return WARPS * (8 * SETS + 2 * MAX_LANES + 2 * 16 + 16)
+def filter_extra_bytes(s: int) -> int:
+    """K10's shared memory beyond the evaluator's at ``s`` lanes: a warp's
+    sets, per member index the sets with more members, its tile's slots and
+    cursor (``csrc/frontier.cu`` ``filter_extra_bytes``)."""
+    W = state_words(s)
+    return WARPS * (8 * W * SETS + 2 * 64 * W + 2 * 16 + 16)
 
 
 def indegree_planes(a_scc: np.ndarray) -> np.ndarray:
-    """``a_scc``'s column bit-planes, ``(P, s)`` uint64: bit ``u`` of
-    ``planes[b, w]`` is bit ``b`` of ``a_scc[u, w]``, ``P`` the bit length
-    of its largest count; so ``f2 @ a_scc`` at lane ``w`` is
-    ``sum_b popcount(f2 & planes[b, w]) << b`` for a 0/1 row ``f2`` packed
-    as a word (K9's branch variable)."""
+    """``a_scc``'s column bit-planes, ``(P, W, s)`` uint64: bit ``x`` of
+    ``planes[b, j, w]`` is bit ``b`` of ``a_scc[64 j + x, w]``, ``P`` the
+    bit length of its largest count, ``W`` the state's words; so ``f2 @
+    a_scc`` at lane ``w`` is ``sum_b sum_j popcount(f2_j & planes[b, j, w])
+    << b`` for a 0/1 row ``f2`` packed as words (K9's branch variable)."""
     a = np.asarray(a_scc, dtype=np.int64)
     s = a.shape[0]
     if a.shape != (s, s) or s > MAX_LANES or (a < 0).any():
         raise ValueError(f"a_scc must be a square non-negative matrix of at most {MAX_LANES} lanes, "
                          f"got shape {a.shape}")
     P = int(a.max()).bit_length() if a.size else 0
-    weights = np.left_shift(np.uint64(1), np.arange(s, dtype=np.uint64))[:, None]
-    planes = np.zeros((P, s), dtype=np.uint64)
+    W = state_words(s)
+    wide = np.zeros((64 * W, s), dtype=np.int64)
+    wide[:s] = a
+    weights = np.left_shift(np.uint64(1), np.arange(64, dtype=np.uint64))[None, :, None]
+    planes = np.zeros((P, W, s), dtype=np.uint64)
     for b in range(P):
-        planes[b] = (((a >> b) & 1).astype(np.uint64) * weights).sum(axis=0, dtype=np.uint64)
+        bits = ((wide >> b) & 1).astype(np.uint64).reshape(W, 64, s)
+        planes[b] = (bits * weights).sum(axis=1, dtype=np.uint64)
     return planes
 
 
@@ -167,13 +178,13 @@ class ArenaSet:
     ctr: torch.Tensor
 
     @classmethod
-    def empty(cls, C: int, s: int, flag_cap: int, device: torch.device) -> "ArenaSet":
-        return cls(
-            T=torch.zeros((C, s), dtype=torch.int8, device=device),
-            D=torch.zeros((C, s), dtype=torch.int8, device=device),
-            flags=torch.zeros((flag_cap, s), dtype=torch.int8, device=device),
-            ctr=torch.zeros(4, dtype=torch.int32, device=device),
-        )
+    def empty(cls, C: int, s: int, flag_cap: int, device: torch.device, pitch: Optional[int] = None) -> "ArenaSet":
+        """Zeroed rows of ``s`` lanes, ``pitch`` (default ``s``) bytes apart:
+        past ``s`` a row's bytes stay 0."""
+        def rows(n: int) -> torch.Tensor:
+            return torch.zeros((n, pitch or s), dtype=torch.int8, device=device)[:, :s]
+
+        return cls(T=rows(C), D=rows(C), flags=rows(flag_cap), ctr=torch.zeros(4, dtype=torch.int32, device=device))
 
 
 @dataclass
@@ -193,7 +204,8 @@ class IterationState:
     @classmethod
     def empty(cls, K: int, ranks: int, src: ArenaSet, dst: ArenaSet) -> "IterationState":
         dev = dst.T.device
-        return cls(src=src, dst=dst, stash=torch.zeros(2 * stash_half_bytes(K, ranks), dtype=torch.uint8, device=dev),
+        nbytes = stash_half_bytes(K, ranks, state_words(dst.T.shape[1]))
+        return cls(src=src, dst=dst, stash=torch.zeros(2 * nbytes, dtype=torch.uint8, device=dev),
                    loop=torch.zeros((2, 8), dtype=torch.int32, device=dev))
 
     def begin(self, src: ArenaSet, dst: ArenaSet) -> None:
@@ -201,12 +213,12 @@ class IterationState:
 
     def share(self, K: int, rank: int, ranks: int, half: int) -> torch.Tensor:
         """Rank ``rank``'s share of stash half ``half``, as bytes."""
-        nbytes = stash_half_bytes(K, ranks)
+        nbytes = stash_half_bytes(K, ranks, state_words(self.dst.T.shape[1]))
         share = nbytes // ranks
         return self.stash[half * nbytes + rank * share: half * nbytes + (rank + 1) * share]
 
     def half(self, K: int, ranks: int, half: int) -> torch.Tensor:
-        nbytes = stash_half_bytes(K, ranks)
+        nbytes = stash_half_bytes(K, ranks, state_words(self.dst.T.shape[1]))
         return self.stash[half * nbytes:(half + 1) * nbytes]
 
 
@@ -231,8 +243,9 @@ class CardState:
     @classmethod
     def empty(cls, K: int, mesh_size: int, ranks: Sequence[int], src: ArenaSet, dst: ArenaSet) -> "CardState":
         dev = dst.T.device
+        nbytes = stash_half_bytes(K, mesh_size, state_words(dst.T.shape[1]))
         return cls(src=src, dst=dst, ranks=tuple(int(r) for r in ranks), mesh_size=mesh_size,
-                   stash=torch.zeros(2 * stash_half_bytes(K, mesh_size), dtype=torch.uint8, device=dev),
+                   stash=torch.zeros(2 * nbytes, dtype=torch.uint8, device=dev),
                    sync=torch.zeros(4, dtype=torch.int32, device=dev),
                    mine=torch.tensor([int(r) for r in ranks], dtype=torch.int32).to(dev))
 
@@ -298,7 +311,10 @@ class FrontierKernels:
     On the card the lanes must cover the circuit's nodes (as the drive's
     restriction and padding make them), so the kernels work in lane space
     and the probe's frozen row is empty.  ``stream`` None picks the
-    evaluator's instance from the tables' size."""
+    evaluator's instance from the tables' size.  ``s`` is the lanes of a
+    state row and ``pitch`` the kernels' (``s`` rounded up to 8; the
+    lanes past ``s`` are inert nodes the wrapper adds, never set in a row),
+    the bytes between two rows of the arena sets :meth:`arena` makes."""
 
     def __init__(self, circuit: Circuit, scc_idx: Sequence[int], a_scc: np.ndarray, shape: ChunkShape,
                  probe_circuit: Optional[Circuit] = None, frozen: Optional[np.ndarray] = None,
@@ -306,6 +322,7 @@ class FrontierKernels:
         self.device = resolve_device(device)
         self.shape = shape
         self.s = len(scc_idx)
+        self.pitch = -(-self.s // 8) * 8
         if probe_circuit is not None and (
             probe_circuit.n_units != circuit.n_units
             or not np.array_equal(probe_circuit.members, circuit.members)
@@ -318,9 +335,10 @@ class FrontierKernels:
             )
             return
         self.ref = None
-        if self.s > MAX_LANES or self.s % 8:
-            raise KernelLimitError(f"frontier kernels: |scc| lanes {self.s}: at most {MAX_LANES}, a multiple of 8")
-        planes = indegree_planes(a_scc)
+        if self.s > MAX_LANES:
+            raise KernelLimitError(f"frontier kernels: |scc| lanes {self.s}: at most {MAX_LANES}")
+        a_scc = np.asarray(a_scc)
+        planes = indegree_planes(np.pad(a_scc, (0, self.pitch - len(a_scc))))
         if len(planes) > MAX_PLANES:
             raise KernelLimitError(f"frontier kernels: in-degree counts up to {int(np.max(a_scc))} need "
                                    f"{len(planes)} bit-planes > {MAX_PLANES}")
@@ -330,15 +348,15 @@ class FrontierKernels:
             raise ValueError("frontier kernels: the SCC lanes must cover the circuit's nodes")
         if frozen is not None and np.asarray(frozen).any():
             raise ValueError("frontier kernels: a frozen node outside the SCC lanes")
-        lane_c = permute_nodes(circuit, scc_idx)
+        lane_c = _pad_lanes(permute_nodes(circuit, scc_idx), self.pitch)
         # Both instances read the same tables; the resident one keeps them
         # in shared memory beside K9's scan state, where that fits.
-        t = plane_tables(lane_c, self.device, sweep=True, stream=True)
+        t = plane_tables(lane_c, self.device, sweep=True, stream=True, max_nodes=MAX_LANES)
 
         def need(streamed: bool) -> int:
             return max(smem_bytes(False, streamed, t.nblocks, t.units, t.slabs)
-                       + chunk_extra_bytes(self.s, shape.K, len(planes)),
-                       smem_bytes(True, streamed, t.nblocks, t.units, t.slabs) + filter_extra_bytes())
+                       + chunk_extra_bytes(self.pitch, shape.K, len(planes)),
+                       smem_bytes(True, streamed, t.nblocks, t.units, t.slabs) + filter_extra_bytes(self.pitch))
 
         if stream is None:
             stream = need(False) > SMEM_LIMIT
@@ -348,19 +366,20 @@ class FrontierKernels:
                 f"{SMEM_LIMIT}"
             )
         self.tables = dataclasses.replace(t, stream=bool(stream))
-        thr_d = circuit.thresholds if probe_circuit is None else probe_circuit.thresholds
-        perm = np.concatenate([np.asarray(scc_idx, dtype=np.int64), np.arange(circuit.n, circuit.n_units)])
-        self.neg_thr_d = torch.from_numpy(-padded_thresholds(np.asarray(thr_d)[perm], t.units)).to(self.device)
+        probe_c = lane_c if probe_circuit is None else _pad_lanes(permute_nodes(probe_circuit, scc_idx), self.pitch)
+        self.neg_thr_d = torch.from_numpy(-padded_thresholds(probe_c.thresholds, t.units)).to(self.device)
         self.planes = torch.from_numpy(planes.view(np.int64)).to(self.device)
-        # The stash: two halves, iteration i writing one while it reads i-1's.
+        # The stash: two halves, iteration i writing one while it reads i-1's,
+        # a state W words.
         rows = 2 * stash_rows(shape.K)
-        self.st_T = torch.empty(rows, dtype=torch.int64, device=self.device)
-        self.st_D = torch.empty(rows, dtype=torch.int64, device=self.device)
+        W = state_words(self.pitch)
+        self.st_T = torch.empty(rows * W, dtype=torch.int64, device=self.device)
+        self.st_D = torch.empty(rows * W, dtype=torch.int64, device=self.device)
         self.st_code = torch.empty(rows, dtype=torch.int16, device=self.device)
         lib = _library()
         grid, coop = ctypes.c_int(0), ctypes.c_int(0)
         with torch.cuda.device(self.device):
-            err = lib.qi_frontier_grid(*self._table_args(), self.s, shape.K, len(self.planes),
+            err = lib.qi_frontier_grid(*self._table_args(), self.pitch, shape.K, len(self.planes),
                                        ctypes.byref(grid), ctypes.byref(coop))
         if err != 0:
             raise RuntimeError(f"frontier grid query failed: {lib.qi_cuda_error_string(err).decode()}")
@@ -376,15 +395,29 @@ class FrontierKernels:
                 t.units, t.depth, t.c0, t.slabs, t.pc, t.nblocks, int(t.stream))
 
     def arena(self) -> ArenaSet:
-        return ArenaSet.empty(self.shape.C, self.s, self.shape.flag_cap, self.device)
+        return ArenaSet.empty(self.shape.C, self.s, self.shape.flag_cap, self.device, self.pitch)
+
+
+def _pad_lanes(circuit: Circuit, n: int) -> Circuit:
+    """The lane-space circuit grown to ``n`` nodes by inert ones (no votes,
+    never available), keeping an inner unit's circuit's units past its
+    nodes."""
+    if n == circuit.n:
+        return circuit
+    units = max(circuit.n_units, n + 1) if circuit.n_units > circuit.n else max(circuit.n_units, n)
+    return pad_circuit(circuit, n, units)
+
+
+def _check_rows(kern: FrontierKernels, name: str, t: torch.Tensor, rows: int) -> None:
+    if t.dtype != torch.int8 or tuple(t.shape) != (rows, kern.s) or t.stride() != (kern.pitch, 1):
+        raise ValueError(f"arena {name} must be int8 of shape ({rows}, {kern.s}) with rows {kern.pitch} bytes "
+                         f"apart, got {t.dtype} {tuple(t.shape)} strides {t.stride()}")
 
 
 def _check_set(kern: FrontierKernels, st: ArenaSet) -> None:
     sh = kern.shape
     for name, t, rows in (("T", st.T, sh.C), ("D", st.D, sh.C), ("flags", st.flags, sh.flag_cap)):
-        if t.dtype != torch.int8 or tuple(t.shape) != (rows, kern.s) or not t.is_contiguous():
-            raise ValueError(f"arena {name} must be contiguous int8 of shape ({rows}, {kern.s}), "
-                             f"got {t.dtype} {tuple(t.shape)}")
+        _check_rows(kern, name, t, rows)
     if st.ctr.dtype != torch.int32 or tuple(st.ctr.shape) != (4,):
         raise ValueError(f"arena counters must be int32 of shape (4,), got {st.ctr.dtype} {tuple(st.ctr.shape)}")
 
@@ -420,12 +453,14 @@ def _chunk(kern: FrontierKernels, src: ArenaSet, dst: ArenaSet, flag_exit: int,
         return
     if dst.T.device.type != "cuda" or kern.ref is not None:
         raise ValueError(f"frontier_chunk launches on CUDA only, got {dst.T.device} for a {kern.device} problem")
+    if timing is not None and kern.pitch > 64:
+        raise ValueError(f"K9's timed instance takes states of one word (at most 64 lanes), got {kern.s}")
     _check_set(kern, src)
     _check_set(kern, dst)
     sh = kern.shape
     lib = _library()
     err = lib.qi_frontier_chunk(
-        *kern._table_args(), kern.s, sh.half, sh.K, sh.C, sh.chunk_iters, sh.flag_cap, int(flag_exit),
+        *kern._table_args(), kern.pitch, sh.half, sh.K, sh.C, sh.chunk_iters, sh.flag_cap, int(flag_exit),
         len(kern.planes), kern.planes.data_ptr(), src.T.data_ptr(), src.D.data_ptr(), src.ctr.data_ptr(),
         dst.T.data_ptr(), dst.D.data_ptr(), dst.flags.data_ptr(), dst.ctr.data_ptr(),
         kern.st_T.data_ptr(), kern.st_D.data_ptr(), kern.st_code.data_ptr(),
@@ -447,7 +482,7 @@ def _mesh_limits(kern: FrontierKernels, ranks: int, what: str) -> None:
         raise KernelLimitError(f"frontier {what} kernel: {slots} stash slots a half > {MAX_SLOTS}")
     t = kern.tables
     smem = smem_bytes(False, t.stream, t.nblocks, t.units, t.slabs) + chunk_extra_bytes(
-        kern.s, kern.shape.K, len(kern.planes), rows=slots)
+        kern.pitch, kern.shape.K, len(kern.planes), rows=slots)
     if smem > SMEM_LIMIT:
         raise KernelLimitError(f"frontier {what} kernel: {smem} bytes of shared memory a block; one block may "
                                f"take at most {SMEM_LIMIT}")
@@ -464,10 +499,10 @@ def iteration_launcher(kern: FrontierKernels, st: IterationState, rank: int, ran
     share_slots(sh.K, ranks)
     if not 0 <= rank < ranks:
         raise ValueError(f"rank {rank} of {ranks}")
-    if st.stash.dtype != torch.uint8 or st.stash.numel() != 2 * stash_half_bytes(sh.K, ranks) \
+    nbytes = 2 * stash_half_bytes(sh.K, ranks, state_words(kern.s))
+    if st.stash.dtype != torch.uint8 or st.stash.numel() != nbytes \
             or tuple(st.loop.shape) != (2, 8) or st.loop.dtype != torch.int32:
-        raise ValueError(f"iteration state must hold a uint8 stash of {2 * stash_half_bytes(sh.K, ranks)} bytes "
-                         f"and an int32 (2, 8) loop state")
+        raise ValueError(f"iteration state must hold a uint8 stash of {nbytes} bytes and an int32 (2, 8) loop state")
     devices = {st.src.T.device, st.dst.T.device, st.stash.device, st.loop.device}
     if len(devices) != 1:
         raise ValueError(f"iteration state lies on different devices: {devices}")
@@ -483,7 +518,7 @@ def iteration_launcher(kern: FrontierKernels, st: IterationState, rank: int, ran
     _check_set(kern, st.src)
     _check_set(kern, st.dst)
     fn = _library().qi_frontier_iteration
-    head = (*kern._table_args(), kern.s, sh.half, sh.K, sh.C, sh.chunk_iters, sh.flag_cap, int(flag_exit),
+    head = (*kern._table_args(), kern.pitch, sh.half, sh.K, sh.C, sh.chunk_iters, sh.flag_cap, int(flag_exit),
             len(kern.planes), kern.planes.data_ptr(), rank, ranks)
     tail = (st.src.T.data_ptr(), st.src.D.data_ptr(), st.src.ctr.data_ptr(), st.dst.T.data_ptr(),
             st.dst.D.data_ptr(), st.dst.flags.data_ptr(), st.dst.ctr.data_ptr(), st.stash.data_ptr(),
@@ -595,11 +630,11 @@ def frontier_mesh_chunk(kerns: Sequence[FrontierKernels], states: Sequence[CardS
     share_slots(K, n)
     if sorted(r for st in states for r in st.ranks) != list(range(n)) or any(st.mesh_size != n for st in states):
         raise ValueError(f"the cards' ranks {[st.ranks for st in states]} must cover the {n} ranks once")
+    nbytes = 2 * stash_half_bytes(K, n, state_words(kerns[0].s))
     for st in states:
-        if st.stash.dtype != torch.uint8 or st.stash.numel() != 2 * stash_half_bytes(K, n) \
+        if st.stash.dtype != torch.uint8 or st.stash.numel() != nbytes \
                 or st.sync.dtype != torch.int32 or tuple(st.sync.shape) != (4,):
-            raise ValueError(f"a card state must hold a uint8 stash of {2 * stash_half_bytes(K, n)} bytes and "
-                             f"int32 (4,) sync words")
+            raise ValueError(f"a card state must hold a uint8 stash of {nbytes} bytes and int32 (4,) sync words")
         devices = {st.src.T.device, st.dst.T.device, st.stash.device, st.sync.device, st.mine.device}
         if len(devices) != 1:
             raise ValueError(f"card state lies on different devices: {devices}")
@@ -632,7 +667,7 @@ def frontier_mesh_chunk(kerns: Sequence[FrontierKernels], states: Sequence[CardS
         peer_sync = (ctypes.c_void_p * MAX_CARDS)(*[o.sync.data_ptr() for o in peers])
         with torch.cuda.device(dev):
             err = lib.qi_frontier_mesh_chunk(
-                *kern._table_args(), kern.s, sh.half, sh.K, sh.C, sh.chunk_iters, sh.flag_cap, int(flag_exit),
+                *kern._table_args(), kern.pitch, sh.half, sh.K, sh.C, sh.chunk_iters, sh.flag_cap, int(flag_exit),
                 len(kern.planes), kern.planes.data_ptr(), n, st.mine.data_ptr(), len(st.ranks), st.src.T.data_ptr(),
                 st.src.D.data_ptr(), st.src.ctr.data_ptr(), st.dst.T.data_ptr(), st.dst.D.data_ptr(),
                 st.dst.flags.data_ptr(), st.dst.ctr.data_ptr(), st.stash.data_ptr(), st.sync.data_ptr(),
@@ -689,25 +724,31 @@ def frontier_filter(kern: FrontierKernels, flags_blk: torch.Tensor, count: int) 
     if flags_blk.dtype != torch.int8 or flags_blk.ndim != 2 or flags_blk.shape[1] != kern.s:
         raise ValueError(f"flag block must be int8 of shape (B, {kern.s}), got {flags_blk.dtype} "
                          f"{tuple(flags_blk.shape)}")
-    count = max(0, min(int(count), flags_blk.shape[0]))
+    B = flags_blk.shape[0]
+    count = max(0, min(int(count), B))
     if flags_blk.device.type == "cpu":
         if kern.ref is None:
             raise ValueError("frontier kernels built for CUDA got a CPU flag block")
         return kern.ref.filter(flags_blk, count)
     if flags_blk.device.type != "cuda" or kern.ref is not None:
         raise ValueError(f"frontier_filter launches on CUDA only, got {flags_blk.device}")
-    flags_blk = flags_blk.contiguous()
+    if flags_blk.stride() != (kern.pitch, 1):
+        # The kernel reads rows pitch bytes apart: a block of s-lane rows
+        # (s off a multiple of 8) is copied into such rows, zero past s.
+        rows = torch.zeros((max(count, 1), kern.pitch), dtype=torch.int8, device=flags_blk.device)
+        rows[:count, : kern.s] = flags_blk[:count]
+        flags_blk = rows[:, : kern.s]
     # Filled on the device: a tensor made from host data (or an item
     # assigned from a Python number) is a pageable copy, which holds the host
     # until the stream reaches it.
-    out = torch.full((2,), flags_blk.shape[0], dtype=torch.int32, device=flags_blk.device)
+    out = torch.full((2,), B, dtype=torch.int32, device=flags_blk.device)
     out[0].zero_()
     if count:
         t = kern.tables
         lib = _library()
         err = lib.qi_frontier_filter(
             t.blocks.data_ptr(), t.chunks.data_ptr(), t.neg_thresholds.data_ptr(), kern.neg_thr_d.data_ptr(),
-            t.n, t.n_units, t.units, t.depth, t.c0, t.slabs, t.pc, t.nblocks, int(t.stream), kern.s,
+            t.n, t.n_units, t.units, t.depth, t.c0, t.slabs, t.pc, t.nblocks, int(t.stream), kern.pitch,
             flags_blk.data_ptr(), count, out.data_ptr(), torch.cuda.current_stream(kern.device).cuda_stream,
         )
         if err != 0:
@@ -717,7 +758,12 @@ def frontier_filter(kern: FrontierKernels, flags_blk: torch.Tensor, count: int) 
 
 
 def _library() -> ctypes.CDLL:
-    lib = build.load("frontier")
+    return typed_library(build.load("frontier"))
+
+
+def typed_library(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``csrc/frontier.cu``) with its C functions'
+    argument and result types set, once."""
     if not getattr(lib, "_qi_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
         tables = [p, p, p, i, i, i, i, i, i, i, i, i]

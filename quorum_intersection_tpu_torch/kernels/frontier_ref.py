@@ -18,6 +18,8 @@ the CPU path of ``gpu-frontier`` and the yardstick the CUDA kernels
 
 The arena is a LIFO stack of (toRemove, dontRemove) pairs as int8 0/1 rows
 over the SCC's ``s`` lanes, lane ``i`` being circuit node ``scc_idx[i]``.
+The mesh instances' stash holds a state as ``W`` = ⌈s / 64⌉ int64 words
+(:func:`pack_words`, :func:`state_words`), as the kernels do.
 Where the JAX program is a pure function of its arrays, :func:`chunk_loop`
 writes into the caller's destination arena in place: it first copies the
 source's live rows ``[0, top)`` there (a no-op when they are the same
@@ -223,34 +225,55 @@ def share_slots(K: int, ranks: int) -> Tuple[int, int]:
     return Kn, -(-Kn // 8) * 8
 
 
-def stash_half_bytes(K: int, ranks: int) -> int:
-    """Bytes of one stash half: ``ranks`` shares of ``18 Ks`` bytes."""
-    return ranks * 18 * share_slots(K, ranks)[1]
+def state_words(s: int) -> int:
+    """``W``: the 64-bit words a state row of ``s`` lanes packs into."""
+    return -(-s // 64)
 
 
-def stash_half(stash: torch.Tensor, K: int, ranks: int, half: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Views ``(T, D, code)``, each ``(ranks, Ks)``, of stash half ``half``
-    (``csrc/frontier.cu``'s share-major layout): share ``r`` holds its
-    ``Ks`` toRemove words (int64, bit ``x`` lane ``x``), its dontRemove
-    words, then its codes (int16: bit 0 include, 1 exclude, 2 flag, the
+def stash_half_bytes(K: int, ranks: int, words: int) -> int:
+    """Bytes of one stash half of states of ``words`` words: ``ranks``
+    shares of ``(16 words + 2) Ks`` bytes."""
+    return ranks * (16 * words + 2) * share_slots(K, ranks)[1]
+
+
+def stash_half(stash: torch.Tensor, K: int, ranks: int, half: int,
+               words: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Views ``(T, D, code)`` of stash half ``half`` (``csrc/frontier.cu``'s
+    share-major layout), ``T`` and ``D`` ``(ranks, Ks, words)``, ``code``
+    ``(ranks, Ks)``: share ``r`` holds its ``Ks`` toRemove states (int64
+    words, bit ``x`` of word ``j`` lane ``64 j + x``), its dontRemove
+    states, then its codes (int16: bit 0 include, 1 exclude, 2 flag, the
     branch lane from bit 8)."""
     Ks = share_slots(K, ranks)[1]
-    nbytes = stash_half_bytes(K, ranks)
-    blk = stash[half * nbytes:(half + 1) * nbytes].view(ranks, 18 * Ks)
-    return (blk[:, :8 * Ks].view(torch.int64), blk[:, 8 * Ks:16 * Ks].view(torch.int64),
-            blk[:, 16 * Ks:].view(torch.int16))
+    nbytes = stash_half_bytes(K, ranks, words)
+    row = 8 * words * Ks
+    blk = stash[half * nbytes:(half + 1) * nbytes].view(ranks, (16 * words + 2) * Ks)
+    return (blk[:, :row].view(torch.int64).view(ranks, Ks, words),
+            blk[:, row:2 * row].view(torch.int64).view(ranks, Ks, words), blk[:, 2 * row:].view(torch.int16))
 
 
 def pack_words(rows: torch.Tensor) -> torch.Tensor:
-    """(B, s) 0/1 lane rows → (B,) int64 words, bit ``x`` lane ``x``."""
-    lanes = torch.arange(rows.shape[1], device=rows.device, dtype=torch.int64)
-    return (rows.to(torch.int64) << lanes).sum(-1)
+    """(B, s) 0/1 lane rows → (B, W) int64 words, bit ``x`` of word ``j``
+    lane ``64 j + x`` (no shift past bit 63)."""
+    B, s = rows.shape
+    W = state_words(s)
+    wide = torch.zeros((B, 64 * W), dtype=torch.int64, device=rows.device)
+    wide[:, :s] = rows
+    bits = torch.arange(64, device=rows.device, dtype=torch.int64)
+    return (wide.view(B, W, 64) << bits).sum(-1)
 
 
 def unpack_words(words: torch.Tensor, s: int) -> torch.Tensor:
-    """(B,) int64 words → (B, s) int8 0/1 lane rows."""
-    lanes = torch.arange(s, device=words.device, dtype=torch.int64)
-    return ((words[:, None] >> lanes) & 1).to(torch.int8)
+    """(B, W) int64 words → (B, s) int8 0/1 lane rows."""
+    bits = torch.arange(64, device=words.device, dtype=torch.int64)
+    return ((words[:, :, None] >> bits) & 1).reshape(words.shape[0], -1)[:, :s].to(torch.int8)
+
+
+def lane_words(lanes: torch.Tensor, W: int) -> torch.Tensor:
+    """(B,) lane indices → (B, W) int64 words holding each one's bit."""
+    out = torch.zeros((lanes.shape[0], W), dtype=torch.int64, device=lanes.device)
+    out.scatter_(1, (lanes // 64)[:, None], (torch.ones_like(lanes) << (lanes % 64))[:, None])
+    return out
 
 
 def share_iteration(
@@ -289,6 +312,7 @@ def share_iteration(
     K, C, half, cap = shape.K, shape.C, shape.half, shape.flag_cap
     Kn, Ks = share_slots(K, ranks)
     s = T.shape[1]
+    W = state_words(s)
     dev = T.device
     inp, out = loop[step & 1], loop[(step + 1) & 1]
     if step == 0:
@@ -303,7 +327,8 @@ def share_iteration(
             return
         top, fcount, iters, popped, pbase, pk = state[:6]
 
-    pT, pD, pcode = (x.reshape(-1) for x in stash_half(stash, K, ranks, (iters + 1) & 1))
+    pT, pD, pcode = stash_half(stash, K, ranks, (iters + 1) & 1, W)
+    pT, pD, pcode = pT.reshape(-1, W), pD.reshape(-1, W), pcode.reshape(-1)
     fprev, nflags = fcount, 0
     child_slot = child_excl = fslots = None
     if pk:
@@ -324,8 +349,8 @@ def share_iteration(
         adds the branch lane to dontRemove."""
         sl = child_slot[idx]
         d = pD[sl]
-        with_best = d | (torch.ones_like(d) << (pcode[sl].to(torch.int64) >> 8))
-        return unpack_words(pT[sl], s), unpack_words(torch.where(child_excl[idx], d, with_best), s)
+        with_best = d | lane_words(pcode[sl].to(torch.int64) >> 8, W)
+        return unpack_words(pT[sl], s), unpack_words(torch.where(child_excl[idx, None], d, with_best), s)
 
     go = top > 0 and iters < shape.chunk_iters and fcount < flag_exit and top <= C - 2 * K
     k = min(top, K) if go else 0
@@ -372,11 +397,11 @@ def share_iteration(
     incl = branchable & (dsize + 1 <= half)
     excl = branchable & ((child_T.sum(-1) + dsize) > 0)
     code = incl.to(torch.int64) | (excl.to(torch.int64) << 1) | (d_has_q.to(torch.int64) << 2) | (best << 8)
-    cT, cD, ccode = stash_half(stash, K, ranks, iters & 1)
-    zero = torch.zeros(Ks, dtype=torch.int64, device=dev)
-    cT[rank] = torch.where(valid, pack_words(child_T), zero)
-    cD[rank] = torch.where(valid, pack_words(blk_D), zero)
-    ccode[rank] = torch.where(valid, code, zero).to(torch.int16)
+    cT, cD, ccode = stash_half(stash, K, ranks, iters & 1, W)
+    zero = torch.zeros((Ks, W), dtype=torch.int64, device=dev)
+    cT[rank] = torch.where(valid[:, None], pack_words(child_T), zero)
+    cD[rank] = torch.where(valid[:, None], pack_words(blk_D), zero)
+    ccode[rank] = torch.where(valid, code, zero[:, 0]).to(torch.int16)
     out.copy_(torch.tensor([top, fcount, iters + 1, popped + k, base, k, 0, 0], dtype=torch.int32))
 
 
@@ -438,7 +463,7 @@ def sharded_chunk_loop(
     Returns each rank's ``(top, fcount, iters, popped)``; with
     :func:`chunk_loop`'s at the same ``K`` they are equal, and so are the
     arena rows ``[0, top)`` and the flags."""
-    nbytes = stash_half_bytes(shape.K, ranks)
+    nbytes = stash_half_bytes(shape.K, ranks, state_words(src_T.shape[1]))
     share = nbytes // ranks
     stashes = [torch.zeros(2 * nbytes, dtype=torch.uint8, device=src_T.device) for _ in range(ranks)]
     loops = [torch.zeros((2, 8), dtype=torch.int32, device=src_T.device) for _ in range(ranks)]

@@ -153,14 +153,16 @@ def padded_thresholds(thresholds: np.ndarray, units: int) -> np.ndarray:
 
 
 def plane_tables(circuit: Circuit, device: torch.device, sweep: bool = True,
-                 stream: Optional[bool] = None) -> PlaneTables:
+                 stream: Optional[bool] = None, max_nodes: int = MAX_NODES) -> PlaneTables:
     """The tables of ``circuit`` for the sweep (``sweep``: decode tables and
     D thresholds beside them in shared memory) or the guard.  ``stream``
     None picks the instance from the size: resident where one block's shared
-    memory holds the tables, streamed otherwise."""
+    memory holds the tables, streamed otherwise.  ``max_nodes``: the nodes
+    the caller's kernel takes, at most a k-slab's 128 (the sweep's and the
+    guard's 64, whose rows are one 64-bit word; the frontier's 128)."""
     n, u = circuit.n, circuit.n_units
-    if n > MAX_NODES:
-        raise KernelLimitError(f"circuit has {n} nodes; the kernel takes at most {MAX_NODES}")
+    if n > min(max_nodes, SLAB):
+        raise KernelLimitError(f"circuit has {n} nodes; the kernel takes at most {min(max_nodes, SLAB)}")
     units = _round_up(max(u, n, 1), CHUNK)
     kids = np.nonzero(circuit.child.any(axis=0))[0]
     c0 = int(kids[0]) - int(kids[0]) % CHUNK if kids.size else units

@@ -1,7 +1,7 @@
 """The JAX frontier's results that ``tests/test_torch_frontier.py`` holds the
 port to, pinned in ``tests/_torch_frontier_jax.json``: a live run of every
 case through the JAX package's ``TpuFrontierBackend`` on the CPU takes about
-25 s, past the port tests' time budget, so the test replays this file and
+35 s, past the port tests' time budget, so the test replays this file and
 checks one case live against it.
 
 Regenerate (from the repository root, JAX on the CPU):
@@ -23,8 +23,9 @@ STAT_KEYS = ("device_iters", "device_chunks", "states_popped", "flagged", "minim
 
 # name -> (generator, args, kwargs, backend kwargs, scope_to_scc).  The cases
 # of tests/test_frontier.py's TestDifferential, TestArenaSpill,
-# TestDeviceFlagFilter, TestDeterminism and TestRestrictedCheckpoint, and the
-# two SCCs above the sweep's reach.
+# TestDeviceFlagFilter, TestDeterminism and TestRestrictedCheckpoint, the
+# SCCs above the sweep's reach (63 lanes, and 66 and 126 past the kernels'
+# one-word states), and the JAX drive's pad_shapes=False.
 CASES = {
     **{f"majority-{n}": ("majority_fbas", [n], {}, {"arena": 8192, "pop": 256}, False) for n in (7, 9, 11)},
     **{f"majority-{n}-broken": ("majority_fbas", [n], {"broken": True}, {"arena": 8192, "pop": 256}, False)
@@ -50,6 +51,13 @@ CASES = {
     "bench-64-14-restricted": ("benchmark_fbas", [64, 14], {"seed": 1}, {"arena": 4096, "pop": 128}, False),
     "stellar-16x3-broken": ("stellar_like_fbas", [16, 3], {"broken": True}, {"arena": 8192, "pop": 256}, False),
     "stellar-21x3-broken": ("stellar_like_fbas", [21, 3], {"broken": True}, {"arena": 8192, "pop": 256}, False),
+    # Past 64 lanes: 66 (padded to 96) and 126 (padded to 128, units 192).
+    "stellar-22x3-broken": ("stellar_like_fbas", [22, 3], {"broken": True}, {"arena": 8192, "pop": 256}, False),
+    "stellar-42x3-broken": ("stellar_like_fbas", [42, 3], {"broken": True}, {"arena": 8192, "pop": 256}, False),
+    # pad_shapes=False: exact lane, node and unit counts, no padded_shape.
+    "hier-5x3-unpadded": ("hierarchical_fbas", [5, 3], {}, {"arena": 8192, "pop": 256, "pad_shapes": False}, False),
+    "stellar-22x3-broken-unpadded": ("stellar_like_fbas", [22, 3], {"broken": True},
+                                     {"arena": 8192, "pop": 256, "pad_shapes": False}, False),
 }
 
 # The case a test runs live through the JAX package, guarding this file.

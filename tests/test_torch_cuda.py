@@ -744,7 +744,17 @@ FRONTIER_CASES = {
     # Wide SCCs whose in-degrees differ from lane to lane (the argmax decides).
     "random-48-slice-12": (lambda: synth.random_fbas(48, seed=0, slice_size=12), 1 << 18, 2048),
     "random-64": (lambda: synth.random_fbas(64, seed=0), 1 << 18, 2048),
+    # Past 64 lanes, states of two words (the kernels' W = 2 instances):
+    # 66 lanes (padded to 96), 90 (96; its whole search is out of reach, so
+    # chunk-level only), 126 (128, 192 units), and 96 and 128 lanes of
+    # differing in-degrees.
+    "stellar-22x3-broken": (lambda: synth.stellar_like_fbas(22, 3, broken=True), 1 << 18, 2048),
+    "stellar-42x3-broken": (lambda: synth.stellar_like_fbas(42, 3, broken=True), 1 << 18, 2048),
+    "stellar-30x3": (lambda: synth.stellar_like_fbas(30, 3), 1 << 18, 2048),
+    "random-96": (lambda: synth.random_fbas(96, seed=0), 1 << 18, 2048),
+    "random-128": (lambda: synth.random_fbas(128, seed=0), 1 << 18, 2048),
 }
+WIDE_FRONTIER_CASES = ("stellar-22x3-broken", "stellar-42x3-broken", "stellar-30x3", "random-96", "random-128")
 
 
 def _frontier_setup(data, device, arena, pop, stream=None, chunk_iters=512):
@@ -818,6 +828,21 @@ def test_frontier_kernels_streamed_instance_matches_plain(cuda_device):
     _frontier_lockstep(prob, shape, kern, plain, chunks=3)
 
 
+@pytest.mark.parametrize("stream", [False, True])
+@pytest.mark.parametrize("case", WIDE_FRONTIER_CASES)
+def test_frontier_wide_kernels_match_plain_on_both_instances(case, stream, cuda_device):
+    """K9 and K10 at two words a state (65-128 lanes) against their plain
+    versions on the resident and the streamed instance, chunk for chunk."""
+    from quorum_intersection_tpu_torch.kernels.frontier_cuda import LAUNCHES
+
+    make, arena, pop = FRONTIER_CASES[case]
+    prob, shape, kern, plain = _frontier_setup(make(), cuda_device, arena, pop, stream=stream)
+    assert 64 < prob.s_dev <= 128 and kern.tables.stream is stream
+    before = LAUNCHES["frontier_chunk"]
+    chunks = _frontier_lockstep(prob, shape, kern, plain, chunks=2)
+    assert LAUNCHES["frontier_chunk"] == before + chunks
+
+
 # (source, arena, pop, chunks, chunk_iters): between them every exit of the
 # chunk loop (empty stack, chunk_iters, flag_exit, the overflow guard).
 FRONTIER_EXIT_CASES = (
@@ -841,7 +866,7 @@ def test_frontier_chunk_leaves_by_every_exit_on_both_instances(stream, cuda_devi
 
 
 @pytest.mark.parametrize("case", ["stellar-16x3-broken", "stellar-21x3-broken", "hier-8x4", "random-48-slice-12",
-                                  "random-64"])
+                                  "random-64", *WIDE_FRONTIER_CASES])
 def test_frontier_filter_on_sets_over_16_members(case, cuda_device):
     """K10 against its plain version on sets of more than 16 members, no
     multiple of 16, so that a set's leave-one-out rows span tiles."""
@@ -862,6 +887,11 @@ def test_frontier_filter_on_sets_over_16_members(case, cuda_device):
     ("majority-18", {}),
     ("stellar-16x3-broken", {"arena": 8192, "pop": 256}),
     ("stellar-21x3-broken", {"arena": 8192, "pop": 256}),
+    ("stellar-22x3-broken", {"arena": 8192, "pop": 256}),
+    ("stellar-42x3-broken", {"arena": 8192, "pop": 256}),
+    # pad_shapes=False: 15 and 66 lanes, off a multiple of 8.
+    ("hier-5x3", {"arena": 8192, "pop": 256, "pad_shapes": False}),
+    ("stellar-22x3-broken", {"arena": 8192, "pop": 256, "pad_shapes": False}),
 ])
 def test_frontier_solve_on_card_matches_cpu(case, kw, cuda_device):
     from quorum_intersection_tpu_torch.backends.frontier import GpuFrontierBackend
@@ -872,7 +902,9 @@ def test_frontier_solve_on_card_matches_cpu(case, kw, cuda_device):
             "stellar-4x3-broken": lambda: synth.stellar_like_fbas(4, 3, n_watchers=10, broken=True),
             "majority-18": lambda: synth.majority_fbas(18),
             "stellar-16x3-broken": lambda: synth.stellar_like_fbas(16, 3, broken=True),
-            "stellar-21x3-broken": lambda: synth.stellar_like_fbas(21, 3, broken=True)}[case]()
+            "stellar-21x3-broken": lambda: synth.stellar_like_fbas(21, 3, broken=True),
+            "stellar-22x3-broken": lambda: synth.stellar_like_fbas(22, 3, broken=True),
+            "stellar-42x3-broken": lambda: synth.stellar_like_fbas(42, 3, broken=True)}[case]()
     before = LAUNCHES["frontier_chunk"]
     on_card = solve(data, backend=GpuFrontierBackend(device=cuda_device, **kw))
     on_cpu = solve(data, backend=GpuFrontierBackend(device="cpu", flag_check="device", **kw))
@@ -885,13 +917,15 @@ def test_frontier_solve_on_card_matches_cpu(case, kw, cuda_device):
 
 
 def test_frontier_limits_raise_before_launch(cuda_device):
-    """More than 64 lanes, or more than MAX_POP pops, raise before a launch."""
+    """More than 128 lanes, or more than MAX_POP pops, raise before a launch."""
     from quorum_intersection_tpu_torch.backends.frontier import GpuFrontierBackend
     from quorum_intersection_tpu_torch.kernels.frontier_cuda import LAUNCHES, MAX_POP
 
     before = dict(LAUNCHES)
     with pytest.raises(KernelLimitError, match="lanes"):
-        solve(synth.majority_fbas(65), backend=GpuFrontierBackend(device=cuda_device))
+        solve(synth.majority_fbas(129), backend=GpuFrontierBackend(device=cuda_device))
+    with pytest.raises(KernelLimitError, match="lanes 129"):
+        solve(synth.majority_fbas(129), backend=GpuFrontierBackend(device=cuda_device, pad_shapes=False))
     with pytest.raises(KernelLimitError, match="pop"):
         solve(synth.majority_fbas(9), backend=GpuFrontierBackend(device=cuda_device, arena=1 << 16,
                                                                   pop=MAX_POP + 8))
@@ -923,6 +957,10 @@ MESH_FRONTIER_CASES = {
     "hier-4x3-spill": (lambda: synth.hierarchical_fbas(4, 3), 64, 16, 8),
     "hier-8x4": (lambda: synth.hierarchical_fbas(8, 4), 1 << 18, 2048, 3),
     "random-64": (lambda: synth.random_fbas(64, seed=0), 1 << 18, 2048, 3),
+    # Two words a state.
+    "stellar-42x3-broken": (lambda: synth.stellar_like_fbas(42, 3, broken=True), 1 << 18, 2048, 2),
+    "stellar-30x3": (lambda: synth.stellar_like_fbas(30, 3), 1 << 18, 2048, 2),
+    "random-128": (lambda: synth.random_fbas(128, seed=0), 1 << 18, 2048, 2),
 }
 
 
@@ -953,7 +991,8 @@ def test_frontier_mesh_solve_on_card_matches_single_card(cuda_device):
     from quorum_intersection_tpu_torch.parallel import candidate_mesh
 
     mesh = candidate_mesh(devices=[cuda_device] * 4)
-    for data in (synth.hierarchical_fbas(5, 3), synth.majority_fbas(14, broken=True)):
+    for data in (synth.hierarchical_fbas(5, 3), synth.majority_fbas(14, broken=True),
+                 synth.stellar_like_fbas(42, 3, broken=True)):
         want = solve(data, backend=GpuFrontierBackend(device=cuda_device, arena=8192, pop=256))
         before = dict(LAUNCHES)
         got = solve(data, backend=GpuFrontierBackend(arena=8192, pop=256, mesh=mesh))
@@ -968,7 +1007,7 @@ def test_frontier_mesh_solve_on_card_matches_single_card(cuda_device):
 
 
 def test_frontier_iteration_limits_raise_before_launch(cuda_device):
-    """Under a mesh, more than 64 lanes raise before a launch, as K9's
+    """Under a mesh, more than 128 lanes raise before a launch, as K9's
     limits do; so does a pop that does not split over the ranks."""
     from quorum_intersection_tpu_torch.backends.frontier import GpuFrontierBackend
     from quorum_intersection_tpu_torch.kernels.frontier_cuda import LAUNCHES, IterationState, frontier_iteration
@@ -977,7 +1016,7 @@ def test_frontier_iteration_limits_raise_before_launch(cuda_device):
     before = dict(LAUNCHES)
     mesh = candidate_mesh(devices=[cuda_device] * 2)
     with pytest.raises(KernelLimitError, match="lanes"):
-        solve(synth.majority_fbas(65), backend=GpuFrontierBackend(mesh=mesh))
+        solve(synth.majority_fbas(129), backend=GpuFrontierBackend(mesh=mesh))
     prob, shape, kern, _ = _frontier_setup(synth.hierarchical_fbas(4, 3), cuda_device, 4096, 250)
     st = IterationState.empty(250, 2, kern.arena(), kern.arena())
     with pytest.raises(ValueError, match="does not split"):

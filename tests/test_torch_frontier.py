@@ -81,11 +81,24 @@ def test_pin_equals_live_jax():
 
 def test_pinned_counts_are_the_frontiers_known_targets():
     """The wide broken twins decide false after the popped counts the JAX
-    package's CPU run recorded."""
+    package's CPU run recorded, and the unpadded runs after the padded
+    runs' counts."""
     assert PINNED["stellar-16x3-broken"]["stats"]["states_popped"] == 12543
     assert PINNED["stellar-21x3-broken"]["stats"]["states_popped"] == 8447
     assert PINNED["stellar-21x3-broken"]["stats"]["padded_shape"][0] == 64
     assert not PINNED["stellar-16x3-broken"]["intersects"] and not PINNED["stellar-21x3-broken"]["intersects"]
+    # Past 64 lanes: 66 and 126 lanes, padded to 96 and 128 (192 units).
+    wide = {name: PINNED[name] for name in ("stellar-22x3-broken", "stellar-42x3-broken")}
+    assert [w["stats"]["padded_shape"] for w in wide.values()] == [[96, 96, 128], [128, 128, 192]]
+    assert [(w["stats"]["states_popped"], w["stats"]["device_iters"]) for w in wide.values()] == [(8191, 39),
+                                                                                                   (16639, 72)]
+    assert not any(w["intersects"] for w in wide.values())
+    # pad_shapes=False: the same traversal, no padded shape.
+    for name, padded, counts in (("hier-5x3-unpadded", "hier-5x3-device", (15101, 68)),
+                                 ("stellar-22x3-broken-unpadded", "stellar-22x3-broken", (8191, 39))):
+        stats = PINNED[name]["stats"]
+        assert stats["padded_shape"] is None and (stats["states_popped"], stats["device_iters"]) == counts
+        assert stats["states_popped"] == PINNED[padded]["stats"]["states_popped"]
 
 
 # ---- one chunk and one flag block against the JAX programs ------------------

@@ -49,6 +49,12 @@ def _rows(words, s: int) -> np.ndarray:
     return ((words[:, None] >> np.arange(s, dtype=np.uint64)) & np.uint64(1)).astype(np.int8)
 
 
+def _plane(planes: np.ndarray, b: int, w: int) -> int:
+    """Lane ``w``'s in-degree bit-plane ``b`` as one integer over the
+    state's words (``planes`` (P, W, s): word j lanes 64 j to 64 j + 63)."""
+    return sum(int(x) << (64 * j) for j, x in enumerate(planes[b, :, w]))
+
+
 def _popcount(x: np.ndarray) -> np.ndarray:
     return np.array([bin(int(v)).count("1") for v in x.ravel()], dtype=np.int64).reshape(x.shape)
 
@@ -90,7 +96,7 @@ def _evaluate(plain: FrontierRef, planes: np.ndarray, half: int, T: np.ndarray, 
         key = 0
         for w in range(s):
             if int(elig[r]) >> w & 1:
-                m = sum(bin(int(f2[r]) & int(planes[b, w])).count("1") << b for b in range(len(planes)))
+                m = sum(bin(int(f2[r]) & _plane(planes, b, w)).count("1") << b for b in range(len(planes)))
                 key = max(key, (m + 1) << 8 | (255 - w))
         best[r] = 255 - (key & 255)
     child = elig & ~np.left_shift(np.uint64(1), best.astype(np.uint64))
@@ -230,25 +236,27 @@ def test_single_barrier_schedule_equals_plain_chunk_loop(case):
 
 
 @pytest.mark.parametrize("most", [1, 2, 5])
-@pytest.mark.parametrize("s", [8, 24, 48, 64])
+@pytest.mark.parametrize("s", [8, 24, 48, 64, 72, 96, 128])
 def test_indegree_planes_give_the_in_degree(s, most):
-    """sum_b popcount(f2 & plane_b[w]) << b == (f2 @ a_scc)[w] for random
-    rows f2 and edge counts up to ``most``."""
+    """sum_b sum_j popcount(f2_j & plane_b[j][w]) << b == (f2 @ a_scc)[w]
+    for random rows f2 (W = ceil(s / 64) words) and edge counts up to
+    ``most``."""
     rng = np.random.default_rng(s * 10 + most)
     a = rng.integers(0, most + 1, size=(s, s))
     planes = indegree_planes(a)
-    assert planes.dtype == np.uint64 and planes.shape == (int(a.max()).bit_length(), s)
+    assert planes.dtype == np.uint64 and planes.shape == (int(a.max()).bit_length(), -(-s // 64), s)
     f2 = rng.integers(0, 2, size=(32, s))
-    words = _bits(f2)
-    got = np.array([[sum(bin(int(x) & int(planes[b, w])).count("1") << b for b in range(len(planes)))
-                     for w in range(s)] for x in words])
+    rows = [sum(1 << int(i) for i in np.nonzero(r)[0]) for r in f2]
+    got = np.array([[sum(bin(x & _plane(planes, b, w)).count("1") << b for b in range(len(planes)))
+                     for w in range(s)] for x in rows])
     np.testing.assert_array_equal(got, f2 @ a)
 
 
 def test_indegree_planes_of_an_edgeless_scc_are_empty():
-    assert indegree_planes(np.zeros((8, 8), dtype=np.int32)).shape == (0, 8)
+    assert indegree_planes(np.zeros((8, 8), dtype=np.int32)).shape == (0, 1, 8)
+    assert indegree_planes(np.zeros((96, 96), dtype=np.int32)).shape == (0, 2, 96)
     with pytest.raises(ValueError):
-        indegree_planes(np.ones((65, 65), dtype=np.int32))
+        indegree_planes(np.ones((129, 129), dtype=np.int32))
 
 
 def test_exit_reason_follows_the_loop_condition():
@@ -350,3 +358,44 @@ def test_filter_schedule_equals_plain_filter(case):
     # per-set tiles the schedule replaced).
     per_set = sum(-(-int(m) // 16) for m in block.sum(-1)) + -(-len(block) // 16)
     assert 1 <= tiles < per_set
+
+
+def test_arena_rows_keep_the_kernels_pitch():
+    """An arena set of ``s`` lanes for kernels that take ``pitch`` (``s`` off
+    a multiple of 8, the drive's ``pad_shapes=False``): views of zeroed rows
+    ``pitch`` bytes apart, which the wrappers' checks take, and contiguous
+    ``s``-lane rows they refuse."""
+    from quorum_intersection_tpu_torch.kernels.frontier_cuda import _check_set
+
+    class Kern:
+        s, pitch = 15, 16
+        shape = ChunkShape(half=7, K=16, C=64, chunk_iters=1, flag_cap=30)
+
+    st = ArenaSet.empty(64, 15, 30, CPU, pitch=16)
+    assert st.T.shape == (64, 15) and st.T.stride() == (16, 1) and st.flags.shape == (30, 15)
+    st.T[:3] = 1
+    assert not torch.as_strided(st.T, (64, 16), (16, 1))[:, 15].any()
+    _check_set(Kern, st)
+    with pytest.raises(ValueError, match="16 bytes apart"):
+        _check_set(Kern, ArenaSet.empty(64, 15, 30, CPU))
+
+
+@pytest.mark.parametrize("make,pitch", [(lambda: synth.hierarchical_fbas(5, 3), 16),
+                                        (lambda: synth.majority_fbas(13), 16),
+                                        (lambda: synth.random_fbas(13, seed=1, nested_prob=0.4), 24)])
+def test_lane_padding_keeps_the_fixpoint(make, pitch):
+    """The circuit the wrapper grows to ``pitch`` lanes by inert nodes: on
+    rows that never hold a padded lane the fixpoint is the circuit's own,
+    and padded lanes stay out of it."""
+    from quorum_intersection_tpu_torch.kernels.frontier_cuda import _pad_lanes
+    from quorum_intersection_tpu_torch.kernels.sweep_ref import CircuitTables
+
+    circuit = encode_circuit(build_graph(parse_fbas(json.dumps(make()))))
+    grown = _pad_lanes(circuit, pitch)
+    assert grown.n == pitch and (grown.n_units > pitch) == (circuit.n_units > circuit.n)
+    rows = (np.random.default_rng(pitch).random((64, circuit.n)) < 0.7).astype(np.int32)
+    wide = np.zeros((64, pitch), dtype=np.int32)
+    wide[:, : circuit.n] = rows
+    want = fixpoint(CircuitTables(circuit, CPU), torch.from_numpy(rows))
+    got = fixpoint(CircuitTables(grown, CPU), torch.from_numpy(wide))
+    assert want.any() and torch.equal(got[:, : circuit.n], want) and not got[:, circuit.n:].any()

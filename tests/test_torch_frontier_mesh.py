@@ -12,7 +12,8 @@ statistics ``states_popped``, ``device_iters``, ``device_chunks``,
   broken ``stellar_like_fbas(4, 3, 10)``; hier-4x3 at arena 2048, pop 512
   (the JAX test's 3 ranks round the pop to 510), and the "too small" error
   at arena 8, pop 4; an arena small enough to spill; each on meshes of 1,
-  2, 3 and 8 ranks;
+  2, 3 and 8 ranks; and the broken ``stellar_like_fbas(30 | 42, 3)`` (90
+  and 126 lanes, two words a state) on 2;
 - a checkpoint written under a mesh and resumed under one by both packages;
 - the plain sharded iteration (``frontier_ref.sharded_chunk_loop``) against
   the unsharded chunk loop at the same pop, on 1, 2, 3 and 8 ranks, and its
@@ -78,6 +79,9 @@ CASES = {
     "hier-4x3-nondividing": (lambda s: s.hierarchical_fbas(4, 3), {"arena": 2048, "pop": 512}, (1, 2, 3, 8)),
     # Overflows its arena: the spill and the refeed write every rank's set.
     "hier-4x3-spill": (lambda s: s.hierarchical_fbas(4, 3), {"arena": 64, "pop": 16}, (1, 2, 3, 8)),
+    # Past 64 lanes (90 and 126), where a state is two words of the stash.
+    "stellar-30x3-broken": (lambda s: s.stellar_like_fbas(30, 3, broken=True), {"arena": 8192, "pop": 256}, (2,)),
+    "stellar-42x3-broken": (lambda s: s.stellar_like_fbas(42, 3, broken=True), {"arena": 8192, "pop": 256}, (2,)),
 }
 
 
@@ -267,19 +271,48 @@ def test_failed_gather_fails_the_solve():
         solve(synth.hierarchical_fbas(4, 3), backend=GpuFrontierBackend(device="cpu", arena=4096, pop=256, mesh=mesh))
 
 
-def test_stash_share_layout():
-    """A share of a stash half is 18 Ks bytes: Ks words of toRemove, Ks of
-    dontRemove, Ks codes; Ks = K / n rounded up to 8."""
-    assert stash_half_bytes(2048, 4) == 4 * 18 * 512
-    assert stash_half_bytes(510, 3) == 3 * 18 * 176
-    assert stash_half_bytes(256, 8) == 8 * 18 * 32
+@pytest.mark.parametrize("lanes,words", [(8, 1), (64, 1), (72, 2), (128, 2)])
+def test_stash_share_layout(lanes, words):
+    """A share of a stash half is (16 W + 2) Ks bytes: Ks states of W words
+    of toRemove, Ks of dontRemove, Ks codes; Ks = K / n rounded up to 8 and
+    W = ceil(lanes / 64): 18 Ks at up to 64 lanes, 34 Ks up to 128."""
+    from quorum_intersection_tpu_torch.kernels.frontier_ref import stash_half, state_words
+
+    entry = 16 * words + 2
+    assert state_words(lanes) == words and entry == {1: 18, 2: 34}[words]
+    assert stash_half_bytes(2048, 4, words) == 4 * entry * 512
+    assert stash_half_bytes(510, 3, words) == 3 * entry * 176
+    assert stash_half_bytes(256, 8, words) == 8 * entry * 32
     with pytest.raises(ValueError):
-        stash_half_bytes(250, 8)
+        stash_half_bytes(250, 8, words)
     shape = ChunkShape(half=1, K=24, C=64, chunk_iters=1, flag_cap=30)
-    st = IterationState.empty(24, 3, _arena(shape, 8), _arena(shape, 8))
-    assert st.stash.numel() == 2 * 3 * 18 * 8
-    assert st.share(24, 2, 3, 1).data_ptr() == st.stash.data_ptr() + 3 * 144 + 2 * 144
-    assert st.half(24, 3, 1).numel() == 3 * 144
+    st = IterationState.empty(24, 3, _arena(shape, lanes), _arena(shape, lanes))
+    share = entry * 8
+    assert st.stash.numel() == 2 * 3 * share
+    assert st.share(24, 2, 3, 1).data_ptr() == st.stash.data_ptr() + 3 * share + 2 * share
+    assert st.half(24, 3, 1).numel() == 3 * share
+    T, D, code = stash_half(st.stash, 24, 3, 1, words)
+    assert T.shape == D.shape == (3, 8, words) and code.shape == (3, 8)
+    assert D.data_ptr() - T.data_ptr() == 8 * words * 8 and code.data_ptr() - T.data_ptr() == 16 * words * 8
+    assert T[1].data_ptr() - T[0].data_ptr() == share
+
+
+@pytest.mark.parametrize("lanes", [15, 64, 66, 126, 128])
+def test_state_words_round_trip_every_lane(lanes):
+    """``pack_words`` keeps every lane, 64 and past it included (no shift
+    past bit 63), and ``unpack_words`` gives the rows back."""
+    from quorum_intersection_tpu_torch.kernels.frontier_ref import lane_words, pack_words, unpack_words
+
+    rng = np.random.default_rng(lanes)
+    rows = torch.from_numpy((rng.random((40, lanes)) < 0.5).astype(np.int8))
+    rows[0] = 0
+    rows[1] = 1
+    rows[2, lanes - 1] = 1
+    words = pack_words(rows)
+    assert words.shape == (40, -(-lanes // 64)) and words.dtype == torch.int64
+    assert torch.equal(unpack_words(words, lanes), rows)
+    eye = unpack_words(lane_words(torch.arange(lanes), words.shape[1]), lanes)
+    assert torch.equal(eye, torch.eye(lanes, dtype=torch.int8))
 
 
 @pytest.mark.parametrize("ranks", [1, 2, 4])
@@ -354,7 +387,7 @@ def test_mesh_chunk_ref_equals_the_unsharded_chunk_loop():
     want = chunk_loop(ref.tables, ref.scc_idx, ref.a_mat, shape, src_T, src_D, top, T, D, flags, 64)
     gT, gD, gF = torch.zeros_like(T), torch.zeros_like(D), torch.zeros_like(flags)
     ctr = torch.zeros(4, dtype=torch.int32)
-    stash = torch.zeros(2 * stash_half_bytes(shape.K, 4), dtype=torch.uint8)
+    stash = torch.zeros(2 * stash_half_bytes(shape.K, 4, 1), dtype=torch.uint8)
     steps = mesh_chunk_ref(ref.tables, ref.scc_idx, ref.a_mat, shape, 4, src_T, src_D, top, gT, gD, gF, ctr, stash, 64)
     assert want[2] > 1 and steps == want[2] + 1 and tuple(ctr.tolist()) == tuple(want)
     wtop, wfc = want[:2]
