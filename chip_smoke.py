@@ -1810,22 +1810,25 @@ def frontier_networks(synth):
         ("hierarchical_fbas(8,4)", synth.hierarchical_fbas(8, 4), True),
         ("stellar_like_fbas(16,3,broken)", synth.stellar_like_fbas(16, 3, broken=True), False),
         ("stellar_like_fbas(21,3,broken)", synth.stellar_like_fbas(21, 3, broken=True), False),
-        # Past 64 lanes: 66 and 126, two words a state.
-        *wide_networks(synth),
+        # Past 64 lanes: 66 and 126, two words a state; past 128, over the
+        # evaluator's two node k-slabs: 180 and 255 (padded to 192 and 256),
+        # three and four.
+        *[(f"stellar_like_fbas({orgs},3,broken)", synth.stellar_like_fbas(orgs, 3, broken=True), False)
+          for orgs in (22, 42, 60, 85)],
     ]
-
-
-def wide_networks(synth):
-    """The frontier's networks past 64 SCC lanes (the kernels' two-word
-    instances): ``(label, source, expected verdict)``."""
-    return [("stellar_like_fbas(22,3,broken)", synth.stellar_like_fbas(22, 3, broken=True), False),
-            ("stellar_like_fbas(42,3,broken)", synth.stellar_like_fbas(42, 3, broken=True), False)]
 
 
 # The pinned JAX cases (tests/_torch_frontier_jax.json) phase frontier holds
 # gpu-frontier's counts to on the card, at their constants: the wide twins,
 # padded and not.
-FRONTIER_PINNED = ("stellar-22x3-broken", "stellar-42x3-broken", "stellar-22x3-broken-unpadded", "hier-5x3-unpadded")
+FRONTIER_PINNED = ("stellar-22x3-broken", "stellar-42x3-broken", "stellar-22x3-broken-unpadded", "hier-5x3-unpadded",
+                   "stellar-60x3-broken", "stellar-85x3-broken", "stellar-44x3-broken-unpadded")
+# The runs of phase frontier that launch each words-a-state instance past
+# one word: the networks above and the pinned cases, by label prefix.
+FRONTIER_WORDS_RUNS = {2: ("stellar_like_fbas(22,3,broken)", "stellar_like_fbas(42,3,broken)", "stellar-22x3",
+                           "stellar-42x3"),
+                       3: ("stellar_like_fbas(60,3,broken)", "stellar-60x3", "stellar-44x3"),
+                       4: ("stellar_like_fbas(85,3,broken)", "stellar-85x3")}
 
 
 def frontier_setup(src, device, arena, pop, stream=None, chunk_iters=512):
@@ -2139,15 +2142,18 @@ def frontier_instance_key(name: str):
     return m.group(1), m.group(2), flags[0], words[0] if words else 1, len(flags) > 1 and flags[1]
 
 
-def frontier_parent_turns(kern, prob, shape, state, far, block, count, want, parent_tree, work):
+def frontier_parent_turns(kern, prob, shape, state, far, block, count, want, parent_tree, work, wide):
     """This tree's frontier kernels against the other tree's at hier-8x4's
     shape, in turns (the other tree's, this one's, this one's, the other
     tree's): K9's 33-iteration chunk from the timed state, the mesh-chunk
     instance's time an iteration on 4 ranks of the card (its 1- and
-    33-iteration chunks), both through this tree's wrappers with the other
-    tree's library swapped in and each turn's result held to this tree's;
-    K10's body (:func:`k10_bodies`); and ptxas's registers and spills of
-    every one-word instance in both builds."""
+    33-iteration chunks), and K9's time an iteration at two words a state
+    (``wide``: the broken stellar 42x3's timed problem, state, destination
+    and flag exit), all through this tree's wrappers with the other tree's
+    library swapped in and each turn's result held to this tree's; K10's
+    body (:func:`k10_bodies`); and ptxas's registers and spills of every
+    one- and two-word instance in both builds, and of this tree's three- and
+    four-word instances."""
     import torch
 
     from quorum_intersection_tpu_torch.kernels import build, frontier_cuda
@@ -2165,15 +2171,24 @@ def frontier_parent_turns(kern, prob, shape, state, far, block, count, want, par
         kern.shape.chunk_iters = iters
         frontier_cuda.frontier_mesh_chunk([kern], [card], far)
 
+    w_kern, w_state, w_dst, w_far = wide
+
+    def k9_wide(iters):
+        w_kern.shape.chunk_iters = iters
+        frontier_cuda.frontier_chunk(w_kern, w_state, w_dst, w_far)
+
     def result():
         torch.cuda.synchronize()
         frontier_cuda.mesh_chunk_status([card])
         top, fc = dst.ctr.tolist()[:2]
         m_top = card.dst.ctr.tolist()[0]
+        w_top, w_fc = w_dst.ctr.tolist()[:2]
         return (dst.ctr.tolist(), dst.T[:top].clone(), dst.D[:top].clone(), dst.flags[:fc].clone(),
-                card.dst.ctr.tolist(), card.dst.T[:m_top].clone(), card.dst.D[:m_top].clone())
+                card.dst.ctr.tolist(), card.dst.T[:m_top].clone(), card.dst.D[:m_top].clone(),
+                w_dst.ctr.tolist(), w_dst.T[:w_top].clone(), w_dst.D[:w_top].clone(), w_dst.flags[:w_fc].clone())
 
-    turns = {who: {"k9_ms_33_iterations": [], "mesh_chunk_ms_per_iteration_4_ranks": []} for who in libs}
+    turns = {who: {"k9_ms_33_iterations": [], "mesh_chunk_ms_per_iteration_4_ranks": [],
+                   "k9_ms_per_iteration_42x3": []} for who in libs}
     results = {}
     own = frontier_cuda._library
     try:
@@ -2182,33 +2197,39 @@ def frontier_parent_turns(kern, prob, shape, state, far, block, count, want, par
             turns[who]["k9_ms_33_iterations"].append(time_ms(k9, 10))
             m1, m33 = time_ms(lambda: mesh(1), 20), time_ms(lambda: mesh(33), 10)
             turns[who]["mesh_chunk_ms_per_iteration_4_ranks"].append((m33 - m1) / 32)
+            w1, w33 = time_ms(lambda: k9_wide(1), 20), time_ms(lambda: k9_wide(33), 10)
+            turns[who]["k9_ms_per_iteration_42x3"].append((w33 - w1) / 32)
             k9()
             mesh(33)
+            k9_wide(33)
             results[who] = result()
     finally:
         frontier_cuda._library = own
         kern.shape.chunk_iters = 512
+        w_kern.shape.chunk_iters = 512
     same = all(a == b if isinstance(a, list) else torch.equal(a, b)
                for a, b in zip(results["parent"], results["this"]))
     if not same:
-        fail("timing_frontier", "the other tree's K9 or mesh-chunk instance differs from this tree's at hier-8x4")
+        fail("timing_frontier", "the other tree's K9 or mesh-chunk instance differs from this tree's at hier-8x4 or "
+                                "at the 42x3's two words a state")
     this_log = build.build_all(["frontier"])["frontier"].log
     listed = {who: ptxas_instances(log) for who, log in (("parent", parent_log), ("this", this_log))}
     ptx = {who: {frontier_instance_key(r["kernel"]): r for r in rows} for who, rows in listed.items()}
     unnamed = [r["kernel"] for rows in listed.values() for r in rows if frontier_instance_key(r["kernel"]) is None]
     instances = []
-    for key, this_row in sorted(((k, r) for k, r in ptx["this"].items() if k and k[3] == 1), key=str):
+    for key, this_row in sorted(((k, r) for k, r in ptx["this"].items() if k and k[3] <= 2), key=str):
         parent_row = ptx["parent"].get(key)
         instances.append({"instance": "{}<{}, one slab {}, W {}, timed {}>".format(*key),
                           "this": {k: this_row.get(k) for k in ("registers", "spill_stores", "spill_loads")},
                           "parent": None if parent_row is None else {
                               k: parent_row.get(k) for k in ("registers", "spill_stores", "spill_loads")}})
+    changed = [row["instance"] for row in instances if row["this"] != row["parent"]]
     return {"order": "parent, this, this, parent", "turns": turns, "results_equal": same,
             "K10_bodies": k10_bodies(kern, block, count, want, libs["parent"], src),
-            "ptxas_one_word_instances": instances,
+            "ptxas_one_and_two_word_instances": instances, "ptxas_changed_from_the_parent": changed,
             "ptxas_rows": {who: len(rows) for who, rows in listed.items()}, "ptxas_unnamed": unnamed[:4],
-            "two_word_instances": [{"instance": "{}<{}, one slab {}, W {}, timed {}>".format(*k), **r}
-                                   for k, r in ptx["this"].items() if k and k[3] == 2],
+            "three_and_four_word_instances": [{"instance": "{}<{}, one slab {}, W {}, timed {}>".format(*k), **r}
+                                              for k, r in ptx["this"].items() if k and k[3] > 2],
             "of": f"the other tree's frontier.cu from {src}"}
 
 
@@ -2319,6 +2340,18 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, 
         ("random_fbas(96,seed=0) defaults, 2 chunks", synth.random_fbas(96, seed=0), 1 << 18, 2048, 2, None),
         ("random_fbas(128,seed=0) defaults, 2 chunks streamed", synth.random_fbas(128, seed=0), 1 << 18, 2048, 2,
          True),
+        # Past 128 lanes, three and four words a state over two node
+        # k-slabs: the broken twins of 129, 180 and 255 lanes on both
+        # instances, and SCCs of 191 and 255 lanes whose in-degrees differ;
+        # chunks of 64 iterations (the plain version's iterations are the
+        # cost here).
+        *[(f"stellar_like_fbas({orgs},3,broken) defaults, 2 chunks of 64 iterations{' streamed' if st else ''}",
+           synth.stellar_like_fbas(orgs, 3, broken=True), 1 << 18, 2048, 2, st, 64)
+          for orgs in (43, 60, 85) for st in (None, True)],
+        ("random_fbas(192,seed=0) defaults, 2 chunks of 64 iterations", synth.random_fbas(192, seed=0), 1 << 18,
+         2048, 2, None, 64),
+        ("random_fbas(256,seed=0) defaults, 2 chunks of 64 iterations streamed", synth.random_fbas(256, seed=0),
+         1 << 18, 2048, 2, True, 64),
     ]
     sys.path.insert(0, str(ROOT / "tests"))
     from _torch_frontier_blocks import EXIT_REASONS, wide_flag_block
@@ -2360,10 +2393,11 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, 
     # -- frontier: the CLI and GpuFrontierBackend in process ----------------
     nets = [(name, texts[name], manifest[name]["verdict"]) for name in manifest] + frontier_networks(synth)
     # The CLI as a process once a flag path: --cert-out on the broken twins of
-    # scc 63 (past the sweep's reach) and 126 (past one-word states),
-    # --checkpoint on hier 6x4; every network then runs through
-    # GpuFrontierBackend in process below.
-    cli_nets = [net for net in nets if net[0] in ("stellar_like_fbas(21,3,broken)", "stellar_like_fbas(42,3,broken)")]
+    # scc 63 (past the sweep's reach), 126 (past one-word states), 180 and
+    # 255 (past two-word states), --checkpoint on hier 6x4; every network
+    # then runs through GpuFrontierBackend in process below.
+    cli_nets = [net for net in nets if net[0] in ("stellar_like_fbas(21,3,broken)", "stellar_like_fbas(42,3,broken)",
+                                                  "stellar_like_fbas(60,3,broken)", "stellar_like_fbas(85,3,broken)")]
     cmds, inputs = [], []
     for i, (label, src, _) in enumerate(cli_nets):
         cmds.append([sys.executable, "-m", PORT, "--backend", "gpu-frontier", "--cert-out",
@@ -2447,14 +2481,16 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, 
     for name, n in launches.items():
         if n < 1:
             fail("frontier", f"the main path never launched {name}")
-    # The two-word instances' launches: the runs past 64 lanes.
-    wide_labels = [label for label, _, _ in wide_networks(synth)] + [
-        label for label in runs if label.startswith(("stellar-22x3", "stellar-42x3"))]
-    wide_launches = {name: sum(runs[label]["launches_by_kernel"][name] for label in wide_labels)
-                     for name in launches}
-    for name, n in wide_launches.items():
-        if n < 1:
-            fail("frontier", f"the main path past 64 lanes never launched {name}")
+    # The launches of the instances of two, three and four words a state:
+    # the runs past 64 and past 128 lanes.
+    words_labels = {w: [label for label in runs if label.startswith(prefixes)]
+                    for w, prefixes in FRONTIER_WORDS_RUNS.items()}
+    words_launches = {w: {name: sum(runs[label]["launches_by_kernel"][name] for label in labels)
+                          for name in launches} for w, labels in words_labels.items()}
+    for w, counts in words_launches.items():
+        for name, n in counts.items():
+            if n < 1:
+                fail("frontier", f"the main path's runs of {w} words a state never launched {name}")
     # A kill and a resume on the card: same verdict, the frontier picked up.
     from quorum_intersection_tpu_torch.backends.frontier import FrontierSearchInterrupted
     from quorum_intersection_tpu_torch.utils.checkpoint import FrontierCheckpoint
@@ -2469,7 +2505,8 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, 
     resumed = solve(synth.hierarchical_fbas(5, 3), backend=GpuFrontierBackend(arena=8192, pop=256, checkpoint=ck))
     if resumed.intersects is not True or not resumed.stats.get("resumed_states"):
         fail("frontier", f"checkpoint resume on the card: {resumed.intersects}, {resumed.stats}")
-    phase_line("frontier", card=card, launches=launches, launches_past_64_lanes=wide_launches,
+    phase_line("frontier", card=card, launches=launches,
+               launches_by_words_a_state={f"W={w}": counts for w, counts in words_launches.items()},
                main_path_device_ms=main_ms,
                main_path_device_ms_by="CUDA events around every launch", runs=runs, cli=cli_rows,
                cli_wall_seconds=cli_wall, resume={"resumed_states": resumed.stats["resumed_states"],
@@ -2602,9 +2639,10 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, 
     probe_passes = int(fixpoint_passes(plain.probe_tables, rows_in_circuit(plain.probe_tables, plain.scc_idx,
                                                                             probe))[1].sum())
     k10_bound, k10_by = bound((loo_passes + probe_passes) * macs, count * prob.s_dev + 8)
+    wide = {w: wide_timing(device, synth, orgs) for w, orgs in ((2, 42), (3, 60), (4, 85))}
     if frontier_parent is not None:
         timing["parent_in_turns"] = frontier_parent_turns(kern, prob, shape, state, far, block, count, want,
-                                                          frontier_parent, work)
+                                                          frontier_parent, work, wide[2][2])
     hier = runs["hierarchical_fbas(8,4)"]
     timing["K10"] = {"flags": count, "block": shape.flag_cap, "ms": k10_ms,
                      "ms_of": "50 launches back to back (CUDA events)", "ms_device_alone": k10_alone,
@@ -2613,7 +2651,8 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, 
                      "loo_rows": int(loo.shape[0]), "fixpoint_passes": loo_passes + probe_passes,
                      "in_hier_8x4_solve_ms": hier["device_ms_by_kernel"]["frontier_filter_cuda"],
                      "in_hier_8x4_solve_launches": hier["launches_by_kernel"]["frontier_filter_cuda"]}
-    timing["K9_w2"], timing["K10_w2"] = wide_timing(device, synth)
+    for w, (k9_row, k10_row, _) in wide.items():
+        timing[f"K9_w{w}"], timing[f"K10_w{w}"] = k9_row, k10_row
     phase_line("timing_frontier", card=card, timing=timing,
                bound="fixpoint passes x nonzero votes at the int8 peak against, at 3.35 TB/s, K9's source rows "
                      "read once and its rows and flags written once, K10's flag rows read once")
@@ -2636,50 +2675,57 @@ def frontier_phases(device, card, texts, manifest, cert_jobs, witness_ok, work, 
          "main_path_device_ms": main_ms["frontier_filter_cuda"],
          "main_path_device_ms_of": "phase frontier, GpuFrontierBackend in process (CUDA events)"},
     ]
-    # The two-word instances (65-128 lanes), timed at broken
-    # stellar_like_fbas(42,3)'s shape, their launches the runs past 64 lanes.
-    for base, w2, of in ((records[0], timing["K9_w2"], "one 33-iteration chunk"),
-                         (records[1], timing["K10_w2"], f"one {timing['K10_w2']['flags']}-flag block")):
-        records.append({**{k: base[k] for k in ("route", "source", "replaces", "max_abs_err", "library_ms")},
-                        "name": base["name"] + "_w2", "launches": wide_launches[base["name"]],
-                        "ms": w2["ms"], "plain_ms": w2["plain_ms"], "bound_ms": w2["bound_ms"],
-                        "bound_by": w2["bound_by"], "x_bound": w2["ms"] / w2["bound_ms"],
-                        "ms_of": f"{of} at stellar_like_fbas(42,3,broken)'s shape: {w2['shape']}",
-                        "launches_of": "phase frontier's runs past 64 lanes: " + ", ".join(wide_labels)})
+    # The instances of two, three and four words a state (65-128, 129-192
+    # and 193-256 lanes), timed at broken stellar_like_fbas(42 | 60 | 85,
+    # 3)'s shape, their launches the runs of that many words.
+    for w, orgs in ((2, 42), (3, 60), (4, 85)):
+        for base, row, of in ((records[0], timing[f"K9_w{w}"], "one 33-iteration chunk"),
+                              (records[1], timing[f"K10_w{w}"], f"one {timing[f'K10_w{w}']['flags']}-flag block")):
+            records.append({**{k: base[k] for k in ("route", "source", "replaces", "max_abs_err", "library_ms")},
+                            "name": f"{base['name']}_w{w}", "launches": words_launches[w][base["name"]],
+                            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                            "bound_by": row["bound_by"], "x_bound": row["ms"] / row["bound_ms"],
+                            "ms_of": f"{of} at stellar_like_fbas({orgs},3,broken)'s shape: {row['shape']}",
+                            "launches_of": f"phase frontier's runs of {w} words a state: "
+                                           + ", ".join(words_labels[w])})
     return records
 
 
-def wide_timed_state(device, synth, phase):
-    """The two-word instances' timed state: broken stellar_like_fbas(42,3)
-    set up at the JAX constants and one chunk of 40 iterations from its seed
-    (a flag exit no chunk reaches); ``(prob, shape, kern, plain, state, its
+def wide_timed_state(device, synth, phase, orgs=42):
+    """The wide instances' timed state: broken stellar_like_fbas(orgs,3)
+    (42: 126 lanes, two words a state; 60: 180, three; 85: 255, four) set up
+    at the JAX constants and one chunk of 40 iterations from its seed (a
+    flag exit no chunk reaches); ``(prob, shape, kern, plain, state, its
     top, that flag exit)``."""
     from quorum_intersection_tpu_torch.kernels import frontier_cuda
 
-    prob, shape, kern, plain = frontier_setup(synth.stellar_like_fbas(42, 3, broken=True), device, 1 << 18, 2048)
+    prob, shape, kern, plain = frontier_setup(synth.stellar_like_fbas(orgs, 3, broken=True), device, 1 << 18, 2048)
     far = shape.flag_cap - shape.K
     state = kern.arena()
     kern.shape.chunk_iters = 40
     frontier_cuda.frontier_chunk(kern, frontier_seed(kern, prob), state, far)
     top = state.ctr.tolist()[0]
     if top <= shape.K:
-        fail(phase, f"the 128-lane timed state holds {top} states, not more than a pop")
+        fail(phase, f"the {prob.s_dev}-lane timed state holds {top} states, not more than a pop")
     return prob, shape, kern, plain, state, top, far
 
 
-def wide_timing(device, synth):
-    """K9 and K10 at two words a state, at broken stellar_like_fbas(42,3)'s
-    shape (126 lanes padded to 128, 192 units, K 2048), from its own search:
-    K9's 1- and 33-iteration chunks from the state 40 iterations after the
-    seed (held to the plain chunk), K10 on the flags its whole search
-    writes, each with its plain version and bound."""
+def wide_timing(device, synth, orgs=42):
+    """K9 and K10 past one word a state, at broken
+    stellar_like_fbas(orgs,3)'s shape (42: 126 lanes padded to 128, 192
+    units; 60: 180 lanes padded to 192, 256 units; 85: 255 lanes padded to
+    256, 384 units; K 2048), from its own search: K9's 1- and 33-iteration
+    chunks from the state 40 iterations after the seed (held to the plain
+    chunk), K10 on the flags its whole search writes, each with its plain
+    version and bound; and ``(kern, state, dst, far)``, the timed chunk's
+    problem and arenas."""
     import torch
 
     from quorum_intersection_tpu_torch.kernels import frontier_cuda
     from quorum_intersection_tpu_torch.kernels.frontier_ref import rows_in_circuit
     from quorum_intersection_tpu_torch.kernels.sweep_ref import fixpoint_passes
 
-    prob, shape, kern, plain, state, top, far = wide_timed_state(device, synth, "timing_frontier")
+    prob, shape, kern, plain, state, top, far = wide_timed_state(device, synth, "timing_frontier", orgs)
     dst = kern.arena()
 
     def k9(iters):
@@ -2701,7 +2747,7 @@ def wide_timing(device, synth):
         torch.equal(dst.T[:p_top], pdst.T[:p_top]) and torch.equal(dst.D[:p_top], pdst.D[:p_top])
         and torch.equal(dst.flags[:p_fc], pdst.flags[:p_fc])
     ):
-        fail("timing_frontier", f"K9's 128-lane 33-iteration chunk differs from the plain chunk: counters "
+        fail("timing_frontier", f"K9's {prob.s_dev}-lane 33-iteration chunk differs from the plain chunk: counters "
                                 f"{dst.ctr.tolist()} against {pdst.ctr.tolist()}, or its rows or flags")
     iters = dst.ctr.tolist()[2]
     _, _, passes, _ = k9_replay(prob, shape, plain, state, top, 33)
@@ -2727,7 +2773,7 @@ def wide_timing(device, synth):
     rows = torch.cat(rows)[: shape.flag_cap]
     count = rows.shape[0]
     if count < 1:
-        fail("timing_frontier", "the 128-lane search flagged no set")
+        fail("timing_frontier", f"the {prob.s_dev}-lane search flagged no set")
     block = torch.zeros((shape.flag_cap, prob.s_dev), dtype=torch.int8, device=device)
     block[:count] = rows
     k10_ms = time_ms(lambda: frontier_cuda.frontier_filter(kern, block, count), 50)
@@ -2737,7 +2783,7 @@ def wide_timing(device, synth):
     torch.cuda.synchronize()
     k10_plain = (time.perf_counter() - t) * 1e3
     if got != want:
-        fail("timing_frontier", f"K10 on the 128-lane search's flags: {got} != plain {want}")
+        fail("timing_frontier", f"K10 on the {prob.s_dev}-lane search's flags: {got} != plain {want}")
     member = block[:count].to(torch.int32)
     i_idx, j_idx = torch.nonzero(member, as_tuple=True)
     loo = member[i_idx].clone()
@@ -2749,7 +2795,7 @@ def wide_timing(device, synth):
     k10_row = {"shape": shape_text, "flags": count, "block": shape.flag_cap, "ms": k10_ms,
                "ms_of": "50 launches back to back (CUDA events)", "plain_ms": k10_plain, "bound_ms": k10_bound,
                "bound_by": k10_by, "minimal": got[0], "witness": got[1], "fixpoint_passes": loo_passes + probe_passes}
-    return k9_row, k10_row
+    return k9_row, k10_row, (kern, state, dst, far)
 
 
 class ParentK8:
@@ -5315,7 +5361,9 @@ out = {"process_index": mesh.process_index, "process_count": mesh.process_count,
        "collective": collective_of(mesh), "solves": {}}
 for label, data in (("hierarchical_fbas(6,4)", synth.hierarchical_fbas(6, 4)),
                     ("stellar_like_fbas(16,3,broken)", synth.stellar_like_fbas(16, 3, broken=True)),
-                    ("stellar_like_fbas(42,3,broken)", synth.stellar_like_fbas(42, 3, broken=True))):
+                    ("stellar_like_fbas(42,3,broken)", synth.stellar_like_fbas(42, 3, broken=True)),
+                    ("stellar_like_fbas(60,3,broken)", synth.stellar_like_fbas(60, 3, broken=True)),
+                    ("stellar_like_fbas(85,3,broken)", synth.stellar_like_fbas(85, 3, broken=True))):
     for name in frontier_cuda.LAUNCHES:
         frontier_cuda.LAUNCHES[name] = 0
     t = time.perf_counter()
@@ -5328,6 +5376,14 @@ for label, data in (("hierarchical_fbas(6,4)", synth.hierarchical_fbas(6, 4)),
 torch.distributed.destroy_process_group()
 print(json.dumps(out), flush=True)
 """
+# The mesh phase's networks of two, three and four words a state: the
+# broken stellar_like_fbas(orgs, 3) by words.
+FRONTIER_MESH_WORDS = {2: 42, 3: 60, 4: 85}
+
+
+def broken_stellar(synth, orgs):
+    """``(label, source)`` of the broken stellar_like_fbas(orgs, 3)."""
+    return f"stellar_like_fbas({orgs},3,broken)", synth.stellar_like_fbas(orgs, 3, broken=True)
 FRONTIER_MESH_KEYS = ("states_popped", "device_iters", "device_chunks", "flagged", "minimal_quorums", "host_checks",
                       "device_flag_checks", "spills", "discarded_chunks")
 
@@ -5406,9 +5462,14 @@ def frontier_mesh_phase(device, card, texts, cert_jobs, work):
              ("random_fbas(64,seed=0) defaults, 2 chunks of 64 iterations", synth.random_fbas(64, seed=0), 1 << 18,
               2048, 2, 64),
              ("hierarchical_fbas(4,3) spill, 8 chunks", synth.hierarchical_fbas(4, 3), 64, 16, 8, 512),
-             # Two words a state: 126 lanes padded to 128.
+             # Two words a state: 126 lanes padded to 128; three and four,
+             # over two node k-slabs: 180 lanes padded to 192, 255 to 256.
              ("stellar_like_fbas(42,3,broken) defaults, 2 chunks", synth.stellar_like_fbas(42, 3, broken=True),
-              1 << 18, 2048, 2, 512)]
+              1 << 18, 2048, 2, 512),
+             ("stellar_like_fbas(60,3,broken) defaults, 1 chunk of 33 iterations",
+              synth.stellar_like_fbas(60, 3, broken=True), 1 << 18, 2048, 1, 33),
+             ("stellar_like_fbas(85,3,broken) defaults, 2 chunks of 64 iterations",
+              synth.stellar_like_fbas(85, 3, broken=True), 1 << 18, 2048, 2, 64)]
     compare_rows, mismatches, all_flags = {}, [], 0
     for label, src, arena, pop, chunks, chunk_iters in cases:
         prob, shape, kern, plain = frontier_setup(src, device, arena, pop, chunk_iters=chunk_iters)
@@ -5470,7 +5531,7 @@ def frontier_mesh_phase(device, card, texts, cert_jobs, work):
     single = {}
     for label, src in (("hierarchical_fbas(6,4)", synth.hierarchical_fbas(6, 4)),
                        ("stellar_like_fbas(16,3,broken)", synth.stellar_like_fbas(16, 3, broken=True)),
-                       ("stellar_like_fbas(42,3,broken)", synth.stellar_like_fbas(42, 3, broken=True))):
+                       *[broken_stellar(synth, orgs) for orgs in FRONTIER_MESH_WORDS.values()]):
         res = solve(src, backend=GpuFrontierBackend(), with_cert=False)
         single[label] = {"intersects": res.intersects, "q1": res.q1, "q2": res.q2,
                          **{k: res.stats.get(k) for k in FRONTIER_MESH_KEYS[:5]}}
@@ -5479,7 +5540,7 @@ def frontier_mesh_phase(device, card, texts, cert_jobs, work):
         fail("frontier_mesh", f"--backend gpu-frontier --mesh all CLI: {out[-40:]!r} exit {code}; {err[-600:]!r}")
     cert_jobs.append(("frontier_mesh/cli/stellar_like_fbas(16,3,broken)", cli_src, json.loads(cli_cert.read_text())))
     pair = mesh_worker_results(f"frontier, two processes ({pair_backend})", procs["pair"])
-    pair_launches = pair_wide_launches = 0
+    pair_launches, pair_words_launches = 0, {w: 0 for w in FRONTIER_MESH_WORDS}
     for row in pair:
         for label, want_row in single.items():
             s = row["solves"][label]
@@ -5490,8 +5551,9 @@ def frontier_mesh_phase(device, card, texts, cert_jobs, work):
                     or s["launches"]["frontier_mesh_chunk"] or s["mesh"]["instance"] != "iteration":
                 fail("frontier_mesh", f"two processes, {label}: launches {s['launches']}, mesh {s['mesh']}")
             pair_launches += s["launches"]["frontier_iteration"]
-            if label == "stellar_like_fbas(42,3,broken)":
-                pair_wide_launches += s["launches"]["frontier_iteration"]
+            for w, orgs in FRONTIER_MESH_WORDS.items():
+                if label == broken_stellar(synth, orgs)[0]:
+                    pair_words_launches[w] += s["launches"]["frontier_iteration"]
     phase_line("frontier_mesh_processes", card=card,
                cli={"argv": "--backend gpu-frontier --mesh all --cert-out", "network": "stellar_like_fbas(16,3,broken)",
                     "exit": code, "process_seconds": cli_s},
@@ -5507,10 +5569,10 @@ def frontier_mesh_phase(device, card, texts, cert_jobs, work):
     if cards >= 4:
         meshes.append(("4 cards", candidate_mesh(4), 4))
     solve_rows, launches = {}, {name: 0 for name in frontier_cuda.LAUNCHES}
-    wide_launches = dict(launches)
+    words_launches = {w: dict(launches) for w in FRONTIER_MESH_WORDS}
     for label, src in (("hierarchical_fbas(8,4)", synth.hierarchical_fbas(8, 4)),
                        ("stellar_like_fbas(16,3,broken)", synth.stellar_like_fbas(16, 3, broken=True)),
-                       ("stellar_like_fbas(42,3,broken)", synth.stellar_like_fbas(42, 3, broken=True))):
+                       *[broken_stellar(synth, orgs) for orgs in FRONTIER_MESH_WORDS.values()]):
         # In turns: K9, each mesh, each mesh again, K9; none builds a
         # certificate (the certified solves come after).
         single_s, mesh_s = [], {where: [] for where, _, _ in meshes}
@@ -5534,8 +5596,9 @@ def frontier_mesh_phase(device, card, texts, cert_jobs, work):
                 got_launches = dict(frontier_cuda.LAUNCHES)
                 for name, n in got_launches.items():
                     launches[name] += n
-                    if label == "stellar_like_fbas(42,3,broken)":
-                        wide_launches[name] += n
+                    for w, orgs in FRONTIER_MESH_WORDS.items():
+                        if label == broken_stellar(synth, orgs)[0]:
+                            words_launches[w][name] += n
                 # A launch a card for every chunk dispatched: the drained
                 # ones and the ones the drive dropped (its speculative chunks).
                 chunks = res.stats["device_chunks"] + res.stats["discarded_chunks"]
@@ -5720,8 +5783,10 @@ def frontier_mesh_phase(device, card, texts, cert_jobs, work):
                gather_ms=gather, gather_ms_device_alone=gather_alone,
                k9_bound_ms_per_iteration=per_iteration_bound, bound_ms_a_rank_of_4=per_iteration_bound / 4,
                nvlink_share_ms_per_iteration_4_cards=nvlink_ms, bound_by=bound_by)
-    wide = mesh_wide_timing(device, synth)
-    phase_line("frontier_mesh_timing_w2", card=card, **wide)
+    wide = {}
+    for w, orgs in FRONTIER_MESH_WORDS.items():
+        wide[w] = mesh_wide_timing(device, synth, orgs)
+        phase_line(f"frontier_mesh_timing_w{w}", card=card, **wide[w])
     phase_line("frontier_mesh", card=card, seconds=round(time.perf_counter() - t_phase, 3))
     four, chunk_four = timing["4 ranks, 1 card"], chunk_timing["4 ranks, 1 card"]
     chunk_record = {
@@ -5769,24 +5834,32 @@ def frontier_mesh_phase(device, card, texts, cert_jobs, work):
                                  "joined processes, both processes",
     }
     wide_records = []
-    for base, row, n in ((chunk_record, wide["chunk_instance"], wide_launches["frontier_mesh_chunk"]),
-                         (iteration_record, wide["iteration_instance"], pair_wide_launches)):
-        wide_records.append({**{k: base[k] for k in ("route", "source", "replaces", "max_abs_err", "library_ms")},
-                             "name": base["name"] + "_w2", "launches": n, "ms": row["ms_per_iteration"],
-                             "plain_ms": row["plain_ms_per_iteration"], "bound_ms": wide["k9_bound_ms_per_iteration"],
-                             "bound_by": wide["bound_by"],
-                             "ms_of": f"one iteration on 4 ranks of the one card at {wide['shape']}",
-                             "launches_of": ("frontier_mesh_solves" if base is chunk_record else
-                                             "frontier_mesh_processes") + ": stellar 42x3 broken"})
+    for w, orgs in FRONTIER_MESH_WORDS.items():
+        label = broken_stellar(synth, orgs)[0]
+        if words_launches[w]["frontier_mesh_chunk"] < 1 or pair_words_launches[w] < 1:
+            fail("frontier_mesh", f"{label}: the main path launched the mesh-chunk instance "
+                                  f"{words_launches[w]['frontier_mesh_chunk']} times, the iteration instance "
+                                  f"{pair_words_launches[w]} times")
+        for base, row, n in ((chunk_record, wide[w]["chunk_instance"], words_launches[w]["frontier_mesh_chunk"]),
+                             (iteration_record, wide[w]["iteration_instance"], pair_words_launches[w])):
+            wide_records.append({**{k: base[k] for k in ("route", "source", "replaces", "max_abs_err",
+                                                          "library_ms")},
+                                 "name": f"{base['name']}_w{w}", "launches": n, "ms": row["ms_per_iteration"],
+                                 "plain_ms": row["plain_ms_per_iteration"],
+                                 "bound_ms": wide[w]["k9_bound_ms_per_iteration"], "bound_by": wide[w]["bound_by"],
+                                 "ms_of": f"one iteration on 4 ranks of the one card at {wide[w]['shape']}",
+                                 "launches_of": ("frontier_mesh_solves" if base is chunk_record else
+                                                 "frontier_mesh_processes") + f": {label}"})
     return [chunk_record, iteration_record, *wide_records]
 
 
-def mesh_wide_timing(device, synth):
-    """Both mesh instances at two words a state, on 4 ranks of the one card,
-    at broken stellar_like_fbas(42,3)'s shape (126 lanes padded to 128, K
-    2048), from its state 40 iterations after the seed: ms an iteration
-    (1- and 33-iteration chunks), the 33 iterations held to K9's chunk, the
-    plain versions' ms an iteration, K9's per-iteration bound."""
+def mesh_wide_timing(device, synth, orgs=42):
+    """Both mesh instances past one word a state, on 4 ranks of the one
+    card, at broken stellar_like_fbas(orgs,3)'s shape (42: 126 lanes padded
+    to 128; 60: 180 padded to 192; 85: 255 padded to 256; K 2048), from its
+    state 40 iterations after the seed: ms an iteration (1- and 33-iteration
+    chunks), the 33 iterations held to K9's chunk, the plain versions' ms an
+    iteration, K9's per-iteration bound."""
     import torch
 
     from quorum_intersection_tpu_torch.kernels import frontier_cuda
@@ -5801,7 +5874,7 @@ def mesh_wide_timing(device, synth):
     )
     from quorum_intersection_tpu_torch.parallel import candidate_mesh
 
-    prob, shape, kern, plain, state, top, far = wide_timed_state(device, synth, "frontier_mesh")
+    prob, shape, kern, plain, state, top, far = wide_timed_state(device, synth, "frontier_mesh", orgs)
     want = kern.arena()
     kern.shape.chunk_iters = 33
     frontier_cuda.frontier_chunk(kern, state, want, far)
@@ -5814,7 +5887,7 @@ def mesh_wide_timing(device, synth):
         if dst.ctr.tolist() != want.ctr.tolist() or not (
                 torch.equal(dst.T[:w_top], want.T[:w_top]) and torch.equal(dst.D[:w_top], want.D[:w_top])
                 and torch.equal(dst.flags[:w_fc], want.flags[:w_fc])):
-            fail("frontier_mesh", f"128 lanes, {label}: the 33 iterations differ from K9's chunk "
+            fail("frontier_mesh", f"{prob.s_dev} lanes, {label}: the 33 iterations differ from K9's chunk "
                                   f"({dst.ctr.tolist()} against {want.ctr.tolist()})")
 
     card = CardState.empty(shape.K, ranks, range(ranks), state, kern.arena())
@@ -5855,7 +5928,7 @@ def mesh_wide_timing(device, synth):
     chunk_plain = (time.perf_counter() - t) * 1e3 / 33
     check("plain mesh-chunk", p_card.dst)
     if not torch.equal(p_card.stash, card.stash):
-        fail("frontier_mesh", "128 lanes: the timed chunk's stash differs from mesh_chunk_ref's")
+        fail("frontier_mesh", f"{prob.s_dev} lanes: the timed chunk's stash differs from mesh_chunk_ref's")
     for st in states:
         st.begin(state, st.dst)
     t = time.perf_counter()
@@ -5865,7 +5938,7 @@ def mesh_wide_timing(device, synth):
     kern.shape.chunk_iters = 512
     _, _, passes, _ = k9_replay(prob, shape, plain, state, top, 33)
     b_ms, b_by = bound(passes * macs_per_pass(prob.circuit), k9_least_bytes(prob, kern, top, w_top, w_fc))
-    return {"shape": f"stellar_like_fbas(42,3,broken): s={prob.s} (s_dev {prob.s_dev}), units "
+    return {"shape": f"stellar_like_fbas({orgs},3,broken): s={prob.s} (s_dev {prob.s_dev}), units "
                      f"{prob.circuit.n_units}, K={shape.K}, top {top} at the timed state",
             "ranks": ranks, "iterations": want.ctr.tolist()[2],
             "chunk_instance": {"ms_1_iteration": c1, "ms_33_iterations": c33, "ms_per_iteration": (c33 - c1) / 32,

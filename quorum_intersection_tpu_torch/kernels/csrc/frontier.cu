@@ -7,13 +7,18 @@
 // `filter_block` :300).  Both evaluate fixpoints on the fused sweep's warp
 // evaluator (warp_mma.cuh: b1 and-popc mma.sync, 16 rows a warp), in lane
 // space: the wrapper relabels the circuit so that node i is the SCC's lane i,
-// so a (toRemove, dontRemove) state row of s <= 128 int8 lanes packs into W =
+// so a (toRemove, dontRemove) state row of s <= 256 int8 lanes packs into W =
 // ceil(s / 64) 64-bit words (every kernel has an instance a W: 1 up to 64
-// lanes, 2 up to 128) and feeds the evaluator as it is, the row being the
-// A operand's one 128-column k-slab.  A quad of a warp moves a row: thread q
-// holds lanes [16 W q, 16 W (q + 1)) as 2 W 8-byte words of int8 0/1 (s a
-// multiple of 8), packed to and from bits with one multiply a word; at W = 2
-// that is the evaluator's word q of the row.
+// lanes, 2 up to 128, 3 up to 192, 4 up to 256) and feeds the evaluator as it
+// is, the row being the A operand's 128-column k-slab up to 128 lanes and
+// two node k-slabs past it (warp_mma.cuh's kNS).  A quad of a warp moves a
+// row, as 8-byte groups of int8 0/1 (s a multiple of 8) packed to and from
+// bits with one multiply a word: at W = 1 thread q holds lanes [16 q, 16 q +
+// 16); above it the evaluator's words k = q + 4 x of the row's node slabs x,
+// lanes [32 k, 32 k + 32) (at W = 2 word q alone; at W = 3 threads 0 and 1
+// hold two words and threads 2 and 3 one, so that a part never straddles an
+// evaluator word).  States of W = 3 words (24 bytes) break 16-byte
+// alignment, so rows of three and four words move a 64-bit word at a time.
 //
 // K9, one cooperative launch a chunk (grid.sync(), no -rdc), one grid barrier
 // an iteration:
@@ -109,7 +114,7 @@
 // 64 j + 63).  Quad thread q takes lanes q, q + 4, ... of its row and the
 // quad keeps the largest packed key ((m + 1) << 8) | (255 - lane) by two
 // shuffles: the lowest lane on ties, as JAX's argmax over the masked row
-// (lane 127 and an in-degree below 2^16 fit the key's 32 bits).
+// (lane 255 and an in-degree below 2^16 fit the key's 32 bits).
 //
 // K10, one launch a flag block: a warp takes 8 flagged sets D, the tasks
 // interleaved over a grid of at least a block an SM.  The leave-one-out rows
@@ -124,7 +129,7 @@
 //
 // What bounds them: an iteration of K9 moves 2k state rows in and at most 4k
 // child rows and k flag rows out (s bytes each; about 0.8 MB at k = 2048,
-// s = 64, 1.6 MB at s = 128) and runs 2k fixpoint rows; the tensor-core work
+// s = 64, 1.6 MB at s = 128, 3.1 MB at s = 256) and runs 2k fixpoint rows; the tensor-core work
 // of those rows is microseconds, so the grid barrier and the fixpoint's serial passes set the
 // pace.  K10 reads each flagged row once; its work is the leave-one-out rows
 // it evaluates and the minimal sets' probes, a chain of fixpoints a warp.
@@ -148,7 +153,7 @@ constexpr int kSets = 8;    // K10: flagged sets a warp (probe rows g; 16 and 4 
 
 struct ChunkArgs {
   Params p;  // lane-space tables; thr_q the scoped thresholds
-  int s;     // lanes a state row (<= 128, a multiple of 8): W = state_words(s) words a state
+  int s;     // lanes a state row (<= 256, a multiple of 8): W = state_words(s) words a state
   int half, K, Kp, C, chunk_iters, flag_cap, flag_exit;
   int P;                             // in-degree bit-planes
   const unsigned long long* planes;  // [P][W][s] members 64 j + x with bit b of a_scc[64 j + x][w]
@@ -175,11 +180,17 @@ struct FilterArgs {
 
 // A state row over the SCC's lanes: W 64-bit words, bit x of word j lane
 // 64 j + x.  W = 1 (at most 64 lanes) is one unsigned long long, W = 2
-// (65-128 lanes) a ulonglong2 (x the lower word).  The operators and
-// helpers below give the kernels one text for both, and W = 1 the code of
-// one word.
+// (65-128 lanes) a ulonglong2 (x the lower word), W = 3 and 4 (129-256
+// lanes) Words<W>, 8-byte aligned.  The operators and helpers below give the
+// kernels one text for all, and W = 1 the code of one word.
 template <int W>
-struct RowType;
+struct Words {
+  unsigned long long w[W];
+};
+template <int W>
+struct RowType {
+  using T = Words<W>;
+};
 template <>
 struct RowType<1> {
   using T = unsigned long long;
@@ -190,6 +201,10 @@ struct RowType<2> {
 };
 template <int W>
 using Row = typename RowType<W>::T;
+
+// The evaluator's node k-slabs for rows of W words (warp_mma.cuh Warp's kNS).
+template <int W>
+constexpr int kNodeSlabs = W > 2 ? 2 : 1;
 
 __device__ __forceinline__ ulonglong2 operator|(ulonglong2 a, ulonglong2 b) {
   return make_ulonglong2(a.x | b.x, a.y | b.y);
@@ -218,6 +233,92 @@ __device__ __forceinline__ ulonglong2 shfl_xor(ulonglong2 a, int m) {
   return make_ulonglong2(__shfl_xor_sync(kFull, a.x, m), __shfl_xor_sync(kFull, a.y, m));
 }
 
+template <int W>
+__device__ __forceinline__ Words<W> operator|(const Words<W>& a, const Words<W>& b) {
+  Words<W> r;
+#pragma unroll
+  for (int j = 0; j < W; ++j) r.w[j] = a.w[j] | b.w[j];
+  return r;
+}
+template <int W>
+__device__ __forceinline__ Words<W> operator&(const Words<W>& a, const Words<W>& b) {
+  Words<W> r;
+#pragma unroll
+  for (int j = 0; j < W; ++j) r.w[j] = a.w[j] & b.w[j];
+  return r;
+}
+template <int W>
+__device__ __forceinline__ Words<W> operator~(const Words<W>& a) {
+  Words<W> r;
+#pragma unroll
+  for (int j = 0; j < W; ++j) r.w[j] = ~a.w[j];
+  return r;
+}
+template <int W>
+__device__ __forceinline__ int popc(const Words<W>& a) {
+  int c = 0;
+#pragma unroll
+  for (int j = 0; j < W; ++j) c += __popcll(a.w[j]);
+  return c;
+}
+template <int W>
+__device__ __forceinline__ bool any(const Words<W>& a) {
+  unsigned long long o = 0;
+#pragma unroll
+  for (int j = 0; j < W; ++j) o |= a.w[j];
+  return o != 0;
+}
+// Word j of a, j a runtime index below W (selects, no local memory).
+template <int W>
+__device__ __forceinline__ unsigned long long word64(const Words<W>& a, int j) {
+  unsigned long long v = 0;
+#pragma unroll
+  for (int i = 0; i < W; ++i)
+    if (i == j) v = a.w[i];
+  return v;
+}
+template <int W>
+__device__ __forceinline__ bool lane_set(const Words<W>& a, int x) {
+  return (word64(a, x >> 6) >> (x & 63)) & 1;
+}
+template <int W>
+__device__ __forceinline__ Words<W> shfl(const Words<W>& a, int src) {
+  Words<W> r;
+#pragma unroll
+  for (int j = 0; j < W; ++j) r.w[j] = __shfl_sync(kFull, a.w[j], src);
+  return r;
+}
+template <int W>
+__device__ __forceinline__ Words<W> shfl_xor(const Words<W>& a, int m) {
+  Words<W> r;
+#pragma unroll
+  for (int j = 0; j < W; ++j) r.w[j] = __shfl_xor_sync(kFull, a.w[j], m);
+  return r;
+}
+
+// The evaluator's 32-bit word k (nodes [32 k, 32 k + 32)) of a row of W >= 3
+// words: word k & 3 of node slab k >> 2, 0 past the row.
+using qi_warp::word_of;
+template <int W>
+__device__ __forceinline__ uint32_t word_of(const Words<W>& row, int k) {
+  return (uint32_t)(word64(row, k >> 1) >> (32 * (k & 1)));
+}
+
+// A state of W words from the stash (written within the launch: read
+// through L2); three and four words a 64-bit word at a time.
+template <int W>
+__device__ __forceinline__ Row<W> ld_row(const Row<W>* p) {
+  if constexpr (W <= 2) {
+    return __ldcg(p);
+  } else {
+    Words<W> r;
+    const unsigned long long* w = reinterpret_cast<const unsigned long long*>(p);
+#pragma unroll
+    for (int j = 0; j < W; ++j) r.w[j] = __ldcg(w + j);
+    return r;
+  }
+}
+
 // Words of a state row of s lanes.
 __host__ __device__ inline int state_words(int s) { return (s + 63) / 64; }
 
@@ -226,9 +327,14 @@ template <int W>
 __device__ __forceinline__ Row<W> lane_row(int x) {
   if constexpr (W == 1) {
     return 1ull << x;
-  } else {
+  } else if constexpr (W == 2) {
     const unsigned long long b = 1ull << (x & 63);
     return make_ulonglong2(x < 64 ? b : 0ull, x < 64 ? 0ull : b);
+  } else {
+    Words<W> r;
+#pragma unroll
+    for (int j = 0; j < W; ++j) r.w[j] = (x >> 6) == j ? 1ull << (x & 63) : 0ull;
+    return r;
   }
 }
 
@@ -237,9 +343,15 @@ template <int W>
 __device__ __forceinline__ Row<W> lanes_below(int s) {
   if constexpr (W == 1) {
     return s >= 64 ? ~0ull : ((1ull << s) - 1);
-  } else {
+  } else if constexpr (W == 2) {
     return make_ulonglong2(s >= 64 ? ~0ull : ((1ull << s) - 1),
                            s >= 128 ? ~0ull : (s > 64 ? (1ull << (s - 64)) - 1 : 0ull));
+  } else {
+    Words<W> r;
+#pragma unroll
+    for (int j = 0; j < W; ++j)
+      r.w[j] = s >= 64 * (j + 1) ? ~0ull : (s > 64 * j ? (1ull << (s - 64 * j)) - 1 : 0ull);
+    return r;
   }
 }
 
@@ -247,41 +359,88 @@ __device__ __forceinline__ Row<W> lanes_below(int s) {
 __device__ __forceinline__ uint32_t pack4(uint32_t w) { return ((w & 0x01010101u) * 0x01020408u) >> 24; }
 __device__ __forceinline__ uint32_t unpack4(uint32_t x) { return (x * 0x00204081u) & 0x01010101u; }
 
-// Quad thread q's part of a row of s int8 lanes, as bits: lanes [16 q,
-// 16 q + 16) at W = 1, [32 q, 32 q + 32) (the evaluator's word q) at W = 2.
-template <int W>
-__device__ __forceinline__ Row<W> load_part(const int8_t* row, int s, int q) {
-  unsigned long long bits = 0;
+// The 32 lanes [32 k, 32 k + 32) of a row of s int8 lanes (s a multiple of
+// 8), as bits; 0 past s.
+__device__ __forceinline__ uint32_t load_word(const int8_t* row, int s, int k) {
+  uint32_t bits = 0;
 #pragma unroll
-  for (int h = 0; h < 2 * W; ++h) {
-    const int off = 16 * W * q + 8 * h;
+  for (int h = 0; h < 4; ++h) {
+    const int off = 32 * k + 8 * h;
     if (off < s) {
       const uint2 v = __ldcg(reinterpret_cast<const uint2*>(row + off));
-      bits |= (unsigned long long)(pack4(v.x) | (pack4(v.y) << 4)) << (W == 1 ? off : 8 * h);
+      bits |= (pack4(v.x) | (pack4(v.y) << 4)) << (8 * h);
     }
   }
-  if constexpr (W == 1) {
-    return bits;
+  return bits;
+}
+
+// Quad thread q's part of a row of s int8 lanes, as bits: lanes [16 q,
+// 16 q + 16) at W = 1, [32 q, 32 q + 32) (the evaluator's word q) at W = 2,
+// the evaluator's words q and q + 4 (one a node slab) at W = 3 and 4.
+template <int W>
+__device__ __forceinline__ Row<W> load_part(const int8_t* row, int s, int q) {
+  if constexpr (W > 2) {
+    Words<W> r;
+#pragma unroll
+    for (int j = 0; j < W; ++j) r.w[j] = 0;
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int k = q + 4 * x;
+      const unsigned long long bits = (unsigned long long)load_word(row, s, k) << (32 * (k & 1));
+#pragma unroll
+      for (int j = 0; j < W; ++j)
+        if (j == (k >> 1)) r.w[j] |= bits;
+    }
+    return r;
   } else {
-    return make_ulonglong2(q < 2 ? bits << (32 * q) : 0ull, q < 2 ? 0ull : bits << (32 * (q - 2)));
+    unsigned long long bits = 0;
+#pragma unroll
+    for (int h = 0; h < 2 * W; ++h) {
+      const int off = 16 * W * q + 8 * h;
+      if (off < s) {
+        const uint2 v = __ldcg(reinterpret_cast<const uint2*>(row + off));
+        bits |= (unsigned long long)(pack4(v.x) | (pack4(v.y) << 4)) << (W == 1 ? off : 8 * h);
+      }
+    }
+    if constexpr (W == 1) {
+      return bits;
+    } else {
+      return make_ulonglong2(q < 2 ? bits << (32 * q) : 0ull, q < 2 ? 0ull : bits << (32 * (q - 2)));
+    }
   }
 }
 
 // Quad thread q writes its part of a row (load_part's lanes) as int8 0/1.
 template <int W>
 __device__ __forceinline__ void store_part(int8_t* row, Row<W> bits, int s, int q) {
-  unsigned long long mine;
-  if constexpr (W == 1) {
-    mine = bits;
-  } else {
-    mine = word_of(bits, q);
-  }
+  if constexpr (W > 2) {
 #pragma unroll
-  for (int h = 0; h < 2 * W; ++h) {
-    const int off = 16 * W * q + 8 * h;
-    if (off < s) {
-      const uint32_t b = (uint32_t)(mine >> (W == 1 ? off : 8 * h));
-      *reinterpret_cast<uint2*>(row + off) = make_uint2(unpack4(b & 15u), unpack4((b >> 4) & 15u));
+    for (int x = 0; x < 2; ++x) {
+      const int k = q + 4 * x;
+      const uint32_t mine = word_of(bits, k);
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int off = 32 * k + 8 * h;
+        if (off < s) {
+          const uint32_t b = mine >> (8 * h);
+          *reinterpret_cast<uint2*>(row + off) = make_uint2(unpack4(b & 15u), unpack4((b >> 4) & 15u));
+        }
+      }
+    }
+  } else {
+    unsigned long long mine;
+    if constexpr (W == 1) {
+      mine = bits;
+    } else {
+      mine = word_of(bits, q);
+    }
+#pragma unroll
+    for (int h = 0; h < 2 * W; ++h) {
+      const int off = 16 * W * q + 8 * h;
+      if (off < s) {
+        const uint32_t b = (uint32_t)(mine >> (W == 1 ? off : 8 * h));
+        *reinterpret_cast<uint2*>(row + off) = make_uint2(unpack4(b & 15u), unpack4((b >> 4) & 15u));
+      }
     }
   }
 }
@@ -292,6 +451,25 @@ __device__ __forceinline__ R quad_or(R x) {
   x = x | shfl_xor(x, 1);
   x = x | shfl_xor(x, 2);
   return x;
+}
+
+// The quad's 64-bit word of two evaluator words, those of its threads
+// qb and qb + 1.
+__device__ __forceinline__ unsigned long long quad_pair(uint32_t w, int qb) {
+  return (unsigned long long)__shfl_sync(kFull, w, qb) | ((unsigned long long)__shfl_sync(kFull, w, qb + 1) << 32);
+}
+
+// A row of three or four words back from the evaluator's words of the quad,
+// w0 of node slab 0 and w1 of slab 1.
+template <int W>
+__device__ __forceinline__ Row<W> quad_row(uint32_t w0, uint32_t w1, int lane) {
+  const int qb = lane & ~3;
+  Words<W> r;
+  r.w[0] = quad_pair(w0, qb);
+  r.w[1] = quad_pair(w0, qb + 2);
+  r.w[2] = quad_pair(w1, qb);
+  if constexpr (W == 4) r.w[3] = quad_pair(w1, qb + 2);
+  return r;
 }
 
 // Rows g and g + 8 back as rows from the evaluator's words, the quad's
@@ -330,14 +508,57 @@ __device__ __forceinline__ ulonglong2 drop_nth(ulonglong2 d, int n) {
   const int c = __popcll(d.x);
   return n < c ? make_ulonglong2(d.x & ~nth_bit(d.x, n), d.y) : make_ulonglong2(d.x, d.y & ~nth_bit(d.y, n - c));
 }
+template <int W>
+__device__ __forceinline__ Words<W> drop_nth(Words<W> d, int n) {
+  int j = 0;  // the word that holds the n-th lane; n then counts within it
+#pragma unroll
+  for (int i = 0; i + 1 < W; ++i) {
+    const int c = __popcll(d.w[i]);
+    if (j == i && n >= c) {
+      n -= c;
+      j = i + 1;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < W; ++i)
+    if (i == j) d.w[i] &= ~nth_bit(d.w[i], n);
+  return d;
+}
 
 // Lane x's in-degree bit-plane b, of the planes [P][W][s] in shared memory.
 template <int W>
 __device__ __forceinline__ Row<W> plane_of(const unsigned long long* planes, int b, int s, int x) {
   if constexpr (W == 1) {
     return planes[b * s + x];
-  } else {
+  } else if constexpr (W == 2) {
     return make_ulonglong2(planes[2 * b * s + x], planes[(2 * b + 1) * s + x]);
+  } else {
+    Words<W> r;
+#pragma unroll
+    for (int j = 0; j < W; ++j) r.w[j] = planes[(W * b + j) * s + x];
+    return r;
+  }
+}
+
+// The greatest fixpoints f1 of D (row g) and f2 of D | T (uni, row g + 8)
+// under the scoped thresholds, whole in each thread of the quad; `between`
+// runs after the fixpoint, before the rows are gathered (the timed
+// instance's mark).
+template <int W, class WarpT, class F>
+__device__ __forceinline__ void quorums(WarpT& w, const Row<W>& D, const Row<W>& uni, int q, int lane, Row<W>& f1,
+                                        Row<W>& f2, F&& between) {
+  if constexpr (W <= 2) {
+    uint32_t a0 = word_of(D, q), a1 = word_of(uni, q);
+    w.fixpoint(a0, a1, 0u, w.src.thr_q);
+    between();
+    f1 = quad_row<W>(a0, lane);
+    f2 = quad_row<W>(a1, lane);
+  } else {
+    uint32_t a[4] = {word_of(D, q), word_of(uni, q), word_of(D, q + 4), word_of(uni, q + 4)};
+    w.fixpoint(a, 0u, w.src.thr_q);
+    between();
+    f1 = quad_row<W>(a[0], a[2], lane);
+    f2 = quad_row<W>(a[1], a[3], lane);
   }
 }
 
@@ -349,8 +570,8 @@ __device__ __forceinline__ int code_count(unsigned c) { return (c & 1) + ((c >> 
 template <int W>
 __device__ __forceinline__ void stash_child(const ChunkArgs& a, int half, unsigned x, Row<W>& T, Row<W>& D) {
   const int e = half + (int)(x >> 1);
-  T = __ldcg(reinterpret_cast<const Row<W>*>(a.st_T) + e);
-  D = __ldcg(reinterpret_cast<const Row<W>*>(a.st_D) + e);
+  T = ld_row<W>(reinterpret_cast<const Row<W>*>(a.st_T) + e);
+  D = ld_row<W>(reinterpret_cast<const Row<W>*>(a.st_D) + e);
   if (!(x & 1)) D = D | lane_row<W>(__ldcg(a.st_code + e) >> 8);
 }
 
@@ -420,14 +641,13 @@ __host__ __device__ inline unsigned chunk_extra_bytes(int s, int Kp, int P) {
 }
 
 // K10's shared memory a warp: its sets, per member index the sets with more
-// members, the tile's slots and cursor.
-template <int W>
-__host__ __device__ constexpr unsigned filter_warp_bytes() {
+// members, the tile's slots and cursor (a multiple of 16 bytes at every W).
+__host__ __device__ constexpr unsigned filter_warp_bytes(int W) {
   return 8 * W * kSets + 2 * 64 * W + 2 * 16 + 16;
 }
 
 __host__ __device__ inline unsigned filter_extra_bytes(int s) {
-  return kWarps * (s > 64 ? filter_warp_bytes<2>() : filter_warp_bytes<1>());
+  return kWarps * filter_warp_bytes(state_words(s));
 }
 
 template <class Src, bool kS1, int W, bool kTimed>
@@ -435,7 +655,7 @@ __global__ void __launch_bounds__(kThreads) chunk_kernel(ChunkArgs a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout l = make_layout(false, Src::kStream, a.p);
-  Warp<Src, kS1> w;
+  Warp<Src, kS1, kNodeSlabs<W>> w;
   w.init(smem, l, a.p, false);
   const int s = a.s, Kp = a.Kp;
   const unsigned plane_bytes = round16(8u * a.P * W * s);
@@ -514,7 +734,7 @@ __global__ void __launch_bounds__(kThreads) chunk_kernel(ChunkArgs a) {
         const int j = 8 * t + g;
         if (j < nf)
           store_part<W>(a.flags + (long long)(fprev + j) * s,
-                        __ldcg(reinterpret_cast<const Row<W>*>(a.st_D) + prev + fmap[j]), s, q);
+                        ld_row<W>(reinterpret_cast<const Row<W>*>(a.st_D) + prev + fmap[j]), s, q);
       }
     }
     mark(1);
@@ -537,10 +757,8 @@ __global__ void __launch_bounds__(kThreads) chunk_kernel(ChunkArgs a) {
       myD = quad_or(myD);
       mark(2);
       const Row<W> uni = myT | myD;
-      uint32_t a0 = word_of(myD, q), a1 = word_of(uni, q);
-      w.fixpoint(a0, a1, 0u, w.src.thr_q);
-      mark(3);
-      const Row<W> f1 = quad_row<W>(a0, lane), f2 = quad_row<W>(a1, lane);
+      Row<W> f1, f2;
+      quorums<W>(w, myD, uni, q, lane, f1, f2, [&] { mark(3); });
       const int dsize = popc(myD);
       const bool live = valid && dsize <= a.half && any(uni);
       const bool dq = live && any(f1);
@@ -636,8 +854,8 @@ template <int W>
 __device__ __forceinline__ void share_child(const unsigned char* half, int Ks, unsigned x, Row<W>& T, Row<W>& D) {
   const int e = (int)(x >> 1), r = e / Ks, j = e - r * Ks;
   const unsigned char* blk = half + r * share_bytes<W>(Ks);
-  T = __ldcg(reinterpret_cast<const Row<W>*>(blk) + j);
-  D = __ldcg(reinterpret_cast<const Row<W>*>(blk + 8 * W * (size_t)Ks) + j);
+  T = ld_row<W>(reinterpret_cast<const Row<W>*>(blk) + j);
+  D = ld_row<W>(reinterpret_cast<const Row<W>*>(blk + 8 * W * (size_t)Ks) + j);
   if (!(x & 1)) D = D | lane_row<W>(__ldcg(reinterpret_cast<const uint16_t*>(blk + 16 * W * (size_t)Ks) + j) >> 8);
 }
 
@@ -645,7 +863,8 @@ __device__ __forceinline__ void share_child(const unsigned char* half, int Ks, u
 template <int W>
 __device__ __forceinline__ Row<W> share_flag(const unsigned char* half, int Ks, int e) {
   const int r = e / Ks;
-  return __ldcg(reinterpret_cast<const Row<W>*>(half + r * share_bytes<W>(Ks) + 8 * W * (size_t)Ks) + (e - r * Ks));
+  return ld_row<W>(reinterpret_cast<const Row<W>*>(half + r * share_bytes<W>(Ks) + 8 * W * (size_t)Ks) +
+                   (e - r * Ks));
 }
 
 // One iteration of K9 for one rank: (a) every block scans the whole
@@ -667,7 +886,7 @@ __global__ void __launch_bounds__(kThreads) iteration_kernel(IterArgs a) {
   }
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout l = make_layout(false, Src::kStream, a.p);
-  Warp<Src, kS1> w;
+  Warp<Src, kS1, kNodeSlabs<W>> w;
   w.init(smem, l, a.p, false);
   const int s = a.s, Ks = a.Ks, slots = a.ranks * a.Ks;
   const unsigned plane_bytes = round16(8u * a.P * W * s);
@@ -774,9 +993,8 @@ __global__ void __launch_bounds__(kThreads) iteration_kernel(IterArgs a) {
     myT = quad_or(myT);
     myD = quad_or(myD);
     const Row<W> uni = myT | myD;
-    uint32_t a0 = word_of(myD, q), a1 = word_of(uni, q);
-    w.fixpoint(a0, a1, 0u, w.src.thr_q);
-    const Row<W> f1 = quad_row<W>(a0, lane), f2 = quad_row<W>(a1, lane);
+    Row<W> f1, f2;
+    quorums<W>(w, myD, uni, q, lane, f1, f2, [] {});
     const int dsize = popc(myD);
     const bool live = valid && dsize <= a.half && any(uni);
     const bool dq = live && any(f1);
@@ -882,7 +1100,7 @@ __global__ void __launch_bounds__(kThreads) mesh_chunk_kernel(MeshArgs a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout l = make_layout(false, Src::kStream, a.p);
-  Warp<Src, kS1> w;
+  Warp<Src, kS1, kNodeSlabs<W>> w;
   w.init(smem, l, a.p, false);
   const int s = a.s, Ks = a.Ks, slots = a.ranks * a.Ks;
   const unsigned plane_bytes = round16(8u * a.P * W * s);
@@ -967,9 +1185,8 @@ __global__ void __launch_bounds__(kThreads) mesh_chunk_kernel(MeshArgs a) {
       myT = quad_or(myT);
       myD = quad_or(myD);
       const Row<W> uni = myT | myD;
-      uint32_t a0 = word_of(myD, q), a1 = word_of(uni, q);
-      w.fixpoint(a0, a1, 0u, w.src.thr_q);
-      const Row<W> f1 = quad_row<W>(a0, lane), f2 = quad_row<W>(a1, lane);
+      Row<W> f1, f2;
+      quorums<W>(w, myD, uni, q, lane, f1, f2, [] {});
       const int dsize = popc(myD);
       const bool live = valid && dsize <= a.half && any(uni);
       const bool dq = live && any(f1);
@@ -1076,12 +1293,12 @@ template <class Src, bool kS1, int W>
 __global__ void __launch_bounds__(kThreads) filter_kernel(FilterArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout l = make_layout(true, Src::kStream, a.p);
-  Warp<Src, kS1> w;
+  Warp<Src, kS1, kNodeSlabs<W>> w;
   w.init(smem, l, a.p, true);
   const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3, warp = threadIdx.x >> 5;
   // A warp's part of the shared memory: its sets, per member index the sets
   // with more members, the tile's slots and the cursor.
-  unsigned char* mine = smem + l.end + warp * filter_warp_bytes<W>();
+  unsigned char* mine = smem + l.end + warp * filter_warp_bytes(W);
   Row<W>* sets = reinterpret_cast<Row<W>*>(mine);
   uint16_t* more = reinterpret_cast<uint16_t*>(mine + 8 * W * kSets);
   uint16_t* slots = more + 64 * W;
@@ -1118,12 +1335,24 @@ __global__ void __launch_bounds__(kThreads) filter_kernel(FilterArgs a) {
       const int filled = fill_tile<W>(more, done, p, slots, cursor);
       if (!filled) break;
       int ra, rb;
-      uint32_t x0 = word_of(slot_row<W>(sets, slots, filled, g, &ra), q);
-      uint32_t x1 = word_of(slot_row<W>(sets, slots, filled, g + 8, &rb), q);
-      p = *cursor;
-      __syncwarp();
-      w.fixpoint(x0, x1, 0u, w.src.thr_q);
-      const bool h0 = quad_any(x0 != 0), h1 = quad_any(x1 != 0);
+      bool h0, h1;
+      if constexpr (W <= 2) {
+        uint32_t x0 = word_of(slot_row<W>(sets, slots, filled, g, &ra), q);
+        uint32_t x1 = word_of(slot_row<W>(sets, slots, filled, g + 8, &rb), q);
+        p = *cursor;
+        __syncwarp();
+        w.fixpoint(x0, x1, 0u, w.src.thr_q);
+        h0 = quad_any(x0 != 0);
+        h1 = quad_any(x1 != 0);
+      } else {
+        const Row<W> r0 = slot_row<W>(sets, slots, filled, g, &ra), r1 = slot_row<W>(sets, slots, filled, g + 8, &rb);
+        uint32_t x[4] = {word_of(r0, q), word_of(r1, q), word_of(r0, q + 4), word_of(r1, q + 4)};
+        p = *cursor;
+        __syncwarp();
+        w.fixpoint(x, 0u, w.src.thr_q);
+        h0 = quad_any((x[0] | x[2]) != 0);
+        h1 = quad_any((x[1] | x[3]) != 0);
+      }
       done |= __reduce_or_sync(kFull, (h0 && ra >= 0 ? 1u << ra : 0u) | (h1 && rb >= 0 ? 1u << rb : 0u));
     }
     const unsigned minimal = ((1u << n) - 1) & ~done;
@@ -1131,9 +1360,18 @@ __global__ void __launch_bounds__(kThreads) filter_kernel(FilterArgs a) {
     // The probes of the minimal sets: scc minus D under the probe thresholds.
     unsigned wit = 0;
     if (minimal) {
-      uint32_t a0 = word_of((minimal >> g) & 1 ? all & ~d : Row<W>{}, q), a1 = 0;
-      w.fixpoint(a0, a1, 0u, w.src.thr_d);
-      wit = minimal & row_mask(__ballot_sync(kFull, quad_any(a0 != 0) && q == 0));
+      bool held;
+      if constexpr (W <= 2) {
+        uint32_t a0 = word_of((minimal >> g) & 1 ? all & ~d : Row<W>{}, q), a1 = 0;
+        w.fixpoint(a0, a1, 0u, w.src.thr_d);
+        held = quad_any(a0 != 0);
+      } else {
+        const Row<W> probe = (minimal >> g) & 1 ? all & ~d : Row<W>{};
+        uint32_t x[4] = {word_of(probe, q), 0u, word_of(probe, q + 4), 0u};
+        w.fixpoint(x, 0u, w.src.thr_d);
+        held = quad_any((x[0] | x[2]) != 0);
+      }
+      wit = minimal & row_mask(__ballot_sync(kFull, held && q == 0));
     }
     if (lane == 0) {
       atomicAdd(a.out, __popc(minimal));
@@ -1228,17 +1466,26 @@ struct Tag {
 
 // f(Tag<Src>, kS1, W), the last two as integral constants, for the instance
 // the tables (streamed or resident, one child k-slab or more) and the lanes
-// (W = state_words(s) words a state) name; cudaErrorInvalidValue past 128
+// (W = state_words(s) words a state) name; cudaErrorInvalidValue past 256
 // lanes.
 template <class F>
 cudaError_t by_instance(bool stream, int slabs, int s, F&& f) {
-  if (s < 1 || s > 128) return cudaErrorInvalidValue;
+  if (s < 1 || s > 256) return cudaErrorInvalidValue;
   auto of = [&](auto w) -> cudaError_t {
     if (stream)
       return slabs <= 1 ? f(Tag<Streamed>{}, std::true_type{}, w) : f(Tag<Streamed>{}, std::false_type{}, w);
     return slabs <= 1 ? f(Tag<Resident>{}, std::true_type{}, w) : f(Tag<Resident>{}, std::false_type{}, w);
   };
-  return s <= 64 ? of(std::integral_constant<int, 1>{}) : of(std::integral_constant<int, 2>{});
+  switch (state_words(s)) {
+    case 1:
+      return of(std::integral_constant<int, 1>{});
+    case 2:
+      return of(std::integral_constant<int, 2>{});
+    case 3:
+      return of(std::integral_constant<int, 3>{});
+    default:
+      return of(std::integral_constant<int, 4>{});
+  }
 }
 
 Params make_params(const void* blocks, const void* chunks, const int* thr_q, const int* thr_d, int n,

@@ -7,8 +7,10 @@
 // `mma.sync m16n8k128 .row.col .s32.b1.b1.s32.and.popc`: thread t of the warp
 // (g = t / 4, q = t % 4) holds word q (nodes [32 q, 32 q + 32)) of rows g and
 // g + 8, so only threads q = 0, 1 hold nonzero words.  (The frontier's
-// kernels, frontier.cu, take rows of up to 128 nodes, the whole k-slab: there
-// every thread of a quad holds a word.)  A unit's votes
+// kernels, frontier.cu, take rows of up to 256 nodes: up to 128, the whole
+// k-slab, every thread of a quad holds a word; past it a row spans two node
+// k-slabs, and thread t also holds word q of slab 1, nodes [128 + 32 q,
+// 160 + 32 q), of rows g and g + 8: `Warp`'s kNS.)  A unit's votes
 //   votes[r][u] = sum_b 2^b (popc(A[r] & members_b[u]) + popc(S[r] & child_b[u]))
 // are and-popc products over bit-planes b (vote count c = sum_b 2^b c_b), taken
 // highest plane first (Horner: the sum doubles between planes), so any vote
@@ -17,9 +19,12 @@
 //
 // Units are taken 32 at a time (a chunk, four n8 blocks).  The host stores,
 // per chunk and in the order a pass reads them, one table block per member
-// plane (one k-slab: n <= 64) and one per child plane and child k-slab that
-// holds a nonzero column of the chunk (`Params::chunks`: the first block, the
-// member blocks, the child slabs [k0, k1)).  A block is 32 lanes x 4 words:
+// plane and node k-slab (one slab: n <= 128; two for the frontier's rows
+// past it, slab 0 then slab 1 for each plane, so a plane's products
+// accumulate into one sum and Horner is unchanged) and one per child plane
+// and child k-slab that holds a nonzero column of the chunk
+// (`Params::chunks`: the first block, the member blocks, the child slabs
+// [k0, k1)).  A block is 32 lanes x 4 words:
 // lane t's word j is the B fragment of n8 block j, the word q of unit
 // 32 c + 8 j + g's slab (kernels/sweep_cuda.py `frag_blocks`), so a warp
 // reads a block with one conflict-free 16-byte access a thread.  The
@@ -32,15 +37,15 @@
 // fold), so a unit is satisfied where its accumulator is >= 0; the n8 blocks
 // past the last real unit are skipped.  Each thread sets its bits, the quad
 // ORs them into the chunk's row words (two shuffles a row), and the thread
-// whose q names the word keeps it: as the next
-// availability (root chunk c = q, ANDed with the availability: the Q4
-// conjunct) or as its word of S.  So every thread reads back only what it
-// wrote itself, and S, in registers for one k-slab and in a per-thread shared
-// slot otherwise, needs no synchronisation either.  The child passes update S
-// in place, chunk after chunk: a chunk may read some child bits one pass
-// early, which only raises them towards the true satisfaction (the first pass
-// takes every child as unsatisfied), never past it, so `depth` passes stay
-// exact.  The fixpoint repeats passes until `__any_sync` says no row of the
+// whose q names the word keeps it: as the next availability (root chunk c
+// is word c & 3 of node slab c >> 2, kept by thread q = c & 3, ANDed with
+// the availability: the Q4 conjunct) or as its word of S.  So every thread
+// reads back only what it wrote itself, and S, in registers for one k-slab
+// and in a per-thread shared slot otherwise, needs no synchronisation
+// either.  The child passes update S in place, chunk after chunk: a chunk
+// may read some child bits one pass early, which only raises them towards
+// the true satisfaction (the first pass takes every child as unsatisfied),
+// never past it, so `depth` passes stay exact.  The fixpoint repeats passes until `__any_sync` says no row of the
 // warp changed.
 //
 // Tables live in shared memory where they fit (`Resident`); otherwise each
@@ -74,7 +79,7 @@ struct Params {
   const int4* chunks;   // [units / 32]: first block, member blocks, child slabs k0, k1
   const int* thr_q;     // [units] negated signed thresholds
   const int* thr_d;     // [units] the D probe's, negated (the guard passes thr_q)
-  int n;                // nodes (<= 64; <= 128, one k-slab, for the frontier)
+  int n;                // nodes (<= 64; <= 256, two node k-slabs, for the frontier)
   int n_units;          // real units
   int units;            // units padded to a chunk
   int depth;            // child passes per fixpoint pass
@@ -248,9 +253,12 @@ struct Streamed {
 };
 
 // One warp's evaluator over table source Src; kS1: S fits one k-slab and
-// lives in two registers.
-template <class Src, bool kS1>
+// lives in two registers; kNS: the node k-slabs of an availability row (1 up
+// to 128 nodes; 2, the frontier's rows of 129-256 nodes).  A thread's words
+// of rows g and g + 8 are a[2 x] and a[2 x + 1], x the node slab.
+template <class Src, bool kS1, int kNS = 1>
 struct Warp {
+  static_assert(kNS == 1 || kNS == 2, "an availability row spans one or two node k-slabs");
   Src src;
   Params p;
   uint2* s_slot;  // !kS1: this thread's S word pair of slab x at s_slot[32 x]
@@ -286,35 +294,40 @@ struct Warp {
     for (int j = 0; j < 4; ++j)
       if (j < nb) mma_b1(acc + 4 * j, a0, a1, w[j]);
   }
+  // One member plane's products: a block a node slab, into one sum.
+  __device__ __forceinline__ void member_plane(int (&acc)[16], const uint32_t (&t)[2 * kNS], int& idx, int nb) {
+#pragma unroll
+    for (int x = 0; x < kNS; ++x) mma4(acc, t[2 * x], t[2 * x + 1], src.next(idx++), nb);
+  }
   __device__ __forceinline__ static void twice(int (&acc)[16]) {
 #pragma unroll
     for (int i = 0; i < 16; ++i) acc[i] <<= 1;
   }
 
-  // Votes less thresholds of chunk c's units for rows g and g + 8 (t0, t1:
-  // this thread's word of their availability; nthr: the negated
-  // thresholds), in the n8 blocks below nb (those that hold a real unit).
-  // Starting the sum at the negated threshold leaves the compare a sign test.
-  __device__ __forceinline__ void votes(int (&acc)[16], int c, int nb, bool kids, uint32_t t0,
-                                        uint32_t t1, const int* nthr) {
+  // Votes less thresholds of chunk c's units for rows g and g + 8 (t: this
+  // thread's words of their availability; nthr: the negated thresholds), in
+  // the n8 blocks below nb (those that hold a real unit).  Starting the sum
+  // at the negated threshold leaves the compare a sign test.
+  __device__ __forceinline__ void votes(int (&acc)[16], int c, int nb, bool kids, const uint32_t (&t)[2 * kNS],
+                                        const int* nthr) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int2 t = j < nb ? src.thr2(nthr, kChunk * c + 8 * j + 2 * q) : make_int2(0, 0);
-      acc[4 * j] = acc[4 * j + 2] = t.x;
-      acc[4 * j + 1] = acc[4 * j + 3] = t.y;
+      const int2 th = j < nb ? src.thr2(nthr, kChunk * c + 8 * j + 2 * q) : make_int2(0, 0);
+      acc[4 * j] = acc[4 * j + 2] = th.x;
+      acc[4 * j + 1] = acc[4 * j + 3] = th.y;
     }
     const int4 m = src.chunk(c);
     kids = kids && m.z < m.w;
     int idx = m.x;
-    if (m.y == 1) {
-      mma4(acc, t0, t1, src.next(idx++), nb);
-    } else if (m.y > 1) {
+    if (m.y == kNS) {
+      member_plane(acc, t, idx, nb);
+    } else if (m.y > kNS) {
       int h[16];
 #pragma unroll
       for (int i = 0; i < 16; ++i) h[i] = 0;
-      for (int i = 0; i < m.y; ++i) {  // member planes, the highest first
+      for (int i = 0; i < m.y; i += kNS) {  // member planes, the highest first
         if (i) twice(h);
-        mma4(h, t0, t1, src.next(idx++), nb);
+        member_plane(h, t, idx, nb);
       }
 #pragma unroll
       for (int i = 0; i < 16; ++i) acc[i] += h[i];
@@ -362,42 +375,76 @@ struct Warp {
   // n8 blocks of chunk c that hold a real unit.
   __device__ __forceinline__ int blocks_of(int c) const { return min(4, (p.n_units - kChunk * c + 7) / 8); }
 
-  // Greatest fixpoint of rows g and g + 8 in place (a0, a1: this thread's
-  // word of each), with the frozen word f always available but never kept,
-  // under the negated thresholds nthr: passes until no row of the warp
-  // changes.
-  __device__ __forceinline__ void fixpoint(uint32_t& a0, uint32_t& a1, uint32_t f, const int* nthr) {
+  // Greatest fixpoint of rows g and g + 8 in place (a: this thread's words
+  // of each, a[2 x + v] row g + 8 v in node slab x), with the frozen word f
+  // (of node slab 0) always available but never kept, under the negated
+  // thresholds nthr: passes until no row of the warp changes.
+  __device__ __forceinline__ void fixpoint(uint32_t (&a)[2 * kNS], uint32_t f, const int* nthr) {
     const int roots = (p.n + kChunk - 1) / kChunk;
     const int lo = p.c0 / kChunk, hi = p.units / kChunk;
     int acc[16];
     uint32_t w0, w1;
-    while (__any_sync(kFull, (a0 | a1) != 0)) {
-      const uint32_t t0 = a0 | f, t1 = a1 | f;
+    while (__any_sync(kFull, any_of(a))) {
+      uint32_t t[2 * kNS];
+#pragma unroll
+      for (int i = 0; i < 2 * kNS; ++i) t[i] = i < 2 ? a[i] | f : a[i];
       for (int pass = 0; pass < p.depth; ++pass) {
         src.begin(lo, hi, pass > 0);
         for (int c = lo; c < hi; ++c) {
           const int nb = blocks_of(c);
-          votes(acc, c, nb, pass > 0, t0, t1, nthr);
+          votes(acc, c, nb, pass > 0, t, nthr);
           sat(acc, nb, w0, w1);
           if (q == ((c - lo) & 3)) s_put((c - lo) >> 2, w0, w1);
         }
       }
       src.begin(0, roots, p.depth > 0);
-      uint32_t n0 = 0, n1 = 0;
+      uint32_t nw[2 * kNS];
+#pragma unroll
+      for (int i = 0; i < 2 * kNS; ++i) nw[i] = 0;
       for (int c = 0; c < roots; ++c) {
         const int nb = blocks_of(c);
-        votes(acc, c, nb, p.depth > 0, t0, t1, nthr);
+        votes(acc, c, nb, p.depth > 0, t, nthr);
         sat(acc, nb, w0, w1);
-        if (q == c) {
-          n0 = w0 & a0;
-          n1 = w1 & a1;
+        if constexpr (kNS == 1) {
+          if (q == c) {
+            nw[0] = w0 & a[0];
+            nw[1] = w1 & a[1];
+          }
+        } else if (q == (c & 3)) {  // root chunk c: word c & 3 of node slab c >> 2
+          if (c < 4) {
+            nw[0] = w0 & a[0];
+            nw[1] = w1 & a[1];
+          } else {
+            nw[2] = w0 & a[2];
+            nw[3] = w1 & a[3];
+          }
         }
       }
-      const bool changed = __any_sync(kFull, (n0 != a0) || (n1 != a1));
-      a0 = n0;
-      a1 = n1;
+      bool moved = false;
+#pragma unroll
+      for (int i = 0; i < 2 * kNS; ++i) moved = moved || nw[i] != a[i];
+      const bool changed = __any_sync(kFull, moved);
+#pragma unroll
+      for (int i = 0; i < 2 * kNS; ++i) a[i] = nw[i];
       if (!changed) break;
     }
+  }
+  // The one-slab form (the sweep, the guard and the frontier up to 128
+  // lanes): a0, a1 this thread's words of rows g and g + 8.
+  __device__ __forceinline__ void fixpoint(uint32_t& a0, uint32_t& a1, uint32_t f, const int* nthr) {
+    static_assert(kNS == 1, "rows of two node slabs take the array form");
+    uint32_t a[2] = {a0, a1};
+    fixpoint(a, f, nthr);
+    a0 = a[0];
+    a1 = a[1];
+  }
+
+ private:
+  __device__ __forceinline__ static bool any_of(const uint32_t (&a)[2 * kNS]) {
+    uint32_t o = a[0];
+#pragma unroll
+    for (int i = 1; i < 2 * kNS; ++i) o |= a[i];
+    return o != 0;
   }
 };
 

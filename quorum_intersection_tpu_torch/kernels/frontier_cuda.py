@@ -22,9 +22,10 @@ On a CPU tensor it runs the plain version (:mod:`.frontier_ref`) — only
 because the tensors lie on the CPU.
 
 Kernel limits, checked before any launch (:class:`KernelLimitError`): at
-most :data:`MAX_LANES` (128) SCC lanes (a state is ``W`` = ⌈lanes / 64⌉
-64-bit words, ``W`` 1 or 2, each kernel an instance a ``W``; the drive's pad
-ladder gives 8, 16, 24, 32, 48, 64, 96 or 128; the JAX program takes any
+most :data:`MAX_LANES` (256) SCC lanes (a state is ``W`` = ⌈lanes / 64⌉
+64-bit words, ``W`` 1 to 4, each kernel an instance a ``W``; past 128 lanes
+a row spans the evaluator's two node k-slabs; the drive's pad ladder gives
+8, 16, 24, 32, 48, 64, 96, 128, 192 or 256; the JAX program takes any
 width, and so does the plain version).  The kernels move a row 8 lanes at a
 time: a lane count off a multiple of 8 (the drive's ``pad_shapes=False``)
 runs on the circuit grown by inert nodes to the next multiple, its rows
@@ -72,7 +73,7 @@ from quorum_intersection_tpu_torch.kernels.sweep_cuda import (
 )
 from quorum_intersection_tpu_torch.kernels.sweep_ref import CircuitTables
 
-MAX_LANES = 128
+MAX_LANES = 256
 MAX_POP = 8192
 MAX_PLANES = 16
 WARPS = 8  # csrc/warp_mma.cuh kWarps

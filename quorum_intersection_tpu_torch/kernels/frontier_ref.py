@@ -243,7 +243,8 @@ def stash_half(stash: torch.Tensor, K: int, ranks: int, half: int,
     ``(ranks, Ks)``: share ``r`` holds its ``Ks`` toRemove states (int64
     words, bit ``x`` of word ``j`` lane ``64 j + x``), its dontRemove
     states, then its codes (int16: bit 0 include, 1 exclude, 2 flag, the
-    branch lane from bit 8)."""
+    branch lane from bit 8; read as unsigned, a lane past 127 setting bit
+    15)."""
     Ks = share_slots(K, ranks)[1]
     nbytes = stash_half_bytes(K, ranks, words)
     row = 8 * words * Ks
@@ -349,7 +350,7 @@ def share_iteration(
         adds the branch lane to dontRemove."""
         sl = child_slot[idx]
         d = pD[sl]
-        with_best = d | lane_words(pcode[sl].to(torch.int64) >> 8, W)
+        with_best = d | lane_words((pcode[sl].to(torch.int64) & 0xFFFF) >> 8, W)
         return unpack_words(pT[sl], s), unpack_words(torch.where(child_excl[idx, None], d, with_best), s)
 
     go = top > 0 and iters < shape.chunk_iters and fcount < flag_exit and top <= C - 2 * K

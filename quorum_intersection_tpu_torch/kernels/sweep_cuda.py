@@ -21,9 +21,11 @@ apart from :func:`sweep_fused`).
 
 The kernel takes the votes as b1 and-popc tensor-core products, 16 rows a
 warp (``csrc/warp_mma.cuh``).  :func:`plane_tables` lays the circuit out as
-the kernel reads it (shared with the block guard, :mod:`.guard_cuda`): per
-32-unit chunk, in the order a fixpoint pass reads them, one 512-byte block of
-B fragments per member bit-plane and one per child bit-plane and child
+the kernel reads it (shared with the block guard, :mod:`.guard_cuda`, and
+the frontier, :mod:`.frontier_cuda`): per 32-unit chunk, in the order a
+fixpoint pass reads them, one 512-byte block of B fragments per member
+bit-plane and node k-slab (128 node columns; two slabs only for the
+frontier's rows past 128 nodes) and one per child bit-plane and child
 k-slab (128 child columns) where the chunk has a nonzero column.  The host
 picks the instance from the tables' size before any launch: resident in
 shared memory, or streamed through it.
@@ -55,6 +57,7 @@ from quorum_intersection_tpu_torch.kernels.sweep_ref import SweepRef
 
 MAX_NODES = 64
 MAX_PLANES = 8
+NODE_SLABS = 2  # node k-slabs the evaluator's rows span at most (warp_mma.cuh Warp's kNS)
 INDEX_CEILING = 1 << 31
 # Shared memory one block may opt into on Hopper (227 KB).
 SMEM_LIMIT = 232448
@@ -113,10 +116,11 @@ def smem_bytes(sweep: bool, stream: bool, nblocks: int, units: int, slabs: int) 
 @dataclass
 class PlaneTables:
     """The circuit as the kernels read it.  ``chunks`` (units / 32, 4) int32:
-    per chunk its first table block, its member blocks (0 or ``pm``) and its
-    child k-slabs ``[k0, k1)``; ``blocks`` (nblocks, 32, 4): per chunk the
-    member planes, highest first, then per child plane, highest first, the
-    slabs ``k0 .. k1 - 1`` (:func:`frag_blocks`), as int32 bit patterns;
+    per chunk its first table block, its member blocks (0 or ``pm ·
+    node_slabs``) and its child k-slabs ``[k0, k1)``; ``blocks`` (nblocks,
+    32, 4): per chunk the member planes, highest first, each over the node
+    slabs in order, then per child plane, highest first, the slabs ``k0 ..
+    k1 - 1`` (:func:`frag_blocks`), as int32 bit patterns;
     ``neg_thresholds`` (units,) the signed thresholds negated (the kernel
     starts each vote sum there), -1 on padded units.  Child columns start
     at ``c0``, a multiple of 32, in ``slabs`` k-slabs."""
@@ -138,6 +142,11 @@ class PlaneTables:
     def nblocks(self) -> int:
         return int(self.blocks.shape[0])
 
+    @property
+    def node_slabs(self) -> int:
+        """The 128-column node k-slabs a row of ``n`` nodes spans."""
+        return max(1, -(-self.n // SLAB))
+
 
 def upload_words(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """Unsigned word array → a tensor of the same bit patterns (int64 or
@@ -158,31 +167,36 @@ def plane_tables(circuit: Circuit, device: torch.device, sweep: bool = True,
     D thresholds beside them in shared memory) or the guard.  ``stream``
     None picks the instance from the size: resident where one block's shared
     memory holds the tables, streamed otherwise.  ``max_nodes``: the nodes
-    the caller's kernel takes, at most a k-slab's 128 (the sweep's and the
-    guard's 64, whose rows are one 64-bit word; the frontier's 128)."""
+    the caller's kernel takes, at most two node k-slabs' 256 (the sweep's and
+    the guard's 64, whose rows are one 64-bit word; the frontier's 256, whose
+    rows past 128 nodes span two slabs).  Up to 128 nodes the tables are one
+    slab's, whatever the limit."""
     n, u = circuit.n, circuit.n_units
-    if n > min(max_nodes, SLAB):
-        raise KernelLimitError(f"circuit has {n} nodes; the kernel takes at most {min(max_nodes, SLAB)}")
+    limit = min(max_nodes, NODE_SLABS * SLAB)
+    if n > limit:
+        raise KernelLimitError(f"circuit has {n} nodes; the kernel takes at most {limit}")
+    ns = max(1, -(-n // SLAB))
     units = _round_up(max(u, n, 1), CHUNK)
     kids = np.nonzero(circuit.child.any(axis=0))[0]
     c0 = int(kids[0]) - int(kids[0]) % CHUNK if kids.size else units
     slabs = -(-(units - c0) // SLAB)
-    members = np.zeros((units, SLAB), dtype=np.uint8)
+    members = np.zeros((units, ns * SLAB), dtype=np.uint8)
     members[:u, :n] = circuit.members
     child = np.zeros((units, slabs * SLAB), dtype=np.uint8)
     child[:u, : u - c0] = circuit.child[:, c0:]
     mplanes, cplanes = bit_planes(members), bit_planes(child, least=0)
-    mblocks = [frag_blocks(plane) for plane in mplanes[::-1]]
+    mblocks = [[frag_blocks(plane[:, x * SLAB:(x + 1) * SLAB]) for x in range(ns)] for plane in mplanes[::-1]]
     cblocks = [[frag_blocks(plane[:, x * SLAB:(x + 1) * SLAB]) for x in range(slabs)]
                for plane in cplanes[::-1]]
     blocks, chunks = [], []
     for c in range(units // CHUNK):
         rows = slice(CHUNK * c, CHUNK * (c + 1))
-        m = len(mblocks) if members[rows].any() else 0
+        m = len(mblocks) * ns if members[rows].any() else 0
         cols = np.nonzero(child[rows].any(axis=0))[0]
         k0, k1 = (int(cols[0]) // SLAB, int(cols[-1]) // SLAB + 1) if cols.size else (0, 0)
         chunks.append((len(blocks), m, k0, k1))
-        blocks += [mb[c] for mb in mblocks[:m]]
+        if m:
+            blocks += [slab[c] for plane in mblocks for slab in plane]
         blocks += [planes[x][c] for planes in cblocks for x in range(k0, k1)]
     if stream is None:
         stream = smem_bytes(sweep, False, len(blocks), units, slabs) > SMEM_LIMIT

@@ -444,6 +444,41 @@ def parse_faults(spec: str) -> FaultPlan:
     return FaultPlan(rules, label=spec)
 
 
+# What the chaos schedule draws from: failures on paths the auto router's
+# degradation ladder (or the crash-only checkpoint writer) must absorb
+# without flipping the verdict (the JAX package's list, in its order).  The
+# hang stays sub-second: a soak bounds it by a short native watchdog.
+_CHAOS_CHOICES: Tuple[Tuple[str, str, float], ...] = (
+    (SWEEP_DISPATCH, "oom", 0.0),
+    (SWEEP_WINDOW, "preempt", 0.0),
+    (SWEEP_COMPILE, "error", 0.0),
+    (NATIVE_CALL, "error", 0.0),
+    (NATIVE_CALL, "hang", 0.8),
+    (NATIVE_BUILD, "error", 0.0),
+    (CHECKPOINT_WRITE, "oserror", 0.0),
+    (FRONTIER_CHUNK, "oom", 0.0),
+)
+
+
+def sample_plan(seed: int) -> FaultPlan:
+    """A deterministic fault schedule drawn from ``seed`` (the JAX package's
+    draw: same seed, same rules in the same order with the same hit
+    selectors, so a chaos run with the same seed replays the schedule)."""
+    rng = random.Random(seed)
+    n_rules = 1 if rng.random() < 0.7 else 2
+    picks = rng.sample(range(len(_CHAOS_CHOICES)), n_rules)
+    rules = []
+    for ix in picks:
+        point, mode, seconds = _CHAOS_CHOICES[ix]
+        # Biased toward the first hit and toward every-hit rules: a small run
+        # reaches most points once or twice, and a rule that never fires
+        # tests nothing.
+        first = 1 if rng.random() < 0.6 else rng.randint(2, 3)
+        every = rng.random() < 0.7
+        rules.append(FaultRule(point=point, mode=mode, first=first, every=every, seconds=seconds))
+    return FaultPlan(rules, label=f"chaos(seed={seed})")
+
+
 # What the serving chaos schedule draws from: the serve.* boundaries plus the
 # delta and card points a served request crosses.
 _SERVE_CHAOS_CHOICES: Tuple[Tuple[str, str, float], ...] = (

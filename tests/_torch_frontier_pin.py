@@ -24,8 +24,9 @@ STAT_KEYS = ("device_iters", "device_chunks", "states_popped", "flagged", "minim
 # name -> (generator, args, kwargs, backend kwargs, scope_to_scc).  The cases
 # of tests/test_frontier.py's TestDifferential, TestArenaSpill,
 # TestDeviceFlagFilter, TestDeterminism and TestRestrictedCheckpoint, the
-# SCCs above the sweep's reach (63 lanes, and 66 and 126 past the kernels'
-# one-word states), and the JAX drive's pad_shapes=False.
+# SCCs above the sweep's reach (63 lanes; 66 and 126 past the kernels'
+# one-word states; 129, 180 and 255 past their two-word ones), and the JAX
+# drive's pad_shapes=False.
 CASES = {
     **{f"majority-{n}": ("majority_fbas", [n], {}, {"arena": 8192, "pop": 256}, False) for n in (7, 9, 11)},
     **{f"majority-{n}-broken": ("majority_fbas", [n], {"broken": True}, {"arena": 8192, "pop": 256}, False)
@@ -54,9 +55,14 @@ CASES = {
     # Past 64 lanes: 66 (padded to 96) and 126 (padded to 128, units 192).
     "stellar-22x3-broken": ("stellar_like_fbas", [22, 3], {"broken": True}, {"arena": 8192, "pop": 256}, False),
     "stellar-42x3-broken": ("stellar_like_fbas", [42, 3], {"broken": True}, {"arena": 8192, "pop": 256}, False),
+    # Past 128 lanes: 129 (padded to 192), 180 (192) and 255 (256, units 384).
+    **{f"stellar-{n}x3-broken": ("stellar_like_fbas", [n, 3], {"broken": True}, {"arena": 8192, "pop": 256}, False)
+       for n in (43, 60, 85)},
     # pad_shapes=False: exact lane, node and unit counts, no padded_shape.
     "hier-5x3-unpadded": ("hierarchical_fbas", [5, 3], {}, {"arena": 8192, "pop": 256, "pad_shapes": False}, False),
     "stellar-22x3-broken-unpadded": ("stellar_like_fbas", [22, 3], {"broken": True},
+                                     {"arena": 8192, "pop": 256, "pad_shapes": False}, False),
+    "stellar-44x3-broken-unpadded": ("stellar_like_fbas", [44, 3], {"broken": True},
                                      {"arena": 8192, "pop": 256, "pad_shapes": False}, False),
 }
 

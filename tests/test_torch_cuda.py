@@ -753,8 +753,19 @@ FRONTIER_CASES = {
     "stellar-30x3": (lambda: synth.stellar_like_fbas(30, 3), 1 << 18, 2048),
     "random-96": (lambda: synth.random_fbas(96, seed=0), 1 << 18, 2048),
     "random-128": (lambda: synth.random_fbas(128, seed=0), 1 << 18, 2048),
+    # Past 128 lanes, states of three and four words over the evaluator's
+    # two node k-slabs (the W = 3 and W = 4 instances): 129 and 180 lanes
+    # (padded to 192), 255 (256, 384 units), and 191 and 255 lanes of
+    # differing in-degrees.
+    "stellar-43x3-broken": (lambda: synth.stellar_like_fbas(43, 3, broken=True), 1 << 18, 2048),
+    "stellar-60x3-broken": (lambda: synth.stellar_like_fbas(60, 3, broken=True), 1 << 18, 2048),
+    "stellar-85x3-broken": (lambda: synth.stellar_like_fbas(85, 3, broken=True), 1 << 18, 2048),
+    "random-192": (lambda: synth.random_fbas(192, seed=0), 1 << 18, 2048),
+    "random-256": (lambda: synth.random_fbas(256, seed=0), 1 << 18, 2048),
 }
 WIDE_FRONTIER_CASES = ("stellar-22x3-broken", "stellar-42x3-broken", "stellar-30x3", "random-96", "random-128")
+WIDER_FRONTIER_CASES = ("stellar-43x3-broken", "stellar-60x3-broken", "stellar-85x3-broken", "random-192",
+                        "random-256")
 
 
 def _frontier_setup(data, device, arena, pop, stream=None, chunk_iters=512):
@@ -843,6 +854,22 @@ def test_frontier_wide_kernels_match_plain_on_both_instances(case, stream, cuda_
     assert LAUNCHES["frontier_chunk"] == before + chunks
 
 
+@pytest.mark.parametrize("stream", [False, True])
+@pytest.mark.parametrize("case", WIDER_FRONTIER_CASES)
+def test_frontier_wider_kernels_match_plain_on_both_instances(case, stream, cuda_device):
+    """K9 and K10 at three and four words a state (129-256 lanes, two node
+    k-slabs) against their plain versions on the resident and the streamed
+    instance, chunk for chunk."""
+    from quorum_intersection_tpu_torch.kernels.frontier_cuda import LAUNCHES
+
+    make, arena, pop = FRONTIER_CASES[case]
+    prob, shape, kern, plain = _frontier_setup(make(), cuda_device, arena, pop, stream=stream)
+    assert 128 < prob.s_dev <= 256 and kern.tables.stream is stream
+    before = LAUNCHES["frontier_chunk"]
+    chunks = _frontier_lockstep(prob, shape, kern, plain, chunks=2)
+    assert LAUNCHES["frontier_chunk"] == before + chunks
+
+
 # (source, arena, pop, chunks, chunk_iters): between them every exit of the
 # chunk loop (empty stack, chunk_iters, flag_exit, the overflow guard).
 FRONTIER_EXIT_CASES = (
@@ -866,7 +893,7 @@ def test_frontier_chunk_leaves_by_every_exit_on_both_instances(stream, cuda_devi
 
 
 @pytest.mark.parametrize("case", ["stellar-16x3-broken", "stellar-21x3-broken", "hier-8x4", "random-48-slice-12",
-                                  "random-64", *WIDE_FRONTIER_CASES])
+                                  "random-64", *WIDE_FRONTIER_CASES, *WIDER_FRONTIER_CASES])
 def test_frontier_filter_on_sets_over_16_members(case, cuda_device):
     """K10 against its plain version on sets of more than 16 members, no
     multiple of 16, so that a set's leave-one-out rows span tiles."""
@@ -889,9 +916,13 @@ def test_frontier_filter_on_sets_over_16_members(case, cuda_device):
     ("stellar-21x3-broken", {"arena": 8192, "pop": 256}),
     ("stellar-22x3-broken", {"arena": 8192, "pop": 256}),
     ("stellar-42x3-broken", {"arena": 8192, "pop": 256}),
-    # pad_shapes=False: 15 and 66 lanes, off a multiple of 8.
+    ("stellar-43x3-broken", {"arena": 8192, "pop": 256}),
+    ("stellar-60x3-broken", {"arena": 8192, "pop": 256}),
+    ("stellar-85x3-broken", {"arena": 8192, "pop": 256}),
+    # pad_shapes=False: 15, 66 and 132 lanes, off a multiple of 8.
     ("hier-5x3", {"arena": 8192, "pop": 256, "pad_shapes": False}),
     ("stellar-22x3-broken", {"arena": 8192, "pop": 256, "pad_shapes": False}),
+    ("stellar-44x3-broken", {"arena": 8192, "pop": 256, "pad_shapes": False}),
 ])
 def test_frontier_solve_on_card_matches_cpu(case, kw, cuda_device):
     from quorum_intersection_tpu_torch.backends.frontier import GpuFrontierBackend
@@ -904,7 +935,11 @@ def test_frontier_solve_on_card_matches_cpu(case, kw, cuda_device):
             "stellar-16x3-broken": lambda: synth.stellar_like_fbas(16, 3, broken=True),
             "stellar-21x3-broken": lambda: synth.stellar_like_fbas(21, 3, broken=True),
             "stellar-22x3-broken": lambda: synth.stellar_like_fbas(22, 3, broken=True),
-            "stellar-42x3-broken": lambda: synth.stellar_like_fbas(42, 3, broken=True)}[case]()
+            "stellar-42x3-broken": lambda: synth.stellar_like_fbas(42, 3, broken=True),
+            "stellar-43x3-broken": lambda: synth.stellar_like_fbas(43, 3, broken=True),
+            "stellar-44x3-broken": lambda: synth.stellar_like_fbas(44, 3, broken=True),
+            "stellar-60x3-broken": lambda: synth.stellar_like_fbas(60, 3, broken=True),
+            "stellar-85x3-broken": lambda: synth.stellar_like_fbas(85, 3, broken=True)}[case]()
     before = LAUNCHES["frontier_chunk"]
     on_card = solve(data, backend=GpuFrontierBackend(device=cuda_device, **kw))
     on_cpu = solve(data, backend=GpuFrontierBackend(device="cpu", flag_check="device", **kw))
@@ -917,15 +952,15 @@ def test_frontier_solve_on_card_matches_cpu(case, kw, cuda_device):
 
 
 def test_frontier_limits_raise_before_launch(cuda_device):
-    """More than 128 lanes, or more than MAX_POP pops, raise before a launch."""
+    """More than 256 lanes, or more than MAX_POP pops, raise before a launch."""
     from quorum_intersection_tpu_torch.backends.frontier import GpuFrontierBackend
     from quorum_intersection_tpu_torch.kernels.frontier_cuda import LAUNCHES, MAX_POP
 
     before = dict(LAUNCHES)
-    with pytest.raises(KernelLimitError, match="lanes"):
-        solve(synth.majority_fbas(129), backend=GpuFrontierBackend(device=cuda_device))
-    with pytest.raises(KernelLimitError, match="lanes 129"):
-        solve(synth.majority_fbas(129), backend=GpuFrontierBackend(device=cuda_device, pad_shapes=False))
+    with pytest.raises(KernelLimitError, match="at most 256"):
+        solve(synth.majority_fbas(257), backend=GpuFrontierBackend(device=cuda_device))
+    with pytest.raises(KernelLimitError, match="lanes 257"):
+        solve(synth.majority_fbas(257), backend=GpuFrontierBackend(device=cuda_device, pad_shapes=False))
     with pytest.raises(KernelLimitError, match="pop"):
         solve(synth.majority_fbas(9), backend=GpuFrontierBackend(device=cuda_device, arena=1 << 16,
                                                                   pop=MAX_POP + 8))
@@ -961,6 +996,9 @@ MESH_FRONTIER_CASES = {
     "stellar-42x3-broken": (lambda: synth.stellar_like_fbas(42, 3, broken=True), 1 << 18, 2048, 2),
     "stellar-30x3": (lambda: synth.stellar_like_fbas(30, 3), 1 << 18, 2048, 2),
     "random-128": (lambda: synth.random_fbas(128, seed=0), 1 << 18, 2048, 2),
+    # Three and four words a state, two node k-slabs.
+    "stellar-60x3-broken": (lambda: synth.stellar_like_fbas(60, 3, broken=True), 1 << 18, 2048, 2),
+    "stellar-85x3-broken": (lambda: synth.stellar_like_fbas(85, 3, broken=True), 1 << 18, 2048, 2),
 }
 
 
@@ -992,7 +1030,7 @@ def test_frontier_mesh_solve_on_card_matches_single_card(cuda_device):
 
     mesh = candidate_mesh(devices=[cuda_device] * 4)
     for data in (synth.hierarchical_fbas(5, 3), synth.majority_fbas(14, broken=True),
-                 synth.stellar_like_fbas(42, 3, broken=True)):
+                 synth.stellar_like_fbas(42, 3, broken=True), synth.stellar_like_fbas(85, 3, broken=True)):
         want = solve(data, backend=GpuFrontierBackend(device=cuda_device, arena=8192, pop=256))
         before = dict(LAUNCHES)
         got = solve(data, backend=GpuFrontierBackend(arena=8192, pop=256, mesh=mesh))
@@ -1007,16 +1045,19 @@ def test_frontier_mesh_solve_on_card_matches_single_card(cuda_device):
 
 
 def test_frontier_iteration_limits_raise_before_launch(cuda_device):
-    """Under a mesh, more than 128 lanes raise before a launch, as K9's
-    limits do; so does a pop that does not split over the ranks."""
+    """Under a mesh, more than 256 lanes raise before a launch, as K9's
+    limits do, padded or not; so does a pop that does not split over the
+    ranks."""
     from quorum_intersection_tpu_torch.backends.frontier import GpuFrontierBackend
     from quorum_intersection_tpu_torch.kernels.frontier_cuda import LAUNCHES, IterationState, frontier_iteration
     from quorum_intersection_tpu_torch.parallel import candidate_mesh
 
     before = dict(LAUNCHES)
     mesh = candidate_mesh(devices=[cuda_device] * 2)
-    with pytest.raises(KernelLimitError, match="lanes"):
-        solve(synth.majority_fbas(129), backend=GpuFrontierBackend(mesh=mesh))
+    with pytest.raises(KernelLimitError, match="at most 256"):
+        solve(synth.majority_fbas(257), backend=GpuFrontierBackend(mesh=mesh))
+    with pytest.raises(KernelLimitError, match="lanes 257"):
+        solve(synth.majority_fbas(257), backend=GpuFrontierBackend(mesh=mesh, pad_shapes=False))
     prob, shape, kern, _ = _frontier_setup(synth.hierarchical_fbas(4, 3), cuda_device, 4096, 250)
     st = IterationState.empty(250, 2, kern.arena(), kern.arena())
     with pytest.raises(ValueError, match="does not split"):

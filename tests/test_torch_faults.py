@@ -101,6 +101,17 @@ def test_grammar_is_the_jax_grammar(spec):
         faults.parse_faults("sweep.dispatch")
 
 
+def test_chaos_plan_is_the_jax_draw():
+    """``sample_plan`` draws the JAX package's schedule for seeds 0-99: the
+    same rules, in the same order, with the same hit selectors and label."""
+    for seed in range(100):
+        got, want = faults.sample_plan(seed), jax_faults.sample_plan(seed)
+        assert got.label == want.label
+        assert [r.spec() for r in got.rules] == [r.spec() for r in want.rules]
+        assert [(r.point, r.mode, r.first, r.every, r.seconds) for r in got.rules] == [
+            (r.point, r.mode, r.first, r.every, r.seconds) for r in want.rules]
+
+
 def test_qi_faults_env_fires_and_counts(monkeypatch, rec):
     monkeypatch.setenv("QI_FAULTS", "cert.write=oserror@2")
     faults.fault_point("cert.write")

@@ -93,7 +93,17 @@ def test_pinned_counts_are_the_frontiers_known_targets():
     assert [(w["stats"]["states_popped"], w["stats"]["device_iters"]) for w in wide.values()] == [(8191, 39),
                                                                                                    (16639, 72)]
     assert not any(w["intersects"] for w in wide.values())
+    # Past 128 lanes: 129, 180 and 255 lanes, padded to 192, 192 and 256
+    # (units 256, 256 and 384), the popped counts of the JAX package's run.
+    wider = {name: PINNED[name] for name in ("stellar-43x3-broken", "stellar-60x3-broken", "stellar-85x3-broken")}
+    assert [w["stats"]["padded_shape"] for w in wider.values()] == [[192, 192, 256], [192, 192, 256],
+                                                                    [256, 256, 384]]
+    assert [(w["stats"]["states_popped"], w["stats"]["device_iters"]) for w in wider.values()] == [
+        (16895, 73), (26879, 112), (28415, 118)]
+    assert not any(w["intersects"] for w in wider.values())
     # pad_shapes=False: the same traversal, no padded shape.
+    unpadded = PINNED["stellar-44x3-broken-unpadded"]["stats"]
+    assert unpadded["padded_shape"] is None and (unpadded["states_popped"], unpadded["device_iters"]) == (17919, 77)
     for name, padded, counts in (("hier-5x3-unpadded", "hier-5x3-device", (15101, 68)),
                                  ("stellar-22x3-broken-unpadded", "stellar-22x3-broken", (8191, 39))):
         stats = PINNED[name]["stats"]

@@ -236,7 +236,7 @@ def test_single_barrier_schedule_equals_plain_chunk_loop(case):
 
 
 @pytest.mark.parametrize("most", [1, 2, 5])
-@pytest.mark.parametrize("s", [8, 24, 48, 64, 72, 96, 128])
+@pytest.mark.parametrize("s", [8, 24, 48, 64, 72, 96, 128, 136, 192, 256])
 def test_indegree_planes_give_the_in_degree(s, most):
     """sum_b sum_j popcount(f2_j & plane_b[j][w]) << b == (f2 @ a_scc)[w]
     for random rows f2 (W = ceil(s / 64) words) and edge counts up to
@@ -255,8 +255,9 @@ def test_indegree_planes_give_the_in_degree(s, most):
 def test_indegree_planes_of_an_edgeless_scc_are_empty():
     assert indegree_planes(np.zeros((8, 8), dtype=np.int32)).shape == (0, 1, 8)
     assert indegree_planes(np.zeros((96, 96), dtype=np.int32)).shape == (0, 2, 96)
+    assert indegree_planes(np.ones((256, 256), dtype=np.int32)).shape == (1, 4, 256)
     with pytest.raises(ValueError):
-        indegree_planes(np.ones((129, 129), dtype=np.int32))
+        indegree_planes(np.ones((257, 257), dtype=np.int32))
 
 
 def test_exit_reason_follows_the_loop_condition():

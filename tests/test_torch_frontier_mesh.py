@@ -23,6 +23,7 @@ statistics ``states_popped``, ``device_iters``, ``device_chunks``,
 Everything compared is an integer, a node list or a string.
 """
 
+import json
 import shutil
 
 import numpy as np
@@ -82,6 +83,8 @@ CASES = {
     # Past 64 lanes (90 and 126), where a state is two words of the stash.
     "stellar-30x3-broken": (lambda s: s.stellar_like_fbas(30, 3, broken=True), {"arena": 8192, "pop": 256}, (2,)),
     "stellar-42x3-broken": (lambda s: s.stellar_like_fbas(42, 3, broken=True), {"arena": 8192, "pop": 256}, (2,)),
+    # Past 128 lanes (129, padded to 192): three words a state.
+    "stellar-43x3-broken": (lambda s: s.stellar_like_fbas(43, 3, broken=True), {"arena": 8192, "pop": 256}, (2,)),
 }
 
 
@@ -107,6 +110,23 @@ def test_mesh_frontier_equals_jax(name, n):
         # The JAX package's measured run: every count follows from pop 256.
         assert (got.stats["states_popped"], got.stats["device_iters"], got.stats["minimal_quorums"]) == (1739, 17, 108)
         assert got.stats["mesh"]["pop"] == 256
+
+
+@pytest.mark.parametrize("name", ["stellar-60x3-broken", "stellar-85x3-broken"])
+def test_mesh_frontier_past_128_lanes_equals_the_jax_pin(name):
+    """Two ranks at 180 and 255 lanes, where a branch lane past 127 sets the
+    stash code's bit 15: the verdict, witness and counts of the JAX
+    package's pinned run (pop 256 splits over 2 ranks, so the traversal is
+    the unsharded one's)."""
+    import _torch_frontier_pin as pin
+
+    want = json.loads(pin.PIN.read_text())[name]
+    got = solve(pin.case_data(name, synth), backend=GpuFrontierBackend(
+        device="cpu", mesh=candidate_mesh(2, device="cpu"), **pin.CASES[name][3]))
+    assert (got.intersects, got.q1, got.q2) == (want["intersects"], want["q1"], want["q2"])
+    for key in ("states_popped", "device_iters", "device_chunks", "flagged", "minimal_quorums", "spills"):
+        assert got.stats[key] == want["stats"][key], key
+    assert got.stats["mesh"]["instance"] == "chunk"
 
 
 def test_mesh_rounds_the_pop_block_as_jax():
@@ -271,15 +291,17 @@ def test_failed_gather_fails_the_solve():
         solve(synth.hierarchical_fbas(4, 3), backend=GpuFrontierBackend(device="cpu", arena=4096, pop=256, mesh=mesh))
 
 
-@pytest.mark.parametrize("lanes,words", [(8, 1), (64, 1), (72, 2), (128, 2)])
+@pytest.mark.parametrize("lanes,words", [(8, 1), (64, 1), (72, 2), (128, 2), (136, 3), (192, 3), (200, 4),
+                                         (256, 4)])
 def test_stash_share_layout(lanes, words):
     """A share of a stash half is (16 W + 2) Ks bytes: Ks states of W words
     of toRemove, Ks of dontRemove, Ks codes; Ks = K / n rounded up to 8 and
-    W = ceil(lanes / 64): 18 Ks at up to 64 lanes, 34 Ks up to 128."""
+    W = ceil(lanes / 64): 18 Ks at up to 64 lanes, 34 Ks up to 128, 50 Ks up
+    to 192, 66 Ks up to 256."""
     from quorum_intersection_tpu_torch.kernels.frontier_ref import stash_half, state_words
 
     entry = 16 * words + 2
-    assert state_words(lanes) == words and entry == {1: 18, 2: 34}[words]
+    assert state_words(lanes) == words and entry == {1: 18, 2: 34, 3: 50, 4: 66}[words]
     assert stash_half_bytes(2048, 4, words) == 4 * entry * 512
     assert stash_half_bytes(510, 3, words) == 3 * entry * 176
     assert stash_half_bytes(256, 8, words) == 8 * entry * 32
@@ -297,7 +319,7 @@ def test_stash_share_layout(lanes, words):
     assert T[1].data_ptr() - T[0].data_ptr() == share
 
 
-@pytest.mark.parametrize("lanes", [15, 64, 66, 126, 128])
+@pytest.mark.parametrize("lanes", [15, 64, 66, 126, 128, 129, 192, 255, 256])
 def test_state_words_round_trip_every_lane(lanes):
     """``pack_words`` keeps every lane, 64 and past it included (no shift
     past bit 63), and ``unpack_words`` gives the rows back."""

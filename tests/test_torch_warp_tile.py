@@ -15,7 +15,12 @@
   under the frozen row, a ragged last warp) equals the plain sweep and
   guard of the port and the JAX ``fixpoint``, on fixtures and synthetic
   networks at depth 0-2, with multi-plane votes, at n = 64 and above 1024
-  units.
+  units;
+- the frontier's rows of 129-256 nodes, which span two node k-slabs: the
+  tables hold a member block a plane and a slab, slab 0 then slab 1, and the
+  model (a plane's two slab products into one sum, root chunk c kept as
+  word c & 3 of slab c >> 2) equals the plain and the JAX ``fixpoint``;
+  up to 128 nodes the tables are one slab's whatever the node limit.
 
 Everything compared is an integer: exact equality.
 """
@@ -203,9 +208,12 @@ class WarpModel:
         nb = min(4, (t.n_units - CHUNK * c + 7) // 8)
         acc = np.zeros(a.shape[:2] + (CHUNK,), dtype=np.int64)
         blk = first
-        for i in range(m):
-            acc = 2 * acc + self._product(a, blk, nb)
-            blk += 1
+        ns = t.node_slabs
+        for i in range(m // ns):  # member planes, each over the node slabs into one sum
+            acc = 2 * acc
+            for x in range(ns):
+                acc += self._product(a[:, :, 4 * x:4 * x + 4], blk, nb)
+                blk += 1
         if kids and k0 < k1:
             kid = np.zeros_like(acc)
             for _ in range(t.pc):
@@ -232,6 +240,7 @@ class WarpModel:
         return words
 
     def fixpoint(self, a, f, thr):
+        """``a`` (T, 16, 4 node_slabs) words; ``f`` the frozen row's words."""
         t = self.t
         a = a.copy()
         s = np.zeros(a.shape[:2] + (4 * max(t.slabs, 1),), dtype=np.uint32)
@@ -244,7 +253,7 @@ class WarpModel:
                 for c in range(lo, hi):  # in place, chunk after chunk
                     sl[:, :, c - lo] = self.gather(self.votes(ta, sl, c, p > 0), thr[CHUNK * c:])
             nxt = np.zeros_like(ta)
-            for c in range(self.roots):  # thread q = c keeps the root word
+            for c in range(self.roots):  # thread q = c & 3 keeps word c & 3 of node slab c >> 2
                 w = self.gather(self.votes(ta, sl, c, t.depth > 0), thr[CHUNK * c:])
                 nxt[:, :, c] = w & a[live][:, :, c]
             s[live] = sl
@@ -353,3 +362,109 @@ def test_model_fixpoint_equals_plain_guard_and_jax(label):
         counts = _matrix(_bits(model.fixpoint(_row_words(rows), np.zeros(4, dtype=np.uint32),
                                                -t.neg_thresholds.numpy()))[:72], n).sum(axis=1)
         np.testing.assert_array_equal(counts, guard_counts(circuit, avail, "dense", CPU).numpy())
+
+
+# ---- two node k-slabs: the frontier's rows of 129-256 nodes ----------------
+
+
+def _wide_words(rows, n):
+    """(R, n) 0/1 node rows → ``(T, 16, 4 ns)`` words (rows padded to warps),
+    word ``k`` nodes ``[32 k, 32 k + 32)``."""
+    ns = max(1, -(-n // SLAB))
+    bits = np.zeros((len(rows) + (-len(rows) % ROWS), ns * SLAB), dtype=np.uint8)
+    bits[: len(rows), :n] = rows
+    return _words(bits).reshape(-1, ROWS, 4 * ns)
+
+
+def _wide_rows(words, n):
+    w = words.reshape(-1, words.shape[-1]).astype(np.uint64)
+    bits = (w[:, :, None] >> np.arange(32, dtype=np.uint64)) & np.uint64(1)
+    return bits.reshape(w.shape[0], -1)[:, :n].astype(np.int32)
+
+
+def _frontier_lane_circuit(data):
+    """The frontier's lane-space circuit of ``data``'s quorum-bearing SCC,
+    as the card's wrapper builds it (restricted, padded up the ladder, node
+    i lane i)."""
+    from quorum_intersection_tpu_torch.backends.frontier import frontier_problem
+    from quorum_intersection_tpu_torch.kernels.frontier_cuda import permute_nodes
+    from quorum_intersection_tpu_torch.pipeline import quorum_bearing_sccs
+
+    graph = build_graph(parse_fbas(data))
+    prob = frontier_problem(graph, encode_circuit(graph), quorum_bearing_sccs(graph)[0][1])
+    return permute_nodes(prob.circuit, prob.scc_dev)
+
+
+def _doubled_votes(circuit, seed):
+    """``circuit`` with some member votes doubled (two member bit-planes),
+    thresholds unchanged."""
+    members = circuit.members.copy()
+    rng = np.random.default_rng(seed)
+    pick = (members > 0) & (rng.random(members.shape) < 0.3)
+    members[pick] = 2
+    return jc.Circuit(n=circuit.n, n_units=circuit.n_units, depth=circuit.depth, thresholds=circuit.thresholds,
+                      members=members, child=circuit.child, unit_depth=circuit.unit_depth)
+
+
+WIDE = {
+    "stellar-43x3 lanes (192 nodes, depth 1)": lambda: _frontier_lane_circuit(
+        synth.stellar_like_fbas(43, 3, broken=True)),
+    "stellar-85x3 lanes (256 nodes, 384 units)": lambda: _frontier_lane_circuit(
+        synth.stellar_like_fbas(85, 3, broken=True)),
+    "majority(140), doubled votes": lambda: _doubled_votes(
+        encode_circuit(build_graph(parse_fbas(synth.majority_fbas(140)))), 3),
+    "random(200) nested, slices of 20": lambda: encode_circuit(build_graph(parse_fbas(
+        synth.random_fbas(200, seed=2, nested_prob=0.2, slice_size=20)))),
+}
+
+
+@pytest.mark.parametrize("label", sorted(WIDE))
+def test_two_node_slabs_model_equals_plain_and_jax(label):
+    """Rows of 129-256 nodes: the tables' member blocks (a plane and a node
+    slab each, in read order) hold the circuit, and the model's fixpoint of
+    48 seeded rows equals the plain ``fixpoint`` and the JAX one."""
+    circuit = WIDE[label]()
+    n = circuit.n
+    assert 128 < n <= 256
+    t = plane_tables(circuit, CPU, max_nodes=256)
+    assert t.node_slabs == 2
+    flat, chunks = _flat(t), t.chunks.numpy()
+    members = np.zeros((t.units, 2 * SLAB), dtype=np.int64)
+    members[: circuit.n_units, :n] = circuit.members
+    got_m = np.zeros_like(members)
+    for c, (first, m, _, _) in enumerate(chunks):
+        rows = slice(CHUNK * c, CHUNK * (c + 1))
+        assert m in (0, 2 * t.pm)
+        for i in range(m):
+            b, x = t.pm - 1 - i // 2, i % 2
+            cols = slice(SLAB * x, SLAB * (x + 1))
+            block = _b_words(flat, first + i)
+            np.testing.assert_array_equal(block, _words((members[rows, cols] >> b) & 1))
+            got_m[rows, cols] += ((members[rows, cols] >> b) & 1) << b
+    np.testing.assert_array_equal(got_m, members)
+    avail = rng_rows(n, 48, n, 0.8)
+    model = WarpModel(t)
+    got = _wide_rows(model.fixpoint(_wide_words(avail, n), np.zeros(8, dtype=np.uint32),
+                                    -t.neg_thresholds.numpy()), n)[:48]
+    fz = np.zeros(n, dtype=np.int32)
+    np.testing.assert_array_equal(got, ref.fixpoint(ref.CircuitTables(circuit, CPU), avail, fz).numpy())
+    jax_circuit = jc.Circuit(**{f: getattr(circuit, f) for f in (
+        "n", "n_units", "depth", "thresholds", "members", "child", "unit_depth")})
+    arrays = jk.CircuitArrays(jax_circuit)
+    want = np.asarray(jax.jit(lambda a, f: jk.fixpoint(arrays, a, f))(arrays.cast(avail), arrays.cast(fz)))
+    np.testing.assert_array_equal(got, want)
+    assert got.any(), label
+
+
+def test_node_limit_and_one_slab_tables():
+    """More than 256 nodes raises under the frontier's limit; up to 128 the
+    tables are the same whatever the limit (one slab)."""
+    big = encode_circuit(build_graph(parse_fbas(synth.majority_fbas(257))))
+    with pytest.raises(KernelLimitError, match="at most 256"):
+        plane_tables(big, CPU, max_nodes=256)
+    with pytest.raises(KernelLimitError, match="at most 128"):
+        plane_tables(encode_circuit(build_graph(parse_fbas(synth.majority_fbas(129)))), CPU, max_nodes=128)
+    small = encode_circuit(build_graph(parse_fbas(synth.majority_fbas(100))))
+    a, b = plane_tables(small, CPU, max_nodes=128), plane_tables(small, CPU, max_nodes=256)
+    assert a.node_slabs == b.node_slabs == 1
+    assert torch.equal(a.blocks, b.blocks) and torch.equal(a.chunks, b.chunks)
